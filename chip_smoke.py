@@ -11,7 +11,12 @@
 3. Kernel phase: each kernel against its plain PyTorch version at the
    shapes of the main path (32x128 lines, width 1.0, hidden 256), in fp32
    and bf16 at batch 256, then CUDA-event times of kernel, plain version and
-   library yardstick at batch 256 and 2048.
+   library yardstick at batch 256 and 2048: warm (the same inputs back to
+   back) and, for the kernel, cold (inputs rotated over enough distinct
+   buffers to exceed 100 MB, twice the 50 MB L2).  Prints the route each
+   timed shape takes (K1: cluster split; K2: w_hh resident in a cluster's
+   shared memory, or streamed) and checks that the main path's shapes take
+   the cluster and resident routes.
 4. Main path: a seeded full-width model (width 1.0, hidden 256, 194 classes
    from configs/charset.txt, both heads) handed through ``to_jax_variables``
    to the public ``OCRInference``, which decodes 512 seeded uint8 line
@@ -52,6 +57,7 @@ IMG_H, IMG_W, HIDDEN, WIDTH = 32, 128, 256, 1.0
 SE_SHAPES = ((3, (8, 32, 256)), (8, (4, 16, 512)))  # (calls per encode, per-sample H, W, C)
 LSTM_T, LSTM_D = IMG_W // 8, 512
 BATCH, BIG_BATCH, N_IMAGES, MAX_LENGTH = 256, 2048, 512, 25
+COLD_BYTES = 100_000_000  # twice the H100's 50 MB L2
 
 TOL = {
     # kernel vs plain, same inputs; fp32: summation order only
@@ -95,6 +101,26 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_cold_ms(fn, sets, iters: int = 20) -> float:
+    """``fn(*sets[i % len(sets)])`` per launch: each set was last touched
+    ``len(sets) - 1`` launches earlier, with at least 100 MB in between."""
+    for args in sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*sets[i % len(sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cold_sets(make, nbytes: int):
+    """Distinct input sets from ``make()`` totalling more than 100 MB (two at least)."""
+    return [make() for _ in range(max(2, -(-COLD_BYTES // nbytes)))]
+
+
 def card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -116,6 +142,8 @@ def build(kernels) -> None:
 
 def kernel_phase(gen: torch.Generator):
     from rcnn_ocr_tpu_torch.ops.bilstm_scan import bilstm_scan, scan_reference
+    from rcnn_ocr_tpu_torch.ops.bilstm_scan import route as lstm_route
+    from rcnn_ocr_tpu_torch.ops.se_scale import route as se_route
     from rcnn_ocr_tpu_torch.ops.se_scale import se_scale, se_scale_reference
 
     dev = "cuda"
@@ -126,7 +154,7 @@ def kernel_phase(gen: torch.Generator):
               replaces="rcnn_ocr_tpu/ops/se_pallas.py:61", launches_per_encode=11,
               dtype="bfloat16", batch=BATCH, bound_by="bytes", library_ms=None,
               library_call="none (no single PyTorch call computes it)", calls=[])
-    errs, ms, plain_ms, bound_ms = [], 0.0, 0.0, 0.0
+    errs, ms, cold_ms, plain_ms, bound_ms = [], 0.0, 0.0, 0.0, 0.0
     for n_calls, (h, w, c) in SE_SHAPES:
         s = c // 16
         w1 = torch.randn(c, s, device=dev, generator=gen) / c ** 0.5
@@ -138,19 +166,29 @@ def kernel_phase(gen: torch.Generator):
                        f"se_scale [{BATCH},{h},{w},{c}] {name} vs plain", **tol)
             errs.append(err)
             for b in (BATCH, BIG_BATCH):
+                plan = se_route((b, h, w, c), s, dt)
+                check(plan["route"] == "cluster",
+                      f"se_scale [{b},{h},{w},{c}] {name} took the {plan['route']} route")
                 xb = x if b == BATCH else torch.randn(b, h, w, c, device=dev, generator=gen).to(dt)
                 nbytes = 2 * xb.numel() * xb.element_size() + 2 * c * s * 4
+                sets = cold_sets(lambda: (torch.randn(b, h, w, c, device=dev, generator=gen)
+                                          .to(dt), w1, w2), xb.numel() * xb.element_size())
                 call = dict(shape=[b, h, w, c], dtype=name, per_encode=n_calls,
+                            route=plan,
                             ms=time_ms(lambda: se_scale(xb, w1, w2)),
+                            cold_ms=time_cold_ms(se_scale, sets),
                             plain_ms=time_ms(lambda: se_scale_reference(xb, w1, w2)),
                             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err)
+                del sets
+                call["bound_share_cold"] = call["bound_ms"] / call["cold_ms"]
                 se["calls"].append(call)
                 if b == BATCH and dt == torch.bfloat16:
                     ms += n_calls * call["ms"]
+                    cold_ms += n_calls * call["cold_ms"]
                     plain_ms += n_calls * call["plain_ms"]
                     bound_ms += n_calls * call["bound_ms"]
-    se.update(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-              bound_us=bound_ms * 1e3)
+    se.update(max_abs_err=max(errs), ms=ms, cold_ms=cold_ms, plain_ms=plain_ms,
+              bound_ms=bound_ms, bound_us=bound_ms * 1e3)
     rows.append(se)
 
     # --- K2: the BiLSTM recurrence, T=16, H=256, once per encoder layer
@@ -165,6 +203,9 @@ def kernel_phase(gen: torch.Generator):
         name = "fp32" if wdt == torch.float32 else "bf16"
         w_hh = (torch.randn(2, H, 4 * H, device=dev, generator=gen) / H ** 0.5).to(wdt)
         for b in (BATCH, BIG_BATCH):
+            plan = lstm_route(b, H, wdt)
+            check(plan["route"] == "resident",
+                  f"bilstm_scan B={b} H={H} w_hh {name} took the {plan['route']} route")
             xs = torch.randn(T, 2, b, 4 * H, device=dev, generator=gen)
             if b == BATCH:
                 errs.append(held(bilstm_scan(xs, w_hh, H), scan_reference(xs, w_hh, H),
@@ -173,21 +214,28 @@ def kernel_phase(gen: torch.Generator):
             flop = 2 * T * 2 * b * H * 4 * H
             nbytes = xs.numel() * 4 + T * 2 * b * H * 4 + w_hh.numel() * w_hh.element_size()
             bound = max(flop / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-            call = dict(shape=[T, 2, b, 4 * H], w_dtype=name, per_encode=2,
+            sets = cold_sets(lambda: (torch.randn(T, 2, b, 4 * H, device=dev, generator=gen),
+                                      w_hh.clone(), H), xs.numel() * 4)
+            call = dict(shape=[T, 2, b, 4 * H], w_dtype=name, per_encode=2, route=plan,
                         ms=time_ms(lambda: bilstm_scan(xs, w_hh, H)),
+                        cold_ms=time_cold_ms(bilstm_scan, sets),
                         plain_ms=time_ms(lambda: scan_reference(xs, w_hh, H)),
                         bound_ms=bound, flop=flop, bytes=nbytes,
                         bound_by="operations" if flop / FP32_FLOP_PER_S > nbytes / HBM_BYTES_PER_S
                         else "bytes")
+            del sets
+            call["bound_share_cold"] = call["bound_ms"] / call["cold_ms"]
             ref = torch.nn.LSTM(LSTM_D, H, bidirectional=True).to(dev).eval()
             seq = torch.randn(T, b, LSTM_D, device=dev, generator=gen)
             with torch.inference_mode():
                 call["library_ms"] = time_ms(lambda: ref(seq))
+            call["vs_library"] = call["ms"] / call["library_ms"]
             lstm["calls"].append(call)
     main = next(c for c in lstm["calls"] if c["shape"][2] == BATCH and c["w_dtype"] == "bf16")
-    lstm.update(max_abs_err=max(errs), ms=2 * main["ms"], plain_ms=2 * main["plain_ms"],
-                bound_ms=2 * main["bound_ms"], bound_us=2 * main["bound_ms"] * 1e3,
-                bound_by=main["bound_by"], library_ms=2 * main["library_ms"])
+    lstm.update(max_abs_err=max(errs), ms=2 * main["ms"], cold_ms=2 * main["cold_ms"],
+                plain_ms=2 * main["plain_ms"], bound_ms=2 * main["bound_ms"],
+                bound_us=2 * main["bound_ms"] * 1e3, bound_by=main["bound_by"],
+                library_ms=2 * main["library_ms"])
     rows.append(lstm)
     return rows
 
@@ -372,9 +420,9 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)
         with open(args.json_out, "w") as f:
             json.dump(result, f, indent=1)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "max_err", "bound_us", "launches_per_encode",
-            "dtype", "batch", "library_call")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "cold_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "max_err", "bound_us",
+            "launches_per_encode", "dtype", "batch", "library_call")
     print(f"total {result['seconds']:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(power)

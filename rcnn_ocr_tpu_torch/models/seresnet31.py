@@ -30,18 +30,24 @@ from rcnn_ocr_tpu_torch.ops.se_scale import se_scale
 
 
 class SELayer(nn.Module):
-    """Squeeze-and-excite gate; ``fc1 [C, C/r]`` and ``fc2 [C/r, C]`` as in JAX."""
+    """Squeeze-and-excite gate; ``fc1 [C, C/r]`` and ``fc2 [C/r, C]`` as in JAX.
 
-    def __init__(self, channels: int, reduction: int = 16):
+    The fp32 weights are rounded to the compute dtype before ``se_scale``
+    (which computes in fp32), as JAX's ``SELayer(use_pallas=True)`` does.
+    """
+
+    def __init__(self, channels: int, reduction: int = 16, dtype: torch.dtype = torch.float32):
         super().__init__()
         squeeze = max(1, channels // reduction)
+        self.dtype = dtype
         self.fc1 = nn.Parameter(torch.zeros(channels, squeeze))
         self.fc2 = nn.Parameter(torch.zeros(squeeze, channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # NCHW-shaped channels_last -> an NHWC-contiguous view, and back
         nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-        return se_scale(nhwc, self.fc1, self.fc2).permute(0, 3, 1, 2)
+        out = se_scale(nhwc, self.fc1.to(self.dtype), self.fc2.to(self.dtype))
+        return out.permute(0, 3, 1, 2)
 
 
 class ConvBN(nn.Module):
@@ -67,11 +73,12 @@ class ConvBN(nn.Module):
 class SEBasicBlock(nn.Module):
     """conv3x3-BN-ReLU -> conv3x3-BN -> SE -> +identity -> ReLU."""
 
-    def __init__(self, in_ch: int, features: int, stride: int = 1, reduction: int = 16):
+    def __init__(self, in_ch: int, features: int, stride: int = 1, reduction: int = 16,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv1 = ConvBN(in_ch, features, stride=(stride, stride))
         self.conv2 = ConvBN(features, features)
-        self.se = SELayer(features, reduction)
+        self.se = SELayer(features, reduction, dtype)
         self.downsample = None
         if stride != 1 or in_ch != features:
             self.downsample = ConvBN(in_ch, features, kernel=(1, 1), stride=(stride, stride),
@@ -109,7 +116,7 @@ class SEResNet31(nn.Module):
                 name = f"layer{li}_block{bi}"
                 features = self._w(width)
                 setattr(self, name, SEBasicBlock(in_ch, features, stride if bi == 0 else 1,
-                                                 reduction))
+                                                 reduction, dtype))
                 self.block_names.append(name)
                 in_ch = features
         out_ch = self._w(out_channels)

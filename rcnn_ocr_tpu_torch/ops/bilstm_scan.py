@@ -6,7 +6,8 @@ Counterpart of ``rcnn_ocr_tpu/ops/lstm_pallas.py:bilstm_scan``.  Takes
 returns ``ys [T, 2, B, H]`` in fp32.  h stays in fp32 across steps and the
 gates are computed in fp32 whatever ``w_hh``'s dtype, as in the Pallas
 kernel.  On a CUDA tensor :func:`bilstm_scan` launches ``csrc/bilstm_scan.cu``
-(one launch per layer, both directions, all steps); on a CPU tensor it runs
+(one launch per layer, both directions, all steps; :func:`route` says which
+of its two routes a shape takes); on a CPU tensor it runs
 :func:`scan_reference`.  Forward only: the training slice adds the backward.
 """
 
@@ -32,6 +33,16 @@ def scan_reference(xs: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> torch.T
         h, c = lstm_cell_gates(gates, c, hidden)
         ys.append(h)
     return torch.stack(ys, dim=0)
+
+
+def route(batch: int, hidden: int, w_dtype: torch.dtype) -> dict:
+    """The route ``csrc/bilstm_scan.cu`` takes for this shape (needs the card):
+    ``resident`` (w_hh in the shared memory of a cluster of ``cluster`` CTAs
+    per ``rows`` batch rows, ``active_clusters`` of them at once) or
+    ``streaming``."""
+    cluster, rows, smem, active = kernels.BILSTM_SCAN.plan(batch, hidden, _W_DTYPES[w_dtype])
+    return dict(route="resident" if cluster else "streaming", cluster=cluster, rows=rows,
+                smem=smem, active_clusters=active)
 
 
 def bilstm_scan(xs: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> torch.Tensor:

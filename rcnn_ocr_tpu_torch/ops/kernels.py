@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels of the port.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point.  At
+Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point and a
+plan function that says which launch the entry point picks for a shape.  At
 first use every source is compiled by ``nvcc`` for ``sm_90a`` (one process
 per source, all started together) into a shared library under
 ``build/rcnn_ocr_tpu_torch/`` at the repository root and loaded with
@@ -54,14 +55,18 @@ def _nvcc() -> str:
 class CudaKernel:
     """One ``csrc/<name>.cu`` source, its built library and its launch count."""
 
-    def __init__(self, name: str, symbol: str, argtypes: List[type]):
+    def __init__(self, name: str, symbol: str, argtypes: List[type], plan_symbol: str,
+                 plan_argtypes: List[type]):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
+        self.plan_symbol = plan_symbol
+        self.plan_argtypes = plan_argtypes
         self.launches = 0
         self.build_log = ""
         self.build_seconds: Optional[float] = None
         self._fn = None
+        self._plan_fn = None
 
     @property
     def source(self) -> Path:
@@ -78,22 +83,35 @@ class CudaKernel:
             build_all()
         return self._fn
 
+    def plan(self, *args: int) -> List[int]:
+        """The launch plan the C entry point picks for a shape (the source's
+        ``*_plan`` function fills four ints; the source says what each is)."""
+        if self._plan_fn is None:
+            build_all()
+        out = (ctypes.c_int * 4)()
+        self.check(self._plan_fn(*args, out))
+        return list(out)
+
     def _bind(self) -> None:
         lib = ctypes.CDLL(str(self.library))
-        fn = getattr(lib, self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
-        self._fn = fn
+        for attr, symbol, argtypes in (("_fn", self.symbol, self.argtypes),
+                                       ("_plan_fn", self.plan_symbol, self.plan_argtypes)):
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            setattr(self, attr, fn)
 
     def check(self, err: int) -> None:
-        """Raise on a non-zero ``cudaError_t`` returned right after a launch."""
+        """Raise on a non-zero ``cudaError_t`` returned by the library."""
         if err != 0:
-            raise RuntimeError(f"{self.name}: CUDA launch failed with cudaError_t {err}")
+            raise RuntimeError(f"{self.name}: CUDA call failed with cudaError_t {err}")
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SE_SCALE = CudaKernel("se_scale", "se_scale_forward", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
-BILSTM_SCAN = CudaKernel("bilstm_scan", "bilstm_scan_forward", [_P, _P, _P, _I, _I, _I, _I, _P])
+SE_SCALE = CudaKernel("se_scale", "se_scale_forward", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                      "se_scale_plan", [_I, _I, _I, _I, _I, _P])
+BILSTM_SCAN = CudaKernel("bilstm_scan", "bilstm_scan_forward", [_P, _P, _P, _I, _I, _I, _I, _P],
+                         "bilstm_scan_plan", [_I, _I, _I, _P])
 KERNELS: Dict[str, CudaKernel] = {k.name: k for k in (SE_SCALE, BILSTM_SCAN)}
 
 

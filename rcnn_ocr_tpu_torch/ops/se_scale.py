@@ -2,7 +2,8 @@
 
 Counterpart of ``rcnn_ocr_tpu/ops/se_pallas.py:se_scale``.  On a CUDA
 tensor :func:`se_scale` launches the hand-written kernel
-``csrc/se_scale.cu``; on a CPU tensor it runs :func:`se_scale_reference`,
+``csrc/se_scale.cu`` (:func:`route` says how it splits a shape); on a CPU
+tensor it runs :func:`se_scale_reference`,
 the plain PyTorch version of the same math (gate computed in fp32, then
 rounded to x's dtype before the multiply).  Forward only: the training
 slice adds the backward.
@@ -23,6 +24,18 @@ def se_scale_reference(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> t
     y = torch.relu(m @ w1.float())
     g = torch.sigmoid(y @ w2.float())
     return x * g[:, None, None, :].to(x.dtype)
+
+
+def route(shape, squeeze: int, dtype: torch.dtype) -> dict:
+    """How ``csrc/se_scale.cu`` runs ``x`` of ``shape`` [B, H, W, C] (needs the
+    card): ``slots`` persistent clusters of ``cluster`` CTAs, each CTA holding
+    C/cluster channels of ``samples`` samples at a time, or the ``streaming``
+    route."""
+    batch, h, w, c = shape
+    cluster, samples, slots, smem = kernels.SE_SCALE.plan(batch, h * w, c, squeeze,
+                                                          _DTYPES[dtype])
+    return dict(route="cluster" if cluster else "streaming", cluster=cluster, samples=samples,
+                slots=slots, smem=smem)
 
 
 def se_scale(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,7 @@ Run on a machine with an NVIDIA card (sm_90a) and nvcc:
 sets up JAX; ``tests/ -m cuda`` would also collect the JAX test files,
 which need flax.)
 
+The kernels launch as thread-block clusters, which needs Hopper (sm_90a).
 Without a card every test here skips; the skip is decided in the
 ``cuda_device`` fixture, never at import.  Each kernel is held against its
 plain PyTorch version on the same inputs: fp32 at rtol/atol 1e-5 (only the
@@ -19,8 +20,8 @@ import pytest
 import torch
 
 from rcnn_ocr_tpu_torch.ops import kernels
-from rcnn_ocr_tpu_torch.ops.bilstm_scan import bilstm_scan, scan_reference
-from rcnn_ocr_tpu_torch.ops.se_scale import se_scale, se_scale_reference
+from rcnn_ocr_tpu_torch.ops.bilstm_scan import bilstm_scan, route as lstm_route, scan_reference
+from rcnn_ocr_tpu_torch.ops.se_scale import route as se_route, se_scale, se_scale_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -35,7 +36,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(3, 5, 7, 40), (4, 8, 32, 256), (2, 4, 16, 512), (1, 1, 1, 16)])
+@pytest.mark.parametrize("shape", [(3, 5, 7, 40), (4, 8, 32, 256), (2, 4, 16, 512), (1, 1, 1, 16),
+                                   (2048, 4, 16, 512), (5, 4, 16, 512), (2, 3, 3, 20),
+                                   (2, 1, 1, 1024), (2, 16, 64, 1024), (1, 64, 64, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_se_scale_kernel_matches_plain(cuda_device, shape, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -50,6 +53,37 @@ def test_se_scale_kernel_matches_plain(cuda_device, shape, dtype):
     assert kernels.SE_SCALE.launches == before + 1
     tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=8e-3, atol=1e-6)
     torch.testing.assert_close(got.float(), se_scale_reference(x, w1, w2).float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_se_scale_unaligned_input_takes_scalar_copies(cuda_device, dtype):
+    """x one element past a 16-byte boundary: the kernel copies element by
+    element instead of with 16-byte vectors, and gives the same result."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    flat = torch.randn(1 + 3 * 8 * 32 * 256, device=cuda_device, generator=g).to(dtype)
+    x = flat[1:].view(3, 8, 32, 256)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    w1 = torch.randn(256, 16, device=cuda_device, generator=g) / 16
+    w2 = torch.randn(16, 256, device=cuda_device, generator=g) / 4
+    got = se_scale(x, w1, w2)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=8e-3, atol=1e-6)
+    torch.testing.assert_close(got.float(), se_scale_reference(x, w1, w2).float(), **tol)
+
+
+@pytest.mark.parametrize("shape,dtype,cluster,samples", [
+    ((256, 8, 32, 256), torch.bfloat16, 8, 2), ((256, 8, 32, 256), torch.float32, 8, 1),
+    ((2048, 4, 16, 512), torch.bfloat16, 8, 4), ((2048, 4, 16, 512), torch.float32, 8, 2),
+])
+def test_se_scale_main_path_shapes_take_the_cluster_route(cuda_device, shape, dtype, cluster,
+                                                          samples):
+    plan = se_route(shape, shape[-1] // 16, dtype)
+    assert (plan["route"], plan["cluster"], plan["samples"]) == ("cluster", cluster, samples)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 64, 1024), (1, 64, 64, 256)])
+def test_se_scale_large_slabs_stream(cuda_device, shape):
+    """Slabs whose channel run per CTA exceeds 48 KiB take the streaming route."""
+    assert se_route(shape, shape[-1] // 16, torch.bfloat16)["route"] == "streaming"
 
 
 def test_se_scale_kernel_refuses_other_layouts(cuda_device):
@@ -71,6 +105,32 @@ def test_bilstm_scan_kernel_matches_plain(cuda_device, t, b, h, w_dtype):
     torch.cuda.synchronize()
     assert kernels.BILSTM_SCAN.launches == before + 1
     torch.testing.assert_close(got, scan_reference(xs, w_hh, h), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("h", [32, 64, 256, 512])
+@pytest.mark.parametrize("b", [1, 5, 33, 256])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_bilstm_scan_routes_match_plain(cuda_device, h, b, w_dtype):
+    """Both routes (H=512 fp32 streams w_hh; the rest keep it resident) with
+    ragged batch tiles, against the plain version at rtol/atol 1e-5."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    xs = torch.randn(16, 2, b, 4 * h, device=cuda_device, generator=g)
+    w_hh = (torch.randn(2, h, 4 * h, device=cuda_device, generator=g) / h ** 0.5).to(w_dtype)
+    want_route = "streaming" if (h, w_dtype) == (512, torch.float32) else "resident"
+    assert lstm_route(b, h, w_dtype)["route"] == want_route
+    got = bilstm_scan(xs, w_hh, h)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, scan_reference(xs, w_hh, h), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b", [256, 2048])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_bilstm_scan_main_path_shape_is_resident(cuda_device, b, w_dtype):
+    plan = lstm_route(b, 256, w_dtype)
+    assert (plan["route"], plan["cluster"]) == ("resident", 8)
+    assert plan["rows"] % 8 == 0 and plan["active_clusters"] >= 1
+    if b == 256:  # one wave: every cluster runs at once
+        assert 2 * -(-b // plan["rows"]) <= plan["active_clusters"]
 
 
 def test_plain_only_skips_the_kernels(cuda_device):

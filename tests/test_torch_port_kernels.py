@@ -104,10 +104,17 @@ def test_other_devices_raise():
 
 
 def test_kernel_sources_and_build_flags():
+    replaces = {"se_scale": ("rcnn_ocr_tpu/ops/se_pallas.py", "_se_forward"),
+                "bilstm_scan": ("rcnn_ocr_tpu/ops/lstm_pallas.py", "_bilstm_pallas")}
+    assert set(replaces) == set(kernels.KERNELS)
     for k in kernels.KERNELS.values():
         src = k.source.read_text()
-        assert "extern \"C\"" in src and k.symbol in src
+        assert "extern \"C\"" in src and k.symbol in src and k.plan_symbol in src
         assert "#include <torch" not in src and "ATen" not in src
         assert "cudaGetLastError" in src
+        # the note beside every kernel: the TPU kernel it replaces, and its bound
+        assert "Replaces the Pallas TPU kernel" in src
+        assert all(part in src for part in replaces[k.name])
+        assert "Bound on the H100:" in src
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     assert kernels.BUILD_DIR.parts[-2:] == ("build", "rcnn_ocr_tpu_torch")
