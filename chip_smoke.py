@@ -9,14 +9,14 @@
    (one nvcc per source, in parallel) and prints build times and ptxas
    register / shared-memory lines.
 3. Kernel phase: each kernel against its plain PyTorch version at the
-   shapes of the main path (32x128 lines, width 1.0, hidden 256), in fp32
-   and bf16 at batch 256, then CUDA-event times of kernel, plain version and
-   library yardstick at batch 256 and 2048: warm (the same inputs back to
-   back) and, for the kernel, cold (inputs rotated over enough distinct
-   buffers to exceed 100 MB, twice the 50 MB L2).  Prints the route each
-   timed shape takes (K1: cluster split; K2: w_hh resident in a cluster's
-   shared memory, or streamed) and checks that the main path's shapes take
-   the cluster and resident routes.
+   shapes of the main paths (32x128 lines, width 1.0, hidden 256), in fp32
+   and bf16 at batch 128 (the train step's), 256 (inference's) and 2048,
+   with CUDA-event times of kernel, plain version and library yardstick at
+   each: warm (the same inputs back to back) and, for the kernel, cold
+   (inputs rotated over enough distinct buffers to exceed 100 MB, twice the
+   50 MB L2).  Prints the route each shape takes (K1: cluster split; K2:
+   w_hh resident in a cluster's shared memory, or streamed) and checks that
+   every one takes the cluster and resident routes.
 4. Main path: a seeded full-width model (width 1.0, hidden 256, 194 classes
    from configs/charset.txt, both heads) handed through ``to_jax_variables``
    to the public ``OCRInference``, which decodes 512 seeded uint8 line
@@ -27,6 +27,27 @@
    through the kernels and through the plain versions: encoder states and
    CTC logits must agree within tolerance, CTC tokens on every row and
    attention greedy tokens on at least 99% of rows.
+5. Training phase.  (a) Gradient check: the same full-width model in fp32
+   at batch 32, train mode, head "both" with dropout, DropBlock and
+   sampling off, one ``make_train_step`` (SGD at lr 0, so the weights stay)
+   through the kernels and once more under ``kernels.plain_only()`` from
+   the same batch-norm statistics: loss and updated running statistics
+   must agree, every backbone weight must get a gradient, and every
+   parameter's gradient must lie within a relative L2 error of 2e-2 of the
+   plain one (printed beside two controls on the plain path alone: a rerun,
+   and the images nudged by 1e-6).  (b) 30 ``make_train_step`` steps of the shipped
+   configuration (configs/config.json: width 1.0, hidden 256, 32x128,
+   max_len 40, batch 128, bf16 compute with fp32 weights, Adam lr 5e-4 and
+   weight decay 2e-5, head "both" with CTC weight 1 and blank <PAD>, encoder
+   and attention dropout 0.1) on one seeded batch: finite losses, the mean
+   of the last 5 below the first, 11 squeeze-excite and 2 BiLSTM launches
+   per step; prints step ms, img/s, peak
+   memory and each kernel's forward and backward ms per step (CUDA events
+   around its autograd Function), then profiles 3 more steps
+   (torch.profiler: device busy time by kernel name, idle share).
+   (c) Round trip: ``make_eval_step`` on the trained state,
+   ``save_weights`` into build/chip_smoke/, and the file loaded by
+   ``OCRInference`` on the card for ``predict`` and ``predict_ctc``.
 
 Prints one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits non-zero
@@ -58,16 +79,31 @@ SE_SHAPES = ((3, (8, 32, 256)), (8, (4, 16, 512)))  # (calls per encode, per-sam
 LSTM_T, LSTM_D = IMG_W // 8, 512
 BATCH, BIG_BATCH, N_IMAGES, MAX_LENGTH = 256, 2048, 512, 25
 COLD_BYTES = 100_000_000  # twice the H100's 50 MB L2
+# training phase: configs/config.json's shape and optimizer
+TRAIN_BATCH, TRAIN_MAX_LEN, TRAIN_STEPS, GRAD_BATCH = 128, 40, 30, 32
+TRAIN_LR, TRAIN_WD = 5e-4, 2e-5
 
 TOL = {
     # kernel vs plain, same inputs; fp32: summation order only
     "fp32": dict(rtol=1e-5, atol=1e-5),
-    # bf16 outputs: one bf16 ulp relative, from a gate that rounds the other way
-    "bf16": dict(rtol=8e-3, atol=1e-6),
+    # bf16 outputs: both versions round the fp32 gate to bf16, then x * gate
+    # to bf16.  A gate within ~1e-7 of a rounding boundary (the fp32 means
+    # summed in another order) rounds the other way: one gate ulp, at most
+    # 2^-7 relative, and the product's own rounding adds at most one output
+    # ulp, 2^-7 relative again (seen at bs 2048: two ulps, 7.8e-3 at 0.6)
+    "bf16": dict(rtol=2 ** -6, atol=1e-6),
     # main path, fp32 with kernels vs plain versions: the CPU parity
     # tolerances for encoder states and logits (tests/test_torch_port_model.py)
     "enc": dict(rtol=1e-4, atol=2e-4),
     "logits": dict(rtol=1e-3, atol=5e-4),
+    # gradient check, fp32 kernels vs plain versions, per leaf: the relative
+    # L2 error.  Not elementwise: the kernels' ~5e-7 forward differences flip
+    # a few ReLUs that sit within ~1e-6 of their kink, and each flip moves
+    # single gradient entries by up to a few percent of the leaf's max; the
+    # same spread comes from nudging the images by 1e-6 in the plain path
+    # alone (the control printed beside it).  A missing gradient is 1.0.
+    "grad_rel_l2": 2e-2,
+    "stats": dict(rtol=1e-4, atol=1e-6),
 }
 
 
@@ -83,7 +119,8 @@ def held(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float, what: 
     err = (got - want).abs()
     excess = (err - (atol + rtol * want.abs())).max().item()
     max_abs = err.max().item()
-    print(f"  {what}: max abs err {max_abs:.3e} (rtol {rtol}, atol {atol})")
+    print(f"  {what}: max abs err {max_abs:.3e}, {int((err > 0).sum())} of {err.numel()} "
+          f"differ (rtol {rtol}, atol {atol})")
     check(excess <= 0, f"{what}: outside rtol {rtol} / atol {atol} (max abs err {max_abs:.3e})")
     return max_abs
 
@@ -161,15 +198,14 @@ def kernel_phase(gen: torch.Generator):
         w2 = torch.randn(s, c, device=dev, generator=gen) / s ** 0.5
         for dt, tol in ((torch.float32, TOL["fp32"]), (torch.bfloat16, TOL["bf16"])):
             name = "fp32" if dt == torch.float32 else "bf16"
-            x = torch.randn(BATCH, h, w, c, device=dev, generator=gen).to(dt)
-            err = held(se_scale(x, w1, w2), se_scale_reference(x, w1, w2), what=
-                       f"se_scale [{BATCH},{h},{w},{c}] {name} vs plain", **tol)
-            errs.append(err)
-            for b in (BATCH, BIG_BATCH):
+            for b in (TRAIN_BATCH, BATCH, BIG_BATCH):
                 plan = se_route((b, h, w, c), s, dt)
                 check(plan["route"] == "cluster",
                       f"se_scale [{b},{h},{w},{c}] {name} took the {plan['route']} route")
-                xb = x if b == BATCH else torch.randn(b, h, w, c, device=dev, generator=gen).to(dt)
+                xb = torch.randn(b, h, w, c, device=dev, generator=gen).to(dt)
+                err = held(se_scale(xb, w1, w2), se_scale_reference(xb, w1, w2), what=
+                           f"se_scale [{b},{h},{w},{c}] {name} vs plain", **tol)
+                errs.append(err)
                 nbytes = 2 * xb.numel() * xb.element_size() + 2 * c * s * 4
                 sets = cold_sets(lambda: (torch.randn(b, h, w, c, device=dev, generator=gen)
                                           .to(dt), w1, w2), xb.numel() * xb.element_size())
@@ -202,21 +238,22 @@ def kernel_phase(gen: torch.Generator):
     for wdt in (torch.float32, torch.bfloat16):
         name = "fp32" if wdt == torch.float32 else "bf16"
         w_hh = (torch.randn(2, H, 4 * H, device=dev, generator=gen) / H ** 0.5).to(wdt)
-        for b in (BATCH, BIG_BATCH):
+        for b in (TRAIN_BATCH, BATCH, BIG_BATCH):
             plan = lstm_route(b, H, wdt)
             check(plan["route"] == "resident",
                   f"bilstm_scan B={b} H={H} w_hh {name} took the {plan['route']} route")
             xs = torch.randn(T, 2, b, 4 * H, device=dev, generator=gen)
-            if b == BATCH:
-                errs.append(held(bilstm_scan(xs, w_hh, H), scan_reference(xs, w_hh, H),
-                                 what=f"bilstm_scan [{T},2,{b},{4 * H}] w_hh {name} vs plain",
-                                 **TOL["fp32"]))
+            err = held(bilstm_scan(xs, w_hh, H), scan_reference(xs, w_hh, H),
+                       what=f"bilstm_scan [{T},2,{b},{4 * H}] w_hh {name} vs plain",
+                       **TOL["fp32"])
+            errs.append(err)
             flop = 2 * T * 2 * b * H * 4 * H
             nbytes = xs.numel() * 4 + T * 2 * b * H * 4 + w_hh.numel() * w_hh.element_size()
             bound = max(flop / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
             sets = cold_sets(lambda: (torch.randn(T, 2, b, 4 * H, device=dev, generator=gen),
                                       w_hh.clone(), H), xs.numel() * 4)
             call = dict(shape=[T, 2, b, 4 * H], w_dtype=name, per_encode=2, route=plan,
+                        max_abs_err=err,
                         ms=time_ms(lambda: bilstm_scan(xs, w_hh, H)),
                         cold_ms=time_cold_ms(bilstm_scan, sets),
                         plain_ms=time_ms(lambda: scan_reference(xs, w_hh, H)),
@@ -382,6 +419,278 @@ def main_path(kernels, power: str):
                 attn_rows_equal=attn_same, rows=attn_rows, breakdown=breakdown)
 
 
+def train_batch(cs, n: int, seed: int, dev: str):
+    """A seeded training batch as the JAX step takes it: uint8 noise images
+    normalized on the card, labels of 4-10 characters of the charset (every
+    row CTC-feasible at T = 16 frames)."""
+    from rcnn_ocr_tpu_torch.data.loader import collate_batch
+    from rcnn_ocr_tpu_torch.ops.augment import device_normalize
+
+    rng = np.random.default_rng(seed)
+    chars = [t for t in cs.itos if len(t) == 1]
+    labels = ["".join(rng.choice(chars, size=int(rng.integers(4, 11)))) for _ in range(n)]
+    images = rng.integers(0, 256, size=(n, IMG_H, IMG_W, 3), dtype=np.uint8)
+    batch = collate_batch(list(zip(images, labels)), cs, TRAIN_MAX_LEN, with_ctc=True)
+    lab = batch["ctc_labels"]
+    need = (1 - batch["ctc_paddings"]).sum(1) + ((lab[:, 1:] == lab[:, :-1])
+                                                  & (batch["ctc_paddings"][:, 1:] == 0)).sum(1)
+    check(bool((need <= IMG_W // 8).all()), "a training label is not CTC-feasible")
+    out = {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if isinstance(v, np.ndarray)}
+    out["image_u8"] = out["image"]
+    out["image"] = device_normalize(out["image"])
+    return out
+
+
+def train_model(cs, dtype: torch.dtype, **kw):
+    from rcnn_ocr_tpu_torch.models.rcnn import RCNN, init_params
+
+    model = RCNN(num_classes=cs.num_classes, hidden_size=HIDDEN, sos_id=cs.sos_id,
+                 eos_id=cs.eos_id, pad_id=cs.pad_id, blank_id=cs.blank_id, with_ctc_head=True,
+                 width_mult=WIDTH, dtype=dtype, **kw)
+    init_params(model, torch.Generator().manual_seed(0))
+    return model.to("cuda")
+
+
+class FunctionTimer:
+    """CUDA events around the forward and backward of the kernels' autograd
+    Functions (the forward launches the kernel, the backward is plain
+    PyTorch); ``ms()`` sums each over the calls since ``reset()``."""
+
+    def __init__(self):
+        from rcnn_ocr_tpu_torch.ops import bilstm_scan, se_scale
+
+        self.fns = {"se_scale": se_scale._SEScale, "bilstm_scan": bilstm_scan._BiLSTMScan}
+        self.saved = {}
+        self.events = {}
+
+    def _wrap(self, key, fn):
+        def timed(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            self.events.setdefault(key, []).append((start, end))
+            return out
+        return staticmethod(timed)
+
+    def __enter__(self):
+        for name, cls in self.fns.items():
+            for phase in ("forward", "backward"):
+                self.saved[(name, phase)] = cls.__dict__[phase]
+                setattr(cls, phase, self._wrap((name, phase), getattr(cls, phase)))
+        return self
+
+    def __exit__(self, *exc):
+        for (name, phase), orig in self.saved.items():
+            setattr(self.fns[name], phase, orig)
+
+    def reset(self):
+        self.events = {}
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {f"{name}_{phase}_ms": sum(a.elapsed_time(b) for a, b in ev)
+                for (name, phase), ev in self.events.items()}
+
+
+KERNEL_GROUPS = (  # by kernel name, first match wins
+    ("K1 se_scale", ("se_cluster_kernel", "se_stream_kernel")), ("K2 bilstm_scan", ("bilstm",)),
+    ("convolution (cuDNN)", ("conv", "xmma", "dgrad", "wgrad", "implicit", "cudnn")),
+    ("matmul", ("gemm", "cutlass", "gemv", "splitk")),
+    ("reduction", ("reduce",)), ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def profile_steps(step, state, batch, gen, n: int = 3) -> dict:
+    """Device busy time per step (kernel durations from torch.profiler,
+    grouped by kernel name) against the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    kernels_us = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]  # ranges span kernels
+    busy = sum(us for _, us, _ in kernels_us) / 1e3 / n
+    groups = {}
+    for key, us, _ in kernels_us:
+        name = next((g for g, subs in KERNEL_GROUPS if any(x in key.lower() for x in subs)),
+                    "other")
+        groups[name] = groups.get(name, 0.0) + us / 1e3 / n
+    top = sorted(kernels_us, key=lambda k: -k[1])[:8]
+    return dict(wall_ms=wall, device_busy_ms=busy,
+                device_idle_share=1 - busy / wall if busy else None,
+                kernels_per_step=sum(c for _, _, c in kernels_us) / n,
+                by_group_ms=groups,
+                top=[dict(kernel=k[:90], ms=us / 1e3 / n, calls=c / n) for k, us, c in top])
+
+
+def gradient_check(kernels, cs):
+    """One fp32 train step through the kernels and one under plain_only()."""
+    from rcnn_ocr_tpu_torch.training.optim import build_optimizer
+    from rcnn_ocr_tpu_torch.training.train_step import create_train_state, make_train_step
+
+    model = train_model(cs, torch.float32, enc_dropout_p=0.0)
+    model.attn.dropout_p = 0.0
+    batch = train_batch(cs, GRAD_BATCH, seed=2, dev="cuda")
+    sgd0 = build_optimizer("SGD", 0.0, momentum=0.0)  # lr 0: the weights stay
+    step = make_train_step(model, sgd0, TRAIN_MAX_LEN, cs.pad_id, head="both",
+                           ctc_blank_id=cs.ctc_blank_id)
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+
+    def run(b):
+        with torch.no_grad():
+            for n, buf in model.named_buffers():
+                buf.copy_(stats0[n])
+        loss = float(step(create_train_state(model, sgd0), b)["loss"])
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                 for n, p in model.named_parameters()}
+        return loss, grads, {n: buf.clone() for n, buf in model.named_buffers()}
+
+    def compare(grads, ref):
+        rows = []
+        for n, gp in ref.items():
+            err = (grads[n] - gp).abs()
+            rows.append(dict(leaf=n, rel_l2=(err.norm() / gp.norm()).item(),
+                             max_share=(err.max() / gp.abs().max()).item()))
+        return sorted(rows, key=lambda r: -r["rel_l2"])
+
+    kernels.reset_launch_counts()
+    loss_k, grads_k, stats_k = run(batch)
+    counts = kernels.launch_counts()
+    nudged = dict(batch, image=batch["image"] * (1 + 1e-6))
+    with kernels.plain_only():
+        loss_p, grads_p, stats_p = run(batch)
+        controls = {"plain rerun": compare(run(batch)[1], grads_p),
+                    "plain, images x (1 + 1e-6)": compare(run(nudged)[1], grads_p)}
+    check(counts == {"se_scale": 11, "bilstm_scan": 2}, f"gradient check launched {counts}")
+    missing = [n for n, g in grads_k.items()
+               if n.startswith(("cnn.", "enc_rnn")) and not bool(g.abs().max() > 0)]
+    check(not missing, f"no gradient through the kernels for {missing[:5]} ({len(missing)} leaves)")
+    rows = compare(grads_k, grads_p)
+    print(f"  loss fp32: kernels {loss_k:.7f}, plain {loss_p:.7f}")
+    for what, rs in (("kernels vs plain", rows), *controls.items()):
+        print(f"  {what}: per-leaf gradient rel L2 worst {rs[0]['rel_l2']:.3e} "
+              f"({rs[0]['leaf']}), median {rs[len(rs) // 2]['rel_l2']:.3e}; max-abs-err share "
+              f"of the leaf's max worst {max(r['max_share'] for r in rs):.3e}")
+    floats = [n for n in stats_p if stats_p[n].is_floating_point()]
+    stat_err = max((stats_k[n] - stats_p[n]).abs().max().item() for n in floats)
+    stat_excess = max(((stats_k[n] - stats_p[n]).abs() - TOL["stats"]["atol"]
+                       - TOL["stats"]["rtol"] * stats_p[n].abs()).max().item() for n in floats)
+    print(f"  running statistics ({len(floats)} buffers): max abs err {stat_err:.3e}")
+    check(stat_excess <= 0, f"running statistics outside {TOL['stats']}")
+    check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), "fp32 loss differs between kernels and plain")
+    bad = [r["leaf"] for r in rows if r["rel_l2"] > TOL["grad_rel_l2"]]
+    check(not bad, f"gradients beyond rel L2 {TOL['grad_rel_l2']}: {bad[:5]} ({len(bad)} leaves)")
+    return dict(loss_kernels=loss_k, loss_plain=loss_p, leaves=len(rows),
+                worst_rel_l2=rows[0]["rel_l2"], worst_leaf=rows[0]["leaf"],
+                worst_max_share=max(r["max_share"] for r in rows), stats_max_abs_err=stat_err,
+                controls={k: dict(worst_rel_l2=v[0]["rel_l2"],
+                                  worst_max_share=max(r["max_share"] for r in v))
+                          for k, v in controls.items()},
+                launches=counts)
+
+
+def training_phase(kernels, cs, charset_path: str, power: str):
+    from rcnn_ocr_tpu_torch.inference import OCRInference
+    from rcnn_ocr_tpu_torch.interop.jax_params import to_jax_variables
+    from rcnn_ocr_tpu_torch.training.checkpoint import save_weights
+    from rcnn_ocr_tpu_torch.training.optim import build_optimizer
+    from rcnn_ocr_tpu_torch.training.train_step import (
+        create_train_state,
+        make_eval_step,
+        make_train_step,
+    )
+
+    print("  gradient check (fp32, bs 32)")
+    grad = gradient_check(kernels, cs)
+
+    model = train_model(cs, torch.bfloat16)
+    tx = build_optimizer("Adam", TRAIN_LR, weight_decay=TRAIN_WD)
+    state = create_train_state(model, tx)
+    step = make_train_step(model, tx, TRAIN_MAX_LEN, cs.pad_id, head="both",
+                           ctc_blank_id=cs.ctc_blank_id, ctc_loss_weight=1.0)
+    batch = train_batch(cs, TRAIN_BATCH, seed=3, dev="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    losses, step_ms = [], []
+    with FunctionTimer() as timer:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(state, batch, gen)["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        per_step = {k: v / TRAIN_STEPS for k, v in timer.ms().items()}
+    print(f"  losses: first {losses[0]:.4f}, last {losses[-1]:.4f}, "
+          f"mean of last 5 {np.mean(losses[-5:]):.4f}")
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    check(np.mean(losses[-5:]) < losses[0], "the training loss did not fall")
+    check(counts == {"se_scale": 11 * TRAIN_STEPS, "bilstm_scan": 2 * TRAIN_STEPS},
+          f"{TRAIN_STEPS} train steps launched {counts}")
+    median = float(np.median(step_ms))
+    train = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, losses=losses, step_ms=step_ms,
+                 median_step_ms=median, img_s=TRAIN_BATCH / median * 1e3, peak_bytes=peak,
+                 launch_counts=counts, **per_step)
+    print(f"  train step, bs {TRAIN_BATCH} bf16, head both, Adam: median {median:.2f} ms "
+          f"({train['img_s']:.1f} img/s), peak memory {peak / 2**30:.2f} GiB on {power}")
+    print("  per step (CUDA events around the Functions): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in per_step.items()))
+    train["profile"] = prof = profile_steps(step, state, batch, gen)
+    if prof["device_busy_ms"]:
+        print(f"  profiled ({prof['kernels_per_step']:.0f} kernels per step): wall "
+              f"{prof['wall_ms']:.2f} ms, device busy {prof['device_busy_ms']:.2f} ms, idle share "
+              f"{prof['device_idle_share']:.3f}; by kernel name: " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in sorted(prof["by_group_ms"].items(),
+                                                    key=lambda kv: -kv[1])))
+        for t in prof["top"]:
+            print(f"    {t['ms']:8.3f} ms  {t['calls']:6.1f} calls  {t['kernel']}")
+    else:
+        print("  torch.profiler saw no device time on this machine")
+
+    ev = make_eval_step(model, TRAIN_MAX_LEN, cs.pad_id, head="both",
+                        ctc_blank_id=cs.ctc_blank_id)(state, dict(batch, image=batch["image_u8"]))
+    check(bool(torch.isfinite(ev["val_loss"])) and bool(torch.isfinite(ev["ctc_val_loss"])),
+          "eval losses are not finite")
+    check(tuple(ev["pred_ids"].shape) == (TRAIN_BATCH, TRAIN_MAX_LEN + 1), "pred_ids shape")
+    check(tuple(ev["ctc_frame_ids"].shape) == (TRAIN_BATCH, IMG_W // 8), "ctc_frame_ids shape")
+    path = os.path.join(REPO, "build", "chip_smoke", "trained_weights.msgpack")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    save_weights(path, state)
+    engine = OCRInference(path, charset_path=charset_path, device="cuda", img_h=IMG_H,
+                          img_w=IMG_W, dtype=torch.bfloat16)
+    saved, loaded = to_jax_variables(model), to_jax_variables(engine.model)
+    for col in saved:
+        for a, b in zip(json_leaves(saved[col]), json_leaves(loaded[col])):
+            check(np.array_equal(a, b), "weights changed on the way through save_weights")
+    images = line_images(8, seed=5)
+    texts = engine.predict(images, max_length=TRAIN_MAX_LEN, batch_size=8)
+    ctc = engine.predict_ctc(images, batch_size=8)
+    check(len(texts) == len(ctc) == 8 and all(isinstance(t, str) for t in texts + ctc),
+          "the reloaded weights gave no strings")
+    print(f"  eval: val_loss {float(ev['val_loss']):.4f}, ctc_val_loss "
+          f"{float(ev['ctc_val_loss']):.4f}; reloaded from {os.path.relpath(path, REPO)}: "
+          f"{texts[:2]!r}, {ctc[:2]!r}")
+    return dict(grad_check=grad, train=train, eval_val_loss=float(ev["val_loss"]),
+                eval_ctc_val_loss=float(ev["ctc_val_loss"]))
+
+
+def json_leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from json_leaves(tree[k])
+    else:
+        yield tree
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json-out", help="also write every measurement to this JSON file")
@@ -410,11 +719,26 @@ def main() -> int:
             print(f"  {row['name']} " + ", ".join(f"{k} {v}" for k, v in call.items()))
     print("main path phase")
     path = main_path(kernels, power)
+    print("training phase")
+    from rcnn_ocr_tpu_torch.vocab.charset import Charset
+
+    charset_path = os.path.join(REPO, "configs", "charset.txt")
+    training = training_phase(kernels, Charset.from_file(charset_path), charset_path, power)
+    backward = {"se_scale": "autograd: plain torch (the hand VJP of se_pallas.py:_se_bwd)",
+                "bilstm_scan": "autograd: plain torch (recompute through scan_reference)"}
+    train = training["train"]
     for row in rows:
-        row["launches"] = path["launch_counts"][row["name"]]
-        row["max_err"] = row["max_abs_err"]
-        check(row["launches"] > 0, f"{row['name']} never launched on the main path")
-    result = {"card": power, "kernels": rows, "main_path": path,
+        name = row["name"]
+        by_path = {"inference": path["launch_counts"][name],
+                   "train": train["launch_counts"][name]}
+        row.update(launches=by_path["inference"], launches_by_path=by_path,
+                   max_err=row["max_abs_err"], backward_route=backward[name],
+                   launches_per_train_step=train["launch_counts"][name] // TRAIN_STEPS,
+                   train_fwd_ms_per_step=train[f"{name}_forward_ms"],
+                   train_bwd_ms_per_step=train[f"{name}_backward_ms"])
+        for p, n in by_path.items():
+            check(n > 0, f"{name} never launched on the {p} path")
+    result = {"card": power, "kernels": rows, "main_path": path, "training": training,
               "seconds": time.perf_counter() - t_start}
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)
@@ -422,7 +746,9 @@ def main() -> int:
             json.dump(result, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "cold_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "max_err", "bound_us",
-            "launches_per_encode", "dtype", "batch", "library_call")
+            "launches_per_encode", "dtype", "batch", "library_call", "launches_by_path",
+            "backward_route", "launches_per_train_step", "train_fwd_ms_per_step",
+            "train_bwd_ms_per_step")
     print(f"total {result['seconds']:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(power)

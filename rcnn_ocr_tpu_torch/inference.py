@@ -63,7 +63,7 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     dev = torch.device("cuda" if str(device) == "auto" else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "OCRInference runs on a CUDA device and none is available; "
+            "this runs on a CUDA device and none is available; "
             "pass device='cpu' to run on the CPU"
         )
     return dev

@@ -18,7 +18,7 @@ raises, naming the key.  :func:`to_jax_variables` is its exact inverse.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,13 +87,19 @@ def load_jax_variables(model: nn.Module, variables: Dict[str, Any]) -> nn.Module
     return model
 
 
-def to_jax_variables(model: nn.Module) -> Dict[str, Dict[str, Any]]:
-    """The model's weights as a JAX ``{"params", "batch_stats"}`` numpy tree."""
+def to_jax_variables(model: nn.Module, params: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Dict[str, Dict[str, Any]]:
+    """The model's weights as a JAX ``{"params", "batch_stats"}`` numpy tree
+    (copies: later updates of the model do not reach it).  ``params``, by
+    parameter name, stands in for the model's own parameters (an EMA copy)."""
+    names = {id(p): n for n, p in model.named_parameters()}
     out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
     for path, tensor, _, to_jax in _leaves(model):
+        if params is not None and id(tensor) in names:
+            tensor = params[names[id(tensor)]]
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
         arr = tensor.detach().float().cpu().numpy()
-        node[path[-1]] = np.ascontiguousarray(to_jax(arr))
+        node[path[-1]] = np.array(to_jax(arr), order="C")
     return out

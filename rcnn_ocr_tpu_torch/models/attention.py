@@ -1,4 +1,4 @@
-"""Additive-attention LSTM decoder (eval: teacher-forced and greedy).
+"""Additive-attention LSTM decoder: teacher-forced, greedy and train mode.
 
 Counterpart of ``rcnn_ocr_tpu/models/attention.py:AttentionDecoder`` with
 the same raw parameters:
@@ -12,8 +12,22 @@ the same raw parameters:
   back the argmax of the blank-masked logits.
 
 Matmuls run in the compute dtype, the cell and softmaxes in fp32, as in
-JAX.  Eval only: no attention dropout or scheduled sampling, and beam
-search is a later slice.
+JAX.  With ``train=True`` (``text`` required):
+
+* α-dropout: each step's softmaxed attention weights keep each entry with
+  probability ``1 - dropout_p`` and scale it by ``1 / (1 - dropout_p)``, a
+  fresh mask every step;
+* scheduled sampling (``sampling_prob > 0``): one coin per step for the
+  whole batch; on heads the next input is the argmax of the step's
+  blank-masked logits (JAX's deliberate divergence from the torch
+  reference, ``attention.py:215-223``), else ``text[:, t+1]``;
+* the logits come from the raw hidden states, one generator matmul over
+  all steps.
+
+The random bits come from the caller's ``torch.Generator``: the coins for
+all steps are drawn before any dropout mask, so they do not depend on
+whether dropout is on (JAX keeps them apart by folding in ``100_000 + t``).
+Beam search is a later slice.
 """
 
 from __future__ import annotations
@@ -23,14 +37,18 @@ from typing import Optional
 import torch
 from torch import nn
 
+from rcnn_ocr_tpu_torch.models.dropblock import dropout
 from rcnn_ocr_tpu_torch.models.lstm import lstm_cell_gates
 
 
 class AttentionDecoder(nn.Module):
     def __init__(self, num_classes: int, enc_size: int, hidden_size: int = 256,
                  sos_id: int = 1, eos_id: int = 2, pad_id: int = 0,
-                 blank_id: Optional[int] = None, dtype: torch.dtype = torch.float32):
+                 blank_id: Optional[int] = None, dropout_p: float = 0.1,
+                 sampling_prob: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dropout_p = dropout_p
+        self.sampling_prob = sampling_prob
         self.num_classes = num_classes
         self.hidden_size = hidden_size
         self.sos_id = sos_id
@@ -58,12 +76,14 @@ class AttentionDecoder(nn.Module):
         return logits
 
     def forward(self, batch_H: torch.Tensor, text: Optional[torch.Tensor] = None,
-                batch_max_length: int = 25, return_alignment: bool = False):
+                batch_max_length: int = 25, return_alignment: bool = False,
+                train: bool = False, generator: Optional[torch.Generator] = None):
         """``batch_H [B, T, C]`` -> logits ``[B, steps, V]`` fp32.
 
         With ``text [B, >= steps]`` (SOS at ``[:, 0]``) the decoder is
         teacher-forced; without it, greedy (``return_alignment`` adds the
-        per-step attention argmax ``[B, steps]``).
+        per-step attention argmax ``[B, steps]``).  ``train=True`` adds
+        α-dropout and scheduled sampling, drawn from ``generator``.
         """
         batch = batch_H.shape[0]
         hidden = self.hidden_size
@@ -71,6 +91,13 @@ class AttentionDecoder(nn.Module):
         dt = self.dtype
         if return_alignment and text is not None:
             raise ValueError("return_alignment is a greedy-decode feature (text=None)")
+        if train and text is None:
+            raise ValueError("teacher-forced decoding requires `text` with SOS at [:, 0]")
+        drop = self.dropout_p if train else 0.0
+        sampling = train and self.sampling_prob > 0.0
+        if (drop > 0.0 or sampling) and generator is None:
+            raise ValueError("train-mode decoding draws from a torch.Generator; pass one")
+        coins = torch.rand(steps, generator=generator, device=batch_H.device) if sampling else None
 
         bh = batch_H.to(dt)
         keys = torch.matmul(bh, self.w_i2h.to(dt)).float()  # hoisted attention keys
@@ -85,6 +112,8 @@ class AttentionDecoder(nn.Module):
             e = torch.matmul(torch.tanh(keys + proj_h[:, None, :]).to(dt), v)[..., 0]
             alpha = torch.softmax(e.float(), dim=1)  # [B, T]
             align = torch.argmax(alpha, dim=1)
+            if drop > 0.0:
+                alpha = dropout(alpha, drop, generator)
             context = torch.bmm(alpha.to(dt)[:, None, :], bh)[:, 0].float()
             gates = (
                 torch.matmul(context.to(dt), w_ctx).float()
@@ -100,9 +129,16 @@ class AttentionDecoder(nn.Module):
 
         if text is not None:
             hs = []
+            targets = text[:, 0].long()
             for t in range(steps):
-                h, c, _ = step(h, c, text[:, t].long())
+                h, c, _ = step(h, c, targets)
                 hs.append(h)
+                if t + 1 < steps:
+                    targets = text[:, t + 1].long()
+                    if sampling:
+                        pred = torch.argmax(self._mask_blank(
+                            torch.matmul(h.to(dt), w_gen).float() + self.b_gen), dim=-1)
+                        targets = torch.where(coins[t] < self.sampling_prob, pred, targets)
             out_hid = torch.stack(hs, dim=1)  # [B, steps, H]
             logits = torch.matmul(out_hid.to(dt), w_gen).float() + self.b_gen
             return self._mask_blank(logits)

@@ -1,8 +1,14 @@
 """The text-line recognizer: SE-ResNet31 -> height mean -> BiLSTMs -> heads.
 
-Counterpart of ``rcnn_ocr_tpu/models/rcnn.py:RCNN`` (eval side).  Inputs
-are NHWC float images normalized to [-1, 1]; module names match the JAX
-parameter tree (``cnn``, ``enc_rnn0``, ``enc_rnn1``, ``attn``, ``ctc_proj``).
+Counterpart of ``rcnn_ocr_tpu/models/rcnn.py:RCNN``.  Inputs are NHWC
+float images normalized to [-1, 1]; module names match the JAX parameter
+tree (``cnn``, ``enc_rnn0``, ``enc_rnn1``, ``attn``, ``ctc_proj``).
+
+Train mode is the ``train`` argument, as in JAX: batch statistics in batch
+norm (running ones advanced), DropBlock after each squeeze-excite when
+``dropblock_p > 0``, dropout of ``enc_dropout_p`` on the encoder states, and
+the attention decoder's α-dropout (``p = 0.1``, as JAX fixes it) and
+scheduled sampling.  Every random bit comes from the ``generator`` argument.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ import torch
 from torch import nn
 
 from rcnn_ocr_tpu_torch.models.attention import AttentionDecoder
+from rcnn_ocr_tpu_torch.models.dropblock import dropout
 from rcnn_ocr_tpu_torch.models.lstm import BiLSTM
 from rcnn_ocr_tpu_torch.models.seresnet31 import SEResNet31
 
@@ -26,7 +33,9 @@ class RCNN(nn.Module):
                  eos_id: int = 2, pad_id: int = 0, blank_id: Optional[int] = None,
                  with_attention_head: bool = True, with_ctc_head: bool = False,
                  lstm_layers: int = 2, width_mult: float = 1.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, enc_dropout_p: float = 0.1,
+                 dropblock_p: float = 0.0, dropblock_block_size: int = 5,
+                 sampling_prob: float = 0.0):
         super().__init__()
         self.num_classes = num_classes
         self.hidden_size = hidden_size
@@ -34,7 +43,9 @@ class RCNN(nn.Module):
         self.with_ctc_head = with_ctc_head
         self.lstm_layers = lstm_layers
         self.dtype = dtype
-        self.cnn = SEResNet31(out_channels=512, width_mult=width_mult, dtype=dtype)
+        self.enc_dropout_p = enc_dropout_p
+        self.cnn = SEResNet31(out_channels=512, width_mult=width_mult, dtype=dtype,
+                              dropblock_p=dropblock_p, dropblock_block_size=dropblock_block_size)
         in_size = self.cnn._w(512)
         for i in range(lstm_layers):
             setattr(self, f"enc_rnn{i}", BiLSTM(in_size, hidden_size, hidden_size, dtype=dtype))
@@ -43,15 +54,19 @@ class RCNN(nn.Module):
         if with_attention_head:
             self.attn = AttentionDecoder(num_classes, hidden_size, hidden_size, sos_id=sos_id,
                                          eos_id=eos_id, pad_id=pad_id, blank_id=blank_id,
+                                         dropout_p=0.1, sampling_prob=sampling_prob,
                                          dtype=dtype)
         self.ctc_proj = nn.Linear(hidden_size, num_classes) if with_ctc_head else None
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
+    def encode(self, x: torch.Tensor, train: bool = False,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """NHWC image batch -> ``[B, T=W/8, hidden]`` encoder states."""
-        f = self.cnn(x)  # [B, H', W', C]
+        f = self.cnn(x, train, generator)  # [B, H', W', C]
         f = f.float().mean(dim=1).to(self.dtype)  # height collapse in fp32
         for i in range(self.lstm_layers):
             f = getattr(self, f"enc_rnn{i}")(f)
+        if train and self.enc_dropout_p > 0.0:
+            f = dropout(f, self.enc_dropout_p, generator)
         return f
 
     def _ctc_head(self, enc: torch.Tensor) -> torch.Tensor:
@@ -59,14 +74,26 @@ class RCNN(nn.Module):
         return nn.functional.linear(enc.to(self.dtype), p.weight.to(self.dtype),
                                     p.bias.to(self.dtype)).float()
 
-    def ctc_logits(self, x: torch.Tensor) -> torch.Tensor:
+    def ctc_logits(self, x: torch.Tensor, train: bool = False,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """CTC head: per-frame class logits ``[B, T, V]`` fp32."""
-        return self._ctc_head(self.encode(x))
+        return self._ctc_head(self.encode(x, train, generator))
 
     def forward(self, x: torch.Tensor, text: Optional[torch.Tensor] = None,
-                batch_max_length: int = 25) -> torch.Tensor:
+                batch_max_length: int = 25, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Attention logits: teacher-forced with ``text``, greedy without."""
-        return self.attn(self.encode(x), text=text, batch_max_length=batch_max_length)
+        return self.attn(self.encode(x, train, generator), text=text,
+                         batch_max_length=batch_max_length, train=train, generator=generator)
+
+    def forward_both(self, x: torch.Tensor, text: Optional[torch.Tensor] = None,
+                     batch_max_length: int = 25, train: bool = False,
+                     generator: Optional[torch.Generator] = None):
+        """One encode, both heads: ``(attention logits, CTC logits)``."""
+        enc = self.encode(x, train, generator)
+        attn = self.attn(enc, text=text, batch_max_length=batch_max_length, train=train,
+                         generator=generator)
+        return attn, self._ctc_head(enc)
 
     def greedy_decode_aligned(self, x: torch.Tensor, batch_max_length: int = 25):
         """Greedy logits ``[B, steps, V]`` and the attention argmax ``[B, steps]``."""

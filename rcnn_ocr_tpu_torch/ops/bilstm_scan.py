@@ -8,7 +8,13 @@ gates are computed in fp32 whatever ``w_hh``'s dtype, as in the Pallas
 kernel.  On a CUDA tensor :func:`bilstm_scan` launches ``csrc/bilstm_scan.cu``
 (one launch per layer, both directions, all steps; :func:`route` says which
 of its two routes a shape takes); on a CPU tensor it runs
-:func:`scan_reference`.  Forward only: the training slice adds the backward.
+:func:`scan_reference`.
+
+:func:`bilstm_scan` is differentiable on both devices: a
+``torch.autograd.Function`` whose backward recomputes :func:`scan_reference`
+under autograd and takes its gradients, as ``lstm_pallas.py:_bilstm_bwd``
+does through ``jax.vjp`` of ``_scan_reference`` (one forward recompute in
+place of hand-derived BPTT).
 """
 
 from __future__ import annotations
@@ -45,10 +51,34 @@ def route(batch: int, hidden: int, w_dtype: torch.dtype) -> dict:
                 smem=smem, active_clusters=active)
 
 
+class _BiLSTMScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xs, w_hh, hidden):
+        ctx.save_for_backward(xs, w_hh)
+        ctx.hidden = hidden
+        if not kernels.use_kernel(xs):
+            return scan_reference(xs, w_hh, hidden)
+        return _launch(xs, w_hh, hidden)
+
+    @staticmethod
+    def backward(ctx, dys):
+        xs, w_hh = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in zip((xs, w_hh), wanted)]
+            ys = scan_reference(*leaves, ctx.hidden)
+            grads = torch.autograd.grad(ys, [t for t in leaves if t.requires_grad], dys)
+        it = iter(grads)
+        return tuple(next(it) if need else None for need in wanted) + (None,)
+
+
 def bilstm_scan(xs: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> torch.Tensor:
-    """Run the recurrence; returns ``ys [T, 2, B, H]`` fp32."""
-    if not kernels.use_kernel(xs):
-        return scan_reference(xs, w_hh, hidden)
+    """Run the recurrence; returns ``ys [T, 2, B, H]`` fp32.  Differentiable
+    in ``xs`` and ``w_hh`` (w_hh's gradient comes back in w_hh's dtype)."""
+    return _BiLSTMScan.apply(xs, w_hh, hidden)
+
+
+def _launch(xs: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> torch.Tensor:
     t_steps, two, batch, g4 = xs.shape
     if two != 2 or g4 != 4 * hidden or tuple(w_hh.shape) != (2, hidden, 4 * hidden):
         raise ValueError(

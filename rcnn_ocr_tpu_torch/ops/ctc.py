@@ -1,14 +1,44 @@
-"""CTC greedy decoding on the device, and ids -> text on the host.
+"""CTC loss and greedy decoding on the device, and ids -> text on the host.
 
-Counterpart of ``rcnn_ocr_tpu/ops/ctc.py:ctc_greedy_decode_jnp`` and
-``ids_to_text``.  The CTC loss and beam searches arrive in later slices.
+Counterpart of ``rcnn_ocr_tpu/ops/ctc.py:ctc_loss``,
+``ctc_greedy_decode_jnp`` and ``ids_to_text``.  The beam searches arrive in
+a later slice.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
+
+
+def ctc_loss(logits: torch.Tensor, logit_paddings: torch.Tensor, labels: torch.Tensor,
+             label_paddings: torch.Tensor, blank_id: int = 0,
+             valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean per-sequence CTC negative log-likelihood, with optax's layout:
+    ``logits [B, T, V]``, ``logit_paddings [B, T]`` and ``label_paddings
+    [B, L]`` 1.0 where padded, ``labels [B, L]``.
+
+    Rows whose label cannot be aligned (``label_len + adjacent_repeats >
+    frames``) and rows with ``valid`` False are left out of the mean, as in
+    JAX.  Such a row gives 0 to the loss and its gradient, never NaN: torch
+    charges an impossible alignment inf (``zero_infinity`` turns it into 0)
+    and the mask is a ``torch.where``, not a product with inf.
+    """
+    logp = F.log_softmax(logits.float(), dim=-1).transpose(0, 1)  # [T, B, V]
+    frames = (1.0 - logit_paddings.float()).sum(dim=1)
+    lab_real = 1.0 - label_paddings.float()
+    lab_len = lab_real.sum(dim=1)
+    per_seq = F.ctc_loss(logp, labels.long(), frames.long(), lab_len.long(), blank=blank_id,
+                         reduction="none", zero_infinity=True)
+    repeats = ((labels[:, 1:] == labels[:, :-1]).float() * lab_real[:, 1:] * lab_real[:, :-1]
+               ).sum(dim=1)
+    keep = lab_len + repeats <= frames
+    if valid is not None:
+        keep = keep & valid.bool()
+    total = torch.where(keep, per_seq, torch.zeros_like(per_seq)).sum()
+    return total / keep.sum().clamp_min(1).float()
 
 
 def ctc_greedy_decode(logits: torch.Tensor, blank_id: int, return_confidence: bool = False):

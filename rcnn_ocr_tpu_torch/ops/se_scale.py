@@ -5,8 +5,12 @@ tensor :func:`se_scale` launches the hand-written kernel
 ``csrc/se_scale.cu`` (:func:`route` says how it splits a shape); on a CPU
 tensor it runs :func:`se_scale_reference`,
 the plain PyTorch version of the same math (gate computed in fp32, then
-rounded to x's dtype before the multiply).  Forward only: the training
-slice adds the backward.
+rounded to x's dtype before the multiply).
+
+:func:`se_scale` is differentiable on both devices: a
+``torch.autograd.Function`` whose backward is :func:`se_scale_backward`, a
+copy of the hand-derived VJP ``se_pallas.py:_se_bwd`` (plain XLA there,
+plain PyTorch here).
 """
 
 from __future__ import annotations
@@ -38,10 +42,45 @@ def route(shape, squeeze: int, dtype: torch.dtype) -> dict:
                 slots=slots, smem=smem)
 
 
+def se_scale_backward(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                      dout: torch.Tensor):
+    """``(dx, dw1, dw2)`` of :func:`se_scale` at ``dout``: the gate and its
+    pre-activations recomputed in fp32, each gradient in its input's dtype."""
+    xf, df = x.float(), dout.float()
+    w1f, w2f = w1.float(), w2.float()
+    hw = x.shape[1] * x.shape[2]
+    m = xf.mean(dim=(1, 2))  # [B, C]
+    y_pre = m @ w1f
+    y = torch.relu(y_pre)
+    g = torch.sigmoid(y @ w2f)
+    dgate = (df * xf).sum(dim=(1, 2))  # [B, C]
+    dg_pre = dgate * g * (1.0 - g)
+    dy_pre = (dg_pre @ w2f.T) * (y_pre > 0.0)
+    dm = dy_pre @ w1f.T
+    dx = df * g[:, None, None, :] + dm[:, None, None, :] / hw
+    return dx.to(x.dtype), (m.T @ dy_pre).to(w1.dtype), (y.T @ dg_pre).to(w2.dtype)
+
+
+class _SEScale(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, w2):
+        ctx.save_for_backward(x, w1, w2)
+        if not kernels.use_kernel(x):
+            return se_scale_reference(x, w1, w2)
+        return _launch(x, w1, w2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return se_scale_backward(*ctx.saved_tensors, dout)
+
+
 def se_scale(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
-    """Squeeze-excite over NHWC ``x`` (fp32 or bf16); weights are used in fp32."""
-    if not kernels.use_kernel(x):
-        return se_scale_reference(x, w1, w2)
+    """Squeeze-excite over NHWC ``x`` (fp32 or bf16); weights are used in fp32.
+    Differentiable in ``x``, ``w1`` and ``w2``."""
+    return _SEScale.apply(x, w1, w2)
+
+
+def _launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     batch, h, w, c = x.shape
     s = w1.shape[1]
     if x.dtype not in _DTYPES:

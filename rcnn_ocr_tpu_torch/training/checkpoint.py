@@ -1,22 +1,28 @@
-"""Read the JAX package's msgpack checkpoints without flax or msgpack.
+"""Read and write the JAX package's msgpack checkpoints without flax or msgpack.
 
-Counterpart of the reading side of ``rcnn_ocr_tpu/training/checkpoint.py``
-(``load_checkpoint_blob``, ``load_variables``).  Those files are written by
-``flax.serialization.msgpack_serialize``: plain msgpack maps, arrays,
-strings, binaries, ints, floats, nil and booleans, plus flax's extension
-types 1 (an ndarray, itself msgpack ``(shape, dtype name, raw bytes)``) and 3
-(a numpy scalar in the same encoding), with arrays over 1 GiB split into
-``__msgpack_chunked_array__`` maps.  This module decodes exactly that, in
-pure Python and numpy.  bfloat16 arrays come back as float32 (numpy has no
-bfloat16).
+Counterpart of ``rcnn_ocr_tpu/training/checkpoint.py``: the reading side
+(``load_checkpoint_blob``, ``load_variables``) and ``save_weights``.  Those
+files are written by ``flax.serialization.msgpack_serialize``: plain msgpack
+maps, arrays, strings, binaries, ints, floats, nil and booleans, plus
+flax's extension types 1 (an ndarray, itself msgpack ``(shape, dtype name,
+raw bytes)``) and 3 (a numpy scalar in the same encoding), with arrays over
+1 GiB split into ``__msgpack_chunked_array__`` maps.  This module decodes
+exactly that, in pure Python and numpy (bfloat16 arrays come back as
+float32: numpy has no bfloat16), and :func:`msgpack_serialize` encodes the
+same types as flax does, byte for byte (maps with their keys sorted, as
+flax's pass through ``jax.tree_util`` leaves them; arrays over 1 GiB are
+refused, not chunked).
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Any, Dict, Tuple
 
 import numpy as np
+
+from rcnn_ocr_tpu_torch.interop.jax_params import to_jax_variables
 
 CHECKPOINT_FORMAT_VERSION = 1
 
@@ -149,3 +155,91 @@ def load_variables(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     if "params" not in blob:
         raise ValueError(f"{path} holds no model parameters")
     return {"params": blob["params"], "batch_stats": blob.get("batch_stats", {})}, blob
+
+
+def _header(small: int, fix_limit: int, sized: Tuple[int, int, int], n: int) -> bytes:
+    """A fix* byte for ``n < fix_limit`` (``small | n``), else the 8/16/32-bit
+    length form from ``sized`` (the 8-bit one may be 0: not offered)."""
+    if n < fix_limit:
+        return bytes([small | n])
+    for code, fmt, limit in zip(sized, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code and n <= limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack item of length {n} is too long")
+
+
+def _pack_int(v: int) -> bytes:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        return struct.pack(">b" if v < 0 else ">B", v)
+    if v >= 0:
+        for code, fmt, limit in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                                 (0xCE, ">I", 0xFFFFFFFF), (0xCF, ">Q", 2**64 - 1)):
+            if v <= limit:
+                return bytes([code]) + struct.pack(fmt, v)
+    else:
+        for code, fmt, limit in ((0xD0, ">b", 2**7), (0xD1, ">h", 2**15), (0xD2, ">i", 2**31),
+                                 (0xD3, ">q", 2**63)):
+            if v >= -limit:
+                return bytes([code]) + struct.pack(fmt, v)
+    raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _pack_ext(code: int, payload: bytes) -> bytes:
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    head = bytes([fixext[n]]) if n in fixext else _header(0, 0, (0xC7, 0xC8, 0xC9), n)
+    return head + struct.pack(">b", code) + payload
+
+
+def _pack_ndarray(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.nbytes > 2**30:
+        raise ValueError(f"cannot write an array of {arr.dtype} and {arr.nbytes} bytes")
+    return _pack((list(arr.shape), arr.dtype.name, arr.tobytes("C")))
+
+
+def _pack(v: Any) -> bytes:
+    if v is None:
+        return b"\xc0"
+    if v is True or v is False:
+        return b"\xc3" if v else b"\xc2"
+    if isinstance(v, np.ndarray):
+        return _pack_ext(_EXT_NDARRAY, _pack_ndarray(v))
+    if isinstance(v, np.generic):
+        return _pack_ext(_EXT_NPSCALAR, _pack_ndarray(np.asarray(v)))
+    if isinstance(v, int):
+        return _pack_int(v)
+    if isinstance(v, float):
+        return b"\xcb" + struct.pack(">d", v)
+    if isinstance(v, str):
+        raw = v.encode("utf-8")
+        return _header(0xA0, 32, (0xD9, 0xDA, 0xDB), len(raw)) + raw
+    if isinstance(v, bytes):
+        return _header(0, 0, (0xC4, 0xC5, 0xC6), len(v)) + v
+    if isinstance(v, (list, tuple)):
+        return _header(0x90, 16, (0, 0xDC, 0xDD), len(v)) + b"".join(_pack(x) for x in v)
+    if isinstance(v, dict):
+        items = sorted(v.items())
+        return _header(0x80, 16, (0, 0xDE, 0xDF), len(items)) + b"".join(
+            _pack(k) + _pack(x) for k, x in items)
+    raise TypeError(f"cannot write {type(v).__name__} to msgpack")
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """Encode a tree of dicts (string keys), lists, strings, bytes, numbers,
+    booleans, None and numpy arrays / scalars as
+    ``flax.serialization.msgpack_serialize`` does."""
+    return _pack(tree)
+
+
+def save_weights(path: str, state) -> None:
+    """Write a train state's model variables as the JAX package's bare
+    weights file ``{"format_version", "params", "batch_stats"}``: the EMA
+    parameters when the state keeps them (as JAX's ``_weights_blob`` does),
+    else the model's.  Written to ``path + ".tmp"`` and moved into place, so
+    an interrupted write never leaves a torn file."""
+    variables = to_jax_variables(state.model, state.ema_params)
+    blob = {"format_version": CHECKPOINT_FORMAT_VERSION, **variables}
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(msgpack_serialize(blob))
+    os.replace(tmp, path)

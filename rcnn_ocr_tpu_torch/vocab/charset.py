@@ -1,15 +1,19 @@
 """Charset loading and token decoding.
 
-Counterpart of ``rcnn_ocr_tpu/vocab/charset.py`` (the serving subset): a
-charset file holds one token per line, the line index is the id, empty
-lines are skipped (a space is a line holding one space).  Decoding stops at
-``<EOS>`` and skips ``<PAD>`` and ``<BLANK>``.
+Counterpart of ``rcnn_ocr_tpu/vocab/charset.py``: a charset file holds one
+token per line, the line index is the id, empty lines are skipped (a space
+is a line holding one space).  Encoding drops unknown characters (and
+``<BLANK>``); decoding stops at ``<EOS>`` and skips ``<PAD>`` and
+``<BLANK>``.  :func:`pack_attention_targets` and :func:`pack_ctc_targets`
+build the training targets.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 PAD_TOKEN = "<PAD>"
 SOS_TOKEN = "<SOS>"
@@ -75,8 +79,58 @@ class Charset:
         b = self.blank_id
         return self.pad_id if b is None else b
 
+    def encode(self, text: str) -> List[int]:
+        """Text -> ids, dropping unknown characters and BLANK."""
+        return _encode_ids(text, self.stoi, self.blank_id)
+
     def decode(self, ids: Sequence[int]) -> str:
         return decode_tokens(ids, list(self.itos), self.pad_id, self.eos_id, self.blank_id)
+
+
+def _encode_ids(text: str, stoi: Dict[str, int], blank: Optional[int]) -> List[int]:
+    ids = []
+    for ch in text:
+        idx = stoi.get(ch)
+        if idx is None or (blank is not None and idx == blank):
+            continue
+        ids.append(idx)
+    return ids
+
+
+def pack_attention_targets(texts: Sequence[str], stoi: Dict[str, int],
+                           max_len: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(text_in, target_y, lengths)`` int32 ``[B, max_len + 1]``, ``[B]``:
+    ``text_in`` = SOS, ids, PAD...; ``target_y`` = ids, EOS, PAD...;
+    ``lengths`` = ids + 1 (ids cut at ``max_len``)."""
+    pad, sos, eos = stoi[PAD_TOKEN], stoi[SOS_TOKEN], stoi[EOS_TOKEN]
+    blank = stoi.get(BLANK_TOKEN, None)
+    batch, steps = len(texts), max_len + 1
+    text_in = np.full((batch, steps), pad, dtype=np.int32)
+    text_in[:, 0] = sos
+    target_y = np.full((batch, steps), pad, dtype=np.int32)
+    lengths = np.zeros((batch,), dtype=np.int32)
+    for i, s in enumerate(texts):
+        ids = _encode_ids(s, stoi, blank)[:max_len]
+        n = len(ids)
+        text_in[i, 1 : 1 + n] = ids
+        target_y[i, :n] = ids
+        target_y[i, n] = eos
+        lengths[i] = n + 1
+    return text_in, target_y, lengths
+
+
+def pack_ctc_targets(texts: Sequence[str], charset: Charset,
+                     max_len: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``(labels int32, label_paddings float32)``, both ``[B, max_len]``: the
+    label ids without blanks, and 1.0 where padded (optax's layout)."""
+    labels = np.zeros((len(texts), max_len), dtype=np.int32)
+    paddings = np.ones((len(texts), max_len), dtype=np.float32)
+    blank = charset.ctc_blank_id
+    for i, s in enumerate(texts):
+        ids = [t for t in charset.encode(s) if t != blank][:max_len]
+        labels[i, : len(ids)] = ids
+        paddings[i, : len(ids)] = 0.0
+    return labels, paddings
 
 
 def decode_tokens(

@@ -171,3 +171,105 @@ def test_main_path_goes_through_the_kernels(cuda_device):
             with kernels.plain_only():
                 enc_plain = engine.model.encode(x)
             torch.testing.assert_close(enc, enc_plain, rtol=1e-4, atol=2e-4)
+
+
+def _grads(fn, inputs, dout):
+    ins = [t.detach().requires_grad_() for t in inputs]
+    return torch.autograd.grad(fn(*ins), ins, dout)
+
+
+@pytest.mark.parametrize("shape", [(128, 8, 32, 256), (128, 4, 16, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_se_scale_gradients_through_the_kernel_match_plain(cuda_device, shape, dtype):
+    """Train-step shapes (bs 128): the Function's output (the kernel's) and
+    gradients (hand VJP) vs autograd through the plain version in fp32;
+    bf16 results within one bf16 ulp."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    c = shape[-1]
+    x = torch.randn(shape, device=cuda_device, generator=g).to(dtype)
+    w1 = (torch.randn(c, c // 16, device=cuda_device, generator=g) / c ** 0.5).to(dtype)
+    w2 = (torch.randn(c // 16, c, device=cuda_device, generator=g) / 4).to(dtype)
+    dout = torch.randn(shape, device=cuda_device, generator=g).to(dtype)
+    rtol = 1e-5 if dtype == torch.float32 else 8e-3
+    before = kernels.SE_SCALE.launches
+    out = se_scale(x, w1, w2)
+    assert kernels.SE_SCALE.launches == before + 1
+    torch.testing.assert_close(out.float(), se_scale_reference(x, w1, w2).float(), rtol=rtol,
+                               atol=1e-5 if dtype == torch.float32 else 1e-6)
+    got = _grads(se_scale, (x, w1, w2), dout)
+    want = _grads(se_scale_reference, (x.float(), w1.float(), w2.float()), dout.float())
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b, rtol=rtol, atol=1e-5 * b.abs().max().item())
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_bilstm_scan_gradients_through_the_kernel_match_plain(cuda_device, w_dtype):
+    """Train-step shape (T=16, B=128, H=256): the Function's output (the
+    kernel's; the backward recomputes through the plain version and never
+    sees it) and gradients vs autograd through the plain version, at
+    rtol/atol 1e-5."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    t, b, h = 16, 128, 256
+    xs = torch.randn(t, 2, b, 4 * h, device=cuda_device, generator=g)
+    w_hh = (torch.randn(2, h, 4 * h, device=cuda_device, generator=g) / h ** 0.5).to(w_dtype)
+    dys = torch.randn(t, 2, b, h, device=cuda_device, generator=g)
+    before = kernels.BILSTM_SCAN.launches
+    torch.testing.assert_close(bilstm_scan(xs, w_hh, h), scan_reference(xs, w_hh, h),
+                               rtol=1e-5, atol=1e-5)
+    assert kernels.BILSTM_SCAN.launches == before + 1
+    got = _grads(lambda a, w: bilstm_scan(a, w, h), (xs, w_hh), dys)
+    want = _grads(lambda a, w: scan_reference(a, w, h), (xs, w_hh), dys)
+    assert got[1].dtype == w_dtype
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a.float(), b_.float(), rtol=1e-5,
+                                   atol=1e-5 * b_.abs().max().item())
+
+
+def test_train_step_through_the_kernels_matches_plain_only(cuda_device):
+    """A small fp32 model, dropout off: one make_train_step step (SGD at lr
+    0) through the kernels and under plain_only() from the same statistics
+    gives the same loss, gradients (every backbone weight has one) and
+    running statistics."""
+    from rcnn_ocr_tpu_torch.data.loader import collate_batch
+    from rcnn_ocr_tpu_torch.models.rcnn import RCNN, init_params
+    from rcnn_ocr_tpu_torch.training.optim import build_optimizer
+    from rcnn_ocr_tpu_torch.training.train_step import create_train_state, make_train_step
+    from rcnn_ocr_tpu_torch.vocab.charset import Charset
+
+    cs = Charset.from_tokens(["<PAD>", "<SOS>", "<EOS>", " "] + list("abcdefghij"))
+    model = RCNN(num_classes=cs.num_classes, hidden_size=64, width_mult=0.25,
+                 with_ctc_head=True, enc_dropout_p=0.0)
+    init_params(model, torch.Generator().manual_seed(0))
+    model.attn.dropout_p = 0.0
+    model.to(cuda_device)
+    rng = np.random.default_rng(0)
+    items = [(rng.uniform(-1, 1, size=(32, 128, 3)).astype(np.float32),
+              "".join(rng.choice(list("abcdefghij"), size=5))) for _ in range(8)]
+    batch = collate_batch(items, cs, 8, with_ctc=True)
+    sgd0 = build_optimizer("SGD", 0.0, momentum=0.0)
+    step = make_train_step(model, sgd0, 8, cs.pad_id, head="both", ctc_blank_id=cs.ctc_blank_id)
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+
+    def run():
+        with torch.no_grad():
+            for n, b in model.named_buffers():
+                b.copy_(stats0[n])
+        loss = float(step(create_train_state(model, sgd0), batch)["loss"])
+        return (loss, {n: p.grad.clone() for n, p in model.named_parameters()},
+                {n: b.clone() for n, b in model.named_buffers()})
+
+    kernels.reset_launch_counts()
+    loss_k, grads_k, stats_k = run()
+    assert kernels.launch_counts() == {"se_scale": 11, "bilstm_scan": 2}
+    with kernels.plain_only():
+        loss_p, grads_p, stats_p = run()
+    assert loss_k == pytest.approx(loss_p, rel=1e-5)
+    for n, gp in grads_p.items():
+        if n.startswith(("cnn.", "enc_rnn")):
+            assert grads_k[n].abs().max() > 0, n
+        torch.testing.assert_close(grads_k[n], gp, rtol=1e-3, atol=1e-5 * gp.abs().max().item(),
+                                   msg=n)
+    for n, sp in stats_p.items():
+        if sp.is_floating_point():
+            torch.testing.assert_close(stats_k[n], sp, rtol=1e-4, atol=1e-6, msg=n)

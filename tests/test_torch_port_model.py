@@ -170,8 +170,16 @@ def test_attention_decoder_blank_mask_matches_jax():
 
 
 def test_eval_only_flags_raise():
+    """int8 and the s2d stem are not ported yet; train mode is the ``train``
+    argument, as in JAX, so nn.Module's training flag changes nothing."""
     with pytest.raises(NotImplementedError, match="later slices"):
         SEResNet31(quantize=True)
+    with pytest.raises(NotImplementedError, match="later slices"):
+        SEResNet31(stem_s2d=True)
     tm = SEResNet31(width_mult=0.125)  # nn.Module starts in training mode
-    with pytest.raises(RuntimeError, match="eval mode"):
-        tm(torch.zeros(1, 32, 16, 3))
+    x = torch.randn(2, 32, 16, 3, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        assert torch.equal(tm(x), tm.eval()(x))
+        stats = tm.stem0.bn.running_mean.clone()
+        tm(x, train=True)
+    assert not torch.equal(tm.stem0.bn.running_mean, stats)
