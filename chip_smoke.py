@@ -48,6 +48,33 @@
    (c) Round trip: ``make_eval_step`` on the trained state,
    ``save_weights`` into build/chip_smoke/, and the file loaded by
    ``OCRInference`` on the card for ``predict`` and ``predict_ctc``.
+6. Training-loop phase: writes seeded line images (30 characters of
+   configs/charset.txt with fixed 12x8 glyph bitmaps, labels of 4-12, lines
+   32-48 high, 8-bit RGB PNGs whose rows cycle through all five filter
+   types) in the shipped layout into build/chip_smoke/data/, and runs
+   ``run_training`` on the card with configs/config.json, overriding only
+   the data paths, exp_dir, epochs, eval_every 1, val_size, num_workers 8,
+   head "both" and, for run 1, profile_steps (a torch.profiler window of 8
+   steps in epoch 1 gives the card's idle share).  Run 1 trains 3 epochs of
+   2 x 1,024 lines and is cut by SIGTERM 10 steps into epoch 4: losses must
+   be finite and fall (last epoch's mean train loss and last validation loss
+   below the first), all three slots and metrics_epoch.csv must exist, the
+   preempted slot must restore bit for bit (parameters, statistics, Adam
+   moments, learning rate).  Run 2 resumes from the experiment dir and
+   finishes epoch 4 with global_step counting on.  Every run must launch
+   11 se_scale and 2 bilstm_scan per train step and per validation batch.
+   A short run with device_augment must call device_train_augment once per
+   step.  Finally ``OCRInference`` loads last_weights.msgpack and reads set
+   B's validation PNGs by path: the batches it builds must equal, bit for
+   bit, the resize-padded batches given to make_eval_step, its model's
+   greedy and CTC logits on them the eval step's model's (rows must differ
+   from one another by far more than the tolerance), and ``predict`` and
+   ``predict_ctc`` must give make_eval_step's strings on >= 99% of rows
+   (bf16 both; the distinct strings are printed: a model this short of
+   training gives few).  Prints the loop's img/s, step ms, loader wait per
+   step, validation and checkpoint ms per epoch, PNG decode (with the
+   images' size) and host augment ms per image and the profiled idle share
+   beside the bare train step's img/s.
 
 Prints one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits non-zero
@@ -60,6 +87,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -82,6 +110,12 @@ COLD_BYTES = 100_000_000  # twice the H100's 50 MB L2
 # training phase: configs/config.json's shape and optimizer
 TRAIN_BATCH, TRAIN_MAX_LEN, TRAIN_STEPS, GRAD_BATCH = 128, 40, 30, 32
 TRAIN_LR, TRAIN_WD = 5e-4, 2e-5
+# training-loop phase: two sets of LOOP_TRAIN lines (16 steps per epoch at
+# quota 64 each), LOOP_VAL validation rows per set, LOOP_EPOCHS full epochs
+# and a fourth cut by SIGTERM; LOOP_SMALL rows per set for the short
+# device-augmentation run (LOOP_SMALL_TRAIN of set A's to train)
+LOOP_CHARS, LOOP_TRAIN, LOOP_VAL, LOOP_EPOCHS = 30, 1024, 256, 3
+LOOP_SMALL, LOOP_SMALL_TRAIN, LOOP_PROFILE_STEPS = 640, 512, 8
 
 TOL = {
     # kernel vs plain, same inputs; fp32: summation order only
@@ -104,6 +138,10 @@ TOL = {
     # alone (the control printed beside it).  A missing gradient is 1.0.
     "grad_rel_l2": 2e-2,
     "stats": dict(rtol=1e-4, atol=1e-6),
+    # OCRInference's model vs the eval step's on the same batch: the same
+    # weights from the same file, so only another convolution algorithm
+    # could move a logit
+    "served": dict(rtol=1e-3, atol=1e-3),
 }
 
 
@@ -691,6 +729,361 @@ def json_leaves(tree):
         yield tree
 
 
+# --- the training loop --------------------------------------------------------------
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """An 8-bit gray ``[H, W]`` or RGB ``[H, W, 3]`` PNG whose rows cycle
+    through the five filter types."""
+    import struct
+    import zlib
+
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    x = img.reshape(h, w * c).astype(np.int32)
+    left = np.pad(x, ((0, 0), (c, 0)))[:, :-c]
+    up = np.pad(x, ((1, 0), (0, 0)))[:-1]
+    upleft = np.pad(up, ((0, 0), (c, 0)))[:, :-c]
+    pred = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, _paeth(left, up, upleft)])
+    kind = np.arange(h) % 5
+    rows = np.concatenate([kind[:, None], (x - pred[kind, np.arange(h)]) & 255], axis=1)
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if c == 1 else 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(rows.astype(np.uint8).tobytes()))
+            + chunk(b"IEND", b""))
+
+
+def write_line_dataset(root: str, itos, seed: int = 0) -> dict:
+    """Seeded, learnable line images in the shipped layout (configs/config.json):
+    30 characters of the charset each get a fixed 12x8 glyph bitmap;
+    labels of 4-12 of them are pasted with jitter of a pixel or two around a
+    baseline onto lines 32-48 high (so that ResizeAndPad both shrinks and
+    grows them) and written as 8-bit RGB PNGs, gray ink on a light ground as
+    the JAX package's ``render_line`` gives.  Set A (handwritten) is split for
+    validation, set B (printed) has its own val CSV; ``*_small.csv`` are the
+    first rows of each, for a short run."""
+    import csv
+
+    rng = np.random.default_rng(seed)
+    chars = [t for t in itos if len(t) == 1 and t.isalnum()]
+    chars = [chars[i] for i in rng.choice(len(chars), size=LOOP_CHARS, replace=False)]
+    glyphs = {c: (rng.random((12, 8)) < 0.45) for c in chars}
+    paths = {}
+    for name, n in (("handwritten/train", LOOP_TRAIN + LOOP_VAL), ("printed/train", LOOP_TRAIN),
+                    ("printed/val", LOOP_VAL)):
+        d = os.path.join(root, name)
+        os.makedirs(d, exist_ok=True)
+        rows = []
+        for i in range(n):
+            label = "".join(rng.choice(chars, size=int(rng.integers(4, 13))))
+            h = int(rng.integers(32, 49))
+            x = int(rng.integers(2, 10))
+            base = int(rng.integers(2, h - 15))
+            img = np.full((h, x + 11 * len(label) + int(rng.integers(2, 40))),
+                          int(rng.integers(215, 256)), np.int16)
+            for c in label:
+                y = base + int(rng.integers(-1, 2))
+                img[y : y + 12, x : x + 8][glyphs[c]] = int(rng.integers(0, 90))
+                x += 8 + int(rng.integers(1, 5))
+            img = np.clip(img + rng.integers(-12, 13, img.shape), 0, 255).astype(np.uint8)
+            with open(os.path.join(d, f"{i:05d}.png"), "wb") as f:
+                f.write(png_bytes(np.repeat(img[:, :, None], 3, axis=2)))
+            rows.append((f"{i:05d}.png", label))
+        for csv_name, part in (("labels.csv", rows), ("labels_small.csv", rows[:LOOP_SMALL])):
+            with open(os.path.join(d, csv_name), "w", newline="", encoding="utf-8") as f:
+                csv.writer(f).writerows(part)
+        paths[name] = d
+    return paths
+
+
+def loop_config(paths: dict, exp_dir: str, **overrides) -> dict:
+    """configs/config.json with only the data paths, exp_dir, epochs,
+    eval_every, val_size, num_workers and head overridden (plus what a run
+    names in ``overrides``)."""
+    with open(os.path.join(REPO, "configs", "config.json"), encoding="utf-8") as f:
+        cfg = json.load(f)
+    cfg.update(
+        train_csvs=[os.path.join(paths["handwritten/train"], "labels.csv"),
+                    os.path.join(paths["printed/train"], "labels.csv")],
+        train_roots=[paths["handwritten/train"], paths["printed/train"]],
+        val_csvs=[None, os.path.join(paths["printed/val"], "labels.csv")],
+        val_roots=[None, paths["printed/val"]],
+        charset_path=os.path.join(REPO, "configs", "charset.txt"), exp_dir=exp_dir,
+        epochs=LOOP_EPOCHS + 1, eval_every=1, val_size=LOOP_VAL, num_workers=8, head="both")
+    cfg.update(overrides)
+    return cfg
+
+
+def loop_counts_check(kernels, result, what: str) -> dict:
+    """11 se_scale and 2 bilstm_scan launches per train step and per
+    validation batch of a run_training call."""
+    counts = kernels.launch_counts()
+    steps = sum(e["steps"] for e in result["epochs"])
+    val_batches = sum(e["val_batches"] for e in result["epochs"])
+    want = {"se_scale": 11 * (steps + val_batches), "bilstm_scan": 2 * (steps + val_batches)}
+    print(f"  {what}: {steps} train steps, {val_batches} validation batches, launches {counts}")
+    check(counts == want, f"{what} launched {counts}, expected {want}")
+    return dict(counts, steps=steps, val_batches=val_batches)
+
+
+def training_loop_phase(kernels, cs, train_img_s: float, power: str):
+    """run_training on the card with the shipped configuration; SIGTERM and
+    resume; a device-augmentation run; OCRInference vs make_eval_step."""
+    import signal
+    import threading
+
+    from rcnn_ocr_tpu_torch.data.image_io import imread
+    from rcnn_ocr_tpu_torch.data.loader import collate_batch
+    from rcnn_ocr_tpu_torch.data.transforms import ResizeAndPad, get_train_transform
+    from rcnn_ocr_tpu_torch.inference import OCRInference
+    from rcnn_ocr_tpu_torch.interop.jax_params import load_jax_variables, to_jax_variables
+    from rcnn_ocr_tpu_torch.models.rcnn import RCNN
+    from rcnn_ocr_tpu_torch.ops import augment
+    from rcnn_ocr_tpu_torch.ops.augment import device_normalize
+    from rcnn_ocr_tpu_torch.ops.ctc import ctc_greedy_collapse_np, ids_to_text
+    from rcnn_ocr_tpu_torch.postprocess import ctc_skip_ids
+    from rcnn_ocr_tpu_torch.training import checkpoint as ckpt
+    from rcnn_ocr_tpu_torch.training.config import Config
+    from rcnn_ocr_tpu_torch.training.optim import build_optimizer
+    from rcnn_ocr_tpu_torch.training.train import run_training
+    from rcnn_ocr_tpu_torch.training.train_step import create_train_state, make_eval_step
+    from rcnn_ocr_tpu_torch.vocab.charset import decode_tokens
+
+    base = os.path.join(REPO, "build", "chip_smoke")
+    for sub in ("data", "exp_loop", "exp_devaug"):
+        shutil.rmtree(os.path.join(base, sub), ignore_errors=True)
+    t0 = time.perf_counter()
+    paths = write_line_dataset(os.path.join(base, "data"), cs.itos)
+    write_s = time.perf_counter() - t0
+    out = {"dataset_write_s": write_s}
+    print(f"  wrote {2 * LOOP_TRAIN + 2 * LOOP_VAL} line PNGs in {write_s:.1f} s")
+
+    # host costs per image, one thread: PNG decode, then the shipped augmentation
+    files = [os.path.join(paths["printed/train"], f"{i:05d}.png")
+             for i in range(min(256, LOOP_TRAIN))]
+    t0 = time.perf_counter()
+    decoded = [imread(p) for p in files]
+    out["png_decode_ms_per_image"] = (time.perf_counter() - t0) * 1e3 / len(files)
+    hw = np.array([img.shape[:2] for img in decoded])
+    out["png_decoded"] = (f"8-bit RGB, mean {hw[:, 0].mean():.1f} x {hw[:, 1].mean():.1f} px "
+                          f"(h {hw[:, 0].min()}-{hw[:, 0].max()}, w {hw[:, 1].min()}-"
+                          f"{hw[:, 1].max()}), rows filtered 0-4 in turn")
+    shipped = loop_config(paths, "")
+    transform = get_train_transform(shipped, shipped["img_h"], shipped["img_w"])
+    t0 = time.perf_counter()
+    for i, img in enumerate(decoded):
+        transform(img, np.random.default_rng(i))
+    out["host_augment_ms_per_image"] = (time.perf_counter() - t0) * 1e3 / len(decoded)
+
+    # run 1: epochs 1-3, then SIGTERM 10 steps into epoch 4
+    exp_dir = os.path.join(base, "exp_loop")
+    steps_per_epoch = LOOP_TRAIN // 64  # quota 64 per set at bs 128
+    val_per_epoch = 2 * -(-LOOP_VAL // TRAIN_BATCH)
+    fire_at = 11 * (LOOP_EPOCHS * (steps_per_epoch + val_per_epoch) + min(10, steps_per_epoch - 1))
+    fired = threading.Event()
+
+    def send_sigterm():
+        while not fired.is_set():
+            if kernels.SE_SCALE.launches >= fire_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+                fired.set()
+            time.sleep(0.002)
+
+    killer = threading.Thread(target=send_sigterm, daemon=True)
+    kernels.reset_launch_counts()
+    killer.start()
+    t0 = time.perf_counter()
+    first = run_training(Config(loop_config(paths, exp_dir, profile_steps=LOOP_PROFILE_STEPS)))
+    run1_s = time.perf_counter() - t0
+    fired.set()
+    killer.join(timeout=5)
+    out["run1"] = loop_counts_check(kernels, first, "run 1 (epochs 1-3, SIGTERM in epoch 4)")
+    check(first.get("preempted") is True, "run_training did not return preempted on SIGTERM")
+    epochs = first["epochs"]
+    check(len(epochs) == LOOP_EPOCHS + 1, f"run 1 ran {len(epochs)} epochs")
+    losses = [e["train_loss"] for e in epochs[:LOOP_EPOCHS]]
+    val_losses = [e["val_loss"] for e in epochs[:LOOP_EPOCHS]]
+    print(f"  train loss per epoch {losses}, val loss {val_losses}, "
+          f"val acc {[e['val_acc'] for e in epochs[:LOOP_EPOCHS]]}")
+    check(all(np.isfinite(losses + val_losses)), "a loss is not finite")
+    check(losses[-1] < losses[0], "the mean train loss of the last epoch is not below the first's")
+    check(val_losses[-1] < val_losses[0], "the last validation loss is not below the first")
+    for slot in ("last", "best_loss", "best_acc"):
+        for suffix in (ckpt.CKPT_SUFFIX, ckpt.WEIGHTS_SUFFIX):
+            check(os.path.exists(os.path.join(exp_dir, slot + suffix)), f"no {slot}{suffix}")
+    check(os.path.exists(os.path.join(exp_dir, "metrics_epoch.csv")), "no metrics_epoch.csv")
+    blob = ckpt.load_checkpoint_blob(os.path.join(exp_dir, "last_ckpt.msgpack"))
+    preempted_steps = epochs[-1]["steps"]
+    check(blob["epoch"] == LOOP_EPOCHS
+          and blob["global_step"] == LOOP_EPOCHS * steps_per_epoch + preempted_steps,
+          f"the preempted slot holds epoch {blob['epoch']}, step {blob['global_step']}")
+
+    # the restore is bit-equal: parameters, statistics, Adam moments, lr
+    model = RCNN(num_classes=cs.num_classes, hidden_size=HIDDEN, sos_id=cs.sos_id,
+                 eos_id=cs.eos_id, pad_id=cs.pad_id, blank_id=cs.blank_id, with_ctc_head=True,
+                 width_mult=WIDTH, dtype=torch.bfloat16)
+    tx = build_optimizer("Adam", TRAIN_LR, weight_decay=TRAIN_WD)
+    state = ckpt.restore_train_state(blob, create_train_state(model, tx))
+    restored = to_jax_variables(model)
+    for got, want, what in ((restored, {"params": blob["params"],
+                                         "batch_stats": blob["batch_stats"]}, "variables"),
+                            (ckpt.optimizer_state_tree(state), blob["opt_state"], "Adam state")):
+        got, want = list(json_leaves(got)), list(json_leaves(want))
+        check(len(got) == len(want) and all(np.array_equal(a, b) for a, b in zip(got, want)),
+              f"the restored {what} differ from the saved slot")
+    check(np.float32(state.optimizer.param_groups[0]["lr"])
+          == blob["opt_state"]["hyperparams"]["learning_rate"], "the restored lr differs")
+    del model, state
+
+    # run 2: resume, finish epoch 4
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    second = run_training(Config(dict(loop_config(paths, exp_dir, profile_steps=0),
+                                      resume_path=exp_dir)))
+    run2_s = time.perf_counter() - t0
+    out["run2"] = loop_counts_check(kernels, second, "run 2 (resumed, epoch 4)")
+    check(second["start_epoch"] == LOOP_EPOCHS + 1, f"resumed at epoch {second['start_epoch']}")
+    check(second["global_step"] == blob["global_step"] + steps_per_epoch,
+          f"global_step {second['global_step']} after the resume")
+    check(second["epochs"][0]["train_loss"] < losses[0],
+          "the resumed epoch trains from scratch, not from the slot")
+    loop_launches = {k: out["run1"][k] + out["run2"][k] for k in ("se_scale", "bilstm_scan")}
+
+    # a short run with device augmentation: the step augments on the card
+    calls = {"n": 0}
+    orig = augment.device_train_augment
+
+    def counted(*args, **kwargs):
+        calls["n"] += 1
+        return orig(*args, **kwargs)
+
+    augment.device_train_augment = counted
+    kernels.reset_launch_counts()
+    try:
+        small = dict(loop_config(paths, os.path.join(base, "exp_devaug"), epochs=1,
+                                 device_augment=True, val_size=LOOP_SMALL - LOOP_SMALL_TRAIN))
+        small["train_csvs"] = [c.replace("labels.csv", "labels_small.csv")
+                               for c in small["train_csvs"]]
+        devaug = run_training(Config(small))
+    finally:
+        augment.device_train_augment = orig
+    out["device_augment"] = loop_counts_check(kernels, devaug, "device_augment run")
+    check(calls["n"] == out["device_augment"]["steps"] > 0,
+          f"device_train_augment ran {calls['n']} times")
+    check(np.isfinite(devaug["epochs"][0]["train_loss"]), "device_augment loss not finite")
+
+    # OCRInference on the last weights (paths in, its own read, resize and
+    # normalize) vs make_eval_step's decodes of the same images, both heads
+    weights = os.path.join(exp_dir, "last_weights.msgpack")
+    charset_path = os.path.join(REPO, "configs", "charset.txt")
+    engine = OCRInference(weights, charset_path=charset_path, device="cuda", img_h=IMG_H,
+                          img_w=IMG_W, dtype=torch.bfloat16)
+    val_dir = paths["printed/val"]
+    import csv
+
+    with open(os.path.join(val_dir, "labels.csv"), encoding="utf-8") as f:
+        rows = list(csv.reader(f))
+    val_paths = [os.path.join(val_dir, r[0]) for r in rows]
+    served = {"attention": engine.predict(val_paths, max_length=TRAIN_MAX_LEN,
+                                          batch_size=TRAIN_BATCH),
+              "CTC": engine.predict_ctc(val_paths, batch_size=TRAIN_BATCH)}
+    model = RCNN(num_classes=cs.num_classes, hidden_size=HIDDEN, sos_id=cs.sos_id,
+                 eos_id=cs.eos_id, pad_id=cs.pad_id, blank_id=cs.blank_id, with_ctc_head=True,
+                 width_mult=WIDTH, dtype=torch.bfloat16)
+    variables, _ = ckpt.load_variables(weights)
+    load_jax_variables(model, variables)
+    state = create_train_state(model, tx)
+    evaluate = make_eval_step(model, TRAIN_MAX_LEN, cs.pad_id, head="both",
+                              ctc_blank_id=cs.ctc_blank_id)
+    resize = ResizeAndPad(IMG_H, IMG_W)
+    itos = list(cs.itos)
+    skip = ctc_skip_ids(cs.pad_id, cs.sos_id, cs.eos_id, cs.ctc_blank_id)
+    looped = {"attention": [], "CTC": []}
+    # predict's own batches from the paths (its read, resize and normalize)
+    served_batches = list(engine._batches(val_paths, TRAIN_BATCH))
+    logit_diff = row_spread = 0.0
+    for s, (chunk, n_real, x) in zip(range(0, len(rows), TRAIN_BATCH), served_batches):
+        part = rows[s : s + TRAIN_BATCH]
+        items = [(resize(imread(os.path.join(val_dir, r[0]))), r[1]) for r in part]
+        batch = collate_batch(items, cs, TRAIN_MAX_LEN, batch_size=TRAIN_BATCH, with_ctc=True)
+        check(chunk == list(range(s, s + len(part))) and n_real == len(part)
+              and torch.equal(x, device_normalize(torch.from_numpy(batch["image"]).cuda())),
+              f"OCRInference's batch of rows {s}-{s + len(part) - 1} is not the eval step's")
+        with torch.inference_mode():
+            served_logits = engine.model.forward_both(x, batch_max_length=TRAIN_MAX_LEN)
+            eval_logits = model.eval_outputs(x, batch_max_length=TRAIN_MAX_LEN, with_ctc=True)
+        for a, (name, b) in zip(served_logits, (("greedy", eval_logits["greedy_logits"]),
+                                               ("CTC", eval_logits["ctc_logits"]))):
+            a, b = a[: len(part)], b[: len(part)].float()
+            logit_diff = max(logit_diff, held(a, b, what=f"served {name} logits, rows {s}+",
+                                              **TOL["served"]))
+            row_spread = max(row_spread, float((b - b[:1]).abs().max()))
+        pred = evaluate(state, {k: v for k, v in batch.items() if isinstance(v, np.ndarray)})
+        for row in pred["pred_ids"].cpu().numpy()[: len(part)]:
+            looped["attention"].append(decode_tokens(row, itos, cs.pad_id, cs.eos_id,
+                                                     cs.blank_id))
+        frames = pred["ctc_frame_ids"].cpu().numpy()[: len(part)]
+        looped["CTC"] += ids_to_text(ctc_greedy_collapse_np(frames, cs.ctc_blank_id), itos,
+                                     skip_ids=skip)
+    print(f"  OCRInference's batches equal the eval step's bit for bit; logits of its model "
+          f"vs the eval step's: max abs diff {logit_diff:.3g}, while rows differ from the "
+          f"first row by up to {row_spread:.3g}")
+    # the logit comparison must tell rows apart, or it holds nothing per image
+    check(row_spread > 10 * TOL["served"]["atol"], f"logits barely depend on the image "
+          f"({row_spread:.3g})")
+    consistency = {"logit_max_abs_diff": logit_diff, "logit_row_spread": row_spread}
+    for head, texts in served.items():
+        agree = sum(a == b for a, b in zip(texts, looped[head]))
+        distinct = len(set(texts))
+        correct = sum(t == r[1] for t, r in zip(texts, rows))
+        consistency[head] = dict(agree=agree, distinct=distinct, exactly_right=correct,
+                                 examples=list(zip(texts[:4], [r[1] for r in rows[:4]])))
+        print(f"  OCRInference {head} vs make_eval_step on set B's {len(rows)} validation "
+              f"images (bf16): {agree} equal, {distinct} distinct strings, {correct} exactly "
+              f"right; e.g. {consistency[head]['examples']}")
+        check(agree >= 0.99 * len(rows),
+              f"{head}: predict and make_eval_step agree on {agree}/{len(rows)}")
+
+    # where the loop's time goes (epochs 2-3: epoch 1 carries the profile window)
+    steady = epochs[1:LOOP_EPOCHS]
+    steps = sum(e["steps"] for e in steady)
+    timing = {
+        "loop_img_s": sum(e["images"] for e in steady) / sum(e["train_s"] for e in steady),
+        "loop_step_ms": sum(e["train_s"] for e in steady) * 1e3 / steps,
+        "loader_wait_ms_per_step": sum(e["loader_wait_s"] for e in steady) * 1e3 / steps,
+        "validation_ms_per_epoch": float(np.mean([e["val_s"] * 1e3 for e in steady])),
+        "png_decode_ms_per_image": out["png_decode_ms_per_image"],
+        "png_decoded": out["png_decoded"],
+        "host_augment_ms_per_image": out["host_augment_ms_per_image"],
+        "bare_train_step_img_s": train_img_s,
+    }
+    prof = first.get("profile") or {}
+    timing["device_idle_share_profiled"] = prof.get("device_idle_share")
+    timing["profiled_steps"] = prof.get("steps")
+    timing["profiled_window_s"] = prof.get("wall_s")
+    timing["profiler_processing_s"] = prof.get("processing_s")
+    timing["checkpoint_s_per_eval_epoch"] = float(np.mean([e["checkpoint_s"] for e in steady]))
+    writer = first.get("checkpoint_writer") or {}
+    timing["checkpoint_writer_mb_per_s"] = (writer["bytes"] / writer["write_s"] / 1e6
+                                            if writer.get("write_s") else None)
+    print(f"  loop on {power}: " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in timing.items()))
+    out.update(timing=timing, run1_s=run1_s, run2_s=run2_s, consistency=consistency,
+               rows=len(rows), train_losses=losses, val_losses=val_losses,
+               epochs=first["epochs"] + second["epochs"], launches=loop_launches,
+               resumed_global_step=second["global_step"], preempted_slot_step=blob["global_step"])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json-out", help="also write every measurement to this JSON file")
@@ -723,14 +1116,18 @@ def main() -> int:
     from rcnn_ocr_tpu_torch.vocab.charset import Charset
 
     charset_path = os.path.join(REPO, "configs", "charset.txt")
-    training = training_phase(kernels, Charset.from_file(charset_path), charset_path, power)
+    cs = Charset.from_file(charset_path)
+    training = training_phase(kernels, cs, charset_path, power)
+    print("training-loop phase")
+    loop = training_loop_phase(kernels, cs, training["train"]["img_s"], power)
     backward = {"se_scale": "autograd: plain torch (the hand VJP of se_pallas.py:_se_bwd)",
                 "bilstm_scan": "autograd: plain torch (recompute through scan_reference)"}
     train = training["train"]
     for row in rows:
         name = row["name"]
         by_path = {"inference": path["launch_counts"][name],
-                   "train": train["launch_counts"][name]}
+                   "train": train["launch_counts"][name],
+                   "train_loop": loop["launches"][name]}
         row.update(launches=by_path["inference"], launches_by_path=by_path,
                    max_err=row["max_abs_err"], backward_route=backward[name],
                    launches_per_train_step=train["launch_counts"][name] // TRAIN_STEPS,
@@ -739,7 +1136,7 @@ def main() -> int:
         for p, n in by_path.items():
             check(n > 0, f"{name} never launched on the {p} path")
     result = {"card": power, "kernels": rows, "main_path": path, "training": training,
-              "seconds": time.perf_counter() - t_start}
+              "training_loop": loop, "seconds": time.perf_counter() - t_start}
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)
         with open(args.json_out, "w") as f:

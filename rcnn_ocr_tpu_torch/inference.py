@@ -7,9 +7,10 @@ to a static size, normalized on the device by lookup and decoded there;
 token rows come back to the host and become strings.
 
 The engine runs on the CUDA card unless the caller passes ``device="cpu"``;
-with no card and no explicit CPU it raises.  Beam search, LM fusion, image
-files and PIL inputs, ``"auto:K"`` width buckets, int8, long lines and
-multi-card serving arrive in later slices of the port.
+with no card and no explicit CPU it raises.  Inputs are arrays or paths to
+PNG/BMP files.  Beam search, LM fusion, JPEG files and PIL inputs,
+``"auto:K"`` width buckets, int8, long lines and multi-card serving arrive
+in later slices of the port.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from rcnn_ocr_tpu_torch.data.loader import bucket_for_width, scaled_width
 from rcnn_ocr_tpu_torch.data.transforms import ResizeAndPad, load_rgb_uint8
 from rcnn_ocr_tpu_torch.interop.jax_params import load_jax_variables
 from rcnn_ocr_tpu_torch.models.rcnn import RCNN
@@ -67,19 +69,6 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
-
-
-def scaled_width(h: int, w: int, img_h: int) -> int:
-    """Width of an (h, w) image after height-normalizing to ``img_h``."""
-    return max(1, int(round(w * (img_h / max(h, 1)))))
-
-
-def bucket_for_width(width: int, buckets: Sequence[int]) -> int:
-    """Smallest bucket >= width (the largest bucket when none fits)."""
-    for b in sorted(buckets):
-        if width <= b:
-            return int(b)
-    return int(max(buckets))
 
 
 class OCRInference:

@@ -14,6 +14,8 @@ one tensor of the module:
 
 :func:`load_jax_variables` is strict: a missing, unexpected or mis-shaped key
 raises, naming the key.  :func:`to_jax_variables` is its exact inverse.
+:func:`params_by_name` maps any tree shaped like ``params`` (an optimizer's
+moments, an EMA) to the port's parameter names, for full checkpoints.
 """
 
 from __future__ import annotations
@@ -85,6 +87,28 @@ def load_jax_variables(model: nn.Module, variables: Dict[str, Any]) -> nn.Module
                                  f"does not fit the model's {tuple(tensor.shape)}")
             tensor.copy_(torch.from_numpy(np.array(arr)))
     return model
+
+
+def params_by_name(model: nn.Module, params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX ``params``-shaped tree (weights, or optimizer moments, or an
+    EMA) -> float32 arrays in the port's layout, by parameter name; strict
+    like :func:`load_jax_variables`."""
+    flat = _flatten(params, ("params",))
+    names = {id(p): n for n, p in model.named_parameters()}
+    leaves = [leaf for leaf in _leaves(model) if leaf[0][0] == "params"]
+    wanted = {path for path, *_ in leaves}
+    if wanted != set(flat):
+        raise KeyError(f"tree does not fit the model's parameters: missing "
+                       f"{sorted('/'.join(p) for p in wanted - set(flat))}, unexpected "
+                       f"{sorted('/'.join(p) for p in set(flat) - wanted)}")
+    out = {}
+    for path, tensor, to_port, _ in leaves:
+        arr = np.array(to_port(np.asarray(flat[path], dtype=np.float32)))
+        if tuple(arr.shape) != tuple(tensor.shape):
+            raise ValueError(f"{'/'.join(path)}: shape {tuple(arr.shape)} does not fit the "
+                             f"model's {tuple(tensor.shape)}")
+        out[names[id(tensor)]] = arr
+    return out
 
 
 def to_jax_variables(model: nn.Module, params: Optional[Dict[str, torch.Tensor]] = None

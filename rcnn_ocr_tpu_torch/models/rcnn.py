@@ -117,6 +117,35 @@ class RCNN(nn.Module):
 
 
 @torch.no_grad()
+def init_train_params(model: nn.Module, generator: torch.Generator) -> None:
+    """Training's starting weights, drawn as the JAX model's flax initializers
+    draw them (the distributions, not the bits): every weight LeCun-normal,
+    truncated at two standard deviations with flax's fan-in (the product of
+    all but the output axis), biases zero, batch norm at identity (scale 1,
+    shift 0, running mean 0, running variance 1).  Draws on the CPU."""
+
+    def lecun(p: torch.Tensor, fan_in: int) -> None:
+        std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978  # unit variance after truncation
+        p.copy_(nn.init.trunc_normal_(torch.empty(p.shape), 0.0, std, -2 * std, 2 * std,
+                                      generator=generator))
+
+    for mod in model.modules():
+        if isinstance(mod, nn.Conv2d):
+            lecun(mod.weight, mod.weight[0].numel())
+        elif isinstance(mod, nn.Linear):
+            lecun(mod.weight, mod.in_features)
+            mod.bias.zero_()
+        elif isinstance(mod, nn.BatchNorm2d):
+            mod.reset_parameters()
+        else:
+            for name, p in mod.named_parameters(recurse=False):
+                if p.dim() < 2 or name.startswith("b"):
+                    p.zero_()
+                else:
+                    lecun(p, p.numel() // p.shape[-1])
+
+
+@torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights: LeCun-normal kernels, zero biases, and batch
     norm scales, shifts and running statistics drawn away from identity so

@@ -1,14 +1,15 @@
 """CTC loss and greedy decoding on the device, and ids -> text on the host.
 
 Counterpart of ``rcnn_ocr_tpu/ops/ctc.py:ctc_loss``,
-``ctc_greedy_decode_jnp`` and ``ids_to_text``.  The beam searches arrive in
-a later slice.
+``ctc_greedy_decode_jnp``, ``ctc_greedy_collapse_np`` and ``ids_to_text``.
+The beam searches arrive in a later slice.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -81,3 +82,18 @@ def ids_to_text(
     return [
         "".join(itos[int(t)] for t in row if int(t) not in skip) for row in label_rows
     ]
+
+
+def ctc_greedy_collapse_np(pred_ids: np.ndarray, blank_id: int) -> List[List[int]]:
+    """Per-frame argmax rows ``[B, T]`` -> label ids: repeats merged, then
+    blanks dropped (``rcnn_ocr_tpu/ops/ctc.py:ctc_greedy_collapse_np``)."""
+    out: List[List[int]] = []
+    for row in np.asarray(pred_ids):
+        if row.size == 0:
+            out.append([])
+            continue
+        keep = np.ones(row.size, dtype=bool)
+        keep[1:] = row[1:] != row[:-1]
+        collapsed = row[keep]
+        out.append(collapsed[collapsed != blank_id].tolist())
+    return out

@@ -1,28 +1,54 @@
 """Read and write the JAX package's msgpack checkpoints without flax or msgpack.
 
-Counterpart of ``rcnn_ocr_tpu/training/checkpoint.py``: the reading side
-(``load_checkpoint_blob``, ``load_variables``) and ``save_weights``.  Those
-files are written by ``flax.serialization.msgpack_serialize``: plain msgpack
-maps, arrays, strings, binaries, ints, floats, nil and booleans, plus
-flax's extension types 1 (an ndarray, itself msgpack ``(shape, dtype name,
-raw bytes)``) and 3 (a numpy scalar in the same encoding), with arrays over
-1 GiB split into ``__msgpack_chunked_array__`` maps.  This module decodes
-exactly that, in pure Python and numpy (bfloat16 arrays come back as
+Counterpart of ``rcnn_ocr_tpu/training/checkpoint.py``: ``load_checkpoint_blob``
+(with its format-version refusal), ``load_variables``, ``save_weights``,
+``save_checkpoint``, ``restore_train_state`` and ``AsyncCheckpointer``.
+Those files are written by ``flax.serialization.msgpack_serialize``: plain
+msgpack maps, arrays, strings, binaries, ints, floats, nil and booleans,
+plus flax's extension types 1 (an ndarray, itself msgpack ``(shape, dtype
+name, raw bytes)``) and 3 (a numpy scalar in the same encoding), with arrays
+over 1 GiB split into ``__msgpack_chunked_array__`` maps.  This module
+decodes exactly that, in pure Python and numpy (bfloat16 arrays come back as
 float32: numpy has no bfloat16), and :func:`msgpack_serialize` encodes the
 same types as flax does, byte for byte (maps with their keys sorted, as
 flax's pass through ``jax.tree_util`` leaves them; arrays over 1 GiB are
 refused, not chunked).
+
+A full checkpoint has JAX's layout key for key: ``format_version``,
+``epoch``, ``global_step``, ``params``, ``batch_stats``, ``opt_state``,
+``scheduler_state``, ``best_val_loss``, ``best_val_acc``, ``itos``,
+``stoi``, ``config``, ``log_dir`` and, for an EMA run, ``ema_params``.
+``opt_state`` is the ``flax.serialization.to_state_dict`` form of the optax
+tree JAX's ``build_optimizer`` makes: ``inject_hyperparams`` (``count``,
+``hyperparams.learning_rate``, an empty ``hyperparams_states``) over the
+chain of an optional ``clip_by_global_norm``, then Adam's
+``add_decayed_weights`` (with weight decay), ``scale_by_adam`` (``count``,
+``mu``, ``nu``) and ``scale``; AdamW's ``adamw`` chain (``scale_by_adam``,
+decay, scale); SGD's decay, ``trace`` (``trace``, with momentum) and
+``scale``; stateless links are empty maps under their chain index.  The
+moments map to the torch optimizer's ``exp_avg`` / ``exp_avg_sq`` /
+``step`` (SGD: ``momentum_buffer``) through the parameter names of
+:mod:`rcnn_ocr_tpu_torch.interop.jax_params`, so JAX resumes a checkpoint
+the port wrote and the port resumes one JAX wrote.
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import struct
-from typing import Any, Dict, Tuple
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-from rcnn_ocr_tpu_torch.interop.jax_params import to_jax_variables
+from rcnn_ocr_tpu_torch.interop.jax_params import (
+    load_jax_variables,
+    params_by_name,
+    to_jax_variables,
+)
 
 CHECKPOINT_FORMAT_VERSION = 1
 
@@ -184,62 +210,287 @@ def _pack_int(v: int) -> bytes:
     raise ValueError(f"integer {v} does not fit msgpack")
 
 
-def _pack_ext(code: int, payload: bytes) -> bytes:
-    n = len(payload)
+def _ext_head(code: int, n: int) -> bytes:
     fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
     head = bytes([fixext[n]]) if n in fixext else _header(0, 0, (0xC7, 0xC8, 0xC9), n)
-    return head + struct.pack(">b", code) + payload
+    return head + struct.pack(">b", code)
 
 
-def _pack_ndarray(arr: np.ndarray) -> bytes:
+def _pack_ndarray(code: int, arr: np.ndarray, out: List) -> None:
+    """An ndarray (or numpy scalar) as flax's extension: ``(shape, dtype
+    name, raw bytes)`` inside an ext of type ``code``; the raw bytes go in
+    as a view, not a copy."""
     if arr.dtype.hasobject or arr.nbytes > 2**30:
         raise ValueError(f"cannot write an array of {arr.dtype} and {arr.nbytes} bytes")
-    return _pack((list(arr.shape), arr.dtype.name, arr.tobytes("C")))
+    meta: List = []
+    _pack_into([list(arr.shape), arr.dtype.name], meta)
+    raw = memoryview(np.ascontiguousarray(arr)).cast("B")
+    inner = [b"\x93", *meta[1:], _header(0, 0, (0xC4, 0xC5, 0xC6), raw.nbytes), raw]
+    out.append(_ext_head(code, sum(len(c) for c in inner)))
+    out.extend(inner)
 
 
-def _pack(v: Any) -> bytes:
+def _pack_into(v: Any, out: List) -> None:
+    """Append the msgpack encoding of ``v`` to ``out`` as chunks (a tree of
+    arrays is encoded without copying it level by level)."""
     if v is None:
-        return b"\xc0"
-    if v is True or v is False:
-        return b"\xc3" if v else b"\xc2"
-    if isinstance(v, np.ndarray):
-        return _pack_ext(_EXT_NDARRAY, _pack_ndarray(v))
-    if isinstance(v, np.generic):
-        return _pack_ext(_EXT_NPSCALAR, _pack_ndarray(np.asarray(v)))
-    if isinstance(v, int):
-        return _pack_int(v)
-    if isinstance(v, float):
-        return b"\xcb" + struct.pack(">d", v)
-    if isinstance(v, str):
+        out.append(b"\xc0")
+    elif v is True or v is False:
+        out.append(b"\xc3" if v else b"\xc2")
+    elif isinstance(v, np.ndarray):
+        _pack_ndarray(_EXT_NDARRAY, v, out)
+    elif isinstance(v, np.generic):
+        _pack_ndarray(_EXT_NPSCALAR, np.asarray(v), out)
+    elif isinstance(v, int):
+        out.append(_pack_int(v))
+    elif isinstance(v, float):
+        out.append(b"\xcb" + struct.pack(">d", v))
+    elif isinstance(v, str):
         raw = v.encode("utf-8")
-        return _header(0xA0, 32, (0xD9, 0xDA, 0xDB), len(raw)) + raw
-    if isinstance(v, bytes):
-        return _header(0, 0, (0xC4, 0xC5, 0xC6), len(v)) + v
-    if isinstance(v, (list, tuple)):
-        return _header(0x90, 16, (0, 0xDC, 0xDD), len(v)) + b"".join(_pack(x) for x in v)
-    if isinstance(v, dict):
+        out.append(_header(0xA0, 32, (0xD9, 0xDA, 0xDB), len(raw)) + raw)
+    elif isinstance(v, bytes):
+        out.append(_header(0, 0, (0xC4, 0xC5, 0xC6), len(v)) + v)
+    elif isinstance(v, (list, tuple)):
+        out.append(_header(0x90, 16, (0, 0xDC, 0xDD), len(v)))
+        for x in v:
+            _pack_into(x, out)
+    elif isinstance(v, dict):
         items = sorted(v.items())
-        return _header(0x80, 16, (0, 0xDE, 0xDF), len(items)) + b"".join(
-            _pack(k) + _pack(x) for k, x in items)
-    raise TypeError(f"cannot write {type(v).__name__} to msgpack")
+        out.append(_header(0x80, 16, (0, 0xDE, 0xDF), len(items)))
+        for k, x in items:
+            _pack_into(k, out)
+            _pack_into(x, out)
+    else:
+        raise TypeError(f"cannot write {type(v).__name__} to msgpack")
+
+
+def _chunks(tree: Any) -> List:
+    out: List = []
+    _pack_into(tree, out)
+    return out
 
 
 def msgpack_serialize(tree: Any) -> bytes:
     """Encode a tree of dicts (string keys), lists, strings, bytes, numbers,
     booleans, None and numpy arrays / scalars as
     ``flax.serialization.msgpack_serialize`` does."""
-    return _pack(tree)
+    return b"".join(_chunks(tree))
+
+
+CKPT_SUFFIX = "_ckpt.msgpack"
+WEIGHTS_SUFFIX = "_weights.msgpack"
+
+
+def _atomic_write(path: str, tree: Any) -> int:
+    """Encode ``tree`` into ``path + ".tmp"`` and move it into place: an
+    interrupted write never leaves a torn slot.  Returns the bytes written."""
+    tmp = path + ".tmp"
+    chunks = _chunks(tree)
+    with open(tmp, "wb") as f:
+        f.writelines(chunks)
+        size = f.tell()
+    os.replace(tmp, path)
+    return size
+
+
+def _weights_blob(state) -> Dict[str, Any]:
+    """The model variables an EMA run deploys (its EMA parameters, as JAX's
+    ``_weights_blob``), else the model's own."""
+    return {"format_version": CHECKPOINT_FORMAT_VERSION,
+            **to_jax_variables(state.model, state.ema_params)}
 
 
 def save_weights(path: str, state) -> None:
-    """Write a train state's model variables as the JAX package's bare
-    weights file ``{"format_version", "params", "batch_stats"}``: the EMA
-    parameters when the state keeps them (as JAX's ``_weights_blob`` does),
-    else the model's.  Written to ``path + ".tmp"`` and moved into place, so
-    an interrupted write never leaves a torn file."""
-    variables = to_jax_variables(state.model, state.ema_params)
-    blob = {"format_version": CHECKPOINT_FORMAT_VERSION, **variables}
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(msgpack_serialize(blob))
-    os.replace(tmp, path)
+    """Write a train state's bare weights file ``{"format_version",
+    "params", "batch_stats"}``, atomically."""
+    _atomic_write(path, _weights_blob(state))
+
+
+# --- optimizer state <-> optax's tree ------------------------------------------------
+
+def _chain(spec) -> List[str]:
+    """The links of JAX's ``build_optimizer`` chain for ``spec``, in order."""
+    links = ["clip"] if spec.grad_clip else []
+    if spec.name == "Adam":
+        links += (["decay"] if spec.weight_decay else []) + ["adam", "scale"]
+    elif spec.name == "AdamW":
+        links.append("adamw")
+    else:
+        links += ((["decay"] if spec.weight_decay else []) + (["trace"] if spec.momentum else [])
+                  + ["scale"])
+    return links
+
+
+def optimizer_state_tree(state) -> Dict[str, Any]:
+    """The torch optimizer's state as JAX's ``to_state_dict(opt_state)``."""
+    model, opt = state.model, state.optimizer
+    named = list(model.named_parameters())
+
+    def moments(key: str) -> Dict[str, Any]:
+        return to_jax_variables(model, {
+            n: opt.state.get(p, {}).get(key, torch.zeros_like(p)) for n, p in named})["params"]
+
+    def adam() -> Dict[str, Any]:
+        steps = [float(opt.state[p]["step"]) for _, p in named if "step" in opt.state.get(p, {})]
+        return {"count": np.asarray(int(max(steps, default=0)), np.int32),
+                "mu": moments("exp_avg"), "nu": moments("exp_avg_sq")}
+
+    inner: Dict[str, Any] = {}
+    for i, link in enumerate(_chain(state.tx)):
+        if link == "adam":
+            inner[str(i)] = adam()
+        elif link == "adamw":
+            inner[str(i)] = {"0": adam(), "1": {}, "2": {}}
+        elif link == "trace":
+            inner[str(i)] = {"trace": moments("momentum_buffer")}
+        else:
+            inner[str(i)] = {}
+    return {"count": np.asarray(state.step, np.int32),
+            "hyperparams": {"learning_rate": np.asarray(opt.param_groups[0]["lr"], np.float32)},
+            "hyperparams_states": {}, "inner_state": inner}
+
+
+def load_optimizer_state(state, tree: Dict[str, Any]) -> None:
+    """Set the torch optimizer's moments, step counts and learning rate from
+    JAX's ``to_state_dict(opt_state)`` for the state's optimizer spec."""
+    model, opt = state.model, state.optimizer
+    links = _chain(state.tx)
+    inner = tree["inner_state"]
+    if sorted(inner, key=int) != [str(i) for i in range(len(links))]:
+        raise KeyError(f"opt_state has chain links {sorted(inner)}, the {state.tx.name} "
+                       f"optimizer of this run has {links}")
+    params = dict(model.named_parameters())
+    per_param: Dict[str, Dict[str, torch.Tensor]] = {n: {} for n in params}
+
+    def put(key: str, moment_tree: Dict[str, Any]) -> None:
+        for n, arr in params_by_name(model, moment_tree).items():
+            per_param[n][key] = torch.from_numpy(arr).to(params[n].device)
+
+    for i, link in enumerate(links):
+        node = inner[str(i)]
+        if link == "adamw":
+            node = node["0"]
+        if link in ("adam", "adamw"):
+            put("exp_avg", node["mu"])
+            put("exp_avg_sq", node["nu"])
+            step = torch.tensor(float(np.asarray(node["count"])), dtype=torch.float32)
+            for n in per_param:
+                per_param[n]["step"] = step.clone()
+        elif link == "trace":
+            put("momentum_buffer", node["trace"])
+    opt.state.clear()
+    for n, values in per_param.items():
+        if values:
+            opt.state[params[n]] = values
+    lr = float(np.asarray(tree["hyperparams"]["learning_rate"], np.float32))
+    for group in opt.param_groups:
+        group["lr"] = lr
+
+
+# --- full checkpoints -----------------------------------------------------------------
+
+def _ckpt_blob(state, scheduler_state, epoch, global_step, best_val_loss, best_val_acc,
+               itos, stoi, config, log_dir) -> Dict[str, Any]:
+    variables = to_jax_variables(state.model)
+    blob = {
+        "format_version": CHECKPOINT_FORMAT_VERSION,
+        "epoch": int(epoch),
+        "global_step": int(global_step),
+        "params": variables["params"],
+        "batch_stats": variables["batch_stats"],
+        "opt_state": optimizer_state_tree(state),
+        "scheduler_state": scheduler_state or {},
+        "best_val_loss": float(best_val_loss),
+        "best_val_acc": float(best_val_acc),
+        "itos": list(itos),
+        "stoi": {str(k): int(v) for k, v in stoi.items()},
+        "config": config,
+        "log_dir": log_dir,
+    }
+    if state.ema_params is not None:
+        blob["ema_params"] = to_jax_variables(state.model, state.ema_params)["params"]
+    return blob
+
+
+def save_checkpoint(path: str, state, scheduler_state: Optional[Dict[str, Any]], epoch: int,
+                    global_step: int, best_val_loss: float, best_val_acc: float,
+                    itos: List[str], stoi: Dict[str, int], config: Dict[str, Any],
+                    log_dir: str) -> None:
+    """Write a full checkpoint (JAX's layout) atomically."""
+    _atomic_write(path, _ckpt_blob(state, scheduler_state, epoch, global_step, best_val_loss,
+                                   best_val_acc, itos, stoi, config, log_dir))
+
+
+def restore_train_state(blob: Dict[str, Any], state):
+    """Load a full checkpoint blob into ``state`` (in place; returned):
+    parameters, batch statistics, the optimizer's moments, counts and
+    learning rate, the step (``global_step``) and, when the state keeps one,
+    the EMA (from the blob's, else a copy of the restored parameters)."""
+    load_jax_variables(state.model, {"params": blob["params"],
+                                     "batch_stats": blob["batch_stats"]})
+    load_optimizer_state(state, blob["opt_state"])
+    if state.ema_params is not None:
+        if blob.get("ema_params"):
+            ema = params_by_name(state.model, blob["ema_params"])
+            for n, t in state.ema_params.items():
+                t.copy_(torch.from_numpy(ema[n]))
+        else:
+            for n, p in state.model.named_parameters():
+                state.ema_params[n].copy_(p.detach())
+    state.step = int(blob.get("global_step", 0))
+    return state
+
+
+class AsyncCheckpointer:
+    """Background checkpoint writer: the blob is taken from the state (a
+    device-to-host copy) in the caller's thread, so the next step may change
+    the state at once; msgpack encoding and the file write run on one worker
+    thread behind a queue of one.  ``wait()`` drains it and raises the first
+    write error; ``close()`` drains and stops the worker."""
+
+    def __init__(self):
+        self._q: "queue.Queue" = queue.Queue(maxsize=1)
+        self._errors: list = []
+        self.bytes_written = 0  # by the worker: encoded bytes and seconds
+        self.write_seconds = 0.0
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                path, blob = item
+                t0 = time.perf_counter()
+                self.bytes_written += _atomic_write(path, blob)
+                self.write_seconds += time.perf_counter() - t0
+            except Exception as e:  # noqa: BLE001 - raised by wait()
+                self._errors.append((item[0], e))
+            finally:
+                self._q.task_done()
+
+    def save_checkpoint(self, path: str, state, scheduler_state, epoch, global_step,
+                        best_val_loss, best_val_acc, itos, stoi, config, log_dir) -> None:
+        self._q.put((path, _ckpt_blob(state, scheduler_state, epoch, global_step,
+                                      best_val_loss, best_val_acc, itos, stoi, config,
+                                      log_dir)))
+
+    def save_weights(self, path: str, state) -> None:
+        self._q.put((path, _weights_blob(state)))
+
+    def wait(self) -> None:
+        """Block until every queued write is on disk; raise the first error."""
+        self._q.join()
+        if self._errors:
+            path, err = self._errors[0]
+            self._errors.clear()
+            raise RuntimeError(f"async checkpoint write failed for {path}: {err}") from err
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            self._q.put(None)
+            self._worker.join(timeout=5.0)

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rcnn_ocr_tpu_torch.inference import resolve_device
+from rcnn_ocr_tpu_torch.ops import augment as augment_ops
 from rcnn_ocr_tpu_torch.ops.augment import device_normalize
 from rcnn_ocr_tpu_torch.ops.ctc import ctc_loss
 from rcnn_ocr_tpu_torch.training.optim import OptimizerSpec
@@ -48,8 +49,11 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     device: torch.device  # where the model's parameters live
     # fp32 exponential moving average of the parameters, by name (None
-    # unless the run keeps one): the weights an EMA run saves
+    # unless the run keeps one): the weights an EMA run evaluates and saves
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    # the spec the optimizer came from (a full checkpoint writes its state
+    # as the optax chain this spec names)
+    tx: Optional[OptimizerSpec] = None
 
 
 def create_train_state(model: nn.Module, tx: OptimizerSpec, ema: bool = False,
@@ -62,7 +66,7 @@ def create_train_state(model: nn.Module, tx: OptimizerSpec, ema: bool = False,
     if ema:
         ema_params = {n: p.detach().float().clone() for n, p in model.named_parameters()}
     return TrainState(step=0, model=model, optimizer=tx.init(model.parameters()),
-                      device=next(model.parameters()).device, ema_params=ema_params)
+                      device=next(model.parameters()).device, ema_params=ema_params, tx=tx)
 
 
 def _model_device(model: nn.Module, state: TrainState) -> torch.device:
@@ -113,14 +117,21 @@ def make_train_step(model: nn.Module, tx: OptimizerSpec, max_len: int, pad_id: i
                     label_smoothing: float = 0.0) -> Callable:
     """``train_step(state, batch, generator) -> metrics`` for ``model`` (the
     state's) and ``tx`` (the spec its optimizer came from); ``generator`` (a
-    ``torch.Generator`` on the model's device) gives every random bit."""
-    if augment is not None:
-        raise NotImplementedError("device augmentation arrives with the training loop")
+    ``torch.Generator`` on the model's device) gives every random bit.
+
+    ``augment`` (the host pipeline's config keys): ``batch["image"]``
+    arrives resize-padded uint8 and goes through
+    :func:`rcnn_ocr_tpu_torch.ops.augment.device_train_augment` on the
+    model's device with the step's generator, before the model's draws."""
     if head not in HEADS:
         raise ValueError(f"unknown head: {head}")
 
     def loss_fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]):
         x, valid = batch["image"], batch.get("valid")
+        if augment is not None:
+            if generator is None:
+                raise ValueError("device augmentation draws from the step's generator; pass one")
+            x = augment_ops.device_train_augment(x, generator, augment)
         losses = {}
         if head == "ctc":
             losses["ctc_loss"] = _ctc(model.ctc_logits(x, train=True, generator=generator),
@@ -172,13 +183,18 @@ def make_train_step(model: nn.Module, tx: OptimizerSpec, max_len: int, pad_id: i
 
 
 def make_eval_step(model: nn.Module, max_len: int, pad_id: int, head: str = "attention",
-                   ctc_blank_id: int = 0) -> Callable:
+                   ctc_blank_id: int = 0, use_ema: bool = False) -> Callable:
     """``eval_step(state, batch) -> outputs`` from one encode in eval mode
     (running statistics, nothing dropped): ``val_loss`` (teacher-forced) and
     ``pred_ids`` (greedy) for an attention head, ``ctc_val_loss`` and
     ``ctc_frame_ids`` for a CTC head (``val_loss`` is the CTC loss when the
     head is ``"ctc"``).  ``batch["image"]`` may be uint8 (normalized here) or
-    normalized float."""
+    normalized float.
+
+    ``use_ema=True`` evaluates ``state.ema_params`` (the weights an EMA run
+    saves), as JAX's ``make_eval_step(use_ema=True)`` does: each parameter's
+    storage is swapped for its EMA tensor for the call and swapped back
+    after it, so nothing is copied and nothing stays behind."""
     if head not in HEADS:
         raise ValueError(f"unknown head: {head}")
     with_attention = head in ("attention", "both")
@@ -187,6 +203,22 @@ def make_eval_step(model: nn.Module, max_len: int, pad_id: int, head: str = "att
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         device = _model_device(model, state)
+        if not use_ema:
+            return evaluate(device, batch)
+        if state.ema_params is None:
+            raise ValueError("use_ema=True requires a state built with "
+                             "create_train_state(..., ema=True)")
+        params = dict(model.named_parameters())
+        own = {n: p.data for n, p in params.items()}
+        try:
+            for n, p in params.items():
+                p.data = state.ema_params[n]
+            return evaluate(device, batch)
+        finally:
+            for n, p in params.items():
+                p.data = own[n]
+
+    def evaluate(device: torch.device, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         batch = _on_device(batch, device)
         outs = model.eval_outputs(device_normalize(batch["image"]),
                                   text=batch["text_in"] if with_attention else None,

@@ -273,3 +273,76 @@ def test_train_step_through_the_kernels_matches_plain_only(cuda_device):
     for n, sp in stats_p.items():
         if sp.is_floating_point():
             torch.testing.assert_close(stats_k[n], sp, rtol=1e-4, atol=1e-6, msg=n)
+
+
+def test_device_train_augment_on_the_card_matches_the_cpu(cuda_device):
+    """The augmentation ops on the card vs the same functions on the CPU with
+    the same parameters (matrices, brightness/contrast, invert coins) within
+    1e-5; the whole pipeline is seeded by its generator and normalizes
+    exactly with every probability 0."""
+    from rcnn_ocr_tpu_torch.ops import augment
+
+    rng = np.random.default_rng(0)
+    b, h, w = 16, 32, 128
+    u8 = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8))
+    params = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.uniform(-3, 3, b), 1 + rng.uniform(-0.08, 0.08, b),
+        rng.uniform(-0.03, 0.03, b) * w, rng.uniform(-0.03, 0.03, b) * h)]
+    alpha = torch.from_numpy(1 + rng.uniform(-0.2, 0.2, b).astype(np.float32))
+    beta = torch.from_numpy(rng.uniform(-0.2, 0.2, b).astype(np.float32))
+
+    def pipeline(x, dev):
+        m = augment.inverse_affine_matrices(*(p.to(dev) for p in params), h, w)
+        y = augment.affine_warp(x.to(dev).float() / 255, m)
+        return augment.apply_brightness_contrast(y, alpha.to(dev), beta.to(dev))
+
+    torch.testing.assert_close(pipeline(u8, cuda_device).cpu(), pipeline(u8, "cpu"), rtol=1e-5,
+                               atol=1e-5)
+    off = {"p_ShiftScaleRotate": 0, "p_BrightnessContrast": 0, "invert_p": 0}
+    x = u8.to(cuda_device)
+    out = augment.device_train_augment(x, torch.Generator(device=cuda_device).manual_seed(0), off)
+    torch.testing.assert_close(out, augment.device_normalize(x), rtol=0, atol=1e-6)
+    runs = [augment.device_train_augment(x, torch.Generator(device=cuda_device).manual_seed(3),
+                                         {"invert_p": 0.5}) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1]) and runs[0].device.type == "cuda"
+    assert torch.isfinite(runs[0]).all() and not torch.equal(runs[0], out)
+
+
+def test_run_training_two_epochs_on_the_card_with_a_resume(cuda_device, tmp_path):
+    """A small model trains two epochs on the card through both kernels
+    (launch counts per step and per validation batch), then a resume from
+    its experiment dir continues the counters for a third."""
+    import csv
+
+    from chip_smoke import png_bytes
+    from rcnn_ocr_tpu_torch.training.checkpoint import load_checkpoint_blob
+    from rcnn_ocr_tpu_torch.training.config import Config
+    from rcnn_ocr_tpu_torch.training.train import run_training
+
+    tokens = ["<PAD>", "<SOS>", "<EOS>", " "] + list("abcdefghij")
+    (tmp_path / "charset.txt").write_text("\n".join(tokens) + "\n", encoding="utf-8")
+    rng = np.random.default_rng(0)
+    root = tmp_path / "data"
+    root.mkdir()
+    with open(root / "labels.csv", "w", newline="", encoding="utf-8") as f:
+        wr = csv.writer(f)
+        for i in range(48):
+            label = "".join(rng.choice(list("abcdefghij"), size=int(rng.integers(1, 6))))
+            (root / f"{i}.png").write_bytes(
+                png_bytes(rng.integers(0, 256, (int(rng.integers(24, 40)), 96), dtype=np.uint8)))
+            wr.writerow([f"{i}.png", label])
+    cfg = {"train_csvs": [str(root / "labels.csv")], "train_roots": [str(root)],
+           "charset_path": str(tmp_path / "charset.txt"), "img_h": 32, "img_w": 128,
+           "max_len": 8, "hidden_size": 64, "width_mult": 0.25, "batch_size": 16, "epochs": 2,
+           "val_size": 16, "head": "both", "exp_dir": str(tmp_path / "exp"), "num_workers": 2,
+           "progress": False, "seed": 0}
+    kernels.reset_launch_counts()
+    result = run_training(Config(cfg))
+    steps, val_batches = result["global_step"], 2 * 1
+    assert steps == 4 and np.isfinite(result["val_loss"])
+    assert kernels.launch_counts() == {"se_scale": 11 * (steps + val_batches),
+                                       "bilstm_scan": 2 * (steps + val_batches)}
+    resumed = run_training(Config({"resume_path": str(tmp_path / "exp"), "epochs": 3,
+                                   "progress": False}))
+    assert resumed["start_epoch"] == 3 and resumed["global_step"] == 6
+    assert load_checkpoint_blob(str(tmp_path / "exp" / "last_ckpt.msgpack"))["epoch"] == 3

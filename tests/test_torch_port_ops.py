@@ -3,9 +3,11 @@
 * ``ctc_greedy_decode`` vs ``ctc_greedy_decode_jnp`` on random logits with
   empty decodes: tokens and counts equal, confidence at rtol/atol 1e-6;
 * ``ResizeAndPad`` (numpy) vs the JAX package's (cv2) within one uint8 step;
-* ``device_normalize`` bit-exact; charset and post-processing identical.
+* ``device_normalize`` bit-exact; charset and post-processing identical;
+  ``load_rgb_uint8`` of arrays and PNG paths equal to JAX's.
 """
 
+import cv2
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -88,13 +90,20 @@ def test_load_rgb_uint8_matches_jax(kind):
     np.testing.assert_array_equal(load_rgb_uint8(img), cv2_load_rgb_uint8(img))
 
 
-def test_paths_and_pil_inputs_wait_for_a_later_slice():
+def test_paths_and_pil_inputs_wait_for_a_later_slice(tmp_path):
+    """A path reads like JAX's ``load_rgb_uint8`` (PNG: bit-equal); PIL
+    objects still wait for the serving slice."""
+
     class FakePIL:
         def convert(self, mode):
             return self
 
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        load_rgb_uint8("line.png")
+    img = np.random.default_rng(13).integers(0, 256, (9, 21, 3), dtype=np.uint8)
+    path = str(tmp_path / "line.png")
+    assert cv2.imwrite(path, img)
+    np.testing.assert_array_equal(load_rgb_uint8(path), cv2_load_rgb_uint8(path))
+    with pytest.raises(FileNotFoundError):
+        load_rgb_uint8(str(tmp_path / "absent.png"))
     with pytest.raises(NotImplementedError, match="serving slice"):
         load_rgb_uint8(FakePIL())
 

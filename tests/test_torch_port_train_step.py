@@ -19,7 +19,8 @@ identity) go to JAX through ``to_jax_variables``; batches come from
   gradient difference of 1e-8, the gradients' own tolerance, moves it by
   1e-3), which must be at least 95% of the elements.
 * What cannot match bit for bit (dropout, DropBlock, sampling) is tested
-  for its semantics; ``grad_accum`` and EMA against their definitions.
+  for its semantics; ``grad_accum`` and EMA against their definitions;
+  device augmentation by what the step accepts.
 """
 
 import copy
@@ -499,6 +500,18 @@ def test_train_state_is_on_the_card_unless_the_cpu_is_asked_for():
 
 
 def test_make_train_step_refuses_device_augment():
-    with pytest.raises(NotImplementedError):
-        make_train_step(_port_model(), build_optimizer("Adam", LR), MAX_LEN, PAD,
-                        augment={"p": 1})
+    """With ``augment`` the step takes resize-padded uint8 images and
+    augments them on the model's device from its generator; it refuses
+    normalized floats and a missing generator."""
+    model, tx = _port_model(), build_optimizer("Adam", LR)
+    state = create_train_state(model, tx, device="cpu")
+    step = make_train_step(model, tx, MAX_LEN, PAD, head="both", ctc_blank_id=BLANK,
+                           augment={"p_ShiftScaleRotate": 1.0, "invert_p": 0.5})
+    batch = _batch()
+    with pytest.raises(ValueError, match="uint8"):
+        step(state, batch, torch.Generator().manual_seed(0))
+    u8 = dict(batch, image=np.round((batch["image"] + 1) * 127.5).astype(np.uint8))
+    with pytest.raises(ValueError, match="generator"):
+        step(state, u8, None)
+    assert np.isfinite(float(step(state, u8, torch.Generator().manual_seed(0))["loss"]))
+    assert state.step == 1
