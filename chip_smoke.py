@@ -27,7 +27,26 @@
    through the kernels and through the plain versions: encoder states and
    CTC logits must agree within tolerance, CTC tokens on every row and
    attention greedy tokens on at least 99% of rows.
-5. Training phase.  (a) Gradient check: the same full-width model in fp32
+5. Beam phase: the same model and images with a seeded bigram table
+   (``train_bigram_lm`` over 4,000 seeded strings of the charset) through
+   ``OCRInference`` in bf16 at batch 256: ``predict(beam_width=5)`` plain,
+   with ``lm_weight`` 0 and 0.5 and with ``length_penalty=0.6``, and
+   ``predict_ctc(method="beam")`` on the device beam (width 16, prune_k 16)
+   plain, with ``lm_weight`` 0 and 0.5, and on the host C++ beam
+   (``device_beam=False``).  Each call, counted from 0, must launch 11
+   squeeze-excite and 2 BiLSTM kernels per encoded batch and return one
+   string per image; fusion at weight 0 must equal the unfused beam exactly
+   (strings and confidences, both heads).  Prints img/s per mode (host
+   resize included), the device ms of one batch's encoder and of each
+   search alone (CUDA events), the host beam's ms, and per mode the wall,
+   device busy time, kernel count and idle share of one profiled batch.
+   In fp32: beam width 1 must equal greedy through the first EOS on >= 99%
+   of rows; the device CTC beam at prune_k = W + 1 the host C++ beam on the
+   same pruned frames on >= 99% of rows; the card's CTC beam (plain and
+   fused) the same function on the CPU on the same frames on every row,
+   log-probs and posteriors within 1e-5; the card's fused attention beam
+   the CPU's on the same encoder states on >= 99% of rows.
+6. Training phase.  (a) Gradient check: the same full-width model in fp32
    at batch 32, train mode, head "both" with dropout, DropBlock and
    sampling off, one ``make_train_step`` (SGD at lr 0, so the weights stay)
    through the kernels and once more under ``kernels.plain_only()`` from
@@ -48,7 +67,7 @@
    (c) Round trip: ``make_eval_step`` on the trained state,
    ``save_weights`` into build/chip_smoke/, and the file loaded by
    ``OCRInference`` on the card for ``predict`` and ``predict_ctc``.
-6. Training-loop phase: writes seeded line images (30 characters of
+7. Training-loop phase: writes seeded line images (30 characters of
    configs/charset.txt with fixed 12x8 glyph bitmaps, labels of 4-12, lines
    32-48 high, 8-bit RGB PNGs whose rows cycle through all five filter
    types) in the shipped layout into build/chip_smoke/data/, and runs
@@ -74,7 +93,12 @@
    training gives few).  Prints the loop's img/s, step ms, loader wait per
    step, validation and checkpoint ms per epoch, PNG decode (with the
    images' size) and host augment ms per image and the profiled idle share
-   beside the bare train step's img/s.
+   beside the bare train step's img/s.  Last, ``python -m
+   rcnn_ocr_tpu_torch.evaluate`` runs as a subprocess on last_weights.msgpack
+   over set B's validation PNGs, ``--decode ctc_beam`` and then
+   ``--decode attention_beam`` with a bigram table of the training labels
+   and ``--lm-weight 0,0.5``: each must exit 0 and write a report of all 256
+   rows and a per-sample CSV of 256 rows; their wall times are printed.
 
 Prints one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits non-zero
@@ -106,6 +130,8 @@ IMG_H, IMG_W, HIDDEN, WIDTH = 32, 128, 256, 1.0
 SE_SHAPES = ((3, (8, 32, 256)), (8, (4, 16, 512)))  # (calls per encode, per-sample H, W, C)
 LSTM_T, LSTM_D = IMG_W // 8, 512
 BATCH, BIG_BATCH, N_IMAGES, MAX_LENGTH = 256, 2048, 512, 25
+# beam phase: attention beam width, CTC beam width (= prune_k), fusion weight
+BEAM_WIDTH, CTC_BEAM, LM_WEIGHT = 5, 16, 0.5
 COLD_BYTES = 100_000_000  # twice the H100's 50 MB L2
 # training phase: configs/config.json's shape and optimizer
 TRAIN_BATCH, TRAIN_MAX_LEN, TRAIN_STEPS, GRAD_BATCH = 128, 40, 30, 32
@@ -454,7 +480,188 @@ def main_path(kernels, power: str):
     print(f"bf16 vs fp32 attention strings equal on {agree}/{N_IMAGES} images (not held)")
     return dict(throughput, launch_counts=counts, n_batches=n_batches, enc_max_abs_err=enc_err,
                 ctc_logits_max_abs_err=logit_err, ctc_rows_equal=ctc_same,
-                attn_rows_equal=attn_same, rows=attn_rows, breakdown=breakdown)
+                attn_rows_equal=attn_same, rows=attn_rows, breakdown=breakdown), variables, images
+
+
+def seeded_lm(cs, seed: int = 7):
+    """A bigram table from train_bigram_lm over 4,000 seeded strings of 4-12
+    single-character tokens of the charset."""
+    from rcnn_ocr_tpu_torch.lm import train_bigram_lm
+
+    rng = np.random.default_rng(seed)
+    chars = [t for t in cs.itos if len(t) == 1]
+    texts = ["".join(rng.choice(chars, size=int(rng.integers(4, 13)))) for _ in range(4000)]
+    return train_bigram_lm(texts, cs)
+
+
+def beam_phase(kernels, variables, images, power: str):
+    """The beam decodes through OCRInference on the main path's model and
+    images, then fp32 checks of both searches against greedy, the host beam
+    and the same functions on the CPU."""
+    import copy
+
+    from rcnn_ocr_tpu_torch.inference import OCRInference
+    from rcnn_ocr_tpu_torch.ops.ctc import (
+        ctc_beam_from_logits,
+        ctc_beam_search,
+        ctc_beam_search_device,
+        ctc_top_frames,
+    )
+    from rcnn_ocr_tpu_torch.utils.profiling import trace
+    from rcnn_ocr_tpu_torch.vocab.charset import Charset
+
+    charset_path = os.path.join(REPO, "configs", "charset.txt")
+    cs = Charset.from_file(charset_path)
+    lm = seeded_lm(cs)
+    engine = OCRInference(variables, charset_path=charset_path, device="cuda", img_h=IMG_H,
+                          img_w=IMG_W, dtype=torch.bfloat16, lm=lm)
+    n_batches = -(-N_IMAGES // BATCH)
+    attn = dict(max_length=MAX_LENGTH, batch_size=BATCH, beam_width=BEAM_WIDTH)
+    ctc = dict(batch_size=BATCH, method="beam", beam_width=CTC_BEAM, prune_k=CTC_BEAM)
+    modes = {
+        "attention_beam": lambda imgs: engine.predict(imgs, return_confidence=True, **attn),
+        "attention_beam_lm0": lambda imgs: engine.predict(imgs, return_confidence=True,
+                                                          lm_weight=0.0, **attn),
+        "attention_beam_lm": lambda imgs: engine.predict(imgs, lm_weight=LM_WEIGHT, **attn),
+        "attention_beam_lp": lambda imgs: engine.predict(imgs, length_penalty=0.6, **attn),
+        "ctc_beam": lambda imgs: engine.predict_ctc(imgs, return_confidence=True, **ctc),
+        "ctc_beam_lm0": lambda imgs: engine.predict_ctc(imgs, return_confidence=True,
+                                                        lm_weight=0.0, **ctc),
+        "ctc_beam_lm": lambda imgs: engine.predict_ctc(imgs, lm_weight=LM_WEIGHT, **ctc),
+        "ctc_host_beam": lambda imgs: engine.predict_ctc(imgs, device_beam=False, **ctc),
+    }
+    out, texts, launches = {"img_s": {}, "launches": {}}, {}, {"se_scale": 0, "bilstm_scan": 0}
+    for mode, call in modes.items():
+        call(images[:BATCH])  # warm-up
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        texts[mode] = call(images)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        out["launches"][mode] = counts
+        for name, per in (("se_scale", 11), ("bilstm_scan", 2)):
+            check(counts[name] == per * n_batches,
+                  f"{mode} launched {name} {counts[name]}x, expected {per * n_batches}")
+            launches[name] += counts[name]
+        strings = [t[0] if isinstance(t, tuple) else t for t in texts[mode]]
+        check(len(strings) == N_IMAGES and all(isinstance(t, str) for t in strings),
+              f"{mode} returned no string per image")
+        out["img_s"][mode] = N_IMAGES / wall
+        print(f"  {mode}: {N_IMAGES / wall:.1f} img/s ({N_IMAGES} images, bs {BATCH}, bf16, "
+              f"host resize included), {len(set(strings))} distinct strings, e.g. "
+              f"{strings[:2]!r}; launches {counts}")
+    for head in ("attention_beam", "ctc_beam"):
+        check(texts[f"{head}_lm0"] == texts[head],
+              f"{head}: lm_weight 0 differs from the unfused beam (strings or confidences)")
+    print("  lm_weight 0 equals the unfused beam exactly (strings and confidences), both heads")
+
+    # where one bs-256 batch's time goes (bf16): device time of the encoder and
+    # of each search alone (CUDA events), the host beam, the profiled idle share
+    _, _, x = next(engine._batches(images[:BATCH], BATCH))
+    m = engine.model
+    with torch.inference_mode():
+        enc = m.encode(x)
+        logits = m._ctc_head(enc)
+        vals, idx = ctc_top_frames(logits, CTC_BEAM)
+        dense = np.full((BATCH, vals.shape[1], cs.num_classes), -1e30, np.float32)
+        np.put_along_axis(dense, idx.cpu().numpy(), vals.cpu().numpy(), -1)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ctc_beam_search(dense, cs.ctc_blank_id, CTC_BEAM, already_log_probs=True)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 3
+        breakdown = {
+            "device_encode_ms": time_ms(lambda: m.encode(x), iters=5),
+            "device_attention_beam_search_ms": time_ms(
+                lambda: m.attn.beam_search(enc, BEAM_WIDTH, MAX_LENGTH), iters=3),
+            "device_attention_beam_search_lm_ms": time_ms(
+                lambda: m.attn.beam_search(enc, BEAM_WIDTH, MAX_LENGTH, lm_logp=engine._lm,
+                                           lm_weight=LM_WEIGHT), iters=3),
+            "device_ctc_beam_search_ms": time_ms(
+                lambda: ctc_beam_from_logits(logits, blank_id=cs.ctc_blank_id,
+                                             beam_width=CTC_BEAM, prune_k=CTC_BEAM), iters=3),
+            "device_ctc_beam_search_lm_ms": time_ms(
+                lambda: ctc_beam_from_logits(logits, blank_id=cs.ctc_blank_id,
+                                             beam_width=CTC_BEAM, prune_k=CTC_BEAM,
+                                             lm_logp=engine._lm, lm_weight=LM_WEIGHT), iters=3),
+            "host_ctc_beam_ms": host_ms,
+        }
+    for mode in ("attention_beam", "attention_beam_lm", "ctc_beam", "ctc_beam_lm",
+                 "ctc_host_beam"):
+        with trace(os.path.join(REPO, "build", "chip_smoke", f"profile_{mode}")) as prof:
+            modes[mode](images[:BATCH])
+        breakdown[f"{mode}_wall_ms_per_batch"] = prof.wall_s * 1e3
+        breakdown[f"{mode}_device_busy_ms"] = (prof.device_busy_s * 1e3
+                                               if prof.device_busy_s is not None else None)
+        breakdown[f"{mode}_kernels_per_batch"] = prof.kernels
+        breakdown[f"{mode}_device_idle_share"] = prof.device_idle_share
+    print(f"  per bs-256 batch (bf16) on {power}: " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in breakdown.items()))
+    out["breakdown"] = breakdown
+
+    # fp32 checks on the main path's batches
+    ref = OCRInference(variables, charset_path=charset_path, device="cuda", img_h=IMG_H,
+                       img_w=IMG_W, dtype=torch.float32, lm=lm)
+    m = ref.model
+    cpu_attn = copy.deepcopy(m.attn).cpu()
+    lm_t = ref._lm
+    rows = beam1 = host_same = 0
+    attn_cpu_same, ctc_lp_err = 0, 0.0
+    with torch.inference_mode():
+        for _, n_real, x in ref._batches(images, BATCH):
+            enc = m.encode(x)
+            # beam width 1 is greedy through the first EOS
+            greedy = m.attn(enc, batch_max_length=MAX_LENGTH).argmax(-1).cpu().numpy()
+            one = m.attn.beam_search(enc, 1, MAX_LENGTH)[0].cpu().numpy()
+            for g, b in zip(greedy[:n_real], one[:n_real]):
+                n = int(np.argmax(g == cs.eos_id)) + 1 if cs.eos_id in g else len(g)
+                beam1 += int(np.array_equal(g[:n], b[:n]))
+            # the device CTC beam at prune_k = W + 1 vs the host C++ beam on the
+            # same pruned frames
+            logits = m._ctc_head(enc)
+            vals, idx = ctc_top_frames(logits, CTC_BEAM + 1)
+            dev_labels, dev_lens, _ = ctc_beam_search_device(vals, idx, cs.ctc_blank_id,
+                                                             CTC_BEAM)
+            dense = np.full((BATCH, vals.shape[1], cs.num_classes), -1e30, np.float32)
+            np.put_along_axis(dense, idx.cpu().numpy(), vals.cpu().numpy(), -1)
+            host_labels, _ = ctc_beam_search(dense[:n_real], cs.ctc_blank_id, CTC_BEAM,
+                                             already_log_probs=True)
+            dl, dn = dev_labels.cpu().numpy(), dev_lens.cpu().numpy()
+            host_same += sum(dl[b, : dn[b]].tolist() == host_labels[b] for b in range(n_real))
+            # the card's searches vs the same functions on the CPU, same fp32 inputs
+            for lm_kw in ({}, dict(lm_logp=lm_t, lm_weight=LM_WEIGHT, sos_id=cs.sos_id)):
+                v16, i16 = vals[..., :CTC_BEAM], idx[..., :CTC_BEAM]
+                got = ctc_beam_search_device(v16, i16, cs.ctc_blank_id, CTC_BEAM,
+                                             return_posterior=True, **lm_kw)
+                cpu_kw = dict(lm_kw, lm_logp=lm_t.cpu()) if lm_kw else {}
+                want = ctc_beam_search_device(v16.cpu(), i16.cpu(), cs.ctc_blank_id, CTC_BEAM,
+                                              return_posterior=True, **cpu_kw)
+                check(torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1]),
+                      "the card's CTC beam differs from the CPU's on the same frames")
+                # log-probs are sums over the frames (|x| up to ~50): the card's
+                # and the CPU's logaddexp differ in the last bits, a few fp32 ulps
+                ctc_lp_err = max(ctc_lp_err, held(got[2].cpu(), want[2], rtol=1e-5, atol=1e-5,
+                                                  what="CTC beam log-probs, card vs CPU"))
+                held(got[3].cpu(), want[3], rtol=1e-5, atol=1e-5,
+                     what="CTC beam posteriors, card vs CPU")
+            got = m.attn.beam_search(enc, BEAM_WIDTH, MAX_LENGTH, lm_logp=lm_t,
+                                     lm_weight=LM_WEIGHT)[0].cpu()
+            want = cpu_attn.beam_search(enc.cpu(), BEAM_WIDTH, MAX_LENGTH, lm_logp=lm_t.cpu(),
+                                        lm_weight=LM_WEIGHT)[0]
+            attn_cpu_same += int((got == want).all(dim=1)[:n_real].sum())
+            rows += n_real
+    print(f"  fp32: beam width 1 = greedy through the first EOS on {beam1}/{rows} rows; device "
+          f"CTC beam (prune_k {CTC_BEAM + 1}) = host C++ beam on {host_same}/{rows} rows; the "
+          f"card's CTC beam = the CPU's on every row (log-probs within {ctc_lp_err:.2e}, "
+          f"rtol 1e-5); "
+          f"attention beam (K {BEAM_WIDTH}, fused) card = CPU on {attn_cpu_same}/{rows} rows")
+    check(beam1 >= 0.99 * rows, f"beam width 1 equals greedy on only {beam1}/{rows} rows")
+    check(host_same >= 0.99 * rows, f"device and host CTC beams agree on {host_same}/{rows}")
+    check(attn_cpu_same >= 0.99 * rows,
+          f"the card's attention beam equals the CPU's on {attn_cpu_same}/{rows} rows")
+    out.update(rows=rows, beam1_equals_greedy=beam1, device_ctc_equals_host=host_same,
+               attention_card_equals_cpu=attn_cpu_same, ctc_card_vs_cpu_lp_max_abs_err=ctc_lp_err,
+               launch_counts=launches)
+    return out
 
 
 def train_batch(cs, n: int, seed: int, dev: str):
@@ -1081,6 +1288,59 @@ def training_loop_phase(kernels, cs, train_img_s: float, power: str):
                rows=len(rows), train_losses=losses, val_losses=val_losses,
                epochs=first["epochs"] + second["epochs"], launches=loop_launches,
                resumed_global_step=second["global_step"], preempted_slot_step=blob["global_step"])
+    out["eval_cli"] = eval_cli_runs(weights, val_dir, rows, shipped["train_csvs"], cs)
+    return out
+
+
+def eval_cli_runs(weights: str, val_dir: str, rows, train_csvs, cs) -> dict:
+    """``python -m rcnn_ocr_tpu_torch.evaluate`` as a user runs it, on the
+    loop's last weights over set B's validation PNGs: ``--decode ctc_beam``,
+    then ``attention_beam`` with a bigram LM from the training labels and an
+    LM-weight sweep.  Each must exit 0 and write a report of all rows and a
+    per-sample CSV of as many rows."""
+    import csv
+
+    from rcnn_ocr_tpu_torch.lm import iter_labels, save_lm, train_bigram_lm
+
+    work = os.path.join(REPO, "build", "chip_smoke", "eval_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    labels = os.path.join(work, "labels.csv")
+    with open(labels, "w", newline="", encoding="utf-8") as f:
+        csv.writer(f).writerows([("filename", "text"), *rows])
+    lm_path = os.path.join(work, "lm.npz")
+    save_lm(lm_path, train_bigram_lm((t for c in train_csvs for t in iter_labels(c)), cs), cs.itos)
+    base = [sys.executable, "-m", "rcnn_ocr_tpu_torch.evaluate", "--model", weights,
+            "--charset", os.path.join(REPO, "configs", "charset.txt"), "--csv", labels,
+            "--root", val_dir, "--img-h", str(IMG_H), "--img-w", str(IMG_W),
+            "--max-length", str(TRAIN_MAX_LEN), "--batch-size", str(TRAIN_BATCH)]
+    runs = {"ctc_beam": ["--decode", "ctc_beam"],
+            "attention_beam_lm_sweep": ["--decode", "attention_beam", "--lm", lm_path,
+                                        "--lm-weight", f"0,{LM_WEIGHT}"]}
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = {}
+    for name, extra in runs.items():
+        report = os.path.join(work, f"{name}.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(base + extra + ["--report-json", report], cwd=work, env=env,
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"evaluate {name} exited {proc.returncode}:\n"
+                                    f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        with open(report, encoding="utf-8") as f:
+            payload = json.load(f)
+        metrics = payload["sweep"] if "sweep" in payload else [payload]
+        check(all(m["n"] == len(rows) for m in metrics), f"evaluate {name}: report {payload}")
+        with open(os.path.join(work, f"evaluation_results_{os.path.basename(weights)}.csv"),
+                  encoding="utf-8") as f:
+            sample_rows = list(csv.reader(f))[1:]
+        check(len(sample_rows) == len(rows), f"evaluate {name}: {len(sample_rows)} sample rows")
+        out[name] = dict(wall_s=wall, metrics=metrics)
+        print(f"  python -m rcnn_ocr_tpu_torch.evaluate {' '.join(extra)}: exit 0 in {wall:.1f} s "
+              f"wall (one process: start, build check, load, {len(rows)} PNGs); " + "; ".join(
+                  f"accuracy {m['accuracy']:.4f}, CER {m['cer']:.4f}, WER {m['wer']:.4f}"
+                  + (f" at lm_weight {m['lm_weight']}" if "lm_weight" in m else "")
+                  for m in metrics))
     return out
 
 
@@ -1111,7 +1371,10 @@ def main() -> int:
         for call in row["calls"]:
             print(f"  {row['name']} " + ", ".join(f"{k} {v}" for k, v in call.items()))
     print("main path phase")
-    path = main_path(kernels, power)
+    path, variables, images = main_path(kernels, power)
+    print("beam phase")
+    beams = beam_phase(kernels, variables, images, power)
+    del variables
     print("training phase")
     from rcnn_ocr_tpu_torch.vocab.charset import Charset
 
@@ -1126,6 +1389,7 @@ def main() -> int:
     for row in rows:
         name = row["name"]
         by_path = {"inference": path["launch_counts"][name],
+                   "beam": beams["launch_counts"][name],
                    "train": train["launch_counts"][name],
                    "train_loop": loop["launches"][name]}
         row.update(launches=by_path["inference"], launches_by_path=by_path,
@@ -1135,8 +1399,8 @@ def main() -> int:
                    train_bwd_ms_per_step=train[f"{name}_backward_ms"])
         for p, n in by_path.items():
             check(n > 0, f"{name} never launched on the {p} path")
-    result = {"card": power, "kernels": rows, "main_path": path, "training": training,
-              "training_loop": loop, "seconds": time.perf_counter() - t_start}
+    result = {"card": power, "kernels": rows, "main_path": path, "beam": beams,
+              "training": training, "training_loop": loop, "seconds": time.perf_counter() - t_start}
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)
         with open(args.json_out, "w") as f:

@@ -35,8 +35,6 @@ import numpy as np
 
 from rcnn_ocr_tpu_torch.data.image_io import imread
 
-_PIL_LATER = "arrives with the serving slice of the PyTorch port; pass a path or an array"
-
 Transform = Callable[[np.ndarray, Optional[np.random.Generator]], np.ndarray]
 
 
@@ -52,8 +50,10 @@ def ensure_rgb(img: np.ndarray) -> np.ndarray:
 
 
 def load_rgb_uint8(image) -> np.ndarray:
-    """An inference input (a path to a PNG/BMP file, or an array) -> RGB
-    uint8 HWC.  Non-uint8 arrays are taken as 0..255-scaled and rounded."""
+    """An inference input (a path to a PNG/BMP file, an array, or a PIL-like
+    image: anything with ``.convert("RGB")``, duck-typed so PIL is never
+    imported) -> RGB uint8 HWC.  Non-uint8 arrays are taken as 0..255-scaled
+    and rounded."""
     if isinstance(image, str):
         if not os.path.exists(image):
             raise FileNotFoundError(f"Image file not found: {image}")
@@ -64,7 +64,7 @@ def load_rgb_uint8(image) -> np.ndarray:
             return ensure_rgb(image)
         return ensure_rgb(image.copy())
     if hasattr(image, "convert"):
-        raise NotImplementedError(f"PIL inputs {_PIL_LATER}")
+        return np.array(image.convert("RGB"))
     raise ValueError(f"Unsupported image type: {type(image)}")
 
 

@@ -1,41 +1,54 @@
 """Batched OCR inference: checkpoint in, strings out.
 
-Counterpart of ``rcnn_ocr_tpu/inference.py:OCRInference`` for greedy
-decoding: ``predict`` (attention head) and ``predict_ctc`` (CTC head).
+Counterpart of ``rcnn_ocr_tpu/inference.py:OCRInference``: ``predict``
+(attention head: greedy, or beam search with an optional length penalty
+and bigram LM fusion) and ``predict_ctc`` (CTC head: greedy, or the prefix
+beam on the device or on the host, with fusion on the device beam).
 Images are resize-padded to uint8 on the host, stacked into batches padded
 to a static size, normalized on the device by lookup and decoded there;
 token rows come back to the host and become strings.
 
 The engine runs on the CUDA card unless the caller passes ``device="cpu"``;
-with no card and no explicit CPU it raises.  Inputs are arrays or paths to
-PNG/BMP files.  Beam search, LM fusion, JPEG files and PIL inputs,
-``"auto:K"`` width buckets, int8, long lines and multi-card serving arrive
-in later slices of the port.
+with no card and no explicit CPU it raises.  Inputs are arrays, paths to
+PNG/BMP files or PIL-like images (anything with ``.convert("RGB")``; PIL
+itself is never imported).  Width buckets are a list of widths or
+``"auto:K"`` (K widths fitted to the first multi-image call).  JPEG files,
+int8, long lines, the serving path and multi-card serving arrive in later
+slices of the port.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from rcnn_ocr_tpu_torch.data.loader import bucket_for_width, scaled_width
+from rcnn_ocr_tpu_torch.data.image_io import image_size
+from rcnn_ocr_tpu_torch.data.loader import bucket_for_width, optimal_width_buckets, scaled_width
 from rcnn_ocr_tpu_torch.data.transforms import ResizeAndPad, load_rgb_uint8
 from rcnn_ocr_tpu_torch.interop.jax_params import load_jax_variables
+from rcnn_ocr_tpu_torch.lm import load_lm
 from rcnn_ocr_tpu_torch.models.rcnn import RCNN
 from rcnn_ocr_tpu_torch.ops.augment import device_normalize
-from rcnn_ocr_tpu_torch.ops.ctc import ctc_greedy_decode, ids_to_text
+from rcnn_ocr_tpu_torch.ops.ctc import (
+    ctc_beam_from_logits,
+    ctc_beam_search,
+    ctc_greedy_decode,
+    ctc_top_frames,
+    ids_to_text,
+)
 from rcnn_ocr_tpu_torch.postprocess import (
     chunk_indices,
     ctc_skip_ids,
     decode_attention_row,
+    decode_beam_row,
+    decode_ctc_batch,
     pad_rows,
 )
 from rcnn_ocr_tpu_torch.training.checkpoint import load_variables
 from rcnn_ocr_tpu_torch.vocab.charset import Charset
-
-_BEAM_LATER = "beam search arrives with the beam slice of the PyTorch port"
 
 
 def infer_architecture(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -72,7 +85,13 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 
 class OCRInference:
-    """Load a checkpoint (path or JAX variable tree) and recognize text lines."""
+    """Load a checkpoint (path or JAX variable tree) and recognize text lines.
+
+    ``lm`` is a bigram table for beam shallow fusion: a ``[V, V]`` array or
+    an ``.npz`` written by :func:`rcnn_ocr_tpu_torch.lm.save_lm` (or the JAX
+    package's ``tools/train_lm.py``), whose token order must be the
+    charset's.
+    """
 
     def __init__(
         self,
@@ -83,15 +102,19 @@ class OCRInference:
         img_w: Optional[int] = None,
         hidden_size: Optional[int] = None,
         dtype: torch.dtype = torch.bfloat16,
-        width_buckets: Optional[Sequence[int]] = None,
+        width_buckets: Optional[Union[Sequence[int], str]] = None,
         with_ctc_head: Optional[bool] = None,
+        lm: Any = None,
     ):
         self.device = resolve_device(device)
+        # "auto" / "auto:K": the first call with two or more images fits K
+        # waste-minimizing widths to them (fixed for the engine's lifetime)
+        self._auto_bucket_k = 0
         if isinstance(width_buckets, str):
-            raise NotImplementedError(
-                "automatic width buckets ('auto:K') arrive with the serving slice "
-                "of the PyTorch port; pass a list of widths"
-            )
+            if not width_buckets.startswith("auto"):
+                raise ValueError(f"width_buckets: unknown spec {width_buckets!r}")
+            self._auto_bucket_k = int(width_buckets.split(":")[1]) if ":" in width_buckets else 4
+            width_buckets = None
         self.width_buckets = sorted(int(w) for w in width_buckets) if width_buckets else None
         self.dtype = dtype
 
@@ -133,6 +156,13 @@ class OCRInference:
         load_jax_variables(self.model, variables)
         self.model.eval().to(self.device)
         self._itos = list(cs.itos)
+        self._lm: Optional[torch.Tensor] = None
+        if lm is not None:
+            table = load_lm(lm, cs) if isinstance(lm, str) else np.asarray(lm, np.float32)
+            V = cs.num_classes
+            if table.shape != (V, V):
+                raise ValueError(f"lm must be [{V}, {V}] for this charset, got {table.shape}")
+            self._lm = torch.from_numpy(np.ascontiguousarray(table)).to(self.device)
         self.transform = ResizeAndPad(img_h=self.img_h, img_w=self.img_w)
         self._bucket_transforms = (
             {w: ResizeAndPad(img_h=self.img_h, img_w=w) for w in self.width_buckets}
@@ -146,12 +176,42 @@ class OCRInference:
             return self._bucket_transforms[width](rgb)
         return self.transform(rgb)
 
+    def _probe_hw(self, img) -> Tuple[int, int]:
+        """(h, w) of an input without decoding it: the file header for a
+        path, the shape or ``.size`` for a decoded one."""
+        if isinstance(img, str):
+            if not os.path.exists(img):
+                raise FileNotFoundError(f"Image file not found: {img}")
+            return image_size(img)
+        if isinstance(img, np.ndarray):
+            return int(img.shape[0]), int(img.shape[1])
+        if hasattr(img, "size") and hasattr(img, "convert"):  # PIL-like
+            w, h = img.size
+            return int(h), int(w)
+        h, w = load_rgb_uint8(img).shape[:2]
+        return int(h), int(w)
+
+    def _resolve_auto_buckets(self, images: List[Any]) -> None:
+        """The first call with two or more images fixes ``"auto:K"``'s widths:
+        the loader's waste-minimizing fit over their scaled widths, the widest
+        lifted to ``img_w`` (later, wider images land there).  A single image
+        (a warm-up request) fixes nothing and decodes at ``img_w``."""
+        if not self._auto_bucket_k or self.width_buckets or len(images) < 2:
+            return
+        scaled = [scaled_width(*self._probe_hw(img), self.img_h) for img in images]
+        buckets = optimal_width_buckets(scaled, self._auto_bucket_k, multiple=8,
+                                        max_width=self.img_w)
+        self.width_buckets = sorted(set(buckets[:-1]) | {self.img_w})
+        self._bucket_transforms = {w: ResizeAndPad(img_h=self.img_h, img_w=w)
+                                   for w in self.width_buckets}
+
     def _bucket_chunks(self, images: List[Any], batch_size: int) -> List[Tuple[Optional[int], List[int]]]:
+        self._resolve_auto_buckets(images)
         groups: Dict[Optional[int], List[int]] = {}
         for i, img in enumerate(images):
             bucket = None
             if self.width_buckets:
-                h, w = (img if isinstance(img, np.ndarray) else load_rgb_uint8(img)).shape[:2]
+                h, w = self._probe_hw(img)
                 bucket = bucket_for_width(scaled_width(h, w, self.img_h), self.width_buckets)
             groups.setdefault(bucket, []).append(i)
         return chunk_indices(groups, batch_size)
@@ -164,58 +224,129 @@ class OCRInference:
             batch = torch.from_numpy(np.stack(arrays)).to(self.device, non_blocking=True)
             yield chunk, n_real, device_normalize(batch)
 
+    def _fusion_lm(self, lm_weight: float) -> Optional[torch.Tensor]:
+        """The bigram table to fuse at this weight (None: fusion off)."""
+        if not lm_weight:
+            return None
+        if self._lm is None:
+            raise ValueError(
+                "lm_weight > 0 needs a bigram table: pass lm= to OCRInference "
+                "(build one with python -m rcnn_ocr_tpu_torch.lm)"
+            )
+        return self._lm
+
     # -- public API --------------------------------------------------------
     @torch.inference_mode()
     def predict(self, images, max_length: int = 25, batch_size: int = 32,
                 return_confidence: bool = False, beam_width: Optional[int] = None,
-                lm_weight: float = 0.0):
-        """Attention greedy decode -> text (or (text, confidence)) per image."""
-        if beam_width is not None or lm_weight:
-            raise NotImplementedError(_BEAM_LATER)
+                length_penalty: float = 0.0, lm_weight: float = 0.0):
+        """Attention decode -> text (or (text, confidence)) per image: greedy,
+        or beam search when ``beam_width`` > 1.
+
+        Greedy confidence is the mean max-softmax over the non-PAD, non-EOS
+        steps; the beam's is ``exp(score / len)`` with ``len`` counted
+        through the first EOS.  ``length_penalty`` ranks the final beams by
+        ``score / len ** length_penalty``; ``lm_weight`` > 0 fuses the
+        engine's bigram table (``lm=``) into the beam's step scores.
+        """
         if not self.model.with_attention_head:
             raise ValueError("this checkpoint has no attention head; use predict_ctc()")
         is_single = not isinstance(images, list)
         images_list = [images] if is_single else list(images)
         if not images_list:
             return []
+        beam = beam_width is not None and beam_width > 1
+        if lm_weight and not beam:
+            raise ValueError("lm_weight requires beam_width > 1 (fusion is beam-only)")
+        if length_penalty and not beam:
+            raise ValueError(
+                "length_penalty requires beam_width > 1 (rank normalization "
+                "is beam-only)"
+            )
+        lm = self._fusion_lm(lm_weight) if beam else None
         cs = self.charset
         results: List[Any] = [None] * len(images_list)
         for chunk, n_real, x in self._batches(images_list, batch_size):
-            logits = self.model(x, batch_max_length=max_length)
-            pred = torch.argmax(logits, dim=-1)[:n_real].cpu().numpy()
-            maxp = torch.softmax(logits, dim=-1).amax(dim=-1)[:n_real].cpu().numpy()
+            if beam:
+                tokens, scores = self.model.beam_decode(
+                    x, int(beam_width), max_length, length_penalty=length_penalty,
+                    lm_logp=lm, lm_weight=lm_weight)
+                pred, aux = tokens[:n_real].cpu().numpy(), scores[:n_real].cpu().numpy()
+                decode_row = decode_beam_row
+            else:
+                logits = self.model(x, batch_max_length=max_length)
+                pred = torch.argmax(logits, dim=-1)[:n_real].cpu().numpy()
+                aux = torch.softmax(logits, dim=-1).amax(dim=-1)[:n_real].cpu().numpy()
+                decode_row = decode_attention_row
             for j, out_idx in enumerate(chunk):
-                results[out_idx] = decode_attention_row(
-                    pred[j], maxp[j], self._itos, pad_id=cs.pad_id, eos_id=cs.eos_id,
+                results[out_idx] = decode_row(
+                    pred[j], aux[j], self._itos, pad_id=cs.pad_id, eos_id=cs.eos_id,
                     blank_id=cs.blank_id, return_confidence=return_confidence,
                 )
         return results[0] if is_single else results
 
     @torch.inference_mode()
     def predict_ctc(self, images, batch_size: int = 32, method: str = "greedy",
-                    return_confidence: bool = False, beam_width: Optional[int] = None,
-                    lm_weight: float = 0.0):
-        """CTC greedy decode -> text (or (text, confidence)) per image."""
-        if method == "beam" or beam_width is not None or lm_weight:
-            raise NotImplementedError(_BEAM_LATER)
-        if method != "greedy":
-            raise ValueError(f"Unsupported decode method: {method}")
+                    beam_width: int = 16, prune_k: int = 16, device_beam: bool = True,
+                    lm_weight: float = 0.0, return_confidence: bool = False):
+        """CTC decode -> text (or (text, confidence)) per image.
+
+        ``method="beam"`` runs the prefix beam over each frame's ``prune_k``
+        best classes on the device (:func:`ctc_beam_from_logits`), fusing
+        the engine's bigram table at ``lm_weight`` > 0.  ``device_beam=False``
+        or ``prune_k=0`` runs the C++ search on the host instead, over the
+        shipped top-k frames rebuilt dense at -1e30 (``prune_k=0``: all
+        classes).  Confidence: greedy, the mean max-softmax over the emitted
+        frames (all frames when none is emitted); beam, the winner's
+        posterior among the final beams.
+        """
         if not self.model.with_ctc_head:
             raise ValueError("this checkpoint has no CTC head")
+        if lm_weight and (method != "beam" or not device_beam):
+            raise ValueError("lm_weight requires method='beam' with device_beam=True")
+        if method not in ("greedy", "beam"):
+            raise ValueError(f"Unsupported decode method: {method}")
         is_single = not isinstance(images, list)
         images_list = [images] if is_single else list(images)
         if not images_list:
             return []
         cs = self.charset
-        skip = ctc_skip_ids(cs.pad_id, cs.sos_id, cs.eos_id, cs.ctc_blank_id)
+        blank = cs.ctc_blank_id
+        skip = ctc_skip_ids(cs.pad_id, cs.sos_id, cs.eos_id, blank)
+        k = min(prune_k, cs.num_classes) if prune_k else 0
+        on_device = method == "greedy" or (bool(k) and device_beam)
+        lm = self._fusion_lm(lm_weight)
         results: List[Any] = [None] * len(images_list)
         for chunk, n_real, x in self._batches(images_list, batch_size):
-            out = ctc_greedy_decode(self.model.ctc_logits(x), cs.ctc_blank_id,
-                                    return_confidence=return_confidence)
-            tokens, valid = out[0].cpu().numpy(), out[1].cpu().numpy()
-            rows = [tokens[b, : valid[b]].tolist() for b in range(n_real)]
-            texts = ids_to_text(rows, self._itos, skip_ids=skip)
-            confs = out[2][:n_real].cpu().numpy() if return_confidence else None
+            logits = self.model.ctc_logits(x)
+            confs = None
+            if on_device:
+                if method == "greedy":
+                    out = ctc_greedy_decode(logits, blank, return_confidence=return_confidence)
+                else:
+                    out = ctc_beam_from_logits(logits, blank_id=blank, beam_width=beam_width,
+                                               prune_k=k, lm_logp=lm, lm_weight=lm_weight,
+                                               sos_id=cs.sos_id,
+                                               return_confidence=return_confidence)
+                texts = decode_ctc_batch(out[0].cpu().numpy(), out[1].cpu().numpy(), n_real,
+                                         self._itos, skip)
+                if return_confidence:
+                    confs = out[2][:n_real].cpu().numpy()
+            else:
+                if k:
+                    vals, idx = (t[:n_real].cpu().numpy() for t in ctc_top_frames(logits, k))
+                    # the pruned frames rebuilt dense: a class outside the top k
+                    # is -1e30, far below anything the beam keeps
+                    log_probs = np.full((n_real, vals.shape[1], cs.num_classes), -1e30,
+                                        np.float32)
+                    np.put_along_axis(log_probs, idx, vals, -1)
+                else:
+                    log_probs = torch.log_softmax(logits, dim=-1)[:n_real].cpu().numpy()
+                got = ctc_beam_search(log_probs, blank_id=blank, beam_width=beam_width,
+                                      already_log_probs=True, return_totals=return_confidence)
+                texts = ids_to_text(got[0], self._itos, skip_ids=skip)
+                if return_confidence:
+                    confs = np.exp(got[1] - got[2])
             for j, out_idx in enumerate(chunk):
                 results[out_idx] = (texts[j], float(confs[j])) if return_confidence else texts[j]
         return results[0] if is_single else results

@@ -1,4 +1,4 @@
-"""Additive-attention LSTM decoder: teacher-forced, greedy and train mode.
+"""Additive-attention LSTM decoder: teacher-forced, greedy, beam and train mode.
 
 Counterpart of ``rcnn_ocr_tpu/models/attention.py:AttentionDecoder`` with
 the same raw parameters:
@@ -27,7 +27,7 @@ JAX.  With ``train=True`` (``text`` required):
 The random bits come from the caller's ``torch.Generator``: the coins for
 all steps are drawn before any dropout mask, so they do not depend on
 whether dropout is on (JAX keeps them apart by folding in ``100_000 + t``).
-Beam search is a later slice.
+:meth:`AttentionDecoder.beam_search` is JAX's ``_beam_search`` (eval only).
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from torch import nn
 
 from rcnn_ocr_tpu_torch.models.dropblock import dropout
 from rcnn_ocr_tpu_torch.models.lstm import lstm_cell_gates
+from rcnn_ocr_tpu_torch.ops.topk import top_k
 
 
 class AttentionDecoder(nn.Module):
@@ -75,6 +76,47 @@ class AttentionDecoder(nn.Module):
         logits[..., self.blank_id] = -1e4
         return logits
 
+    def _decoder(self, batch_H: torch.Tensor, drop: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        """The step-invariant part of decoding: ``(step, logits_of, keys, bh)``.
+
+        ``keys`` are the hoisted attention keys ``[B, T, H]`` fp32, ``bh`` the
+        encoder states in the compute dtype (the attention values).
+        ``step(h, c, targets, keys, values)`` is one decoder step (attention
+        context, then the LSTM cell) and returns ``(h, c, align)``, ``align``
+        the attention argmax; a beam passes its repeated keys and values.
+        ``logits_of(h)`` is the generator, fp32 and unmasked."""
+        dt = self.dtype
+        bh = batch_H.to(dt)
+        keys = torch.matmul(bh, self.w_i2h.to(dt)).float()  # hoisted attention keys
+        w_h2h = self.w_h2h.to(dt)
+        v = self.v_score.to(dt)
+        w_ctx = self.w_ctx.to(dt)
+        w_hh = self.w_hh.to(dt)
+        w_gen = self.w_gen.to(dt)
+
+        def step(h, c, targets, keys=keys, values=bh):
+            proj_h = torch.matmul(h.to(dt), w_h2h).float() + self.b_h2h
+            e = torch.matmul(torch.tanh(keys + proj_h[:, None, :]).to(dt), v)[..., 0]
+            alpha = torch.softmax(e.float(), dim=1)  # [B, T]
+            align = torch.argmax(alpha, dim=1)
+            if drop > 0.0:
+                alpha = dropout(alpha, drop, generator)
+            context = torch.bmm(alpha.to(dt)[:, None, :], values)[:, 0].float()
+            gates = (
+                torch.matmul(context.to(dt), w_ctx).float()
+                + self.w_emb[targets]  # one-hot matmul == row gather
+                + torch.matmul(h.to(dt), w_hh).float()
+                + self.b_cell
+            )
+            h_new, c_new = lstm_cell_gates(gates, c, self.hidden_size)
+            return h_new, c_new, align
+
+        def logits_of(h):
+            return torch.matmul(h.to(dt), w_gen).float() + self.b_gen
+
+        return step, logits_of, keys, bh
+
     def forward(self, batch_H: torch.Tensor, text: Optional[torch.Tensor] = None,
                 batch_max_length: int = 25, return_alignment: bool = False,
                 train: bool = False, generator: Optional[torch.Generator] = None):
@@ -86,9 +128,7 @@ class AttentionDecoder(nn.Module):
         α-dropout and scheduled sampling, drawn from ``generator``.
         """
         batch = batch_H.shape[0]
-        hidden = self.hidden_size
         steps = batch_max_length + 1
-        dt = self.dtype
         if return_alignment and text is not None:
             raise ValueError("return_alignment is a greedy-decode feature (text=None)")
         if train and text is None:
@@ -99,32 +139,8 @@ class AttentionDecoder(nn.Module):
             raise ValueError("train-mode decoding draws from a torch.Generator; pass one")
         coins = torch.rand(steps, generator=generator, device=batch_H.device) if sampling else None
 
-        bh = batch_H.to(dt)
-        keys = torch.matmul(bh, self.w_i2h.to(dt)).float()  # hoisted attention keys
-        w_h2h = self.w_h2h.to(dt)
-        v = self.v_score.to(dt)
-        w_ctx = self.w_ctx.to(dt)
-        w_hh = self.w_hh.to(dt)
-        w_gen = self.w_gen.to(dt)
-
-        def step(h, c, targets):
-            proj_h = torch.matmul(h.to(dt), w_h2h).float() + self.b_h2h
-            e = torch.matmul(torch.tanh(keys + proj_h[:, None, :]).to(dt), v)[..., 0]
-            alpha = torch.softmax(e.float(), dim=1)  # [B, T]
-            align = torch.argmax(alpha, dim=1)
-            if drop > 0.0:
-                alpha = dropout(alpha, drop, generator)
-            context = torch.bmm(alpha.to(dt)[:, None, :], bh)[:, 0].float()
-            gates = (
-                torch.matmul(context.to(dt), w_ctx).float()
-                + self.w_emb[targets]  # one-hot matmul == row gather
-                + torch.matmul(h.to(dt), w_hh).float()
-                + self.b_cell
-            )
-            h_new, c_new = lstm_cell_gates(gates, c, hidden)
-            return h_new, c_new, align
-
-        h = bh.new_zeros((batch, hidden), dtype=torch.float32)
+        step, logits_of, _, bh = self._decoder(batch_H, drop, generator)
+        h = bh.new_zeros((batch, self.hidden_size), dtype=torch.float32)
         c = torch.zeros_like(h)
 
         if text is not None:
@@ -136,19 +152,16 @@ class AttentionDecoder(nn.Module):
                 if t + 1 < steps:
                     targets = text[:, t + 1].long()
                     if sampling:
-                        pred = torch.argmax(self._mask_blank(
-                            torch.matmul(h.to(dt), w_gen).float() + self.b_gen), dim=-1)
+                        pred = torch.argmax(self._mask_blank(logits_of(h)), dim=-1)
                         targets = torch.where(coins[t] < self.sampling_prob, pred, targets)
             out_hid = torch.stack(hs, dim=1)  # [B, steps, H]
-            logits = torch.matmul(out_hid.to(dt), w_gen).float() + self.b_gen
-            return self._mask_blank(logits)
+            return self._mask_blank(logits_of(out_hid))
 
         targets = torch.full((batch,), self.sos_id, dtype=torch.long, device=bh.device)
         logits_s, align_s = [], []
         for _ in range(steps):
             h, c, align = step(h, c, targets)
-            logits_t = torch.matmul(h.to(dt), w_gen).float() + self.b_gen
-            logits_t = self._mask_blank(logits_t)
+            logits_t = self._mask_blank(logits_of(h))
             targets = torch.argmax(logits_t, dim=-1)
             logits_s.append(logits_t)
             align_s.append(align)
@@ -156,3 +169,88 @@ class AttentionDecoder(nn.Module):
         if return_alignment:
             return logits, torch.stack(align_s, dim=1)
         return logits
+
+    def beam_search(self, batch_H: torch.Tensor, beam_width: int, batch_max_length: int = 25,
+                    length_penalty: float = 0.0, lm_logp=None, lm_weight: float = 0.0,
+                    return_alignment: bool = False):
+        """Beam search over the decoder (``models/attention.py:_beam_search``).
+
+        Each row keeps ``K = beam_width`` hypotheses, beam-major (row b's at
+        ``[b*K, (b+1)*K)``); only beam 0 is live at the first step (the
+        others start at -1e30).  Every step expands all ``K * V``
+        continuations and keeps the top K of the row, ties to the lower
+        index as ``lax.top_k`` breaks them; h, c, the token history and the
+        finished flags follow each child's parent.  A hypothesis that emitted
+        EOS is finished: its only continuation is PAD at log-prob 0.
+
+        ``lm_logp`` ``[V, V]`` fuses a bigram table: ``lm_weight *
+        lm_logp[prev]`` is added to the step's log-probs before the top K.
+        ``length_penalty > 0`` ranks the final hypotheses by ``score /
+        len ** length_penalty`` (``len`` through the first EOS, else all
+        steps) but the returned score stays the raw cumulative (fused)
+        log-prob.  Returns ``(tokens [B, steps], scores [B] fp32)``, plus
+        ``align [B, steps]`` (each token's parent's attention argmax) with
+        ``return_alignment``.
+        """
+        batch = batch_H.shape[0]
+        hidden, vocab, K = self.hidden_size, self.num_classes, int(beam_width)
+        steps = batch_max_length + 1
+        dev = batch_H.device
+        lm_c = None
+        if lm_logp is not None:
+            lm_c = torch.as_tensor(lm_logp, dtype=torch.float32, device=dev)
+            if tuple(lm_c.shape) != (vocab, vocab):
+                raise ValueError(f"lm_logp must be [V, V] = {(vocab, vocab)}, "
+                                 f"got {tuple(lm_c.shape)}")
+        neg_inf = -1e30
+        step, logits_of, keys, bh = self._decoder(batch_H)
+        keys_k = keys.repeat_interleave(K, dim=0)
+        values_k = bh.repeat_interleave(K, dim=0)
+        pad_only = torch.full((vocab,), neg_inf, device=dev)
+        pad_only[self.pad_id] = 0.0
+
+        h = torch.zeros((batch * K, hidden), device=dev)
+        c = torch.zeros_like(h)
+        prev = torch.full((batch, K), self.sos_id, dtype=torch.long, device=dev)
+        cum = torch.full((batch, K), neg_inf, device=dev)
+        cum[:, 0] = 0.0
+        finished = torch.zeros((batch, K), dtype=torch.bool, device=dev)
+        hist = torch.zeros((batch, K, steps), dtype=torch.long, device=dev)
+        ahist = torch.zeros_like(hist) if return_alignment else None
+
+        def by_parent(a, parent):  # a [B, K, ...] -> the rows of each child's parent
+            idx = parent.view(batch, K, *([1] * (a.dim() - 2))).expand(batch, K, *a.shape[2:])
+            return torch.gather(a, 1, idx)
+
+        for t in range(steps):
+            h_new, c_new, align_t = step(h, c, prev.reshape(batch * K), keys_k, values_k)
+            logits_t = self._mask_blank(logits_of(h_new))
+            logp = torch.log_softmax(logits_t, dim=-1).reshape(batch, K, vocab)
+            if lm_c is not None:
+                logp = logp + lm_weight * lm_c[prev]
+            logp = torch.where(finished[:, :, None], pad_only, logp)
+            total = cum[:, :, None] + logp  # [B, K, V]
+            cum, idx = top_k(total.reshape(batch, K * vocab), K)
+            parent = idx // vocab
+            prev = idx % vocab
+            h = by_parent(h_new.reshape(batch, K, hidden), parent).reshape(batch * K, hidden)
+            c = by_parent(c_new.reshape(batch, K, hidden), parent).reshape(batch * K, hidden)
+            finished = by_parent(finished, parent) | (prev == self.eos_id)
+            hist = by_parent(hist, parent)
+            hist[:, :, t] = prev
+            if return_alignment:
+                ahist = by_parent(ahist, parent)
+                ahist[:, :, t] = by_parent(align_t.reshape(batch, K), parent)
+
+        rank = cum
+        if length_penalty > 0.0:
+            is_eos = hist == self.eos_id
+            first_eos = torch.argmax(is_eos.to(torch.int32), dim=-1)
+            lengths = torch.where(is_eos.any(dim=-1), first_eos + 1,
+                                  torch.full_like(first_eos, steps)).float()
+            rank = cum / lengths ** length_penalty
+        best = torch.argmax(rank, dim=1)
+        rows = torch.arange(batch, device=dev)
+        if return_alignment:
+            return hist[rows, best], cum[rows, best], ahist[rows, best]
+        return hist[rows, best], cum[rows, best]

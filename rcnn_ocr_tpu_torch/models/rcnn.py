@@ -100,6 +100,15 @@ class RCNN(nn.Module):
         return self.attn(self.encode(x), batch_max_length=batch_max_length,
                          return_alignment=True)
 
+    def beam_decode(self, x: torch.Tensor, beam_width: int = 5, batch_max_length: int = 25,
+                    length_penalty: float = 0.0, lm_logp=None, lm_weight: float = 0.0,
+                    return_alignment: bool = False):
+        """Attention beam search: ``(tokens [B, steps], scores [B])`` (and the
+        alignment); see :meth:`AttentionDecoder.beam_search`."""
+        return self.attn.beam_search(self.encode(x), beam_width, batch_max_length,
+                                     length_penalty=length_penalty, lm_logp=lm_logp,
+                                     lm_weight=lm_weight, return_alignment=return_alignment)
+
     def eval_outputs(self, x: torch.Tensor, text: Optional[torch.Tensor] = None,
                      batch_max_length: int = 25, with_attention: bool = True,
                      with_ctc: bool = False):

@@ -346,3 +346,109 @@ def test_run_training_two_epochs_on_the_card_with_a_resume(cuda_device, tmp_path
                                    "progress": False}))
     assert resumed["start_epoch"] == 3 and resumed["global_step"] == 6
     assert load_checkpoint_blob(str(tmp_path / "exp" / "last_ckpt.msgpack"))["epoch"] == 3
+
+
+def test_logaddexp_of_two_minus_infinities_is_minus_infinity(cuda_device):
+    """The CTC beam folds dead (-inf) candidates with torch.logaddexp."""
+    inf = float("inf")
+    a = torch.tensor([-inf, -inf, 0.0, -1.5], device=cuda_device)
+    b = torch.tensor([-inf, 2.0, -inf, -1.5], device=cuda_device)
+    got = torch.logaddexp(a, b).cpu()
+    assert got[0].item() == -inf and not torch.isnan(got).any()
+    torch.testing.assert_close(got, torch.logaddexp(a.cpu(), b.cpu()), rtol=0, atol=0)
+
+
+def _beam_model(num_classes=12, hidden=32):
+    from rcnn_ocr_tpu_torch.models.rcnn import RCNN, init_train_params
+
+    model = RCNN(num_classes=num_classes, hidden_size=hidden, width_mult=0.25,
+                 with_ctc_head=True, blank_id=3).eval()
+    init_train_params(model, torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        model.attn.w_gen.mul_(4.0)
+    return model
+
+
+@pytest.mark.parametrize("k,fused,penalty", [(1, False, 0.0), (5, True, 0.6), (13, False, 0.0)])
+def test_attention_beam_on_the_card_matches_the_cpu(cuda_device, k, fused, penalty):
+    """The same fp32 encoder states through the beam on the card and on the
+    CPU (top-k ties, gathers and the LM row gather on CUDA)."""
+    model = _beam_model()
+    enc = torch.randn(64, 16, 32, generator=torch.Generator().manual_seed(1))
+    lm = torch.randn(12, 12, generator=torch.Generator().manual_seed(2)) if fused else None
+    kw = dict(batch_max_length=10, length_penalty=penalty, lm_logp=lm,
+              lm_weight=0.5 if fused else 0.0, return_alignment=True)
+    with torch.no_grad():
+        want = model.attn.beam_search(enc, k, **kw)
+        got = model.to(cuda_device).attn.beam_search(enc.to(cuda_device), k, **kw)
+    rows = (got[0].cpu() == want[0]).all(dim=1)
+    assert rows.float().mean() >= 0.99, f"{int(rows.sum())}/{len(rows)} rows equal"
+    torch.testing.assert_close(got[1].cpu()[rows], want[1][rows], rtol=1e-5, atol=1e-4)
+    assert (got[2].cpu()[rows] == want[2][rows]).all()
+
+
+@pytest.mark.parametrize("w,k,fused", [(16, 16, False), (16, 16, True), (5, 6, False),
+                                       (8, 3, True)])
+def test_ctc_beam_on_the_card_matches_the_cpu(cuda_device, w, k, fused):
+    """The same fp32 pruned frames through the device prefix beam on the card
+    and on the CPU: every row equal, log-probs within 1e-5."""
+    from rcnn_ocr_tpu_torch.ops.ctc import ctc_beam_search_device, ctc_top_frames
+
+    g = torch.Generator().manual_seed(3)
+    logits = torch.randn(256, 16, 194, generator=g) * 3.0
+    logits[:8, :, :] = 0.0  # exact ties everywhere
+    vals, idx = ctc_top_frames(logits, k)
+    lengths = torch.randint(0, 17, (256,), generator=g)
+    lm = torch.randn(194, 194, generator=g) if fused else None
+    kw = dict(blank_id=3, beam_width=w, lm_logp=lm, lm_weight=0.7 if fused else 0.0,
+              sos_id=1, return_posterior=True)
+    want = ctc_beam_search_device(vals, idx, lengths=lengths, **kw)
+    got = ctc_beam_search_device(vals.to(cuda_device), idx.to(cuda_device),
+                                 lengths=lengths.to(cuda_device), **kw)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[3].cpu(), want[3], rtol=1e-5, atol=1e-5)
+    v_cuda, i_cuda = ctc_top_frames(logits.to(cuda_device), k)
+    assert torch.equal(i_cuda.cpu(), idx)
+
+
+def test_host_beam_library_builds_and_runs_here(cuda_device):
+    from rcnn_ocr_tpu_torch import native
+    from rcnn_ocr_tpu_torch.ops.ctc import _ctc_beam_py, ctc_beam_search
+
+    native.load()
+    assert native.library_path().exists()
+    lp = torch.log_softmax(torch.randn(4, 12, 20, generator=torch.Generator().manual_seed(4)),
+                           -1).numpy()
+    labels, lps, totals = ctc_beam_search(lp, 0, 5, already_log_probs=True, return_totals=True)
+    for b in range(4):
+        ref = _ctc_beam_py(lp[b], 0, 5)
+        assert labels[b] == ref[0]
+        np.testing.assert_allclose([lps[b], totals[b]], ref[1:], rtol=1e-5, atol=1e-5)
+
+
+def test_beam_batches_launch_the_kernels(cuda_device):
+    """Every beam decode of OCRInference encodes through 11 se_scale and 2
+    bilstm_scan launches per batch."""
+    from rcnn_ocr_tpu_torch.inference import OCRInference
+    from rcnn_ocr_tpu_torch.interop.jax_params import to_jax_variables
+
+    tokens = ["<PAD>", "<SOS>", "<EOS>", "<BLANK>"] + list("abcdefgh")
+    variables = dict(to_jax_variables(_beam_model()), itos=tokens)
+    lm = np.random.default_rng(0).normal(size=(12, 12)).astype(np.float32)
+    rng = np.random.default_rng(1)
+    imgs = [rng.integers(0, 256, size=(32, int(rng.integers(40, 128)), 3), dtype=np.uint8)
+            for _ in range(6)]
+    engine = OCRInference(variables, device="cuda", img_h=32, img_w=128, lm=lm)
+    for call in (lambda: engine.predict(imgs, max_length=8, batch_size=4, beam_width=3),
+                 lambda: engine.predict(imgs, max_length=8, batch_size=4, beam_width=3,
+                                        lm_weight=0.5, length_penalty=0.6),
+                 lambda: engine.predict_ctc(imgs, batch_size=4, method="beam"),
+                 lambda: engine.predict_ctc(imgs, batch_size=4, method="beam", lm_weight=0.5,
+                                            return_confidence=True),
+                 lambda: engine.predict_ctc(imgs, batch_size=4, method="beam",
+                                            device_beam=False)):
+        kernels.reset_launch_counts()
+        out = call()
+        assert kernels.launch_counts() == {"se_scale": 22, "bilstm_scan": 4}
+        assert len(out) == 6

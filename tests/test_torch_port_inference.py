@@ -228,12 +228,20 @@ def test_device_is_cuda_unless_cpu_is_asked_for(jax_checkpoints, monkeypatch):
             OCRInference(jax_checkpoints[0], **kwargs)
 
 
-def test_later_slice_options_raise(engines):
+def test_later_slice_options_raise(engines, jax_checkpoints):
+    """Beams and ``"auto:K"`` buckets arrived with the beam slice; what is
+    still to come (int8, long lines, the serving path) is not part of the
+    engine yet, so asking for it fails instead of being ignored."""
     ours = engines[0]
     img = _images(1)[0]
-    with pytest.raises(NotImplementedError, match="beam"):
-        ours.predict(img, beam_width=4)
-    with pytest.raises(NotImplementedError, match="beam"):
-        ours.predict_ctc(img, method="beam")
-    with pytest.raises(NotImplementedError, match="auto:K"):
-        OCRInference(to_jax_variables(ours.model), device="cpu", width_buckets="auto:4")
+    assert isinstance(ours.predict(img, max_length=MAX_LEN, beam_width=4), str)
+    assert isinstance(ours.predict_ctc(img, method="beam"), str)
+    full = jax_checkpoints[0]
+    auto = OCRInference(full, device="cpu", width_buckets="auto:4")
+    assert auto._auto_bucket_k == 4 and auto.width_buckets is None
+    with pytest.raises(ValueError, match="unknown spec"):
+        OCRInference(full, device="cpu", width_buckets="fixed")
+    for later in ("predict_long", "predict_ctc_long", "predict_serving", "calibrate"):
+        assert not hasattr(ours, later), later
+    with pytest.raises(TypeError, match="quantize"):
+        OCRInference(full, device="cpu", quantize=True)

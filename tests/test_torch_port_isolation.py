@@ -69,7 +69,9 @@ def test_sources_import_nothing_of_jax(path):
 def test_port_sources_are_not_gitignored():
     """Every source of the port reaches a commit (a bare ``data/`` pattern
     in .gitignore once hid ``rcnn_ocr_tpu_torch/data/``)."""
-    files = SOURCES + sorted((REPO / "rcnn_ocr_tpu_torch" / "csrc").glob("*.cu"))
+    csrc = REPO / "rcnn_ocr_tpu_torch" / "csrc"
+    files = SOURCES + sorted(csrc.glob("**/*.cu")) + sorted(csrc.glob("**/*.cpp"))
+    assert csrc / "host" / "ctc_beam.cpp" in files
     probe = subprocess.run(["git", "rev-parse", "--is-inside-work-tree"], cwd=str(REPO),
                            capture_output=True, text=True)
     if probe.returncode != 0:

@@ -91,12 +91,17 @@ def test_load_rgb_uint8_matches_jax(kind):
 
 
 def test_paths_and_pil_inputs_wait_for_a_later_slice(tmp_path):
-    """A path reads like JAX's ``load_rgb_uint8`` (PNG: bit-equal); PIL
-    objects still wait for the serving slice."""
+    """A path reads like JAX's ``load_rgb_uint8`` (PNG: bit-equal); a PIL
+    image (duck-typed: anything with ``.convert("RGB")``) converts like
+    JAX's, without the port importing PIL."""
 
     class FakePIL:
+        def __init__(self, rgb):
+            self.rgb, self.modes = rgb, []
+
         def convert(self, mode):
-            return self
+            self.modes.append(mode)
+            return self.rgb
 
     img = np.random.default_rng(13).integers(0, 256, (9, 21, 3), dtype=np.uint8)
     path = str(tmp_path / "line.png")
@@ -104,8 +109,11 @@ def test_paths_and_pil_inputs_wait_for_a_later_slice(tmp_path):
     np.testing.assert_array_equal(load_rgb_uint8(path), cv2_load_rgb_uint8(path))
     with pytest.raises(FileNotFoundError):
         load_rgb_uint8(str(tmp_path / "absent.png"))
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        load_rgb_uint8(FakePIL())
+    fake = FakePIL(img)
+    np.testing.assert_array_equal(load_rgb_uint8(fake), cv2_load_rgb_uint8(FakePIL(img)))
+    assert fake.modes == ["RGB"]
+    with pytest.raises(ValueError, match="Unsupported image type"):
+        load_rgb_uint8(3.0)
 
 
 def test_device_normalize_is_bit_exact():
