@@ -41,12 +41,40 @@
    search alone (CUDA events), the host beam's ms, and per mode the wall,
    device busy time, kernel count and idle share of one profiled batch.
    In fp32: beam width 1 must equal greedy through the first EOS on >= 99%
-   of rows; the device CTC beam at prune_k = W + 1 the host C++ beam on the
-   same pruned frames on >= 99% of rows; the card's CTC beam (plain and
-   fused) the same function on the CPU on the same frames on every row,
+   of rows, and where it does not, greedy's logits of its token and the
+   beam's at the first differing step must be within 1e-4 (a near-tie the
+   beam breaks to the lower class id; each such row is printed with its
+   tokens and gap); the device CTC beam at prune_k = W + 1 the host C++ beam
+   on the same pruned frames on >= 99% of rows; the card's CTC beam (plain
+   and fused) the same function on the CPU on the same frames on every row,
    log-probs and posteriors within 1e-5; the card's fused attention beam
    the CPU's on the same encoder states on >= 99% of rows.
-6. Training phase.  (a) Gradient check: the same full-width model in fp32
+6. Serving phase: ``predict_serving`` (the C++ letterbox into pinned
+   buffers, resize-pad on the card) with ``canvas="auto"`` on the same
+   model and 512 images in bf16 at batch 256, for attention, attention
+   beam (K 5), CTC greedy and the CTC device beam (W 16, prune_k 16).  The
+   device resize-pad of every image must be within one uint8 step of the
+   host ``ResizeAndPad`` (differing pixels and bit-equal rows printed) and
+   equal with TF32 on and off; each call, counted from 0, must launch 11
+   squeeze-excite and 2 BiLSTM kernels per batch and give one string per
+   image, equal to ``predict`` / ``predict_ctc``'s on every image whose row
+   is bit-equal.  Prints img/s per method beside the host-resize path's in
+   the same call; per batch the host ``_to_rgb`` and letterbox ms, the H2D
+   ms and MB, the device resize, encoder and per-method kernel ms (CUDA
+   events), and per method the wall, device busy time, kernels and idle
+   share of one profiled batch.
+7. Long-line phase: 256 seeded lines 24-48 high of 2-15 tiles (tile 128,
+   overlap 64) and 32 lines that fit one tile, through ``predict_long`` in
+   bf16 at batch 256 for ctc_greedy, ctc_beam, attention (``align`` and
+   ``text`` merges), attention_beam, hybrid and hybrid_beam: 11 + 2
+   launches per encoded tile (or crop) batch, one string per line; the
+   one-tile lines equal ``predict`` / ``predict_ctc`` exactly; the ids fast
+   path equals the top-k path on every line; in fp32 the stitched CTC
+   strings through the kernels equal those under ``plain_only()`` on every
+   line and the attention ones on >= 99%.  Prints lines/s and tiles/s per
+   method, and the host plan, stitch and extraction ms against the ids
+   kernel's device ms.
+8. Training phase.  (a) Gradient check: the same full-width model in fp32
    at batch 32, train mode, head "both" with dropout, DropBlock and
    sampling off, one ``make_train_step`` (SGD at lr 0, so the weights stay)
    through the kernels and once more under ``kernels.plain_only()`` from
@@ -67,7 +95,7 @@
    (c) Round trip: ``make_eval_step`` on the trained state,
    ``save_weights`` into build/chip_smoke/, and the file loaded by
    ``OCRInference`` on the card for ``predict`` and ``predict_ctc``.
-7. Training-loop phase: writes seeded line images (30 characters of
+9. Training-loop phase: writes seeded line images (30 characters of
    configs/charset.txt with fixed 12x8 glyph bitmaps, labels of 4-12, lines
    32-48 high, 8-bit RGB PNGs whose rows cycle through all five filter
    types) in the shipped layout into build/chip_smoke/data/, and runs
@@ -109,6 +137,7 @@ is present or the package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import shutil
@@ -132,6 +161,8 @@ LSTM_T, LSTM_D = IMG_W // 8, 512
 BATCH, BIG_BATCH, N_IMAGES, MAX_LENGTH = 256, 2048, 512, 25
 # beam phase: attention beam width, CTC beam width (= prune_k), fusion weight
 BEAM_WIDTH, CTC_BEAM, LM_WEIGHT = 5, 16, 0.5
+# long-line phase: tile width and overlap, long lines and one-tile lines
+LONG_TILE_W, LONG_OVERLAP, N_LONG, N_SHORT = 128, 64, 256, 32
 COLD_BYTES = 100_000_000  # twice the H100's 50 MB L2
 # training phase: configs/config.json's shape and optimizer
 TRAIN_BATCH, TRAIN_MAX_LEN, TRAIN_STEPS, GRAD_BATCH = 128, 40, 30, 32
@@ -168,6 +199,11 @@ TOL = {
     # weights from the same file, so only another convolution algorithm
     # could move a logit
     "served": dict(rtol=1e-3, atol=1e-3),
+    # fp32, beam width 1 vs greedy: a row may differ only where greedy's two
+    # candidate logits are within rounding of each other.  The beam compares
+    # cum + log_softmax sums whose fp32 ulp is 7.6e-6 at |sum| < 128, so
+    # a gap under 1e-4 is a tie the beam broke to the lower class id
+    "beam1_tie_gap": 1e-4,
 }
 
 
@@ -507,7 +543,6 @@ def beam_phase(kernels, variables, images, power: str):
         ctc_beam_search_device,
         ctc_top_frames,
     )
-    from rcnn_ocr_tpu_torch.utils.profiling import trace
     from rcnn_ocr_tpu_torch.vocab.charset import Charset
 
     charset_path = os.path.join(REPO, "configs", "charset.txt")
@@ -587,13 +622,8 @@ def beam_phase(kernels, variables, images, power: str):
         }
     for mode in ("attention_beam", "attention_beam_lm", "ctc_beam", "ctc_beam_lm",
                  "ctc_host_beam"):
-        with trace(os.path.join(REPO, "build", "chip_smoke", f"profile_{mode}")) as prof:
-            modes[mode](images[:BATCH])
-        breakdown[f"{mode}_wall_ms_per_batch"] = prof.wall_s * 1e3
-        breakdown[f"{mode}_device_busy_ms"] = (prof.device_busy_s * 1e3
-                                               if prof.device_busy_s is not None else None)
-        breakdown[f"{mode}_kernels_per_batch"] = prof.kernels
-        breakdown[f"{mode}_device_idle_share"] = prof.device_idle_share
+        for key, val in profiled(lambda: modes[mode](images[:BATCH]), mode).items():
+            breakdown[f"{mode}_{key}_per_batch"] = val
     print(f"  per bs-256 batch (bf16) on {power}: " + ", ".join(
         f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in breakdown.items()))
     out["breakdown"] = breakdown
@@ -606,15 +636,28 @@ def beam_phase(kernels, variables, images, power: str):
     lm_t = ref._lm
     rows = beam1 = host_same = 0
     attn_cpu_same, ctc_lp_err = 0, 0.0
+    ties = []
     with torch.inference_mode():
-        for _, n_real, x in ref._batches(images, BATCH):
+        for chunk, n_real, x in ref._batches(images, BATCH):
             enc = m.encode(x)
-            # beam width 1 is greedy through the first EOS
-            greedy = m.attn(enc, batch_max_length=MAX_LENGTH).argmax(-1).cpu().numpy()
+            # beam width 1 is greedy through the first EOS, but for near-ties:
+            # the beam ranks cum + log_softmax(logits), and where the greedy
+            # top-2 logits differ by less than an fp32 ulp of that sum, both
+            # round to one value and the beam takes the lower class id
+            greedy_logits = m.attn(enc, batch_max_length=MAX_LENGTH)
+            greedy = greedy_logits.argmax(-1).cpu().numpy()
             one = m.attn.beam_search(enc, 1, MAX_LENGTH)[0].cpu().numpy()
-            for g, b in zip(greedy[:n_real], one[:n_real]):
+            for r, (g, b) in enumerate(zip(greedy[:n_real], one[:n_real])):
                 n = int(np.argmax(g == cs.eos_id)) + 1 if cs.eos_id in g else len(g)
-                beam1 += int(np.array_equal(g[:n], b[:n]))
+                if np.array_equal(g[:n], b[:n]):
+                    beam1 += 1
+                    continue
+                t = int(np.argmax(g[:n] != b[:n]))
+                top2 = torch.topk(greedy_logits[r, t].float(), 2).values
+                ties.append(dict(row=chunk[r], step=t, greedy=g[:n].tolist(), beam=b[:n].tolist(),
+                                 top2_gap=float(top2[0] - top2[1]),
+                                 greedy_minus_beam_token=float(greedy_logits[r, t, g[t]]
+                                                               - greedy_logits[r, t, b[t]])))
             # the device CTC beam at prune_k = W + 1 vs the host C++ beam on the
             # same pruned frames
             logits = m._ctc_head(enc)
@@ -654,13 +697,291 @@ def beam_phase(kernels, variables, images, power: str):
           f"card's CTC beam = the CPU's on every row (log-probs within {ctc_lp_err:.2e}, "
           f"rtol 1e-5); "
           f"attention beam (K {BEAM_WIDTH}, fused) card = CPU on {attn_cpu_same}/{rows} rows")
+    for tie in ties:
+        print(f"  beam width 1 != greedy on row {tie['row']}: first at step {tie['step']}, greedy "
+              f"{tie['greedy']}, beam {tie['beam']}; greedy logits there: top-2 gap "
+              f"{tie['top2_gap']:.3e}, greedy token minus beam token {tie['greedy_minus_beam_token']:.3e}")
     check(beam1 >= 0.99 * rows, f"beam width 1 equals greedy on only {beam1}/{rows} rows")
+    check(all(t["greedy_minus_beam_token"] <= TOL["beam1_tie_gap"] for t in ties),
+          f"beam width 1 differs from greedy beyond a near-tie: {ties}")
     check(host_same >= 0.99 * rows, f"device and host CTC beams agree on {host_same}/{rows}")
     check(attn_cpu_same >= 0.99 * rows,
           f"the card's attention beam equals the CPU's on {attn_cpu_same}/{rows} rows")
-    out.update(rows=rows, beam1_equals_greedy=beam1, device_ctc_equals_host=host_same,
+    out.update(rows=rows, beam1_equals_greedy=beam1, beam1_ties=ties,
+               device_ctc_equals_host=host_same,
                attention_card_equals_cpu=attn_cpu_same, ctc_card_vs_cpu_lp_max_abs_err=ctc_lp_err,
                launch_counts=launches)
+    return out
+
+
+def profiled(call, name: str) -> dict:
+    """Wall, device busy time, kernel count and idle share of one call."""
+    from rcnn_ocr_tpu_torch.utils.profiling import trace
+
+    with trace(os.path.join(REPO, "build", "chip_smoke", f"profile_{name}")) as prof:
+        call()
+    return dict(wall_ms=prof.wall_s * 1e3, kernels=prof.kernels,
+                device_busy_ms=prof.device_busy_s * 1e3 if prof.device_busy_s is not None else None,
+                device_idle_share=prof.device_idle_share)
+
+
+def serving_phase(kernels, variables, images, power: str):
+    """predict_serving (resize-pad on the card) for the four decodes on the
+    main path's model and images, against the host resize-pad path."""
+    from rcnn_ocr_tpu_torch.inference import OCRInference
+    from rcnn_ocr_tpu_torch.ops.augment import device_normalize
+    from rcnn_ocr_tpu_torch.ops.preprocess import host_letterbox, host_resize_geometry, resize_pad_u8
+
+    charset_path = os.path.join(REPO, "configs", "charset.txt")
+    engine = OCRInference(variables, charset_path=charset_path, device="cuda", img_h=IMG_H,
+                          img_w=IMG_W, dtype=torch.bfloat16)
+    n_batches = -(-N_IMAGES // BATCH)
+    canvas = (max(im.shape[0] for im in images), max(im.shape[1] for im in images))
+    print(f"  canvas {canvas[0]}x{canvas[1]} (\"auto\": the largest height and width of the "
+          f"{N_IMAGES} images), {BATCH * canvas[0] * canvas[1] * 3 / 1e6:.1f} MB of uint8 a batch")
+
+    # the device resize-pad of every image vs the host ResizeAndPad, and TF32
+    rows_equal = np.zeros(N_IMAGES, bool)
+    differing = 0
+    tf32_equal = True
+    for s in range(0, N_IMAGES, BATCH):
+        chunk = images[s : s + BATCH]
+        raw, sizes = host_letterbox(chunk, *canvas)
+        sizes = np.concatenate([sizes, host_resize_geometry(sizes, IMG_H, IMG_W)], axis=1)
+        raw_d, sizes_d = torch.from_numpy(raw).cuda(), torch.from_numpy(sizes).cuda()
+        dev = resize_pad_u8(raw_d, sizes_d, IMG_H, IMG_W)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32_equal &= torch.equal(resize_pad_u8(raw_d, sizes_d, IMG_H, IMG_W), dev)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        host = torch.from_numpy(np.stack([engine._preprocess(im, None) for im in chunk]))
+        diff = (dev.cpu().int() - host.int()).abs()
+        check(int(diff.max()) <= 1, f"device resize-pad {int(diff.max())} uint8 steps off the host")
+        differing += int((diff > 0).sum())
+        rows_equal[s : s + len(chunk)] = (diff == 0).flatten(1).all(dim=1).numpy()
+    check(tf32_equal, "the device resize-pad changes with TF32 on")
+    n_equal = int(rows_equal.sum())
+    print(f"  device resize-pad vs host ResizeAndPad: {differing} of {N_IMAGES * IMG_H * IMG_W * 3}"
+          f" pixels differ (each by one uint8 step), {n_equal}/{N_IMAGES} rows bit-equal; "
+          f"TF32 on = TF32 off")
+
+    attn = dict(max_length=MAX_LENGTH, batch_size=BATCH)
+    ctc_beam = dict(beam_width=CTC_BEAM, prune_k=CTC_BEAM)
+    methods = {  # method: (predict_serving knobs, the host-resize call it is held to)
+        "attention": ({}, lambda imgs: engine.predict(imgs, **attn)),
+        "attention_beam": (dict(beam_width=BEAM_WIDTH),
+                           lambda imgs: engine.predict(imgs, beam_width=BEAM_WIDTH, **attn)),
+        "ctc_greedy": ({}, lambda imgs: engine.predict_ctc(imgs, batch_size=BATCH)),
+        "ctc_beam": (ctc_beam, lambda imgs: engine.predict_ctc(imgs, batch_size=BATCH,
+                                                               method="beam", **ctc_beam)),
+    }
+    out = {"canvas": list(canvas), "differing_pixels": differing, "rows_bit_equal": n_equal,
+           "tf32_equal": True, "img_s": {}, "predict_img_s": {}, "launches": {}}
+    launches = {"se_scale": 0, "bilstm_scan": 0}
+    serve = {}
+    for method, (knobs, host_call) in methods.items():
+        serve[method] = functools.partial(engine.predict_serving, canvas="auto", method=method,
+                                          **attn, **knobs)
+        serve[method](images[:BATCH])  # warm-up
+        host_call(images[:BATCH])
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        served = serve[method](images)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        for name, per in (("se_scale", 11), ("bilstm_scan", 2)):
+            check(counts[name] == per * n_batches,
+                  f"serving {method} launched {name} {counts[name]}x, expected {per * n_batches}")
+            launches[name] += counts[name]
+        check(len(served) == N_IMAGES and all(isinstance(t, str) for t in served),
+              f"serving {method} returned no string per image")
+        t0 = time.perf_counter()
+        hosted = host_call(images)
+        host_wall = time.perf_counter() - t0
+        same = sum(a == b for a, b, eq in zip(served, hosted, rows_equal) if eq)
+        rest_same = sum(a == b for a, b, eq in zip(served, hosted, rows_equal) if not eq)
+        check(same == n_equal, f"serving {method}: {n_equal - same} strings differ from the host "
+                               f"path on rows whose pixels are bit-equal")
+        out["img_s"][method], out["predict_img_s"][method] = N_IMAGES / wall, N_IMAGES / host_wall
+        out["launches"][method] = counts
+        print(f"  {method}: predict_serving {N_IMAGES / wall:.1f} img/s, host-resize path "
+              f"{N_IMAGES / host_wall:.1f} img/s in the same call ({N_IMAGES} images, bs {BATCH}, "
+              f"bf16) on {power}; launches {counts}; strings equal on {same}/{n_equal} bit-equal "
+              f"rows, and on {rest_same}/{N_IMAGES - n_equal} others (not held)")
+
+    # where one served bs-256 batch's time goes
+    rgb = [engine._to_rgb(im) for im in images[:BATCH]]
+    buf = torch.empty((BATCH, *canvas, 3), dtype=torch.uint8, pin_memory=True)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _, sizes = host_letterbox(rgb, *canvas, out=buf.numpy())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    for im in images[:BATCH]:
+        engine._to_rgb(im)
+    to_rgb_ms = (time.perf_counter() - t0) * 1e3
+    sizes = np.concatenate([sizes, host_resize_geometry(sizes, IMG_H, IMG_W)], axis=1)
+    raw_d, sizes_d = buf.cuda(), torch.from_numpy(sizes).cuda()
+    breakdown = {
+        "host_to_rgb_ms": to_rgb_ms,
+        "host_letterbox_ms": sorted(walls)[1],
+        "h2d_ms": time_ms(lambda: buf.to("cuda", non_blocking=True), iters=10),
+        "h2d_mb": buf.numel() / 1e6,
+        "device_resize_ms": time_ms(lambda: resize_pad_u8(raw_d, sizes_d, IMG_H, IMG_W), iters=10),
+    }
+    with torch.inference_mode():
+        x = device_normalize(resize_pad_u8(raw_d, sizes_d, IMG_H, IMG_W))
+        breakdown["device_encode_ms"] = time_ms(lambda: engine.model.encode(x), iters=5)
+        for method, (knobs, _) in methods.items():
+            kernel = engine.serving_kernel(method, max_length=MAX_LENGTH, **knobs)
+            total = time_ms(lambda: kernel(raw_d, sizes_d), iters=3)
+            breakdown[f"device_{method}_kernel_ms"] = total
+            breakdown[f"device_{method}_decode_ms"] = (total - breakdown["device_resize_ms"]
+                                                       - breakdown["device_encode_ms"])
+    for method in methods:
+        prof = profiled(lambda: serve[method](images[:BATCH]), f"serving_{method}")
+        for key, val in prof.items():
+            breakdown[f"{method}_{key}_per_batch"] = val
+    print(f"  per served bs-256 batch (bf16) on {power}: " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in breakdown.items()))
+    out.update(breakdown=breakdown, launch_counts=launches)
+    return out
+
+
+def long_line_images(seed: int):
+    """N_LONG seeded lines 24-48 high whose height-normalized width spans
+    2-15 tiles of LONG_TILE_W at LONG_OVERLAP, then N_SHORT that fit one
+    tile; dark glyph-like blobs on a light noisy ground."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(N_LONG + N_SHORT):
+        h = int(rng.integers(24, 49))
+        if i < N_LONG:
+            n_tiles = int(rng.integers(2, 16))
+            new_w = (LONG_TILE_W + (LONG_TILE_W - LONG_OVERLAP) * (n_tiles - 2)
+                     + int(rng.integers(1, LONG_TILE_W - LONG_OVERLAP + 1)))
+        else:
+            new_w = int(rng.integers(24, LONG_TILE_W + 1))
+        w = max(1, new_w * h // IMG_H)
+        img = np.full((h, w, 3), int(rng.integers(200, 256)), np.int16)
+        for _ in range(max(2, w // 10)):
+            y0, x0 = int(rng.integers(0, h)), int(rng.integers(0, w))
+            img[y0 : y0 + int(rng.integers(2, h // 2 + 3)),
+                x0 : x0 + int(rng.integers(1, 6))] = int(rng.integers(0, 90))
+        out.append(np.clip(img + rng.integers(-20, 20, img.shape), 0, 255).astype(np.uint8))
+    return out
+
+
+def long_line_phase(kernels, variables, power: str):
+    """predict_long for every method over seeded long lines and one-tile
+    lines, on the main path's model."""
+    from rcnn_ocr_tpu_torch import long_lines
+    from rcnn_ocr_tpu_torch.data.transforms import ResizeAndPad
+    from rcnn_ocr_tpu_torch.inference import OCRInference
+    from rcnn_ocr_tpu_torch.postprocess import pad_rows
+
+    charset_path = os.path.join(REPO, "configs", "charset.txt")
+    engine = OCRInference(variables, charset_path=charset_path, device="cuda", img_h=IMG_H,
+                          img_w=IMG_W, dtype=torch.bfloat16)
+    cs = engine.charset
+    lines = long_line_images(seed=9)
+    short = lines[N_LONG:]
+    t0 = time.perf_counter()
+    tiles, plans = long_lines.plan_tiles([engine._to_rgb(im) for im in lines], IMG_H, LONG_TILE_W,
+                                         LONG_OVERLAP, ResizeAndPad(IMG_H, LONG_TILE_W))
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    per_line = [len(starts) for _, starts in plans]
+    check(all(n == 1 for n in per_line[N_LONG:]), "a short line takes more than one tile")
+    n_tiles, tile_batches = len(tiles), -(-len(tiles) // BATCH)
+    print(f"  {N_LONG} long lines of {min(per_line[:N_LONG])}-{max(per_line[:N_LONG])} tiles "
+          f"(mean {np.mean(per_line[:N_LONG]):.2f}) and {N_SHORT} one-tile lines, 24-48 high: "
+          f"{n_tiles} tiles of {IMG_H}x{LONG_TILE_W} (overlap {LONG_OVERLAP}), {tile_batches} "
+          f"batches of {BATCH}; host plan (decode, height-normalize, cut) {plan_ms:.1f} ms")
+    kw = dict(tile_w=LONG_TILE_W, overlap=LONG_OVERLAP, batch_size=BATCH, max_length=MAX_LENGTH)
+    methods = {
+        "ctc_greedy": dict(method="ctc_greedy"),
+        "ctc_beam": dict(method="ctc_beam", beam_width=CTC_BEAM, prune_k=CTC_BEAM),
+        "attention_align": dict(method="attention", merge="align"),
+        "attention_text": dict(method="attention", merge="text"),
+        "attention_beam": dict(method="attention_beam", beam_width=BEAM_WIDTH),
+        "hybrid": dict(method="hybrid"),
+        "hybrid_beam": dict(method="hybrid_beam", beam_width=BEAM_WIDTH),
+    }
+    out = {"tiles": n_tiles, "tile_batches": tile_batches, "host_plan_ms": plan_ms,
+           "lines_s": {}, "tiles_s": {}, "launches": {}}
+    launches = {"se_scale": 0, "bilstm_scan": 0}
+    results = {}
+    for name, m in methods.items():
+        engine.predict_long(lines[:4] + short[:4], **kw, **m)  # warm-up
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        results[name] = engine.predict_long(lines, **kw, **m)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        batches = counts["se_scale"] // 11
+        check(counts == {"se_scale": 11 * batches, "bilstm_scan": 2 * batches},
+              f"long lines {name} launched {counts}: not 11 + 2 per encoded batch")
+        # the hybrid decodes also encode their segment crops
+        check(batches == tile_batches if not name.startswith("hybrid") else batches >= tile_batches,
+              f"long lines {name} encoded {batches} batches for {tile_batches} tile batches")
+        check(len(results[name]) == len(lines) and all(isinstance(t, str) for t in results[name]),
+              f"long lines {name} returned no string per line")
+        for k in launches:
+            launches[k] += counts[k]
+        out["lines_s"][name], out["tiles_s"][name] = len(lines) / wall, n_tiles / wall
+        out["launches"][name] = counts
+        print(f"  {name}: {len(lines) / wall:.1f} lines/s, {n_tiles / wall:.1f} tiles/s ({wall:.2f}"
+              f" s, bf16) on {power}; {batches} encoded batches; "
+              f"{len(set(results[name]))} distinct strings")
+
+    # one-tile lines decode as predict / predict_ctc; the ids fast path = top-k
+    check(results["ctc_greedy"][N_LONG:] == engine.predict_ctc(short, batch_size=BATCH),
+          "one-tile lines: predict_long ctc_greedy differs from predict_ctc")
+    for name in ("attention_align", "attention_text"):
+        check(results[name][N_LONG:] == engine.predict(short, max_length=MAX_LENGTH,
+                                                       batch_size=BATCH),
+              f"one-tile lines: predict_long {name} differs from predict")
+    top_k = engine.tile_kernel(CTC_BEAM)
+    vals, idx = long_lines.extract_tile_frames(tiles, BATCH,
+                                               lambda b: top_k(engine._device_batch(b)))
+    via_topk = long_lines.decode_stitched(vals, idx, plans, LONG_TILE_W, blank_id=cs.ctc_blank_id,
+                                          num_classes=cs.num_classes, itos=list(cs.itos),
+                                          skip_ids=engine._ctc_skip())
+    check(via_topk == results["ctc_greedy"], "the ids fast path differs from the top-k path")
+    print(f"  one-tile lines equal predict / predict_ctc exactly; the ids fast path equals the "
+          f"top-k path on all {len(lines)} lines")
+
+    # host plan and stitch against the device, ctc_greedy's fast path
+    ids_kernel = engine.tile_ids_kernel()
+    t0 = time.perf_counter()
+    ids = long_lines.extract_tile_ids(tiles, BATCH, lambda b: ids_kernel(engine._device_batch(b)))
+    extract_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    long_lines.decode_stitched_ids(ids, plans, LONG_TILE_W, blank_id=cs.ctc_blank_id,
+                                   itos=list(cs.itos), skip_ids=engine._ctc_skip())
+    stitch_ms = (time.perf_counter() - t0) * 1e3
+    batch = engine._device_batch(np.stack(pad_rows(tiles[:BATCH], BATCH)[0]))
+    device_ms = time_ms(lambda: ids_kernel(batch), iters=3) * tile_batches
+    out.update(host_stitch_ms=stitch_ms, extract_ms=extract_ms, device_ids_ms=device_ms)
+    print(f"  ctc_greedy split on {power}: host plan {plan_ms:.1f} ms, tile batches stacked, "
+          f"shipped and run {extract_ms:.1f} ms (of which the ids kernel on the card "
+          f"{device_ms:.1f} ms, CUDA events), host stitch and collapse {stitch_ms:.1f} ms")
+
+    # fp32: through the kernels vs their plain versions
+    ref = OCRInference(variables, charset_path=charset_path, device="cuda", img_h=IMG_H,
+                       img_w=IMG_W, dtype=torch.float32)
+    for name in ("ctc_greedy", "attention_align"):
+        got = ref.predict_long(lines, **kw, **methods[name])
+        with kernels.plain_only():
+            want = ref.predict_long(lines, **kw, **methods[name])
+        same = sum(a == b for a, b in zip(got, want))
+        out[f"fp32_{name}_kernels_equal_plain"] = same
+        print(f"  fp32 {name}: kernels = plain versions on {same}/{len(lines)} lines")
+        need = len(lines) if name == "ctc_greedy" else 0.99 * len(lines)
+        check(same >= need, f"fp32 long lines {name}: kernels = plain on only {same}/{len(lines)}")
+    out["launch_counts"] = launches
     return out
 
 
@@ -1374,6 +1695,10 @@ def main() -> int:
     path, variables, images = main_path(kernels, power)
     print("beam phase")
     beams = beam_phase(kernels, variables, images, power)
+    print("serving phase")
+    serving = serving_phase(kernels, variables, images, power)
+    print("long-line phase")
+    long_line = long_line_phase(kernels, variables, power)
     del variables
     print("training phase")
     from rcnn_ocr_tpu_torch.vocab.charset import Charset
@@ -1390,6 +1715,8 @@ def main() -> int:
         name = row["name"]
         by_path = {"inference": path["launch_counts"][name],
                    "beam": beams["launch_counts"][name],
+                   "serving": serving["launch_counts"][name],
+                   "long_lines": long_line["launch_counts"][name],
                    "train": train["launch_counts"][name],
                    "train_loop": loop["launches"][name]}
         row.update(launches=by_path["inference"], launches_by_path=by_path,
@@ -1400,6 +1727,7 @@ def main() -> int:
         for p, n in by_path.items():
             check(n > 0, f"{name} never launched on the {p} path")
     result = {"card": power, "kernels": rows, "main_path": path, "beam": beams,
+              "serving": serving, "long_lines": long_line,
               "training": training, "training_loop": loop, "seconds": time.perf_counter() - t_start}
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)

@@ -2,7 +2,8 @@
 
     python -m rcnn_ocr_tpu_torch.evaluate --model model.msgpack \\
         --charset charset.txt --csv labels.csv --root images/ \\
-        [--decode attention|attention_beam|ctc_greedy|ctc_beam] [--device cuda]
+        [--decode attention|attention_beam|ctc_greedy|ctc_beam|ctc_long|...] \\
+        [--serving] [--tile-w PX --overlap PX] [--device cuda]
 
 Loads a labeled CSV (a header row naming ``filename`` and ``text``; a
 filename without its extension is completed from the image extensions),
@@ -16,16 +17,20 @@ exact_match``) into the working directory.
 of weights evaluates each and prints a comparison table.
 ``--length-penalty`` ranks the attention beam's final hypotheses.
 ``--width-buckets`` is a list of widths or ``auto:K`` (K widths fitted to
-the data's header sizes).  ``--error-analysis`` adds accuracy by text length
+the data's header sizes).  ``--serving`` decodes through
+``predict_serving`` (resize-pad on the device) with any of the four
+fixed-width decodes; the ``*_long`` decodes (``ctc_long[_beam]``,
+``attention_long[_beam]``, ``hybrid_long[_beam]``) tile each line at
+``--tile-w`` px (default ``--img-w``) overlapping by ``--overlap`` px.  ``--error-analysis`` adds accuracy by text length
 and the top character confusions; ``--report-json`` writes the metrics.
 The engine runs on the card unless ``--device cpu`` is given.
 
 The CSV is read by the ``csv`` module: every field is the literal string
 (pandas, in the JAX CLI, would read an empty text as ``nan`` and ``007`` as
 ``7``).  Options of later slices of the port (``--artifact``,
-``--quantize``, ``--static-quant``, ``--save-calibration``, ``--serving``,
-``--tile-w``, ``--overlap``, ``--compile-cache-dir`` and the ``*_long``
-decodes) are accepted by the parser and refused with exit code 1.
+``--quantize``, ``--static-quant``, ``--save-calibration`` and
+``--compile-cache-dir``) are accepted by the parser and refused with exit
+code 1.
 """
 
 from __future__ import annotations
@@ -56,18 +61,18 @@ IMAGE_EXTS = [".png", ".jpg", ".jpeg", ".bmp", ".tiff"]
 DECODES = ("attention", "attention_beam", "ctc_greedy", "ctc_beam")
 LONG_DECODES = ("ctc_long", "ctc_long_beam", "attention_long", "attention_long_beam",
                 "hybrid_long", "hybrid_long_beam")
+# the predict_long method of each tiled attention / hybrid decode
+LONG_METHODS = {"attention_long": "attention", "attention_long_beam": "attention_beam",
+                "hybrid_long": "hybrid", "hybrid_long_beam": "hybrid_beam"}
 # option -> why the port refuses it today
 LATER = {
     "--artifact": "arrives with the artifact slice of the port (exported serving artifacts)",
     "--quantize": "arrives with the int8 slice of the port",
     "--static-quant": "arrives with the int8 slice of the port",
     "--save-calibration": "arrives with the int8 slice of the port",
-    "--serving": "arrives with the serving slice of the port (on-device preprocessing)",
-    "--tile-w": "arrives with the long-line slice of the port",
-    "--overlap": "arrives with the long-line slice of the port",
-    "--compile-cache-dir": "arrives with the serving slice of the port, if ever: XLA's "
-                           "compile cache has no counterpart (the port's kernels build once "
-                           "into build/rcnn_ocr_tpu_torch/)",
+    "--compile-cache-dir": "has no counterpart in the port: XLA's compile cache does not "
+                           "apply (the port's kernels build once into build/rcnn_ocr_tpu_torch/); "
+                           "a later slice of the port may take the flag",
 }
 
 
@@ -119,22 +124,31 @@ def evaluate_model(
     lm_weight: float = 0.0,
     length_penalty: float = 0.0,
     width_buckets=None,
+    serving: bool = False,
+    tile_w: Optional[int] = None,
+    overlap: Optional[int] = None,
     error_analysis: bool = False,
     device: str = "cuda",
     dtype: torch.dtype = torch.bfloat16,
 ):
     """Decode the dataset with one configuration and report its metrics
-    (``evaluate_dataset.py:evaluate_model`` for the four decodes); returns
-    ``{"accuracy", "cer", "wer", "n"}`` (and ``"analysis"``), or None when
-    no image was found."""
-    if decode not in DECODES:
+    (``evaluate_dataset.py:evaluate_model`` without ``--artifact`` and int8);
+    returns ``{"accuracy", "cer", "wer", "n"}`` (and ``"analysis"``), or None
+    when no image was found."""
+    if decode not in DECODES + LONG_DECODES:
         raise ValueError(f"unknown decode mode: {decode}")
+    if serving and decode not in DECODES:
+        raise ValueError(f"--serving does not support --decode {decode!r}")
+    long_decode = decode in LONG_DECODES
+    if (tile_w or overlap) and not long_decode:
+        raise ValueError("--tile-w/--overlap require a *_long --decode")
     print("Evaluating model on dataset")
     print(f"  model:   {model_path}")
     print(f"  charset: {charset_path}")
     print(f"  csv:     {csv_path}")
     print(f"  images:  {root_path}")
-    print(f"  size:    {img_h}x{img_w}   decode: {decode}   device: {device}")
+    print(f"  size:    {img_h}x{img_w}   decode: {decode}{'   serving' if serving else ''}"
+          f"   device: {device}")
     print("-" * 60)
 
     image_paths, true_texts = load_dataset(csv_path, root_path)
@@ -153,17 +167,35 @@ def evaluate_model(
         width_buckets = optimal_width_buckets(scaled, k, multiple=8, max_width=img_w)
         print(f"Auto width buckets (k={k}): {width_buckets}")
 
-    if lm_weight and decode not in ("attention_beam", "ctc_beam"):
-        raise ValueError("--lm-weight requires --decode attention_beam or ctc_beam")
-    if length_penalty and decode != "attention_beam":
-        raise ValueError("--length-penalty requires --decode attention_beam")
+    if lm_weight and decode not in ("attention_beam", "ctc_beam", "attention_long_beam",
+                                    "hybrid_long_beam"):
+        raise ValueError("--lm-weight requires --decode attention_beam, ctc_beam, "
+                         "attention_long_beam, or hybrid_long_beam")
+    if length_penalty and decode not in ("attention_beam", "attention_long_beam",
+                                         "hybrid_long_beam"):
+        raise ValueError("--length-penalty requires --decode attention_beam, "
+                         "attention_long_beam, or hybrid_long_beam")
     ocr = OCRInference(model_path, charset_path, device=device, img_h=img_h, img_w=img_w,
                        dtype=dtype, width_buckets=width_buckets, lm=lm)
 
     predicted: List[str] = []
     for i in progress(range(0, len(image_paths), batch_size), desc="Predict"):
         chunk = image_paths[i : i + batch_size]
-        if decode == "attention":
+        if serving:
+            out = ocr.predict_serving(chunk, max_length=max_length, batch_size=batch_size,
+                                      method=decode, beam_width=beam_width,
+                                      length_penalty=length_penalty, lm_weight=lm_weight)
+        elif decode in ("ctc_long", "ctc_long_beam"):
+            out = ocr.predict_ctc_long(chunk, tile_w=tile_w, overlap=overlap,
+                                       batch_size=batch_size,
+                                       method="beam" if decode.endswith("beam") else "greedy",
+                                       beam_width=beam_width)
+        elif long_decode:
+            out = ocr.predict_long(chunk, method=LONG_METHODS[decode], tile_w=tile_w,
+                                   overlap=overlap, batch_size=batch_size, max_length=max_length,
+                                   beam_width=beam_width, lm_weight=lm_weight,
+                                   length_penalty=length_penalty)
+        elif decode == "attention":
             out = ocr.predict(chunk, max_length=max_length, batch_size=batch_size)
         elif decode == "attention_beam":
             out = ocr.predict(chunk, max_length=max_length, batch_size=batch_size,
@@ -323,15 +355,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--report-json", metavar="PATH", default=None,
                     help="write the metrics (and the analysis tables, and the lm-weight sweep "
                          "when given a list) as JSON")
+    ap.add_argument("--serving", action="store_true",
+                    help="resize-pad on the device behind a double-buffered host letterbox "
+                         "(the four fixed-width decodes)")
+    ap.add_argument("--tile-w", type=int, default=None,
+                    help="*_long decodes: tile width in px (default: --img-w)")
+    ap.add_argument("--overlap", type=int, default=None,
+                    help="*_long decodes: junction overlap in px (default: min(64, tile_w/2))")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     # accepted, then refused: they belong to later slices of the port
     ap.add_argument("--artifact", type=str, default=None)
     ap.add_argument("--quantize", action="store_true")
     ap.add_argument("--static-quant", action="store_true")
     ap.add_argument("--save-calibration", metavar="PATH", default=None)
-    ap.add_argument("--serving", action="store_true")
-    ap.add_argument("--tile-w", type=int, default=None)
-    ap.add_argument("--overlap", type=int, default=None)
     ap.add_argument("--compile-cache-dir", default=None)
     return ap
 
@@ -342,10 +378,6 @@ def main(argv=None) -> int:
              if getattr(args, flag[2:].replace("-", "_")) not in (None, False)]
     if later:
         print("not in the PyTorch port yet: " + "; ".join(f"{f} {LATER[f]}" for f in later))
-        return 1
-    if args.decode in LONG_DECODES:
-        print(f"--decode {args.decode}: not in the PyTorch port yet; the unbounded-width "
-              "decodes arrive with the long-line slice")
         return 1
     if args.model is None:
         print("--model is required")
@@ -381,6 +413,7 @@ def main(argv=None) -> int:
                 img_h=args.img_h, img_w=args.img_w, decode=args.decode,
                 max_length=args.max_length, beam_width=args.beam_width, lm=args.lm,
                 lm_weight=w, length_penalty=args.length_penalty, width_buckets=width_buckets,
+                serving=args.serving, tile_w=args.tile_w, overlap=args.overlap,
                 error_analysis=args.error_analysis, device=args.device,
             )
             sweep.append((w, metrics))

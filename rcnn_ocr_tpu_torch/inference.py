@@ -6,15 +6,25 @@ and bigram LM fusion) and ``predict_ctc`` (CTC head: greedy, or the prefix
 beam on the device or on the host, with fusion on the device beam).
 Images are resize-padded to uint8 on the host, stacked into batches padded
 to a static size, normalized on the device by lookup and decoded there;
-token rows come back to the host and become strings.
+token rows come back to the host and become strings.  The serving path
+(``predict_serving``, resize-pad on the device) and the long-line decodes
+(``predict_long``, ``predict_ctc_long``, ``predict_hybrid_long``) are mixed
+in from :mod:`rcnn_ocr_tpu_torch.serving_engine` and
+:mod:`rcnn_ocr_tpu_torch.long_lines`.
+
+Every path decodes through the engine's kernels (``_greedy_fn``,
+``_greedy_align_fn``, ``_attn_beam_fn``, ``_attn_beam_align_fn``,
+``_ctc_frame_ids_fn``, ``_ctc_fn``, ``_ctc_beam_device_fn``): each returns a
+function of one device batch, uint8 or already normalized, that normalizes
+it and runs the model.  The weights live in the module, so unlike JAX's
+jitted kernels they take no ``variables`` argument.
 
 The engine runs on the CUDA card unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU it raises.  Inputs are arrays, paths to
 PNG/BMP files or PIL-like images (anything with ``.convert("RGB")``; PIL
 itself is never imported).  Width buckets are a list of widths or
 ``"auto:K"`` (K widths fitted to the first multi-image call).  JPEG files,
-int8, long lines, the serving path and multi-card serving arrive in later
-slices of the port.
+int8 and multi-card serving arrive in later slices of the port.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from rcnn_ocr_tpu_torch.data.loader import bucket_for_width, optimal_width_bucke
 from rcnn_ocr_tpu_torch.data.transforms import ResizeAndPad, load_rgb_uint8
 from rcnn_ocr_tpu_torch.interop.jax_params import load_jax_variables
 from rcnn_ocr_tpu_torch.lm import load_lm
+from rcnn_ocr_tpu_torch.long_lines import LongLineMixin
 from rcnn_ocr_tpu_torch.models.rcnn import RCNN
 from rcnn_ocr_tpu_torch.ops.augment import device_normalize
 from rcnn_ocr_tpu_torch.ops.ctc import (
@@ -47,6 +58,7 @@ from rcnn_ocr_tpu_torch.postprocess import (
     decode_ctc_batch,
     pad_rows,
 )
+from rcnn_ocr_tpu_torch.serving_engine import ServingEngineMixin
 from rcnn_ocr_tpu_torch.training.checkpoint import load_variables
 from rcnn_ocr_tpu_torch.vocab.charset import Charset
 
@@ -84,7 +96,7 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
-class OCRInference:
+class OCRInference(ServingEngineMixin, LongLineMixin):
     """Load a checkpoint (path or JAX variable tree) and recognize text lines.
 
     ``lm`` is a bigram table for beam shallow fusion: a ``[V, V]`` array or
@@ -170,11 +182,18 @@ class OCRInference:
         )
 
     # -- batching ----------------------------------------------------------
+    def _to_rgb(self, image) -> np.ndarray:
+        """An input -> contiguous RGB uint8 HWC (what the C++ letterbox takes)."""
+        return np.ascontiguousarray(load_rgb_uint8(image))
+
     def _preprocess(self, image, width: Optional[int]) -> np.ndarray:
         rgb = load_rgb_uint8(image)
         if width is not None:
             return self._bucket_transforms[width](rgb)
         return self.transform(rgb)
+
+    def _device_batch(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device, non_blocking=True)
 
     def _probe_hw(self, img) -> Tuple[int, int]:
         """(h, w) of an input without decoding it: the file header for a
@@ -221,8 +240,7 @@ class OCRInference:
         for bucket, chunk in self._bucket_chunks(images, batch_size):
             arrays, n_real = pad_rows([self._preprocess(images[j], bucket) for j in chunk],
                                       batch_size)
-            batch = torch.from_numpy(np.stack(arrays)).to(self.device, non_blocking=True)
-            yield chunk, n_real, device_normalize(batch)
+            yield chunk, n_real, device_normalize(self._device_batch(np.stack(arrays)))
 
     def _fusion_lm(self, lm_weight: float) -> Optional[torch.Tensor]:
         """The bigram table to fuse at this weight (None: fusion off)."""
@@ -234,6 +252,117 @@ class OCRInference:
                 "(build one with python -m rcnn_ocr_tpu_torch.lm)"
             )
         return self._lm
+
+    # -- decode kernels: functions of one device batch -----------------------
+    # Each takes a uint8 (or already normalized) batch [B, H, W, 3] on the
+    # engine's device and normalizes it first, as JAX's jitted kernels do.
+    def _greedy_fn(self, steps: int):
+        """``(tokens [B, steps], max-softmax [B, steps])`` of the greedy
+        attention decode (``rcnn_ocr_tpu/inference.py:_greedy_fn``)."""
+        @torch.inference_mode()
+        def run(images):
+            logits = self.model(device_normalize(images), batch_max_length=steps - 1)
+            return torch.argmax(logits, dim=-1), torch.softmax(logits, dim=-1).amax(dim=-1)
+        return run
+
+    def _greedy_align_fn(self, steps: int):
+        """``(tokens, alignment [B, steps])``: the greedy decode with each
+        step's attention argmax, the aligned long-line merge's input
+        (``rcnn_ocr_tpu/inference.py:_greedy_align_fn``)."""
+        @torch.inference_mode()
+        def run(images):
+            logits, align = self.model.greedy_decode_aligned(device_normalize(images),
+                                                             batch_max_length=steps - 1)
+            return torch.argmax(logits, dim=-1), align
+        return run
+
+    def _attn_beam_fn(self, steps: int, beam_width: int, length_penalty: float,
+                      lm_weight: float = 0.0):
+        """``(tokens, scores [B])`` of the attention beam, fusing the engine's
+        bigram table at ``lm_weight`` > 0 (``rcnn_ocr_tpu/inference.py:_attn_beam_fn``)."""
+        return self._beam(steps, beam_width, length_penalty, lm_weight, False)
+
+    def _attn_beam_align_fn(self, steps: int, beam_width: int, length_penalty: float,
+                            lm_weight: float = 0.0):
+        """``(tokens, scores, alignment)``: the winner's per-step attention
+        argmax rides the beam's parent selection
+        (``rcnn_ocr_tpu/inference.py:_attn_beam_align_fn``)."""
+        return self._beam(steps, beam_width, length_penalty, lm_weight, True)
+
+    def _beam(self, steps, beam_width, length_penalty, lm_weight, alignment):
+        lm = self._fusion_lm(lm_weight)
+
+        @torch.inference_mode()
+        def run(images):
+            return self.model.beam_decode(device_normalize(images), int(beam_width), steps - 1,
+                                          length_penalty=length_penalty, lm_logp=lm,
+                                          lm_weight=lm_weight, return_alignment=alignment)
+        return run
+
+    def _ctc_frame_ids_fn(self, with_maxp: bool = False):
+        """Per-frame argmax class ids ``[B, T]`` int32, plus with ``with_maxp``
+        the per-frame max-softmax ``[B, T]``, ``exp(max - logsumexp)`` in fp32
+        (``rcnn_ocr_tpu/inference.py:_ctc_frame_ids_fn``)."""
+        @torch.inference_mode()
+        def run(images):
+            logits = self.model.ctc_logits(device_normalize(images))
+            ids = torch.argmax(logits, dim=-1).to(torch.int32)
+            if not with_maxp:
+                return ids
+            lg = logits.float()
+            return ids, torch.exp(lg.amax(dim=-1) - torch.logsumexp(lg, dim=-1))
+        return run
+
+    def _ctc_fn(self, greedy: bool, prune_k: int = 0, with_conf: bool = False):
+        """The CTC head (``rcnn_ocr_tpu/inference.py:_ctc_fn``): ``greedy``,
+        the collapsed ``(tokens, valid)`` (and with ``with_conf`` the mean
+        emitted-frame max-softmax ``[B]``); else the frame log-probs ``[B, T,
+        V]``, or with ``prune_k`` > 0 each frame's top-k ``(log-probs, ids
+        int32)`` in ``lax.top_k``'s order."""
+        blank = self.charset.ctc_blank_id
+
+        @torch.inference_mode()
+        def run(images):
+            logits = self.model.ctc_logits(device_normalize(images))
+            if greedy:
+                return ctc_greedy_decode(logits, blank, return_confidence=with_conf)
+            if prune_k:
+                vals, idx = ctc_top_frames(logits, prune_k)
+                return vals, idx.to(torch.int32)
+            return torch.log_softmax(logits.float(), dim=-1)
+        return run
+
+    def _ctc_beam_device_fn(self, beam_width: int, prune_k: int, lm_weight: float = 0.0,
+                            with_conf: bool = False):
+        """Encoder, CTC log-probs, top-k pruning and the prefix beam on the
+        device: ``(labels [B, T], lengths [B])`` (and the winner's posterior)
+        (``rcnn_ocr_tpu/inference.py:_ctc_beam_device_fn``)."""
+        lm = self._fusion_lm(lm_weight)
+        cs = self.charset
+
+        @torch.inference_mode()
+        def run(images):
+            logits = self.model.ctc_logits(device_normalize(images))
+            return ctc_beam_from_logits(logits, blank_id=cs.ctc_blank_id, beam_width=beam_width,
+                                        prune_k=prune_k, lm_logp=lm, lm_weight=lm_weight,
+                                        sos_id=cs.sos_id, return_confidence=with_conf)
+        return run
+
+    # -- rows -> text --------------------------------------------------------
+    def _decode_attention_row(self, pred_row: np.ndarray, maxp_row, return_confidence: bool):
+        cs = self.charset
+        return decode_attention_row(pred_row, maxp_row, self._itos, pad_id=cs.pad_id,
+                                    eos_id=cs.eos_id, blank_id=cs.blank_id,
+                                    return_confidence=return_confidence)
+
+    def _decode_beam_row(self, pred_row: np.ndarray, score, return_confidence: bool):
+        cs = self.charset
+        return decode_beam_row(pred_row, score, self._itos, pad_id=cs.pad_id, eos_id=cs.eos_id,
+                               blank_id=cs.blank_id, return_confidence=return_confidence)
+
+    def _ctc_skip(self) -> set:
+        cs = self.charset
+        return ctc_skip_ids(cs.pad_id, cs.sos_id, cs.eos_id, cs.ctc_blank_id)
 
     # -- public API --------------------------------------------------------
     @torch.inference_mode()
@@ -263,26 +392,18 @@ class OCRInference:
                 "length_penalty requires beam_width > 1 (rank normalization "
                 "is beam-only)"
             )
-        lm = self._fusion_lm(lm_weight) if beam else None
-        cs = self.charset
+        steps = max_length + 1
+        if beam:
+            run = self._attn_beam_fn(steps, int(beam_width), length_penalty, lm_weight)
+            decode_row = self._decode_beam_row
+        else:
+            run = self._greedy_fn(steps)
+            decode_row = self._decode_attention_row
         results: List[Any] = [None] * len(images_list)
         for chunk, n_real, x in self._batches(images_list, batch_size):
-            if beam:
-                tokens, scores = self.model.beam_decode(
-                    x, int(beam_width), max_length, length_penalty=length_penalty,
-                    lm_logp=lm, lm_weight=lm_weight)
-                pred, aux = tokens[:n_real].cpu().numpy(), scores[:n_real].cpu().numpy()
-                decode_row = decode_beam_row
-            else:
-                logits = self.model(x, batch_max_length=max_length)
-                pred = torch.argmax(logits, dim=-1)[:n_real].cpu().numpy()
-                aux = torch.softmax(logits, dim=-1).amax(dim=-1)[:n_real].cpu().numpy()
-                decode_row = decode_attention_row
+            pred, aux = (t[:n_real].cpu().numpy() for t in run(x))
             for j, out_idx in enumerate(chunk):
-                results[out_idx] = decode_row(
-                    pred[j], aux[j], self._itos, pad_id=cs.pad_id, eos_id=cs.eos_id,
-                    blank_id=cs.blank_id, return_confidence=return_confidence,
-                )
+                results[out_idx] = decode_row(pred[j], aux[j], return_confidence)
         return results[0] if is_single else results
 
     @torch.inference_mode()
@@ -311,38 +432,35 @@ class OCRInference:
         if not images_list:
             return []
         cs = self.charset
-        blank = cs.ctc_blank_id
-        skip = ctc_skip_ids(cs.pad_id, cs.sos_id, cs.eos_id, blank)
+        skip = self._ctc_skip()
         k = min(prune_k, cs.num_classes) if prune_k else 0
+        if method == "greedy":
+            run = self._ctc_fn(True, with_conf=return_confidence)
+        elif k and device_beam:
+            run = self._ctc_beam_device_fn(beam_width, k, lm_weight, with_conf=return_confidence)
+        else:
+            run = self._ctc_fn(False, k)
         on_device = method == "greedy" or (bool(k) and device_beam)
-        lm = self._fusion_lm(lm_weight)
         results: List[Any] = [None] * len(images_list)
         for chunk, n_real, x in self._batches(images_list, batch_size):
-            logits = self.model.ctc_logits(x)
+            out = run(x)
             confs = None
             if on_device:
-                if method == "greedy":
-                    out = ctc_greedy_decode(logits, blank, return_confidence=return_confidence)
-                else:
-                    out = ctc_beam_from_logits(logits, blank_id=blank, beam_width=beam_width,
-                                               prune_k=k, lm_logp=lm, lm_weight=lm_weight,
-                                               sos_id=cs.sos_id,
-                                               return_confidence=return_confidence)
                 texts = decode_ctc_batch(out[0].cpu().numpy(), out[1].cpu().numpy(), n_real,
                                          self._itos, skip)
                 if return_confidence:
                     confs = out[2][:n_real].cpu().numpy()
             else:
                 if k:
-                    vals, idx = (t[:n_real].cpu().numpy() for t in ctc_top_frames(logits, k))
+                    vals, idx = (t[:n_real].cpu().numpy() for t in out)
                     # the pruned frames rebuilt dense: a class outside the top k
                     # is -1e30, far below anything the beam keeps
                     log_probs = np.full((n_real, vals.shape[1], cs.num_classes), -1e30,
                                         np.float32)
-                    np.put_along_axis(log_probs, idx, vals, -1)
+                    np.put_along_axis(log_probs, idx.astype(np.int64), vals, -1)
                 else:
-                    log_probs = torch.log_softmax(logits, dim=-1)[:n_real].cpu().numpy()
-                got = ctc_beam_search(log_probs, blank_id=blank, beam_width=beam_width,
+                    log_probs = out[:n_real].cpu().numpy()
+                got = ctc_beam_search(log_probs, blank_id=cs.ctc_blank_id, beam_width=beam_width,
                                       already_log_probs=True, return_totals=return_confidence)
                 texts = ids_to_text(got[0], self._itos, skip_ids=skip)
                 if return_confidence:

@@ -1,13 +1,15 @@
-"""ctypes binding of the port's host CTC prefix beam search.
+"""ctypes bindings of the port's host C++: the CTC prefix beam search and the
+serving letterbox.
 
-The C++ source is ``rcnn_ocr_tpu_torch/csrc/host/ctc_beam.cpp`` (the search
-of the JAX package's ``native/ctc_beam.cpp``, kept as the port's own copy).
-At first use it is compiled with ``g++ -O3 -std=c++17 -fPIC -shared
--pthread`` into ``build/rcnn_ocr_tpu_torch/`` under a name that carries a
-hash of the source and flags, so an edited source is rebuilt, and loaded
-with ``ctypes``.  A failed build raises with the compiler's output; nothing
-falls back to Python.  Only the batched beam entry points are bound:
-``rcnn_ctc_beam_search_batch[_mt][_v2]``.
+The sources are ``rcnn_ocr_tpu_torch/csrc/host/ctc_beam.cpp`` (the search of
+the JAX package's ``native/ctc_beam.cpp``) and ``csrc/host/letterbox.cpp``
+(its ``native/letterbox.cpp``), kept as the port's own copies.  At first use
+each is compiled with ``g++ -O3 -std=c++17 -fPIC -shared -pthread`` into
+``build/rcnn_ocr_tpu_torch/`` under a name that carries a hash of the source
+and flags, so an edited source is rebuilt, and loaded with ``ctypes``.  A
+failed build raises with the compiler's output; nothing falls back to
+Python.  Bound: the batched beam entry points
+``rcnn_ctc_beam_search_batch[_mt][_v2]`` and ``rcnn_letterbox_u8``.
 """
 
 from __future__ import annotations
@@ -19,61 +21,72 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
 from rcnn_ocr_tpu_torch.ops.kernels import BUILD_DIR
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "host" / "ctc_beam.cpp"
+HOST_DIR = Path(__file__).resolve().parent / "csrc" / "host"
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
-
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
 
 _F, _I64 = ctypes.POINTER(ctypes.c_float), ctypes.c_int64
 _P64, _P32 = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32)
 # log_probs, B, T, V, lengths, blank, beam_width, out_labels, max_out, out_lens, out_log_probs
 _BATCH_ARGS = [_F, _I64, _I64, _I64, _P64, _I64, _I64, _P32, _I64, _P64, _F]
+# library -> {entry point: argtypes}; every entry returns int64 (< 0: error)
+ENTRIES = {
+    "ctc_beam": {"rcnn_ctc_beam_search_batch": _BATCH_ARGS,
+                 "rcnn_ctc_beam_search_batch_mt": _BATCH_ARGS + [_I64],
+                 "rcnn_ctc_beam_search_batch_v2": _BATCH_ARGS + [_F],
+                 "rcnn_ctc_beam_search_batch_mt_v2": _BATCH_ARGS + [_F, _I64]},
+    # srcs, src_h, src_w, n, out, canvas_h, canvas_w, threads
+    "letterbox": {"rcnn_letterbox_u8": [ctypes.POINTER(ctypes.c_void_p), _P64, _P64, _I64,
+                                        ctypes.POINTER(ctypes.c_uint8), _I64, _I64, _I64]},
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
-def library_path() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libctc_beam_{digest.hexdigest()[:12]}.so"
+def source(name: str = "ctc_beam") -> Path:
+    return HOST_DIR / f"{name}.cpp"
+
+
+def library_path(name: str = "ctc_beam") -> Path:
+    digest = hashlib.sha1(source(name).read_bytes() + " ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
 def _cxx() -> str:
     found = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
     if not found:
-        raise RuntimeError("no C++ compiler (g++) found to build the host CTC beam search")
+        raise RuntimeError("no C++ compiler (g++) found to build the port's host C++")
     return found
 
 
-def load() -> ctypes.CDLL:
-    """The bound library, building it first when it is missing."""
-    global _lib
+def load(name: str = "ctc_beam") -> ctypes.CDLL:
+    """The bound library ``name`` (a key of :data:`ENTRIES`), building it
+    first when it is missing."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        path = library_path()
+        if name in _libs:
+            return _libs[name]
+        src, path = source(name), library_path(name)
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            out = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+            out = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), str(src)],
                                  capture_output=True, text=True, timeout=300)
             if out.returncode != 0:
-                raise RuntimeError(f"building {SOURCE} failed (exit {out.returncode}):\n"
+                raise RuntimeError(f"building {src} failed (exit {out.returncode}):\n"
                                    f"{out.stdout}{out.stderr}")
             os.replace(tmp, path)
         lib = ctypes.CDLL(str(path))
-        for name, extra in (("rcnn_ctc_beam_search_batch", []),
-                            ("rcnn_ctc_beam_search_batch_mt", [_I64]),
-                            ("rcnn_ctc_beam_search_batch_v2", [_F]),
-                            ("rcnn_ctc_beam_search_batch_mt_v2", [_F, _I64])):
-            fn = getattr(lib, name)
-            fn.argtypes = _BATCH_ARGS + extra
+        for entry, argtypes in ENTRIES[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int64
-        _lib = lib
+        _libs[name] = lib
         return lib
 
 
@@ -87,7 +100,7 @@ def ctc_beam_search_batch(log_probs: np.ndarray, blank: int, beam_width: int,
     (``threads=0``: the hardware concurrency; 1: serial).  Raises when the
     search reports an error (a bad blank id or beam width).
     """
-    lib = load()
+    lib = load("ctc_beam")
     lp = np.ascontiguousarray(log_probs, dtype=np.float32)
     if lp.ndim != 3:
         raise ValueError(f"log_probs must be [B, T, V], got shape {lp.shape}")
@@ -121,3 +134,39 @@ def ctc_beam_search_batch(log_probs: np.ndarray, blank: int, beam_width: int,
     if want_totals:
         return labels, out_lp, out_totals
     return labels, out_lp
+
+
+def letterbox_u8(images: Sequence[np.ndarray], canvas_h: int, canvas_w: int,
+                 out: Optional[np.ndarray] = None, threads: int = 0):
+    """Paste contiguous HWC uint8 RGB images into a uint8 canvas batch
+    ``[N, canvas_h, canvas_w, 3]`` on a thread pool (``threads=0``: the
+    hardware concurrency); larger images are cropped.  ``out`` is the buffer
+    to fill, else one is allocated.  Returns ``(canvas, sizes [N, 2] int32)``.
+    Raises on an image that is not contiguous HWC uint8 with 3 channels (the
+    caller makes them so) and on a wrong ``out``."""
+    lib = load("letterbox")
+    n = len(images)
+    shape = (n, int(canvas_h), int(canvas_w), 3)
+    if out is None:
+        out = np.empty(shape, dtype=np.uint8)
+    elif out.shape != shape or out.dtype != np.uint8 or not out.flags["C_CONTIGUOUS"]:
+        raise ValueError(f"out must be a contiguous uint8 array of shape {shape}, "
+                         f"got {out.dtype} {out.shape}")
+    for i, img in enumerate(images):
+        if not (isinstance(img, np.ndarray) and img.dtype == np.uint8 and img.ndim == 3
+                and img.shape[2] == 3 and img.flags["C_CONTIGUOUS"]):
+            raise ValueError(f"image {i} is not a contiguous HWC uint8 RGB array: "
+                             f"{getattr(img, 'dtype', type(img))} {getattr(img, 'shape', '')}")
+    hs = np.array([img.shape[0] for img in images], dtype=np.int64)
+    ws = np.array([img.shape[1] for img in images], dtype=np.int64)
+    sizes = np.stack([np.minimum(hs, canvas_h), np.minimum(ws, canvas_w)],
+                     axis=1).astype(np.int32).reshape(n, 2)
+    if n == 0:
+        return out, sizes
+    ptrs = (ctypes.c_void_p * n)(*[img.ctypes.data for img in images])
+    res = lib.rcnn_letterbox_u8(ptrs, hs.ctypes.data_as(_P64), ws.ctypes.data_as(_P64), n,
+                                out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                                int(canvas_h), int(canvas_w), int(threads))
+    if res < 0:
+        raise RuntimeError(f"rcnn_letterbox_u8 failed (canvas {canvas_h}x{canvas_w}, {n} images)")
+    return out, sizes

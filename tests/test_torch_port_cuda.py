@@ -226,11 +226,22 @@ def test_bilstm_scan_gradients_through_the_kernel_match_plain(cuda_device, w_dty
                                    atol=1e-5 * b_.abs().max().item())
 
 
+# Per-leaf relative L2 error of the gradients through the kernels against
+# plain_only()'s, as chip_smoke.py holds them.  Not elementwise: the
+# kernels' ~5e-7 forward differences flip a few ReLUs that sit within ~1e-6
+# of their kink, and each flip moves single gradient entries by up to a few
+# percent of the leaf's max.  The limit stands on two full-width readings on
+# the card: the kernels' worst leaf at 6.1e-3, and the plain path's own
+# 9.7e-3 when its images are nudged by 1e-6.
+GRAD_REL_L2 = 2e-2
+
+
 def test_train_step_through_the_kernels_matches_plain_only(cuda_device):
     """A small fp32 model, dropout off: one make_train_step step (SGD at lr
     0) through the kernels and under plain_only() from the same statistics
-    gives the same loss, gradients (every backbone weight has one) and
-    running statistics."""
+    gives the same loss and running statistics, every backbone weight a
+    gradient, and every leaf's gradient within a relative L2 error of
+    ``GRAD_REL_L2``."""
     from rcnn_ocr_tpu_torch.data.loader import collate_batch
     from rcnn_ocr_tpu_torch.models.rcnn import RCNN, init_params
     from rcnn_ocr_tpu_torch.training.optim import build_optimizer
@@ -268,8 +279,8 @@ def test_train_step_through_the_kernels_matches_plain_only(cuda_device):
     for n, gp in grads_p.items():
         if n.startswith(("cnn.", "enc_rnn")):
             assert grads_k[n].abs().max() > 0, n
-        torch.testing.assert_close(grads_k[n], gp, rtol=1e-3, atol=1e-5 * gp.abs().max().item(),
-                                   msg=n)
+        rel_l2 = ((grads_k[n] - gp).norm() / gp.norm()).item()
+        assert rel_l2 <= GRAD_REL_L2, (n, rel_l2)
     for n, sp in stats_p.items():
         if sp.is_floating_point():
             torch.testing.assert_close(stats_k[n], sp, rtol=1e-4, atol=1e-6, msg=n)
@@ -452,3 +463,90 @@ def test_beam_batches_launch_the_kernels(cuda_device):
         out = call()
         assert kernels.launch_counts() == {"se_scale": 22, "bilstm_scan": 4}
         assert len(out) == 6
+
+
+def _serving_engine(dtype=torch.float32):
+    from rcnn_ocr_tpu_torch.inference import OCRInference
+    from rcnn_ocr_tpu_torch.interop.jax_params import to_jax_variables
+
+    tokens = ["<PAD>", "<SOS>", "<EOS>", "<BLANK>"] + list("abcdefgh")
+    variables = dict(to_jax_variables(_beam_model()), itos=tokens)
+    return OCRInference(variables, device="cuda", img_h=32, img_w=128, dtype=dtype)
+
+
+def _mixed_lines(n, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, size=(int(rng.integers(12, 80)), int(rng.integers(16, 500)), 3),
+                         dtype=np.uint8) for _ in range(n)]
+
+
+def test_device_resize_pad_matches_the_cpu_and_ignores_tf32(cuda_device):
+    """The same canvas batch resized on the card and on the CPU: every pixel
+    within one uint8 step (equal on >= 99.9%), and the card's output equal
+    with TF32 on and off (the products are float64)."""
+    from rcnn_ocr_tpu_torch.ops import preprocess as pre
+
+    imgs = _mixed_lines(64, seed=0)
+    raw, sizes = pre.host_letterbox(imgs, 80, 500)
+    sizes = np.concatenate([sizes, pre.host_resize_geometry(sizes, 32, 128)], axis=1)
+    raw_t, sizes_t = torch.from_numpy(raw), torch.from_numpy(sizes)
+    want = pre.resize_pad_u8(raw_t, sizes_t, 32, 128)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        outs = []
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+            outs.append(pre.resize_pad_u8(raw_t.to(cuda_device), sizes_t.to(cuda_device),
+                                          32, 128).cpu())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    assert torch.equal(outs[0], outs[1])
+    diff = (outs[0].int() - want.int()).abs()
+    assert diff.max() <= 1 and (diff == 0).float().mean() >= 0.999
+
+
+def test_letterbox_into_pinned_memory(cuda_device):
+    from rcnn_ocr_tpu_torch.ops import preprocess as pre
+
+    imgs = [np.ascontiguousarray(im) for im in _mixed_lines(70, seed=1)]
+    buf = torch.empty((70, 80, 500, 3), dtype=torch.uint8, pin_memory=True)
+    assert buf.is_pinned()
+    _, sizes = pre.host_letterbox(imgs, 80, 500, out=buf.numpy())
+    twin, twin_sizes = pre._letterbox_py(imgs, 80, 500)
+    assert np.array_equal(buf.numpy(), twin) and np.array_equal(sizes, twin_sizes)
+    on_card = buf.to(cuda_device, non_blocking=True)
+    torch.cuda.synchronize()
+    assert torch.equal(on_card.cpu(), buf)
+
+
+@pytest.mark.parametrize("method", ["attention", "attention_beam", "ctc_greedy", "ctc_beam"])
+def test_predict_serving_launches_the_kernels(cuda_device, method):
+    """11 se_scale and 2 bilstm_scan per served batch; one string per image,
+    each equal to predict / predict_ctc's (the rows are bit-equal)."""
+    engine = _serving_engine()
+    imgs = _mixed_lines(6, seed=2)
+    kw = {"attention_beam": dict(beam_width=3), "ctc_beam": dict(beam_width=4)}.get(method, {})
+    kernels.reset_launch_counts()
+    out = engine.predict_serving(imgs, max_length=8, batch_size=4, canvas="auto", method=method,
+                                 **kw)
+    assert kernels.launch_counts() == {"se_scale": 22, "bilstm_scan": 4}
+    if method.startswith("ctc"):
+        want = engine.predict_ctc(imgs, batch_size=4,
+                                  method="beam" if method == "ctc_beam" else "greedy", **kw)
+    else:
+        want = engine.predict(imgs, max_length=8, batch_size=4, **kw)
+    assert out == want
+
+
+def test_long_lines_on_the_card(cuda_device):
+    """A line that fits one tile decodes as predict / predict_ctc decode it;
+    a long one launches 11 + 2 per tile batch."""
+    engine = _serving_engine()
+    short = _mixed_lines(5, seed=3)
+    short = [np.ascontiguousarray(im[:, : 2 * im.shape[0]]) for im in short]  # <= 64 px wide
+    assert engine.predict_ctc_long(short) == engine.predict_ctc(short)
+    assert engine.predict_long(short, max_length=8) == engine.predict(short, max_length=8)
+    wide = np.random.default_rng(4).integers(0, 256, (32, 128 + 64 * 8, 3), dtype=np.uint8)
+    kernels.reset_launch_counts()
+    out = engine.predict_long([wide, short[0]], method="ctc_greedy", batch_size=16)
+    assert len(out) == 2 and kernels.launch_counts() == {"se_scale": 11, "bilstm_scan": 2}

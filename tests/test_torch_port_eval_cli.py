@@ -9,6 +9,10 @@ its ``OCRInference`` fixed to fp32:
   equal;
 * ``main`` with an LM-weight sweep, ``--error-analysis`` and
   ``--report-json``: the same JSON report;
+* ``main`` with ``--serving`` for each of the four decodes, and each
+  ``*_long`` decode with ``--tile-w`` / ``--overlap``: the same report and
+  per-sample rows; ``--tile-w`` without a long decode and ``--serving``
+  with one exit 1 with JAX's messages;
 * ``load_dataset``: the same paths and texts (a filename without its
   extension, a missing image); a CSV without the columns raises;
 * every option of a later slice exits 1 naming it.
@@ -140,10 +144,59 @@ def test_load_dataset_matches_jax(dataset, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
+    ["--decode", "attention", "--serving"], ["--decode", "attention_beam", "--serving"],
+    ["--decode", "ctc_greedy", "--serving"], ["--decode", "ctc_beam", "--serving"],
+    ["--decode", "ctc_long", "--tile-w", "32", "--overlap", "16"],
+    ["--decode", "ctc_long_beam", "--tile-w", "32", "--overlap", "16"],
+    ["--decode", "attention_long", "--tile-w", "32", "--overlap", "16"],
+    ["--decode", "attention_long_beam", "--tile-w", "32", "--overlap", "8"],
+    ["--decode", "hybrid_long", "--tile-w", "32"],
+    ["--decode", "hybrid_long_beam", "--tile-w", "40", "--overlap", "16"],
+])
+def test_serving_and_long_decodes_match_jax(files, dataset, tmp_path, monkeypatch, extra):
+    """``--serving`` with each fixed-width decode, and each ``*_long`` decode
+    at a 32-40 px tile (the 24-64 px lines span 1-3 tiles): the same report
+    and per-sample rows as ``evaluate_dataset.py``."""
+    ckpt, charset, _ = files
+    csv_path, root = dataset
+    argv = ["--model", ckpt, "--charset", charset, "--csv", csv_path, "--root", root,
+            "--img-h", "32", "--img-w", "64", "--max-length", "5", "--batch-size", "3",
+            "--beam-width", "3", *extra, "--report-json", "report.json"]
+    monkeypatch.setattr(evaluate, "evaluate_model",
+                        functools.partial(evaluate.evaluate_model, dtype=torch.float32))
+
+    def run_jax():
+        monkeypatch.setattr(sys, "argv", ["evaluate_dataset.py", *argv])
+        return evaluate_dataset.main(), json.load(open("report.json", encoding="utf-8"))
+
+    def run_port():
+        return evaluate.main([*argv, "--device", "cpu"]), json.load(open("report.json",
+                                                                         encoding="utf-8"))
+
+    (want, want_csv), (got, got_csv) = _run_both(tmp_path, monkeypatch, run_jax, run_port)
+    assert got == want and got[0] == 0 and got[1]["n"] == 8
+    assert got_csv == want_csv and len(got_csv) == 1
+    rows = list(csv.reader(list(got_csv.values())[0].splitlines()))
+    assert len(rows) == 9
+
+
+@pytest.mark.parametrize("extra", [["--tile-w", "32"], ["--serving", "--decode", "ctc_long"]])
+def test_argument_checks_exit_1_with_jax_messages(files, dataset, monkeypatch, capsys, extra):
+    ckpt, charset, _ = files
+    csv_path, root = dataset
+    argv = ["--model", ckpt, "--charset", charset, "--csv", csv_path, "--root", root, *extra]
+    monkeypatch.setattr(sys, "argv", ["evaluate_dataset.py", *argv])
+    assert evaluate_dataset.main() == 1
+    want = capsys.readouterr().out.strip().splitlines()[-1].replace("Error: ", "")
+    assert evaluate.main([*argv, "--device", "cpu"]) == 1
+    out = capsys.readouterr().out
+    assert want in out and "Evaluating" not in out
+    assert want.startswith(("--tile-w/--overlap require", "--serving does not support"))
+
+
+@pytest.mark.parametrize("extra", [
     ["--artifact", "exported"], ["--quantize"], ["--static-quant"],
-    ["--save-calibration", "c.msgpack"], ["--serving"], ["--tile-w", "256"],
-    ["--overlap", "32"], ["--compile-cache-dir", "cache"], ["--decode", "ctc_long"],
-    ["--decode", "hybrid_long_beam"],
+    ["--save-calibration", "c.msgpack"], ["--compile-cache-dir", "cache"],
 ])
 def test_later_slice_options_exit_1(files, dataset, extra, capsys):
     ckpt, charset, _ = files

@@ -229,19 +229,24 @@ def test_device_is_cuda_unless_cpu_is_asked_for(jax_checkpoints, monkeypatch):
 
 
 def test_later_slice_options_raise(engines, jax_checkpoints):
-    """Beams and ``"auto:K"`` buckets arrived with the beam slice; what is
-    still to come (int8, long lines, the serving path) is not part of the
-    engine yet, so asking for it fails instead of being ignored."""
+    """Beams and ``"auto:K"`` buckets arrived with the beam slice, the
+    serving path and the long-line decodes with the next; what is still to
+    come (int8) is not part of the engine yet, so asking for it fails
+    instead of being ignored."""
     ours = engines[0]
     img = _images(1)[0]
     assert isinstance(ours.predict(img, max_length=MAX_LEN, beam_width=4), str)
     assert isinstance(ours.predict_ctc(img, method="beam"), str)
+    wide = np.concatenate(_images(3, seed=4), axis=1)  # three canvases wide
+    assert isinstance(ours.predict_serving(img, max_length=MAX_LEN, canvas="auto"), str)
+    assert isinstance(ours.predict_long(wide, max_length=MAX_LEN), str)
+    assert isinstance(ours.predict_ctc_long(wide), str)
+    assert isinstance(ours.predict_hybrid_long(wide, max_length=MAX_LEN), str)
     full = jax_checkpoints[0]
     auto = OCRInference(full, device="cpu", width_buckets="auto:4")
     assert auto._auto_bucket_k == 4 and auto.width_buckets is None
     with pytest.raises(ValueError, match="unknown spec"):
         OCRInference(full, device="cpu", width_buckets="fixed")
-    for later in ("predict_long", "predict_ctc_long", "predict_serving", "calibrate"):
-        assert not hasattr(ours, later), later
+    assert not hasattr(ours, "calibrate")
     with pytest.raises(TypeError, match="quantize"):
         OCRInference(full, device="cpu", quantize=True)
