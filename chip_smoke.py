@@ -63,6 +63,20 @@
    ms and MB, the device resize, encoder and per-method kernel ms (CUDA
    events), and per method the wall, device busy time, kernels and idle
    share of one profiled batch.
+   Daemon phase: the host C++ JPEG decoder against cv2's pixels of the
+   committed fixtures (tests/torch_port_data/jpeg/), then the port's
+   ``OCRServer`` on 127.0.0.1 over the same weights (bf16, batch 256, 5 ms
+   window, canvas 80x640) for ctc_greedy and then attention: the port's
+   client, in a process of its own, sends the 512 lines as PNG and 64 JPEG
+   lines, raw and in 8-image JSON batches, from 1 (16 + 16 lines), 16 and
+   64 threads; strings must equal in-process ``predict_serving`` on >= 99%
+   of rows and each dispatch launch 11 + 2 kernels.  Two SIGHUP reloads
+   with 16 clients in flight must drop nothing, and the old engine must be
+   released (a second reload adds no memory to the first; with the cuBLAS
+   workspaces cleared, memory returns to where it was); a drain with 64
+   requests queued answers all 64, and 503 to those sent while draining.
+   Prints req/s, img/s and p50/p95/p99 per level, the dispatch split and
+   one profiled dispatch.
 7. Long-line phase: 256 seeded lines 24-48 high of 2-15 tiles (tile 128,
    overlap 64) and 32 lines that fit one tile, through ``predict_long`` in
    bf16 at batch 256 for ctc_greedy, ctc_beam, attention (``align`` and
@@ -137,13 +151,19 @@ is present or the package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import collections
 import functools
+import gc
 import json
+import multiprocessing
 import os
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -164,6 +184,12 @@ BEAM_WIDTH, CTC_BEAM, LM_WEIGHT = 5, 16, 0.5
 # long-line phase: tile width and overlap, long lines and one-tile lines
 LONG_TILE_W, LONG_OVERLAP, N_LONG, N_SHORT = 128, 64, 256, 32
 COLD_BYTES = 100_000_000  # twice the H100's 50 MB L2
+# daemon phase: a canvas covering every line (512 up to 79x632, JPEG lines up
+# to 40x240), the daemon's batch and coalescing window, client threads
+DAEMON_CANVAS, DAEMON_BATCH, DAEMON_WAIT_MS = (80, 640), 256, 5.0
+DAEMON_CONCURRENCY = (1, 16, 64)
+RELOAD_MEM_MIB = 8
+JPEG_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "jpeg")
 # training phase: configs/config.json's shape and optimizer
 TRAIN_BATCH, TRAIN_MAX_LEN, TRAIN_STEPS, GRAD_BATCH = 128, 40, 30, 32
 TRAIN_LR, TRAIN_WD = 5e-4, 2e-5
@@ -847,6 +873,428 @@ def serving_phase(kernels, variables, images, power: str):
     print(f"  per served bs-256 batch (bf16) on {power}: " + ", ".join(
         f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in breakdown.items()))
     out.update(breakdown=breakdown, launch_counts=launches)
+    return out
+
+
+# --- the HTTP daemon ----------------------------------------------------------------
+
+def jpeg_decoder_check() -> dict:
+    """The host C++ JPEG decoder against cv2's pixels of the committed
+    fixtures (tests/torch_port_data/jpeg/expected.npz), read without cv2."""
+    from rcnn_ocr_tpu_torch.native import jpeg_decode_u8
+
+    with np.load(os.path.join(JPEG_FIXTURES, "expected.npz")) as z:
+        expected = {k: z[k] for k in z.files}
+    differing = []
+    for name, want in sorted(expected.items()):
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            got = jpeg_decode_u8(f.read())
+        if got.shape != want.shape or not np.array_equal(got, want):
+            differing.append(name)
+    check(not differing, f"jpeg_decode_u8 differs from cv2's pixels on {differing}")
+    with open(os.path.join(JPEG_FIXTURES, "progressive_17x33.jpg"), "rb") as f:
+        progressive = f.read()
+    try:
+        jpeg_decode_u8(progressive)
+        check(False, "a progressive JPEG decoded (it must be refused)")
+    except NotImplementedError as err:
+        check("progressive" in str(err), f"the refusal names no variant: {err}")
+    with open(os.path.join(JPEG_FIXTURES, "line_00.jpg"), "rb") as f:
+        line = f.read()
+    try:
+        jpeg_decode_u8(line[: len(line) // 2])
+        check(False, "a JPEG cut in half decoded (it must raise ValueError)")
+    except ValueError:
+        pass
+    print(f"  jpeg_decode_u8: {len(expected)} fixtures bit-equal to cv2's pixels "
+          f"(subsamplings 4:4:4/4:2:2/4:2:0/4:4:0/4:1:1, gray, restarts, EXIF 3/6/8, "
+          f"no DHT, damaged, 64 lines); progressive refused, truncated raises ValueError")
+    return {"fixtures_bit_equal": len(expected)}
+
+
+def _post(base: str, body: bytes, ctype: str, timeout: float = 120.0):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + "/predict", data=body, method="POST",
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def drive_daemon(base: str, jobs, concurrency: int, stop=None):
+    """Run ``jobs`` ((idxs, kind, payload): kind "raw" with (ctype, body),
+    or "batch" with a list of encoded images sent by OCRClient as one JSON
+    batch) on ``concurrency`` client threads, round after round until
+    ``stop`` is set when one is given.  Returns the start and end on the
+    monotonic clock (shared by the processes of one machine) and one (idxs,
+    latency s, status, texts or error) per request."""
+    import itertools
+
+    from rcnn_ocr_tpu_torch.client import OCRClient
+
+    client = OCRClient(base, timeout_s=120, max_retries=0)
+    counter = itertools.count()
+    out, lock = [], threading.Lock()
+
+    def worker():
+        while True:
+            k = next(counter)
+            if stop is None and k >= len(jobs):
+                return
+            if stop is not None and stop.is_set():
+                return
+            idxs, kind, payload = jobs[k % len(jobs)]
+            t0 = time.perf_counter()
+            try:
+                if kind == "raw":
+                    status, reply = _post(base, payload[1], payload[0])
+                    texts = reply.get("texts", reply.get("error"))
+                else:
+                    status, texts = 200, client.predict(payload)
+            except Exception as err:  # a reset or refused connection
+                status, texts = None, repr(err)
+            with lock:
+                out.append((idxs, time.perf_counter() - t0, status, texts))
+
+    threads = [threading.Thread(target=worker) for _ in range(concurrency)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return t0, time.monotonic(), out
+
+
+def client_process(base: str, levels, conn) -> None:
+    """A client process's work: each (name, jobs, concurrency) level in turn
+    through :func:`drive_daemon`, the results sent back on ``conn``.  The
+    clients run apart from the daemon, so their Python does not share its
+    interpreter lock."""
+    out = {}
+    for name, jobs, concurrency in levels:
+        out[name] = drive_daemon(base, jobs, concurrency)
+        time.sleep(0.2)  # a gap between levels, so dispatches attribute cleanly
+    conn.send(out)
+    conn.close()
+
+
+def cuda_tensors() -> collections.Counter:
+    """Bytes of the live CUDA tensors Python can reach, by shape and dtype."""
+    found = collections.Counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # isinstance() wakes deprecated lazy attributes
+        for obj in gc.get_objects():
+            try:
+                if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                    found[(tuple(obj.shape), str(obj.dtype))] += obj.untyped_storage().nbytes()
+            except Exception:  # objects that fail on attribute access are not tensors
+                continue
+    return found
+
+
+def daemon_phase(kernels, variables, images, power: str):
+    """The port's OCRServer on 127.0.0.1 over the main path's weights, driven
+    by the port's OCRClient with PNG and JPEG lines."""
+    from rcnn_ocr_tpu_torch.data.image_io import imdecode, png_encode
+    from rcnn_ocr_tpu_torch.inference import OCRInference
+    from rcnn_ocr_tpu_torch.ops.preprocess import host_letterbox, host_resize_geometry
+    from rcnn_ocr_tpu_torch.serving import OCRServer, install_hot_reload, serving_predict_fn
+
+    t_phase = time.perf_counter()
+    out = {"decoder": jpeg_decoder_check(), "canvas": list(DAEMON_CANVAS),
+           "batch": DAEMON_BATCH, "max_wait_ms": DAEMON_WAIT_MS}
+    charset_path = os.path.join(REPO, "configs", "charset.txt")
+
+    def engine():
+        return OCRInference(variables, charset_path=charset_path, device="cuda", img_h=IMG_H,
+                            img_w=IMG_W, dtype=torch.bfloat16)
+
+    # traffic: the main path's 512 lines as PNG, then the 64 JPEG fixture lines
+    wire = [("image/png", png_encode(im)) for im in images]
+    for k in range(64):
+        with open(os.path.join(JPEG_FIXTURES, f"line_{k:02d}.jpg"), "rb") as f:
+            wire.append(("image/jpeg", f.read()))
+    decode_ms = {}
+    decoded = []
+    for kind in ("image/png", "image/jpeg"):
+        bodies = [b for c, b in wire if c == kind]
+        t0 = time.perf_counter()
+        decoded += [imdecode(b) for b in bodies]
+        decode_ms[kind.split("/")[1]] = (time.perf_counter() - t0) * 1e3 / len(bodies)
+    check(all(np.array_equal(a, b) for a, b in zip(decoded, images)), "PNG round trip differs")
+    n = len(wire)
+    ch, cw = DAEMON_CANVAS
+    check(all(im.shape[0] <= ch and im.shape[1] <= cw for im in decoded),
+          f"an image exceeds the {ch}x{cw} canvas")
+    print(f"  traffic: {len(images)} PNG + {n - len(images)} JPEG lines; canvas {ch}x{cw} "
+          f"covers every image (largest {max(im.shape[0] for im in decoded)}x"
+          f"{max(im.shape[1] for im in decoded)}); server decode per image: PNG "
+          f"{decode_ms['png']:.3f} ms, JPEG {decode_ms['jpeg']:.3f} ms (one thread)")
+    out["decode_ms_per_image"] = decode_ms
+    # one client at a time: 16 PNG and 16 JPEG lines (the single-client
+    # latency needs no more); 16 and 64 clients: every line
+    subsets = {1: list(range(16)) + list(range(len(images), len(images) + 16)),
+               16: list(range(n)), 64: list(range(n))}
+
+    def jobs_for(idxs):
+        raw = [([i], "raw", wire[i]) for i in idxs]
+        batch = [(idxs[s : s + 8], "batch", [wire[i][1] for i in idxs[s : s + 8]])
+                 for s in range(0, len(idxs), 8)]
+        return {"raw": raw, "batch": batch}
+
+    def compare(results, expected, what):
+        rows = same = 0
+        failed = [r for r in results if r[2] != 200]
+        check(not failed, f"{what}: {len(failed)} requests failed, e.g. {failed[:3]}")
+        for idxs, _, _, texts in results:
+            check(len(texts) == len(idxs), f"{what}: {len(texts)} strings for {len(idxs)} images")
+            for i, t in zip(idxs, texts):
+                rows += 1
+                if t == expected[i]:
+                    same += 1
+                else:
+                    print(f"    {what}: row {i} differs: daemon {t!r}, in-process {expected[i]!r}")
+        check(same >= 0.99 * rows, f"{what}: strings equal on {same}/{rows} rows (< 99%)")
+        return same, rows
+
+    launches = {"se_scale": 0, "bilstm_scan": 0}
+    ref = engine()
+    old_hup = signal.getsignal(signal.SIGHUP)
+    for method in ("ctc_greedy", "attention"):
+        knobs = dict(method=method, batch_size=DAEMON_BATCH, canvas=DAEMON_CANVAS,
+                     max_length=MAX_LENGTH)
+        expected = ref.predict_serving(decoded, **knobs)
+        dispatches, gate = [], threading.Event()
+        gate.set()
+        inflight = [0]
+
+        def build():
+            fn = serving_predict_fn(engine(), **knobs)
+
+            def timed(batch):
+                inflight[0] = len(batch)
+                gate.wait()
+                t0 = time.monotonic()
+                texts = fn(batch)
+                dispatches.append((t0, len(batch), time.monotonic() - t0))
+                inflight[0] = 0
+                return texts
+            return timed
+
+        server = OCRServer(build(), host="127.0.0.1", port=0, max_batch=DAEMON_BATCH,
+                           max_wait_ms=DAEMON_WAIT_MS)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = "http://%s:%d" % server.address[:2]
+        _post(base, wire[0][1], wire[0][0])  # warm-up, not counted
+        res = {"levels": {}}
+        kernels.reset_launch_counts()
+        dispatches.clear()
+        # the clients: a process of their own (spawned: it imports this
+        # script, no CUDA), level after level
+        levels = [(f"c{conc}_{kind}", jobs, conc) for conc in DAEMON_CONCURRENCY
+                  for kind, jobs in jobs_for(subsets[conc]).items()]
+        ctx = multiprocessing.get_context("spawn")
+        recv, send = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=client_process, args=(base, levels, send))
+        proc.start()
+        send.close()
+        check(recv.poll(600), "the client process sent no results in 600 s")
+        by_level = recv.recv()
+        proc.join(60)
+        check(proc.exitcode == 0, f"the client process exited {proc.exitcode}")
+        for name, _, conc in levels:
+            kind = name.split("_", 1)[1]
+            start, end, results = by_level[name]
+            wall = end - start
+            same, rows = compare(results, expected, f"{method} c={conc} {kind}")
+            lat = sorted(r[1] for r in results)
+            pick = lambda q: lat[min(len(lat) - 1, int(q * len(lat)))] * 1e3  # noqa: E731
+            mine = [(n, dt) for t, n, dt in dispatches if start <= t <= end]
+            sizes = [n for n, _ in mine]
+            level = {"requests": len(results), "images": rows, "wall_s": wall,
+                     "req_s": len(results) / wall, "img_s": rows / wall,
+                     "p50_ms": pick(0.5), "p95_ms": pick(0.95), "p99_ms": pick(0.99),
+                     "dispatches": len(sizes), "mean_batch": sum(sizes) / len(sizes),
+                     "dispatch_ms": 1e3 * sum(dt for _, dt in mine) / len(mine),
+                     "strings_equal": same}
+            res["levels"][f"c{conc}_{kind}"] = level
+            print(f"  daemon {method} c={conc} {kind}: {len(results)} requests, {rows} "
+                  f"images in {wall:.3f} s: {level['req_s']:.1f} req/s, "
+                  f"{level['img_s']:.1f} img/s, latency p50/p95/p99 {level['p50_ms']:.2f}/"
+                  f"{level['p95_ms']:.2f}/{level['p99_ms']:.2f} ms, {len(sizes)} dispatches "
+                  f"of {level['mean_batch']:.1f} images and {level['dispatch_ms']:.1f} ms on "
+                  f"average; strings equal in-process on {same}/{rows} on {power}")
+        counts = kernels.launch_counts()
+        for name, per in (("se_scale", 11), ("bilstm_scan", 2)):
+            check(counts[name] == per * len(dispatches),
+                  f"daemon {method} launched {name} {counts[name]}x over {len(dispatches)} "
+                  f"dispatches, expected {per * len(dispatches)}")
+            launches[name] += counts[name]
+        res["launches"] = counts
+        res["dispatch_ms_mean"] = 1e3 * sum(dt for _, _, dt in dispatches) / len(dispatches)
+
+        if method == "ctc_greedy":
+            # hot reload: a SIGHUP while 16 clients keep sending, twice.  The
+            # old engine must be released: the CUDA tensors Python can reach
+            # after each reload are those before it, and with the cuBLAS
+            # workspaces cleared (33 MiB for each thread that ran a GEMM,
+            # the reload's helper thread included) allocated memory returns
+            # to within RELOAD_MEM_MIB of before: the blocks only C++ holds
+            # (no Python tensor) wander by a few MiB from one reading to the
+            # next, where an engine's weights alone are 176.6 MiB.
+            def rebuild():
+                fn = build()
+                fn([np.full((16, 32, 3), 255, np.uint8)])  # warm off the serving path
+                return fn
+
+            def reading():
+                gc.collect()
+                torch.cuda.synchronize()
+                allocated = torch.cuda.memory_allocated()
+                torch._C._cuda_clearCublasWorkspaces()
+                return allocated, torch.cuda.memory_allocated(), cuda_tensors()
+
+            install_hot_reload(server, rebuild)
+            mem = [reading()]
+            torch.cuda.reset_peak_memory_stats()
+            reload_runs = []
+            for swap in (1, 2):
+                n0 = len(dispatches)
+                kernels.reset_launch_counts()
+                stop = threading.Event()
+                box = {}
+                sender = threading.Thread(target=lambda: box.update(zip(
+                    ("start", "end", "results"),
+                    drive_daemon(base, jobs_for(subsets[16])["raw"], 16, stop=stop))))
+                sender.start()
+                time.sleep(0.5)
+                os.kill(os.getpid(), signal.SIGHUP)
+                deadline = time.monotonic() + 120
+                while server.batcher.engine_swaps < swap and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                time.sleep(0.5)  # more requests on the new engine
+                stop.set()
+                sender.join()
+                check(server.batcher.engine_swaps == swap,
+                      f"engine_swaps {server.batcher.engine_swaps} after {swap} SIGHUPs")
+                same, rows = compare(box["results"], expected, f"ctc_greedy across reload {swap}")
+                counts = kernels.launch_counts()
+                reload_dispatches = len(dispatches) - n0  # the new engine's warm-up included
+                for name, per in (("se_scale", 11), ("bilstm_scan", 2)):
+                    check(counts[name] == per * reload_dispatches,
+                          f"reload {swap} window launched {name} {counts[name]}x, expected "
+                          f"{per * reload_dispatches}")
+                    launches[name] += counts[name]
+                reload_runs.append({"requests": len(box["results"]), "strings_equal": same,
+                                    "rows": rows})
+                mem.append(reading())
+            peak = torch.cuda.max_memory_allocated()
+            model_mb = sum(p.numel() * p.element_size() for p in ref.model.parameters()) / 2**20
+            mib = [(a / 2**20, b / 2**20, sum(t.values()) / 2**20) for a, b, t in mem]
+            print(f"  hot reload x2: engine_swaps 2 with 16 clients in flight, "
+                  f"{[r['requests'] for r in reload_runs]} requests all 200, strings equal on "
+                  f"{[r['strings_equal'] for r in reload_runs]}/{[r['rows'] for r in reload_runs]}; "
+                  f"memory allocated before / after reload 1 / after reload 2: "
+                  f"{mib[0][0]:.1f} / {mib[1][0]:.1f} / {mib[2][0]:.1f} MiB, with the cuBLAS "
+                  f"workspaces cleared {mib[0][1]:.1f} / {mib[1][1]:.1f} / {mib[2][1]:.1f} MiB, "
+                  f"CUDA tensors Python reaches {mib[0][2]:.1f} / {mib[1][2]:.1f} / "
+                  f"{mib[2][2]:.1f} MiB; peak {peak / 2**20:.1f} (one engine's weights: "
+                  f"{model_mb:.1f} MiB)")
+            for k in (1, 2):
+                check(mem[k][2] == mem[0][2],
+                      f"reload {k} changed the CUDA tensors Python reaches: "
+                      f"{sorted((mem[k][2] - mem[0][2]).items())[:5]} more, "
+                      f"{sorted((mem[0][2] - mem[k][2]).items())[:5]} fewer")
+                check(abs(mem[k][1] - mem[0][1]) <= RELOAD_MEM_MIB * 2**20,
+                      f"reload {k}: {mib[k][1]:.1f} MiB allocated with the cuBLAS workspaces "
+                      f"cleared vs {mib[0][1]:.1f} before (more than {RELOAD_MEM_MIB} MiB apart)")
+            res["reload"] = {"runs": reload_runs, "mem_mib": [m[0] for m in mib],
+                             "mem_mib_workspaces_cleared": [m[1] for m in mib],
+                             "python_cuda_tensors_mib": [m[2] for m in mib],
+                             "peak_mib": peak / 2**20}
+
+            # drain: shutdown_gracefully with 64 requests queued behind a held
+            # dispatch; 8 more sent while draining must get 503
+            gate.clear()
+            held = [[] for _ in range(64)]
+            clients = [threading.Thread(target=lambda k=k: held[k].append(
+                _post(base, wire[k][1], wire[k][0]))) for k in range(64)]
+            for c in clients:
+                c.start()
+            deadline = time.monotonic() + 60
+            while (server.batcher.pending() + inflight[0] < 64
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
+            check(server.batcher.pending() + inflight[0] == 64, "the 64 requests never queued")
+            drainer = threading.Thread(target=server.shutdown_gracefully)
+            drainer.start()
+            while not server._draining:
+                time.sleep(0.001)
+            late = [_post(base, wire[k][1], wire[k][0])[0] for k in range(64, 72)]
+            gate.set()
+            drainer.join(60)
+            for c in clients:
+                c.join(60)
+            thread.join(30)
+            answered = [h[0] for h in held if h]
+            check(len(answered) == 64 and all(s == 200 for s, _ in answered),
+                  f"drain: {len(answered)}/64 queued requests answered, statuses "
+                  f"{sorted({s for s, _ in answered})}")
+            check(all(r["texts"] == [expected[k]] for k, (_, r) in enumerate(answered)),
+                  "drain: a queued request got other strings")
+            check(late == [503] * 8, f"drain: requests sent while draining got {late}")
+            check(not thread.is_alive(), "serve_forever did not return after the drain")
+            print("  drain: shutdown_gracefully with 64 requests queued: all 64 answered 200 "
+                  "with their strings, 8 sent while draining answered 503, none reset")
+            res["drain"] = {"queued_answered_200": 64, "late_503": 8}
+        else:
+            server.close()
+            thread.join(30)
+
+        # where a dispatch's time goes, at the mean dispatched batch of c=16
+        mean_b = max(1, round(res["levels"]["c16_raw"]["mean_batch"]))
+        batch = decoded[:mean_b]
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            bufs = [torch.empty((DAEMON_BATCH, ch, cw, 3), dtype=torch.uint8, pin_memory=True)
+                    for _ in range(2)]
+            walls.append((time.perf_counter() - t0) * 1e3)
+        rgb = [ref._to_rgb(im) for im in batch]
+        rgb += [rgb[-1]] * (DAEMON_BATCH - len(rgb))
+        lb = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, sizes = host_letterbox(rgb, ch, cw, out=bufs[0].numpy())
+            lb.append((time.perf_counter() - t0) * 1e3)
+        sizes = np.concatenate([sizes, host_resize_geometry(sizes, IMG_H, IMG_W)], axis=1)
+        raw_d, sizes_d = bufs[0].cuda(), torch.from_numpy(sizes).cuda()
+        kernel = ref.serving_kernel(method, max_length=MAX_LENGTH)
+        split = {"mean_batch": mean_b, "pinned_alloc_ms_first": walls[0],
+                 "pinned_alloc_ms": sorted(walls)[1],
+                 "letterbox_ms": sorted(lb)[1],
+                 "h2d_ms": time_ms(lambda: bufs[0].to("cuda", non_blocking=True), iters=10),
+                 "h2d_mb": bufs[0].numel() / 1e6,
+                 "device_ms": time_ms(lambda: kernel(raw_d, sizes_d), iters=3),
+                 "dispatch_wall_ms": res["dispatch_ms_mean"]}
+        fn = serving_predict_fn(ref, **knobs)
+        fn(batch)
+        split.update({f"profiled_{k}": v for k, v in profiled(lambda: fn(batch),
+                                                               f"daemon_{method}").items()})
+        res["split"] = split
+        print(f"  daemon {method} dispatch of {mean_b} images (padded to {DAEMON_BATCH}) on "
+              f"{power}: " + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                                       for k, v in split.items()))
+        out[method] = res
+    signal.signal(signal.SIGHUP, old_hup)
+    out["launch_counts"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  daemon phase: {out['seconds']:.1f} s")
     return out
 
 
@@ -1697,6 +2145,8 @@ def main() -> int:
     beams = beam_phase(kernels, variables, images, power)
     print("serving phase")
     serving = serving_phase(kernels, variables, images, power)
+    print("daemon phase")
+    daemon = daemon_phase(kernels, variables, images, power)
     print("long-line phase")
     long_line = long_line_phase(kernels, variables, power)
     del variables
@@ -1716,6 +2166,7 @@ def main() -> int:
         by_path = {"inference": path["launch_counts"][name],
                    "beam": beams["launch_counts"][name],
                    "serving": serving["launch_counts"][name],
+                   "daemon": daemon["launch_counts"][name],
                    "long_lines": long_line["launch_counts"][name],
                    "train": train["launch_counts"][name],
                    "train_loop": loop["launches"][name]}
@@ -1727,7 +2178,7 @@ def main() -> int:
         for p, n in by_path.items():
             check(n > 0, f"{name} never launched on the {p} path")
     result = {"card": power, "kernels": rows, "main_path": path, "beam": beams,
-              "serving": serving, "long_lines": long_line,
+              "serving": serving, "daemon": daemon, "long_lines": long_line,
               "training": training, "training_loop": loop, "seconds": time.perf_counter() - t_start}
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)

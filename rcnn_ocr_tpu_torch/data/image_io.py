@@ -1,4 +1,5 @@
-"""Image files without OpenCV or PIL: PNG and BMP decoding, header probes.
+"""Image files without OpenCV or PIL: PNG, BMP and JPEG decoding, header
+probes and a PNG writer.
 
 Counterpart of ``rcnn_ocr_tpu/data/transforms.py:imread_cv2``,
 ``imdecode_cv2``, ``image_size``, ``_exif_orientation`` and
@@ -15,11 +16,23 @@ IMREAD_COLOR)`` followed by BGR -> RGB gives, as an RGB uint8 HWC array:
   the pixel to their left, so they run as a loop over the row's bytes.
 * BMP: 24- and 32-bit (alpha dropped) and 8-bit palette, bottom-up or
   top-down, uncompressed.
+* JPEG: baseline and extended-sequential Huffman frames, 8-bit, gray or
+  three components at any integral chroma subsampling, with restart
+  markers and EXIF orientation, through the port's host C++
+  (``csrc/host/jpeg_decode.cpp`` via :func:`rcnn_ocr_tpu_torch.native.
+  jpeg_decode_u8`, built with g++ at first use): libjpeg-turbo's ISLOW IDCT,
+  fancy upsampling and colour tables, so the pixels are bit-equal to cv2's.
+  Frames with no DHT take the standard tables, and damaged entropy data
+  decodes as libjpeg-turbo decodes it with warnings (bad codes, restart
+  markers out of sequence).  Progressive, arithmetic-coded, lossless and
+  12-bit frames and CMYK / YCCK images raise :class:`UnsupportedImageFormat`
+  naming the variant; truncated data and damaged headers raise
+  ``ValueError`` (cv2 returns ``None``).
 
-Other formats (JPEG, GIF, TIFF, ...) raise :class:`UnsupportedImageFormat`,
+Other formats (GIF, TIFF, ...) raise :class:`UnsupportedImageFormat`,
 which names the supported ones; ``image_size`` still reads their headers
 (JPEG's through the SOF walk, with EXIF orientations 5-8 swapping the
-sides as cv2's decode would).
+sides as the decode does).  :func:`png_encode` writes 8-bit PNGs.
 """
 
 from __future__ import annotations
@@ -33,7 +46,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 IMG_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff"}
-SUPPORTED = "PNG and BMP"
+SUPPORTED = "PNG, BMP and baseline JPEG"
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -223,8 +236,17 @@ def _bmp_decode(data: bytes) -> np.ndarray:
 def imdecode(data) -> np.ndarray:
     """Encoded image bytes -> RGB uint8 HWC (the counterpart of
     ``imdecode_cv2``).  Raises ``ValueError`` on damaged data and
-    :class:`UnsupportedImageFormat` on a format other than PNG or BMP."""
+    :class:`UnsupportedImageFormat` on a format or JPEG variant it does not
+    decode."""
     data = bytes(data)
+    if data.startswith(b"\xff\xd8"):
+        from rcnn_ocr_tpu_torch.native import jpeg_decode_u8
+
+        try:
+            return jpeg_decode_u8(data)
+        except NotImplementedError as err:
+            raise UnsupportedImageFormat(
+                f"cannot decode {err}: the PyTorch port decodes {SUPPORTED} images") from None
     decode = (_png_decode if data.startswith(_PNG_SIG) else
               _bmp_decode if data.startswith(b"BM") and len(data) >= 26 else None)
     if decode is not None:
@@ -232,12 +254,39 @@ def imdecode(data) -> np.ndarray:
             return decode(data)
         except (zlib.error, struct.error, IndexError) as err:
             raise ValueError(f"damaged image data: {err}") from err
-    kind = ("JPEG" if data.startswith(b"\xff\xd8") else
-            "GIF" if data[:6] in (b"GIF87a", b"GIF89a") else
+    kind = ("GIF" if data[:6] in (b"GIF87a", b"GIF89a") else
             "TIFF" if data[:4] in (b"II*\x00", b"MM\x00*") else "an unknown format")
     raise UnsupportedImageFormat(
-        f"cannot decode {kind}: the PyTorch port decodes {SUPPORTED} images "
-        "(JPEG decoding is still to be ported)")
+        f"cannot decode {kind}: the PyTorch port decodes {SUPPORTED} images")
+
+
+def png_encode(img: np.ndarray) -> bytes:
+    """An 8-bit PNG of a uint8 gray ``[H, W]`` (or ``[H, W, 1]``), RGB
+    ``[H, W, 3]`` or RGBA ``[H, W, 4]`` array, channels stored as given,
+    every row with filter None (the cheapest to decode: Average and Paeth
+    rows cost :func:`imdecode` a Python loop over the row)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise TypeError(f"png_encode takes uint8 arrays, got {img.dtype}")
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[:, :, 0]
+    if img.ndim == 2:
+        c, ctype = 1, 0
+    elif img.ndim == 3 and img.shape[2] in (3, 4):
+        c, ctype = img.shape[2], {3: 2, 4: 6}[img.shape[2]]
+    else:
+        raise ValueError(f"png_encode takes [H, W], [H, W, 3] or [H, W, 4], got {img.shape}")
+    h, w = img.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)
+    return (_PNG_SIG + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b""))
 
 
 def imread(path: str) -> np.ndarray:

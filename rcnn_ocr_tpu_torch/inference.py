@@ -20,11 +20,13 @@ it and runs the model.  The weights live in the module, so unlike JAX's
 jitted kernels they take no ``variables`` argument.
 
 The engine runs on the CUDA card unless the caller passes ``device="cpu"``;
-with no card and no explicit CPU it raises.  Inputs are arrays, paths to
-PNG/BMP files or PIL-like images (anything with ``.convert("RGB")``; PIL
-itself is never imported).  Width buckets are a list of widths or
-``"auto:K"`` (K widths fitted to the first multi-image call).  JPEG files,
-int8 and multi-card serving arrive in later slices of the port.
+with no card and no explicit CPU it raises.  Checkpoints are the JAX
+package's msgpack files, a JAX variable tree, or the reference's ``.pth``
+layouts (:mod:`rcnn_ocr_tpu_torch.interop.torch_import`).  Inputs are
+arrays, paths to PNG/BMP/JPEG files or PIL-like images (anything with
+``.convert("RGB")``; PIL itself is never imported).  Width buckets are a
+list of widths or ``"auto:K"`` (K widths fitted to the first multi-image
+call).  int8 and multi-card serving arrive in later slices of the port.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from rcnn_ocr_tpu_torch.data.image_io import image_size
 from rcnn_ocr_tpu_torch.data.loader import bucket_for_width, optimal_width_buckets, scaled_width
 from rcnn_ocr_tpu_torch.data.transforms import ResizeAndPad, load_rgb_uint8
 from rcnn_ocr_tpu_torch.interop.jax_params import load_jax_variables
+from rcnn_ocr_tpu_torch.interop.torch_import import import_torch_checkpoint
 from rcnn_ocr_tpu_torch.lm import load_lm
 from rcnn_ocr_tpu_torch.long_lines import LongLineMixin
 from rcnn_ocr_tpu_torch.models.rcnn import RCNN
@@ -131,24 +134,25 @@ class OCRInference(ServingEngineMixin, LongLineMixin):
         self.dtype = dtype
 
         if isinstance(model_path_or_variables, str):
-            variables, blob = load_variables(model_path_or_variables)
+            variables, meta = self._load_variables(model_path_or_variables)
         else:
             blob = dict(model_path_or_variables)
             variables = {"params": blob["params"], "batch_stats": blob.get("batch_stats", {})}
-        ckpt_cfg = blob.get("config") or {}
+            meta = self._meta(blob)
+        ckpt_cfg = meta.get("config") or {}
         self.img_h = int(img_h if img_h is not None else ckpt_cfg.get("img_h", 64))
         self.img_w = int(img_w if img_w is not None else ckpt_cfg.get("img_w", 256))
 
         if charset_path is not None:
             self.charset = Charset.from_file(charset_path)
-        elif blob.get("itos"):
-            self.charset = Charset.from_tokens(blob["itos"])
+        elif meta.get("itos"):
+            self.charset = Charset.from_tokens(meta["itos"])
         else:
             raise ValueError("charset_path required (checkpoint has no embedded charset)")
 
         arch = infer_architecture(variables["params"])
         if hidden_size is None:
-            hidden_size = ckpt_cfg.get("hidden_size") or arch.get("hidden_size") or 256
+            hidden_size = meta.get("hidden_size") or arch.get("hidden_size") or 256
         if with_ctc_head is None:
             with_ctc_head = arch.get("with_ctc_head", False)
         cs = self.charset
@@ -180,6 +184,26 @@ class OCRInference(ServingEngineMixin, LongLineMixin):
             {w: ResizeAndPad(img_h=self.img_h, img_w=w) for w in self.width_buckets}
             if self.width_buckets else None
         )
+
+    # -- checkpoint loading ------------------------------------------------
+    @staticmethod
+    def _meta(blob: Dict[str, Any]) -> Dict[str, Any]:
+        config = blob.get("config")
+        return {"itos": blob.get("itos"), "config": config,
+                "hidden_size": (config or {}).get("hidden_size")}
+
+    @staticmethod
+    def _load_variables(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """``(variables, meta)`` from a msgpack (weights or full checkpoint)
+        or one of the reference's ``.pth`` / ``.pt`` layouts; ``meta`` holds
+        ``itos``, ``hidden_size`` and ``config`` (``None`` where absent)."""
+        if not os.path.exists(path):
+            raise FileNotFoundError(path)
+        if path.endswith((".pth", ".pt")):
+            out = import_torch_checkpoint(path)
+            return out["variables"], out
+        variables, blob = load_variables(path)
+        return variables, OCRInference._meta(blob)
 
     # -- batching ----------------------------------------------------------
     def _to_rgb(self, image) -> np.ndarray:

@@ -1,15 +1,18 @@
-"""ctypes bindings of the port's host C++: the CTC prefix beam search and the
-serving letterbox.
+"""ctypes bindings of the port's host C++: the CTC prefix beam search, the
+serving letterbox and the JPEG decoder.
 
 The sources are ``rcnn_ocr_tpu_torch/csrc/host/ctc_beam.cpp`` (the search of
-the JAX package's ``native/ctc_beam.cpp``) and ``csrc/host/letterbox.cpp``
-(its ``native/letterbox.cpp``), kept as the port's own copies.  At first use
-each is compiled with ``g++ -O3 -std=c++17 -fPIC -shared -pthread`` into
+the JAX package's ``native/ctc_beam.cpp``), ``csrc/host/letterbox.cpp`` (its
+``native/letterbox.cpp``), kept as the port's own copies, and
+``csrc/host/jpeg_decode.cpp`` (the port's own: JAX decodes with cv2).  At
+first use each is compiled with ``g++ -O3 -std=c++17 -fPIC -shared -pthread`` into
 ``build/rcnn_ocr_tpu_torch/`` under a name that carries a hash of the source
 and flags, so an edited source is rebuilt, and loaded with ``ctypes``.  A
 failed build raises with the compiler's output; nothing falls back to
 Python.  Bound: the batched beam entry points
-``rcnn_ctc_beam_search_batch[_mt][_v2]`` and ``rcnn_letterbox_u8``.
+``rcnn_ctc_beam_search_batch[_mt][_v2]``, ``rcnn_letterbox_u8``,
+``rcnn_jpeg_header`` and ``rcnn_jpeg_decode_u8``.  A ctypes call releases
+the interpreter lock, so threads decode in parallel.
 """
 
 from __future__ import annotations
@@ -43,6 +46,10 @@ ENTRIES = {
     # srcs, src_h, src_w, n, out, canvas_h, canvas_w, threads
     "letterbox": {"rcnn_letterbox_u8": [ctypes.POINTER(ctypes.c_void_p), _P64, _P64, _I64,
                                         ctypes.POINTER(ctypes.c_uint8), _I64, _I64, _I64]},
+    # data, n, out_hw | out, h, w; then msg, msg_len
+    "jpeg_decode": {"rcnn_jpeg_header": [ctypes.c_char_p, _I64, _P64, ctypes.c_char_p, _I64],
+                    "rcnn_jpeg_decode_u8": [ctypes.c_char_p, _I64, ctypes.POINTER(ctypes.c_uint8),
+                                            _I64, _I64, ctypes.c_char_p, _I64]},
 }
 
 _lock = threading.Lock()
@@ -170,3 +177,27 @@ def letterbox_u8(images: Sequence[np.ndarray], canvas_h: int, canvas_w: int,
     if res < 0:
         raise RuntimeError(f"rcnn_letterbox_u8 failed (canvas {canvas_h}x{canvas_w}, {n} images)")
     return out, sizes
+
+
+def jpeg_decode_u8(data: bytes) -> np.ndarray:
+    """A baseline or extended-sequential JPEG stream -> RGB uint8 ``[H, W, 3]``,
+    bit-equal to ``cv2.imdecode(data, IMREAD_COLOR)`` then BGR -> RGB (EXIF
+    orientation applied).  Raises ``NotImplementedError`` naming a variant it
+    does not decode (progressive, arithmetic, lossless, 12-bit, CMYK) and
+    ``ValueError`` on damaged or truncated data."""
+    lib = load("jpeg_decode")
+    data = bytes(data)
+    msg = ctypes.create_string_buffer(256)
+    hw = np.zeros(2, dtype=np.int64)
+    res = lib.rcnn_jpeg_header(data, len(data), hw.ctypes.data_as(_P64), msg, len(msg))
+    if res == 0:
+        out = np.empty((int(hw[0]), int(hw[1]), 3), dtype=np.uint8)
+        res = lib.rcnn_jpeg_decode_u8(data, len(data),
+                                      out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                                      int(hw[0]), int(hw[1]), msg, len(msg))
+        if res == 0:
+            return out
+    text = msg.value.decode("utf-8", "replace")
+    if res == -2:
+        raise NotImplementedError(text)
+    raise ValueError(f"damaged JPEG data: {text}")

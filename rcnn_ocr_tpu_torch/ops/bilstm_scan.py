@@ -97,5 +97,5 @@ def _launch(xs: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> torch.Tensor:
     err = fn(xs.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), t_steps, batch, hidden,
              _W_DTYPES[w_hh.dtype], kernels.stream_ptr())
     kernels.BILSTM_SCAN.check(err)
-    kernels.BILSTM_SCAN.launches += 1
+    kernels.BILSTM_SCAN.count_launch()
     return ys

@@ -63,6 +63,7 @@ class CudaKernel:
         self.plan_symbol = plan_symbol
         self.plan_argtypes = plan_argtypes
         self.launches = 0
+        self._count_lock = threading.Lock()  # the serving daemon launches from two threads
         self.build_log = ""
         self.build_seconds: Optional[float] = None
         self._fn = None
@@ -100,6 +101,10 @@ class CudaKernel:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             setattr(self, attr, fn)
+
+    def count_launch(self) -> None:
+        with self._count_lock:
+            self.launches += 1
 
     def check(self, err: int) -> None:
         """Raise on a non-zero ``cudaError_t`` returned by the library."""

@@ -100,5 +100,5 @@ def _launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor
     err = fn(x.data_ptr(), w1f.data_ptr(), w2f.data_ptr(), out.data_ptr(),
              batch, h * w, c, s, _DTYPES[x.dtype], kernels.stream_ptr())
     kernels.SE_SCALE.check(err)
-    kernels.SE_SCALE.launches += 1
+    kernels.SE_SCALE.count_launch()
     return out

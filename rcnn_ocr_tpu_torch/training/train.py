@@ -7,7 +7,9 @@ refusal; charset and ``RCNN``; optimizer, scheduler and state; datasets
 (a separate validation set, or a random split); proportional or shuffled
 sampling and width buckets (a list, or an int K for the waste-minimizing
 DP) with CTC lifting; threaded loaders with the disk transform cache;
-resume from a ``.msgpack`` slot (scheduler and learning rate included);
+resume from a ``.msgpack`` slot (scheduler and learning rate included),
+or a weights-only warm start from the reference's ``.pth`` / ``.pt``
+layouts (fresh optimizer, scheduler and counters, as JAX does);
 graceful SIGTERM (finish the step, write ``last``, return ``preempted``);
 the epoch loop (no host sync per step except every ``log_every``, a
 ``StepTimer``, a ``torch.profiler`` window for ``profile_steps``);
@@ -26,10 +28,9 @@ seeded from ``(seed, epoch, batch, row)`` by the loader.  The starting
 weights are drawn as flax's initializers draw them (``init_train_params``).
 
 Not served here, and refused when asked for: a mesh over more than one
-device and multi-process feeding (ROADMAP queue 1, item 13), the serving
-artifact export (item 12), and ``.pth`` / ``.pt`` warm starts (the
-reference layouts).  ``use_pallas`` and ``compile_cache_dir`` mean nothing
-on the card and are only logged.
+device and multi-process feeding (ROADMAP queue 1, item 13) and the
+serving artifact export (item 12).  ``use_pallas`` and
+``compile_cache_dir`` mean nothing on the card and are only logged.
 
     python -m rcnn_ocr_tpu_torch.training.train config.json [--device cpu]
 """
@@ -69,6 +70,7 @@ from rcnn_ocr_tpu_torch.data.loader import (
 )
 from rcnn_ocr_tpu_torch.data.transforms import ResizeAndPad, get_train_transform
 from rcnn_ocr_tpu_torch.inference import resolve_device
+from rcnn_ocr_tpu_torch.interop.jax_params import load_jax_variables
 from rcnn_ocr_tpu_torch.models.rcnn import RCNN, TIME_DOWNSAMPLE, init_train_params
 from rcnn_ocr_tpu_torch.ops.ctc import ctc_greedy_collapse_np
 from rcnn_ocr_tpu_torch.training import checkpoint as ckpt_io
@@ -87,6 +89,7 @@ from rcnn_ocr_tpu_torch.training.train_step import (
     make_eval_step,
     make_train_step,
 )
+from rcnn_ocr_tpu_torch.utils.common import load_model
 from rcnn_ocr_tpu_torch.utils.profiling import StepTimer, trace
 from rcnn_ocr_tpu_torch.utils.progress import has_tqdm, progress
 from rcnn_ocr_tpu_torch.vocab.charset import Charset, decode_tokens
@@ -119,11 +122,6 @@ def _check_unserved(cfg: Config, logger) -> None:
     if cfg.get("export_artifact"):
         raise NotImplementedError("export_artifact: the serving artifact export is still to be "
                                   "ported (ROADMAP queue 1, item 12)")
-    resume_path = cfg.get("resume_path")
-    if resume_path and str(resume_path).endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            f"resume_path {resume_path}: warm starts from the reference's torch checkpoints "
-            "are still to be ported (ROADMAP queue 1, items 1-6 leftovers)")
     if cfg.get("use_pallas"):
         logger.info("use_pallas: ignored (on the card the CUDA kernels are always the path)")
     if cfg.get("compile_cache_dir"):
@@ -383,10 +381,20 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
     # --- resume ---
     start_epoch, global_step = 1, 0
     best_val_loss, best_val_acc = float("inf"), -1.0
-    if resume_path and os.path.isfile(resume_path) and not resume_path.endswith(".msgpack"):
+    if resume_path and os.path.isfile(resume_path) and resume_path.endswith((".pth", ".pt")):
+        # a reference checkpoint carries weights only: warm-start from it
+        # rather than train from scratch inside the resumed experiment dir
+        _, imported, _ = load_model(resume_path, itos=list(charset.itos),
+                                    hidden_size=hidden_size, device="cpu")
+        load_jax_variables(model, {"params": imported["params"],
+                                   "batch_stats": imported.get("batch_stats", {})})
+        logger.info(f"Warm start from torch checkpoint: {resume_path} (weights only — "
+                    "optimizer/scheduler/epoch counters start fresh)")
+    elif resume_path and os.path.isfile(resume_path) and not resume_path.endswith(".msgpack"):
         raise ValueError(f"resume_path points at an unsupported checkpoint format: "
-                         f"{resume_path} (expected .msgpack)")
-    if resume_path and os.path.isfile(resume_path):
+                         f"{resume_path} (expected .msgpack, or .pth/.pt for a weights-only "
+                         "warm start)")
+    if resume_path and os.path.isfile(resume_path) and resume_path.endswith(".msgpack"):
         blob = ckpt_io.load_checkpoint_blob(resume_path)
         ckpt_io.restore_train_state(blob, state)
         if scheduler is not None and blob.get("scheduler_state"):

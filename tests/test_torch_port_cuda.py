@@ -15,6 +15,8 @@ plain PyTorch version on the same inputs: fp32 at rtol/atol 1e-5 (only the
 summation order differs), bf16 outputs at one bf16 ulp (rtol 8e-3).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -550,3 +552,57 @@ def test_long_lines_on_the_card(cuda_device):
     kernels.reset_launch_counts()
     out = engine.predict_long([wide, short[0]], method="ctc_greedy", batch_size=16)
     assert len(out) == 2 and kernels.launch_counts() == {"se_scale": 11, "bilstm_scan": 2}
+
+
+def test_daemon_on_the_card_answers_png_and_jpeg_and_reloads(cuda_device, tmp_path):
+    """The port's OCRServer over an engine on the card: a PNG and a JPEG
+    request get the in-process predict_serving strings (each dispatch 11 + 2
+    launches), and a SIGHUP swaps in a second engine on the card that answers
+    alike."""
+    import json
+    import signal
+    import threading
+    import time
+    import urllib.request
+
+    from rcnn_ocr_tpu_torch.data.image_io import imdecode, png_encode
+    from rcnn_ocr_tpu_torch.serving import OCRServer, install_hot_reload, serving_predict_fn
+
+    knobs = dict(method="ctc_greedy", batch_size=4, canvas=(80, 500), max_length=8)
+    engine = _serving_engine()
+    imgs = _mixed_lines(2, seed=5)
+    with open(os.path.join(os.path.dirname(__file__), "torch_port_data", "jpeg",
+                           "line_03.jpg"), "rb") as f:
+        jpeg = f.read()
+    bodies = [("image/png", png_encode(imgs[0])), ("image/jpeg", jpeg)]
+    want = engine.predict_serving([imdecode(b) for _, b in bodies], **knobs)
+    server = OCRServer(serving_predict_fn(engine, **knobs), host="127.0.0.1", port=0,
+                       max_batch=4, max_wait_ms=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://%s:%d/predict" % server.address[:2]
+
+    def ask():
+        out = []
+        for ctype, body in bodies:
+            req = urllib.request.Request(base, data=body, headers={"Content-Type": ctype})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                out += json.loads(resp.read())["texts"]
+        return out
+
+    old = signal.getsignal(signal.SIGHUP)
+    try:
+        kernels.reset_launch_counts()
+        assert ask() == want
+        assert kernels.launch_counts() == {"se_scale": 22, "bilstm_scan": 4}
+        install_hot_reload(server, lambda: serving_predict_fn(_serving_engine(), **knobs))
+        signal.raise_signal(signal.SIGHUP)
+        deadline = time.monotonic() + 60
+        while server.batcher.engine_swaps < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert server.batcher.engine_swaps == 1
+        assert ask() == want
+    finally:
+        signal.signal(signal.SIGHUP, old)
+        server.close()
+        thread.join(timeout=10)

@@ -510,10 +510,10 @@ def test_device_augment_and_the_refusals(tiny):
     for key, value, item in (("mesh_shape", [2], "item 13"), ("export_artifact", True, "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             run_training(_cfg(tiny, f"no_{key}", **{key: value}), device="cpu")
-    pth = tiny["tmp"] / "ref.pth"
-    pth.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="reference"):
-        run_training(_cfg(tiny, "no_pth", resume_path=str(pth)), device="cpu")
+    other = tiny["tmp"] / "ref.ckpt"  # .pth warm starts: tests/test_torch_port_torch_import.py
+    other.write_bytes(b"")
+    with pytest.raises(ValueError, match="unsupported checkpoint format"):
+        run_training(_cfg(tiny, "no_ckpt", resume_path=str(other)), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run_training(_cfg(tiny, "no_card"))
