@@ -88,6 +88,31 @@
    line and the attention ones on >= 99%.  Prints lines/s and tiles/s per
    method, and the host plan, stitch and extraction ms against the ids
    kernel's device ms.
+7b. int8 + artifacts phase, on the main path's model and 512 lines, bf16
+   at batch 256.  (1) The first conv of each stage and ``out1``, their
+   inputs captured from an int8 batch: the int32 accumulators of the same
+   codes on the card and on the CPU must be equal; each int8 conv
+   (quantize, im2col, ``torch._int_mm``, dequantize) is timed beside the
+   bf16 cuDNN conv of its shape.  (2) ``OCRInference(quantize=True)``
+   dynamic, and static after ``calibrate`` on 256 lines: ``predict`` and
+   ``predict_ctc`` with 11 + 2 launches per batch, img/s beside bf16's in
+   the same call and the int8-vs-bf16 string agreement (random weights:
+   printed, not held); every K1 and K2 launch of a batch on the int8 path
+   within tolerance of its plain version on the same inputs, two runs
+   through the kernels (and two under ``plain_only()``) giving the same
+   strings, and the kernels-vs-plain string agreement printed (a kernel's
+   one-ulp difference moves these random weights' strings; TOL says how).
+   (3) ``save_calibration`` reopens on the static path
+   with the same strings.  (4) Artifacts of ``ctc_greedy`` int8-static,
+   ``attention`` bf16 and ``hybrid_long`` bf16, each loaded fresh, give the
+   live ``predict_serving`` (``predict_hybrid_long``) strings on every row,
+   their programs launching 11 + 2 per batch; one exported on the CPU with
+   ``platforms=("cuda", "cpu")`` runs on the card as well.  Prints export
+   seconds, the cold start (load + first batch), img/s against the live
+   engine and every file's size.  (5) ``python -m rcnn_ocr_tpu_torch.serve
+   --artifact`` in a process of its own answers 64 lines from 16 client
+   threads with the in-process strings; a SIGHUP after a re-export at batch
+   128, with clients in flight, drops no request.
 8. Training phase.  (a) Gradient check: the same full-width model in fp32
    at batch 32, train mode, head "both" with dropout, DropBlock and
    sampling off, one ``make_train_step`` (SGD at lr 0, so the weights stay)
@@ -230,6 +255,15 @@ TOL = {
     # cum + log_softmax sums whose fp32 ulp is 7.6e-6 at |sum| < 128, so
     # a gap under 1e-4 is a tie the beam broke to the lower class id
     "beam1_tie_gap": 1e-4,
+    # The int8 engines are held per launch (each K1 / K2 launch of a batch
+    # against its plain version, "bf16" / "fp32" above) and for determinism,
+    # not by strings kernels vs plain, which these random weights make a
+    # measure of their own sensitivity (bf16 vs fp32 attention strings agree
+    # on 287/512 on the main path).  My chip runs 1-3 (PR 8): in fp32 K1's
+    # one-ulp differences (~3% of its outputs) flip int8 codes: CTC 496/512,
+    # attention 489/512; in bf16 K1 is bit-equal on the int8 path and K2's
+    # fp32 summation order (<= 3.3e-7 on 81% of its outputs) flips bf16
+    # roundings of the LSTM output: CTC 504-507/512, attention 457/512
 }
 
 
@@ -1433,6 +1467,366 @@ def long_line_phase(kernels, variables, power: str):
     return out
 
 
+def launch_pairs(call):
+    """``(kernel name, its arguments, its output)`` of every kernel launch
+    made by ``call``, copied as they happen."""
+    from rcnn_ocr_tpu_torch.ops import bilstm_scan, se_scale
+
+    seen, real = [], {m: m._launch for m in (se_scale, bilstm_scan)}
+
+    def wrap(mod, name):
+        def launch(*args):
+            result = real[mod](*args)
+            seen.append((name, tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+                         result.clone()))
+            return result
+        return launch
+
+    se_scale._launch, bilstm_scan._launch = wrap(se_scale, "se_scale"), \
+        wrap(bilstm_scan, "bilstm_scan")
+    try:
+        call()
+    finally:
+        se_scale._launch, bilstm_scan._launch = real[se_scale], real[bilstm_scan]
+    return seen
+
+
+def int8_stage_convs(engine, images):
+    """The int8 codes of the first conv of each stage and of ``out1`` on one
+    bs-256 batch: ``{name: (x codes NHWC int8, w codes HWIO int8, strides,
+    padding, x bf16 NHWC, w fp32 HWIO)}``, captured by forward pre-hooks."""
+    from rcnn_ocr_tpu_torch.ops.quant import quantize_activation, quantize_weight_per_cout
+
+    cnn = engine.model.cnn
+    names = ("layer1_block0.conv1", "layer2_block0.conv1", "layer3_block0.conv1",
+             "layer4_block0.conv1", "out1")
+    captured, hooks = {}, []
+    for name in names:
+        mod = cnn.get_submodule(name)
+
+        def grab(mod, args, name=name):
+            c = mod.conv
+            ph, pw = c.padding
+            x = args[0].permute(0, 2, 3, 1).contiguous()
+            w = c.weight.permute(2, 3, 1, 0)
+            captured[name] = (quantize_activation(x)[0], quantize_weight_per_cout(w)[0],
+                              tuple(c.stride), ((ph, ph), (pw, pw)), x, w)
+        hooks.append(mod.register_forward_pre_hook(grab))
+    try:
+        engine.predict(images[:BATCH], max_length=MAX_LENGTH, batch_size=BATCH)
+    finally:
+        for h in hooks:
+            h.remove()
+    return captured
+
+
+def artifact_sizes(path: str) -> dict:
+    return {f: os.path.getsize(os.path.join(path, f)) for f in sorted(os.listdir(path))}
+
+
+def int8_artifact_phase(kernels, variables, images, power: str):
+    """int8 engines (dynamic and calibrated static) against their plain
+    versions, the calibration file, serving artifacts loaded fresh against
+    the live engine (one exported on the CPU and moved), and the daemon
+    serving an artifact with a reload; on the main path's model."""
+    import torch.nn.functional as F
+
+    from rcnn_ocr_tpu_torch.data.image_io import png_encode
+    from rcnn_ocr_tpu_torch.export import ServingArtifact, export_serving_artifact
+    from rcnn_ocr_tpu_torch.inference import OCRInference
+    from rcnn_ocr_tpu_torch.ops import quant
+    from rcnn_ocr_tpu_torch.ops.bilstm_scan import scan_reference
+    from rcnn_ocr_tpu_torch.ops.se_scale import se_scale_reference
+
+    charset_path = os.path.join(REPO, "configs", "charset.txt")
+    root = os.path.join(REPO, "build", "chip_smoke", "int8")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {"launches": {}}
+    launches = collections.Counter()
+
+    def engine(dtype=torch.bfloat16, source=variables, device="cuda", **kw):
+        return OCRInference(source, charset_path=charset_path, device=device, img_h=IMG_H,
+                            img_w=IMG_W, dtype=dtype, **kw)
+
+    def counted(name, call, batches):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = call()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        check(counts == {"se_scale": 11 * batches, "bilstm_scan": 2 * batches},
+              f"{name} launched {counts}: not 11 + 2 per batch over {batches} batches")
+        launches.update(counts)
+        out["launches"][name] = counts
+        return got, wall
+
+    # (1) the int32 accumulators of the same codes, card vs CPU, and one int8
+    # conv against the bf16 cuDNN conv of its shape
+    dyn = engine(quantize=True)
+    convs = int8_stage_convs(dyn, images)
+    out["int8_convs"] = {}
+    no_grad = torch.inference_mode()
+    no_grad.__enter__()
+    for name, (xq, wq, strides, pads, x, w) in convs.items():
+        sub = xq[:16]
+        card_acc = quant.int8_conv_accumulate(sub, wq, strides, pads)
+        cpu_acc = quant.int8_conv_accumulate(sub.cpu(), wq.cpu(), strides, pads)
+        check(torch.equal(card_acc.cpu(), cpu_acc), f"int8 {name}: card accumulators != CPU's")
+        b, h, wd, cin = xq.shape
+        ho, wo, cout = card_acc.shape[1], card_acc.shape[2], card_acc.shape[3]
+        ops = 2.0 * b * ho * wo * cout * wq.shape[0] * wq.shape[1] * cin
+        int8_ms = time_ms(lambda: quant.int8_conv_nhwc(x, w, strides, pads), iters=10)
+        accum_ms = time_ms(lambda: quant.int8_conv_accumulate(xq, wq, strides, pads), iters=10)
+        rows = torch.nn.functional.pad(xq, (0, 0, pads[1][0], pads[1][1], pads[0][0],
+                                            pads[0][1])).unfold(1, wq.shape[0], strides[0]) \
+            .unfold(2, wq.shape[1], strides[1]).permute(0, 1, 2, 4, 5, 3) \
+            .reshape(-1, wq.shape[0] * wq.shape[1] * cin).contiguous()
+        mat = wq.reshape(-1, wq.shape[3]).contiguous()
+        mm_ms = time_ms(lambda: torch._int_mm(rows, mat), iters=10)
+        x_cl = x.permute(0, 3, 1, 2)  # NCHW-shaped, channels_last memory
+        w_bf = w.permute(3, 2, 0, 1).to(torch.bfloat16)
+        padding = (pads[0][0], pads[1][0])  # symmetric, as every ConvBN pads
+        bf16_ms = time_ms(lambda: F.conv2d(x_cl, w_bf, None, strides, padding), iters=10)
+        out["int8_convs"][name] = dict(shape=[b, h, wd, cin, cout], gop=ops / 1e9,
+                                       int8_ms=int8_ms, accumulate_ms=accum_ms, int_mm_ms=mm_ms,
+                                       bf16_cudnn_ms=bf16_ms,
+                                       int8_bound_ms=ops / 1979e12 * 1e3,
+                                       bf16_bound_ms=ops / 989e12 * 1e3)
+        print(f"  int8 {name} [{b},{h},{wd},{cin}]->{cout}: accumulators card = CPU exactly "
+              f"(16 rows); int8 conv {int8_ms:.3f} ms (im2col + _int_mm {accum_ms:.3f} ms, "
+              f"_int_mm alone {mm_ms:.3f} ms) vs bf16 cuDNN {bf16_ms:.3f} ms; op bounds "
+              f"{ops / 1979e9:.3f} / "
+              f"{ops / 989e9:.3f} ms (int8 / bf16) on {power}")
+    no_grad.__exit__(None, None, None)
+    del convs
+
+    # (2) the int8 engines: throughput beside bf16 in the same call (bf16),
+    # kernels against plain versions (fp32)
+    n_batches = -(-N_IMAGES // BATCH)
+    bf16 = engine()
+    bf16.predict(images[:BATCH], max_length=MAX_LENGTH, batch_size=BATCH)
+    ref_attn, t_ref_attn = counted("bf16_predict", lambda: bf16.predict(
+        images, max_length=MAX_LENGTH, batch_size=BATCH), n_batches)
+    ref_ctc, t_ref_ctc = counted("bf16_predict_ctc", lambda: bf16.predict_ctc(
+        images, batch_size=BATCH), n_batches)
+    static = engine(quantize=True)
+    static.calibrate(images[:BATCH], batch_size=BATCH)
+    check(static.model.act_quant == "static", "calibrate did not switch to the static path")
+    out["img_s"] = {"bf16_attention": N_IMAGES / t_ref_attn, "bf16_ctc": N_IMAGES / t_ref_ctc}
+    strings = {}
+    for mode, eng in (("dynamic", dyn), ("static", static)):
+        eng.predict(images[:BATCH], max_length=MAX_LENGTH, batch_size=BATCH)  # warm-up
+        attn, t_attn = counted(f"int8_{mode}_predict", lambda: eng.predict(
+            images, max_length=MAX_LENGTH, batch_size=BATCH), n_batches)
+        ctc, t_ctc = counted(f"int8_{mode}_predict_ctc", lambda: eng.predict_ctc(
+            images, batch_size=BATCH), n_batches)
+        strings[mode] = (attn, ctc)
+        out["img_s"][f"int8_{mode}_attention"] = N_IMAGES / t_attn
+        out["img_s"][f"int8_{mode}_ctc"] = N_IMAGES / t_ctc
+        agree_attn = sum(a == b for a, b in zip(attn, ref_attn))
+        agree_ctc = sum(a == b for a, b in zip(ctc, ref_ctc))
+        out[f"int8_{mode}_vs_bf16_strings_equal"] = dict(attention=agree_attn, ctc=agree_ctc)
+        print(f"  int8 {mode}: attention {N_IMAGES / t_attn:.1f} img/s, CTC greedy "
+              f"{N_IMAGES / t_ctc:.1f} img/s; bf16 in the same call {N_IMAGES / t_ref_attn:.1f} / "
+              f"{N_IMAGES / t_ref_ctc:.1f} img/s (bs {BATCH}, host resize included) on {power}; "
+              f"strings equal to bf16's on {agree_attn} / {agree_ctc} of {N_IMAGES} "
+              "(random weights: not held)")
+    # the kernels on the int8 path: each K1 and K2 launch of one bs-256 batch
+    # against its plain version on the same inputs (held, TOL bf16 / fp32),
+    # the engines' strings deterministic through the kernels and through the
+    # plain versions (held), and kernels-vs-plain strings printed (see the
+    # note at the end of TOL)
+    for mode, eng in (("dynamic", dyn), ("static", static)):
+        seen = launch_pairs(lambda: eng.predict_ctc(images[:BATCH], batch_size=BATCH))
+        worst = {"se_scale": 0.0, "bilstm_scan": 0.0}
+        for name, args, got in seen:
+            if name == "se_scale":
+                want = se_scale_reference(*args)
+                tol = TOL["bf16"] if got.dtype == torch.bfloat16 else TOL["fp32"]
+            else:
+                want, tol = scan_reference(*args), TOL["fp32"]
+            worst[name] = max(worst[name], held(got, want, what=f"int8 {mode} {name} launch "
+                                                f"{tuple(args[0].shape)} vs plain", **tol))
+        check(len(seen) == 13, f"int8 {mode}: {len(seen)} launches in one batch, not 11 + 2")
+        again_attn = eng.predict(images, max_length=MAX_LENGTH, batch_size=BATCH)
+        again_ctc = eng.predict_ctc(images, batch_size=BATCH)
+        check((again_attn, again_ctc) == strings[mode],
+              f"int8 {mode}: two runs through the kernels gave other strings")
+        with kernels.plain_only():
+            plain = [(eng.predict(images, max_length=MAX_LENGTH, batch_size=BATCH),
+                      eng.predict_ctc(images, batch_size=BATCH)) for _ in range(2)]
+        check(plain[0] == plain[1], f"int8 {mode}: two plain runs gave other strings")
+        same_attn = sum(a == b for a, b in zip(strings[mode][0], plain[0][0]))
+        same_ctc = sum(a == b for a, b in zip(strings[mode][1], plain[0][1]))
+        out[f"int8_{mode}_kernels_vs_plain"] = dict(
+            ctc_strings_equal=same_ctc, attention_strings_equal=same_attn,
+            se_scale_max_abs_err=worst["se_scale"], bilstm_scan_max_abs_err=worst["bilstm_scan"])
+        print(f"  int8 {mode} bf16: every launch of a batch within tolerance of its plain "
+              f"version; kernels and plain each deterministic; strings kernels vs plain equal "
+              f"on CTC {same_ctc}/{N_IMAGES}, attention {same_attn}/{N_IMAGES} (printed)")
+
+    # (3) the calibration file reopens on the static path
+    cal_path = os.path.join(root, "calibrated.msgpack")
+    static.save_calibration(cal_path)
+    reopened = engine(source=cal_path, quantize=True)
+    check(reopened.model.act_quant == "static", "the calibrated file did not reopen static")
+    check(reopened.predict(images, max_length=MAX_LENGTH, batch_size=BATCH) == strings["static"][0],
+          "the reopened calibration decodes other strings")
+    print(f"  save_calibration -> reopened static: the same {N_IMAGES} attention strings "
+          f"({os.path.getsize(cal_path) / 2 ** 20:.1f} MiB)")
+    del reopened
+
+    # (4) artifacts, each loaded fresh, against the live engine
+    canvas = DAEMON_CANVAS
+    lines = long_line_images(seed=9)[: N_LONG // 4]
+    exports = {
+        "ctc_greedy_int8_static": (static, dict(method="ctc_greedy")),
+        "attention_bf16": (bf16, dict(method="attention", max_length=MAX_LENGTH)),
+        "hybrid_long_bf16": (bf16, dict(method="hybrid_long", max_length=MAX_LENGTH,
+                                        tile_w=LONG_TILE_W, overlap=LONG_OVERLAP)),
+    }
+    out["artifacts"] = {}
+    for name, (eng, kw) in exports.items():
+        path = os.path.join(root, name)
+        t0 = time.perf_counter()
+        export_serving_artifact(eng, path, batch_size=BATCH, canvas=canvas, **kw)
+        export_s = time.perf_counter() - t0
+        long = kw["method"] == "hybrid_long"
+        data = lines if long else images
+        t0 = time.perf_counter()
+        art = ServingArtifact.load(path)
+        art.predict(data[:1])
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        if long:
+            live_call = lambda: eng.predict_hybrid_long(  # noqa: E731
+                data, tile_w=LONG_TILE_W, overlap=LONG_OVERLAP, batch_size=BATCH,
+                max_length=MAX_LENGTH)
+        else:
+            live_call = lambda: eng.predict_serving(  # noqa: E731
+                data, batch_size=BATCH, canvas=canvas, **kw)
+        live_call()  # warm-up
+        t0 = time.perf_counter()
+        live = live_call()
+        live_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = art.predict(data)
+        art_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        launches.update(counts)
+        out["launches"][f"artifact_{name}"] = counts
+        batches = counts["se_scale"] // 11
+        check(counts == {"se_scale": 11 * batches, "bilstm_scan": 2 * batches} and batches > 0,
+              f"artifact {name} launched {counts}: not 11 + 2 per batch")
+        same = sum(a == b for a, b in zip(got, live))
+        check(same == len(data), f"artifact {name}: {same}/{len(data)} strings equal live")
+        sizes = artifact_sizes(path)
+        out["artifacts"][name] = dict(export_s=export_s, cold_start_s=cold_s,
+                                      artifact_img_s=len(data) / art_s,
+                                      live_img_s=len(data) / live_s, sizes=sizes,
+                                      encoded_batches=batches)
+        print(f"  artifact {name}: strings equal live on {same}/{len(data)}; export "
+              f"{export_s:.1f} s; cold start (load + first batch) {cold_s:.2f} s; "
+              f"{len(data) / art_s:.1f} vs live {len(data) / live_s:.1f} "
+              f"{'lines' if long else 'img'}/s on {power}; {batches} encoded batches; "
+              f"files {sizes}")
+        del art
+    # exported on the CPU, listing both platforms, moved to the card
+    cpu_eng = engine(source=static.variables, device="cpu", quantize=True)
+    path = os.path.join(root, "ctc_greedy_int8_static_from_cpu")
+    t0 = time.perf_counter()
+    export_serving_artifact(cpu_eng, path, method="ctc_greedy", batch_size=BATCH, canvas=canvas,
+                            platforms=("cuda", "cpu"))
+    export_s = time.perf_counter() - t0
+    del cpu_eng
+    art = ServingArtifact.load(path)
+    got, _ = counted("artifact_from_cpu", lambda: art.predict(images), n_batches)
+    live = static.predict_serving(images, batch_size=BATCH, canvas=canvas, method="ctc_greedy")
+    same = sum(a == b for a, b in zip(got, live))
+    check(same == N_IMAGES, f"CPU-exported artifact on the card: {same}/{N_IMAGES} equal live")
+    out["artifacts"]["from_cpu"] = dict(export_s=export_s, strings_equal=same)
+    print(f"  artifact exported on the CPU (platforms cuda, cpu; {export_s:.1f} s) runs on the "
+          f"card: strings equal live on {same}/{N_IMAGES}, 11 + 2 launches per batch")
+    del art
+
+    # (5) python -m rcnn_ocr_tpu_torch.serve --artifact, with a SIGHUP reload
+    # from a re-export at another batch size while clients are in flight
+    daemon_dir = os.path.join(root, "ctc_greedy_int8_static")
+    sample = images[:64]
+    bodies = [png_encode(im) for im in sample]
+    want_256 = ServingArtifact.load(daemon_dir).predict(sample)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen([sys.executable, "-m", "rcnn_ocr_tpu_torch.serve", "--artifact",
+                             daemon_dir, "--port", "0"], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        base = None
+        for line in proc.stdout:
+            if line.startswith("Serving on "):
+                base = line.split()[2]
+                break
+        check(base is not None, "the artifact daemon never started serving")
+        start_s = time.perf_counter() - t0
+        jobs = [([i], "raw", ("image/png", bodies[i])) for i in range(len(sample))]
+        _, _, served = drive_daemon(base, jobs, 16)
+        ok = [(idx, texts) for idx, _, status, texts in served if status == 200]
+        check(len(ok) == len(jobs), f"artifact daemon answered {len(ok)}/{len(jobs)} with 200")
+        same = sum(texts == [want_256[idx[0]]] for idx, texts in ok)
+        check(same == len(jobs), f"artifact daemon: {same}/{len(jobs)} strings equal in-process")
+        print(f"  serve --artifact: up in {start_s:.1f} s (process start, load, warm-up); "
+              f"{len(jobs)} lines at c=16, all 200, strings equal in-process on {same}")
+        export_serving_artifact(static, daemon_dir, method="ctc_greedy", batch_size=BATCH // 2,
+                                canvas=canvas)
+        want_128 = ServingArtifact.load(daemon_dir).predict(sample)
+        stop = threading.Event()
+        flight = {}
+        runner = threading.Thread(target=lambda: flight.update(
+            r=drive_daemon(base, jobs, 16, stop=stop)))
+        runner.start()
+        time.sleep(1.0)
+        proc.send_signal(signal.SIGHUP)
+        swapped = None
+        deadline = time.monotonic() + 120
+        import urllib.request
+
+        while time.monotonic() < deadline:
+            with urllib.request.urlopen(base + "/metrics", timeout=30) as resp:
+                if "ocr_engine_swaps_total 1" in resp.read().decode():
+                    swapped = time.monotonic()
+                    break
+            time.sleep(0.2)
+        time.sleep(1.0)
+        stop.set()
+        runner.join(300)
+        check(swapped is not None, "the artifact daemon never reloaded after SIGHUP")
+        _, _, during = flight["r"]
+        bad = [r for r in during if r[2] != 200]
+        check(not bad, f"{len(bad)} requests failed across the reload: {bad[:3]}")
+        mixed = sum(texts not in ([want_256[idx[0]]], [want_128[idx[0]]])
+                    for idx, _, _, texts in during)
+        check(mixed == 0, f"{mixed} answers across the reload match neither artifact")
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+        out["daemon"] = dict(start_s=start_s, requests_c16=len(jobs), equal=same,
+                             reload_requests=len(during), reload_failed=len(bad),
+                             healthz_batch=health.get("batch_size"))
+        print(f"  SIGHUP to a re-export at batch {BATCH // 2}: {len(during)} requests across "
+              f"the reload, all 200, each equal to one of the two artifacts' strings")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(10)
+    check(proc.returncode == 0, f"the artifact daemon exited {proc.returncode}")
+    out["launch_counts"] = dict(launches)
+    return out
+
+
 def train_batch(cs, n: int, seed: int, dev: str):
     """A seeded training batch as the JAX step takes it: uint8 noise images
     normalized on the card, labels of 4-10 characters of the charset (every
@@ -2149,6 +2543,11 @@ def main() -> int:
     daemon = daemon_phase(kernels, variables, images, power)
     print("long-line phase")
     long_line = long_line_phase(kernels, variables, power)
+    print("int8 + artifacts phase")
+    t_int8 = time.perf_counter()
+    int8 = int8_artifact_phase(kernels, variables, images, power)
+    int8["seconds"] = time.perf_counter() - t_int8
+    print(f"  int8 + artifacts phase {int8['seconds']:.1f} s")
     del variables
     print("training phase")
     from rcnn_ocr_tpu_torch.vocab.charset import Charset
@@ -2168,6 +2567,7 @@ def main() -> int:
                    "serving": serving["launch_counts"][name],
                    "daemon": daemon["launch_counts"][name],
                    "long_lines": long_line["launch_counts"][name],
+                   "int8_artifacts": int8["launch_counts"][name],
                    "train": train["launch_counts"][name],
                    "train_loop": loop["launches"][name]}
         row.update(launches=by_path["inference"], launches_by_path=by_path,
@@ -2179,6 +2579,7 @@ def main() -> int:
             check(n > 0, f"{name} never launched on the {p} path")
     result = {"card": power, "kernels": rows, "main_path": path, "beam": beams,
               "serving": serving, "daemon": daemon, "long_lines": long_line,
+              "int8_artifacts": int8,
               "training": training, "training_loop": loop, "seconds": time.perf_counter() - t_start}
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)

@@ -3,11 +3,16 @@
     python -m rcnn_ocr_tpu_torch.evaluate --model model.msgpack \\
         --charset charset.txt --csv labels.csv --root images/ \\
         [--decode attention|attention_beam|ctc_greedy|ctc_beam|ctc_long|...] \\
-        [--serving] [--tile-w PX --overlap PX] [--device cuda]
+        [--serving] [--tile-w PX --overlap PX] [--quantize [--static-quant \\
+        [--save-calibration PATH]]] [--device cuda]
+    python -m rcnn_ocr_tpu_torch.evaluate --artifact exp1/artifact \\
+        --csv labels.csv --root images/
 
 Loads a labeled CSV (a header row naming ``filename`` and ``text``; a
 filename without its extension is completed from the image extensions),
-decodes the images with :class:`OCRInference`, prints exact-match
+decodes the images with :class:`OCRInference` (or, with ``--artifact``, an
+exported :class:`~rcnn_ocr_tpu_torch.export.ServingArtifact`, whose decode
+configuration is baked in: the flags it fixes are refused beside it), prints exact-match
 accuracy, mean CER and WER with their min / max / median and the five worst
 rows by CER, and writes ``evaluation_results_<model file name>.csv`` (one
 row per sample: ``image_path, true_text, predicted_text, cer, wer,
@@ -23,14 +28,15 @@ fixed-width decodes; the ``*_long`` decodes (``ctc_long[_beam]``,
 ``attention_long[_beam]``, ``hybrid_long[_beam]``) tile each line at
 ``--tile-w`` px (default ``--img-w``) overlapping by ``--overlap`` px.  ``--error-analysis`` adds accuracy by text length
 and the top character confusions; ``--report-json`` writes the metrics.
-The engine runs on the card unless ``--device cpu`` is given.
+``--quantize`` runs the int8 engine; ``--static-quant`` (which implies it)
+calibrates static scales on up to 256 of the images first, and
+``--save-calibration`` writes the calibrated checkpoint.  The engine runs
+on the card unless ``--device cpu`` is given.
 
 The CSV is read by the ``csv`` module: every field is the literal string
 (pandas, in the JAX CLI, would read an empty text as ``nan`` and ``007`` as
-``7``).  Options of later slices of the port (``--artifact``,
-``--quantize``, ``--static-quant``, ``--save-calibration`` and
-``--compile-cache-dir``) are accepted by the parser and refused with exit
-code 1.
+``7``).  ``--compile-cache-dir`` (XLA's compile cache) is accepted by the
+parser and refused with exit code 1.
 """
 
 from __future__ import annotations
@@ -66,10 +72,6 @@ LONG_METHODS = {"attention_long": "attention", "attention_long_beam": "attention
                 "hybrid_long": "hybrid", "hybrid_long_beam": "hybrid_beam"}
 # option -> why the port refuses it today
 LATER = {
-    "--artifact": "arrives with the artifact slice of the port (exported serving artifacts)",
-    "--quantize": "arrives with the int8 slice of the port",
-    "--static-quant": "arrives with the int8 slice of the port",
-    "--save-calibration": "arrives with the int8 slice of the port",
     "--compile-cache-dir": "has no counterpart in the port: XLA's compile cache does not "
                            "apply (the port's kernels build once into build/rcnn_ocr_tpu_torch/); "
                            "a later slice of the port may take the flag",
@@ -130,11 +132,14 @@ def evaluate_model(
     error_analysis: bool = False,
     device: str = "cuda",
     dtype: torch.dtype = torch.bfloat16,
+    quantize: bool = False,
+    static_quant: bool = False,
+    save_calibration: Optional[str] = None,
+    artifact: Optional[str] = None,
 ):
     """Decode the dataset with one configuration and report its metrics
-    (``evaluate_dataset.py:evaluate_model`` without ``--artifact`` and int8);
-    returns ``{"accuracy", "cer", "wer", "n"}`` (and ``"analysis"``), or None
-    when no image was found."""
+    (``evaluate_dataset.py:evaluate_model``); returns ``{"accuracy", "cer",
+    "wer", "n"}`` (and ``"analysis"``), or None when no image was found."""
     if decode not in DECODES + LONG_DECODES:
         raise ValueError(f"unknown decode mode: {decode}")
     if serving and decode not in DECODES:
@@ -143,12 +148,17 @@ def evaluate_model(
     if (tile_w or overlap) and not long_decode:
         raise ValueError("--tile-w/--overlap require a *_long --decode")
     print("Evaluating model on dataset")
-    print(f"  model:   {model_path}")
-    print(f"  charset: {charset_path}")
+    if artifact:
+        print(f"  artifact: {artifact}")
+    else:
+        print(f"  model:   {model_path}")
+        print(f"  charset: {charset_path}")
     print(f"  csv:     {csv_path}")
     print(f"  images:  {root_path}")
-    print(f"  size:    {img_h}x{img_w}   decode: {decode}{'   serving' if serving else ''}"
-          f"   device: {device}")
+    if not artifact:
+        print(f"  size:    {img_h}x{img_w}   decode: {decode}"
+              f"{'   int8' if quantize else ''}{'-static' if static_quant else ''}"
+              f"{'   serving' if serving else ''}   device: {device}")
     print("-" * 60)
 
     image_paths, true_texts = load_dataset(csv_path, root_path)
@@ -167,6 +177,19 @@ def evaluate_model(
         width_buckets = optimal_width_buckets(scaled, k, multiple=8, max_width=img_w)
         print(f"Auto width buckets (k={k}): {width_buckets}")
 
+    if artifact:
+        from rcnn_ocr_tpu_torch.export import ServingArtifact
+
+        art = ServingArtifact.load(artifact, device=device)
+        print(f"  artifact method: {art.method}   batch: {art.batch_size}")
+        predicted: List[str] = []
+        for i in progress(range(0, len(image_paths), art.batch_size), desc="Predict"):
+            out = art.predict(image_paths[i : i + art.batch_size])
+            predicted.extend(out if isinstance(out, list) else [out])
+        return _report_metrics(true_texts, predicted, image_paths,
+                               os.path.basename(artifact.rstrip("/")),
+                               error_analysis=error_analysis)
+
     if lm_weight and decode not in ("attention_beam", "ctc_beam", "attention_long_beam",
                                     "hybrid_long_beam"):
         raise ValueError("--lm-weight requires --decode attention_beam, ctc_beam, "
@@ -176,7 +199,14 @@ def evaluate_model(
         raise ValueError("--length-penalty requires --decode attention_beam, "
                          "attention_long_beam, or hybrid_long_beam")
     ocr = OCRInference(model_path, charset_path, device=device, img_h=img_h, img_w=img_w,
-                       dtype=dtype, width_buckets=width_buckets, lm=lm)
+                       dtype=dtype, width_buckets=width_buckets, lm=lm, quantize=quantize)
+    if static_quant:
+        n_cal = min(256, len(image_paths))
+        print(f"Calibrating static int8 scales on {n_cal} images ...")
+        ocr.calibrate(image_paths[:n_cal], batch_size=min(batch_size, n_cal))
+        if save_calibration:
+            ocr.save_calibration(save_calibration)
+            print(f"Calibrated checkpoint written to: {save_calibration}")
 
     predicted: List[str] = []
     for i in progress(range(0, len(image_paths), batch_size), desc="Predict"):
@@ -325,10 +355,20 @@ def _parse_lm_weights(raw) -> List[float]:
     return [float(v) for v in str(raw).split(",") if v.strip() != ""]
 
 
+def _lm_weight_given(raw) -> bool:
+    """Whether ``--lm-weight`` asks for fusion (numerically non-zero)."""
+    try:
+        return _parse_lm_weights(raw) != [0.0]
+    except ValueError:
+        return True
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="Evaluate an OCR model on a dataset (PyTorch port)")
-    ap.add_argument("--model", type=str, default=None, help="model checkpoint (.msgpack)")
-    ap.add_argument("--charset", type=str, default=None, help="charset file")
+    ap.add_argument("--model", type=str, default=None, help="model checkpoint (.msgpack or .pth)")
+    ap.add_argument("--artifact", type=str, default=None,
+                    help="exported serving artifact directory (instead of --model)")
+    ap.add_argument("--charset", type=str, default=None, help="charset file (with --model)")
     ap.add_argument("--csv", type=str, required=True, help="labels CSV with a filename,text header")
     ap.add_argument("--root", type=str, required=True, help="images folder")
     ap.add_argument("--batch-size", type=int, default=16)
@@ -362,35 +402,71 @@ def build_parser() -> argparse.ArgumentParser:
                     help="*_long decodes: tile width in px (default: --img-w)")
     ap.add_argument("--overlap", type=int, default=None,
                     help="*_long decodes: junction overlap in px (default: min(64, tile_w/2))")
+    ap.add_argument("--quantize", action="store_true",
+                    help="int8 inference for the wide conv stages")
+    ap.add_argument("--static-quant", action="store_true",
+                    help="with --quantize: calibrate static int8 activation scales on up to "
+                         "256 eval images (drops the per-conv abs-max pass)")
+    ap.add_argument("--save-calibration", metavar="PATH", default=None,
+                    help="with --static-quant: write a copy of the checkpoint with the "
+                         "calibrated scales embedded (reopens straight onto the static path)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    # accepted, then refused: they belong to later slices of the port
-    ap.add_argument("--artifact", type=str, default=None)
-    ap.add_argument("--quantize", action="store_true")
-    ap.add_argument("--static-quant", action="store_true")
-    ap.add_argument("--save-calibration", metavar="PATH", default=None)
+    # accepted, then refused: XLA's compile cache has no counterpart
     ap.add_argument("--compile-cache-dir", default=None)
     return ap
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     later = [flag for flag in LATER
              if getattr(args, flag[2:].replace("-", "_")) not in (None, False)]
     if later:
         print("not in the PyTorch port yet: " + "; ".join(f"{f} {LATER[f]}" for f in later))
         return 1
-    if args.model is None:
-        print("--model is required")
+    if bool(args.artifact) == bool(args.model):
+        print("Pass exactly one of --model or --artifact")
         return 1
-    if args.charset is None:
-        print("--charset is required with --model")
-        return 1
-    if not os.path.exists(args.model):
-        print(f"Model not found: {args.model}")
-        return 1
-    if not os.path.exists(args.charset):
-        print(f"Charset not found: {args.charset}")
-        return 1
+    if args.artifact:
+        # the artifact bakes its decode configuration at export time: refuse
+        # knobs that cannot apply instead of silently ignoring them
+        baked = {
+            "--charset": args.charset is not None,
+            "--decode": args.decode != parser.get_default("decode"),
+            "--beam-width": args.beam_width != parser.get_default("beam_width"),
+            "--max-length": args.max_length != parser.get_default("max_length"),
+            "--lm": args.lm is not None,
+            "--lm-weight": _lm_weight_given(args.lm_weight),
+            "--length-penalty": args.length_penalty != 0.0,
+            "--width-buckets": args.width_buckets is not None,
+            "--quantize": args.quantize,
+            "--serving": args.serving,
+            "--static-quant": args.static_quant,
+            "--tile-w": args.tile_w is not None,
+            "--overlap": args.overlap is not None,
+            "--img-h": args.img_h != parser.get_default("img_h"),
+            "--img-w": args.img_w != parser.get_default("img_w"),
+            "--batch-size": args.batch_size != parser.get_default("batch_size"),
+            "--save-calibration": args.save_calibration is not None,
+        }
+        conflicting = [flag for flag, given in baked.items() if given]
+        if conflicting:
+            print(f"{', '.join(conflicting)} cannot be used with --artifact "
+                  "(baked in at export time; re-export to change them)")
+            return 1
+        if not os.path.exists(os.path.join(args.artifact, "manifest.json")):
+            print(f"Artifact not found: {args.artifact}")
+            return 1
+    else:
+        if args.charset is None:
+            print("--charset is required with --model")
+            return 1
+        if not os.path.exists(args.model):
+            print(f"Model not found: {args.model}")
+            return 1
+        if not os.path.exists(args.charset):
+            print(f"Charset not found: {args.charset}")
+            return 1
     try:
         lm_weights = _parse_lm_weights(args.lm_weight)
     except ValueError:
@@ -415,6 +491,8 @@ def main(argv=None) -> int:
                 lm_weight=w, length_penalty=args.length_penalty, width_buckets=width_buckets,
                 serving=args.serving, tile_w=args.tile_w, overlap=args.overlap,
                 error_analysis=args.error_analysis, device=args.device,
+                quantize=args.quantize or args.static_quant, static_quant=args.static_quant,
+                save_calibration=args.save_calibration, artifact=args.artifact,
             )
             sweep.append((w, metrics))
         if len(sweep) > 1:

@@ -26,7 +26,15 @@ layouts (:mod:`rcnn_ocr_tpu_torch.interop.torch_import`).  Inputs are
 arrays, paths to PNG/BMP/JPEG files or PIL-like images (anything with
 ``.convert("RGB")``; PIL itself is never imported).  Width buckets are a
 list of widths or ``"auto:K"`` (K widths fitted to the first multi-image
-call).  int8 and multi-card serving arrive in later slices of the port.
+call).
+
+``quantize=True`` runs the backbone's wide convs in int8
+(:mod:`rcnn_ocr_tpu_torch.ops.quant`) on every decode path: with dynamic
+activation scales, or static ones when the checkpoint carries calibrated
+``quant_stats`` or after :meth:`calibrate` (:mod:`rcnn_ocr_tpu_torch.calibration`).
+:mod:`rcnn_ocr_tpu_torch.export` writes any decode configuration of the
+engine as a serving artifact.  Multi-card serving is not ported (ROADMAP.md,
+queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -37,10 +45,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from rcnn_ocr_tpu_torch.calibration import CalibrationMixin
 from rcnn_ocr_tpu_torch.data.image_io import image_size
 from rcnn_ocr_tpu_torch.data.loader import bucket_for_width, optimal_width_buckets, scaled_width
 from rcnn_ocr_tpu_torch.data.transforms import ResizeAndPad, load_rgb_uint8
-from rcnn_ocr_tpu_torch.interop.jax_params import load_jax_variables
+from rcnn_ocr_tpu_torch.interop.jax_params import load_jax_variables, to_jax_variables
 from rcnn_ocr_tpu_torch.interop.torch_import import import_torch_checkpoint
 from rcnn_ocr_tpu_torch.lm import load_lm
 from rcnn_ocr_tpu_torch.long_lines import LongLineMixin
@@ -99,7 +108,7 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
-class OCRInference(ServingEngineMixin, LongLineMixin):
+class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
     """Load a checkpoint (path or JAX variable tree) and recognize text lines.
 
     ``lm`` is a bigram table for beam shallow fusion: a ``[V, V]`` array or
@@ -120,6 +129,7 @@ class OCRInference(ServingEngineMixin, LongLineMixin):
         width_buckets: Optional[Union[Sequence[int], str]] = None,
         with_ctc_head: Optional[bool] = None,
         lm: Any = None,
+        quantize: bool = False,
     ):
         self.device = resolve_device(device)
         # "auto" / "auto:K": the first call with two or more images fits K
@@ -133,11 +143,15 @@ class OCRInference(ServingEngineMixin, LongLineMixin):
         self.width_buckets = sorted(int(w) for w in width_buckets) if width_buckets else None
         self.dtype = dtype
 
-        if isinstance(model_path_or_variables, str):
-            variables, meta = self._load_variables(model_path_or_variables)
+        self.model_path = model_path_or_variables if isinstance(
+            model_path_or_variables, str) else None
+        if self.model_path is not None:
+            variables, meta = self._load_variables(self.model_path)
         else:
             blob = dict(model_path_or_variables)
             variables = {"params": blob["params"], "batch_stats": blob.get("batch_stats", {})}
+            if blob.get("quant_stats"):
+                variables["quant_stats"] = blob["quant_stats"]
             meta = self._meta(blob)
         ckpt_cfg = meta.get("config") or {}
         self.img_h = int(img_h if img_h is not None else ckpt_cfg.get("img_h", 64))
@@ -156,7 +170,11 @@ class OCRInference(ServingEngineMixin, LongLineMixin):
         if with_ctc_head is None:
             with_ctc_head = arch.get("with_ctc_head", False)
         cs = self.charset
-        self.model = RCNN(
+        # a checkpoint carrying calibrated scales resumes the static int8
+        # path directly; scales the model does not read ride along for
+        # `variables` (export, save_calibration), as they do in JAX
+        static = quantize and "quant_stats" in variables
+        self._model_kwargs = dict(
             num_classes=cs.num_classes,
             hidden_size=int(hidden_size),
             sos_id=cs.sos_id,
@@ -168,8 +186,18 @@ class OCRInference(ServingEngineMixin, LongLineMixin):
             lstm_layers=arch.get("lstm_layers", 2),
             width_mult=arch.get("width_mult", 1.0),
             dtype=dtype,
+            quantize=quantize,
+            act_quant="static" if static else "dynamic",
         )
-        load_jax_variables(self.model, variables)
+        self.model = RCNN(**self._model_kwargs)
+        if not with_ctc_head and "ctc_proj" in variables["params"]:
+            # a CTC head the caller turned off is not loaded (JAX's engine
+            # ignores it likewise)
+            variables = dict(variables, params={k: v for k, v in variables["params"].items()
+                                                if k != "ctc_proj"})
+        self._quant_stats = None if static else variables.get("quant_stats")
+        load_jax_variables(self.model, {k: v for k, v in variables.items()
+                                        if static or k != "quant_stats"})
         self.model.eval().to(self.device)
         self._itos = list(cs.itos)
         self._lm: Optional[torch.Tensor] = None
@@ -184,6 +212,15 @@ class OCRInference(ServingEngineMixin, LongLineMixin):
             {w: ResizeAndPad(img_h=self.img_h, img_w=w) for w in self.width_buckets}
             if self.width_buckets else None
         )
+
+    @property
+    def variables(self) -> Dict[str, Any]:
+        """The engine's weights as a JAX variable tree (numpy copies), with
+        ``quant_stats`` when calibrated or carried by the checkpoint."""
+        out = to_jax_variables(self.model)
+        if self._quant_stats is not None:
+            out["quant_stats"] = self._quant_stats
+        return out
 
     # -- checkpoint loading ------------------------------------------------
     @staticmethod

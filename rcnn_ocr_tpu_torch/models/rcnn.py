@@ -9,6 +9,10 @@ norm (running ones advanced), DropBlock after each squeeze-excite when
 ``dropblock_p > 0``, dropout of ``enc_dropout_p`` on the encoder states, and
 the attention decoder's α-dropout (``p = 0.1``, as JAX fixes it) and
 scheduled sampling.  Every random bit comes from the ``generator`` argument.
+
+``quantize`` / ``act_quant`` select the backbone's int8 inference path
+(``rcnn_ocr_tpu/models/rcnn.py:67-82``; see
+:mod:`rcnn_ocr_tpu_torch.models.seresnet31`).
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ class RCNN(nn.Module):
                  lstm_layers: int = 2, width_mult: float = 1.0,
                  dtype: torch.dtype = torch.float32, enc_dropout_p: float = 0.1,
                  dropblock_p: float = 0.0, dropblock_block_size: int = 5,
-                 sampling_prob: float = 0.0):
+                 sampling_prob: float = 0.0, quantize: bool = False,
+                 act_quant: str = "dynamic"):
         super().__init__()
         self.num_classes = num_classes
         self.hidden_size = hidden_size
@@ -44,8 +49,11 @@ class RCNN(nn.Module):
         self.lstm_layers = lstm_layers
         self.dtype = dtype
         self.enc_dropout_p = enc_dropout_p
+        self.quantize = quantize
+        self.act_quant = act_quant
         self.cnn = SEResNet31(out_channels=512, width_mult=width_mult, dtype=dtype,
-                              dropblock_p=dropblock_p, dropblock_block_size=dropblock_block_size)
+                              dropblock_p=dropblock_p, dropblock_block_size=dropblock_block_size,
+                              quantize=quantize, act_quant=act_quant)
         in_size = self.cnn._w(512)
         for i in range(lstm_layers):
             setattr(self, f"enc_rnn{i}", BiLSTM(in_size, hidden_size, hidden_size, dtype=dtype))

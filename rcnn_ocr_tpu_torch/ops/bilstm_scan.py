@@ -8,7 +8,11 @@ gates are computed in fp32 whatever ``w_hh``'s dtype, as in the Pallas
 kernel.  On a CUDA tensor :func:`bilstm_scan` launches ``csrc/bilstm_scan.cu``
 (one launch per layer, both directions, all steps; :func:`route` says which
 of its two routes a shape takes); on a CPU tensor it runs
-:func:`scan_reference`.
+:func:`scan_reference`.  That choice lives in the registered operator
+``torch.ops.rcnn_ocr_tpu_torch.bilstm_scan`` (:func:`bilstm_scan_op`), whose
+fake implementation gives ``torch.export`` the output's shape: an exported
+serving program calls the same operator, and so the same kernel, on the
+card.
 
 :func:`bilstm_scan` is differentiable on both devices: a
 ``torch.autograd.Function`` whose backward recomputes :func:`scan_reference`
@@ -51,14 +55,28 @@ def route(batch: int, hidden: int, w_dtype: torch.dtype) -> dict:
                 smem=smem, active_clusters=active)
 
 
+@torch.library.custom_op("rcnn_ocr_tpu_torch::bilstm_scan", mutates_args=())
+def bilstm_scan_op(xs: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> torch.Tensor:
+    """The forward as a registered operator, so that ``torch.export`` records
+    it in a program: on a CUDA tensor the kernel, on a CPU tensor
+    :func:`scan_reference`.  As for ``se_scale_op``, the kernel's branch
+    makes its inputs contiguous (a no-op on the live path)."""
+    if not kernels.use_kernel(xs):
+        return scan_reference(xs, w_hh, hidden)
+    return _launch(xs.contiguous(), w_hh.contiguous(), hidden)
+
+
+@bilstm_scan_op.register_fake
+def _bilstm_scan_fake(xs, w_hh, hidden):
+    return xs.new_empty((xs.shape[0], 2, xs.shape[2], hidden), dtype=torch.float32)
+
+
 class _BiLSTMScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xs, w_hh, hidden):
         ctx.save_for_backward(xs, w_hh)
         ctx.hidden = hidden
-        if not kernels.use_kernel(xs):
-            return scan_reference(xs, w_hh, hidden)
-        return _launch(xs, w_hh, hidden)
+        return bilstm_scan_op(xs, w_hh, hidden)
 
     @staticmethod
     def backward(ctx, dys):

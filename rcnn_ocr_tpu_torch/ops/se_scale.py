@@ -5,7 +5,11 @@ tensor :func:`se_scale` launches the hand-written kernel
 ``csrc/se_scale.cu`` (:func:`route` says how it splits a shape); on a CPU
 tensor it runs :func:`se_scale_reference`,
 the plain PyTorch version of the same math (gate computed in fp32, then
-rounded to x's dtype before the multiply).
+rounded to x's dtype before the multiply).  That choice lives in the
+registered operator ``torch.ops.rcnn_ocr_tpu_torch.se_scale``
+(:func:`se_scale_op`), whose fake implementation gives ``torch.export`` the
+output's shape: an exported serving program calls the same operator, and so
+the same kernel, on the card.
 
 :func:`se_scale` is differentiable on both devices: a
 ``torch.autograd.Function`` whose backward is :func:`se_scale_backward`, a
@@ -61,13 +65,29 @@ def se_scale_backward(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     return dx.to(x.dtype), (m.T @ dy_pre).to(w1.dtype), (y.T @ dg_pre).to(w2.dtype)
 
 
+@torch.library.custom_op("rcnn_ocr_tpu_torch::se_scale", mutates_args=())
+def se_scale_op(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """The forward as a registered operator, so that ``torch.export`` records
+    it in a program: on a CUDA tensor the kernel, on a CPU tensor
+    :func:`se_scale_reference`.  A program traced on one device records no
+    layout copy where that device's convolution already gave NHWC; on
+    another device the input may come in another layout, so the kernel's
+    branch makes it NHWC-contiguous (a no-op on the live path)."""
+    if not kernels.use_kernel(x):
+        return se_scale_reference(x, w1, w2)
+    return _launch(x.contiguous(), w1, w2)
+
+
+@se_scale_op.register_fake
+def _se_scale_fake(x, w1, w2):
+    return torch.empty_like(x)
+
+
 class _SEScale(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, w2):
         ctx.save_for_backward(x, w1, w2)
-        if not kernels.use_kernel(x):
-            return se_scale_reference(x, w1, w2)
-        return _launch(x, w1, w2)
+        return se_scale_op(x, w1, w2)
 
     @staticmethod
     def backward(ctx, dout):
@@ -76,7 +96,11 @@ class _SEScale(torch.autograd.Function):
 
 def se_scale(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """Squeeze-excite over NHWC ``x`` (fp32 or bf16); weights are used in fp32.
-    Differentiable in ``x``, ``w1`` and ``w2``."""
+    Differentiable in ``x``, ``w1`` and ``w2``.  A CUDA ``x`` must be
+    contiguous NHWC, as the kernel reads it (an exported program calls the
+    operator, which copies another layout)."""
+    if x.device.type == "cuda" and not x.is_contiguous():
+        raise ValueError("se_scale: x must be contiguous NHWC (channels_last)")
     return _SEScale.apply(x, w1, w2)
 
 

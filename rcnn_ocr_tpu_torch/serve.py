@@ -1,5 +1,11 @@
 """Run the micro-batching OCR HTTP server on the card.
 
+From an exported artifact (no model code; cold start = load the programs):
+
+    python -m rcnn_ocr_tpu_torch.serve --artifact exp1/artifact --port 8000
+
+or from a live checkpoint (the full engine; pass the serving knobs):
+
     python -m rcnn_ocr_tpu_torch.serve --model exp1/best_acc_weights.msgpack \
         --charset configs/charset.txt --img-h 32 --img-w 128 \
         --method ctc_greedy --canvas 64,512 --batch-size 256 --port 8000
@@ -7,9 +13,10 @@
 The counterpart of the JAX package's ``tools/serve.py`` with the same flags,
 defaults and checks, plus ``--device`` (``cuda``, or ``cpu`` when asked
 for).  ``--model`` takes a msgpack checkpoint or one of the reference's
-``.pth`` layouts.  Not served yet, and refused: ``--artifact`` (serving
-artifacts, ROADMAP queue 1 item 12), ``--quantize`` (int8, item 11),
-``--mesh`` (item 13) and ``--compile-cache-dir`` (there is no XLA compile
+``.pth`` layouts; ``--quantize`` serves it in int8 (static scales when the
+checkpoint carries them).  With ``--artifact`` the flags an artifact bakes
+in at export time are ignored with a warning.  Refused: ``--mesh`` (ROADMAP
+queue 1, item 13) and ``--compile-cache-dir`` (there is no XLA compile
 cache on the card).
 
 Query it:
@@ -19,7 +26,8 @@ Query it:
     curl -s http://127.0.0.1:8000/metrics   # Prometheus scrape target
 
 SIGTERM / SIGINT drain and exit; SIGHUP rebuilds the engine from the
-checkpoint on disk and swaps it in without dropping a request.
+checkpoint or artifact directory on disk and swaps it in without dropping a
+request (taking the artifact's batch size when it changed).
 """
 
 from __future__ import annotations
@@ -158,10 +166,6 @@ def main(argv=None) -> None:
                 "confidence contract")
 
     refused = {
-        "--artifact": (args.artifact, "serving artifacts are still to be ported "
-                       "(ROADMAP queue 1, item 12)"),
-        "--quantize": (args.quantize, "int8 inference is still to be ported "
-                       "(ROADMAP queue 1, item 11)"),
         "--mesh": (args.mesh, "multi-card serving is still to be ported "
                    "(ROADMAP queue 1, item 13)"),
         "--compile-cache-dir": (args.compile_cache_dir, "there is no XLA compile cache on "
@@ -171,13 +175,48 @@ def main(argv=None) -> None:
         if given:
             p.error(f"{flag}: {why}")
 
+    from rcnn_ocr_tpu_torch.serving import serving_predict_fn
+
+    if args.artifact:
+        from rcnn_ocr_tpu_torch.export import ServingArtifact
+
+        # an artifact bakes these in at export time: flags cannot change it
+        baked = {
+            "--method": args.method != p.get_default("method"),
+            "--canvas": args.canvas != p.get_default("canvas"),
+            "--max-length": args.max_length != p.get_default("max_length"),
+            "--beam-width": args.beam_width != p.get_default("beam_width"),
+            "--batch-size": args.batch_size != p.get_default("batch_size"),
+            "--quantize": args.quantize,
+            "--width-buckets": args.width_buckets is not None,
+            "--lm": args.lm is not None,
+            "--lm-weight": args.lm_weight != 0.0,
+            "--length-penalty": args.length_penalty != 0.0,
+            "--merge": args.merge != p.get_default("merge"),
+            "--min-gap": args.min_gap != p.get_default("min_gap"),
+            "--margin": args.margin != p.get_default("margin"),
+            "--tile-w": args.tile_w is not None,
+            "--overlap": args.overlap is not None,
+            "--snap": args.snap != p.get_default("snap"),
+        }
+        overridden = [flag for flag, changed in baked.items() if changed]
+        if overridden:
+            print(
+                f"WARNING: {', '.join(overridden)} ignored with --artifact "
+                "(baked in at export time; re-export to change them)",
+                flush=True,
+            )
+
+        # the build runs again on SIGHUP (hot reload): it re-reads the
+        # deployment unit from disk each time
+        def build_predict():
+            engine = ServingArtifact.load(args.artifact, device=args.device)
+            fn = serving_predict_fn(engine, return_confidence=args.confidence)
+            return fn, engine.batch_size
+
+        return _serve(args, build_predict)
+
     from rcnn_ocr_tpu_torch.inference import OCRInference
-    from rcnn_ocr_tpu_torch.serving import (
-        OCRServer,
-        install_graceful_shutdown,
-        install_hot_reload,
-        serving_predict_fn,
-    )
 
     buckets = (
         [int(v) for v in args.width_buckets.split(",")]
@@ -195,6 +234,7 @@ def main(argv=None) -> None:
             device=args.device,
             img_h=args.img_h,
             img_w=args.img_w,
+            quantize=args.quantize,
             width_buckets=buckets,
             lm=args.lm,
         )
@@ -217,6 +257,17 @@ def main(argv=None) -> None:
         )
         return fn, args.batch_size
 
+    return _serve(args, build_predict)
+
+
+def _serve(args, build_predict) -> None:
+    """Build the engine and serve until drained; SIGHUP rebuilds it."""
+    from rcnn_ocr_tpu_torch.serving import (
+        OCRServer,
+        install_graceful_shutdown,
+        install_hot_reload,
+    )
+
     predict, max_batch = build_predict()
 
     server = OCRServer(
@@ -237,9 +288,9 @@ def main(argv=None) -> None:
     # SIGTERM (what container runtimes send) and SIGINT both drain: stop
     # accepting, 503 new submissions, answer everything queued, exit 0
     install_graceful_shutdown(server)
-    # SIGHUP = zero-downtime upgrade: replace the checkpoint on disk,
-    # signal, and the daemon swaps engines between batches (a failed build
-    # logs and keeps serving on the old engine)
+    # SIGHUP = zero-downtime upgrade: replace the checkpoint or artifact on
+    # disk, signal, and the daemon swaps engines between batches (a failed
+    # build logs and keeps serving on the old engine)
     def rebuild_for_reload():
         import numpy as _np
 

@@ -6,7 +6,8 @@ and ``serving_predict_fn``, with the same HTTP contract (paths, status
 codes, JSON keys, ``/healthz`` fields, ``/metrics`` names and labels).  The
 engine behind it is the port's
 :class:`~rcnn_ocr_tpu_torch.inference.OCRInference` on the card, pinned to
-``predict_serving`` (or a long-line decode) by :func:`serving_predict_fn`;
+``predict_serving`` (or a long-line decode) by :func:`serving_predict_fn`,
+or a loaded :class:`~rcnn_ocr_tpu_torch.export.ServingArtifact`;
 request bodies are decoded by the port's own
 :func:`~rcnn_ocr_tpu_torch.data.image_io.imdecode` (PNG, BMP and baseline
 JPEG, no cv2), whose JPEG decoder is host C++ called through ctypes, so
@@ -505,8 +506,8 @@ class OCRServer:
     """HTTP front-end: ``OCRServer(engine).serve_forever()``.
 
     ``predict_fn`` maps a list of RGB uint8 images to a list of strings:
-    the port's ``OCRInference`` wrapped by :func:`serving_predict_fn`, which
-    pins the serving-path kwargs.
+    the port's ``OCRInference`` or ``ServingArtifact`` wrapped by
+    :func:`serving_predict_fn`, which pins the serving-path kwargs.
     """
 
     def __init__(
@@ -711,29 +712,48 @@ def serving_predict_fn(
     snap: str = "midpoint",  # ctc_long*: junction cuts "midpoint" | "blank"
     return_confidence: bool = False,  # (text, conf) pairs
 ) -> Callable[[List[Any]], List[str]]:
-    """Adapt the port's ``OCRInference`` to the batcher's ``list ->
-    list[str]`` contract, its ``predict_serving`` (or long-line) kwargs
+    """Adapt an engine to the batcher's ``list -> list[str]`` contract.
+
+    A :class:`~rcnn_ocr_tpu_torch.export.ServingArtifact` already matches
+    (its decode is baked in: the other kwargs are not read); the port's
+    ``OCRInference`` gets its ``predict_serving`` (or long-line) kwargs
     pinned here so every dispatched batch runs the same decode.  With
     ``return_confidence`` the fn yields ``(text, confidence)`` pairs
     (``OCRServer(confidence=True)`` formats them), refused at construction
-    for methods with no confidence contract, as the engines refuse them.
-    Knobs a method would drop are refused at construction too.
-
-    Serving artifacts (the JAX package's ``ServingArtifact``) are still to
-    be ported (ROADMAP queue 1, item 12): any other engine raises
-    ``TypeError``.
+    for methods with no confidence contract, as the engines refuse them
+    (for an artifact, also one exported without the CTC confidence
+    outputs).  Knobs a method would drop are refused at construction too.
+    Any other engine raises ``TypeError``.
     """
+    from rcnn_ocr_tpu_torch.export import ServingArtifact
     from rcnn_ocr_tpu_torch.inference import OCRInference
 
-    if not isinstance(engine, OCRInference):
-        raise TypeError(
-            f"serving_predict_fn takes the port's OCRInference, got {type(engine).__name__}: "
-            "serving artifacts are still to be ported (ROADMAP queue 1, item 12)"
-        )
     # every decode method carries a confidence contract EXCEPT the tiled
     # attention merge (junction-merged decodes have no step-aligned
     # confidence)
     NO_CONF_METHODS = ("attention_long", "attention_long_beam")
+    if isinstance(engine, ServingArtifact):
+        if not return_confidence:
+            return engine.predict
+        if engine.method in NO_CONF_METHODS:
+            raise ValueError(
+                "return_confidence is not supported by tiled attention-merge "
+                f"artifacts (got method={engine.method!r})"
+            )
+        # an artifact without the CTC confidence outputs refuses at server
+        # start, not on the first request
+        engine.predict([], return_confidence=True)
+
+        def fn_art_conf(images: List[Any]):
+            out = engine.predict(images, return_confidence=True)
+            return out if isinstance(out, list) else [out]
+
+        return fn_art_conf
+    if not isinstance(engine, OCRInference):
+        raise TypeError(
+            "serving_predict_fn takes the port's OCRInference or ServingArtifact, "
+            f"got {type(engine).__name__}"
+        )
     if return_confidence and method in NO_CONF_METHODS:
         raise ValueError(
             f"return_confidence is not supported with method={method!r} "

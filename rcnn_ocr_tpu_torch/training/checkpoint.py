@@ -176,11 +176,15 @@ def load_checkpoint_blob(path: str) -> Dict[str, Any]:
 
 def load_variables(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Model variables ``{"params", "batch_stats"}`` from a weights or full
-    checkpoint file, and the whole blob (``itos``, ``config``, ...)."""
+    checkpoint file, with ``"quant_stats"`` when the file carries calibrated
+    static int8 scales, and the whole blob (``itos``, ``config``, ...)."""
     blob = load_checkpoint_blob(path)
     if "params" not in blob:
         raise ValueError(f"{path} holds no model parameters")
-    return {"params": blob["params"], "batch_stats": blob.get("batch_stats", {})}, blob
+    variables = {"params": blob["params"], "batch_stats": blob.get("batch_stats", {})}
+    if blob.get("quant_stats"):
+        variables["quant_stats"] = blob["quant_stats"]
+    return variables, blob
 
 
 def _header(small: int, fix_limit: int, sized: Tuple[int, int, int], n: int) -> bytes:

@@ -17,9 +17,9 @@ overlay), with the same keys and defaults:
 ``p_EdgeCrop`` and ``edge_crop_limit`` are registered (JAX's config warns
 on them though its train transform reads them).  On one card some keys
 mean nothing and are only logged by the training loop (``use_pallas``,
-``compile_cache_dir``); others wait for later slices and raise there
-(``mesh_shape`` over more than one device, ``export_artifact``, a
-``.pth`` / ``.pt`` ``resume_path``).
+``compile_cache_dir``); ``mesh_shape`` over more than one device waits for
+a later slice and raises there.  ``export_artifact`` is validated by
+:func:`rcnn_ocr_tpu_torch.export.validate_export_request`.
 """
 
 from __future__ import annotations

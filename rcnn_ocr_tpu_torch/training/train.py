@@ -27,9 +27,11 @@ uninterrupted one would; host augmentation draws from numpy Generators
 seeded from ``(seed, epoch, batch, row)`` by the loader.  The starting
 weights are drawn as flax's initializers draw them (``init_train_params``).
 
-Not served here, and refused when asked for: a mesh over more than one
-device and multi-process feeding (ROADMAP queue 1, item 13) and the
-serving artifact export (item 12).  ``use_pallas`` and
+``export_artifact`` (validated at the start) exports a serving artifact
+from the requested slot after training (:mod:`rcnn_ocr_tpu_torch.export`),
+calibrating static int8 scales on validation images when asked.  Not
+served here, and refused when asked for: a mesh over more than one device
+and multi-process feeding (ROADMAP queue 1, item 13).  ``use_pallas`` and
 ``compile_cache_dir`` mean nothing on the card and are only logged.
 
     python -m rcnn_ocr_tpu_torch.training.train config.json [--device cpu]
@@ -69,7 +71,12 @@ from rcnn_ocr_tpu_torch.data.loader import (
     probe_scaled_widths,
 )
 from rcnn_ocr_tpu_torch.data.transforms import ResizeAndPad, get_train_transform
-from rcnn_ocr_tpu_torch.inference import resolve_device
+from rcnn_ocr_tpu_torch.export import (
+    LONG_METHODS,
+    export_serving_artifact,
+    validate_export_request,
+)
+from rcnn_ocr_tpu_torch.inference import OCRInference, resolve_device
 from rcnn_ocr_tpu_torch.interop.jax_params import load_jax_variables
 from rcnn_ocr_tpu_torch.models.rcnn import RCNN, TIME_DOWNSAMPLE, init_train_params
 from rcnn_ocr_tpu_torch.ops.ctc import ctc_greedy_collapse_np
@@ -119,9 +126,6 @@ def _check_unserved(cfg: Config, logger) -> None:
         raise NotImplementedError(
             f"mesh_shape {mesh_shape} asks for more than one device: data and tensor "
             "parallelism are still to be ported (ROADMAP queue 1, item 13)")
-    if cfg.get("export_artifact"):
-        raise NotImplementedError("export_artifact: the serving artifact export is still to be "
-                                  "ported (ROADMAP queue 1, item 12)")
     if cfg.get("use_pallas"):
         logger.info("use_pallas: ignored (on the card the CUDA kernels are always the path)")
     if cfg.get("compile_cache_dir"):
@@ -182,6 +186,11 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
                          "holdout provide explicit val_csvs/val_roots")
     num_workers = cfg.get("num_workers", 0)
     head = cfg.get("head", "attention")
+    # the train-to-deploy handoff, validated now: a typo'd export block
+    # fails in seconds, not after the last epoch
+    export_req = cfg.get("export_artifact")
+    if export_req:
+        export_req = validate_export_request(export_req, head=head)
     compute_dtype = DTYPES[cfg.get("compute_dtype", "bfloat16")]
     log_every = max(1, int(cfg.get("log_every", 50)))
     grad_accum = max(1, int(cfg.get("grad_accum", 1)))
@@ -577,7 +586,53 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
     logger.info("Training finished.")
     result.update({"val_acc": best_val_acc, "val_loss": best_val_loss, "exp_dir": exp_dir,
                    "global_step": global_step})
+    # export the serving artifact from the requested slot (a preempted run
+    # exports when it resumes; a pruned trial is thrown away)
+    if export_req and not result.get("preempted") and not result.get("pruned"):
+        artifact_dir = _export_artifact(
+            export_req, weight_paths[export_req["slot"]], charset_path, exp_dir, dev,
+            img_h=img_h, img_w=img_w, hidden_size=hidden_size, batch_size=batch_size,
+            width_buckets=width_buckets, val_sets=val_sets, logger=logger)
+        if artifact_dir is not None:
+            result["artifact_dir"] = artifact_dir
     return result
+
+
+def _export_artifact(req: Dict, slot_path: str, charset_path: str, exp_dir: str, dev,
+                     *, img_h: int, img_w: int, hidden_size: int, batch_size: int,
+                     width_buckets, val_sets: List, logger) -> Optional[str]:
+    """``export_serving_artifact`` from a weights slot, as JAX's loop does:
+    the weights slot (an EMA run deploys its EMA weights), geometry and
+    charset from the training config, ``quantize`` / ``lm`` / ``confidence``
+    for the engine, ``calibrate`` on up to that many (256 for ``true``)
+    validation images, and the run's width buckets for the fixed-width
+    methods unless the request names its own."""
+    if not os.path.exists(slot_path):
+        logger.info(f"Artifact export skipped: checkpoint slot not found ({slot_path}); "
+                    "no eval epoch wrote it")
+        return None
+    knobs = {k: v for k, v in req.items()
+             if k not in ("slot", "out_dir", "quantize", "lm", "calibrate", "confidence")}
+    if req.get("confidence"):
+        knobs["with_confidence"] = True
+    out_dir = req.get("out_dir") or os.path.join(exp_dir, "artifact")
+    ocr = OCRInference(slot_path, charset_path, device=dev, img_h=img_h, img_w=img_w,
+                       hidden_size=hidden_size, quantize=bool(req.get("quantize", False)),
+                       lm=req.get("lm"))
+    if width_buckets and "width_buckets" not in req and req["method"] not in LONG_METHODS:
+        knobs["width_buckets"] = list(width_buckets)
+    calibrate = req.get("calibrate")
+    if calibrate:
+        n_cal = 256 if calibrate is True else int(calibrate)
+        cal_paths: List[str] = []
+        for ds in val_sets:
+            cal_paths.extend(ds.sample_path(i) for i in range(min(len(ds), n_cal - len(cal_paths))))
+        ocr.calibrate(cal_paths, batch_size=batch_size)
+        logger.info(f"Calibrated static int8 scales on {len(cal_paths)} validation images")
+    export_serving_artifact(ocr, out_dir, **knobs)
+    logger.info(f"Exported serving artifact: {out_dir} (method={req['method']}, "
+                f"slot={req['slot']})")
+    return out_dir
 
 
 def _validate(val_loaders, eval_step, state, charset: Charset, max_len: int, writer,

@@ -606,3 +606,60 @@ def test_daemon_on_the_card_answers_png_and_jpeg_and_reloads(cuda_device, tmp_pa
         signal.signal(signal.SIGHUP, old)
         server.close()
         thread.join(timeout=10)
+
+
+@pytest.mark.parametrize("shape,cout,kernel,stride,padding", [
+    ((64, 16, 64, 128), 256, 3, 2, ((1, 1), (1, 1))),  # layer1_block0.conv1
+    ((64, 8, 32, 256), 256, 3, 1, ((1, 1), (1, 1))),  # layer2
+    ((64, 4, 16, 512), 512, 3, 1, ((1, 1), (1, 1))),  # layer4
+    ((64, 4, 16, 512), 512, 2, (2, 1), ((0, 0), (1, 1))),  # out0
+    ((64, 2, 17, 512), 512, 2, 1, "VALID"),  # out1
+    ((2, 5, 7, 12), 20, 3, 2, ((1, 1), (1, 1))),  # 8 rows, channels not multiples of 8
+])
+def test_int8_accumulators_on_the_card_equal_the_cpu(cuda_device, shape, cout, kernel, stride,
+                                                     padding):
+    """The int32 accumulators of the same int8 codes, card against CPU:
+    exactly equal (integer sums)."""
+    from rcnn_ocr_tpu_torch.ops.quant import int8_conv_accumulate
+
+    g = np.random.default_rng(0)
+    xq = torch.from_numpy(g.integers(-127, 128, shape, dtype=np.int8))
+    wq = torch.from_numpy(g.integers(-127, 128, (kernel, kernel, shape[-1], cout),
+                                     dtype=np.int8))
+    strides = (stride, stride) if isinstance(stride, int) else stride
+    got = int8_conv_accumulate(xq.to(cuda_device), wq.to(cuda_device), strides, padding)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), int8_conv_accumulate(xq, wq, strides, padding))
+
+
+@pytest.mark.parametrize("exported_on", ["cuda", "cpu"])
+@pytest.mark.parametrize("method,quantize", [("ctc_greedy", True), ("attention", False)])
+def test_artifact_on_the_card_equals_the_live_engine(cuda_device, tmp_path, exported_on, method,
+                                                     quantize):
+    """An artifact exported on the card (or on the CPU, listing both
+    platforms, and moved) answers as the live engine on the card, its
+    programs launching 11 se_scale and 2 bilstm_scan per batch."""
+    from rcnn_ocr_tpu_torch.export import ServingArtifact, export_serving_artifact
+    from rcnn_ocr_tpu_torch.inference import OCRInference
+    from rcnn_ocr_tpu_torch.interop.jax_params import to_jax_variables
+
+    tokens = ["<PAD>", "<SOS>", "<EOS>", "<BLANK>"] + list("abcdefgh")
+    variables = dict(to_jax_variables(_beam_model()), itos=tokens)
+    imgs = _mixed_lines(6, seed=5)
+    live = OCRInference(variables, device="cuda", img_h=32, img_w=128, quantize=quantize)
+    if quantize:
+        live.calibrate(imgs, batch_size=4)
+    source = live
+    if exported_on == "cpu":  # the same weights and scales, on the CPU
+        source = OCRInference(dict(live.variables, itos=tokens), device="cpu", img_h=32,
+                              img_w=128, quantize=quantize)
+    out_dir = str(tmp_path / "art")
+    export_serving_artifact(source, out_dir, method=method, batch_size=4, canvas=(80, 500),
+                            max_length=8, platforms=("cuda", "cpu"))
+    art = ServingArtifact.load(out_dir)
+    assert art.device.type == "cuda"
+    kernels.reset_launch_counts()
+    got = art.predict(imgs)
+    assert kernels.launch_counts() == {"se_scale": 22, "bilstm_scan": 4}
+    assert got == live.predict_serving(imgs, max_length=8, batch_size=4, canvas=(80, 500),
+                                       method=method)

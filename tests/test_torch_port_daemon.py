@@ -19,7 +19,7 @@ Port only:
 * a daemon over the port's engine equals the in-process
   ``predict_serving``;
 * ``serving_predict_fn`` refuses anything but the port's ``OCRInference``
-  (serving artifacts are ROADMAP item 12);
+  (serving artifacts: ``tests/test_torch_port_artifact.py``);
 * ``python -m rcnn_ocr_tpu_torch.serve --device cpu`` serves, reloads on
   SIGHUP and drains on SIGTERM; its flag checks fail as ``tools/serve.py``'s
   do, and the options of later slices exit naming them.
@@ -709,7 +709,7 @@ def test_port_serving_predict_fn_refuses_other_engines():
         def predict(self, images):
             return [""] * len(images)
 
-    with pytest.raises(TypeError, match="item 12"):
+    with pytest.raises(TypeError, match="OCRInference or ServingArtifact"):
         port_serving.serving_predict_fn(_Artifact())
 
 
@@ -847,17 +847,20 @@ def test_serve_cli_checks_match_tools_serve(files, monkeypatch, capsys, extra, m
     assert got == want and message in got
 
 
-@pytest.mark.parametrize("extra,item", [(["--quantize"], "item 11"), (["--mesh"], "item 13"),
+@pytest.mark.parametrize("extra,item", [(["--mesh"], "item 13"),
                                         (["--compile-cache-dir", "c"], "no XLA compile cache")])
 def test_serve_cli_refuses_later_slices(files, capsys, extra, item):
+    """Multi-card serving and XLA's compile cache are refused, beside a
+    checkpoint and beside an artifact (``--quantize`` and ``--artifact``
+    are served: ``tests/test_torch_port_artifact.py``)."""
     from rcnn_ocr_tpu_torch import serve
 
     with pytest.raises(SystemExit) as err:
         serve.main([*_serve_argv(files), "--device", "cpu", *extra])
     assert err.value.code == 2 and item in capsys.readouterr().err
     with pytest.raises(SystemExit) as err:
-        serve.main(["--artifact", "dir", "--device", "cpu"])
-    assert err.value.code == 2 and "item 12" in capsys.readouterr().err
+        serve.main(["--artifact", "dir", "--device", "cpu", *extra])
+    assert err.value.code == 2 and item in capsys.readouterr().err
 
 
 def _read_until(lines, pattern, timeout=120):

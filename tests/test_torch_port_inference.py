@@ -147,8 +147,12 @@ def test_wrong_keys_raise_naming_the_key(jax_checkpoints):
     with pytest.raises(ValueError, match="params/attn/w_gen"):
         load_jax_variables(_port_model(), {"params": bad,
                                            "batch_stats": variables["batch_stats"]})
-    with pytest.raises(KeyError, match="quant_stats"):
-        load_jax_variables(_port_model(), dict(variables, quant_stats={}))
+    with pytest.raises(KeyError, match="unexpected.*quant_stats/cnn/out1/conv/act_absmax"):
+        # only a static int8 model has act_absmax leaves
+        load_jax_variables(_port_model(), dict(variables, quant_stats={
+            "cnn": {"out1": {"conv": {"act_absmax": np.float32(1.0)}}}}))
+    with pytest.raises(KeyError, match="unexpected variable collections"):
+        load_jax_variables(_port_model(), dict(variables, intermediates={}))
     no_ctc = RCNN(num_classes=len(TOKENS), hidden_size=HIDDEN, width_mult=WIDTH).eval()
     with pytest.raises(KeyError, match="unexpected.*ctc_proj"):
         load_jax_variables(no_ctc, variables)
@@ -230,9 +234,10 @@ def test_device_is_cuda_unless_cpu_is_asked_for(jax_checkpoints, monkeypatch):
 
 def test_later_slice_options_raise(engines, jax_checkpoints):
     """Beams and ``"auto:K"`` buckets arrived with the beam slice, the
-    serving path and the long-line decodes with the next; what is still to
-    come (int8) is not part of the engine yet, so asking for it fails
-    instead of being ignored."""
+    serving path and the long-line decodes with the next, int8 with a later
+    one (``tests/test_torch_port_quant.py``); what is still to come
+    (multi-card serving, ``mesh``) is not part of the engine yet, so asking
+    for it fails instead of being ignored."""
     ours = engines[0]
     img = _images(1)[0]
     assert isinstance(ours.predict(img, max_length=MAX_LEN, beam_width=4), str)
@@ -247,6 +252,8 @@ def test_later_slice_options_raise(engines, jax_checkpoints):
     assert auto._auto_bucket_k == 4 and auto.width_buckets is None
     with pytest.raises(ValueError, match="unknown spec"):
         OCRInference(full, device="cpu", width_buckets="fixed")
-    assert not hasattr(ours, "calibrate")
-    with pytest.raises(TypeError, match="quantize"):
-        OCRInference(full, device="cpu", quantize=True)
+    with pytest.raises(ValueError, match="quantize=True"):
+        ours.calibrate(img)
+    assert OCRInference(full, device="cpu", quantize=True).model.quantize
+    with pytest.raises(TypeError, match="mesh"):
+        OCRInference(full, device="cpu", mesh=True)
