@@ -16,7 +16,11 @@
    (inputs rotated over enough distinct buffers to exceed 100 MB, twice the
    50 MB L2).  Prints the route each shape takes (K1: cluster split; K2:
    w_hh resident in a cluster's shared memory, or streamed) and checks that
-   every one takes the cluster and resident routes.
+   every one takes the cluster and resident routes.  K2 also at hidden 512
+   (the HPO study's width) at batch 128 and 256: w_hh fp32 must take the
+   streaming route and bf16 the resident one in clusters of 16, each held
+   against the plain version and timed warm and cold beside its bound and
+   cuDNN's ``nn.LSTM(512->512)`` and ``nn.LSTM(1024->512)``, bidirectional.
 4. Main path: a seeded full-width model (width 1.0, hidden 256, 194 classes
    from configs/charset.txt, both heads) handed through ``to_jax_variables``
    to the public ``OCRInference``, which decodes 512 seeded uint8 line
@@ -140,14 +144,14 @@
    types) in the shipped layout into build/chip_smoke/data/, and runs
    ``run_training`` on the card with configs/config.json, overriding only
    the data paths, exp_dir, epochs, eval_every 1, val_size, num_workers 8,
-   head "both" and, for run 1, profile_steps (a torch.profiler window of 8
-   steps in epoch 1 gives the card's idle share).  Run 1 trains 3 epochs of
-   2 x 1,024 lines and is cut by SIGTERM 10 steps into epoch 4: losses must
+   head "both" and, for run 1, profile_steps (a torch.profiler window of 4
+   steps in epoch 1 gives the card's idle share).  Run 1 trains 2 epochs of
+   2 x 512 lines and is cut by SIGTERM 7 steps into epoch 3: losses must
    be finite and fall (last epoch's mean train loss and last validation loss
    below the first), all three slots and metrics_epoch.csv must exist, the
    preempted slot must restore bit for bit (parameters, statistics, Adam
    moments, learning rate).  Run 2 resumes from the experiment dir and
-   finishes epoch 4 with global_step counting on.  Every run must launch
+   finishes epoch 3 with global_step counting on.  Every run must launch
    11 se_scale and 2 bilstm_scan per train step and per validation batch.
    A short run with device_augment must call device_train_augment once per
    step.  Finally ``OCRInference`` loads last_weights.msgpack and reads set
@@ -166,6 +170,27 @@
    ``--decode attention_beam`` with a bigram table of the training labels
    and ``--lm-weight 0,0.5``: each must exit 0 and write a report of all 256
    rows and a per-sample CSV of 256 rows; their wall times are printed.
+10. Scale-out phase, on the loop phase's set A (512 lines to train, 256 to
+   validate) with configs/config.json in fp32 at the global batch of 128 for
+   one epoch, each run a subprocess of ``python -m
+   rcnn_ocr_tpu_torch.training.train --deterministic`` with TF32 off and every
+   collective bounded by a timeout: (1) under ``python -m
+   torch.distributed.run --nproc-per-node 1`` (NCCL) its losses must equal
+   the run with no group exactly; (2) two ranks over gloo on cuda:0 must
+   match the run with no group within rtol 1e-3 per epoch (train and val
+   loss), report the same validation metrics, and leave only rank 0's files
+   (slots, CSV, one events file, a log without rank 1); each rank launches
+   11 + 2 kernels per batch.  Prints step, all-reduce and loader-wait ms per
+   step of each.  (3) ``run_hpo`` over the shipped configuration in bf16:
+   3 trials x 2 epochs with ``hidden_size`` 512 and ``lstm_layers`` 2 pinned
+   ("LSTM 2 512") and the rest of ``DEFAULT_SPACE`` sampled; every trial
+   finite, launching 11 + 2 per batch (K2 at H=512); prints each trial's
+   params, value, epochs, pruning, seconds and launches.  (4) ``python -m
+   rcnn_ocr_tpu_torch.hpo_search --trials 2 --epochs-per-trial 1
+   --parallel-trials 2`` must warn and run one trial at a time on the one
+   card.  (5) ``python -m rcnn_ocr_tpu_torch.hpo.report`` and the JAX
+   package's stdlib ``tools/hpo_report.py``, run as subprocesses, must print
+   the same report of the study.
 
 Prints one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits non-zero
@@ -218,12 +243,15 @@ JPEG_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "jpeg")
 # training phase: configs/config.json's shape and optimizer
 TRAIN_BATCH, TRAIN_MAX_LEN, TRAIN_STEPS, GRAD_BATCH = 128, 40, 30, 32
 TRAIN_LR, TRAIN_WD = 5e-4, 2e-5
-# training-loop phase: two sets of LOOP_TRAIN lines (16 steps per epoch at
+# training-loop phase: two sets of LOOP_TRAIN lines (8 steps per epoch at
 # quota 64 each), LOOP_VAL validation rows per set, LOOP_EPOCHS full epochs
-# and a fourth cut by SIGTERM; LOOP_SMALL rows per set for the short
+# and one more cut by SIGTERM; LOOP_SMALL rows per set for the short
 # device-augmentation run (LOOP_SMALL_TRAIN of set A's to train)
-LOOP_CHARS, LOOP_TRAIN, LOOP_VAL, LOOP_EPOCHS = 30, 1024, 256, 3
-LOOP_SMALL, LOOP_SMALL_TRAIN, LOOP_PROFILE_STEPS = 640, 512, 8
+LOOP_CHARS, LOOP_TRAIN, LOOP_VAL, LOOP_EPOCHS = 30, 512, 256, 2
+LOOP_SMALL, LOOP_SMALL_TRAIN, LOOP_PROFILE_STEPS = 640, 512, 4
+# scale-out phase: the collectives' timeout, a training subprocess's, and the
+# HPO study ("LSTM 2 512") in trials and epochs
+DP_TIMEOUT_S, DP_RUN_TIMEOUT_S, HPO_TRIALS, HPO_EPOCHS = 120, 400, 3, 2
 
 TOL = {
     # kernel vs plain, same inputs; fp32: summation order only
@@ -428,7 +456,46 @@ def kernel_phase(gen: torch.Generator):
                 call["library_ms"] = time_ms(lambda: ref(seq))
             call["vs_library"] = call["ms"] / call["library_ms"]
             lstm["calls"].append(call)
-    main = next(c for c in lstm["calls"] if c["shape"][2] == BATCH and c["w_dtype"] == "bf16")
+    # K2 at H=512 (the HPO space's width, trained by the scale-out phase's
+    # study): w_hh fp32 takes the streaming route, bf16 the resident one in
+    # clusters of 16 CTAs (the non-portable size)
+    H2 = 2 * HIDDEN
+    for wdt, want in ((torch.float32, "streaming"), (torch.bfloat16, "resident")):
+        name = "fp32" if wdt == torch.float32 else "bf16"
+        w_hh = (torch.randn(2, H2, 4 * H2, device=dev, generator=gen) / H2 ** 0.5).to(wdt)
+        for b in (TRAIN_BATCH, BATCH):
+            plan = lstm_route(b, H2, wdt)
+            check(plan["route"] == want and (want == "streaming" or plan["cluster"] == 16),
+                  f"bilstm_scan B={b} H={H2} w_hh {name} took {plan}")
+            xs = torch.randn(T, 2, b, 4 * H2, device=dev, generator=gen)
+            err = held(bilstm_scan(xs, w_hh, H2), scan_reference(xs, w_hh, H2),
+                       what=f"bilstm_scan [{T},2,{b},{4 * H2}] w_hh {name} vs plain",
+                       **TOL["fp32"])
+            errs.append(err)
+            flop = 2 * T * 2 * b * H2 * 4 * H2
+            nbytes = xs.numel() * 4 + T * 2 * b * H2 * 4 + w_hh.numel() * w_hh.element_size()
+            bound = max(flop / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+            sets = cold_sets(lambda: (torch.randn(T, 2, b, 4 * H2, device=dev, generator=gen),
+                                      w_hh.clone(), H2), xs.numel() * 4)
+            call = dict(shape=[T, 2, b, 4 * H2], hidden=H2, w_dtype=name, per_encode=2,
+                        route=plan, max_abs_err=err,
+                        ms=time_ms(lambda: bilstm_scan(xs, w_hh, H2)),
+                        cold_ms=time_cold_ms(bilstm_scan, sets),
+                        plain_ms=time_ms(lambda: scan_reference(xs, w_hh, H2)),
+                        bound_ms=bound, flop=flop, bytes=nbytes,
+                        bound_by="operations" if flop / FP32_FLOP_PER_S > nbytes / HBM_BYTES_PER_S
+                        else "bytes")
+            del sets
+            call["bound_share_cold"] = call["bound_ms"] / call["cold_ms"]
+            for d_in in (LSTM_D, 2 * H2):  # the encoder's first layer, and a 2H input
+                ref = torch.nn.LSTM(d_in, H2, bidirectional=True).to(dev).eval()
+                seq = torch.randn(T, b, d_in, device=dev, generator=gen)
+                with torch.inference_mode():
+                    call[f"library_ms_lstm_{d_in}_{H2}"] = time_ms(lambda: ref(seq))
+            call["library_ms"] = call[f"library_ms_lstm_{LSTM_D}_{H2}"]
+            lstm["calls"].append(call)
+    main = next(c for c in lstm["calls"] if c["shape"][2] == BATCH and c["w_dtype"] == "bf16"
+                and c["shape"][3] == 4 * H)
     lstm.update(max_abs_err=max(errs), ms=2 * main["ms"], cold_ms=2 * main["cold_ms"],
                 plain_ms=2 * main["plain_ms"], bound_ms=2 * main["bound_ms"],
                 bound_us=2 * main["bound_ms"] * 1e3, bound_by=main["bound_by"],
@@ -2254,7 +2321,7 @@ def training_loop_phase(kernels, cs, train_img_s: float, power: str):
         transform(img, np.random.default_rng(i))
     out["host_augment_ms_per_image"] = (time.perf_counter() - t0) * 1e3 / len(decoded)
 
-    # run 1: epochs 1-3, then SIGTERM 10 steps into epoch 4
+    # run 1: LOOP_EPOCHS epochs, then SIGTERM 7 steps into the next
     exp_dir = os.path.join(base, "exp_loop")
     steps_per_epoch = LOOP_TRAIN // 64  # quota 64 per set at bs 128
     val_per_epoch = 2 * -(-LOOP_VAL // TRAIN_BATCH)
@@ -2276,7 +2343,8 @@ def training_loop_phase(kernels, cs, train_img_s: float, power: str):
     run1_s = time.perf_counter() - t0
     fired.set()
     killer.join(timeout=5)
-    out["run1"] = loop_counts_check(kernels, first, "run 1 (epochs 1-3, SIGTERM in epoch 4)")
+    out["run1"] = loop_counts_check(kernels, first, f"run 1 (epochs 1-{LOOP_EPOCHS}, SIGTERM "
+                                                    f"in epoch {LOOP_EPOCHS + 1})")
     check(first.get("preempted") is True, "run_training did not return preempted on SIGTERM")
     epochs = first["epochs"]
     check(len(epochs) == LOOP_EPOCHS + 1, f"run 1 ran {len(epochs)} epochs")
@@ -2314,13 +2382,13 @@ def training_loop_phase(kernels, cs, train_img_s: float, power: str):
           == blob["opt_state"]["hyperparams"]["learning_rate"], "the restored lr differs")
     del model, state
 
-    # run 2: resume, finish epoch 4
+    # run 2: resume, finish the cut epoch
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     second = run_training(Config(dict(loop_config(paths, exp_dir, profile_steps=0),
                                       resume_path=exp_dir)))
     run2_s = time.perf_counter() - t0
-    out["run2"] = loop_counts_check(kernels, second, "run 2 (resumed, epoch 4)")
+    out["run2"] = loop_counts_check(kernels, second, f"run 2 (resumed, epoch {LOOP_EPOCHS + 1})")
     check(second["start_epoch"] == LOOP_EPOCHS + 1, f"resumed at epoch {second['start_epoch']}")
     check(second["global_step"] == blob["global_step"] + steps_per_epoch,
           f"global_step {second['global_step']} after the resume")
@@ -2423,7 +2491,7 @@ def training_loop_phase(kernels, cs, train_img_s: float, power: str):
         check(agree >= 0.99 * len(rows),
               f"{head}: predict and make_eval_step agree on {agree}/{len(rows)}")
 
-    # where the loop's time goes (epochs 2-3: epoch 1 carries the profile window)
+    # where the loop's time goes (epochs after the first, which carries the profile window)
     steady = epochs[1:LOOP_EPOCHS]
     steps = sum(e["steps"] for e in steady)
     timing = {
@@ -2447,6 +2515,7 @@ def training_loop_phase(kernels, cs, train_img_s: float, power: str):
                                             if writer.get("write_s") else None)
     print(f"  loop on {power}: " + ", ".join(
         f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in timing.items()))
+    out.update(paths=paths)
     out.update(timing=timing, run1_s=run1_s, run2_s=run2_s, consistency=consistency,
                rows=len(rows), train_losses=losses, val_losses=val_losses,
                epochs=first["epochs"] + second["epochs"], launches=loop_launches,
@@ -2507,6 +2576,227 @@ def eval_cli_runs(weights: str, val_dir: str, rows, train_csvs, cs) -> dict:
     return out
 
 
+# --- scale-out: data parallelism across processes, and the HPO driver -----------
+
+def dp_config(paths: dict, exp_dir: str, **overrides) -> dict:
+    """configs/config.json on set A alone (its random split for validation),
+    1 epoch in fp32 at the shipped global batch of 128."""
+    with open(os.path.join(REPO, "configs", "config.json"), encoding="utf-8") as f:
+        cfg = json.load(f)
+    a = paths["handwritten/train"]
+    cfg.update(train_csvs=[os.path.join(a, "labels.csv")], train_roots=[a], val_csvs=None,
+               val_roots=None, train_proportions=None, val_size=LOOP_VAL,
+               charset_path=os.path.join(REPO, "configs", "charset.txt"), exp_dir=exp_dir,
+               epochs=1, eval_every=1, num_workers=8, compute_dtype="float32", progress=False)
+    cfg.update(overrides)
+    return cfg
+
+
+def train_cli(name: str, cfg: dict, nproc: int = 0, extra=()) -> list:
+    """``python -m rcnn_ocr_tpu_torch.training.train`` on ``cfg``, alone
+    (``nproc=0``) or under ``python -m torch.distributed.run`` with ``nproc``
+    ranks; every collective bounded by DP_TIMEOUT_S, the whole run by a
+    subprocess timeout.  TF32 is off (NVIDIA_TF32_OVERRIDE=0), so that fp32
+    is fp32.  Returns each rank's result (the CLI's --result-json)."""
+    work = os.path.join(REPO, "build", "chip_smoke", "scale_out")
+    cfg_path = os.path.join(work, f"{name}.json")
+    with open(cfg_path, "w", encoding="utf-8") as f:
+        json.dump(cfg, f)
+    result = os.path.join(work, f"{name}_result.json")
+    launcher = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", str(nproc)] if nproc else [sys.executable])
+    cmd = launcher + ["-m", "rcnn_ocr_tpu_torch.training.train", cfg_path, "--result-json",
+                      result, "--deterministic", *extra]
+    if nproc:
+        cmd += ["--dist-timeout", str(DP_TIMEOUT_S)]
+    env = dict(os.environ, PYTHONPATH=REPO, NVIDIA_TF32_OVERRIDE="0")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=DP_RUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{name}: {' '.join(cmd[1:])} exited {proc.returncode}:\n"
+                                f"{proc.stdout[-3000:]}{proc.stderr[-5000:]}")
+    # one process (or one rank) writes the named file, N ranks one file each
+    paths = [result] if nproc <= 1 else [f"{result[:-5]}.rank{r}.json" for r in range(nproc)]
+    out = []
+    for path in paths:
+        with open(path, encoding="utf-8") as f:
+            out.append(dict(json.load(f), wall_s=wall))
+    return out
+
+
+def epoch_losses(result: dict) -> list:
+    return [(e["train_loss"], e["val_loss"]) for e in result["epochs"]]
+
+
+def dp_timing(result: dict) -> dict:
+    """Per step: the wall time of the train epoch and the gradient
+    all_reduce's host time (gloo copies through the host and waits for the
+    other rank), and the loader's wait."""
+    e = result["epochs"][0]
+    steps = max(1, e["steps"])
+    return {"step_ms": e["train_s"] * 1e3 / steps,
+            "allreduce_ms_per_step": e.get("allreduce_s", 0.0) * 1e3 / steps,
+            "loader_wait_ms_per_step": e["loader_wait_s"] * 1e3 / steps,
+            "step_dispatch_p50_ms": e["step_timer"].get("p50_ms"),
+            "val_s": e.get("val_s"), "steps": e["steps"], "val_batches": e["val_batches"],
+            "img_s": e["images"] / max(e["train_s"], 1e-9), "run_wall_s": result["wall_s"]}
+
+
+def dp_launch_check(result: dict, lstm_layers: int, what: str) -> dict:
+    """11 se_scale and ``lstm_layers`` bilstm_scan launches per train step
+    and per validation batch of one rank's run."""
+    got = result["kernel_launches"]
+    batches = sum(e["steps"] + e["val_batches"] for e in result["epochs"])
+    want = {"se_scale": 11 * batches, "bilstm_scan": lstm_layers * batches}
+    check(got == want, f"{what} launched {got}, expected {want}")
+    return got
+
+
+def scale_out_phase(kernels, paths: dict, power: str) -> dict:
+    """One-rank NCCL vs no group; two gloo ranks on the one card vs one
+    process; an HPO study at hidden 512 and the hpo_search CLI."""
+    from rcnn_ocr_tpu_torch.hpo import driver as hpo_driver
+    from rcnn_ocr_tpu_torch.training import checkpoint as ckpt
+
+    base = os.path.join(REPO, "build", "chip_smoke")
+    for sub in ("scale_out", "hpo", "hpo_cli"):
+        shutil.rmtree(os.path.join(base, sub), ignore_errors=True)
+    os.makedirs(os.path.join(base, "scale_out"))
+    exp = {name: os.path.join(base, "scale_out", f"exp_{name}")
+           for name in ("alone", "nccl1", "gloo2")}
+    out = {"dp_launches": {"se_scale": 0, "bilstm_scan": 0}}
+
+    # (1) one rank of NCCL equals the run with no group, bit for bit
+    t0 = time.perf_counter()
+    (alone,) = train_cli("alone", dp_config(paths, exp["alone"]))
+    (nccl1,) = train_cli("nccl1", dp_config(paths, exp["nccl1"]), nproc=1)
+    check(epoch_losses(nccl1) == epoch_losses(alone) and nccl1["val_acc"] == alone["val_acc"],
+          f"one NCCL rank {epoch_losses(nccl1)} differs from no group {epoch_losses(alone)}")
+    print(f"  one NCCL rank = no group, exactly: (train loss, val loss) per epoch "
+          f"{epoch_losses(nccl1)}, val_acc {nccl1['val_acc']}")
+    for k, v in dp_launch_check(nccl1, 2, "one NCCL rank").items():
+        out["dp_launches"][k] += v
+
+    # (2) two gloo ranks on cuda:0 vs one process, same global batch
+    ranks = train_cli("gloo2", dp_config(paths, exp["gloo2"]), nproc=2,
+                      extra=["--device", "cuda:0", "--backend", "gloo"])
+    check([r["rank"] for r in ranks] == [0, 1] and all(r["ranks"] == 2 for r in ranks),
+          "the gloo job did not run two ranks")
+    reading = []
+    for (a, b), (c, d) in zip(epoch_losses(ranks[0]), epoch_losses(alone)):
+        reading += [abs(a - c) / abs(c), abs(b - d) / abs(d)]
+        check(abs(a - c) <= 1e-3 * abs(c) and abs(b - d) <= 1e-3 * abs(d),
+              f"two gloo ranks (train, val) {(a, b)} vs one process {(c, d)}: beyond rtol 1e-3")
+    same = all(ranks[0]["epochs"][0][k] == ranks[1]["epochs"][0][k]
+               for k in ("train_loss", "val_loss", "val_acc", "val_cer", "val_wer"))
+    check(same, "the two ranks report different metrics")
+    print(f"  two gloo ranks vs one process: (train, val) {epoch_losses(ranks[0])} vs "
+          f"{epoch_losses(alone)}, largest relative difference {max(reading):.3e} "
+          f"(rtol 1e-3); both ranks report val_acc {ranks[0]['val_acc']}, val_loss "
+          f"{ranks[0]['val_loss']}")
+    for r, res in enumerate(ranks):
+        for k, v in dp_launch_check(res, 2, f"gloo rank {r}").items():
+            out["dp_launches"][k] += v
+    files = sorted(os.listdir(exp["gloo2"]))
+    for slot in ("last", "best_loss", "best_acc"):
+        check(f"{slot}{ckpt.CKPT_SUFFIX}" in files, f"rank 0 wrote no {slot} slot")
+    check("metrics_epoch.csv" in files and not [f for f in files if f.endswith(".tmp")],
+          f"exp dir holds {files}")
+    events = os.listdir(os.path.join(exp["gloo2"], "logs"))
+    check(len([f for f in events if "tfevents" in f]) <= 1, f"events files {events}")
+    with open(os.path.join(exp["gloo2"], "train.log"), encoding="utf-8") as f:
+        log = f.read()
+    check("rank 0;" in log and "rank 1;" not in log, "a rank besides 0 wrote train.log")
+    out.update(alone=dp_timing(alone), nccl1=dp_timing(nccl1),
+               gloo2=[dp_timing(r) for r in ranks], gloo2_rel_diff=max(reading),
+               losses={"alone": epoch_losses(alone), "gloo2": epoch_losses(ranks[0])},
+               gloo2_files=files, dp_s=time.perf_counter() - t0)
+    for name, t in (("no group", out["alone"]), ("one NCCL rank", out["nccl1"]),
+                    ("gloo rank 0 of 2", out["gloo2"][0]), ("gloo rank 1 of 2", out["gloo2"][1])):
+        print(f"  {name} on {power}: " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in t.items()))
+
+    # (3) the HPO study, "LSTM 2 512": 3 trials x 2 epochs of set A, full width
+    hpo_cfg = dp_config(paths, "", epochs=HPO_EPOCHS, compute_dtype="bfloat16")
+    hpo_cfg.pop("exp_dir")
+    space = dict(hpo_driver.DEFAULT_SPACE, hidden_size=("cat", (512,)), lstm_layers=("cat", (2,)))
+    per_trial = []
+
+    def counted(base_cfg, params, trial_dir, report=None):
+        before = kernels.launch_counts()
+        t_trial = time.perf_counter()
+        try:
+            return hpo_driver._default_objective(base_cfg, params, trial_dir, report)
+        finally:
+            after = kernels.launch_counts()
+            per_trial.append(dict({k: after[k] - before[k] for k in after},
+                                  seconds=time.perf_counter() - t_trial))
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    study = hpo_driver.run_hpo(hpo_cfg, n_trials=HPO_TRIALS, study_name="lstm2_512",
+                               storage_dir=os.path.join(base, "hpo"), space=space, seed=0,
+                               objective=counted)
+    out["hpo_launches"] = kernels.launch_counts()
+    out["hpo_s"] = time.perf_counter() - t0
+    check(len(study["trials"]) == HPO_TRIALS and len(per_trial) == HPO_TRIALS,
+          f"the study ran {len(study['trials'])} trials")
+    steps_per_epoch = LOOP_TRAIN // TRAIN_BATCH
+    val_per_epoch = -(-LOOP_VAL // TRAIN_BATCH)
+    for t, launches in zip(study["trials"], per_trial):
+        check(np.isfinite(t["value"]) and t["params"]["hidden_size"] == 512
+              and t["params"]["lstm_layers"] == 2, f"trial {t}")
+        batches = t["epochs_run"] * (steps_per_epoch + val_per_epoch)
+        check(launches["se_scale"] == 11 * batches and launches["bilstm_scan"] == 2 * batches,
+              f"trial {t['number']} launched {launches} over {batches} batches")
+        t["launches"] = launches
+        print(f"  trial {t['number']}: value {t['value']:.4f}, epochs {t['epochs_run']}, "
+              f"pruned {t['pruned']}, {t['seconds']} s, launches se_scale "
+              f"{launches['se_scale']} / bilstm_scan {launches['bilstm_scan']} (K2 at H=512), "
+              f"params " + ", ".join(f"{k}={v:.3g}" if isinstance(v, float) else f"{k}={v}"
+                                     for k, v in sorted(t["params"].items())))
+    out["hpo_trials"] = study["trials"]
+
+    # (4) the CLI with DEFAULT_SPACE and --parallel-trials 2 on one card
+    cli_cfg = os.path.join(base, "scale_out", "hpo_cli.json")
+    with open(cli_cfg, "w", encoding="utf-8") as f:
+        json.dump(dict(hpo_cfg, epochs=3), f)
+    cmd = [sys.executable, "-m", "rcnn_ocr_tpu_torch.hpo_search", "--config", cli_cfg,
+           "--trials", "2", "--epochs-per-trial", "1", "--parallel-trials", "2",
+           "--storage-dir", os.path.join(base, "hpo_cli"), "--study", "cli"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=DP_RUN_TIMEOUT_S)
+    out["hpo_cli_s"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"hpo_search exited {proc.returncode}:\n"
+                                f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    check("parallel_trials=2 > 1 devices; running 1 concurrent trials" in proc.stderr,
+          f"hpo_search did not cap at the one card:\n{proc.stderr[-2000:]}")
+    with open(os.path.join(base, "hpo_cli", "cli_results.json"), encoding="utf-8") as f:
+        cli = json.load(f)
+    check(len(cli["trials"]) == 2 and all(t["epochs_run"] == 1 for t in cli["trials"]),
+          f"hpo_search trials {cli['trials']}")
+    print(f"  python -m rcnn_ocr_tpu_torch.hpo_search --parallel-trials 2: warned and ran one "
+          f"trial at a time on the one card, {out['hpo_cli_s']:.1f} s; trials " + "; ".join(
+              f"{t['number']}: value {t['value']:.4f}, {t['seconds']} s, hidden "
+              f"{t['params']['hidden_size']} x {t['params']['lstm_layers']}"
+              for t in cli["trials"]))
+    out["hpo_cli_trials"] = cli["trials"]
+
+    # (5) the port's report and the JAX package's stdlib tool read it alike
+    results = os.path.join(base, "hpo", "lstm2_512_results.json")
+    reports = [subprocess.run([sys.executable, *tool, results], cwd=REPO, capture_output=True,
+                              text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
+               for tool in (["-m", "rcnn_ocr_tpu_torch.hpo.report"],
+                            [os.path.join(REPO, "tools", "hpo_report.py")])]
+    check(all(r.returncode == 0 for r in reports) and reports[0].stdout == reports[1].stdout,
+          f"the two reports differ:\n{reports[0].stdout}\n{reports[1].stdout}")
+    print("  hpo.report = tools/hpo_report.py on the study's results:\n    "
+          + reports[0].stdout.strip().replace("\n", "\n    "))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json-out", help="also write every measurement to this JSON file")
@@ -2557,6 +2847,11 @@ def main() -> int:
     training = training_phase(kernels, cs, charset_path, power)
     print("training-loop phase")
     loop = training_loop_phase(kernels, cs, training["train"]["img_s"], power)
+    print("scale-out phase")
+    t_scale = time.perf_counter()
+    scale = scale_out_phase(kernels, loop["paths"], power)
+    scale["seconds"] = time.perf_counter() - t_scale
+    print(f"  scale-out phase {scale['seconds']:.1f} s")
     backward = {"se_scale": "autograd: plain torch (the hand VJP of se_pallas.py:_se_bwd)",
                 "bilstm_scan": "autograd: plain torch (recompute through scan_reference)"}
     train = training["train"]
@@ -2569,7 +2864,9 @@ def main() -> int:
                    "long_lines": long_line["launch_counts"][name],
                    "int8_artifacts": int8["launch_counts"][name],
                    "train": train["launch_counts"][name],
-                   "train_loop": loop["launches"][name]}
+                   "train_loop": loop["launches"][name],
+                   "dp": scale["dp_launches"][name],
+                   "hpo": scale["hpo_launches"][name]}
         row.update(launches=by_path["inference"], launches_by_path=by_path,
                    max_err=row["max_abs_err"], backward_route=backward[name],
                    launches_per_train_step=train["launch_counts"][name] // TRAIN_STEPS,
@@ -2580,7 +2877,8 @@ def main() -> int:
     result = {"card": power, "kernels": rows, "main_path": path, "beam": beams,
               "serving": serving, "daemon": daemon, "long_lines": long_line,
               "int8_artifacts": int8,
-              "training": training, "training_loop": loop, "seconds": time.perf_counter() - t_start}
+              "training": training, "training_loop": loop, "scale_out": scale,
+              "seconds": time.perf_counter() - t_start}
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)
         with open(args.json_out, "w") as f:

@@ -5,7 +5,7 @@ Counterpart of ``rcnn_ocr_tpu/data/loader.py`` (``collate_batch``,
 ``BucketedProportionalBatchSampler``, ``bucket_for_width``,
 ``scaled_width``, ``assign_width_buckets``, ``optimal_width_buckets``,
 ``probe_scaled_widths``, ``lift_buckets_for_ctc``,
-``probe_dataset_buckets``):
+``probe_dataset_buckets``, ``ProcessShardedBatchSampler``):
 
 * ``collate_batch``: (image, label) pairs become one fixed-shape NHWC batch
   of numpy arrays with packed targets; a short batch is padded to
@@ -15,14 +15,16 @@ Counterpart of ``rcnn_ocr_tpu/data/loader.py`` (``collate_batch``,
   batches, a producer's error is raised in the consumer.  Each sample's
   transform gets its own ``numpy`` Generator seeded from ``(seed, epoch,
   batch, row)``, so host augmentation repeats run to run (set the epoch
-  with :meth:`DataLoader.set_epoch`).  ``wait_seconds`` is the time the
-  last pass spent blocked on the queue;
+  with :meth:`DataLoader.set_epoch`); ``row`` is the global row, so a rank
+  that holds block ``shard_index`` of each global batch draws what one
+  process draws for those rows.  ``wait_seconds`` is the time the last pass
+  spent blocked on the queue;
 * width buckets: a handful of static widths, chosen by a waste-minimizing
   DP (``optimal_width_buckets``) and lifted until a CTC label fits its
   bucket's time axis (``lift_buckets_for_ctc``); bucketed samplers draw from
-  ``default_rng(seed)`` exactly as JAX's do.
-
-``ProcessShardedBatchSampler`` (multi-host feeding) is still to be ported.
+  ``default_rng(seed)`` exactly as JAX's do;
+* ``ProcessShardedBatchSampler``: one rank's contiguous block of every
+  global batch of a replicated sampler (data parallelism across processes).
 """
 
 from __future__ import annotations
@@ -94,7 +96,7 @@ class DataLoader:
                  with_ctc: bool = False, prefetch: int = 2, drop_invalid: bool = True,
                  bucket_of: Optional[Sequence[int]] = None,
                  transform_for_width: Optional[Callable] = None,
-                 cache_dir: Optional[str] = None, seed: int = 0):
+                 cache_dir: Optional[str] = None, seed: int = 0, shard_index: int = 0):
         self.dataset = dataset
         self.batch_sampler = batch_sampler
         self.charset = charset
@@ -112,6 +114,7 @@ class DataLoader:
         self.cache_dir = cache_dir
         self._disk_caches: dict = {}
         self.seed = int(seed)
+        self.shard_index = int(shard_index)
         self.epoch = 0
         self.wait_seconds = 0.0
 
@@ -161,7 +164,8 @@ class DataLoader:
             indices = indices.indices
         elif self.bucket_of is not None:
             transform = self._bucket_transform(self.bucket_of[indices[0]])
-        rngs = [np.random.default_rng([self.seed, self.epoch, batch_no, row])
+        first = self.shard_index * len(indices)  # the block's first global row
+        rngs = [np.random.default_rng([self.seed, self.epoch, batch_no, first + row])
                 for row in range(len(indices))]
         if pool is not None:
             items = list(pool.map(lambda a: self._fetch(a[0], transform, a[1]),
@@ -463,3 +467,54 @@ class BucketedBatchSampler:
     def __len__(self) -> int:
         return sum((len(m) + self.batch_size - 1) // self.batch_size
                    for m in self._groups.values())
+
+
+class ProcessShardedBatchSampler:
+    """One rank's view of a replicated global batch sampler (data parallelism).
+
+    Every rank builds the same underlying sampler (same seed), so the global
+    batch sequence is common knowledge; rank ``p`` of ``P`` keeps rows
+    ``[p*B/P, (p+1)*B/P)`` of each global batch.  A :class:`BucketBatch`
+    keeps its width tag.  Rows a P-way split cannot place (``len % P``) carry
+    into the next batch of the same width; at the end of an epoch at most
+    ``P - 1`` rows per width stay unplaced.  A copy of
+    ``rcnn_ocr_tpu/data/loader.py:ProcessShardedBatchSampler``.
+    """
+
+    def __init__(self, sampler, process_index: int, process_count: int):
+        if not 0 <= process_index < process_count:
+            raise ValueError("process_index out of range")
+        self.sampler = sampler
+        self.pidx = process_index
+        self.pcount = process_count
+
+    @staticmethod
+    def _parts(batch):
+        if isinstance(batch, BucketBatch):
+            return batch.width, list(batch.indices)
+        return None, list(batch)
+
+    def _emit(self, width, rows):
+        per = len(rows) // self.pcount
+        local = rows[self.pidx * per:(self.pidx + 1) * per]
+        return BucketBatch(width, local) if width is not None else local
+
+    def __iter__(self):
+        carries: dict = {}
+        for batch in self.sampler:
+            width, rows = self._parts(batch)
+            rows = carries.pop(width, []) + rows
+            placeable = (len(rows) // self.pcount) * self.pcount
+            if placeable == 0:
+                carries[width] = rows
+                continue
+            carries[width] = rows[placeable:]
+            yield self._emit(width, rows[:placeable])
+        for width, rows in carries.items():
+            placeable = (len(rows) // self.pcount) * self.pcount
+            if placeable:
+                yield self._emit(width, rows[:placeable])
+
+    def __len__(self) -> int:
+        # advisory (progress bars): the carry can add one batch per width
+        return len(self.sampler)  # type: ignore[arg-type]

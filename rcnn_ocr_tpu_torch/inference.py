@@ -33,8 +33,8 @@ call).
 activation scales, or static ones when the checkpoint carries calibrated
 ``quant_stats`` or after :meth:`calibrate` (:mod:`rcnn_ocr_tpu_torch.calibration`).
 :mod:`rcnn_ocr_tpu_torch.export` writes any decode configuration of the
-engine as a serving artifact.  Multi-card serving is not ported (ROADMAP.md,
-queue 1, item 13).
+engine as a serving artifact.  Multi-card serving (``mesh=``) is not ported
+and raises (ROADMAP.md, queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -130,7 +130,11 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
         with_ctc_head: Optional[bool] = None,
         lm: Any = None,
         quantize: bool = False,
+        mesh: Any = None,
     ):
+        if mesh is not None and mesh is not False:
+            raise NotImplementedError("OCRInference(mesh=): serving across several cards is "
+                                      "not ported (ROADMAP queue 1, item 13)")
         self.device = resolve_device(device)
         # "auto" / "auto:K": the first call with two or more images fits K
         # waste-minimizing widths to them (fixed for the engine's lifetime)

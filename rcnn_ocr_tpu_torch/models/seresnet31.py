@@ -43,6 +43,7 @@ from torch import nn
 from rcnn_ocr_tpu_torch.models.dropblock import dropblock_2d
 from rcnn_ocr_tpu_torch.ops.quant import int8_conv_nhwc, int8_conv_nhwc_static
 from rcnn_ocr_tpu_torch.ops.se_scale import se_scale
+from rcnn_ocr_tpu_torch.parallel.mesh import current_shard, global_sum
 
 BN_MOMENTUM = 0.9  # flax's convention: running = 0.9 * running + 0.1 * batch
 
@@ -73,10 +74,20 @@ def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     ``bn``'s running ones, as flax's ``nn.BatchNorm`` does in training: the
     fast variance ``E[y²] - E[y]²`` clipped at 0 and biased, and
     ``running = 0.9 * running + 0.1 * batch`` for mean and variance alike
-    (torch's ``F.batch_norm`` would update with the unbiased variance)."""
+    (torch's ``F.batch_norm`` would update with the unbiased variance).
+
+    The batch is the global one: under a data-parallel step
+    (:func:`rcnn_ocr_tpu_torch.parallel.mesh.batch_shard`) the per-channel
+    sums of ``y`` and ``y²`` are summed over the ranks with autograd and
+    divided by the global count, as JAX's one program over the mesh averages
+    over every device.  Without a group the same arithmetic runs with no
+    sum, so a one-rank job gives the same bits."""
     dims = (0, 2, 3)
-    mean = y.mean(dim=dims)
-    var = torch.clamp_min((y * y).mean(dim=dims) - mean * mean, 0.0)
+    sums = global_sum(torch.stack([y.sum(dim=dims), (y * y).sum(dim=dims)]))
+    shard = current_shard()
+    count = y.numel() // y.shape[1] * (shard.count if shard is not None else 1)
+    mean, mean_sq = sums[0] / count, sums[1] / count
+    var = torch.clamp_min(mean_sq - mean * mean, 0.0)
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)

@@ -11,7 +11,9 @@ rot) degrees about the pixel center, scale 1 + U(-s, s), shift U(-sh, sh)
 on [0, 1]; every image draws its own parameters and apply coins.  Random
 draws come from the ``torch.Generator`` passed in (on the batch's device),
 in the order coin, then parameters, per op; the config values get the host
-path's coercions (``round(.., 4)``, ``int`` on the rotation).
+path's coercions (``round(.., 4)``, ``int`` on the rotation).  Under a
+data-parallel step every draw covers the global batch and this rank keeps
+its rows (:func:`rcnn_ocr_tpu_torch.parallel.mesh.rand_rows`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from rcnn_ocr_tpu_torch.parallel.mesh import rand_rows
 
 # all 256 normalized uint8 values, computed once with host IEEE fp32
 # arithmetic; the device applies them by lookup, so device- and
@@ -85,7 +89,7 @@ def affine_warp(images: torch.Tensor, inv_mats: torch.Tensor, fill: float = 1.0)
 
 def _uniform(n: int, lo: float, hi: float, generator: torch.Generator,
              device: torch.device) -> torch.Tensor:
-    return lo + (hi - lo) * torch.rand(n, generator=generator, device=device)
+    return lo + (hi - lo) * rand_rows((n,), generator, device)
 
 
 def shift_scale_rotate_batch(images: torch.Tensor, generator: torch.Generator, p: float = 0.3,
@@ -95,7 +99,7 @@ def shift_scale_rotate_batch(images: torch.Tensor, generator: torch.Generator, p
     get the identity map."""
     b, h, w, _ = images.shape
     dev = images.device
-    apply = torch.rand(b, generator=generator, device=dev) < p
+    apply = rand_rows((b,), generator, dev) < p
     angles = _uniform(b, -rotate_limit, rotate_limit, generator, dev)
     scales = 1.0 + _uniform(b, -scale_limit, scale_limit, generator, dev)
     dx = _uniform(b, -shift_limit, shift_limit, generator, dev) * w
@@ -113,7 +117,7 @@ def brightness_contrast_batch(images: torch.Tensor, generator: torch.Generator, 
                               contrast_limit: float = 0.2) -> torch.Tensor:
     """Contrast about mid-gray and a brightness shift, per image, on [0, 1]."""
     b, dev = images.shape[0], images.device
-    apply = torch.rand(b, generator=generator, device=dev) < p
+    apply = rand_rows((b,), generator, dev) < p
     alpha = 1.0 + _uniform(b, -contrast_limit, contrast_limit, generator, dev)
     beta = _uniform(b, -brightness_limit, brightness_limit, generator, dev)
     return apply_brightness_contrast(images, torch.where(apply, alpha, torch.ones_like(alpha)),
@@ -129,7 +133,7 @@ def apply_brightness_contrast(images: torch.Tensor, alpha: torch.Tensor,
 
 
 def invert_batch(images: torch.Tensor, generator: torch.Generator, p: float = 0.0) -> torch.Tensor:
-    apply = torch.rand(images.shape[0], generator=generator, device=images.device) < p
+    apply = rand_rows((images.shape[0],), generator, images.device) < p
     return torch.where(apply[:, None, None, None], 1.0 - images, images)
 
 

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from rcnn_ocr_tpu_torch.ops.topk import top_k
+from rcnn_ocr_tpu_torch.parallel.mesh import global_sum
 
 
 def ctc_loss(logits: torch.Tensor, logit_paddings: torch.Tensor, labels: torch.Tensor,
@@ -32,7 +33,10 @@ def ctc_loss(logits: torch.Tensor, logit_paddings: torch.Tensor, labels: torch.T
     frames``) and rows with ``valid`` False are left out of the mean, as in
     JAX.  Such a row gives 0 to the loss and its gradient, never NaN: torch
     charges an impossible alignment inf (``zero_infinity`` turns it into 0)
-    and the mask is a ``torch.where``, not a product with inf.
+    and the mask is a ``torch.where``, not a product with inf.  Under a
+    data-parallel step (:func:`rcnn_ocr_tpu_torch.parallel.mesh.batch_shard`)
+    the count divided by is the global batch's, so the ranks' losses sum to
+    the global mean.
     """
     logp = F.log_softmax(logits.float(), dim=-1).transpose(0, 1)  # [T, B, V]
     frames = (1.0 - logit_paddings.float()).sum(dim=1)
@@ -46,7 +50,7 @@ def ctc_loss(logits: torch.Tensor, logit_paddings: torch.Tensor, labels: torch.T
     if valid is not None:
         keep = keep & valid.bool()
     total = torch.where(keep, per_seq, torch.zeros_like(per_seq)).sum()
-    return total / keep.sum().clamp_min(1).float()
+    return total / global_sum(keep.sum().float()).clamp_min(1.0)
 
 
 def ctc_greedy_decode(logits: torch.Tensor, blank_id: int, return_confidence: bool = False):

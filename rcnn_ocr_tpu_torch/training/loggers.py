@@ -2,8 +2,9 @@
 
 Counterpart of ``rcnn_ocr_tpu/training/loggers.py``: ``setup_logger``
 (console plus ``exp_dir/train.log``), ``SummaryWriter`` (scalars through
-the ``tensorboard`` package's event writer when it imports, else a no-op)
-and ``MetricsCSV`` (the same header and rows).
+the ``tensorboard`` package's event writer when it imports, else a no-op),
+``NullWriter`` (a rank that is not the lead) and ``MetricsCSV`` (the same
+header and rows).
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ import time
 from typing import Optional
 
 
-def setup_logger(exp_dir: str, name: str = "train") -> logging.Logger:
+def setup_logger(exp_dir: str, name: str = "train", log_file: bool = True) -> logging.Logger:
+    """Console, plus ``exp_dir/train.log`` when ``log_file`` (the lead rank
+    of a data-parallel job alone writes the file)."""
     logger = logging.getLogger(name)
     logger.setLevel(logging.INFO)
     for handler in logger.handlers:
@@ -26,9 +29,10 @@ def setup_logger(exp_dir: str, name: str = "train") -> logging.Logger:
     sh.setFormatter(fmt)
     logger.addHandler(sh)
     os.makedirs(exp_dir, exist_ok=True)
-    fh = logging.FileHandler(os.path.join(exp_dir, "train.log"), encoding="utf-8")
-    fh.setFormatter(fmt)
-    logger.addHandler(fh)
+    if log_file:
+        fh = logging.FileHandler(os.path.join(exp_dir, "train.log"), encoding="utf-8")
+        fh.setFormatter(fmt)
+        logger.addHandler(fh)
     logger.propagate = False
     return logger
 
@@ -65,6 +69,19 @@ class SummaryWriter:
     def close(self) -> None:
         if self._writer is not None:
             self._writer.close()
+
+
+class NullWriter:
+    """The writer of a rank that is not the lead: drops every scalar."""
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 class MetricsCSV:

@@ -1,4 +1,4 @@
-"""The training loop: ``run_training(cfg)``, on one card.
+"""The training loop: ``run_training(cfg)``, on one card per process.
 
 Counterpart of ``rcnn_ocr_tpu/training/train.py:run_training``, section by
 section: seed, experiment dir, logger and config save; hyperparameters with
@@ -29,19 +29,36 @@ weights are drawn as flax's initializers draw them (``init_train_params``).
 
 ``export_artifact`` (validated at the start) exports a serving artifact
 from the requested slot after training (:mod:`rcnn_ocr_tpu_torch.export`),
-calibrating static int8 scales on validation images when asked.  Not
-served here, and refused when asked for: a mesh over more than one device
-and multi-process feeding (ROADMAP queue 1, item 13).  ``use_pallas`` and
-``compile_cache_dir`` mean nothing on the card and are only logged.
+calibrating static int8 scales on validation images when asked.
+``use_pallas`` and ``compile_cache_dir`` mean nothing on the card and are
+only logged.
+
+Data parallelism across processes (:mod:`rcnn_ocr_tpu_torch.parallel`), as
+JAX's loop runs over several hosts: under an initialized process group the
+data axis is the ranks (``mesh_shape`` must tile them, else a warning and
+pure DP; a ``model`` axis over 1 raises, tensor parallelism is not ported,
+ROADMAP queue 1, item 13).  The static batch rounds up to a multiple of the
+ranks (and of ``grad_accum``); every rank builds the same samplers and keeps
+its block of each global batch (``ProcessShardedBatchSampler``), its host
+augmentation seeded by the global row; the step reduces as
+:mod:`rcnn_ocr_tpu_torch.training.train_step` says; validation's text
+metrics are summed over the ranks (``global_metric_sum``), so every rank
+takes the same best-slot, scheduler, pruning and stopping decisions, and a
+SIGTERM seen by any rank stops all of them after the same step.  The lead
+rank alone writes ``train.log``, ``config.json``, TensorBoard, the metrics
+CSV, the three slots and the artifact; every rank resumes from the same
+slot.
 
     python -m rcnn_ocr_tpu_torch.training.train config.json [--device cpu]
+    python -m torch.distributed.run --standalone --nproc-per-node N \
+        -m rcnn_ocr_tpu_torch.training.train config.json [--device cpu] [--backend gloo]
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
-import math
+import json
 import os
 import random
 import signal
@@ -64,6 +81,7 @@ from rcnn_ocr_tpu_torch.data.loader import (
     BucketedBatchSampler,
     BucketedProportionalBatchSampler,
     DataLoader,
+    ProcessShardedBatchSampler,
     bucket_for_width,
     lift_buckets_for_ctc,
     optimal_width_buckets,
@@ -79,10 +97,23 @@ from rcnn_ocr_tpu_torch.export import (
 from rcnn_ocr_tpu_torch.inference import OCRInference, resolve_device
 from rcnn_ocr_tpu_torch.interop.jax_params import load_jax_variables
 from rcnn_ocr_tpu_torch.models.rcnn import RCNN, TIME_DOWNSAMPLE, init_train_params
+from rcnn_ocr_tpu_torch.ops import kernels
 from rcnn_ocr_tpu_torch.ops.ctc import ctc_greedy_collapse_np
+from rcnn_ocr_tpu_torch.parallel.mesh import (
+    global_metric_sum,
+    init_distributed,
+    make_mesh,
+    process_count,
+    process_index,
+)
 from rcnn_ocr_tpu_torch.training import checkpoint as ckpt_io
 from rcnn_ocr_tpu_torch.training.config import Config
-from rcnn_ocr_tpu_torch.training.loggers import MetricsCSV, SummaryWriter, setup_logger
+from rcnn_ocr_tpu_torch.training.loggers import (
+    MetricsCSV,
+    NullWriter,
+    SummaryWriter,
+    setup_logger,
+)
 from rcnn_ocr_tpu_torch.training.metrics import character_error_rate, word_error_rate
 from rcnn_ocr_tpu_torch.training.optim import (
     ReduceLROnPlateau,
@@ -119,13 +150,8 @@ def step_seed(seed: int, global_step: int) -> int:
     return int(np.random.SeedSequence([seed, global_step]).generate_state(1, np.uint64)[0] >> 1)
 
 
-def _check_unserved(cfg: Config, logger) -> None:
-    """Refuse what this slice does not serve; log what means nothing here."""
-    mesh_shape = cfg.get("mesh_shape")
-    if mesh_shape is not None and math.prod(int(d) for d in mesh_shape) > 1:
-        raise NotImplementedError(
-            f"mesh_shape {mesh_shape} asks for more than one device: data and tensor "
-            "parallelism are still to be ported (ROADMAP queue 1, item 13)")
+def _log_ignored(cfg: Config, logger) -> None:
+    """Log the keys that mean nothing on the card."""
     if cfg.get("use_pallas"):
         logger.info("use_pallas: ignored (on the card the CUDA kernels are always the path)")
     if cfg.get("compile_cache_dir"):
@@ -150,15 +176,21 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
         raise ValueError("p_EdgeCrop requires host augmentation (device_augment=false): "
                          "the crop applies to the raw image before ResizeAndPad")
 
+    # the data axis: the process group's ranks (a model axis over 1 raises)
+    mesh = make_mesh(cfg.get("mesh_shape"), tuple(cfg.get("mesh_axes") or ("data",)))
+    n_data = mesh.shape[mesh.axis_names[0]]
+    rank, is_lead = process_index(), process_index() == 0
+
     exp_dir = cfg.get("exp_dir")
     os.makedirs(exp_dir, exist_ok=True)
-    logger = setup_logger(exp_dir)
+    logger = setup_logger(exp_dir, log_file=is_lead)
     logger.info("Start training")
     logger.info(f"Experiment dir: {exp_dir}")
     logger.info(f"Seed: {seed}")
-    _check_unserved(cfg, logger)
-    cfg.save()
-    logger.info("Saved config to exp_dir/config.json")
+    _log_ignored(cfg, logger)
+    if is_lead:
+        cfg.save()
+        logger.info("Saved config to exp_dir/config.json")
 
     # --- hyperparameters (JAX's defaults and checks) ---
     train_csvs, train_roots = cfg.get("train_csvs"), cfg.get("train_roots")
@@ -200,15 +232,16 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
     profile_steps = int(cfg.get("profile_steps", 0))
     profile_dir = cfg.get("profile_dir") or os.path.join(exp_dir, "profile")
     device_augment = bool(cfg.get("device_augment", False))
-    # static per-step batch: a multiple of grad_accum (one card)
-    static_bs = -(-batch_size // grad_accum) * grad_accum
+    # static per-step batch: a multiple of the data axis and of grad_accum
+    bs_mult = n_data * grad_accum
+    static_bs = -(-batch_size // bs_mult) * bs_mult
     logger.info(f"Device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
                                     if dev.type == "cuda" else "")
-                + f"; static_batch={static_bs}")
+                + f"; mesh={mesh.shape}; rank {rank}; static_batch={static_bs}")
 
     log_dir = os.path.join(exp_dir, "logs")
-    writer = SummaryWriter(log_dir)
-    metrics_csv = MetricsCSV(os.path.join(exp_dir, "metrics_epoch.csv"))
+    writer = SummaryWriter(log_dir) if is_lead else NullWriter()
+    metrics_csv = MetricsCSV(os.path.join(exp_dir, "metrics_epoch.csv")) if is_lead else None
     slots = ("last", "best_loss", "best_acc")
     ckpt_paths = {s: os.path.join(exp_dir, f"{s}{ckpt_io.CKPT_SUFFIX}") for s in slots}
     weight_paths = {s: os.path.join(exp_dir, f"{s}{ckpt_io.WEIGHTS_SUFFIX}") for s in slots}
@@ -353,23 +386,40 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
         hist = {w: flat_buckets.count(w) for w in sorted(set(flat_buckets))}
         logger.info(f"Width buckets {width_buckets}: train histogram {hist}")
 
+    # every rank builds the same samplers (same seed) and keeps its block of
+    # each global batch
+    pcount = process_count()
+    local_static_bs = static_bs
+    if pcount > 1:
+        if static_bs % pcount:
+            raise ValueError(f"batch_size (static {static_bs}) must divide evenly across "
+                             f"{pcount} processes")
+        local_static_bs = static_bs // pcount
+        train_sampler = ProcessShardedBatchSampler(train_sampler, rank, pcount)
+        logger.info(f"Data-parallel feed: {pcount} ranks x {local_static_bs} local rows -> "
+                    f"global batch {static_bs}")
+
     def val_sampler(vs, vb):
         if vb is not None:
-            return BucketedBatchSampler(vb, batch_size, shuffle=False)
-        return ShuffleBatchSampler(vs, batch_size, shuffle=False)
+            sampler = BucketedBatchSampler(vb, batch_size, shuffle=False)
+        else:
+            sampler = ShuffleBatchSampler(vs, batch_size, shuffle=False)
+        if pcount > 1:
+            sampler = ProcessShardedBatchSampler(sampler, rank, pcount)
+        return sampler
 
     cache_dir = cfg.get("cache_dir")
     train_loader = DataLoader(
         train_dataset, train_sampler, charset, max_len, num_workers=loader_workers,
-        static_batch_size=static_bs, with_ctc=with_ctc, bucket_of=train_bucket_of,
+        static_batch_size=local_static_bs, with_ctc=with_ctc, bucket_of=train_bucket_of,
         transform_for_width=train_transform_for if width_buckets else None,
-        cache_dir=cache_dir, seed=seed)
+        cache_dir=cache_dir, seed=seed, shard_index=rank)
     val_loaders = [
         DataLoader(vs, val_sampler(vs, vb), charset, max_len, num_workers=loader_workers,
-                   static_batch_size=static_bs, with_ctc=with_ctc, bucket_of=vb,
+                   static_batch_size=local_static_bs, with_ctc=with_ctc, bucket_of=vb,
                    transform_for_width=((lambda w: ResizeAndPad(img_h=img_h, img_w=w))
                                         if vb is not None else None),
-                   cache_dir=cache_dir, seed=seed)
+                   cache_dir=cache_dir, seed=seed, shard_index=rank)
         for vs, vb in zip(val_sets, val_bucket_ofs)]
     logger.info(f"Datasets: train={sum(len(ds) for ds in train_sets)} samples across "
                 f"{len(train_sets)} set(s); val={sum(len(ds) for ds in val_sets)} samples "
@@ -422,9 +472,12 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
                       for k, v in arrays.items()}
         return arrays
 
-    saver = ckpt_io.AsyncCheckpointer() if cfg.get("async_checkpoint", True) else None
+    saver = (ckpt_io.AsyncCheckpointer() if cfg.get("async_checkpoint", True) and is_lead
+             else None)
 
     def save_slot(slot: str, epoch: int, val_loss, val_acc):
+        if not is_lead:
+            return
         t_save = time.perf_counter()
         args = (state, scheduler.state_dict() if scheduler is not None else None, epoch,
                 global_step, val_loss, val_acc, list(charset.itos), charset.stoi,
@@ -451,15 +504,27 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
 
     result = {"val_acc": best_val_acc, "val_loss": best_val_loss, "exp_dir": exp_dir,
               "start_epoch": start_epoch, "epochs": []}
-    show_progress = bool(cfg.get("progress", True))
+    show_progress = is_lead and bool(cfg.get("progress", True))
     plain_progress = show_progress and not has_tqdm()
     step_timer = StepTimer()
+
+    def preempted() -> bool:
+        """A signal seen by any rank stops every rank after the same step
+        (one all_reduce per step under a group)."""
+        seen = preempt["signum"] is not None
+        if pcount == 1:
+            return seen
+        return bool(global_metric_sum([float(seen)])[0] > 0)
+
+    if pcount > 1:  # start the epochs together (set-up differs by rank)
+        global_metric_sum([0.0])
     try:
         for epoch in range(start_epoch, epochs + 1):
             t0 = time.perf_counter()
             loss_accum = None  # on the device: no sync per step
             n_batches = imgs_seen = 0
-            profiling = profile_steps > 0 and epoch == start_epoch
+            allreduce_s0 = train_step.allreduce_s
+            profiling = profile_steps > 0 and epoch == start_epoch and is_lead
             window = None
             warmup = min(PROFILE_WARMUP, max(0, len(train_loader) - profile_steps))
             profile_scope = contextlib.ExitStack()
@@ -493,7 +558,8 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
                             logger.info(f"epoch {epoch:03d} step {n_batches}/"
                                         f"{len(train_loader)} loss {loss_val:.4f}")
                     bar.update(1)
-                    if preempt["signum"] is not None:
+                    if preempted():
+                        preempt["signum"] = preempt["signum"] or "another rank's"
                         break
             if window is not None:
                 result["profile"] = dict(window.as_dict(), steps=n_batches - warmup
@@ -505,6 +571,7 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
             timing = {"epoch": epoch, "steps": n_batches, "images": imgs_seen,
                       "train_s": train_time, "loader_wait_s": train_loader.wait_seconds,
                       "val_batches": 0, "checkpoint_s": 0.0,
+                      "allreduce_s": train_step.allreduce_s - allreduce_s0,
                       "train_loss": avg_train_loss, "step_timer": step_timer.summary()}
             result["epochs"].append(timing)
             writer.add_scalar("Loss/train_epoch", avg_train_loss, epoch)
@@ -513,7 +580,8 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
             if timing["step_timer"].get("steps"):
                 writer.add_scalar("Throughput/step_ms_p95", timing["step_timer"]["p95_ms"], epoch)
 
-            if preempt["signum"] is not None:
+            if preempted():  # agreed: a signal after the last step counts on every rank
+                preempt["signum"] = preempt["signum"] or "another rank's"
                 logger.warning(f"Signal {preempt['signum']} caught mid-epoch {epoch} "
                                f"({n_batches} steps in): writing the 'last' slot and stopping "
                                f"- resume with resume_path='{exp_dir}' (the interrupted epoch "
@@ -538,8 +606,9 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
             current_lr = get_lr(state.optimizer)
             timing.update(val_loss=avg_val_loss, val_acc=val_acc, val_cer=val_cer,
                           val_wer=val_wer, lr=current_lr)
-            metrics_csv.write_row(epoch, avg_train_loss, current_lr, avg_val_loss, val_acc,
-                                  val_cer, val_wer)
+            if metrics_csv is not None:
+                metrics_csv.write_row(epoch, avg_train_loss, current_lr, avg_val_loss, val_acc,
+                                      val_cer, val_wer)
             parts = [f"Epoch {epoch:03d}/{epochs}", f"train_loss={avg_train_loss:.4f}"]
             if should_eval:
                 parts += [f"val_loss={avg_val_loss:.4f}", f"acc={val_acc:.4f}",
@@ -588,7 +657,7 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
                    "global_step": global_step})
     # export the serving artifact from the requested slot (a preempted run
     # exports when it resumes; a pruned trial is thrown away)
-    if export_req and not result.get("preempted") and not result.get("pruned"):
+    if export_req and is_lead and not result.get("preempted") and not result.get("pruned"):
         artifact_dir = _export_artifact(
             export_req, weight_paths[export_req["slot"]], charset_path, exp_dir, dev,
             img_h=img_h, img_w=img_w, hidden_size=hidden_size, batch_size=batch_size,
@@ -640,7 +709,9 @@ def _validate(val_loaders, eval_step, state, charset: Charset, max_len: int, wri
     """Loss, accuracy, CER and WER per validation set (TensorBoard) and in
     total (returned, with the number of batches): teacher-forced loss,
     greedy attention decodes, or the collapsed CTC frame argmaxes for a CTC
-    head."""
+    head.  Under a group the losses are global per batch (the eval step's)
+    and the text metrics of each rank's rows are summed over the ranks, so
+    every rank returns the same numbers."""
     itos = list(charset.itos)
     total_loss = 0.0
     total_batches = total_n = total_correct = 0
@@ -672,10 +743,11 @@ def _validate(val_loaders, eval_step, state, charset: Charset, max_len: int, wri
                                           charset.blank_id))
                 refs.append(decode_tokens(t_row, itos, charset.pad_id, charset.eos_id,
                                           charset.blank_id))
-        n_set = len(refs)
-        n_correct = sum(1 for r, h in zip(refs, hyps) if r == h)
-        cer_sum = sum(character_error_rate(r, h) for r, h in zip(refs, hyps))
-        wer_sum = sum(word_error_rate(r, h) for r, h in zip(refs, hyps))
+        n_set, n_correct, cer_sum, wer_sum = global_metric_sum([
+            len(refs), sum(1 for r, h in zip(refs, hyps) if r == h),
+            sum(character_error_rate(r, h) for r, h in zip(refs, hyps)),
+            sum(word_error_rate(r, h) for r, h in zip(refs, hyps))])
+        n_set, n_correct = int(n_set), int(n_correct)
         writer.add_scalar(f"Loss/val_set_{i}", set_loss / max(1, set_batches), epoch)
         writer.add_scalar(f"Accuracy/val_set_{i}", n_correct / max(1, n_set), epoch)
         writer.add_scalar(f"CER/val_set_{i}", cer_sum / max(1, n_set), epoch)
@@ -693,9 +765,39 @@ def _validate(val_loaders, eval_step, state, charset: Charset, max_len: int, wri
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Train the recognizer from a JSON config.")
     ap.add_argument("config", nargs="?", default="configs/config.json")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; cuda:<LOCAL_RANK> under torch.distributed.run), "
+                         "cuda:N or cpu")
+    ap.add_argument("--backend", default=None,
+                    help="process-group backend under torch.distributed.run (default: nccl "
+                         "on a card, gloo on the CPU; two ranks on one card need gloo)")
+    ap.add_argument("--dist-timeout", type=float, default=None,
+                    help="seconds any collective may wait for the other ranks")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="deterministic kernels only (torch.use_deterministic_algorithms; "
+                         "an op without one raises): two runs give the same bits")
+    ap.add_argument("--result-json", default=None,
+                    help="write the run's result and kernel launch counts to this file "
+                         "(a rank's own file under a group: <stem>.rank<R>.json)")
     args = ap.parse_args(argv)
-    result = run_training(Config(args.config), device=args.device)
+    device = args.device
+    if "WORLD_SIZE" in os.environ:  # under the launcher: join its group
+        device = init_distributed(args.backend, args.device, args.dist_timeout)
+    if args.deterministic:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+    try:
+        result = run_training(Config(args.config), device=device)
+        if args.result_json:
+            path = args.result_json
+            if process_count() > 1:
+                path = f"{os.path.splitext(path)[0]}.rank{process_index()}.json"
+            with open(path, "w", encoding="utf-8") as f:
+                json.dump(dict(result, rank=process_index(), ranks=process_count(),
+                               kernel_launches=kernels.launch_counts()), f, default=str)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     print(f"val_acc={result['val_acc']:.4f} val_loss={result['val_loss']:.4f} "
           f"exp_dir={result['exp_dir']}")
     return 0

@@ -16,6 +16,17 @@ rows (``masked_token_ce``, optional label smoothing) for the attention head,
 :func:`rcnn_ocr_tpu_torch.ops.ctc.ctc_loss` for the CTC head, and
 ``attn + ctc_loss_weight * ctc`` for ``head="both"``.
 
+Under a process group (data parallelism, :mod:`rcnn_ocr_tpu_torch.parallel`)
+each rank passes its own rows of the global batch and the step runs inside
+``batch_shard``: the random draws cover the global batch (each rank keeps
+its rows), batch norm takes the global batch's statistics, and the losses
+divide by the global count of tokens or rows, so that the ranks' losses sum
+to the one-process loss.  After the backward one all_reduce sums the
+gradients and the losses over the ranks, so clipping and the optimizer see
+the global gradient and every rank returns the global losses.  The eval
+step's losses are global the same way.  Without a group nothing of this
+runs and the arithmetic is the same.
+
 ``grad_accum=A > 1`` takes the batch stacked ``[A, B/A, ...]`` like JAX's
 and runs the A microbatches in turn at fixed parameters: the update uses
 the mean of their gradients, and batch norm's running statistics advance
@@ -26,6 +37,7 @@ once per microbatch.  ``ema_decay=d > 0`` advances ``ema <- d * ema +
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
@@ -37,6 +49,7 @@ from rcnn_ocr_tpu_torch.inference import resolve_device
 from rcnn_ocr_tpu_torch.ops import augment as augment_ops
 from rcnn_ocr_tpu_torch.ops.augment import device_normalize
 from rcnn_ocr_tpu_torch.ops.ctc import ctc_loss
+from rcnn_ocr_tpu_torch.parallel.mesh import batch_shard, global_sum, sum_into_place
 from rcnn_ocr_tpu_torch.training.optim import OptimizerSpec
 
 HEADS = ("attention", "ctc", "both")
@@ -83,7 +96,8 @@ def masked_token_ce(logits: torch.Tensor, targets: torch.Tensor, pad_id: int,
                     label_smoothing: float = 0.0) -> torch.Tensor:
     """Mean cross-entropy over non-PAD tokens of valid rows; with
     ``label_smoothing = eps``, ``(1 - eps) * CE(target) + eps * mean_v(-log p_v)``
-    per token."""
+    per token.  Under a data-parallel step the count divided by is the
+    global batch's."""
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     if label_smoothing > 0.0:
@@ -91,7 +105,7 @@ def masked_token_ce(logits: torch.Tensor, targets: torch.Tensor, pad_id: int,
     mask = (targets != pad_id).float()
     if valid_rows is not None:
         mask = mask * valid_rows.float()[:, None]
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return (nll * mask).sum() / global_sum(mask.sum()).clamp_min(1.0)
 
 
 def _on_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -161,12 +175,21 @@ def make_train_step(model: nn.Module, tx: OptimizerSpec, max_len: int, pad_id: i
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         sums: Dict[str, torch.Tensor] = {}
-        for a in range(grad_accum):
-            micro = batch if grad_accum == 1 else {k: v[a] for k, v in batch.items()}
-            total, losses = loss_fn(micro, generator)
-            (total / grad_accum).backward()
-            for k, v in {"loss": total, **losses}.items():
-                sums[k] = sums.get(k, 0.0) + v.detach()
+        with batch_shard() as shard:
+            for a in range(grad_accum):
+                micro = batch if grad_accum == 1 else {k: v[a] for k, v in batch.items()}
+                total, losses = loss_fn(micro, generator)
+                (total / grad_accum).backward()
+                for k, v in {"loss": total, **losses}.items():
+                    sums[k] = sums.get(k, 0.0) + v.detach()
+        if shard is not None:  # one reduction: every gradient and the losses
+            t0 = time.perf_counter()
+            names = list(sums)
+            loss_vec = torch.stack([sums[k] for k in names]).float()
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            sum_into_place(grads + [loss_vec])
+            sums = dict(zip(names, loss_vec.unbind()))
+            train_step.allreduce_s += time.perf_counter() - t0
         tx.apply(opt)
         if ema_decay > 0.0:
             d = float(ema_decay)
@@ -179,6 +202,10 @@ def make_train_step(model: nn.Module, tx: OptimizerSpec, max_len: int, pad_id: i
         state.step += 1
         return {k: v / grad_accum for k, v in sums.items()}
 
+    # host seconds spent in the gradient all_reduce (a group only): gloo
+    # copies through the host, so this holds the copies and the wait for
+    # the slowest rank; NCCL's is the enqueue
+    train_step.allreduce_s = 0.0
     return train_step
 
 
@@ -194,7 +221,10 @@ def make_eval_step(model: nn.Module, max_len: int, pad_id: int, head: str = "att
     ``use_ema=True`` evaluates ``state.ema_params`` (the weights an EMA run
     saves), as JAX's ``make_eval_step(use_ema=True)`` does: each parameter's
     storage is swapped for its EMA tensor for the call and swapped back
-    after it, so nothing is copied and nothing stays behind."""
+    after it, so nothing is copied and nothing stays behind.
+
+    Under a process group ``val_loss`` and ``ctc_val_loss`` are the global
+    batch's; ``pred_ids`` and ``ctc_frame_ids`` are this rank's rows."""
     if head not in HEADS:
         raise ValueError(f"unknown head: {head}")
     with_attention = head in ("attention", "both")
@@ -219,6 +249,16 @@ def make_eval_step(model: nn.Module, max_len: int, pad_id: int, head: str = "att
                 p.data = own[n]
 
     def evaluate(device: torch.device, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        with batch_shard() as shard:
+            out = evaluate_rows(device, batch)
+            if shard is not None:  # the ranks' shares of the losses -> global losses
+                names = [k for k in out if k.endswith("val_loss")]
+                losses = torch.stack([out[k] for k in names]).float()
+                sum_into_place([losses])
+                out.update(zip(names, losses.unbind()))
+        return out
+
+    def evaluate_rows(device: torch.device, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         batch = _on_device(batch, device)
         outs = model.eval_outputs(device_normalize(batch["image"]),
                                   text=batch["text_in"] if with_attention else None,

@@ -236,8 +236,8 @@ def test_later_slice_options_raise(engines, jax_checkpoints):
     """Beams and ``"auto:K"`` buckets arrived with the beam slice, the
     serving path and the long-line decodes with the next, int8 with a later
     one (``tests/test_torch_port_quant.py``); what is still to come
-    (multi-card serving, ``mesh``) is not part of the engine yet, so asking
-    for it fails instead of being ignored."""
+    (multi-card serving, ``mesh``) raises naming its ROADMAP item instead of
+    being ignored."""
     ours = engines[0]
     img = _images(1)[0]
     assert isinstance(ours.predict(img, max_length=MAX_LEN, beam_width=4), str)
@@ -255,5 +255,5 @@ def test_later_slice_options_raise(engines, jax_checkpoints):
     with pytest.raises(ValueError, match="quantize=True"):
         ours.calibrate(img)
     assert OCRInference(full, device="cpu", quantize=True).model.quantize
-    with pytest.raises(TypeError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         OCRInference(full, device="cpu", mesh=True)

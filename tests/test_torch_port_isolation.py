@@ -73,6 +73,8 @@ def test_port_sources_are_not_gitignored():
     files = SOURCES + sorted(csrc.glob("**/*.cu")) + sorted(csrc.glob("**/*.cpp"))
     assert csrc / "host" / "ctc_beam.cpp" in files
     assert csrc / "host" / "letterbox.cpp" in files
+    port = REPO / "rcnn_ocr_tpu_torch"
+    assert port / "parallel" / "mesh.py" in files and port / "hpo" / "driver.py" in files
     probe = subprocess.run(["git", "rev-parse", "--is-inside-work-tree"], cwd=str(REPO),
                            capture_output=True, text=True)
     if probe.returncode != 0:
