@@ -117,6 +117,28 @@
    --artifact`` in a process of its own answers 64 lines from 16 client
    threads with the in-process strings; a SIGHUP after a re-export at batch
    128, with clients in flight, drops no request.
+7c. Mesh phase (serving across replicas), on the main path's model and 512
+   lines, bf16 at batch 256.  (1) ``OCRInference(mesh=True)`` on the visible
+   cards; with one card its ``predict`` and ``predict_ctc`` strings,
+   confidences and launch counts must equal ``mesh=None``'s bit for bit.
+   (2) ``mesh=["cuda:0", "cuda:0"]`` (two replicas, each a thread and a
+   stream, one 128-row block of every batch), and ``["cuda:0", "cuda:1"]``
+   where there are two cards: ``predict`` and ``predict_ctc`` in bf16 and in
+   fp32 and ``predict_serving`` (CTC greedy and attention) launch 11 + 2
+   per block, two blocks a batch; fp32 CTC strings equal the engine without
+   a mesh on every row, fp32 attention and every bf16 decode on >= 99%
+   (differing rows printed).  With two cards, K1 and K2 also run on cuda:1
+   from a thread whose current card is cuda:0, held against their plain
+   versions.  (3) A ``ctc_greedy`` artifact loaded with the mesh equals the
+   same artifact without one on every row.  (4) ``python -m
+   rcnn_ocr_tpu_torch.serve --mesh`` and the same daemon without ``--mesh``,
+   each in a process of its own, under ``python -m
+   rcnn_ocr_tpu_torch.serve_loadtest`` at 1, 16 and 64 clients (every
+   request answered); their JSON lines are printed beside the daemon
+   phase's readings.  (5) The model exported as a full-layout ``.pth`` and
+   read back by ``OCRInference``: the same attention strings.  Prints img/s
+   of every engine measured in this call and says whether a run across
+   cards happened.
 8. Training phase.  (a) Gradient check: the same full-width model in fp32
    at batch 32, train mode, head "both" with dropout, DropBlock and
    sampling off, one ``make_train_step`` (SGD at lr 0, so the weights stay)
@@ -238,6 +260,8 @@ COLD_BYTES = 100_000_000  # twice the H100's 50 MB L2
 # to 40x240), the daemon's batch and coalescing window, client threads
 DAEMON_CANVAS, DAEMON_BATCH, DAEMON_WAIT_MS = (80, 640), 256, 5.0
 DAEMON_CONCURRENCY = (1, 16, 64)
+# mesh phase: the load tool's (concurrency, requests) levels
+MESH_LOAD = ((1, 64), (16, 256), (64, 512))
 RELOAD_MEM_MIB = 8
 JPEG_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "jpeg")
 # training phase: configs/config.json's shape and optimizer
@@ -522,6 +546,15 @@ def line_images(n: int, seed: int):
     return out
 
 
+def device_batches(engine, images, batch: int):
+    """``(chunk, real rows, normalized batch on the card)`` per batch the
+    engine's ``predict`` builds from ``images``."""
+    from rcnn_ocr_tpu_torch.ops.augment import device_normalize
+
+    for chunk, n_real, x in engine._batches(images, batch):
+        yield chunk, n_real, device_normalize(engine._device_batch(x))
+
+
 def main_path(kernels, power: str):
     from rcnn_ocr_tpu_torch.inference import OCRInference
     from rcnn_ocr_tpu_torch.interop.jax_params import to_jax_variables
@@ -580,7 +613,7 @@ def main_path(kernels, power: str):
     t0 = time.perf_counter()
     np.stack([engine._preprocess(img, None) for img in images[:BATCH]])
     host_ms = (time.perf_counter() - t0) * 1e3
-    _, _, x = next(engine._batches(images[:BATCH], BATCH))
+    _, _, x = next(device_batches(engine, images[:BATCH], BATCH))
     with torch.inference_mode():
         breakdown = {
             "host_resize_pad_ms": host_ms,
@@ -613,7 +646,7 @@ def main_path(kernels, power: str):
     enc_err = logit_err = 0.0
     attn_rows = attn_same = ctc_same = 0
     with torch.inference_mode():
-        for _, n_real, x in ref._batches(images, BATCH):
+        for _, n_real, x in device_batches(ref, images, BATCH):
             m = ref.model
             enc_k = m.encode(x)
             ctc_k = m._ctc_head(enc_k)
@@ -719,7 +752,7 @@ def beam_phase(kernels, variables, images, power: str):
 
     # where one bs-256 batch's time goes (bf16): device time of the encoder and
     # of each search alone (CUDA events), the host beam, the profiled idle share
-    _, _, x = next(engine._batches(images[:BATCH], BATCH))
+    _, _, x = next(device_batches(engine, images[:BATCH], BATCH))
     m = engine.model
     with torch.inference_mode():
         enc = m.encode(x)
@@ -736,7 +769,7 @@ def beam_phase(kernels, variables, images, power: str):
             "device_attention_beam_search_ms": time_ms(
                 lambda: m.attn.beam_search(enc, BEAM_WIDTH, MAX_LENGTH), iters=3),
             "device_attention_beam_search_lm_ms": time_ms(
-                lambda: m.attn.beam_search(enc, BEAM_WIDTH, MAX_LENGTH, lm_logp=engine._lm,
+                lambda: m.attn.beam_search(enc, BEAM_WIDTH, MAX_LENGTH, lm_logp=engine._lms[0],
                                            lm_weight=LM_WEIGHT), iters=3),
             "device_ctc_beam_search_ms": time_ms(
                 lambda: ctc_beam_from_logits(logits, blank_id=cs.ctc_blank_id,
@@ -744,7 +777,7 @@ def beam_phase(kernels, variables, images, power: str):
             "device_ctc_beam_search_lm_ms": time_ms(
                 lambda: ctc_beam_from_logits(logits, blank_id=cs.ctc_blank_id,
                                              beam_width=CTC_BEAM, prune_k=CTC_BEAM,
-                                             lm_logp=engine._lm, lm_weight=LM_WEIGHT), iters=3),
+                                             lm_logp=engine._lms[0], lm_weight=LM_WEIGHT), iters=3),
             "host_ctc_beam_ms": host_ms,
         }
     for mode in ("attention_beam", "attention_beam_lm", "ctc_beam", "ctc_beam_lm",
@@ -760,12 +793,12 @@ def beam_phase(kernels, variables, images, power: str):
                        img_w=IMG_W, dtype=torch.float32, lm=lm)
     m = ref.model
     cpu_attn = copy.deepcopy(m.attn).cpu()
-    lm_t = ref._lm
+    lm_t = ref._lms[0]
     rows = beam1 = host_same = 0
     attn_cpu_same, ctc_lp_err = 0, 0.0
     ties = []
     with torch.inference_mode():
-        for chunk, n_real, x in ref._batches(images, BATCH):
+        for chunk, n_real, x in device_batches(ref, images, BATCH):
             enc = m.encode(x)
             # beam width 1 is greedy through the first EOS, but for near-ties:
             # the beam ranks cum + log_softmax(logits), and where the greedy
@@ -1894,6 +1927,299 @@ def int8_artifact_phase(kernels, variables, images, power: str):
     return out
 
 
+def serve_and_load(args, png_path: str, what: str, power: str) -> dict:
+    """``python -m rcnn_ocr_tpu_torch.serve`` with ``args`` in a process of its
+    own, driven by ``python -m rcnn_ocr_tpu_torch.serve_loadtest`` with one
+    line at each of MESH_LOAD's concurrencies: their final JSON lines, and
+    the daemon's start-up seconds."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen([sys.executable, "-m", "rcnn_ocr_tpu_torch.serve", *args,
+                             "--port", "0"], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    out = {"levels": {}}
+    try:
+        t0 = time.perf_counter()
+        base = None
+        for line in proc.stdout:
+            if line.startswith("Serving on "):
+                base = line.split()[2]
+                break
+        check(base is not None, f"{what}: the daemon never started serving")
+        out["start_s"] = time.perf_counter() - t0
+        with open(png_path, "rb") as f:
+            t0 = time.perf_counter()
+            _post(base, f.read(), "image/png")  # the first batch's warm-up, not counted
+        out["first_request_s"] = time.perf_counter() - t0
+        print(f"  {what}: serving {out['start_s']:.1f} s after the process started; the first "
+              f"request (warm-up, not counted) {out['first_request_s']:.2f} s")
+        for conc, n in MESH_LOAD:
+            run = subprocess.run([sys.executable, "-m", "rcnn_ocr_tpu_torch.serve_loadtest",
+                                  "--url", base, "--image", png_path, "--requests", str(n),
+                                  "--concurrency", str(conc)], cwd=REPO, env=env,
+                                 capture_output=True, text=True, timeout=300)
+            check(run.returncode == 0, f"{what} c={conc}: the load tool exited "
+                  f"{run.returncode}: {run.stdout[-2000:]} {run.stderr[-2000:]}")
+            last = run.stdout.strip().splitlines()[-1]
+            result = json.loads(last)
+            check(result["ok"] == n and result["errors"] == 0
+                  and result["server"]["images_served"] == n,
+                  f"{what} c={conc}: {result['ok']}/{n} answered, {result['errors']} errors")
+            out["levels"][f"c{conc}"] = result
+            print(f"  {what} c={conc}: {last} on {power}")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(10)
+    check(proc.returncode == 0, f"{what}: the daemon exited {proc.returncode}")
+    return out
+
+
+def kernels_on_a_second_card() -> dict:
+    """K1 and K2 on cuda:1 from a thread whose current card is cuda:0, at
+    the main path's shapes, against their plain versions."""
+    from rcnn_ocr_tpu_torch.ops.bilstm_scan import bilstm_scan, scan_reference
+    from rcnn_ocr_tpu_torch.ops.se_scale import se_scale, se_scale_reference
+
+    dev = torch.device("cuda", 1)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(BATCH, 8, 32, 256, device=dev, generator=g).to(torch.bfloat16)
+    w1 = torch.randn(256, 16, device=dev, generator=g) / 16
+    w2 = torch.randn(16, 256, device=dev, generator=g) / 4
+    xs = torch.randn(LSTM_T, 2, BATCH, 4 * HIDDEN, device=dev, generator=g)
+    w_hh = (torch.randn(2, HIDDEN, 4 * HIDDEN, device=dev, generator=g) / 16).to(torch.bfloat16)
+    got = {}
+
+    def launch():
+        torch.cuda.set_device(0)
+        got["se"], got["lstm"] = se_scale(x, w1, w2), bilstm_scan(xs, w_hh, HIDDEN)
+        torch.cuda.synchronize(dev)
+
+    thread = threading.Thread(target=launch)
+    thread.start()
+    thread.join()
+    return {"se_scale": held(got["se"], se_scale_reference(x, w1, w2), what="K1 on cuda:1",
+                             **TOL["bf16"]),
+            "bilstm_scan": held(got["lstm"], scan_reference(xs, w_hh, HIDDEN),
+                                what="K2 on cuda:1", **TOL["fp32"])}
+
+
+def mesh_phase(kernels, variables, images, power: str, daemon: dict) -> dict:
+    """Serving across replicas: mesh=True on the visible cards, two replicas
+    on cuda:0 (and across cuda:0 and cuda:1 where there are two cards), an
+    artifact under a mesh, ``serve --mesh`` under the load tool and a .pth
+    export read back."""
+    from rcnn_ocr_tpu_torch.data.image_io import png_encode
+    from rcnn_ocr_tpu_torch.export import ServingArtifact, export_serving_artifact
+    from rcnn_ocr_tpu_torch.inference import OCRInference
+    from rcnn_ocr_tpu_torch.interop.torch_export import save_torch_checkpoint
+    from rcnn_ocr_tpu_torch.training.checkpoint import msgpack_serialize
+    from rcnn_ocr_tpu_torch.vocab.charset import Charset
+
+    t_phase = time.perf_counter()
+    charset_path = os.path.join(REPO, "configs", "charset.txt")
+    root = os.path.join(REPO, "build", "chip_smoke", "mesh")
+    os.makedirs(root, exist_ok=True)
+    n_cards = torch.cuda.device_count()
+    n_batches = -(-N_IMAGES // BATCH)
+    out = {"cards": n_cards, "launches": {}, "img_s": {}}
+    launches = collections.Counter()
+
+    def engine(dtype=torch.bfloat16, **kw):
+        return OCRInference(variables, charset_path=charset_path, device="cuda", img_h=IMG_H,
+                            img_w=IMG_W, dtype=dtype, **kw)
+
+    def counted(name, call, encodes):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = call()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        check(counts == {"se_scale": 11 * encodes, "bilstm_scan": 2 * encodes},
+              f"{name} launched {counts}: not 11 + 2 per block over {encodes} blocks")
+        launches.update(counts)
+        out["launches"][name] = counts
+        return got, wall
+
+    calls = {
+        "predict": lambda e: e.predict(images, max_length=MAX_LENGTH, batch_size=BATCH,
+                                       return_confidence=True),
+        "predict_ctc": lambda e: e.predict_ctc(images, batch_size=BATCH, return_confidence=True),
+    }
+    base = engine()
+    want = {}
+    for name, call in calls.items():
+        call(base)  # warm-up
+        want[name], wall = counted(f"no_mesh_{name}", lambda: call(base), n_batches)
+        out["img_s"][f"no_mesh_{name}"] = N_IMAGES / wall
+
+    # (1) mesh=True on the visible cards: with one card, the same bits and launches
+    one = engine(mesh=True)
+    check(len(one._replicas) == n_cards, f"mesh=True made {len(one._replicas)} replicas")
+    if n_cards == 1:
+        for name, call in calls.items():
+            call(one)
+            got, wall = counted(f"mesh_true_{name}", lambda: call(one), n_batches)
+            out["img_s"][f"mesh_true_{name}"] = N_IMAGES / wall
+            check(got == want[name], f"mesh=True {name}: strings or confidences differ from "
+                  "mesh=None")
+        print(f"  mesh=True on 1 card: predict and predict_ctc strings and confidences equal "
+              f"mesh=None bit for bit, 11 + 2 launches per batch")
+    del one
+
+    # (2) two replicas (one card twice, and two cards where there are).  A
+    # replica decodes a 128-row block, so the engine without a mesh at batch
+    # 128 decodes the same rows as the same batches: the replicas must equal
+    # it exactly.  Against batch 256, a convolution may take another cuDNN
+    # algorithm for 128 rows: the agreement is printed beside the same
+    # engine's batch-128-vs-256 agreement (they are equal when the exact
+    # check holds), and held where the PR's bounds say.
+    meshes = {"cuda:0 x2": ["cuda:0", "cuda:0"]}
+    if n_cards >= 2:
+        meshes["cuda:0 + cuda:1"] = ["cuda:0", "cuda:1"]
+    else:
+        print("  mesh across cards: not run (1 card)")
+    out["across_cards"] = n_cards >= 2
+    base32 = engine(torch.float32)
+    half = BATCH // 2
+    decodes = {  # name: (dtype, call of (engine, batch size))
+        "bf16_predict": (torch.bfloat16, lambda e, b: e.predict(
+            images, max_length=MAX_LENGTH, batch_size=b, return_confidence=True)),
+        "bf16_predict_ctc": (torch.bfloat16, lambda e, b: e.predict_ctc(
+            images, batch_size=b, return_confidence=True)),
+        "bf16_serving_ctc_greedy": (torch.bfloat16, lambda e, b: e.predict_serving(
+            images, method="ctc_greedy", batch_size=b, canvas="auto", max_length=MAX_LENGTH)),
+        "bf16_serving_attention": (torch.bfloat16, lambda e, b: e.predict_serving(
+            images, method="attention", batch_size=b, canvas="auto", max_length=MAX_LENGTH)),
+        "fp32_predict": (torch.float32, lambda e, b: e.predict(
+            images, max_length=MAX_LENGTH, batch_size=b)),
+        "fp32_predict_ctc": (torch.float32, lambda e, b: e.predict_ctc(images, batch_size=b)),
+    }
+    # where batch 128 and 256 part: the convolution stack on the same rows,
+    # through the plain versions (no kernel of ours), bf16 and fp32
+    with torch.inference_mode(), kernels.plain_only():
+        for eng, tag in ((base, "bf16"), (base32, "fp32")):
+            _, _, x = next(device_batches(eng, images[:BATCH], BATCH))
+            part = eng.model.cnn(x[:half].contiguous()).float()
+            out[f"cnn_{tag}_max_diff_128_vs_256"] = float(
+                (eng.model.cnn(x)[:half].float() - part).abs().max())
+    print(f"  the CNN's features of rows 0-{half - 1}, plain versions, batch {half} vs "
+          f"{BATCH}: max abs diff bf16 {out['cnn_bf16_max_diff_128_vs_256']:.3e}, fp32 "
+          f"{out['cnn_fp32_max_diff_128_vs_256']:.3e}")
+    check(out["cnn_fp32_max_diff_128_vs_256"] == 0.0,
+          "fp32 convolutions give other bits at batch 128 than at 256")
+    # the bounds against batch 256 (fraction of rows); None: printed only
+    bounds = {"fp32_predict_ctc": 1.0, "fp32_predict": 0.99}
+    refs = {}
+    for name, (dtype, call) in decodes.items():
+        eng = base if dtype == torch.bfloat16 else base32
+        refs[name] = (call(eng, BATCH), call(eng, half))
+    for label, devices in meshes.items():
+        res = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            two = engine(dtype, mesh=devices)
+            for name, (dt, call) in decodes.items():
+                if dt != dtype:
+                    continue
+                call(two, BATCH)  # warm-up
+                got, wall = counted(f"{label}_{name}", lambda: call(two, BATCH), 2 * n_batches)
+                out["img_s"][f"{label}_{name}"] = N_IMAGES / wall
+                full, blocks = refs[name]
+                exact = sum(a == b for a, b in zip(got, blocks))
+                check(exact == N_IMAGES, f"{label} {name}: {exact}/{N_IMAGES} rows equal the "
+                      f"engine without a mesh at batch {half} (strings and confidences)")
+                text = [r[0] if isinstance(r, tuple) else r for r in got]
+                want_full = [r[0] if isinstance(r, tuple) else r for r in full]
+                control = sum(a == b for a, b in zip(
+                    [r[0] if isinstance(r, tuple) else r for r in blocks], want_full))
+                same = sum(a == b for a, b in zip(text, want_full))
+                differing = [i for i, (a, b) in enumerate(zip(text, want_full)) if a != b]
+                for i in differing[:4]:
+                    print(f"    {label} {name}: row {i}: {text[i]!r} vs batch {BATCH} "
+                          f"{want_full[i]!r}")
+                res[name] = dict(equal_batch_128=exact, equal_batch_256=same,
+                                 no_mesh_128_vs_256=control)
+                need = bounds.get(name)
+                if need is not None:
+                    check(same >= need * N_IMAGES, f"{label} {name}: {same}/{N_IMAGES} rows "
+                          f"equal the engine without a mesh at batch {BATCH}")
+            del two
+        out[label] = res
+        print(f"  {label}: 2 x (11 + 2) launches per batch; every decode equals the engine "
+              f"without a mesh at batch {half} on {N_IMAGES}/{N_IMAGES} rows (strings and "
+              f"confidences); rows equal batch {BATCH} (the same engine's batch {half} vs "
+              f"{BATCH} beside): " + ", ".join(
+                  f"{k} {v['equal_batch_256']} ({v['no_mesh_128_vs_256']})"
+                  for k, v in res.items()))
+    del base32
+    if n_cards >= 2:
+        out["kernels_on_cuda1"] = kernels_on_a_second_card()
+
+    # (3) an artifact under a mesh: equal to the same artifact without one
+    # and to one exported at the replicas' block size
+    arts = {}
+    for b in (BATCH, half):
+        arts[b] = os.path.join(root, f"ctc_greedy_b{b}")
+        export_serving_artifact(base, arts[b], method="ctc_greedy", batch_size=b,
+                                canvas=DAEMON_CANVAS)
+    plain_art = ServingArtifact.load(arts[BATCH]).predict(images)
+    block_art = ServingArtifact.load(arts[half]).predict(images)
+    for label, devices in meshes.items():
+        sharded = ServingArtifact.load(arts[BATCH], mesh=devices)
+        got, wall = counted(f"{label}_artifact", lambda: sharded.predict(images),
+                            2 * n_batches)
+        exact = sum(a == b for a, b in zip(got, block_art))
+        check(exact == N_IMAGES, f"{label} artifact: {exact}/{N_IMAGES} rows equal the "
+              f"artifact exported at batch {half}")
+        same = sum(a == b for a, b in zip(got, plain_art))
+        out[f"{label}_artifact"] = dict(equal_batch_128=exact, equal_batch_256=same)
+        print(f"  ctc_greedy artifact over {label}: rows equal the artifact without a mesh "
+              f"{same}/{N_IMAGES}, the one exported at batch {half} {exact}/{N_IMAGES}; "
+              f"{N_IMAGES / wall:.1f} img/s on {power}")
+        del sharded
+
+    # (4) serve --mesh and serve, each under the load tool
+    weights = os.path.join(root, "weights.msgpack")
+    with open(weights, "wb") as f:
+        f.write(msgpack_serialize(variables))
+    png_path = os.path.join(root, "line.png")
+    with open(png_path, "wb") as f:
+        f.write(png_encode(images[0]))
+    args = ["--model", weights, "--charset", charset_path, "--img-h", str(IMG_H), "--img-w",
+            str(IMG_W), "--canvas", ",".join(map(str, DAEMON_CANVAS)), "--batch-size",
+            str(BATCH), "--method", "ctc_greedy"]
+    out["serve_mesh"] = serve_and_load([*args, "--mesh"], png_path, "serve --mesh", power)
+    out["serve"] = serve_and_load(args, png_path, "serve", power)
+    ref = daemon["ctc_greedy"]["levels"]
+    print("  the daemon phase's ctc_greedy daemon (512 distinct lines, in-process): " + ", ".join(
+        f"c={c} {ref[f'c{c}_raw']['req_s']:.1f} req/s p50 {ref[f'c{c}_raw']['p50_ms']:.2f} ms"
+        for c, _ in MESH_LOAD) + f" on {power}")
+
+    # (5) the .pth export of this model, read back through the importer
+    cs = Charset.from_file(charset_path)
+    pth = os.path.join(root, "model.pth")
+    save_torch_checkpoint(pth, variables, layout="full", itos=list(cs.itos),
+                          stoi=dict(cs.stoi), config={"img_h": IMG_H, "img_w": IMG_W})
+    from_pth = OCRInference(pth, device="cuda", dtype=torch.bfloat16)
+    check(not from_pth.model.with_ctc_head, "the .pth carried a CTC head")
+    got = from_pth.predict(images, max_length=MAX_LENGTH, batch_size=BATCH)
+    same = sum(a == b for a, (b, _) in zip(got, want["predict"]))
+    check(same == N_IMAGES, f".pth round trip: {same}/{N_IMAGES} attention strings equal")
+    out["pth"] = {"mb": os.path.getsize(pth) / 1e6, "strings_equal": same}
+    print(f"  .pth export ({out['pth']['mb']:.1f} MB, full layout) -> OCRInference: "
+          f"{same}/{N_IMAGES} attention strings equal the model's")
+    del from_pth, base
+
+    print(f"  img/s (bf16, bs {BATCH}, {N_IMAGES} lines, host resize included) on {power}: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in out["img_s"].items()))
+    out["launch_counts"] = dict(launches)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  mesh phase: {out['seconds']:.1f} s")
+    return out
+
+
 def train_batch(cs, n: int, seed: int, dev: str):
     """A seeded training batch as the JAX step takes it: uint8 noise images
     normalized on the card, labels of 4-10 characters of the charset (every
@@ -2447,7 +2773,7 @@ def training_loop_phase(kernels, cs, train_img_s: float, power: str):
     skip = ctc_skip_ids(cs.pad_id, cs.sos_id, cs.eos_id, cs.ctc_blank_id)
     looped = {"attention": [], "CTC": []}
     # predict's own batches from the paths (its read, resize and normalize)
-    served_batches = list(engine._batches(val_paths, TRAIN_BATCH))
+    served_batches = list(device_batches(engine, val_paths, TRAIN_BATCH))
     logit_diff = row_spread = 0.0
     for s, (chunk, n_real, x) in zip(range(0, len(rows), TRAIN_BATCH), served_batches):
         part = rows[s : s + TRAIN_BATCH]
@@ -2838,6 +3164,8 @@ def main() -> int:
     int8 = int8_artifact_phase(kernels, variables, images, power)
     int8["seconds"] = time.perf_counter() - t_int8
     print(f"  int8 + artifacts phase {int8['seconds']:.1f} s")
+    print("mesh phase")
+    mesh = mesh_phase(kernels, variables, images, power, daemon)
     del variables
     print("training phase")
     from rcnn_ocr_tpu_torch.vocab.charset import Charset
@@ -2863,6 +3191,7 @@ def main() -> int:
                    "daemon": daemon["launch_counts"][name],
                    "long_lines": long_line["launch_counts"][name],
                    "int8_artifacts": int8["launch_counts"][name],
+                   "mesh": mesh["launch_counts"][name],
                    "train": train["launch_counts"][name],
                    "train_loop": loop["launches"][name],
                    "dp": scale["dp_launches"][name],
@@ -2876,7 +3205,7 @@ def main() -> int:
             check(n > 0, f"{name} never launched on the {p} path")
     result = {"card": power, "kernels": rows, "main_path": path, "beam": beams,
               "serving": serving, "daemon": daemon, "long_lines": long_line,
-              "int8_artifacts": int8,
+              "int8_artifacts": int8, "mesh": mesh,
               "training": training, "training_loop": loop, "scale_out": scale,
               "seconds": time.perf_counter() - t_start}
     if args.json_out:

@@ -187,15 +187,19 @@ struct Fit {
   int blocks_per_sm;  // CTAs that share one SM
 };
 
-// How clusters of (N CTAs, R rows) fit on the card (cudaOccupancyMaxActiveClusters
-// and ...BlocksPerMultiprocessor, asked once per shape and remembered); sets
-// the kernel's attributes first.  A shape that cannot run gets 0 slots.
+// How clusters of (N CTAs, R rows) fit on the current card
+// (cudaOccupancyMaxActiveClusters and ...BlocksPerMultiprocessor, asked once
+// per card and shape and remembered); sets the kernel's attributes first,
+// which the runtime keeps per card, so a card's first shape sets them there.
+// A shape that cannot run gets 0 slots.
 template <typename WT>
 Fit cluster_fit(int H, int n, int r) {
   static std::mutex mu;
-  static std::map<std::tuple<int, int, int>, Fit> known;
+  static std::map<std::tuple<int, int, int, int>, Fit> known;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return Fit{0, 0};
   std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(H, n, r);
+  const auto key = std::make_tuple(dev, H, n, r);
   const auto it = known.find(key);
   if (it != known.end()) return it->second;
   Fit fit{0, 0};

@@ -54,7 +54,7 @@
 #include <cstdint>
 #include <map>
 #include <mutex>
-#include <utility>
+#include <tuple>
 
 namespace cg = cooperative_groups;
 
@@ -409,14 +409,19 @@ cudaLaunchConfig_t cluster_config(const Plan& p, int clusters, cudaStream_t stre
   return cfg;
 }
 
-// Clusters of this plan the card runs at once (cudaOccupancyMaxActiveClusters,
-// asked once per plan and remembered); sets the kernel's attributes first.
+// Clusters of this plan the current card runs at once
+// (cudaOccupancyMaxActiveClusters, asked once per card and plan and
+// remembered); sets the kernel's attributes first, which the runtime keeps per
+// card, so a card's first plan sets them there.
 template <typename T>
 int cluster_slots(const Plan& p) {
   static std::mutex mu;
-  static std::map<std::pair<int, size_t>, int> known;
+  static std::map<std::tuple<int, int, size_t>, int> known;
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return -static_cast<int>(got);
   std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_pair(p.cluster, p.smem);
+  const auto key = std::make_tuple(dev, p.cluster, p.smem);
   const auto it = known.find(key);
   if (it != known.end()) return it->second;
   int slots = 0;

@@ -25,10 +25,19 @@ directory and runs the programs; no model class is rebuilt:
 
 ``platforms`` names torch devices (``"cuda"``, ``"cpu"``).  A program runs
 on the device it was exported on; the loader moves it to another device
-only when the manifest lists that device
-(``torch.export.passes.move_to_device_pass``), and raises otherwise.  The
-manifest has every field of JAX's, with the ``.pt2`` file names and
-``torch_version`` in place of ``jax_version``.
+type only when the manifest lists that type, and raises otherwise, and to
+another card of the same type freely
+(``torch.export.passes.move_to_device_pass``).  The manifest has every
+field of JAX's, with the ``.pt2`` file names and ``torch_version`` in place
+of ``jax_version``.
+
+A program's batch dimension is symbolic: it decodes the manifest's
+``batch_size`` rows, or a replica's block of them.
+``ServingArtifact.load(dir, mesh=)`` serves data-parallel as
+``OCRInference(mesh=)`` does: a copy of the weights and of every program on
+each device (shared by the replicas a device holds), each batch split into
+contiguous row blocks, one per replica (:class:`rcnn_ocr_tpu_torch.parallel.mesh.ReplicaSet`).  An engine
+with a mesh does not export.
 
 Artifact directory layout::
 
@@ -53,6 +62,7 @@ from torch import nn
 # program calls
 from rcnn_ocr_tpu_torch.ops import bilstm_scan as _bilstm_scan  # noqa: F401
 from rcnn_ocr_tpu_torch.ops import se_scale as _se_scale  # noqa: F401
+from rcnn_ocr_tpu_torch.parallel.mesh import ReplicaSet, gather_rows, serving_devices, to_host
 
 # Format ladder: each artifact stamps the MINIMUM loader version that reads
 # it correctly, so older loaders refuse loudly (the stamping rule is in
@@ -214,9 +224,16 @@ def _program_params(model: nn.Module) -> Dict[str, torch.Tensor]:
 
 def _export_program(model: nn.Module, fn, params, example) -> bytes:
     """Trace ``fn`` over ``(params, *example)`` and serialize the program,
-    without its example inputs (which would carry the weights)."""
+    without its example inputs (which would carry the weights).  The batch
+    dimension of every example is symbolic where ``torch.export`` can keep
+    it so (``Dim.AUTO``: the range the traced operators allow, on the CUDA
+    build up to 65535 rows), so the program also runs a replica's block of
+    a batch."""
+    batch = torch.export.Dim.AUTO
+    dynamic = ({k: None for k in params}, tuple({0: batch} for _ in example))
     with torch.no_grad():
-        ep = torch.export.export(_Program(_Decode(model, fn)), (params, *example))
+        ep = torch.export.export(_Program(_Decode(model, fn)), (params, *example),
+                                 dynamic_shapes=dynamic)
     ep.example_inputs = None
     buf = io.BytesIO()
     torch.export.save(ep, buf)
@@ -261,6 +278,12 @@ def export_serving_artifact(
     from rcnn_ocr_tpu_torch.models.rcnn import TIME_DOWNSAMPLE
     from rcnn_ocr_tpu_torch.training.checkpoint import msgpack_serialize
 
+    if getattr(ocr, "_mesh", None) is not None:
+        raise ValueError(
+            "export requires a single-device OCRInference (mesh=None); "
+            "shard the exported artifact at load time instead: "
+            "ServingArtifact.load(dir, mesh=True)"
+        )
     if method not in ALL_METHODS:
         raise ValueError(f"unknown method {method!r}; known: {ALL_METHODS}")
     if platforms is not None:
@@ -417,13 +440,14 @@ def export_serving_artifact(
 
 
 def _program_device(ep) -> str:
-    """The device type a program was exported on: its first user input's
-    (lifted constants, which come first, may lie elsewhere)."""
+    """The device a program was exported on (``"cuda:0"``, ``"cpu"``): its
+    first user input's (lifted constants, which come first, may lie
+    elsewhere)."""
     user_inputs = set(ep.graph_signature.user_inputs)
     for node in ep.graph.nodes:
         val = node.meta.get("val") if node.op == "placeholder" else None
         if node.name in user_inputs and isinstance(val, torch.Tensor):
-            return val.device.type
+            return str(val.device)
     raise ValueError("the program has no tensor input")
 
 
@@ -445,7 +469,9 @@ class ServingArtifact:
     Mirrors ``OCRInference.predict_serving``'s host side (letterbox canvas,
     bucket routing, pad to the static batch, decode rules) while the device
     runs the loaded programs.  ``device="auto"`` is the card (raising
-    without one); ``"cpu"`` when asked for.
+    without one); ``"cpu"`` when asked for.  ``mesh`` serves data-parallel
+    as ``OCRInference(mesh=)`` does (the manifest's ``batch_size`` must tile
+    the replicas).
     """
 
     def __init__(self, base_dir: str, device: Union[str, torch.device] = "auto",
@@ -454,10 +480,13 @@ class ServingArtifact:
         from rcnn_ocr_tpu_torch.interop.jax_params import port_state_from_jax
         from rcnn_ocr_tpu_torch.training.checkpoint import msgpack_restore
 
-        if mesh is not None and mesh is not False:
-            raise NotImplementedError("serving an artifact across several cards (mesh=) is not "
-                                      "in the PyTorch port (ROADMAP.md, queue 1, item 13)")
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self._mesh = serving_devices(mesh, self.device)
+        if self._mesh is not None:
+            self.device = self._mesh[0]
+        self._replicas = ReplicaSet(self._mesh or [self.device], mesh=self._mesh is not None)
         self.base_dir = base_dir
         with open(os.path.join(base_dir, "manifest.json"), encoding="utf-8") as f:
             m = self.manifest = json.load(f)
@@ -466,11 +495,16 @@ class ServingArtifact:
                              f"loader ({MANIFEST_VERSION})")
         self.method: str = m["method"]
         self.batch_size: int = int(m["batch_size"])
+        n = len(self._replicas)
+        if self._mesh is not None and self.batch_size % n:
+            raise ValueError(f"artifact batch_size {self.batch_size} does not tile the mesh "
+                             f"data axis ({n} devices); re-export with a divisible batch size")
         with open(os.path.join(base_dir, "params.msgpack"), "rb") as f:
             self.variables = msgpack_restore(f.read())
-        # on the device once: the programs read them on every call
-        self._state = {k: torch.tensor(v, device=self.device)
-                       for k, v in port_state_from_jax(self.variables).items()}
+        # on each device once: the programs read them on every call
+        state = port_state_from_jax(self.variables)
+        self._states = {d: {k: torch.tensor(v, device=d) for k, v in state.items()}
+                        for d in dict.fromkeys(self._replicas.devices)}
         self._itos: List[str] = list(m["itos"])
         self._ids = m["ids"]
         self.canvas: Tuple[int, int] = (int(m["canvas"][0]), int(m["canvas"][1]))
@@ -486,34 +520,44 @@ class ServingArtifact:
     @classmethod
     def load(cls, base_dir: str, device: Union[str, torch.device] = "auto",
              mesh: Any = None) -> "ServingArtifact":
-        """Open an artifact directory on ``device``."""
+        """Open an artifact directory on ``device``, or data-parallel over
+        ``mesh`` (``True``: every visible card; or a sequence of devices)."""
         return cls(base_dir, device=device, mesh=mesh)
 
     def _load(self, fname: str):
-        """A program on this artifact's device, as a call of the batch arrays."""
-        ep = torch.export.load(os.path.join(self.base_dir, fname))
-        exported_on = _program_device(ep)
-        target = self.device.type
-        if exported_on != target:
-            listed = self.manifest.get("platforms") or [exported_on]
-            if target not in listed:
-                raise ValueError(
-                    f"{fname} was exported on {exported_on!r} and the artifact lists "
-                    f"platforms {listed}, not {target!r}; re-export with platforms "
-                    f"including {target!r}")
-            from torch.export.passes import move_to_device_pass
+        """A program as a call of host batch arrays returning host arrays:
+        one copy of it on each device, each replica taking its block of the
+        batch's rows (the whole batch without a mesh)."""
+        path = os.path.join(self.base_dir, fname)
+        programs: Dict[torch.device, Tuple[nn.Module, Dict[str, torch.Tensor]]] = {}
+        for dev, state in self._states.items():
+            # the move pass changes a program in place: a fresh one per device
+            ep = torch.export.load(path)
+            exported_on = torch.device(_program_device(ep))
+            if exported_on.type != dev.type:
+                listed = self.manifest.get("platforms") or [exported_on.type]
+                if dev.type not in listed:
+                    raise ValueError(
+                        f"{fname} was exported on {exported_on.type!r} and the artifact lists "
+                        f"platforms {listed}, not {dev.type!r}; re-export with platforms "
+                        f"including {dev.type!r}")
+            if exported_on != dev:  # another type, or another card
+                from torch.export.passes import move_to_device_pass
 
-            ep = move_to_device_pass(ep, self.device)
-        missing = [k for k in _param_names(ep) if k not in self._state]
-        if missing:
-            raise KeyError(f"{fname} reads tensors params.msgpack does not hold: {missing}")
-        params = {k: self._state[k] for k in _param_names(ep)}
-        module = ep.module()
+                ep = move_to_device_pass(ep, dev)
+            missing = [k for k in _param_names(ep) if k not in state]
+            if missing:
+                raise KeyError(f"{fname} reads tensors params.msgpack does not hold: {missing}")
+            programs[dev] = ep.module(), {k: state[k] for k in _param_names(ep)}
 
         @torch.inference_mode()
         def call(*batch: np.ndarray):
-            return module(params, *(torch.from_numpy(np.ascontiguousarray(b)).to(self.device)
-                                    for b in batch))
+            def work(i: int, lo: int, hi: int):
+                dev = self._replicas.devices[i]
+                module, params = programs[dev]
+                return to_host(module(params, *(
+                    torch.from_numpy(np.ascontiguousarray(b[lo:hi])).to(dev) for b in batch)))
+            return gather_rows(self._replicas.run(work, len(batch[0])))
         return call
 
     # -- host pipeline (predict_serving parity) -----------------------------
@@ -557,7 +601,6 @@ class ServingArtifact:
         engine's host drivers (:mod:`rcnn_ocr_tpu_torch.long_lines`)."""
         from rcnn_ocr_tpu_torch.data.transforms import ResizeAndPad, load_rgb_uint8
         from rcnn_ocr_tpu_torch.long_lines import (
-            _host,
             decode_stitched,
             decode_stitched_ids,
             extract_tile_frames,
@@ -586,9 +629,9 @@ class ServingArtifact:
             for i in range(0, len(tiles), self.batch_size):
                 chunk, n_real = pad_rows(tiles[i : i + self.batch_size], self.batch_size)
                 outs = call(np.stack(chunk))
-                tok_rows.extend(_host(outs[0])[:n_real])
+                tok_rows.extend(outs[0][:n_real])
                 if aligned:
-                    align_rows.extend(_host(outs[-1])[:n_real])
+                    align_rows.extend(outs[-1][:n_real])
 
             def tile_text(row: np.ndarray) -> str:
                 return decode_tokens(row, self._itos, pad_id=ids["pad"], eos_id=ids["eos"],
@@ -705,7 +748,7 @@ class ServingArtifact:
                 w, idxs, n_real, raw, sizes = pending.result()
                 if k + 1 < len(chunks):
                     pending = pool.submit(letterbox_chunk, chunks[k + 1])
-                out = [t.cpu().numpy() for t in self._calls[w](raw, sizes)]
+                out = self._calls[w](raw, sizes)
                 # v5 CTC programs ship (pred, aux, conf); the others (pred, aux)
                 texts = self._decode_rows(out[0], out[1], n_real, return_confidence,
                                           conf=out[2] if len(out) == 3 else None)

@@ -33,12 +33,21 @@ call).
 activation scales, or static ones when the checkpoint carries calibrated
 ``quant_stats`` or after :meth:`calibrate` (:mod:`rcnn_ocr_tpu_torch.calibration`).
 :mod:`rcnn_ocr_tpu_torch.export` writes any decode configuration of the
-engine as a serving artifact.  Multi-card serving (``mesh=``) is not ported
-and raises (ROADMAP.md, queue 1, item 13).
+engine as a serving artifact.
+
+``mesh=`` serves data-parallel, as JAX's ``mesh=`` does: ``True`` replicates
+the model (and the LM table) on every visible card, and a sequence of
+devices on each one named (``["cuda:0", "cuda:1"]``; ``["cpu"] * 8`` on the
+CPU), one replica per entry.  Every path rounds its batch up to tile the
+replicas (:meth:`_round_batch`) and decodes it through :meth:`_call`: each
+replica takes its contiguous block of rows to its device and runs it in its
+own thread and stream (:class:`rcnn_ocr_tpu_torch.parallel.mesh.ReplicaSet`),
+and the host gathers the outputs in row order.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -55,6 +64,7 @@ from rcnn_ocr_tpu_torch.lm import load_lm
 from rcnn_ocr_tpu_torch.long_lines import LongLineMixin
 from rcnn_ocr_tpu_torch.models.rcnn import RCNN
 from rcnn_ocr_tpu_torch.ops.augment import device_normalize
+from rcnn_ocr_tpu_torch.parallel.mesh import ReplicaSet, gather_rows, serving_devices, to_host
 from rcnn_ocr_tpu_torch.ops.ctc import (
     ctc_beam_from_logits,
     ctc_beam_search,
@@ -114,7 +124,8 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
     ``lm`` is a bigram table for beam shallow fusion: a ``[V, V]`` array or
     an ``.npz`` written by :func:`rcnn_ocr_tpu_torch.lm.save_lm` (or the JAX
     package's ``tools/train_lm.py``), whose token order must be the
-    charset's.
+    charset's.  ``mesh`` serves across several devices (see the module
+    docstring; :func:`rcnn_ocr_tpu_torch.parallel.mesh.serving_devices`).
     """
 
     def __init__(
@@ -132,10 +143,12 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
         quantize: bool = False,
         mesh: Any = None,
     ):
-        if mesh is not None and mesh is not False:
-            raise NotImplementedError("OCRInference(mesh=): serving across several cards is "
-                                      "not ported (ROADMAP queue 1, item 13)")
         self.device = resolve_device(device)
+        # the replicas' devices (None: no mesh); the first is the engine's device
+        self._mesh = serving_devices(mesh, self.device)
+        if self._mesh is not None:
+            self.device = self._mesh[0]
+        self._replicas = ReplicaSet(self._mesh or [self.device], mesh=self._mesh is not None)
         # "auto" / "auto:K": the first call with two or more images fits K
         # waste-minimizing widths to them (fixed for the engine's lifetime)
         self._auto_bucket_k = 0
@@ -193,29 +206,38 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
             quantize=quantize,
             act_quant="static" if static else "dynamic",
         )
-        self.model = RCNN(**self._model_kwargs)
+        model = RCNN(**self._model_kwargs)
         if not with_ctc_head and "ctc_proj" in variables["params"]:
             # a CTC head the caller turned off is not loaded (JAX's engine
             # ignores it likewise)
             variables = dict(variables, params={k: v for k, v in variables["params"].items()
                                                 if k != "ctc_proj"})
         self._quant_stats = None if static else variables.get("quant_stats")
-        load_jax_variables(self.model, {k: v for k, v in variables.items()
-                                        if static or k != "quant_stats"})
-        self.model.eval().to(self.device)
+        load_jax_variables(model, {k: v for k, v in variables.items()
+                                   if static or k != "quant_stats"})
+        model.eval()
+        # one replica of the model per device (the first is `model` itself)
+        devices = self._replicas.devices
+        self._models: List[RCNN] = [copy.deepcopy(model).to(d) for d in devices[1:]]
+        self._models.insert(0, model.to(devices[0]))
         self._itos = list(cs.itos)
-        self._lm: Optional[torch.Tensor] = None
+        self._lms: List[Optional[torch.Tensor]] = [None] * len(devices)
         if lm is not None:
             table = load_lm(lm, cs) if isinstance(lm, str) else np.asarray(lm, np.float32)
             V = cs.num_classes
             if table.shape != (V, V):
                 raise ValueError(f"lm must be [{V}, {V}] for this charset, got {table.shape}")
-            self._lm = torch.from_numpy(np.ascontiguousarray(table)).to(self.device)
+            self._lms = [torch.from_numpy(np.ascontiguousarray(table)).to(d) for d in devices]
         self.transform = ResizeAndPad(img_h=self.img_h, img_w=self.img_w)
         self._bucket_transforms = (
             {w: ResizeAndPad(img_h=self.img_h, img_w=w) for w in self.width_buckets}
             if self.width_buckets else None
         )
+
+    @property
+    def model(self) -> RCNN:
+        """The first replica's model (the only one without a mesh)."""
+        return self._models[0]
 
     @property
     def variables(self) -> Dict[str, Any]:
@@ -260,6 +282,25 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
     def _device_batch(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device, non_blocking=True)
 
+    def _round_batch(self, batch_size: int) -> int:
+        """Under a mesh, ``batch_size`` rounded up to tile the replicas
+        (``rcnn_ocr_tpu/inference.py:_round_batch``: 6 images at batch 4
+        over 8 replicas decode as one batch of 8)."""
+        return self._replicas.round_batch(batch_size)
+
+    def _call(self, run, *arrays: np.ndarray):
+        """Run a decode kernel over host batch arrays, the outputs back on
+        the host as numpy arrays (one, or a tuple as the kernel returns).
+        Under a mesh each replica takes its contiguous block of rows to its
+        device and runs ``run(*blocks, replica=i)`` in its own thread and
+        stream; the blocks' outputs are joined in row order."""
+        def work(i: int, lo: int, hi: int):
+            dev = self._replicas.devices[i]
+            blocks = [torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(dev, non_blocking=True)
+                      for a in arrays]
+            return to_host(run(*blocks, replica=i))
+        return gather_rows(self._replicas.run(work, len(arrays[0])))
+
     def _probe_hw(self, img) -> Tuple[int, int]:
         """(h, w) of an input without decoding it: the file header for a
         path, the shape or ``.size`` for a decoded one."""
@@ -301,32 +342,34 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
         return chunk_indices(groups, batch_size)
 
     def _batches(self, images: List[Any], batch_size: int):
-        """(chunk indices, real rows, normalized device batch) per static batch."""
+        """(chunk indices, real rows, uint8 host batch) per static batch."""
         for bucket, chunk in self._bucket_chunks(images, batch_size):
             arrays, n_real = pad_rows([self._preprocess(images[j], bucket) for j in chunk],
                                       batch_size)
-            yield chunk, n_real, device_normalize(self._device_batch(np.stack(arrays)))
+            yield chunk, n_real, np.stack(arrays)
 
-    def _fusion_lm(self, lm_weight: float) -> Optional[torch.Tensor]:
-        """The bigram table to fuse at this weight (None: fusion off)."""
+    def _fuses(self, lm_weight: float) -> bool:
+        """Whether a decode fuses the bigram table at this weight (raises
+        for a weight without a table)."""
         if not lm_weight:
-            return None
-        if self._lm is None:
+            return False
+        if self._lms[0] is None:
             raise ValueError(
                 "lm_weight > 0 needs a bigram table: pass lm= to OCRInference "
                 "(build one with python -m rcnn_ocr_tpu_torch.lm)"
             )
-        return self._lm
+        return True
 
     # -- decode kernels: functions of one device batch -----------------------
-    # Each takes a uint8 (or already normalized) batch [B, H, W, 3] on the
-    # engine's device and normalizes it first, as JAX's jitted kernels do.
+    # Each takes a uint8 (or already normalized) batch [B, H, W, 3] on a
+    # replica's device and normalizes it first, as JAX's jitted kernels do;
+    # `replica` picks the replica whose model runs it (the first by default).
     def _greedy_fn(self, steps: int):
         """``(tokens [B, steps], max-softmax [B, steps])`` of the greedy
         attention decode (``rcnn_ocr_tpu/inference.py:_greedy_fn``)."""
         @torch.inference_mode()
-        def run(images):
-            logits = self.model(device_normalize(images), batch_max_length=steps - 1)
+        def run(images, replica: int = 0):
+            logits = self._models[replica](device_normalize(images), batch_max_length=steps - 1)
             return torch.argmax(logits, dim=-1), torch.softmax(logits, dim=-1).amax(dim=-1)
         return run
 
@@ -335,9 +378,9 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
         step's attention argmax, the aligned long-line merge's input
         (``rcnn_ocr_tpu/inference.py:_greedy_align_fn``)."""
         @torch.inference_mode()
-        def run(images):
-            logits, align = self.model.greedy_decode_aligned(device_normalize(images),
-                                                             batch_max_length=steps - 1)
+        def run(images, replica: int = 0):
+            logits, align = self._models[replica].greedy_decode_aligned(
+                device_normalize(images), batch_max_length=steps - 1)
             return torch.argmax(logits, dim=-1), align
         return run
 
@@ -355,13 +398,14 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
         return self._beam(steps, beam_width, length_penalty, lm_weight, True)
 
     def _beam(self, steps, beam_width, length_penalty, lm_weight, alignment):
-        lm = self._fusion_lm(lm_weight)
+        fuse = self._fuses(lm_weight)
 
         @torch.inference_mode()
-        def run(images):
-            return self.model.beam_decode(device_normalize(images), int(beam_width), steps - 1,
-                                          length_penalty=length_penalty, lm_logp=lm,
-                                          lm_weight=lm_weight, return_alignment=alignment)
+        def run(images, replica: int = 0):
+            return self._models[replica].beam_decode(
+                device_normalize(images), int(beam_width), steps - 1,
+                length_penalty=length_penalty, lm_logp=self._lms[replica] if fuse else None,
+                lm_weight=lm_weight, return_alignment=alignment)
         return run
 
     def _ctc_frame_ids_fn(self, with_maxp: bool = False):
@@ -369,8 +413,8 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
         the per-frame max-softmax ``[B, T]``, ``exp(max - logsumexp)`` in fp32
         (``rcnn_ocr_tpu/inference.py:_ctc_frame_ids_fn``)."""
         @torch.inference_mode()
-        def run(images):
-            logits = self.model.ctc_logits(device_normalize(images))
+        def run(images, replica: int = 0):
+            logits = self._models[replica].ctc_logits(device_normalize(images))
             ids = torch.argmax(logits, dim=-1).to(torch.int32)
             if not with_maxp:
                 return ids
@@ -387,8 +431,8 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
         blank = self.charset.ctc_blank_id
 
         @torch.inference_mode()
-        def run(images):
-            logits = self.model.ctc_logits(device_normalize(images))
+        def run(images, replica: int = 0):
+            logits = self._models[replica].ctc_logits(device_normalize(images))
             if greedy:
                 return ctc_greedy_decode(logits, blank, return_confidence=with_conf)
             if prune_k:
@@ -402,15 +446,17 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
         """Encoder, CTC log-probs, top-k pruning and the prefix beam on the
         device: ``(labels [B, T], lengths [B])`` (and the winner's posterior)
         (``rcnn_ocr_tpu/inference.py:_ctc_beam_device_fn``)."""
-        lm = self._fusion_lm(lm_weight)
+        fuse = self._fuses(lm_weight)
         cs = self.charset
 
         @torch.inference_mode()
-        def run(images):
-            logits = self.model.ctc_logits(device_normalize(images))
+        def run(images, replica: int = 0):
+            logits = self._models[replica].ctc_logits(device_normalize(images))
             return ctc_beam_from_logits(logits, blank_id=cs.ctc_blank_id, beam_width=beam_width,
-                                        prune_k=prune_k, lm_logp=lm, lm_weight=lm_weight,
-                                        sos_id=cs.sos_id, return_confidence=with_conf)
+                                        prune_k=prune_k,
+                                        lm_logp=self._lms[replica] if fuse else None,
+                                        lm_weight=lm_weight, sos_id=cs.sos_id,
+                                        return_confidence=with_conf)
         return run
 
     # -- rows -> text --------------------------------------------------------
@@ -458,6 +504,7 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
                 "is beam-only)"
             )
         steps = max_length + 1
+        batch_size = self._round_batch(batch_size)
         if beam:
             run = self._attn_beam_fn(steps, int(beam_width), length_penalty, lm_weight)
             decode_row = self._decode_beam_row
@@ -466,7 +513,7 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
             decode_row = self._decode_attention_row
         results: List[Any] = [None] * len(images_list)
         for chunk, n_real, x in self._batches(images_list, batch_size):
-            pred, aux = (t[:n_real].cpu().numpy() for t in run(x))
+            pred, aux = (t[:n_real] for t in self._call(run, x))
             for j, out_idx in enumerate(chunk):
                 results[out_idx] = decode_row(pred[j], aux[j], return_confidence)
         return results[0] if is_single else results
@@ -498,6 +545,7 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
             return []
         cs = self.charset
         skip = self._ctc_skip()
+        batch_size = self._round_batch(batch_size)
         k = min(prune_k, cs.num_classes) if prune_k else 0
         if method == "greedy":
             run = self._ctc_fn(True, with_conf=return_confidence)
@@ -508,23 +556,22 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
         on_device = method == "greedy" or (bool(k) and device_beam)
         results: List[Any] = [None] * len(images_list)
         for chunk, n_real, x in self._batches(images_list, batch_size):
-            out = run(x)
+            out = self._call(run, x)
             confs = None
             if on_device:
-                texts = decode_ctc_batch(out[0].cpu().numpy(), out[1].cpu().numpy(), n_real,
-                                         self._itos, skip)
+                texts = decode_ctc_batch(out[0], out[1], n_real, self._itos, skip)
                 if return_confidence:
-                    confs = out[2][:n_real].cpu().numpy()
+                    confs = out[2][:n_real]
             else:
                 if k:
-                    vals, idx = (t[:n_real].cpu().numpy() for t in out)
+                    vals, idx = (t[:n_real] for t in out)
                     # the pruned frames rebuilt dense: a class outside the top k
                     # is -1e30, far below anything the beam keeps
                     log_probs = np.full((n_real, vals.shape[1], cs.num_classes), -1e30,
                                         np.float32)
                     np.put_along_axis(log_probs, idx.astype(np.int64), vals, -1)
                 else:
-                    log_probs = out[:n_real].cpu().numpy()
+                    log_probs = out[:n_real]
                 got = ctc_beam_search(log_probs, blank_id=cs.ctc_blank_id, beam_width=beam_width,
                                       already_log_probs=True, return_totals=return_confidence)
                 texts = ids_to_text(got[0], self._itos, skip_ids=skip)

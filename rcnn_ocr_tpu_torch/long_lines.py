@@ -18,7 +18,8 @@ batches, and put back together:
 
 The pure functions here are held to JAX's one for one; :class:`LongLineMixin`
 is mixed into :class:`rcnn_ocr_tpu_torch.inference.OCRInference` and calls its
-decode kernels.  Height normalization is the port's ``resize_uint8`` (cv2's
+decode kernels through its ``_call`` (under a mesh, each tile batch rounded
+to tile the replicas and split across them).  Height normalization is the port's ``resize_uint8`` (cv2's
 INTER_AREA / INTER_LINEAR within one uint8 step), not cv2.
 """
 
@@ -27,20 +28,15 @@ from __future__ import annotations
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from rcnn_ocr_tpu_torch.data.loader import scaled_width
 from rcnn_ocr_tpu_torch.data.transforms import ResizeAndPad, resize_uint8
 from rcnn_ocr_tpu_torch.models.rcnn import TIME_DOWNSAMPLE
 from rcnn_ocr_tpu_torch.ops.ctc import ctc_beam_search, ctc_greedy_collapse_np, ids_to_text
+from rcnn_ocr_tpu_torch.parallel.mesh import to_host
 from rcnn_ocr_tpu_torch.postprocess import pad_rows
 from rcnn_ocr_tpu_torch.training.metrics import levenshtein
 from rcnn_ocr_tpu_torch.vocab.charset import decode_tokens
-
-
-def _host(x) -> np.ndarray:
-    """A kernel's output (a tensor on any device, or an array) on the host."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def long_line_spans(starts: Sequence[int], tile_w: int, frames_t: int,
@@ -170,8 +166,8 @@ def extract_tile_frames(tiles: List[np.ndarray], batch_size: int, run) -> Tuple[
     for i in range(0, len(tiles), batch_size):
         chunk, n_real = pad_rows(tiles[i : i + batch_size], batch_size)
         vals, idx = run(np.stack(chunk))
-        all_vals.append(_host(vals)[:n_real])
-        all_idx.append(_host(idx)[:n_real])
+        all_vals.append(to_host(vals)[:n_real])
+        all_idx.append(to_host(idx)[:n_real])
     return np.concatenate(all_vals), np.concatenate(all_idx)
 
 
@@ -186,10 +182,10 @@ def extract_tile_ids(tiles: List[np.ndarray], batch_size: int, run, with_maxp: b
         got = run(np.stack(chunk))
         if with_maxp:
             ids, maxp = got
-            out_p.append(_host(maxp)[:n_real])
+            out_p.append(to_host(maxp)[:n_real])
         else:
             ids = got
-        out.append(_host(ids)[:n_real])
+        out.append(to_host(ids)[:n_real])
     if with_maxp:
         return np.concatenate(out), np.concatenate(out_p)
     return np.concatenate(out)
@@ -364,8 +360,8 @@ def hybrid_decode_driver(rgb_images: List[np.ndarray], img_h: int, tile_w: int, 
     for i in range(0, len(padded), batch_size):
         chunk, n_real = pad_rows(padded[i : i + batch_size], batch_size)
         pred, aux = decode_fn(np.stack(chunk))[:2]
-        pred = _host(pred)[:n_real]
-        aux = _host(aux)[:n_real] if return_confidence else None
+        pred = to_host(pred)[:n_real]
+        aux = to_host(aux)[:n_real] if return_confidence else None
         for j in range(n_real):
             img_i = crop_of_image[i + j]
             out = decode_row(pred[j], aux[j] if aux is not None else None)
@@ -479,16 +475,17 @@ class LongLineMixin:
         tiles, plans = plan_tiles(rgb, self.img_h, tile_w, overlap, pad_one)
         skip = self._ctc_skip()
         blank = self.charset.ctc_blank_id
+        batch_size = self._round_batch(batch_size)
         if method == "greedy" and snap == "midpoint":
             kernel = self.tile_ids_kernel(with_maxp=return_confidence)
-            got = extract_tile_ids(tiles, batch_size, lambda b: kernel(self._device_batch(b)),
+            got = extract_tile_ids(tiles, batch_size, lambda b: self._call(kernel, b),
                                    with_maxp=return_confidence)
             ids, maxp = got if return_confidence else (got, None)
             results = decode_stitched_ids(ids, plans, tile_w, blank_id=blank, itos=self._itos,
                                           skip_ids=skip, maxp=maxp)
             return results[0] if is_single else results
         kernel = self.tile_kernel(prune_k)
-        vals, idx = extract_tile_frames(tiles, batch_size, lambda b: kernel(self._device_batch(b)))
+        vals, idx = extract_tile_frames(tiles, batch_size, lambda b: self._call(kernel, b))
         results = decode_stitched(vals, idx, plans, tile_w, blank_id=blank,
                                   num_classes=self.charset.num_classes, itos=self._itos,
                                   skip_ids=skip, method=method, beam_width=beam_width, snap=snap,
@@ -516,6 +513,7 @@ class LongLineMixin:
         if not images_list:
             return []
         tile_w, overlap, pad_one, rgb = self._plan(images_list, tile_w, overlap)
+        batch_size = self._round_batch(batch_size)
         tile = self.tile_ids_kernel()
         steps = max_length + 1
         run = (self._attn_beam_fn(steps, int(beam_width), length_penalty, lm_weight) if beam
@@ -523,8 +521,8 @@ class LongLineMixin:
         row_fn = self._decode_beam_row if beam else self._decode_attention_row
         texts = hybrid_decode_driver(
             rgb, self.img_h, tile_w, overlap, pad_one, batch_size,
-            tile_fn=lambda b: tile(self._device_batch(b)),
-            decode_fn=lambda b: run(self._device_batch(b)),
+            tile_fn=lambda b: self._call(tile, b),
+            decode_fn=lambda b: self._call(run, b),
             decode_row=lambda pred, aux: row_fn(pred, aux, return_confidence),
             blank_id=self.charset.ctc_blank_id, min_gap=min_gap, margin=margin,
             return_confidence=return_confidence,
@@ -581,6 +579,7 @@ class LongLineMixin:
         tile_w, overlap, pad_one, rgb = self._plan(images_list, tile_w, overlap,
                                                    require_frame_aligned=merge == "align")
         tiles, plans = plan_tiles(rgb, self.img_h, tile_w, overlap, pad_one)
+        batch_size = self._round_batch(batch_size)
         # the text merge never reads the alignment: it takes the plain kernels
         need_align = merge == "align"
         steps = max_length + 1
@@ -593,10 +592,10 @@ class LongLineMixin:
         align_rows: List[np.ndarray] = []
         for i in range(0, len(tiles), batch_size):
             chunk, n_real = pad_rows(tiles[i : i + batch_size], batch_size)
-            out = run(self._device_batch(np.stack(chunk)))
-            tok_rows.extend(out[0][:n_real].cpu().numpy())
+            out = self._call(run, np.stack(chunk))
+            tok_rows.extend(out[0][:n_real])
             if need_align:
-                align_rows.extend(out[-1][:n_real].cpu().numpy())
+                align_rows.extend(out[-1][:n_real])
 
         cs = self.charset
 

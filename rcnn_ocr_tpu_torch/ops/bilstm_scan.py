@@ -45,12 +45,14 @@ def scan_reference(xs: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> torch.T
     return torch.stack(ys, dim=0)
 
 
-def route(batch: int, hidden: int, w_dtype: torch.dtype) -> dict:
-    """The route ``csrc/bilstm_scan.cu`` takes for this shape (needs the card):
-    ``resident`` (w_hh in the shared memory of a cluster of ``cluster`` CTAs
-    per ``rows`` batch rows, ``active_clusters`` of them at once) or
-    ``streaming``."""
-    cluster, rows, smem, active = kernels.BILSTM_SCAN.plan(batch, hidden, _W_DTYPES[w_dtype])
+def route(batch: int, hidden: int, w_dtype: torch.dtype, device=None) -> dict:
+    """The route ``csrc/bilstm_scan.cu`` takes for this shape on ``device``
+    (a card; default the current one): ``resident`` (w_hh in the shared
+    memory of a cluster of ``cluster`` CTAs per ``rows`` batch rows,
+    ``active_clusters`` of them at once) or ``streaming``."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else device
+    cluster, rows, smem, active = kernels.BILSTM_SCAN.plan(dev, batch, hidden,
+                                                           _W_DTYPES[w_dtype])
     return dict(route="resident" if cluster else "streaming", cluster=cluster, rows=rows,
                 smem=smem, active_clusters=active)
 
@@ -111,9 +113,6 @@ def _launch(xs: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> torch.Tensor:
     ys = torch.empty((t_steps, 2, batch, hidden), device=xs.device, dtype=torch.float32)
     if ys.numel() == 0:
         return ys
-    fn = kernels.BILSTM_SCAN.fn()
-    err = fn(xs.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), t_steps, batch, hidden,
-             _W_DTYPES[w_hh.dtype], kernels.stream_ptr())
-    kernels.BILSTM_SCAN.check(err)
-    kernels.BILSTM_SCAN.count_launch()
+    kernels.BILSTM_SCAN.launch(xs.device, xs.data_ptr(), w_hh.data_ptr(), ys.data_ptr(),
+                               t_steps, batch, hidden, _W_DTYPES[w_hh.dtype])
     return ys

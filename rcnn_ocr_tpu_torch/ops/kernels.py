@@ -9,8 +9,11 @@ per source, all started together) into a shared library under
 library's file name carries a hash of its source, so an edited source is
 rebuilt and an unchanged one is reused.
 
-Every wrapper counts its launches on its :class:`CudaKernel` (``launches``),
-adding one exactly where it launches.  :func:`plain_only` forces the
+Every wrapper launches through :meth:`CudaKernel.launch` on its tensor's
+own card and that card's current stream, whatever card the calling thread
+has current (a serving replica's thread works on one card of several), and
+counts its launches on its :class:`CudaKernel` (``launches``), adding one
+exactly where it launches.  :func:`plain_only` forces the
 wrappers onto their plain PyTorch versions; it exists so that one run on a
 card can compare a kernel with its plain version, and the main path never
 enters it.
@@ -84,14 +87,25 @@ class CudaKernel:
             build_all()
         return self._fn
 
-    def plan(self, *args: int) -> List[int]:
-        """The launch plan the C entry point picks for a shape (the source's
-        ``*_plan`` function fills four ints; the source says what each is)."""
+    def plan(self, device: torch.device, *args: int) -> List[int]:
+        """The launch plan the C entry point picks for a shape on ``device``
+        (the source's ``*_plan`` function fills four ints; the source says
+        what each is).  Asked with ``device`` current: a plan is per card."""
         if self._plan_fn is None:
             build_all()
         out = (ctypes.c_int * 4)()
-        self.check(self._plan_fn(*args, out))
+        with torch.cuda.device(device):
+            self.check(self._plan_fn(*args, out))
         return list(out)
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Call the C entry point with ``args`` and the current stream of
+        ``device``, with ``device`` current for the call, whatever card the
+        calling thread has current; count the launch."""
+        fn = self.fn()
+        with torch.cuda.device(device):
+            self.check(fn(*args, stream_ptr(device)))
+        self.count_launch()
 
     def _bind(self) -> None:
         lib = ctypes.CDLL(str(self.library))
@@ -177,6 +191,12 @@ def plain_only() -> Iterator[None]:
         _plain_forced.on = prev
 
 
+def plain_forced() -> bool:
+    """True inside :func:`plain_only` on this thread (a serving replica's
+    thread takes its caller's setting)."""
+    return getattr(_plain_forced, "on", False)
+
+
 def use_kernel(t: torch.Tensor) -> bool:
     """True when a wrapper must launch its kernel for ``t``.
 
@@ -187,8 +207,10 @@ def use_kernel(t: torch.Tensor) -> bool:
         return False
     if t.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {t.device}")
-    return not getattr(_plain_forced, "on", False)
+    return not plain_forced()
 
 
-def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def stream_ptr(device: torch.device) -> int:
+    """The handle of ``device``'s current stream on this thread (not of the
+    thread's current device's)."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -90,15 +90,21 @@ def int8_conv_accumulate(xq: torch.Tensor, wq: torch.Tensor, strides: Sequence[i
     # [B, Ho, Wo, Cin, kh, kw] views -> rows ordered (kh, kw, Cin) as HWIO flattens
     patches = xp.unfold(1, kh, sh).unfold(2, kw, sw)
     ho, wo = patches.shape[1], patches.shape[2]
-    rows = patches.permute(0, 1, 2, 4, 5, 3).reshape(batch * ho * wo, kh * kw * cin)
-    mat = wq.reshape(kh * kw * cin, cout)
-    m, k = rows.shape
-    m_pad, k_pad, n_pad = max(m, 17) - m, _round_up(k, 8) - k, _round_up(cout, 8) - cout
-    if m_pad or k_pad:
-        rows = F.pad(rows, (0, k_pad, 0, m_pad))
+    m, k = batch * ho * wo, kh * kw * cin
+    # one copy of the patches into a matrix padded to _int_mm's rules: 16
+    # more rows (it takes more than 16) and depth and width to multiples of
+    # 8.  The row padding is unconditional, so no branch reads the batch and
+    # a program exported with a symbolic batch runs at any size.
+    k_pad, n_pad = _round_up(k, 8) - k, _round_up(cout, 8) - cout
+    rows = xq.new_empty((m + 16, k + k_pad))
+    rows[:m, :k].view(batch, ho, wo, kh, kw, cin).copy_(patches.permute(0, 1, 2, 4, 5, 3))
+    rows[m:].zero_()
+    if k_pad:
+        rows[:m, k:].zero_()
+    mat = wq.reshape(k, cout)
     if k_pad or n_pad:
         mat = F.pad(mat, (0, n_pad, 0, k_pad))
-    acc = torch._int_mm(rows.contiguous(), mat.contiguous())
+    acc = torch._int_mm(rows, mat.contiguous())
     return acc[:m, :cout].reshape(batch, ho, wo, cout)
 
 

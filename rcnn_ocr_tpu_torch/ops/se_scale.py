@@ -34,13 +34,14 @@ def se_scale_reference(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> t
     return x * g[:, None, None, :].to(x.dtype)
 
 
-def route(shape, squeeze: int, dtype: torch.dtype) -> dict:
-    """How ``csrc/se_scale.cu`` runs ``x`` of ``shape`` [B, H, W, C] (needs the
-    card): ``slots`` persistent clusters of ``cluster`` CTAs, each CTA holding
-    C/cluster channels of ``samples`` samples at a time, or the ``streaming``
-    route."""
+def route(shape, squeeze: int, dtype: torch.dtype, device=None) -> dict:
+    """How ``csrc/se_scale.cu`` runs ``x`` of ``shape`` [B, H, W, C] on
+    ``device`` (a card; default the current one): ``slots`` persistent
+    clusters of ``cluster`` CTAs, each CTA holding C/cluster channels of
+    ``samples`` samples at a time, or the ``streaming`` route."""
     batch, h, w, c = shape
-    cluster, samples, slots, smem = kernels.SE_SCALE.plan(batch, h * w, c, squeeze,
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else device
+    cluster, samples, slots, smem = kernels.SE_SCALE.plan(dev, batch, h * w, c, squeeze,
                                                           _DTYPES[dtype])
     return dict(route="cluster" if cluster else "streaming", cluster=cluster, samples=samples,
                 slots=slots, smem=smem)
@@ -120,9 +121,6 @@ def _launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    fn = kernels.SE_SCALE.fn()
-    err = fn(x.data_ptr(), w1f.data_ptr(), w2f.data_ptr(), out.data_ptr(),
-             batch, h * w, c, s, _DTYPES[x.dtype], kernels.stream_ptr())
-    kernels.SE_SCALE.check(err)
-    kernels.SE_SCALE.count_launch()
+    kernels.SE_SCALE.launch(x.device, x.data_ptr(), w1f.data_ptr(), w2f.data_ptr(),
+                            out.data_ptr(), batch, h * w, c, s, _DTYPES[x.dtype])
     return out

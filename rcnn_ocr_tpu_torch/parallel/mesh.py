@@ -1,8 +1,18 @@
-"""Data parallelism across processes: one rank per card, ``torch.distributed``.
+"""Data parallelism: ranks for training, replicas for serving.
 
 Counterpart of ``rcnn_ocr_tpu/parallel/mesh.py`` for its ``data`` axis.  In
 JAX one program spans every device of the mesh and GSPMD inserts the
-reductions; here the data axis is the process group's ranks, each holding
+reductions.  The port has two counterparts.
+
+Serving (``OCRInference(mesh=)``, ``ServingArtifact.load(mesh=)``): one
+process holds a replica of the weights on each device that
+:func:`serving_devices` names, and a :class:`ReplicaSet` splits every batch
+into contiguous row blocks in replica order (JAX's ``P("data")``), runs each
+block on its own device in its own thread and stream, and the host gathers
+the outputs in row order (:func:`gather_rows`).  Decoding needs no
+collective, as in JAX.
+
+Training: the data axis is the process group's ranks, each holding
 its own rows of every global batch (``data/loader.py:ProcessShardedBatchSampler``)
 on its own card, and the port writes the reductions out:
 
@@ -34,11 +44,14 @@ import math
 import os
 import threading
 import warnings
-from typing import Any, Dict, Iterator, List, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor, wait
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from rcnn_ocr_tpu_torch.ops import kernels
 
 UNPORTED = "ROADMAP queue 1, item 13"
 
@@ -257,3 +270,130 @@ def local_batch_rows(*arrays) -> list:
     the host, arrays pass through."""
     return [a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
             for a in arrays]
+
+
+# --- serving replicas ---------------------------------------------------------------
+
+def serving_devices(mesh: Any, device: Union[str, torch.device]) -> Optional[List[torch.device]]:
+    """The replicas' devices for a serving engine's ``mesh=`` argument
+    (``rcnn_ocr_tpu/inference.py``'s ``mesh=``), or ``None`` for no mesh.
+
+    ``True`` is every visible card, ``cuda:0`` to ``cuda:{n-1}``; it raises
+    when there is none, and with a CPU ``device`` it is one CPU replica.  A
+    sequence of devices stands for JAX's explicit ``Mesh``: one replica per
+    entry, so a device named twice holds two replicas (this is how one card,
+    or the CPU, serves several).  Its devices must be of ``device``'s type.
+    ``None`` and ``False`` are no mesh.
+    """
+    if mesh is None or mesh is False:
+        return None
+    dev = torch.device(device)
+    if mesh is True:
+        if dev.type == "cpu":
+            return [torch.device("cpu")]
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n == 0:
+            raise RuntimeError("mesh=True serves on every visible card and none is visible; "
+                               "pass device='cpu' to serve on the CPU")
+        return [torch.device("cuda", i) for i in range(n)]
+    if isinstance(mesh, (str, torch.device)) or not isinstance(mesh, Sequence):
+        raise TypeError(f"mesh must be True, False, None or a sequence of devices, got {mesh!r}")
+    devices = [torch.device(d) for d in mesh]
+    if not devices:
+        raise ValueError("mesh: an empty device list")
+    for i, d in enumerate(devices):
+        if d.type != dev.type:
+            raise ValueError(f"mesh device {d} is not a {dev.type} device (the engine's device "
+                             f"is {dev})")
+        if d.type == "cuda":
+            if d.index is None:
+                devices[i] = d = torch.device("cuda", torch.cuda.current_device())
+            if d.index >= torch.cuda.device_count():
+                raise ValueError(f"mesh device {d}: only {torch.cuda.device_count()} card(s) "
+                                 "are visible")
+    return devices
+
+
+def to_host(out):
+    """A kernel's output (a tensor or a tuple of them) as numpy arrays."""
+    if isinstance(out, (tuple, list)):
+        return tuple(to_host(t) for t in out)
+    return out.detach().cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
+
+
+def gather_rows(parts: List[Any]):
+    """The replicas' host outputs (arrays, or tuples of arrays) joined along
+    the batch axis in replica order."""
+    if len(parts) == 1:
+        return parts[0]
+    if isinstance(parts[0], tuple):
+        return tuple(np.concatenate([p[k] for p in parts]) for k in range(len(parts[0])))
+    return np.concatenate(parts)
+
+
+class ReplicaSet:
+    """The devices of a serving engine's replicas and how a batch runs on them.
+
+    Without a mesh there is one replica, and :meth:`run` calls its work on
+    the calling thread.  Under a mesh every replica has a worker thread and,
+    on a card, a stream of its own: :meth:`run` splits the batch's rows into
+    equal contiguous blocks in replica order, runs each replica's work in
+    its thread with its card current and its stream the current one, waits
+    for every block and returns their results in replica order.  A
+    replica's exception propagates.
+    """
+
+    def __init__(self, devices: Sequence[torch.device], mesh: bool):
+        self.devices = list(devices)
+        self.mesh = bool(mesh)
+        self._streams = [torch.cuda.Stream(device=d) if self.mesh and d.type == "cuda" else None
+                         for d in self.devices]
+        # one thread per replica, so a replica always runs on the same thread
+        # (and cuBLAS keeps one workspace per replica)
+        self._workers = [ThreadPoolExecutor(max_workers=1, thread_name_prefix=f"replica{i}")
+                         for i in range(len(self.devices))] if self.mesh else []
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    def round_batch(self, batch_size: int) -> int:
+        """A batch size that tiles the replicas: rounded up to a multiple of
+        their count (``rcnn_ocr_tpu/inference.py:_round_batch``)."""
+        if not self.mesh:
+            return batch_size
+        n = len(self.devices)
+        return max(n, -(-batch_size // n) * n)
+
+    @contextlib.contextmanager
+    def _scope(self, i: int) -> Iterator[None]:
+        """Replica ``i``'s card current and its stream the current one (a
+        no-op for a CPU replica or without a mesh)."""
+        stream = self._streams[i] if self.mesh else None
+        if stream is None:
+            yield
+            return
+        with torch.cuda.device(self.devices[i]), torch.cuda.stream(stream):
+            yield
+
+    def run(self, work: Callable[[int, int, int], Any], rows: int) -> List[Any]:
+        """``[work(i, lo, hi) for each replica i]``, replica ``i`` taking rows
+        ``[lo, hi)`` of ``rows``; under a mesh each in its own thread and
+        stream, every replica's device work complete on return."""
+        if not self.mesh:
+            return [work(0, 0, rows)]
+        n = len(self.devices)
+        if rows % n:
+            raise ValueError(f"a batch of {rows} rows does not tile {n} replicas")
+        per = rows // n
+        plain = kernels.plain_forced()
+
+        def replica(i: int):
+            with self._scope(i), kernels.plain_only() if plain else contextlib.nullcontext():
+                out = work(i, i * per, (i + 1) * per)
+                if self._streams[i] is not None:
+                    self._streams[i].synchronize()
+                return out
+
+        futures = [w.submit(replica, i) for i, w in enumerate(self._workers)]
+        wait(futures)
+        return [f.result() for f in futures]

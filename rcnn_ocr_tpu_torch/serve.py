@@ -15,9 +15,11 @@ defaults and checks, plus ``--device`` (``cuda``, or ``cpu`` when asked
 for).  ``--model`` takes a msgpack checkpoint or one of the reference's
 ``.pth`` layouts; ``--quantize`` serves it in int8 (static scales when the
 checkpoint carries them).  With ``--artifact`` the flags an artifact bakes
-in at export time are ignored with a warning.  Refused: ``--mesh`` (ROADMAP
-queue 1, item 13) and ``--compile-cache-dir`` (there is no XLA compile
-cache on the card).
+in at export time are ignored with a warning.  ``--mesh`` serves
+data-parallel over every visible card (``mesh=True`` of the engine or the
+artifact; one replica with ``--device cpu``), the micro-batcher's batch
+rounded up to tile the replicas as the engine rounds it.  Refused:
+``--compile-cache-dir`` (there is no XLA compile cache on the card).
 
 Query it:
 
@@ -27,7 +29,8 @@ Query it:
 
 SIGTERM / SIGINT drain and exit; SIGHUP rebuilds the engine from the
 checkpoint or artifact directory on disk and swaps it in without dropping a
-request (taking the artifact's batch size when it changed).
+request (taking the artifact's batch size when it changed), with the same
+mesh.
 """
 
 from __future__ import annotations
@@ -107,8 +110,7 @@ def main(argv=None) -> None:
     p.add_argument("--batch-size", type=int, default=256)
     p.add_argument(
         "--mesh", action="store_true",
-        help="shard serving data-parallel across the visible cards "
-        "(not served yet: refused)",
+        help="shard serving data-parallel across the visible cards",
     )
     p.add_argument(
         "--max-wait-ms",
@@ -165,15 +167,9 @@ def main(argv=None) -> None:
                 "merge (attention_long*) — every other method carries a "
                 "confidence contract")
 
-    refused = {
-        "--mesh": (args.mesh, "multi-card serving is still to be ported "
-                   "(ROADMAP queue 1, item 13)"),
-        "--compile-cache-dir": (args.compile_cache_dir, "there is no XLA compile cache on "
-                                "the card (the CUDA kernels build at first use)"),
-    }
-    for flag, (given, why) in refused.items():
-        if given:
-            p.error(f"{flag}: {why}")
+    if args.compile_cache_dir:
+        p.error("--compile-cache-dir: there is no XLA compile cache on the card (the CUDA "
+                "kernels build at first use)")
 
     from rcnn_ocr_tpu_torch.serving import serving_predict_fn
 
@@ -210,7 +206,8 @@ def main(argv=None) -> None:
         # the build runs again on SIGHUP (hot reload): it re-reads the
         # deployment unit from disk each time
         def build_predict():
-            engine = ServingArtifact.load(args.artifact, device=args.device)
+            engine = ServingArtifact.load(args.artifact, device=args.device,
+                                          mesh=args.mesh or None)
             fn = serving_predict_fn(engine, return_confidence=args.confidence)
             return fn, engine.batch_size
 
@@ -237,6 +234,7 @@ def main(argv=None) -> None:
             quantize=args.quantize,
             width_buckets=buckets,
             lm=args.lm,
+            mesh=args.mesh or None,
         )
         fn = serving_predict_fn(
             engine,
@@ -255,7 +253,8 @@ def main(argv=None) -> None:
             snap=args.snap,
             return_confidence=args.confidence,
         )
-        return fn, args.batch_size
+        # a dispatch the engine would pad to tile the replicas is filled instead
+        return fn, engine._round_batch(args.batch_size)
 
     return _serve(args, build_predict)
 

@@ -9,7 +9,8 @@ uint8 pixels into a fixed canvas (the C++ letterbox); the device resizes,
 pads and normalizes them (:mod:`rcnn_ocr_tpu_torch.ops.preprocess`) and
 decodes.  The kernels returned here are functions of device tensors: the
 weights live in the module, so they take no ``variables`` argument as the
-JAX ones do.
+JAX ones do.  Under a mesh each replica copies its block of rows of the
+pinned canvas batch to its device and resizes and decodes it there.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from rcnn_ocr_tpu_torch.ops.preprocess import host_letterbox, host_resize_geometry, resize_pad_u8
+from rcnn_ocr_tpu_torch.parallel.mesh import gather_rows, to_host
 from rcnn_ocr_tpu_torch.postprocess import decode_ctc_batch, pad_rows
 
 CTC_METHODS = ("ctc", "ctc_greedy", "ctc_beam")
@@ -50,8 +52,8 @@ class ServingEngineMixin:
         img_h = self.img_h
 
         @torch.inference_mode()
-        def run(raw, sizes):
-            return decode(resize_pad_u8(raw, sizes, img_h, target_w))
+        def run(raw, sizes, replica: int = 0):
+            return decode(resize_pad_u8(raw, sizes, img_h, target_w), replica=replica)
         return run
 
     def serving_kernel(self, method: str = "attention", max_length: int = 25,
@@ -146,8 +148,11 @@ class ServingEngineMixin:
 
         Double-buffered: a worker thread letterboxes the next chunk into the
         other of two (pinned, on the card) host buffers while the device
-        decodes this one; a buffer is refilled only after the CUDA event
-        recorded behind its last copy has completed.  Width buckets apply
+        decodes this one; a buffer is refilled only after the CUDA events
+        recorded behind its last copies (one per replica, on the replica's
+        stream) have completed.  Under a mesh ``batch_size`` rounds up to
+        tile the replicas, and each replica copies, resizes and decodes its
+        block of rows on its own device.  Width buckets apply
         (each decodes at its own width).  ``return_confidence`` works for
         every method, with ``predict`` / ``predict_ctc``'s definitions.
         """
@@ -180,19 +185,21 @@ class ServingEngineMixin:
             hw = [self._probe_hw(img) for img in images_list]
             canvas = (max(h for h, _ in hw), max(w for _, w in hw))
         canvas_h, canvas_w = (int(v) for v in canvas)
+        batch_size = self._round_batch(batch_size)
         chunks = self._bucket_chunks(images_list, batch_size)
 
         cuda = self.device.type == "cuda"
         bufs = [torch.empty((batch_size, canvas_h, canvas_w, 3), dtype=torch.uint8,
                             pin_memory=cuda) for _ in range(2)]
-        copied: List[Optional[torch.cuda.Event]] = [None, None]
+        # per buffer, the events behind its last copies: one per replica
+        copied: List[List[torch.cuda.Event]] = [[], []]
 
         def letterbox_chunk(k: int):
             bucket, idxs = chunks[k]
             slot = k % 2
             rgb, _ = pad_rows([self._to_rgb(images_list[j]) for j in idxs], batch_size)
-            if copied[slot] is not None:  # the buffer's last copy must be done
-                copied[slot].synchronize()
+            for event in copied[slot]:  # the buffer's last copies must be done
+                event.synchronize()
             _, sizes = host_letterbox(rgb, canvas_h, canvas_w, out=bufs[slot].numpy())
             geom = host_resize_geometry(sizes, self.img_h, bucket or self.img_w)
             return bucket, idxs, slot, np.concatenate([sizes, geom], axis=1)
@@ -202,10 +209,8 @@ class ServingEngineMixin:
             pending = pool.submit(letterbox_chunk, 0)
             for k in range(len(chunks)):
                 bucket, idxs, slot, sizes = pending.result()
-                raw = bufs[slot].to(self.device, non_blocking=True)
-                if cuda:
-                    copied[slot] = torch.cuda.Event()
-                    copied[slot].record()
+                # the worker fills the other buffer, whose copies the last
+                # chunk's decode waited for
                 if k + 1 < len(chunks):
                     pending = pool.submit(letterbox_chunk, k + 1)
                 run = self._serving_fn(
@@ -215,9 +220,22 @@ class ServingEngineMixin:
                     lm_weight=lm_weight if (attn_beam or ctc_beam_w) else 0.0,
                     with_conf=ctc and return_confidence,
                 )
-                # the .cpu() below waits for the device while the worker
-                # letterboxes the next chunk
-                out = [t.cpu().numpy() for t in run(raw, self._device_batch(sizes))]
+                events: List[torch.cuda.Event] = []
+
+                def work(i: int, lo: int, hi: int):
+                    dev = self._replicas.devices[i]
+                    raw = bufs[slot][lo:hi].to(dev, non_blocking=True)
+                    if cuda:  # on this replica's stream, behind its copy
+                        event = torch.cuda.Event()
+                        event.record()
+                        events.append(event)
+                    block = torch.from_numpy(np.ascontiguousarray(sizes[lo:hi])).to(dev)
+                    # fetching the outputs waits for the device while the
+                    # worker letterboxes the next chunk
+                    return to_host(run(raw, block, replica=i))
+
+                out = gather_rows(self._replicas.run(work, batch_size))
+                copied[slot] = events
                 if ctc:
                     texts = decode_ctc_batch(out[0], out[1], len(idxs), self._itos,
                                              self._ctc_skip())

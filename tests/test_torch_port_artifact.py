@@ -8,7 +8,7 @@ long ones, with one- and several-tile lines): LM fusion and the length
 penalty baked into the beams, ``merge`` ``align`` and ``text``, the v5 CTC
 confidence outputs, width buckets, and the int8 engine with dynamic and
 calibrated static scales (``quant_stats`` ride in ``params.msgpack``).
-Also: the loader's device rules (``platforms``), ``mesh=`` refused, and
+Also: the loader's device rules (``platforms``), ``mesh=`` served, and
 ``serving_predict_fn`` over an artifact with and without confidences.
 """
 
@@ -197,8 +197,11 @@ def test_loader_device_rules(engine, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="exported on 'cuda'"):
         ServingArtifact.load(out_dir, device="cpu")
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ServingArtifact.load(out_dir, device="cpu", mesh=True)
+    # mesh=True on the CPU is one CPU replica; two named replicas split the batch
+    for mesh in (True, ["cpu", "cpu"]):
+        sharded = ServingArtifact.load(out_dir, device="cpu", mesh=mesh)
+        assert len(sharded._replicas) == (1 if mesh is True else 2)
+        assert sharded.predict(short) == live
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for device in ("auto", "cuda"):
         with pytest.raises(RuntimeError, match="device='cpu'"):

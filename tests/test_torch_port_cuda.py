@@ -150,6 +150,7 @@ def test_main_path_goes_through_the_kernels(cuda_device):
     from rcnn_ocr_tpu_torch.inference import OCRInference
     from rcnn_ocr_tpu_torch.interop.jax_params import to_jax_variables
     from rcnn_ocr_tpu_torch.models.rcnn import RCNN, init_params
+    from rcnn_ocr_tpu_torch.ops.augment import device_normalize
 
     tokens = ["<PAD>", "<SOS>", "<EOS>", " "] + list("abcdefghij")
     model = RCNN(num_classes=len(tokens), hidden_size=64, width_mult=0.25, with_ctc_head=True)
@@ -168,7 +169,8 @@ def test_main_path_goes_through_the_kernels(cuda_device):
         assert kernels.launch_counts() == {"se_scale": 22, "bilstm_scan": 4}
         assert len(texts) == len(ctc) == 6
     with torch.inference_mode():
-        for _, _, x in engine._batches(imgs, 4):
+        for _, _, batch in engine._batches(imgs, 4):
+            x = device_normalize(engine._device_batch(batch))
             enc = engine.model.encode(x)
             with kernels.plain_only():
                 enc_plain = engine.model.encode(x)
@@ -663,3 +665,73 @@ def test_artifact_on_the_card_equals_the_live_engine(cuda_device, tmp_path, expo
     assert kernels.launch_counts() == {"se_scale": 22, "bilstm_scan": 4}
     assert got == live.predict_serving(imgs, max_length=8, batch_size=4, canvas=(80, 500),
                                        method=method)
+
+
+def _small_engine_variables():
+    from rcnn_ocr_tpu_torch.interop.jax_params import to_jax_variables
+    from rcnn_ocr_tpu_torch.models.rcnn import RCNN, init_params
+
+    tokens = ["<PAD>", "<SOS>", "<EOS>", " "] + list("abcdefghij")
+    model = RCNN(num_classes=len(tokens), hidden_size=64, width_mult=0.25, with_ctc_head=True)
+    init_params(model, torch.Generator().manual_seed(0))
+    return dict(to_jax_variables(model), itos=tokens)
+
+
+def test_two_replicas_on_one_card_launch_per_block_and_match(cuda_device):
+    """``mesh=["cuda:0", "cuda:0"]``: each replica runs its half of every
+    batch on its own stream and thread, launching 11 + 2 kernels; fp32 CTC
+    strings equal the engine without a mesh, as do ``mesh=True``'s."""
+    from rcnn_ocr_tpu_torch.inference import OCRInference
+
+    variables = _small_engine_variables()
+    rng = np.random.default_rng(1)
+    imgs = [rng.integers(0, 256, size=(int(rng.integers(10, 60)), int(rng.integers(20, 300)), 3),
+                         dtype=np.uint8) for _ in range(6)]
+    kw = dict(device="cuda", img_h=32, img_w=128, dtype=torch.float32)
+    single = OCRInference(variables, **kw)
+    want = single.predict_ctc(imgs, batch_size=4)
+    for mesh in (True, ["cuda:0", "cuda:0"]):
+        engine = OCRInference(variables, mesh=mesh, **kw)
+        kernels.reset_launch_counts()
+        assert engine.predict_ctc(imgs, batch_size=4) == want
+        encodes = -(-6 // engine._round_batch(4)) * len(engine._replicas)  # one per block
+        assert kernels.launch_counts() == {"se_scale": 11 * encodes, "bilstm_scan": 2 * encodes}
+        served = engine.predict_serving(imgs, method="ctc_greedy", batch_size=4,
+                                        canvas=(64, 320))
+        assert served == single.predict_serving(imgs, method="ctc_greedy", batch_size=4,
+                                                canvas=(64, 320))
+
+
+def test_kernels_launch_on_the_tensors_card_from_another_current_card(cuda_device):
+    """Both kernels on cuda:1 from a thread whose current card is cuda:0
+    (the plan caches are per card, so cuda:1's first launch of a shape sets
+    its own shared-memory attribute), held against the plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: launches a kernel on cuda:1 while cuda:0 is current")
+    dev = torch.device("cuda", 1)
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(256, 8, 32, 256, device=dev, generator=g).to(torch.bfloat16)
+    w1 = torch.randn(256, 16, device=dev, generator=g) / 16
+    w2 = torch.randn(16, 256, device=dev, generator=g) / 4
+    xs = torch.randn(16, 2, 256, 1024, device=dev, generator=g)
+    w_hh = (torch.randn(2, 256, 1024, device=dev, generator=g) / 16).to(torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    out = {}
+
+    def launch():
+        torch.cuda.set_device(0)
+        out["se"] = se_scale(x, w1, w2)
+        out["lstm"] = bilstm_scan(xs, w_hh, 256)
+        out["route"] = lstm_route(256, 256, torch.bfloat16, device=dev)
+        torch.cuda.synchronize(dev)
+
+    import threading
+
+    thread = threading.Thread(target=launch)
+    thread.start()
+    thread.join()
+    assert out["route"]["route"] == "resident"
+    torch.testing.assert_close(out["se"].float(), se_scale_reference(x, w1, w2).float(),
+                               rtol=8e-3, atol=1e-6)
+    torch.testing.assert_close(out["lstm"], scan_reference(xs, w_hh, 256), rtol=1e-5,
+                               atol=1e-5)

@@ -847,14 +847,32 @@ def test_serve_cli_checks_match_tools_serve(files, monkeypatch, capsys, extra, m
     assert got == want and message in got
 
 
-@pytest.mark.parametrize("extra,item", [(["--mesh"], "item 13"),
+@pytest.mark.parametrize("extra,item", [(["--mesh"], None),
                                         (["--compile-cache-dir", "c"], "no XLA compile cache")])
-def test_serve_cli_refuses_later_slices(files, capsys, extra, item):
-    """Multi-card serving and XLA's compile cache are refused, beside a
-    checkpoint and beside an artifact (``--quantize`` and ``--artifact``
-    are served: ``tests/test_torch_port_artifact.py``)."""
+def test_serve_cli_refuses_later_slices(files, capsys, monkeypatch, extra, item):
+    """XLA's compile cache is refused, beside a checkpoint and beside an
+    artifact (``--quantize`` and ``--artifact`` are served:
+    ``tests/test_torch_port_artifact.py``).  ``--mesh`` is served: both
+    builders get ``mesh=True`` (one CPU replica with ``--device cpu``);
+    ``tests/test_torch_port_mesh.py`` runs such daemons."""
     from rcnn_ocr_tpu_torch import serve
 
+    if item is None:
+        built, engines = {}, []
+        real = port_serving.serving_predict_fn
+        monkeypatch.setattr(port_serving, "serving_predict_fn",
+                            lambda engine, **kw: engines.append(engine) or real(engine, **kw))
+
+        def fake_serve(args, build_predict):
+            built["fn"], built["max_batch"] = build_predict()
+
+        monkeypatch.setattr(serve, "_serve", fake_serve)
+        serve.main([*_serve_argv(files), "--device", "cpu", *extra])
+        assert engines[0]._mesh == [torch.device("cpu")] and built["max_batch"] == 4
+        line = [np.full((20, 40, 3), 200, np.uint8)]
+        assert built["fn"](line) == engines[0].predict_serving(
+            line, method="ctc_greedy", batch_size=4, canvas=(48, 96), max_length=5)
+        return
     with pytest.raises(SystemExit) as err:
         serve.main([*_serve_argv(files), "--device", "cpu", *extra])
     assert err.value.code == 2 and item in capsys.readouterr().err

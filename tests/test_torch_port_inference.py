@@ -235,9 +235,10 @@ def test_device_is_cuda_unless_cpu_is_asked_for(jax_checkpoints, monkeypatch):
 def test_later_slice_options_raise(engines, jax_checkpoints):
     """Beams and ``"auto:K"`` buckets arrived with the beam slice, the
     serving path and the long-line decodes with the next, int8 with a later
-    one (``tests/test_torch_port_quant.py``); what is still to come
-    (multi-card serving, ``mesh``) raises naming its ROADMAP item instead of
-    being ignored."""
+    one (``tests/test_torch_port_quant.py``) and ``mesh`` with the serving
+    slice after data parallelism (``tests/test_torch_port_mesh.py``): on the
+    CPU ``mesh=True`` is one replica, and a mesh of other devices than the
+    engine's raises."""
     ours = engines[0]
     img = _images(1)[0]
     assert isinstance(ours.predict(img, max_length=MAX_LEN, beam_width=4), str)
@@ -255,5 +256,8 @@ def test_later_slice_options_raise(engines, jax_checkpoints):
     with pytest.raises(ValueError, match="quantize=True"):
         ours.calibrate(img)
     assert OCRInference(full, device="cpu", quantize=True).model.quantize
-    with pytest.raises(NotImplementedError, match="item 13"):
-        OCRInference(full, device="cpu", mesh=True)
+    meshed = OCRInference(full, device="cpu", mesh=True)
+    assert meshed._mesh == [torch.device("cpu")] and len(meshed._replicas) == 1
+    assert meshed.predict(img, max_length=MAX_LEN) == ours.predict(img, max_length=MAX_LEN)
+    with pytest.raises(ValueError, match="not a cpu device"):
+        OCRInference(full, device="cpu", mesh=["cuda:0"])

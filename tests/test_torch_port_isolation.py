@@ -75,6 +75,8 @@ def test_port_sources_are_not_gitignored():
     assert csrc / "host" / "letterbox.cpp" in files
     port = REPO / "rcnn_ocr_tpu_torch"
     assert port / "parallel" / "mesh.py" in files and port / "hpo" / "driver.py" in files
+    assert {port / "serve_loadtest.py", port / "export_torch.py",
+            port / "interop" / "torch_export.py"} <= set(files)
     probe = subprocess.run(["git", "rev-parse", "--is-inside-work-tree"], cwd=str(REPO),
                            capture_output=True, text=True)
     if probe.returncode != 0:
