@@ -68,13 +68,20 @@
    events), and per method the wall, device busy time, kernels and idle
    share of one profiled batch.
    Daemon phase: the host C++ JPEG decoder against cv2's pixels of the
-   committed fixtures (tests/torch_port_data/jpeg/), then the port's
-   ``OCRServer`` on 127.0.0.1 over the same weights (bf16, batch 256, 5 ms
-   window, canvas 80x640) for ctc_greedy and then attention: the port's
-   client, in a process of its own, sends the 512 lines as PNG and 64 JPEG
-   lines, raw and in 8-image JSON batches, from 1 (16 + 16 lines), 16 and
-   64 threads; strings must equal in-process ``predict_serving`` on >= 99%
-   of rows and each dispatch launch 11 + 2 kernels.  Two SIGHUP reloads
+   committed fixtures (tests/torch_port_data/jpeg/: baseline, progressive
+   whole and cut short, arithmetic-coded, CMYK and YCCK), and the TIFF
+   decoder against those of tests/torch_port_data/tiff/ (JPEG-in-TIFF and
+   CCITT refused naming them); then the port's ``OCRServer`` on 127.0.0.1
+   over the same weights (bf16, batch 256, 5 ms window, canvas 80x640) for
+   ctc_greedy and then attention: the port's client, in a process of its
+   own, sends the 512 lines as PNG, 64 JPEG lines and 8 lines as
+   progressive, arithmetic and YCCK JPEG and TIFF, each beside a PNG of its
+   pixels, raw and in 8-image JSON batches, from 1 (16 + 16 lines and the
+   8 pairs), 16 and 64 threads; strings must equal in-process
+   ``predict_serving`` on >= 99% of rows, every variant line's strings its
+   PNG twin's, and each dispatch launch 11 + 2 kernels.  The host decode
+   time per line of each format is printed beside the card's name and
+   power limit.  Two SIGHUP reloads
    with 16 clients in flight must drop nothing, and the old engine must be
    released (a second reload adds no memory to the first; with the cuBLAS
    workspaces cleared, memory returns to where it was); a drain with 64
@@ -264,6 +271,16 @@ DAEMON_CONCURRENCY = (1, 16, 64)
 MESH_LOAD = ((1, 64), (16, 256), (64, 512))
 RELOAD_MEM_MIB = 8
 JPEG_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "jpeg")
+TIFF_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "tiff")
+# lines in the formats the port's decoders read beside baseline JPEG and PNG:
+# (file, content type, variant), each sent to the daemon beside a PNG of its pixels
+VARIANT_LINES = [(f"{stem}_line_{k}.{ext}", ctype, variant)
+                 for stem, ext, ctype, variant in (
+                     ("prog", "jpg", "image/jpeg", "progressive JPEG"),
+                     ("arith", "jpg", "image/jpeg", "arithmetic JPEG"),
+                     ("cmyk", "jpg", "image/jpeg", "YCCK JPEG"),
+                     ("tiff", "tif", "image/tiff", "TIFF"))
+                 for k in range(2)]
 # training phase: configs/config.json's shape and optimizer
 TRAIN_BATCH, TRAIN_MAX_LEN, TRAIN_STEPS, GRAD_BATCH = 128, 40, 30, 32
 TRAIN_LR, TRAIN_WD = 5e-4, 2e-5
@@ -1014,7 +1031,9 @@ def serving_phase(kernels, variables, images, power: str):
 
 def jpeg_decoder_check() -> dict:
     """The host C++ JPEG decoder against cv2's pixels of the committed
-    fixtures (tests/torch_port_data/jpeg/expected.npz), read without cv2."""
+    fixtures (tests/torch_port_data/jpeg/expected.npz: baseline, progressive
+    whole and cut short, arithmetic-coded, CMYK and YCCK), read without
+    cv2; a lossless frame is refused naming it, a truncated one raises."""
     from rcnn_ocr_tpu_torch.native import jpeg_decode_u8
 
     with np.load(os.path.join(JPEG_FIXTURES, "expected.npz")) as z:
@@ -1026,15 +1045,17 @@ def jpeg_decoder_check() -> dict:
         if got.shape != want.shape or not np.array_equal(got, want):
             differing.append(name)
     check(not differing, f"jpeg_decode_u8 differs from cv2's pixels on {differing}")
-    with open(os.path.join(JPEG_FIXTURES, "progressive_17x33.jpg"), "rb") as f:
-        progressive = f.read()
-    try:
-        jpeg_decode_u8(progressive)
-        check(False, "a progressive JPEG decoded (it must be refused)")
-    except NotImplementedError as err:
-        check("progressive" in str(err), f"the refusal names no variant: {err}")
+    variants = {v: sum(v in name for name in expected)
+                for v in ("progressive", "cut_", "arith", "cmyk", "ycck")}
+    check(all(variants.values()), f"a variant has no fixture: {variants}")
     with open(os.path.join(JPEG_FIXTURES, "line_00.jpg"), "rb") as f:
         line = f.read()
+    sof = line.find(b"\xff\xc0")
+    try:
+        jpeg_decode_u8(line[: sof + 1] + b"\xc3" + line[sof + 2 :])
+        check(False, "a lossless (SOF3) JPEG decoded (it must be refused)")
+    except NotImplementedError as err:
+        check("lossless" in str(err), f"the refusal names no variant: {err}")
     try:
         jpeg_decode_u8(line[: len(line) // 2])
         check(False, "a JPEG cut in half decoded (it must raise ValueError)")
@@ -1042,8 +1063,47 @@ def jpeg_decoder_check() -> dict:
         pass
     print(f"  jpeg_decode_u8: {len(expected)} fixtures bit-equal to cv2's pixels "
           f"(subsamplings 4:4:4/4:2:2/4:2:0/4:4:0/4:1:1, gray, restarts, EXIF 3/6/8, "
-          f"no DHT, damaged, 64 lines); progressive refused, truncated raises ValueError")
-    return {"fixtures_bit_equal": len(expected)}
+          f"no DHT, damaged, 64 lines; {variants['progressive']} progressive, "
+          f"{variants['cut_']} cut short, {variants['arith']} arithmetic, "
+          f"{variants['cmyk'] + variants['ycck']} CMYK / YCCK); lossless refused, "
+          f"truncated raises ValueError")
+    return {"fixtures_bit_equal": len(expected), "variants": variants}
+
+
+def tiff_decoder_check() -> dict:
+    """The port's TIFF decoder (data/tiff.py, LZW in host C++) against
+    cv2's pixels of the committed fixtures (tests/torch_port_data/tiff/
+    expected.npz), read without cv2; the fixtures with no pixels there
+    (JPEG-in-TIFF, CCITT) are refused naming them, a truncated file raises."""
+    from rcnn_ocr_tpu_torch.data.image_io import UnsupportedImageFormat, imread
+
+    with np.load(os.path.join(TIFF_FIXTURES, "expected.npz")) as z:
+        expected = {k: z[k] for k in z.files}
+    differing = [name for name, want in sorted(expected.items())
+                 if not np.array_equal(imread(os.path.join(TIFF_FIXTURES, name)), want)]
+    check(not differing, f"the TIFF decoder differs from cv2's pixels on {differing}")
+    refused = sorted(set(f for f in os.listdir(TIFF_FIXTURES) if f.endswith(".tif"))
+                     - set(expected))
+    for name in refused:
+        try:
+            imread(os.path.join(TIFF_FIXTURES, name))
+            check(False, f"{name} decoded (it must be refused)")
+        except UnsupportedImageFormat as err:
+            check("TIFF compression" in str(err), f"{name}: the refusal names nothing: {err}")
+    with open(os.path.join(TIFF_FIXTURES, "tiff_line_0.tif"), "rb") as f:
+        line = f.read()
+    try:
+        from rcnn_ocr_tpu_torch.data.image_io import imdecode
+
+        imdecode(line[: len(line) // 2])
+        check(False, "a TIFF cut in half decoded (it must raise ValueError)")
+    except ValueError:
+        pass
+    print(f"  TIFF decoder: {len(expected)} fixtures bit-equal to cv2's pixels (none, "
+          f"PackBits, LZW, Deflate, predictor 2; gray 1/8/16, palette 1/4/8, RGB(A) 8/16, "
+          f"CMYK; strips, tiles, planar, II and MM, orientations 1-8); {len(refused)} "
+          f"refused naming the compression; truncated raises ValueError")
+    return {"fixtures_bit_equal": len(expected), "refused": refused}
 
 
 def _post(base: str, body: bytes, ctype: str, timeout: float = 120.0):
@@ -1139,40 +1199,73 @@ def daemon_phase(kernels, variables, images, power: str):
     from rcnn_ocr_tpu_torch.serving import OCRServer, install_hot_reload, serving_predict_fn
 
     t_phase = time.perf_counter()
-    out = {"decoder": jpeg_decoder_check(), "canvas": list(DAEMON_CANVAS),
-           "batch": DAEMON_BATCH, "max_wait_ms": DAEMON_WAIT_MS}
+    out = {"decoder": jpeg_decoder_check(), "tiff_decoder": tiff_decoder_check(),
+           "canvas": list(DAEMON_CANVAS), "batch": DAEMON_BATCH, "max_wait_ms": DAEMON_WAIT_MS}
     charset_path = os.path.join(REPO, "configs", "charset.txt")
 
     def engine():
         return OCRInference(variables, charset_path=charset_path, device="cuda", img_h=IMG_H,
                             img_w=IMG_W, dtype=torch.bfloat16)
 
-    # traffic: the main path's 512 lines as PNG, then the 64 JPEG fixture lines
+    # traffic: the main path's 512 lines as PNG, the 64 JPEG fixture lines,
+    # then the variant lines (progressive, arithmetic and YCCK JPEG, TIFF),
+    # each followed by a PNG of the pixels it decodes to (its twin)
     wire = [("image/png", png_encode(im)) for im in images]
+    kinds = ["PNG"] * len(images)
     for k in range(64):
         with open(os.path.join(JPEG_FIXTURES, f"line_{k:02d}.jpg"), "rb") as f:
             wire.append(("image/jpeg", f.read()))
+        kinds.append("baseline JPEG")
+    twins = []
+    for name, ctype, variant in VARIANT_LINES:
+        folder = TIFF_FIXTURES if name.endswith(".tif") else JPEG_FIXTURES
+        with open(os.path.join(folder, name), "rb") as f:
+            body = f.read()
+        wire += [(ctype, body), ("image/png", png_encode(imdecode(body)))]
+        kinds += [variant, "PNG twin"]
+        twins.append((len(wire) - 2, len(wire) - 1))
+    decoded = [imdecode(b) for _, b in wire]
     decode_ms = {}
-    decoded = []
-    for kind in ("image/png", "image/jpeg"):
-        bodies = [b for c, b in wire if c == kind]
+    for kind in dict.fromkeys(kinds):  # host decode time per line, one thread
+        if kind == "PNG twin":
+            continue
+        bodies = [b for (_, b), k in zip(wire, kinds) if k == kind]
+        reps = max(1, 64 // len(bodies))
         t0 = time.perf_counter()
-        decoded += [imdecode(b) for b in bodies]
-        decode_ms[kind.split("/")[1]] = (time.perf_counter() - t0) * 1e3 / len(bodies)
+        for _ in range(reps):
+            for b in bodies:
+                imdecode(b)
+        decode_ms[kind] = (time.perf_counter() - t0) * 1e3 / (reps * len(bodies))
     check(all(np.array_equal(a, b) for a, b in zip(decoded, images)), "PNG round trip differs")
     n = len(wire)
     ch, cw = DAEMON_CANVAS
     check(all(im.shape[0] <= ch and im.shape[1] <= cw for im in decoded),
           f"an image exceeds the {ch}x{cw} canvas")
-    print(f"  traffic: {len(images)} PNG + {n - len(images)} JPEG lines; canvas {ch}x{cw} "
-          f"covers every image (largest {max(im.shape[0] for im in decoded)}x"
-          f"{max(im.shape[1] for im in decoded)}); server decode per image: PNG "
-          f"{decode_ms['png']:.3f} ms, JPEG {decode_ms['jpeg']:.3f} ms (one thread)")
+    print(f"  traffic: {len(images)} PNG + 64 JPEG lines + {len(twins)} variant lines "
+          f"({', '.join(dict.fromkeys(v for _, _, v in VARIANT_LINES))}) each with a PNG "
+          f"twin; canvas {ch}x{cw} covers every image (largest "
+          f"{max(im.shape[0] for im in decoded)}x{max(im.shape[1] for im in decoded)})")
+    print("  host decode per line (one thread, the host CPU beside the card "
+          f"{power}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in decode_ms.items()))
     out["decode_ms_per_image"] = decode_ms
-    # one client at a time: 16 PNG and 16 JPEG lines (the single-client
-    # latency needs no more); 16 and 64 clients: every line
-    subsets = {1: list(range(16)) + list(range(len(images), len(images) + 16)),
+    # one client at a time: 16 PNG and 16 JPEG lines and the variant lines
+    # with their twins (the single-client latency needs no more); 16 and 64
+    # clients: every line
+    subsets = {1: (list(range(16)) + list(range(len(images), len(images) + 16))
+                   + [i for pair in twins for i in pair]),
                16: list(range(n)), 64: list(range(n))}
+
+    def twins_agree(results, what):
+        """Each variant line's strings against its PNG twin's, where the
+        level sent both."""
+        got = {}
+        for idxs, _, _, texts in results:
+            got.update(zip(idxs, texts))
+        pairs = [(v, p) for v, p in twins if v in got and p in got]
+        apart = [(kinds[v], got[v], got[p]) for v, p in pairs if got[v] != got[p]]
+        check(pairs and not apart, f"{what}: variant lines read otherwise than their PNG "
+                                   f"twins ({len(pairs)} pairs): {apart}")
+        return len(pairs)
 
     def jobs_for(idxs):
         raw = [([i], "raw", wire[i]) for i in idxs]
@@ -1246,6 +1339,7 @@ def daemon_phase(kernels, variables, images, power: str):
             start, end, results = by_level[name]
             wall = end - start
             same, rows = compare(results, expected, f"{method} c={conc} {kind}")
+            pairs = twins_agree(results, f"{method} c={conc} {kind}")
             lat = sorted(r[1] for r in results)
             pick = lambda q: lat[min(len(lat) - 1, int(q * len(lat)))] * 1e3  # noqa: E731
             mine = [(n, dt) for t, n, dt in dispatches if start <= t <= end]
@@ -1255,14 +1349,15 @@ def daemon_phase(kernels, variables, images, power: str):
                      "p50_ms": pick(0.5), "p95_ms": pick(0.95), "p99_ms": pick(0.99),
                      "dispatches": len(sizes), "mean_batch": sum(sizes) / len(sizes),
                      "dispatch_ms": 1e3 * sum(dt for _, dt in mine) / len(mine),
-                     "strings_equal": same}
+                     "strings_equal": same, "variant_twins_equal": pairs}
             res["levels"][f"c{conc}_{kind}"] = level
             print(f"  daemon {method} c={conc} {kind}: {len(results)} requests, {rows} "
                   f"images in {wall:.3f} s: {level['req_s']:.1f} req/s, "
                   f"{level['img_s']:.1f} img/s, latency p50/p95/p99 {level['p50_ms']:.2f}/"
                   f"{level['p95_ms']:.2f}/{level['p99_ms']:.2f} ms, {len(sizes)} dispatches "
                   f"of {level['mean_batch']:.1f} images and {level['dispatch_ms']:.1f} ms on "
-                  f"average; strings equal in-process on {same}/{rows} on {power}")
+                  f"average; strings equal in-process on {same}/{rows}, variant lines equal "
+                  f"their PNG twins on {pairs}/{pairs} on {power}")
         counts = kernels.launch_counts()
         for name, per in (("se_scale", 11), ("bilstm_scan", 2)):
             check(counts[name] == per * len(dispatches),

@@ -1,20 +1,35 @@
-// Baseline and extended-sequential JPEG decoding to RGB uint8, pixel for
-// pixel what libjpeg-turbo's default decompression gives (the decoder behind
-// `cv2.imdecode(buf, IMREAD_COLOR)`), EXIF orientation applied as OpenCV
-// applies it.
+// JPEG decoding to RGB uint8, pixel for pixel what libjpeg-turbo's default
+// decompression gives (the decoder behind `cv2.imdecode(buf, IMREAD_COLOR)`),
+// EXIF orientation applied as OpenCV applies it.
 //
 // The steps follow libjpeg-turbo's default path:
 // * markers: SOI, APPn (APP0 JFIF, APP1 EXIF, APP14 Adobe), DQT (8- and
-//   16-bit tables), DHT, SOF0/SOF1 (8-bit Huffman, sequential), DRI, SOS
-//   (interleaved or single-component scans, one or more), RSTn, EOI;
-// * entropy decoding (jdhuff.c): DC prediction per component, reset at each
-//   restart marker; a segment that ends at a marker before its bits are in
-//   is zero-filled and its later MCUs left zero, as libjpeg-turbo does
+//   16-bit tables), DHT, DAC, SOF0/SOF1 (sequential Huffman), SOF2
+//   (progressive Huffman), SOF9/SOF10 (sequential and progressive
+//   arithmetic), DRI, SOS (interleaved or single-component scans, one or
+//   more), RSTn, EOI;
+// * every scan decodes into a whole-image coefficient buffer per component
+//   (jdcoefct.c), which is reconstructed after EOI.  A single-component scan
+//   walks that component's own blocks, not the MCU-padded grid;
+// * Huffman entropy decoding: sequential (jdhuff.c), DC prediction per
+//   component, reset at each restart marker; progressive (jdphuff.c): DC
+//   first with the point transform Al, DC refinement, AC first with EOB
+//   runs, AC refinement with correction bits, and libjpeg's checks on
+//   Ss/Se/Ah/Al.  A segment that ends at a marker before its bits are in is
+//   zero-filled and its later MCUs left as they are, as libjpeg-turbo does
 //   (JWRN_HIT_MARKER); data that ends with no marker is truncated;
+// * arithmetic decoding (jdarith.c, T.81 Annex D and F): the QM coder with
+//   the DC and AC statistics areas, conditioned by DAC or its defaults
+//   (L = 0, U = 1, Kx = 5), re-initialized at each scan and restart, for
+//   sequential and the four progressive scan kinds;
 // * dequantization and the ISLOW integer IDCT (jidctint.c: CONST_BITS 13,
 //   PASS1_BITS 2) in the 16-bit lanes of libjpeg-turbo's x86 SIMD version,
 //   clamped to 0..255 with its saturating packs (the C table differs from a
 //   clamp only beyond +-512);
+// * progressive images whose first AC coefficients are not all complete
+//   (a stream cut short and closed by EOI) take jdcoefct.c's block
+//   smoothing: coefficients 1-9 estimated from a 5x5 window of DC values,
+//   DC itself too when no AC data arrived (decompress_smooth_data);
 // * chroma upsampling (jdsample.c, "fancy", libjpeg's default): h2v1 and
 //   h2v2 triangle filters with their alternating biases, h1v2, and plain
 //   replication for other integral factors or planes two columns wide;
@@ -22,7 +37,11 @@
 // * colour (jdcolor.c): YCbCr -> RGB with the fixed-point tables
 //   (SCALEBITS 16); gray is replicated to three channels; 3-component
 //   images without a JFIF marker follow the Adobe transform flag or the
-//   'R','G','B' component ids, as libjpeg's default_decompress_parms.
+//   'R','G','B' component ids, as libjpeg's default_decompress_parms;
+//   4-component images are CMYK (Adobe transform 0, or no Adobe marker) or
+//   YCCK (any other transform), YCCK taken to CMYK as ycck_cmyk_convert
+//   does, then the Adobe-inverted CMYK to RGB as OpenCV's
+//   icvCvt_CMYK2BGR_8u_C4C3R does.
 //
 // Damaged entropy data decodes as libjpeg-turbo decodes it (its warnings,
 // which OpenCV only prints): a bad Huffman code gives a zero symbol, a
@@ -30,11 +49,11 @@
 // jdmarker.c:jpeg_resync_to_restart does, and a scan that names a Huffman
 // table no DHT defined uses the standard tables (jstdhuff.c).
 //
-// Refused (return -2): progressive, lossless, hierarchical and arithmetic-
-// coded frames, precisions other than 8 bits, and 2- or 4-component images
-// (CMYK / YCCK).  Damaged headers and truncated data (where OpenCV's decode
-// fails) return -1.  Both write a message.  The decoder never reads past `n`
-// bytes.
+// Refused (return -2, the message names the variant): lossless (SOF3,
+// SOF11), hierarchical (SOF5-7, SOF13-15), precisions other than 8 bits,
+// DNL markers and 2-component images.  Damaged headers and truncated data
+// (where OpenCV's decode fails) return -1.  Both write a message.  The
+// decoder never reads past `n` bytes.
 //
 // Two calls: rcnn_jpeg_header for the output height and width, then
 // rcnn_jpeg_decode_u8 into a caller-owned [h, w, 3] buffer.
@@ -104,6 +123,50 @@ const uint8_t kStdAcVals[2][162] = {
     0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
     0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa
     }};
+
+// T.81 Table D.2 (jaricom.c): (Qe << 16) | (Next_Index_MPS << 8) |
+// (Switch_MPS << 7) | Next_Index_LPS, plus entry 113, the fixed 0.5 bin.
+#define QM(qe, nlps, nmps, sw) ((int32_t(qe) << 16) | ((nmps) << 8) | ((sw) << 7) | (nlps))
+const int32_t kQm[114] = {
+    QM(0x5a1d, 1, 1, 1),     QM(0x2586, 14, 2, 0),    QM(0x1114, 16, 3, 0),
+    QM(0x080b, 18, 4, 0),    QM(0x03d8, 20, 5, 0),    QM(0x01da, 23, 6, 0),
+    QM(0x00e5, 25, 7, 0),    QM(0x006f, 28, 8, 0),    QM(0x0036, 30, 9, 0),
+    QM(0x001a, 33, 10, 0),   QM(0x000d, 35, 11, 0),   QM(0x0006, 9, 12, 0),
+    QM(0x0003, 10, 13, 0),   QM(0x0001, 12, 13, 0),   QM(0x5a7f, 15, 15, 1),
+    QM(0x3f25, 36, 16, 0),   QM(0x2cf2, 38, 17, 0),   QM(0x207c, 39, 18, 0),
+    QM(0x17b9, 40, 19, 0),   QM(0x1182, 42, 20, 0),   QM(0x0cef, 43, 21, 0),
+    QM(0x09a1, 45, 22, 0),   QM(0x072f, 46, 23, 0),   QM(0x055c, 48, 24, 0),
+    QM(0x0406, 49, 25, 0),   QM(0x0303, 51, 26, 0),   QM(0x0240, 52, 27, 0),
+    QM(0x01b1, 54, 28, 0),   QM(0x0144, 56, 29, 0),   QM(0x00f5, 57, 30, 0),
+    QM(0x00b7, 59, 31, 0),   QM(0x008a, 60, 32, 0),   QM(0x0068, 62, 33, 0),
+    QM(0x004e, 63, 34, 0),   QM(0x003b, 32, 35, 0),   QM(0x002c, 33, 9, 0),
+    QM(0x5ae1, 37, 37, 1),   QM(0x484c, 64, 38, 0),   QM(0x3a0d, 65, 39, 0),
+    QM(0x2ef1, 67, 40, 0),   QM(0x261f, 68, 41, 0),   QM(0x1f33, 69, 42, 0),
+    QM(0x19a8, 70, 43, 0),   QM(0x1518, 72, 44, 0),   QM(0x1177, 73, 45, 0),
+    QM(0x0e74, 74, 46, 0),   QM(0x0bfb, 75, 47, 0),   QM(0x09f8, 77, 48, 0),
+    QM(0x0861, 78, 49, 0),   QM(0x0706, 79, 50, 0),   QM(0x05cd, 48, 51, 0),
+    QM(0x04de, 50, 52, 0),   QM(0x040f, 50, 53, 0),   QM(0x0363, 51, 54, 0),
+    QM(0x02d4, 52, 55, 0),   QM(0x025c, 53, 56, 0),   QM(0x01f8, 54, 57, 0),
+    QM(0x01a4, 55, 58, 0),   QM(0x0160, 56, 59, 0),   QM(0x0125, 57, 60, 0),
+    QM(0x00f6, 58, 61, 0),   QM(0x00cb, 59, 62, 0),   QM(0x00ab, 61, 63, 0),
+    QM(0x008f, 61, 32, 0),   QM(0x5b12, 65, 65, 1),   QM(0x4d04, 80, 66, 0),
+    QM(0x412c, 81, 67, 0),   QM(0x37d8, 82, 68, 0),   QM(0x2fe8, 83, 69, 0),
+    QM(0x293c, 84, 70, 0),   QM(0x2379, 86, 71, 0),   QM(0x1edf, 87, 72, 0),
+    QM(0x1aa9, 87, 73, 0),   QM(0x174e, 72, 74, 0),   QM(0x1424, 72, 75, 0),
+    QM(0x119c, 74, 76, 0),   QM(0x0f6b, 74, 77, 0),   QM(0x0d51, 75, 78, 0),
+    QM(0x0bb6, 77, 79, 0),   QM(0x0a40, 77, 48, 0),   QM(0x5832, 80, 81, 1),
+    QM(0x4d1c, 88, 82, 0),   QM(0x438e, 89, 83, 0),   QM(0x3bdd, 90, 84, 0),
+    QM(0x34ee, 91, 85, 0),   QM(0x2eae, 92, 86, 0),   QM(0x299a, 93, 87, 0),
+    QM(0x2516, 86, 71, 0),   QM(0x5570, 88, 89, 1),   QM(0x4ca9, 95, 90, 0),
+    QM(0x44d9, 96, 91, 0),   QM(0x3e22, 97, 92, 0),   QM(0x3824, 99, 93, 0),
+    QM(0x32b4, 99, 94, 0),   QM(0x2e17, 93, 86, 0),   QM(0x56a8, 95, 96, 1),
+    QM(0x4f46, 101, 97, 0),  QM(0x47e5, 102, 98, 0),  QM(0x41cf, 103, 99, 0),
+    QM(0x3c3d, 104, 100, 0), QM(0x375e, 99, 93, 0),   QM(0x5231, 105, 102, 0),
+    QM(0x4c0f, 106, 103, 0), QM(0x4639, 107, 104, 0), QM(0x415e, 103, 99, 0),
+    QM(0x5627, 105, 106, 1), QM(0x50e7, 108, 107, 0), QM(0x4b85, 109, 103, 0),
+    QM(0x5597, 110, 109, 0), QM(0x504f, 111, 107, 0), QM(0x5a10, 110, 111, 1),
+    QM(0x5522, 112, 109, 0), QM(0x59eb, 112, 111, 1), QM(0x5a1d, 113, 113, 0)};
+#undef QM
 
 constexpr int kLookahead = 8;
 constexpr int kMinGetBits = 57;  // libjpeg-turbo's MIN_GET_BITS, 64-bit buffer
@@ -176,6 +239,13 @@ struct Component {
   bool coded = false;
   uint16_t quant[64] = {};  // latched at the component's first scan
   std::vector<int16_t> coef;
+  // progressive status per coefficient (jdphuff.c): -1 never coded, else
+  // the Al of its last scan; and its value before the component's last scan
+  int coef_bits[64], prev_coef_bits[64];
+  Component() {
+    std::fill(coef_bits, coef_bits + 64, -1);
+    std::fill(prev_coef_bits, prev_coef_bits + 64, -1);
+  }
 };
 
 // jdcolor.c:build_ycc_rgb_table
@@ -241,11 +311,18 @@ class Decoder {
       }
       if (!eoi && pos_ >= n_) {
         if (!scanned_) damaged("truncated JPEG data (no scan)");
-        break;  // every scan decoded but no EOI: libjpeg accepts that
+        // every scan decoded but no EOI: libjpeg accepts that when the
+        // first scan held every component of a sequential frame; else it
+        // reads to EOI before any output, and OpenCV's source cannot wait
+        if (multi_scan_) damaged("truncated JPEG data (no EOI)");
+        break;
       }
     }
+    // a component no scan coded (a multi-scan stream cut short) keeps zero
+    // coefficients and a zero quantization table: mid-gray, as in libjpeg
     for (int c = 0; c < ncomp_; ++c) {
-      if (!comp_[c].coded) damaged("component never coded by a scan");
+      Component& k = comp_[c];
+      if (!k.coded) k.coef.assign(static_cast<size_t>(k.bw) * k.bh * 64, 0);
     }
     render(out);
   }
@@ -255,7 +332,13 @@ class Decoder {
   size_t n_;
   size_t pos_ = 0, scan_start_ = 0;
 
-  bool sof_ = false, scanned_ = false;
+  bool sof_ = false, scanned_ = false, progressive_ = false, arith_ = false;
+  bool multi_scan_ = false;  // jdinput.c's has_multiple_scans
+  int scans_ = 0;
+  // the last iMCU row a scan finished with its data all there: the rows
+  // below it take the coefficient status from before the components' last
+  // scan when smoothing (jdcoefct.c, libjpeg-turbo 2.1 and later)
+  int64_t last_good_row_ = 0;
   int width_ = 0, height_ = 0, ncomp_ = 0, hmax_ = 1, vmax_ = 1;
   int mcux_ = 0, mcuy_ = 0;
   Component comp_[4];
@@ -270,6 +353,17 @@ class Decoder {
   uint64_t buf_ = 0;
   int bits_ = 0;
   bool marker_hit_ = false, insufficient_ = false;
+  int ss_ = 0, se_ = 63, ah_ = 0, al_ = 0;  // the scan's spectral band and bits
+  int eobrun_ = 0;
+
+  // arithmetic decoding (jdarith.c): conditioning, statistics, registers
+  uint8_t dc_L_[16] = {}, dc_U_[16] = {1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1};
+  uint8_t ac_K_[16] = {5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5};
+  uint8_t dc_stats_[16][64] = {}, ac_stats_[16][256] = {};
+  uint8_t fixed_bin_ = 113;
+  int64_t ar_c_ = 0, ar_a_ = 0;
+  int ar_ct_ = 0;
+  int dc_context_[4] = {};
 
   int u8() {
     if (pos_ >= n_) damaged("truncated JPEG header");
@@ -303,25 +397,26 @@ class Decoder {
     switch (m) {
       case 0xC0:
       case 0xC1:
+      case 0xC2:
+      case 0xC9:
+      case 0xCA:
+        progressive_ = m == 0xC2 || m == 0xCA;
+        arith_ = m >= 0xC9;
         sof(end);
         break;
-      case 0xC2:
-        unsupported("progressive JPEG (SOF2)");
       case 0xC3:
-        unsupported("lossless JPEG (SOF3)");
+      case 0xCB:
+        unsupported("lossless JPEG (SOF" + std::to_string(m - 0xC0) + ")");
       case 0xC5:
       case 0xC6:
       case 0xC7:
-        unsupported("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) + ")");
-      case 0xC9:
-      case 0xCA:
-      case 0xCB:
       case 0xCD:
       case 0xCE:
       case 0xCF:
-        unsupported("arithmetic-coded JPEG (SOF" + std::to_string(m - 0xC0) + ")");
+        unsupported("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) + ")");
       case 0xCC:
-        unsupported("arithmetic-coded JPEG (DAC)");
+        dac(end);
+        break;
       case 0xC4:
         dht(end);
         break;
@@ -365,10 +460,8 @@ class Decoder {
     if (precision != 8) unsupported(std::to_string(precision) + "-bit JPEG");
     if (height_ == 0) unsupported("JPEG with its height in a DNL marker");
     if (width_ == 0) damaged("JPEG of width 0");
-    if (ncomp_ == 4) unsupported("4-component JPEG (CMYK / YCCK)");
-    if (ncomp_ != 1 && ncomp_ != 3) {
-      unsupported(std::to_string(ncomp_) + "-component JPEG");
-    }
+    if (ncomp_ < 1 || ncomp_ > 4) damaged("bad SOF component count");
+    if (ncomp_ == 2) unsupported("2-component JPEG");
     if (static_cast<int64_t>(width_) * height_ > (int64_t(1) << 30)) {
       damaged("JPEG larger than 2^30 pixels");
     }
@@ -417,6 +510,22 @@ class Decoder {
       for (int i = 0; i < count; ++i) vals[i] = static_cast<uint8_t>(u8());
       (tc ? ac_[th] : dc_[th]).build(bits, vals, count, tc == 0);
     }
+  }
+
+  // jdmarker.c:get_dac: arithmetic conditioning per table
+  void dac(size_t end) {
+    while (pos_ + 2 <= end) {
+      int index = u8(), val = u8();
+      if (index >= 32) damaged("bad DAC table index");
+      if (index >= 16) {
+        ac_K_[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        dc_L_[index] = static_cast<uint8_t>(val & 15);
+        dc_U_[index] = static_cast<uint8_t>(val >> 4);
+        if (dc_L_[index] > dc_U_[index]) damaged("bad DAC value");
+      }
+    }
+    if (pos_ != end) damaged("bad DAC segment length");
   }
 
   void dqt(size_t end) {
@@ -529,6 +638,7 @@ class Decoder {
 
   static int extend(int x, int s) { return x < (1 << (s - 1)) ? x - (1 << s) + 1 : x; }
 
+  // jdhuff.c:decode_mcu, one block of a sequential scan
   void block(int16_t* blk, const Huffman& dct, const Huffman& act, int& pred) {
     int s = huff(dct);
     if (s) s = extend(get_bits(s), s);
@@ -549,6 +659,294 @@ class Decoder {
     }
   }
 
+  // jdphuff.c:decode_mcu_DC_first, one block
+  void dc_first(int16_t* blk, const Huffman& dct, int& pred) {
+    int s = huff(dct);
+    if (s) s = extend(get_bits(s), s);
+    int64_t sum = static_cast<int64_t>(pred) + s;
+    if (sum > INT32_MAX || sum < INT32_MIN) damaged("DC coefficient out of range");
+    pred = static_cast<int>(sum);
+    blk[0] = static_cast<int16_t>(static_cast<uint32_t>(pred) << al_);
+  }
+
+  // jdphuff.c:decode_mcu_AC_first
+  void ac_first(int16_t* blk, const Huffman& act) {
+    if (eobrun_ > 0) {
+      --eobrun_;
+      return;
+    }
+    for (int k = ss_; k <= se_; ++k) {
+      int rs = huff(act);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(extend(get_bits(s), s)) << al_);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun_ = 1 << r;
+        if (r) eobrun_ += get_bits(r);
+        --eobrun_;
+        break;
+      }
+    }
+  }
+
+  // one correction bit for an already non-zero coefficient
+  void correct(int16_t& c, int p1, int m1) {
+    if (get_bits(1) && (c & p1) == 0) c = static_cast<int16_t>(c + (c >= 0 ? p1 : m1));
+  }
+
+  // jdphuff.c:decode_mcu_AC_refine (libjpeg's undo on suspension cannot
+  // happen: the bytes are all here, and past a marker the bits are zeros)
+  void ac_refine(int16_t* blk, const Huffman& act) {
+    const int p1 = 1 << al_, m1 = -1 * (1 << al_);
+    int k = ss_;
+    if (eobrun_ == 0) {
+      for (; k <= se_; ++k) {
+        int rs = huff(act);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = get_bits(1) ? p1 : m1;  // a size other than 1 is only warned of
+        } else if (r != 15) {
+          eobrun_ = 1 << r;
+          if (r) eobrun_ += get_bits(r);
+          break;
+        }
+        do {
+          int16_t& c = blk[kNatural[k]];
+          if (c != 0) {
+            correct(c, p1, m1);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se_);
+        if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun_ > 0) {
+      for (; k <= se_; ++k) {
+        int16_t& c = blk[kNatural[k]];
+        if (c != 0) correct(c, p1, m1);
+      }
+      --eobrun_;
+    }
+  }
+
+  // --- arithmetic decoding (jdarith.c) ------------------------------------
+
+  // arith_decode: one binary decision with the adaptive estimate at *st
+  int decide(uint8_t* st) {
+    while (ar_a_ < 0x8000) {
+      if (--ar_ct_ < 0) {
+        int data = 0;  // past a marker: zeros until the decode is complete
+        if (!marker_hit_) {
+          if (pos_ >= n_) damaged("truncated JPEG data");
+          data = d_[pos_++];
+          if (data == 0xFF) {
+            size_t q = pos_;
+            while (q < n_ && d_[q] == 0xFF) ++q;
+            if (q >= n_) damaged("truncated JPEG data");
+            if (d_[q] == 0) {
+              pos_ = q + 1;  // a stuffed 0xFF data byte
+            } else {
+              marker_hit_ = true;  // leave pos_ on the marker's last 0xFF
+              pos_ = q - 1;
+              data = 0;
+            }
+          }
+        }
+        ar_c_ = (ar_c_ << 8) | data;
+        if ((ar_ct_ += 8) < 0 && ++ar_ct_ == 0) ar_a_ = 0x8000;  // two first bytes in
+      }
+      ar_a_ <<= 1;
+    }
+    int sv = *st;
+    int32_t qe = kQm[sv & 0x7F];
+    int nl = qe & 0xFF, nm = (qe >> 8) & 0xFF;
+    qe >>= 16;
+    int64_t temp = ar_a_ - qe;
+    ar_a_ = temp;
+    temp <<= ar_ct_;
+    if (ar_c_ >= temp) {
+      ar_c_ -= temp;
+      if (ar_a_ < qe) {
+        ar_a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        ar_a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (ar_a_ < 0x8000) {
+      if (ar_a_ < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // Figures F.19 and F.21-F.24: one DC difference into pred (mod 2^16)
+  void ar_dc_diff(int tbl, int ci, int& pred) {
+    uint8_t* st = dc_stats_[tbl] + dc_context_[ci];
+    if (decide(st) == 0) {
+      dc_context_[ci] = 0;
+      return;
+    }
+    int sign = decide(st + 1);
+    st += 2 + sign;
+    int m = decide(st);
+    if (m) {
+      st = dc_stats_[tbl] + 20;
+      while (decide(st)) {
+        if ((m <<= 1) == 0x8000) {
+          ar_ct_ = -1;  // magnitude overflow: the rest of the scan is skipped
+          return;
+        }
+        ++st;
+      }
+    }
+    if (m < static_cast<int>((1L << dc_L_[tbl]) >> 1)) {
+      dc_context_[ci] = 0;
+    } else if (m > static_cast<int>((1L << dc_U_[tbl]) >> 1)) {
+      dc_context_[ci] = 12 + sign * 4;
+    } else {
+      dc_context_[ci] = 4 + sign * 4;
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1) {
+      if (decide(st)) v |= m;
+    }
+    v += 1;
+    if (sign) v = -v;
+    pred = (pred + v) & 0xFFFF;
+  }
+
+  // Figures F.20-F.24 over the band k0..se_; false on an overflow
+  bool ar_ac(int16_t* blk, int tbl, int k0) {
+    for (int k = k0; k <= se_; ++k) {
+      uint8_t* st = ac_stats_[tbl] + 3 * (k - 1);
+      if (decide(st)) break;  // EOB
+      while (decide(st + 1) == 0) {
+        st += 3;
+        if (++k > se_) return false;
+      }
+      int sign = decide(&fixed_bin_);
+      st += 2;
+      int m = decide(st);
+      if (m && decide(st)) {
+        m <<= 1;
+        st = ac_stats_[tbl] + (k <= ac_K_[tbl] ? 189 : 217);
+        while (decide(st)) {
+          if ((m <<= 1) == 0x8000) return false;
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1) {
+        if (decide(st)) v |= m;
+      }
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(v) << al_);
+    }
+    return true;
+  }
+
+  // decode_mcu_AC_refine; false on a spectral overflow
+  bool ar_ac_refine(int16_t* blk, int tbl) {
+    const int p1 = 1 << al_, m1 = -1 * (1 << al_);
+    int kex = se_;
+    for (; kex > 0; --kex) {
+      if (blk[kNatural[kex]]) break;
+    }
+    for (int k = ss_; k <= se_; ++k) {
+      uint8_t* st = ac_stats_[tbl] + 3 * (k - 1);
+      if (k > kex && decide(st)) break;  // EOB
+      for (;;) {
+        int16_t& c = blk[kNatural[k]];
+        if (c) {
+          if (decide(st + 2)) c = static_cast<int16_t>(c + (c < 0 ? m1 : p1));
+          break;
+        }
+        if (decide(st + 1)) {
+          c = static_cast<int16_t>(decide(&fixed_bin_) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se_) return false;
+      }
+    }
+    return true;
+  }
+
+  // the statistics and registers of a scan's start or a restart
+  void ar_reset(Component* const* sc, int ns) {
+    for (int i = 0; i < ns; ++i) {
+      if (!progressive_ || (ss_ == 0 && ah_ == 0)) {
+        std::memset(dc_stats_[sc[i]->dc_tbl], 0, 64);
+        dc_context_[i] = 0;
+      }
+      if (!progressive_ || ss_) std::memset(ac_stats_[sc[i]->ac_tbl], 0, 256);
+    }
+    ar_c_ = ar_a_ = 0;
+    ar_ct_ = -16;
+  }
+
+  // One block of the scan's kind, `ci` its component's place in the scan.
+  void decode_block(int16_t* blk, const Component& k, int ci, int& pred) {
+    if (arith_) {
+      if (progressive_ && ah_ && ss_ == 0) {  // DC refinement: no error check
+        if (decide(&fixed_bin_)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al_));
+        return;
+      }
+      if (ar_ct_ == -1) return;  // after an overflow libjpeg does nothing
+      if (!progressive_ || ss_ == 0) {
+        ar_dc_diff(k.dc_tbl, ci, pred);
+        if (ar_ct_ == -1) return;
+        blk[0] = static_cast<int16_t>(static_cast<uint32_t>(pred) << (progressive_ ? al_ : 0));
+        if (progressive_) return;
+      }
+      bool ok = !progressive_ ? ar_ac(blk, k.ac_tbl, 1)
+                : ah_ ? ar_ac_refine(blk, k.ac_tbl) : ar_ac(blk, k.ac_tbl, ss_);
+      if (!ok) ar_ct_ = -1;
+      return;
+    }
+    if (!progressive_) {
+      block(blk, dc_[k.dc_tbl], ac_[k.ac_tbl], pred);
+    } else if (ss_ == 0 && ah_ == 0) {
+      dc_first(blk, dc_[k.dc_tbl], pred);
+    } else if (ss_ == 0) {
+      if (get_bits(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al_));
+    } else if (ah_ == 0) {
+      ac_first(blk, ac_[k.ac_tbl]);
+    } else {
+      ac_refine(blk, ac_[k.ac_tbl]);
+    }
+  }
+
+  // libjpeg's checks on a progressive scan's parameters (jdphuff.c and
+  // jdarith.c start_pass) and the coefficient status it keeps
+  void progression(Component* const* sc, int ns) {
+    bool bad = ss_ == 0 ? se_ != 0 : (ss_ > se_ || se_ > 63 || ns != 1);
+    if (ah_ != 0 && al_ != ah_ - 1) bad = true;
+    if (al_ > 13) bad = true;
+    if (bad) damaged("bad progressive scan parameters");
+    for (int i = 0; i < ns; ++i) {
+      Component& k = *sc[i];
+      for (int c = std::min(ss_, 1); c <= std::max(se_, 9); ++c) {
+        k.prev_coef_bits[c] = scans_ > 0 ? k.coef_bits[c] : 0;
+      }
+      for (int c = ss_; c <= se_; ++c) k.coef_bits[c] = al_;
+    }
+  }
+
   void scan() {
     int len = u16();
     int ns = u8();
@@ -566,17 +964,38 @@ class Decoder {
       }
       k->dc_tbl = tbl >> 4;
       k->ac_tbl = tbl & 15;
-      if (k->dc_tbl > 3 || k->ac_tbl > 3) damaged("bad SOS table ids");
-      // jdhuff.c:jpeg_make_d_derived_tbl falls back on jstdhuff.c's tables
-      for (int ac = 0; ac < 2; ++ac) {
-        int th = ac ? k->ac_tbl : k->dc_tbl;
-        Huffman& t = ac ? ac_[th] : dc_[th];
-        if (t.defined) continue;
-        if (th > 1) damaged("scan uses an undefined Huffman table");
-        if (ac) {
-          t.build(kStdAcBits[th], kStdAcVals[th], 162, false);
-        } else {
-          t.build(kStdDcBits[th], kStdDcVals, 12, true);
+      sc[i] = k;
+    }
+    ss_ = u8();
+    se_ = u8();
+    int ahl = u8();
+    ah_ = ahl >> 4;
+    al_ = ahl & 15;
+    if (scans_ == 0) multi_scan_ = progressive_ || ns < ncomp_;
+    if (progressive_) {
+      progression(sc, ns);
+    } else {  // a sequential scan codes all 64 coefficients whatever it says
+      ss_ = 0;
+      se_ = 63;
+      ah_ = al_ = 0;
+    }
+    for (int i = 0; i < ns; ++i) {
+      Component* k = sc[i];
+      bool dc = !progressive_ || (ss_ == 0 && ah_ == 0), ac = !progressive_ || ss_ != 0;
+      if (!arith_) {
+        // jdhuff.c:jpeg_make_d_derived_tbl falls back on jstdhuff.c's tables
+        for (int is_ac = 0; is_ac < 2; ++is_ac) {
+          if (!(is_ac ? ac : dc)) continue;
+          int th = is_ac ? k->ac_tbl : k->dc_tbl;
+          if (th > 3) damaged("bad SOS table ids");
+          Huffman& t = is_ac ? ac_[th] : dc_[th];
+          if (t.defined) continue;
+          if (th > 1) damaged("scan uses an undefined Huffman table");
+          if (is_ac) {
+            t.build(kStdAcBits[th], kStdAcVals[th], 162, false);
+          } else {
+            t.build(kStdDcBits[th], kStdDcVals, 12, true);
+          }
         }
       }
       if (!k->coded) {
@@ -585,10 +1004,7 @@ class Decoder {
         k->coef.assign(static_cast<size_t>(k->bw) * k->bh * 64, 0);
         k->coded = true;
       }
-      sc[i] = k;
     }
-    pos_ += 3;  // Ss, Se, Ah/Al: a sequential scan codes all 64 coefficients
-    if (pos_ > n_) damaged("truncated JPEG header");
 
     int blocks = 0;
     for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
@@ -600,12 +1016,20 @@ class Decoder {
     buf_ = 0;
     bits_ = 0;
     marker_hit_ = insufficient_ = false;
+    eobrun_ = 0;
+    if (arith_) ar_reset(sc, ns);
     int pred[4] = {0, 0, 0, 0};
     int next_rst = 0;
+    // a Huffman DC refinement reads zeros past a marker and changes nothing,
+    // so libjpeg does not skip it
+    const bool skip_short = !arith_ && !(progressive_ && ss_ == 0 && ah_ != 0);
     for (int64_t m = 0; m < total; ++m) {
-      if (restart_interval_ && m && m % restart_interval_ == 0) restart(next_rst, pred);
-      if (insufficient_) continue;  // the rest of this segment stays zero
+      if (restart_interval_ && m && m % restart_interval_ == 0) restart(next_rst, pred, sc, ns);
+      if (skip_short && insufficient_) continue;  // the rest of this segment stays
       int64_t mx = m % mcus_x, my = m / mcus_x;
+      // an MCU begun with its data there: its iMCU row (one MCU row
+      // interleaved, v block rows of a single component) is the last good one
+      if (!insufficient_) last_good_row_ = ns == 1 ? my / sc[0]->v : my;
       for (int i = 0; i < ns; ++i) {
         Component& k = *sc[i];
         int bh = ns == 1 ? 1 : k.v, bwid = ns == 1 ? 1 : k.h;
@@ -613,10 +1037,11 @@ class Decoder {
           for (int x = 0; x < bwid; ++x) {
             int64_t by = my * bh + y, bx = mx * bwid + x;
             int16_t* blk = &k.coef[(static_cast<size_t>(by) * k.bw + bx) * 64];
-            block(blk, dc_[k.dc_tbl], ac_[k.ac_tbl], pred[i]);
+            decode_block(blk, k, i, pred[i]);
           }
         }
       }
+
     }
     // jdhuff.c:finish_pass discards the buffered bits; the marker reader
     // then skips to the next marker
@@ -627,6 +1052,7 @@ class Decoder {
       }
     }
     scanned_ = true;
+    ++scans_;
   }
 
   // jdhuff.c:process_restart with jdmarker.c:read_restart_marker: the
@@ -635,7 +1061,8 @@ class Decoder {
   // jpeg_resync_to_restart does: skipped (an earlier RSTn or a non-marker
   // code), left unread so the segment decodes as empty (a later RSTn or
   // another marker), or taken as the expected one (an RSTn further off).
-  void restart(int& next_rst, int* pred) {
+  // The DC predictions, the EOB run and the arithmetic statistics restart.
+  void restart(int& next_rst, int* pred, Component* const* sc, int ns) {
     buf_ = 0;
     bits_ = 0;
     int m = next_marker();
@@ -655,6 +1082,8 @@ class Decoder {
     }
     next_rst = (next_rst + 1) & 7;
     pred[0] = pred[1] = pred[2] = pred[3] = 0;
+    eobrun_ = 0;
+    if (arith_) ar_reset(sc, ns);
     if (!marker_hit_) insufficient_ = false;
   }
 
@@ -723,22 +1152,143 @@ class Decoder {
     }
   }
 
+  // jdcoefct.c:smoothing_ok: a progressive image whose DC is known for
+  // every component and some of whose coefficients 1-9 are not complete.
+  bool smoothing() const {
+    if (!progressive_) return false;
+    bool useful = false;
+    for (int c = 0; c < ncomp_; ++c) {
+      const Component& k = comp_[c];
+      if (!k.coded) return false;
+      for (int pos : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24}) {
+        if (k.quant[pos] == 0) return false;
+      }
+      if (k.coef_bits[0] < 0) return false;
+      for (int i = 1; i < 10; ++i) useful |= k.coef_bits[i] != 0;
+    }
+    return useful;
+  }
+
+  // The block rows whose DC values jdcoefct.c:decompress_smooth_data
+  // (libjpeg-turbo 2.1 and later) reads around block row `r`: two above,
+  // the row, two below, as it indexes them (MCU padding rows included, the
+  // image's edges replicated by its own tests).
+  void window_rows(const Component& k, int r, int* rws) const {
+    const int V = k.v, imcu = r / V, block_row = r % V;
+    int block_rows = V;
+    if (imcu == mcuy_ - 1) {
+      block_rows = k.hib % V;
+      if (block_rows == 0) block_rows = V;
+    }
+    const int64_t row = static_cast<int64_t>(imcu) * block_rows + block_row;
+    const int64_t rows = static_cast<int64_t>(block_rows) * mcuy_;
+    rws[1] = row > 0 ? r - 1 : r;
+    rws[0] = row > 1 ? r - 2 : rws[1];
+    rws[2] = r;
+    rws[3] = row < rows - 1 ? r + 1 : r;
+    rws[4] = row < rows - 2 ? r + 2 : rws[3];
+  }
+
+  // decompress_smooth_data's estimates for one block: D[1..25] are the DC
+  // values of its 5x5 window in the order DC01..DC25, `ws` the block.
+  // `cb` is the coefficient status that applies to the block's row.
+  void smooth_block(const Component& k, const int* D, const int* cb, int16_t* ws) const {
+    const bool change_dc = cb[1] == -1 && cb[2] == -1 && cb[3] == -1 && cb[4] == -1 &&
+                           cb[5] == -1 && cb[6] == -1 && cb[7] == -1 && cb[8] == -1 &&
+                           cb[9] == -1;
+    const int64_t Q00 = k.quant[0];
+    auto estimate = [&](int bits_i, int pos, int64_t num) {
+      int Al = cb[bits_i];
+      if (Al == 0 || ws[pos] != 0) return;
+      const int64_t q = k.quant[pos];
+      num *= Q00;
+      int pred;
+      if (num >= 0) {
+        pred = static_cast<int>(((q << 7) + num) / (q << 8));
+        if (Al > 0 && pred >= (1 << Al)) pred = (1 << Al) - 1;
+      } else {
+        pred = static_cast<int>(((q << 7) - num) / (q << 8));
+        if (Al > 0 && pred >= (1 << Al)) pred = (1 << Al) - 1;
+        pred = -pred;
+      }
+      ws[pos] = static_cast<int16_t>(pred);
+    };
+    const int* d = D;
+    estimate(1, 1, change_dc ? (-d[1] - d[2] + d[4] + d[5] - 3 * d[6] + 13 * d[7] - 13 * d[9] +
+                                3 * d[10] - 3 * d[11] + 38 * d[12] - 38 * d[14] + 3 * d[15] -
+                                3 * d[16] + 13 * d[17] - 13 * d[19] + 3 * d[20] - d[21] - d[22] +
+                                d[24] + d[25])
+                             : (-7 * d[11] + 50 * d[12] - 50 * d[14] + 7 * d[15]));
+    estimate(2, 8, change_dc ? (-d[1] - 3 * d[2] - 3 * d[3] - 3 * d[4] - d[5] - d[6] +
+                                13 * d[7] + 38 * d[8] + 13 * d[9] - d[10] + d[16] - 13 * d[17] -
+                                38 * d[18] - 13 * d[19] + d[20] + d[21] + 3 * d[22] + 3 * d[23] +
+                                3 * d[24] + d[25])
+                             : (-7 * d[3] + 50 * d[8] - 50 * d[18] + 7 * d[23]));
+    estimate(3, 16, change_dc ? (d[3] + 2 * d[7] + 7 * d[8] + 2 * d[9] - 5 * d[12] - 14 * d[13] -
+                                 5 * d[14] + 2 * d[17] + 7 * d[18] + 2 * d[19] + d[23])
+                              : (-d[3] + 13 * d[8] - 24 * d[13] + 13 * d[18] - d[23]));
+    estimate(4, 9, change_dc ? (-d[1] + d[5] + 9 * d[7] - 9 * d[9] - 9 * d[17] + 9 * d[19] +
+                                d[21] - d[25])
+                             : (d[10] + d[16] - 10 * d[17] + 10 * d[19] - d[2] - d[20] + d[22] -
+                                d[24] + d[4] - d[6] + 10 * d[7] - 10 * d[9]));
+    estimate(5, 2, change_dc ? (2 * d[7] - 5 * d[8] + 2 * d[9] + d[11] + 7 * d[12] - 14 * d[13] +
+                                7 * d[14] + d[15] + 2 * d[17] - 5 * d[18] + 2 * d[19])
+                             : (-d[11] + 13 * d[12] - 24 * d[13] + 13 * d[14] - d[15]));
+    if (change_dc) {
+      estimate(6, 3, d[7] - d[9] + 2 * d[12] - 2 * d[14] + d[17] - d[19]);
+      estimate(7, 10, d[7] - 3 * d[8] + d[9] - d[17] + 3 * d[18] - d[19]);
+      estimate(8, 17, d[7] - d[9] - 3 * d[12] + 3 * d[14] + d[17] - d[19]);
+      estimate(9, 24, d[7] + 2 * d[8] + d[9] - d[17] - 2 * d[18] - d[19]);
+      int64_t num = Q00 * (-2 * d[1] - 6 * d[2] - 8 * d[3] - 6 * d[4] - 2 * d[5] - 6 * d[6] +
+                           6 * d[7] + 42 * d[8] + 6 * d[9] - 6 * d[10] - 8 * d[11] + 42 * d[12] +
+                           152 * d[13] + 42 * d[14] - 8 * d[15] - 6 * d[16] + 6 * d[17] +
+                           42 * d[18] + 6 * d[19] - 6 * d[20] - 2 * d[21] - 6 * d[22] -
+                           8 * d[23] - 6 * d[24] - 2 * d[25]);
+      int pred = num >= 0 ? static_cast<int>(((Q00 << 7) + num) / (Q00 << 8))
+                          : -static_cast<int>(((Q00 << 7) - num) / (Q00 << 8));
+      ws[0] = static_cast<int16_t>(pred);
+    }
+  }
+
   // A component's samples, [hib * 8, wib * 8] (the real dh x dw in the corner)
-  std::vector<uint8_t> plane(const Component& k) const {
+  std::vector<uint8_t> plane(const Component& k, bool smooth) const {
     int stride = k.wib * 8;
     std::vector<uint8_t> p(static_cast<size_t>(k.hib) * 8 * stride);
+    int16_t ws[64];
+    int rws[5], D[26], prev_bits[10];
+    for (int i = 1; i < 10; ++i) prev_bits[i] = scans_ > 1 ? k.prev_coef_bits[i] : -1;
+    auto dc = [&](int y, int x) -> int { return k.coef[(static_cast<size_t>(y) * k.bw + x) * 64]; };
     for (int by = 0; by < k.hib; ++by) {
+      if (smooth) {  // the sliding registers, loaded as libjpeg loads them
+        window_rows(k, by, rws);
+        for (int i = 0; i < 5; ++i) {
+          for (int j = 1; j <= 5; ++j) D[5 * i + j] = dc(rws[i], 0);
+        }
+      }
+      const int last = k.wib - 1;
       for (int bx = 0; bx < k.wib; ++bx) {
-        idct(&k.coef[(static_cast<size_t>(by) * k.bw + bx) * 64], k.quant,
-             &p[static_cast<size_t>(by) * 8 * stride + bx * 8], stride);
+        const int16_t* blk = &k.coef[(static_cast<size_t>(by) * k.bw + bx) * 64];
+        if (smooth) {
+          for (int i = 0; i < 5; ++i) {
+            if (bx == 0 && bx < last) D[5 * i + 4] = D[5 * i + 5] = dc(rws[i], 1);
+            if (bx + 1 < last) D[5 * i + 5] = dc(rws[i], bx + 2);
+          }
+          std::memcpy(ws, blk, sizeof(ws));
+          smooth_block(k, D, by / k.v > last_good_row_ ? prev_bits : k.coef_bits, ws);
+          blk = ws;
+          for (int i = 0; i < 5; ++i) {
+            for (int j = 1; j <= 4; ++j) D[5 * i + j] = D[5 * i + j + 1];
+          }
+        }
+        idct(blk, k.quant, &p[static_cast<size_t>(by) * 8 * stride + bx * 8], stride);
       }
     }
     return p;
   }
 
   // A component upsampled to width_ x height_ (jdsample.c), contiguous.
-  std::vector<uint8_t> upsample(const Component& k) const {
-    std::vector<uint8_t> src = plane(k);
+  std::vector<uint8_t> upsample(const Component& k, bool smooth) const {
+    std::vector<uint8_t> src = plane(k, smooth);
     const int stride = k.wib * 8, W = width_, H = height_, dw = k.dw, dh = k.dh;
     const int hr = hmax_ / k.h, vr = vmax_ / k.v;
     auto at = [&](int y, int x) -> int { return src[static_cast<size_t>(y) * stride + x]; };
@@ -793,12 +1343,31 @@ class Decoder {
     const int W = width_, H = height_;
     const size_t npix = static_cast<size_t>(W) * H;
     std::vector<uint8_t> rgb(npix * 3);
+    const bool smooth = smoothing();
     if (ncomp_ == 1) {
-      std::vector<uint8_t> g = upsample(comp_[0]);
+      std::vector<uint8_t> g = upsample(comp_[0], smooth);
       for (size_t i = 0; i < npix; ++i) rgb[3 * i] = rgb[3 * i + 1] = rgb[3 * i + 2] = g[i];
+    } else if (ncomp_ == 4) {
+      std::vector<uint8_t> c0 = upsample(comp_[0], smooth), c1 = upsample(comp_[1], smooth),
+                           c2 = upsample(comp_[2], smooth), c3 = upsample(comp_[3], smooth);
+      const bool ycck = adobe_ && adobe_transform_ != 0;
+      const YccTables& t = ycc();
+      for (size_t i = 0; i < npix; ++i) {
+        int c = c0[i], m = c1[i], y = c2[i], k = c3[i];
+        if (ycck) {  // jdcolor.c:ycck_cmyk_convert, K passed through
+          int yy = c0[i], cb = c1[i], cr = c2[i];
+          c = 255 - clamp255(yy + t.cr_r[cr]);
+          m = 255 - clamp255(yy + static_cast<int>((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+          y = 255 - clamp255(yy + t.cb_b[cb]);
+        }
+        // OpenCV's icvCvt_CMYK2BGR_8u_C4C3R on Adobe-inverted CMYK
+        rgb[3 * i] = static_cast<uint8_t>(k - (((255 - c) * k) >> 8));
+        rgb[3 * i + 1] = static_cast<uint8_t>(k - (((255 - m) * k) >> 8));
+        rgb[3 * i + 2] = static_cast<uint8_t>(k - (((255 - y) * k) >> 8));
+      }
     } else {
-      std::vector<uint8_t> c0 = upsample(comp_[0]), c1 = upsample(comp_[1]),
-                           c2 = upsample(comp_[2]);
+      std::vector<uint8_t> c0 = upsample(comp_[0], smooth), c1 = upsample(comp_[1], smooth),
+                           c2 = upsample(comp_[2], smooth);
       bool is_rgb;
       if (jfif_) {
         is_rgb = false;

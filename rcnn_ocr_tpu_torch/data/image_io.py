@@ -1,5 +1,5 @@
-"""Image files without OpenCV or PIL: PNG, BMP and JPEG decoding, header
-probes and a PNG writer.
+"""Image files without OpenCV or PIL: PNG, BMP, JPEG and TIFF decoding,
+header probes and a PNG writer.
 
 Counterpart of ``rcnn_ocr_tpu/data/transforms.py:imread_cv2``,
 ``imdecode_cv2``, ``image_size``, ``_exif_orientation`` and
@@ -16,23 +16,34 @@ IMREAD_COLOR)`` followed by BGR -> RGB gives, as an RGB uint8 HWC array:
   the pixel to their left, so they run as a loop over the row's bytes.
 * BMP: 24- and 32-bit (alpha dropped) and 8-bit palette, bottom-up or
   top-down, uncompressed.
-* JPEG: baseline and extended-sequential Huffman frames, 8-bit, gray or
-  three components at any integral chroma subsampling, with restart
-  markers and EXIF orientation, through the port's host C++
-  (``csrc/host/jpeg_decode.cpp`` via :func:`rcnn_ocr_tpu_torch.native.
-  jpeg_decode_u8`, built with g++ at first use): libjpeg-turbo's ISLOW IDCT,
-  fancy upsampling and colour tables, so the pixels are bit-equal to cv2's.
-  Frames with no DHT take the standard tables, and damaged entropy data
-  decodes as libjpeg-turbo decodes it with warnings (bad codes, restart
-  markers out of sequence).  Progressive, arithmetic-coded, lossless and
-  12-bit frames and CMYK / YCCK images raise :class:`UnsupportedImageFormat`
+* JPEG: 8-bit sequential (baseline and extended) and progressive frames,
+  Huffman or arithmetic-coded (with DAC conditioning), gray, YCbCr / RGB
+  at any integral chroma subsampling, and CMYK / YCCK (Adobe-inverted, as
+  OpenCV converts them), with restart markers and EXIF orientation,
+  through the port's host C++ (``csrc/host/jpeg_decode.cpp`` via
+  :func:`rcnn_ocr_tpu_torch.native.jpeg_decode_u8`, built with g++ at
+  first use): libjpeg-turbo's ISLOW IDCT, block smoothing of progressive
+  streams cut short, fancy upsampling and colour tables, so the pixels are
+  bit-equal to cv2's.  Frames with no DHT take the standard tables, and
+  damaged entropy data decodes as libjpeg-turbo decodes it with warnings
+  (bad codes, restart markers out of sequence).  Lossless, hierarchical and
+  12-bit frames and DNL markers raise :class:`UnsupportedImageFormat`
   naming the variant; truncated data and damaged headers raise
   ``ValueError`` (cv2 returns ``None``).
+* TIFF (:mod:`rcnn_ocr_tpu_torch.data.tiff`): the first page, II or MM,
+  strips or tiles, chunky or planar; uncompressed, PackBits, LZW (host
+  C++) and Deflate, with the horizontal predictor; gray at 1, 8 and 16
+  bits, palette at 1, 4 and 8, RGB(A) at 8 and 16, CMYK at 8, and the
+  Orientation tag, as libtiff's RGBA reader under OpenCV turns them into
+  8-bit RGB.  CCITT, JPEG-in-TIFF and the rarer compressions, YCbCr and
+  other photometric interpretations, BigTIFF and non-integer samples raise
+  :class:`UnsupportedImageFormat` naming them.
 
-Other formats (GIF, TIFF, ...) raise :class:`UnsupportedImageFormat`,
+Other formats (GIF, WebP, ...) raise :class:`UnsupportedImageFormat`,
 which names the supported ones; ``image_size`` still reads their headers
-(JPEG's through the SOF walk, with EXIF orientations 5-8 swapping the
-sides as the decode does).  :func:`png_encode` writes 8-bit PNGs.
+(JPEG's through the SOF walk and TIFF's first IFD, with orientations 5-8
+swapping the sides as the decode does).  :func:`png_encode` writes 8-bit
+PNGs.
 """
 
 from __future__ import annotations
@@ -45,10 +56,13 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from rcnn_ocr_tpu_torch.data import tiff
+
 IMG_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff"}
-SUPPORTED = "PNG, BMP and baseline JPEG"
+SUPPORTED = "PNG, BMP, JPEG (8-bit sequential or progressive) and TIFF (baseline)"
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_TIFF_SIGS = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")  # TIFF and BigTIFF
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 # Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
@@ -247,6 +261,14 @@ def imdecode(data) -> np.ndarray:
         except NotImplementedError as err:
             raise UnsupportedImageFormat(
                 f"cannot decode {err}: the PyTorch port decodes {SUPPORTED} images") from None
+    if data[:4] in _TIFF_SIGS:
+        try:
+            return tiff.decode(data)
+        except NotImplementedError as err:
+            raise UnsupportedImageFormat(
+                f"cannot decode {err}: the PyTorch port decodes {SUPPORTED} images") from None
+        except (struct.error, IndexError) as err:
+            raise ValueError(f"damaged TIFF data: {err}") from err
     decode = (_png_decode if data.startswith(_PNG_SIG) else
               _bmp_decode if data.startswith(b"BM") and len(data) >= 26 else None)
     if decode is not None:
@@ -254,8 +276,7 @@ def imdecode(data) -> np.ndarray:
             return decode(data)
         except (zlib.error, struct.error, IndexError) as err:
             raise ValueError(f"damaged image data: {err}") from err
-    kind = ("GIF" if data[:6] in (b"GIF87a", b"GIF89a") else
-            "TIFF" if data[:4] in (b"II*\x00", b"MM\x00*") else "an unknown format")
+    kind = "GIF" if data[:6] in (b"GIF87a", b"GIF89a") else "an unknown format"
     raise UnsupportedImageFormat(
         f"cannot decode {kind}: the PyTorch port decodes {SUPPORTED} images")
 
@@ -319,6 +340,12 @@ def image_size(path: str) -> Tuple[int, int]:
                 return abs(h), abs(w)
         elif head[:6] in (b"GIF87a", b"GIF89a"):
             return int.from_bytes(head[8:10], "little"), int.from_bytes(head[6:8], "little")
+        elif head[:4] in _TIFF_SIGS[:2]:  # the first IFD, orientations 5-8 swapping
+            f.seek(0)
+            try:
+                return tiff.size(f.read())
+            except (ValueError, struct.error):
+                pass  # a damaged header: the decode below raises
         elif head.startswith(b"\xff\xd8"):  # JPEG: walk the segments to the SOF
             f.seek(2)
             swap = False

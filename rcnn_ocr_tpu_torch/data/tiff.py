@@ -1,0 +1,361 @@
+"""Baseline TIFF without libtiff: the first page of a TIFF file to RGB uint8.
+
+The port's counterpart of what ``cv2.imdecode(buf, IMREAD_COLOR)`` gives
+for a TIFF (OpenCV reads it through libtiff's RGBA interface,
+``TIFFReadRGBAStrip`` / ``TIFFReadRGBATile``, then applies the Orientation
+tag), pixel for pixel:
+
+* the header and the first IFD in ``struct``: II and MM byte order, strips
+  or tiles, PlanarConfiguration 1 (chunky) and 2 (planar), later pages
+  ignored;
+* compression: none, PackBits (32773), LZW (5, in the port's host C++:
+  ``csrc/host/tiff_decode.cpp``), Deflate (8 and 32946, through ``zlib``);
+  the horizontal Predictor (2) on LZW and Deflate data, 8 and 16 bits (as
+  in libtiff, none and PackBits ignore the tag); FillOrder 2;
+* samples as libtiff's ``tif_getimage.c`` turns them into 8-bit RGB:
+  MinIsBlack / MinIsWhite at 1, 8 and 16 bits (16 bits: the high byte),
+  palette at 1, 4 and 8 bits (a colour map with any entry over 255 is
+  shifted right by 8, else taken as 8-bit values, libtiff's ``checkcmap``),
+  RGB at 8 and 16 bits (16 bits: ``(v + 128) // 257``), CMYK at 8 bits;
+  an unassociated alpha (ExtraSamples 2) premultiplies RGB,
+  ``(v * a + 127) // 255``, and any other alpha is dropped; chunky gray
+  drops its alpha, planar gray is read as RGB (16 bits rounded, an
+  unassociated alpha premultiplied); a right-edge tile of 16-bit gray, or
+  of gray with alpha, is read at libtiff's skewed row step (``_skewed``);
+* Orientation (tag 274) as OpenCV applies it: 2 flips the columns, 3 both
+  axes, 4 the rows, 5-8 transpose first and then flip as 1-4 do; in a tiled
+  file libtiff mirrors 2, 3, 6 and 7 within each tile (``_orient``).
+
+Refused with ``NotImplementedError`` naming what it is (the caller turns it
+into ``UnsupportedImageFormat``): BigTIFF, CCITT (2, 3, 4), JPEG (6, 7) and
+any other compression, YCbCr, CIELab and other photometric
+interpretations, and sample formats other than unsigned integers.  Where
+OpenCV or libtiff fail (gray or RGB at 2 or 4 bits, palette at 2 or 16
+bits, RGB at other depths, uncompressed tiles whose size is not a multiple
+of 1 KiB, damaged or truncated data), ``ValueError``, as ``cv2.imdecode``
+gives ``None``.  One deliberate divergence: damaged compressed data raises,
+where libtiff's RGBA reader, which does not stop on a strip that fails,
+gives OpenCV what it decoded.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Dict, Tuple
+
+import numpy as np
+
+_FORMATS = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i",
+            10: "ii", 11: "f", 12: "d"}
+_DECODED = (1, 5, 8, 32773, 32946)  # none, LZW, Deflate, PackBits, old Deflate
+_COMPRESSION = {2: "CCITT RLE", 3: "CCITT Group 3 fax", 4: "CCITT Group 4 fax",
+                6: "old-style JPEG", 7: "JPEG", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP",
+                34887: "LERC", 32809: "ThunderScan", 34676: "SGI LogL", 34677: "SGI LogLuv"}
+_PHOTOMETRIC = {4: "transparency mask", 6: "YCbCr", 8: "CIELab", 9: "ICCLab", 10: "ITULab",
+                32803: "colour filter array", 32844: "LogL", 32845: "LogLuv",
+                34892: "linear raw"}
+_SAMPLE_FORMAT = {2: "signed-integer", 3: "floating-point", 4: "untyped", 5: "complex integer",
+                  6: "complex floating-point"}
+_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+def _header(data: bytes) -> Tuple[str, int]:
+    if len(data) < 8:
+        raise ValueError("TIFF header is truncated")
+    order = {b"II": "<", b"MM": ">"}[bytes(data[:2])]
+    magic, offset = struct.unpack_from(order + "HI", data, 2)
+    if magic == 43:
+        raise NotImplementedError("BigTIFF")
+    if magic != 42:
+        raise ValueError(f"TIFF magic number {magic} is not 42")
+    return order, offset
+
+
+def _tags(data: bytes, order: str, offset: int) -> Dict[int, tuple]:
+    """The first IFD's tags -> their values (unknown field types skipped,
+    as libtiff skips them)."""
+    if offset < 8 or offset + 2 > len(data):
+        raise ValueError("TIFF directory lies outside the file")
+    (n,) = struct.unpack_from(order + "H", data, offset)
+    if offset + 2 + 12 * n > len(data):
+        raise ValueError("TIFF directory is truncated")
+    tags = {}
+    for i in range(n):
+        entry = offset + 2 + 12 * i
+        tag, typ, count = struct.unpack_from(order + "HHI", data, entry)
+        fmt = _FORMATS.get(typ)
+        if fmt is None:
+            continue
+        size = struct.calcsize(order + fmt) * count
+        at = entry + 8
+        if size > 4:
+            (at,) = struct.unpack_from(order + "I", data, at)
+        if at + size > len(data):
+            raise ValueError(f"TIFF tag {tag} lies outside the file")
+        tags[tag] = struct.unpack_from(order + fmt * count, data, at)
+    return tags
+
+
+def _one(tags, tag: int, default=None) -> int:
+    vals = tags.get(tag)
+    if not vals:
+        if default is None:
+            raise ValueError(f"TIFF without required tag {tag}")
+        return default
+    return int(vals[0])
+
+
+def _orientation(tags) -> int:
+    o = _one(tags, 274, 1)
+    return o if 1 <= o <= 8 else 1  # libtiff refuses other values and keeps 1
+
+
+def size(data: bytes) -> Tuple[int, int]:
+    """(height, width) of the first page after its orientation, from the
+    header alone."""
+    order, offset = _header(data)
+    tags = _tags(data, order, offset)
+    h, w = _one(tags, 257), _one(tags, 256)
+    return (w, h) if _orientation(tags) >= 5 else (h, w)
+
+
+def _packbits(raw: bytes, size: int) -> bytes:
+    """libtiff's PackBitsDecode: a run header, then bytes copied or one
+    repeated; a run past the output is cut, one past the input ends."""
+    out, i, n = bytearray(), 0, len(raw)
+    while i < n and len(out) < size:
+        h = raw[i]
+        i += 1
+        if h > 128:
+            if i >= n:
+                break
+            out += raw[i : i + 1] * min(257 - h, size - len(out))
+            i += 1
+        elif h < 128:
+            run = min(h + 1, size - len(out))
+            if i + run > n:
+                break
+            out += raw[i : i + run]
+            i += run
+    if len(out) < size:
+        raise ValueError("PackBits data ends short of the strip or tile")
+    return bytes(out)
+
+
+def _inflate(raw: bytes, size: int) -> bytes:
+    try:
+        out = zlib.decompressobj().decompress(raw, size)
+    except zlib.error as err:
+        raise ValueError(f"damaged Deflate data: {err}") from None
+    if len(out) < size:
+        raise ValueError("Deflate data ends short of the strip or tile")
+    return out
+
+
+def _chunk(data: bytes, offset: int, count: int, compression: int, size: int,
+           fill_order: int) -> bytes:
+    """One strip or tile, decompressed to its ``size`` bytes."""
+    if offset + count > len(data) or count < 0:
+        raise ValueError("TIFF strip or tile lies outside the file")
+    raw = data[offset : offset + count]
+    if fill_order == 2:
+        raw = _REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
+    if compression == 1:
+        if len(raw) < size:
+            raise ValueError("TIFF strip or tile is truncated")
+        return raw[:size]
+    if compression == 32773:
+        return _packbits(raw, size)
+    if compression == 5:
+        from rcnn_ocr_tpu_torch.native import tiff_lzw_decode
+
+        return tiff_lzw_decode(raw, size)
+    return _inflate(raw, size)
+
+
+def _unpack(buf: bytes, rows: int, cols: int, spp: int, bits: int, order: str,
+            predictor: bool) -> np.ndarray:
+    """Decoded rows -> ``[rows, cols, spp]`` samples (uint8 or uint16), each
+    row padded to whole bytes, the horizontal predictor undone."""
+    if bits == 16:
+        s = np.frombuffer(buf, order + "u2", rows * cols * spp).astype(np.uint16)
+        s = s.reshape(rows, cols, spp)
+    elif bits == 8:
+        s = np.frombuffer(buf, np.uint8, rows * cols * spp).reshape(rows, cols, spp)
+    else:
+        stride = -(-cols * spp * bits // 8)
+        b = np.frombuffer(buf, np.uint8, rows * stride).reshape(rows, stride)
+        shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
+        v = (b[:, :, None] >> shifts) & np.uint8((1 << bits) - 1)
+        s = v.reshape(rows, -1)[:, : cols * spp].reshape(rows, cols, spp)
+    if predictor:  # a wrapping running sum along the row, per sample
+        s = np.cumsum(s, axis=1, dtype=s.dtype)
+    return s
+
+
+def _skewed(tile: np.ndarray, npix: int, rows: int, bits: int) -> np.ndarray:
+    """The first sample of each pixel of a tile clipped to ``npix`` columns,
+    as libtiff's ``putgreytile`` / ``put16bitbwtile`` read it: they step to
+    the next row by the clipped part's bytes plus the clip in samples, not
+    in bytes, so in a right-edge tile of 16-bit gray, or of gray with
+    alpha, every row after the first starts off its own."""
+    tl, tw, spp = tile.shape
+    pb = spp * bits // 8
+    buf = np.frombuffer(tile.astype("<u2" if bits == 16 else np.uint8).tobytes(), np.uint8)
+    off = np.arange(rows)[:, None] * (npix * pb + tw - npix) + np.arange(npix)[None, :] * pb
+    if bits == 16:  # a little-endian 16-bit read, aligned or not
+        return buf[off].astype(np.uint16) | (buf[off + 1].astype(np.uint16) << 8)
+    return buf[off]
+
+
+def _samples(data: bytes, tags, order: str, bits: int, spp: int, photometric: int):
+    """The first page's samples ``[H, W, spp]`` (strips or tiles, chunky or
+    planar) and the width of the blocks they were read in (a tile's, or
+    the image's for strips)."""
+    h, w = _one(tags, 257), _one(tags, 256)
+    if h <= 0 or w <= 0 or h * w > (1 << 30):
+        raise ValueError(f"TIFF of {w}x{h} pixels")
+    compression = _one(tags, 259, 1)
+    planar = _one(tags, 284, 1)
+    if planar not in (1, 2):
+        raise ValueError(f"TIFF PlanarConfiguration {planar}")
+    predictor = _one(tags, 317, 1) if compression in (5, 8, 32946) else 1
+    if predictor not in (1, 2) or (predictor == 2 and bits not in (8, 16)):
+        raise ValueError(f"TIFF Predictor {predictor} with {bits}-bit samples")
+    fill_order = _one(tags, 266, 1)
+    per = 1 if planar == 2 else spp  # samples in one strip or tile
+    planes = spp if planar == 2 else 1
+    out = np.empty((h, w, spp), np.uint16 if bits == 16 else np.uint8)
+    if 322 in tags:
+        tw, tl = _one(tags, 322), _one(tags, 323)
+        if tw <= 0 or tl <= 0:
+            raise ValueError("TIFF tile of size 0")
+        offsets, counts = tags.get(324, ()), tags.get(325, ())
+        boxes = [(y, x, tl, tw) for y in range(0, h, tl) for x in range(0, w, tw)]
+    else:
+        rps = min(_one(tags, 278, h), h)
+        if rps <= 0:
+            raise ValueError("TIFF RowsPerStrip of 0")
+        tw = w
+        offsets, counts = tags.get(273, ()), tags.get(279, ())
+        boxes = [(y, 0, min(rps, h - y), w) for y in range(0, h, rps)]
+    if len(offsets) < len(boxes) * planes or len(counts) < len(boxes) * planes:
+        raise ValueError("TIFF lists fewer strips or tiles than its size needs")
+    tile_bytes = tl * -(-tw * per * bits // 8) if 322 in tags else 0
+    if compression == 1 and tile_bytes % 1024:
+        # libtiff 4.7.1 under OpenCV 5.0: "Invalid tile byte count ...
+        # Expected 256, got 1024" for every such tile, whatever the image
+        raise ValueError(f"uncompressed TIFF tiles of {tile_bytes} bytes, not a multiple of "
+                         "1024, which libtiff's reader under OpenCV refuses")
+    skew = planar == 1 and photometric in (0, 1) and (bits == 16 or spp > 1)
+    i = 0
+    for p in range(planes):
+        for y, x, rows, cols in boxes:
+            size = rows * -(-cols * per * bits // 8)
+            buf = _chunk(data, int(offsets[i]), int(counts[i]), compression, size, fill_order)
+            blk = _unpack(buf, rows, cols, per, bits, order, predictor == 2)
+            ch = slice(p, p + 1) if planar == 2 else slice(0, spp)
+            out[y : y + rows, x : x + cols, ch] = blk[: h - y, : w - x]
+            if skew and x + cols > w:
+                out[y : y + rows, x:, 0] = _skewed(blk, w - x, min(rows, h - y), bits)
+            i += 1
+    return out, tw
+
+
+def _to8(v: np.ndarray, bits: int) -> np.ndarray:
+    """libtiff's Bitdepth16To8, ``(v + 128) // 257``, for 16-bit samples."""
+    if bits == 16:
+        return ((v.astype(np.uint32) + 128) // 257).astype(np.uint8)
+    return v
+
+
+def decode(data: bytes) -> np.ndarray:
+    """The first page of a TIFF file -> RGB uint8 ``[H, W, 3]``, as
+    ``cv2.imdecode(data, IMREAD_COLOR)`` then BGR -> RGB gives it."""
+    data = bytes(data)
+    order, offset = _header(data)
+    tags = _tags(data, order, offset)
+    compression = _one(tags, 259, 1)
+    if compression not in _DECODED:
+        name = _COMPRESSION.get(compression, "an unknown")
+        raise NotImplementedError(f"{name} TIFF compression ({compression})")
+    fmt = _one(tags, 339, 1)
+    if fmt != 1:
+        raise NotImplementedError(f"{_SAMPLE_FORMAT.get(fmt, f'SampleFormat {fmt}')} TIFF samples")
+    photometric = _one(tags, 262)
+    if photometric in _PHOTOMETRIC or photometric > 5:
+        kind = _PHOTOMETRIC.get(photometric, f"PhotometricInterpretation {photometric}")
+        raise NotImplementedError(f"{kind} TIFF")
+    bits = _one(tags, 258, 1)
+    if len(set(tags.get(258, ()))) > 1:
+        raise ValueError("TIFF BitsPerSample differs between samples, which libtiff refuses")
+    spp = _one(tags, 277, 1)
+    extra = tags.get(338, ())
+    planar = _one(tags, 284, 1)
+    # what OpenCV's readHeader and libtiff's TIFFRGBAImageOK accept
+    ok_bits = {0: (1, 8, 16), 1: (1, 8, 16), 2: (8, 16), 3: (1, 4, 8), 5: (8,)}[photometric]
+    if bits not in ok_bits:
+        raise ValueError(f"{bits}-bit TIFF samples of PhotometricInterpretation {photometric}, "
+                         "which OpenCV does not read")
+    if bits < 8 and spp != 1:
+        raise ValueError(f"{bits}-bit TIFF of {spp} samples a pixel")
+    if (photometric == 2 and spp < 3) or (photometric == 5 and spp < 4):
+        raise ValueError(f"TIFF of PhotometricInterpretation {photometric} with {spp} samples")
+    if planar == 2 and photometric == 3:
+        raise ValueError("planar palette TIFF, which libtiff's RGBA reader does not read")
+    s, block_w = _samples(data, tags, order, bits, spp, photometric)
+    # libtiff's alpha: ExtraSamples 2 is unassociated (premultiplied on
+    # read), 1 associated, 0 associated past three samples
+    unassociated = bool(extra) and extra[0] == 2
+    if photometric in (0, 1) and planar == 1:
+        v = s[:, :, 0]
+        if bits == 1:
+            v = v * np.uint8(255)
+        elif bits == 16:  # put16bitbwtile: the high byte
+            v = (v >> 8).astype(np.uint8)
+        if photometric == 0:
+            v = 255 - v
+        rgb = np.repeat(v[:, :, None], 3, axis=2)
+    elif photometric in (0, 1, 2):  # planar gray is read as RGB with r = g = b
+        colour = s[:, :, :3] if photometric == 2 else np.repeat(s[:, :, :1], 3, axis=2)
+        if photometric == 0:
+            colour = (1 << bits) - 1 - colour
+        rgb = _to8(colour, bits)
+        alpha = 3 if photometric == 2 else 1
+        if unassociated and spp > alpha:
+            a = _to8(s[:, :, alpha : alpha + 1], bits).astype(np.uint32)
+            rgb = ((rgb.astype(np.uint32) * a + 127) // 255).astype(np.uint8)
+    elif photometric == 3:
+        cmap = np.asarray(tags.get(320, ()), np.uint16)
+        n = 1 << bits
+        if cmap.size < 3 * n:
+            raise ValueError("palette TIFF without a full ColorMap")
+        cmap = cmap[: 3 * n].reshape(3, n).T
+        if (cmap >= 256).any():  # libtiff's checkcmap: 16-bit entries
+            cmap = cmap >> 8
+        rgb = cmap.astype(np.uint8)[s[:, :, 0]]
+    else:  # CMYK: tif_getimage.c's putRGBcontig8bitCMYKtile
+        k = 255 - s[:, :, 3:4].astype(np.uint32)
+        rgb = (k * (255 - s[:, :, :3].astype(np.uint32)) // 255).astype(np.uint8)
+    return _orient(rgb, _orientation(tags), block_w)
+
+
+def _orient(rgb: np.ndarray, o: int, block_w: int) -> np.ndarray:
+    """Orientation as OpenCV reads it: libtiff mirrors each strip or tile
+    left to right for 2, 3, 6 and 7 (its columns within the image, a tile's
+    within itself), then the rows are flipped and the image transposed."""
+    if o in (2, 3, 6, 7):
+        rgb = rgb.copy()
+        for x in range(0, rgb.shape[1], block_w):
+            rgb[:, x : x + block_w] = rgb[:, x : x + block_w][:, ::-1]
+    transpose, flip_rows, flip_cols = {1: (0, 0, 0), 2: (0, 0, 0), 3: (0, 1, 0), 4: (0, 1, 0),
+                                       5: (1, 0, 0), 6: (1, 1, 1), 7: (1, 0, 1),
+                                       8: (1, 1, 0)}[o]
+    if transpose:
+        rgb = rgb.transpose(1, 0, 2)
+    if flip_rows:
+        rgb = rgb[::-1]
+    if flip_cols:
+        rgb = rgb[:, ::-1]
+    return np.ascontiguousarray(rgb, dtype=np.uint8)

@@ -1,17 +1,19 @@
 """ctypes bindings of the port's host C++: the CTC prefix beam search, the
-serving letterbox and the JPEG decoder.
+serving letterbox, the JPEG decoder and TIFF's LZW decoder.
 
 The sources are ``rcnn_ocr_tpu_torch/csrc/host/ctc_beam.cpp`` (the search of
 the JAX package's ``native/ctc_beam.cpp``), ``csrc/host/letterbox.cpp`` (its
 ``native/letterbox.cpp``), kept as the port's own copies, and
-``csrc/host/jpeg_decode.cpp`` (the port's own: JAX decodes with cv2).  At
+``csrc/host/jpeg_decode.cpp`` and ``csrc/host/tiff_decode.cpp`` (the port's
+own: JAX decodes with cv2).  At
 first use each is compiled with ``g++ -O3 -std=c++17 -fPIC -shared -pthread`` into
 ``build/rcnn_ocr_tpu_torch/`` under a name that carries a hash of the source
 and flags, so an edited source is rebuilt, and loaded with ``ctypes``.  A
 failed build raises with the compiler's output; nothing falls back to
 Python.  Bound: the batched beam entry points
 ``rcnn_ctc_beam_search_batch[_mt][_v2]``, ``rcnn_letterbox_u8``,
-``rcnn_jpeg_header`` and ``rcnn_jpeg_decode_u8``.  A ctypes call releases
+``rcnn_jpeg_header``, ``rcnn_jpeg_decode_u8`` and ``rcnn_tiff_lzw_decode``.
+A ctypes call releases
 the interpreter lock, so threads decode in parallel.
 """
 
@@ -50,6 +52,9 @@ ENTRIES = {
     "jpeg_decode": {"rcnn_jpeg_header": [ctypes.c_char_p, _I64, _P64, ctypes.c_char_p, _I64],
                     "rcnn_jpeg_decode_u8": [ctypes.c_char_p, _I64, ctypes.POINTER(ctypes.c_uint8),
                                             _I64, _I64, ctypes.c_char_p, _I64]},
+    # data, n, out, out_len, msg, msg_len
+    "tiff_decode": {"rcnn_tiff_lzw_decode": [ctypes.c_char_p, _I64, ctypes.POINTER(ctypes.c_uint8),
+                                             _I64, ctypes.c_char_p, _I64]},
 }
 
 _lock = threading.Lock()
@@ -180,11 +185,12 @@ def letterbox_u8(images: Sequence[np.ndarray], canvas_h: int, canvas_w: int,
 
 
 def jpeg_decode_u8(data: bytes) -> np.ndarray:
-    """A baseline or extended-sequential JPEG stream -> RGB uint8 ``[H, W, 3]``,
-    bit-equal to ``cv2.imdecode(data, IMREAD_COLOR)`` then BGR -> RGB (EXIF
-    orientation applied).  Raises ``NotImplementedError`` naming a variant it
-    does not decode (progressive, arithmetic, lossless, 12-bit, CMYK) and
-    ``ValueError`` on damaged or truncated data."""
+    """A JPEG stream (sequential or progressive, Huffman or arithmetic,
+    gray, YCbCr, RGB, CMYK or YCCK) -> RGB uint8 ``[H, W, 3]``, bit-equal to
+    ``cv2.imdecode(data, IMREAD_COLOR)`` then BGR -> RGB (EXIF orientation
+    applied).  Raises ``NotImplementedError`` naming a variant it does not
+    decode (lossless, hierarchical, 12-bit, DNL) and ``ValueError`` on
+    damaged or truncated data."""
     lib = load("jpeg_decode")
     data = bytes(data)
     msg = ctypes.create_string_buffer(256)
@@ -201,3 +207,21 @@ def jpeg_decode_u8(data: bytes) -> np.ndarray:
     if res == -2:
         raise NotImplementedError(text)
     raise ValueError(f"damaged JPEG data: {text}")
+
+
+def tiff_lzw_decode(data: bytes, size: int) -> bytes:
+    """One LZW-compressed TIFF strip or tile -> its first ``size`` bytes, as
+    libtiff decodes it.  Raises ``ValueError`` on damaged data or data short
+    of ``size`` bytes, ``NotImplementedError`` on old-style LZW."""
+    lib = load("tiff_decode")
+    data = bytes(data)
+    out = np.empty(int(size), dtype=np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    res = lib.rcnn_tiff_lzw_decode(data, len(data), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                                   out.size, msg, len(msg))
+    if res == out.size:
+        return out.tobytes()
+    text = msg.value.decode("utf-8", "replace")
+    if res == -2:
+        raise NotImplementedError(text)
+    raise ValueError(text)

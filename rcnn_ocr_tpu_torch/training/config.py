@@ -17,9 +17,11 @@ overlay), with the same keys and defaults:
 ``p_EdgeCrop`` and ``edge_crop_limit`` are registered (JAX's config warns
 on them though its train transform reads them).  On one card some keys
 mean nothing and are only logged by the training loop (``use_pallas``,
-``compile_cache_dir``); ``mesh_shape`` over more than one device waits for
-a later slice and raises there.  ``export_artifact`` is validated by
-:func:`rcnn_ocr_tpu_torch.export.validate_export_request`.
+``compile_cache_dir``).  ``mesh_shape`` over more than one device runs data
+parallelism over the ranks of a process group (``training/train.py``: the
+data axis must tile the ranks, else a warning and pure DP); a ``model`` axis
+over 1 raises, since tensor parallelism is not ported.  ``export_artifact``
+is validated by :func:`rcnn_ocr_tpu_torch.export.validate_export_request`.
 """
 
 from __future__ import annotations

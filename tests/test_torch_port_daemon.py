@@ -14,7 +14,9 @@ Port only:
 
 * JAX's daemon and the port's over the same weights (fp32) answer the same
   PNG, JPEG and JSON-batch requests with the same status, keys and strings,
-  with and without confidences, and expose the same metric names;
+  with and without confidences, and expose the same metric names; the same
+  for progressive and CMYK JPEG and TIFF bodies (which the port's daemon
+  answered with 400 before its decoders read them);
 * the live engine's long-line routes give JAX's strings through the fn;
 * a daemon over the port's engine equals the in-process
   ``predict_serving``;
@@ -27,6 +29,7 @@ Port only:
 
 import base64
 import http.client
+import io
 import json
 import os
 import re
@@ -774,6 +777,45 @@ def test_port_daemon_answers_as_the_jax_daemon(engines, method, confidence):
     for (_, g), (_, w) in zip(got[3:], want[3:]):
         assert set(g) == set(w) == {"error"} and g["error"].startswith("bad request")
     assert metric_names["port"] == metric_names["jax"]
+
+
+@pytest.mark.parametrize("method", ["ctc_greedy", "attention"])
+def test_port_daemon_answers_progressive_and_tiff_bodies_as_the_jax_daemon(engines, method):
+    from PIL import Image
+
+    from tests.torch_port_data.make_tiff_fixtures import tiff_bytes
+
+    imgs, _ = _requests()  # the lines of the PNG and baseline JPEG test
+    ok, prog = cv2.imencode(".jpg", cv2.cvtColor(imgs[0], cv2.COLOR_RGB2BGR),
+                            [cv2.IMWRITE_JPEG_QUALITY, 95, cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    assert ok
+    cmyk = io.BytesIO()
+    Image.fromarray(imgs[2]).convert("CMYK").save(cmyk, format="JPEG", quality=95)
+    pil_prog = io.BytesIO()
+    Image.fromarray(imgs[4]).save(pil_prog, format="JPEG", quality=90, progressive=True)
+    bodies = [("image/jpeg", prog.tobytes()),
+              ("image/tiff", tiff_bytes(imgs[1], photometric=2, compression="lzw", predictor=2)),
+              ("application/json", json.dumps({"images": [
+                  base64.b64encode(cmyk.getvalue()).decode(),
+                  base64.b64encode(tiff_bytes(imgs[3].astype(np.uint16) * 257, bits=16,
+                                              photometric=2, compression="deflate",
+                                              order=">")).decode(),
+                  base64.b64encode(pil_prog.getvalue()).decode()]}).encode())]
+    answers = {}
+    for name, eng, serving in (("port", engines[0], port_serving),
+                               ("jax", engines[1], jax_serving)):
+        fn = serving.serving_predict_fn(eng, method=method, batch_size=4, canvas=(48, 96),
+                                        max_length=5)
+        server = serving.OCRServer(fn, host="127.0.0.1", port=0, max_batch=4, max_wait_ms=0)
+        base, thread = _start(server)
+        try:
+            answers[name] = [_answer(base, ctype, body) for ctype, body in bodies]
+        finally:
+            _stop(server, thread)
+    assert [s for s, _ in answers["port"]] == [s for s, _ in answers["jax"]] == [200] * 3
+    assert answers["port"] == answers["jax"]
+    texts = [t for _, a in answers["port"] for t in a["texts"]]
+    assert len(texts) == 5 and len(set(texts)) > 1
 
 
 def test_port_daemon_equals_in_process_predict_serving(engines):

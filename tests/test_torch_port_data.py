@@ -4,9 +4,9 @@
   files cv2 writes (gray, RGB, RGBA, 16-bit; 24/32-bit and gray BMP) and on
   hand-built PNGs (each filter type 0-4, palette and sub-byte depths,
   gray+alpha, Adam7); ``image_size`` equal to JAX's on PNG, BMP, GIF and
-  JPEG headers (an EXIF-rotated JPEG too); a progressive JPEG or a GIF
-  raises an error naming the supported formats (baseline JPEGs decode:
-  ``tests/test_torch_port_jpeg.py``).
+  JPEG headers (an EXIF-rotated JPEG too); a lossless JPEG or a GIF
+  raises an error naming the supported formats (the JPEGs and TIFFs that
+  decode: ``tests/test_torch_port_jpeg.py``, ``tests/test_torch_port_tiff.py``).
 * ``OCRDataset`` on a CSV with missing files, foreign characters,
   too-long and empty labels: the same samples and skip counts.
 * Samplers: index sequences equal for the same seeds; ``exact_quotas``,
@@ -187,11 +187,12 @@ def test_image_size_matches_jax_on_headers(tmp_path):
 
 def test_jpeg_decoding_raises_naming_the_supported_formats(tmp_path):
     path = tmp_path / "line.jpg"
-    path.write_bytes(cv2.imencode(".jpg", np.zeros((8, 8, 3), np.uint8),
-                                  [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes())
-    with pytest.raises(image_io.UnsupportedImageFormat, match="PNG, BMP and baseline JPEG"):
+    data = bytearray(cv2.imencode(".jpg", np.zeros((8, 8, 3), np.uint8))[1].tobytes())
+    data[data.find(b"\xff\xc0") + 1] = 0xC3  # a lossless frame, still refused
+    path.write_bytes(bytes(data))
+    with pytest.raises(image_io.UnsupportedImageFormat, match="PNG, BMP, JPEG .* and TIFF"):
         image_io.imread(str(path))
-    with pytest.raises(NotImplementedError, match="progressive JPEG"):
+    with pytest.raises(NotImplementedError, match="lossless JPEG"):
         tf.load_rgb_uint8(str(path))
     gif = tmp_path / "line.gif"
     gif.write_bytes(b"GIF89a" + struct.pack("<HH", 8, 8) + b"\x00" * 24)

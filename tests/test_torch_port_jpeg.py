@@ -1,17 +1,26 @@
 """The port's JPEG decoder vs the JAX package's ``imdecode_cv2``, on the CPU.
 
-* Every decodable fixture of ``tests/torch_port_data/jpeg/`` (4:4:4,
-  4:2:2, 4:2:0, 4:4:0, 4:1:1, gray, restart markers, EXIF 3/6/8, PIL's
-  optimized tables, Adobe RGB, a frame with no DHT, a damaged frame, 64
-  text lines): bit-equal to ``imdecode_cv2`` and to the cv2 pixels the
+* Every fixture of ``tests/torch_port_data/jpeg/`` (4:4:4, 4:2:2, 4:2:0,
+  4:4:0, 4:1:1, gray, restart markers, EXIF 3/6/8, PIL's optimized tables,
+  Adobe RGB, a frame with no DHT, a damaged frame, 64 text lines;
+  progressive from cv2, PIL and custom scan scripts, cut short after or
+  inside a scan; arithmetic-coded sequential and progressive, with DAC;
+  CMYK and YCCK): bit-equal to ``imdecode_cv2`` and to the cv2 pixels the
   card's smoke reads (``expected.npz``).
 * A seeded fuzz of sizes (odd and even, 1 to 70 pixels a side), qualities
-  and subsamplings written by ``cv2.imencode`` and by PIL: bit-equal.
-* Unsupported variants (progressive from cv2 and PIL, arithmetic,
-  lossless, hierarchical, 12-bit, CMYK) raise ``UnsupportedImageFormat``
-  naming the variant; a truncated stream raises ``ValueError`` as JAX's
-  does (cv2 returns None), and one cut short but closed by an EOI decodes
-  as cv2 does (zero-filled).
+  and subsamplings written by ``cv2.imencode`` and by PIL: bit-equal; the
+  same for progressive streams (cv2 and PIL at each subsampling, with
+  restarts), progressive streams cut short after each scan or inside one
+  (libjpeg's block smoothing), and, from ``jpeg_writer.c`` built against
+  the system libjpeg (these skip only where no ``jpeglib.h`` is found),
+  custom scan scripts, arithmetic coding and CMYK / YCCK; damaged
+  progressive and arithmetic data decode as cv2 decodes it.
+* Lossless, hierarchical and 12-bit frames and DNL markers raise
+  ``UnsupportedImageFormat`` naming the variant; the variants this decoder
+  used to refuse (progressive from cv2 and PIL, arithmetic, CMYK) decode
+  bit-equal; a truncated stream raises ``ValueError`` as JAX's does (cv2
+  returns None), and one cut short but closed by an EOI decodes as cv2
+  does (zero-filled).
 * Frames with no DHT segment (Motion-JPEG) decode with the standard
   tables, and a seeded fuzz of damaged entropy data (bytes changed, runs
   of garbage, restart markers renumbered or dropped) decodes bit-equal to
@@ -19,12 +28,15 @@
 * ``image_size`` equals the decoded shape and JAX's for EXIF 1-8.
 * Decodes from eight threads at once equal the serial ones.
 * JPEG datasets with no further change: ``OCRInference.predict`` on JPEG
-  paths and the eval CLI give JAX's strings and report; ``run_training`` on
-  JPEG lines equals a run on PNGs of the same (cv2-decoded) pixels.
+  paths (progressive JPEG and TIFF lines among them) and the eval CLI give
+  JAX's strings and report; ``run_training`` on JPEG lines equals a run on
+  PNGs of the same (cv2-decoded) pixels.
 """
 
 import csv
 import io
+import shutil
+import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -43,7 +55,7 @@ from rcnn_ocr_tpu_torch.data import image_io  # noqa: E402
 from tests.test_torch_port_beam_engine import IMG_H, IMG_W, MAX_LEN, _images, files  # noqa: E402,F401
 
 FIXTURES = Path(__file__).resolve().parent / "torch_port_data" / "jpeg"
-NAMES = sorted(p.name for p in FIXTURES.glob("*.jpg") if not p.name.startswith("progressive"))
+NAMES = sorted(p.name for p in FIXTURES.glob("*.jpg"))
 SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444, "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
             "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420, "440": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440,
             "411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411}
@@ -79,6 +91,26 @@ def _pil_jpeg(img, mode="RGB", **kw):
     return bio.getvalue()
 
 
+def _has_jpeglib() -> bool:
+    if shutil.which("gcc") is None:
+        return False
+    probe = subprocess.run(["gcc", "-E", "-x", "c", "-"], input="#include <jpeglib.h>\n",
+                           capture_output=True, text=True)
+    return probe.returncode == 0
+
+
+@pytest.fixture(scope="module")
+def writer():
+    """``jpeg_writer.c`` built against the system libjpeg."""
+    if not _has_jpeglib():
+        pytest.skip("no jpeglib.h to build tests/torch_port_data/jpeg_writer.c against")
+    from tests.torch_port_data.make_jpeg_fixtures import CWriter
+
+    w = CWriter()
+    yield w
+    w.close()
+
+
 def _assert_bit_equal(data):
     got = image_io.imdecode(data)
     want = jax_tf.imdecode_cv2(data)
@@ -91,7 +123,9 @@ def _assert_bit_equal(data):
 
 def test_fixtures_cover_the_paths():
     kinds = ("s444", "s422", "s420", "s440", "s411", "gray", "rst", "exif3", "exif6", "exif8",
-             "q50", "q100", "optimized", "adobe_rgb", "nodht", "damaged")
+             "q50", "q100", "optimized", "adobe_rgb", "nodht", "damaged", "progressive",
+             "pil_progressive", "ni_dc", "al2", "cut_after", "cut_inside", "arith_s",
+             "arith_progressive", "dac", "cmyk", "ycck", "prog_line", "arith_line", "cmyk_line")
     for kind in kinds:
         assert any(kind in n for n in NAMES), kind
     assert sum(n.startswith("line_") for n in NAMES) == 64
@@ -139,6 +173,173 @@ def test_gray_fuzz_is_bit_equal():
         _assert_bit_equal(_cv2_jpeg(img, int(rng.choice([50, 90])),
                                     IMWRITE_JPEG_RST_INTERVAL=int(rng.integers(0, 3))))
         _assert_bit_equal(_pil_jpeg(img, mode="L", quality=80))
+
+
+@pytest.mark.parametrize("sampling", ["444", "422", "420", "440", "411"])
+def test_progressive_fuzz_is_bit_equal(sampling):
+    """cv2's and PIL's progressive streams (jpeg_simple_progression), with
+    and without restart intervals."""
+    rng = np.random.default_rng(300 + int(sampling))
+    for _ in range(10):
+        h, w = (int(v) for v in rng.integers(1, 71, 2))
+        img = _smooth(rng, h, w)
+        rst = int(rng.integers(0, 3))
+        _assert_bit_equal(_cv2_jpeg(img, int(rng.choice([50, 85, 95])), sampling,
+                                    IMWRITE_JPEG_PROGRESSIVE=1, IMWRITE_JPEG_RST_INTERVAL=rst))
+        if sampling in ("444", "422", "420"):
+            sub = {"444": 0, "422": 1, "420": 2}[sampling]
+            _assert_bit_equal(_pil_jpeg(img, quality=int(rng.choice([60, 90])), subsampling=sub,
+                                        progressive=True))
+    gray = _smooth(rng, int(rng.integers(1, 60)), int(rng.integers(1, 60)), channels=1)
+    _assert_bit_equal(_cv2_jpeg(gray, 80, IMWRITE_JPEG_PROGRESSIVE=1))
+
+
+def _cuts(data):
+    """The stream closed by EOI after each of its scans but the last, and
+    halfway into each."""
+    from tests.torch_port_data.make_jpeg_fixtures import sos_offsets
+
+    ss = sos_offsets(data)
+    return ([data[: ss[k]] + b"\xff\xd9" for k in range(1, len(ss))]
+            + [data[: (ss[k] + ss[k + 1]) // 2] + b"\xff\xd9" for k in range(len(ss) - 1)])
+
+
+@pytest.mark.parametrize("sampling", ["444", "422", "420", "440", "gray"])
+def test_cut_short_progressive_is_bit_equal(sampling):
+    """A progressive stream cut after any scan, or inside one, and closed by
+    EOI: libjpeg decodes what arrived and, its first coefficients being
+    incomplete, smooths the blocks (jdcoefct.c: a 5x5 window of DC values,
+    the rows below an interrupted scan taking the status before it).  The
+    port gives cv2's pixels, or raises where cv2 fails."""
+    rng = np.random.default_rng(400 + len(sampling))
+    decoded = 0
+    for _ in range(3):
+        h, w = (int(v) for v in rng.integers(1, 60, 2))
+        img = _smooth(rng, h, w, channels=1 if sampling == "gray" else 3)
+        data = (_cv2_jpeg(img, 85, IMWRITE_JPEG_PROGRESSIVE=1) if sampling == "gray" else
+                _cv2_jpeg(img, 85, sampling, IMWRITE_JPEG_PROGRESSIVE=1,
+                          IMWRITE_JPEG_RST_INTERVAL=int(rng.integers(0, 2))))
+        for cut in _cuts(data):
+            try:
+                want = jax_tf.imdecode_cv2(cut)
+            except ValueError:
+                with pytest.raises(ValueError):
+                    image_io.imdecode(cut)
+                continue
+            np.testing.assert_array_equal(image_io.imdecode(cut), want)
+            decoded += 1
+    assert decoded >= 15
+
+
+SCRIPTS = ["ni_dc", "al2", "simple"]
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+@pytest.mark.parametrize("arith", [False, True], ids=["huffman", "arithmetic"])
+def test_scan_scripts_are_bit_equal(writer, script, arith):
+    """``jpeg_writer``'s progressive scan scripts (non-interleaved DC,
+    successive approximation down to Al 2, restart intervals), Huffman and
+    arithmetic-coded, whole and cut short."""
+    from tests.torch_port_data.make_jpeg_fixtures import SCRIPTS as SCANS
+
+    rng = np.random.default_rng(500 + SCRIPTS.index(script) + 10 * arith)
+    for _ in range(4):
+        h, w = (int(v) for v in rng.integers(1, 60, 2))
+        factors = str(rng.choice(["1,1,1,1,1,1", "2,2,1,1,1,1", "2,1,1,1,1,1", "1,2,1,1,1,1"]))
+        opts = ["-p", "-f", factors, "-r", int(rng.integers(0, 4))]
+        if script != "simple":
+            opts += ["-s", SCANS[script]]
+        if arith:
+            opts.append("-a")
+        data = writer(_smooth(rng, h, w), *opts)
+        _assert_bit_equal(data)
+        for cut in _cuts(data)[:: 3]:
+            try:
+                want = jax_tf.imdecode_cv2(cut)
+            except ValueError:
+                with pytest.raises(ValueError):
+                    image_io.imdecode(cut)
+                continue
+            np.testing.assert_array_equal(image_io.imdecode(cut), want)
+
+
+@pytest.mark.parametrize("opts", [[], ["-p"], ["-a"]], ids=["sequential", "progressive",
+                                                          "arithmetic"])
+def test_a_component_no_scan_coded_decodes_as_cv2(writer, opts):
+    """A multi-scan stream cut after its first, single-component scan: the
+    other components keep zero coefficients and no quantization table, so
+    libjpeg renders them mid-gray (the decoder raised on them before)."""
+    from tests.torch_port_data.make_jpeg_fixtures import SCRIPTS as SCANS
+    from tests.torch_port_data.make_jpeg_fixtures import cut_after
+
+    script = SCANS["ni_dc"] if "-p" in opts else "0:0:63:0:0;1:0:63:0:0;2:0:63:0:0"
+    data = writer(_smooth(np.random.default_rng(12), 20, 30), "-s", script, *opts)
+    _assert_bit_equal(cut_after(data, 1))
+
+
+@pytest.mark.parametrize("conditioning", [None, "0,1,5", "2,6,12", "1,3,30"])
+def test_arithmetic_fuzz_is_bit_equal(writer, conditioning):
+    """Arithmetic-coded sequential frames (DAC conditioning as given, or
+    none: the defaults), gray and colour, with restarts."""
+    rng = np.random.default_rng(600 + (len(conditioning) if conditioning else 0))
+    for _ in range(6):
+        h, w = (int(v) for v in rng.integers(1, 70, 2))
+        gray = rng.random() < 0.3
+        img = _smooth(rng, h, w, channels=1 if gray else 3)
+        opts = ["-a", "-q", int(rng.choice([50, 90])), "-r", int(rng.integers(0, 3))]
+        if not gray:
+            opts += ["-f", str(rng.choice(["1,1,1,1,1,1", "2,2,1,1,1,1", "2,1,1,1,1,1"]))]
+        if conditioning:
+            opts += ["-d", conditioning]
+        _assert_bit_equal(writer(img, *opts))
+
+
+@pytest.mark.parametrize("space", ["cmyk", "ycck"])
+def test_four_component_fuzz_is_bit_equal(writer, space):
+    """CMYK and YCCK (Adobe transform 0 and 2, and CMYK with no Adobe
+    marker), 4:4:4 and with Y and K subsampled, and PIL's CMYK."""
+    rng = np.random.default_rng(700 + len(space))
+    for _ in range(6):
+        h, w = (int(v) for v in rng.integers(1, 60, 2))
+        img = _smooth(rng, h, w, channels=4)
+        factors = str(rng.choice(["1,1,1,1,1,1,1,1", "2,2,1,1,1,1,2,2", "2,1,1,1,1,1,1,1"]))
+        opts = ["-c", space, "-f", factors, "-q", int(rng.choice([60, 95]))]
+        if space == "cmyk" and rng.random() < 0.5:
+            opts.append("-n")
+        _assert_bit_equal(writer(img, *opts))
+    bio = io.BytesIO()
+    Image.frombytes("CMYK", (23, 17), _smooth(rng, 17, 23, channels=4).tobytes()).save(
+        bio, format="JPEG", quality=80)
+    _assert_bit_equal(bio.getvalue())
+
+
+@pytest.mark.parametrize("kind", ["progressive", "arithmetic", "arithmetic progressive"])
+def test_damaged_variant_data_decodes_as_cv2(writer, kind):
+    """Bytes of progressive and arithmetic-coded entropy data changed: the
+    port gives cv2's pixels, or raises where cv2 fails."""
+    from tests.torch_port_data.make_jpeg_fixtures import sos_offsets
+
+    rng = np.random.default_rng(800 + len(kind))
+    opts = {"progressive": ["-p"], "arithmetic": ["-a"],
+            "arithmetic progressive": ["-a", "-p"]}[kind]
+    decoded = 0
+    for _ in range(30):
+        h, w = (int(v) for v in rng.integers(1, 60, 2))
+        data = bytearray(writer(_smooth(rng, h, w), *opts, "-r", int(rng.integers(0, 3))))
+        start = sos_offsets(bytes(data))[0] + 10
+        for _ in range(int(rng.integers(1, 4))):
+            p = int(rng.integers(start, len(data) - 2))
+            if data[p] != 0xFF and data[p - 1] != 0xFF:
+                data[p] = int(rng.integers(0, 255))
+        try:
+            want = jax_tf.imdecode_cv2(bytes(data))
+        except ValueError:
+            with pytest.raises(ValueError):
+                image_io.imdecode(bytes(data))
+            continue
+        np.testing.assert_array_equal(image_io.imdecode(bytes(data)), want)
+        decoded += 1
+    assert decoded >= 10
 
 
 def _segments(data):
@@ -236,28 +437,49 @@ def _patched_sof(data, marker=None, precision=None):
     return bytes(buf)
 
 
+def _with_dnl(data):
+    """``data`` with its SOF's height zeroed, to be given by a DNL marker."""
+    buf = bytearray(data)
+    i = buf.find(b"\xff\xc0")
+    buf[i + 5 : i + 7] = b"\x00\x00"
+    return bytes(buf)
+
+
 def _variant(kind):
     img = _smooth(np.random.default_rng(5), 20, 30)
     base = _cv2_jpeg(img)
     return {
         "progressive JPEG": lambda: _cv2_jpeg(img, IMWRITE_JPEG_PROGRESSIVE=1),
         "progressive JPEG (PIL)": lambda: _pil_jpeg(img, progressive=True),
+        # a baseline stream relabelled SOF9: cv2 decodes its Huffman data as
+        # arithmetic-coded (with a warning), and so does the port
         "arithmetic-coded JPEG": lambda: _patched_sof(base, marker=0xC9),
-        "lossless JPEG": lambda: _patched_sof(base, marker=0xC3),
-        "hierarchical JPEG": lambda: _patched_sof(base, marker=0xC5),
+        "lossless JPEG (SOF3)": lambda: _patched_sof(base, marker=0xC3),
+        "lossless JPEG (SOF11)": lambda: _patched_sof(base, marker=0xCB),
+        "hierarchical JPEG (SOF5)": lambda: _patched_sof(base, marker=0xC5),
+        "hierarchical JPEG (SOF13)": lambda: _patched_sof(base, marker=0xCD),
         "12-bit JPEG": lambda: _patched_sof(base, precision=12),
+        "DNL marker": lambda: _with_dnl(base),
         "4-component JPEG (CMYK / YCCK)": lambda: _pil_jpeg(img, mode="CMYK"),
     }[kind]()
 
 
-@pytest.mark.parametrize("kind", ["progressive JPEG", "progressive JPEG (PIL)",
-                                  "arithmetic-coded JPEG", "lossless JPEG", "hierarchical JPEG",
-                                  "12-bit JPEG", "4-component JPEG (CMYK / YCCK)"])
+@pytest.mark.parametrize("kind", ["lossless JPEG (SOF3)", "lossless JPEG (SOF11)",
+                                  "hierarchical JPEG (SOF5)", "hierarchical JPEG (SOF13)",
+                                  "12-bit JPEG", "DNL marker"])
 def test_unsupported_variants_raise_naming_them(kind):
     with pytest.raises(image_io.UnsupportedImageFormat) as err:
         image_io.imdecode(_variant(kind))
-    assert kind.replace(" (PIL)", "") in str(err.value)
+    assert kind in str(err.value)
     assert image_io.SUPPORTED in str(err.value)
+
+
+@pytest.mark.parametrize("kind", ["progressive JPEG", "progressive JPEG (PIL)",
+                                  "arithmetic-coded JPEG", "4-component JPEG (CMYK / YCCK)"])
+def test_former_refusals_decode_bit_equal_to_cv2(kind):
+    """The variants the decoder refused before progressive, arithmetic and
+    four-component support: bit-equal now."""
+    _assert_bit_equal(_variant(kind))
 
 
 @pytest.mark.parametrize("cut", [0.5, 0.9, -1, -2])
@@ -324,15 +546,23 @@ def test_threads_decode_alike():
 
 @pytest.fixture(scope="module")
 def jpeg_lines(tmp_path_factory):
-    """Eight text lines as JPEGs (q 95, 4:2:0) and their labels CSV (with a
-    header, as the eval CLI takes it)."""
+    """Eight text lines as JPEGs (q 95, 4:2:0; lines 1 and 5 progressive)
+    and TIFFs (lines 3 and 7: LZW with the predictor, and Deflate), and
+    their labels CSV (with a header, as the eval CLI takes it)."""
     from tests.test_torch_port_eval_cli import LABELS, WIDTHS
+    from tests.torch_port_data.make_tiff_fixtures import tiff_bytes
 
     root = tmp_path_factory.mktemp("jpeg_lines")
     rows = []
     for i, (img, label) in enumerate(zip(_images(8, seed=3, widths=WIDTHS), LABELS)):
-        (root / f"line{i}.jpg").write_bytes(_cv2_jpeg(img[:, :, ::-1], 95))
-        rows.append((f"line{i}.jpg", label))
+        if i % 4 == 3:
+            name, data = f"line{i}.tif", tiff_bytes(img, photometric=2, predictor=2,
+                                                    compression=("lzw", "deflate")[i // 4])
+        else:
+            name = f"line{i}.jpg"
+            data = _cv2_jpeg(img[:, :, ::-1], 95, IMWRITE_JPEG_PROGRESSIVE=int(i % 4 == 1))
+        (root / name).write_bytes(data)
+        rows.append((name, label))
     path = root / "labels.csv"
     with open(path, "w", newline="", encoding="utf-8") as f:
         csv.writer(f).writerows([("filename", "text"), *rows])

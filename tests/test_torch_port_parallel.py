@@ -470,6 +470,18 @@ def test_make_mesh_falls_back_and_refuses_a_model_axis():
             mesh.make_mesh(shape, ("data", "model"), devices=range(4))
 
 
+def test_config_docstring_says_what_mesh_shape_does():
+    """``training/config.py`` said a ``mesh_shape`` over more than one device
+    raises; since data parallelism was ported it runs over the ranks, and
+    only a ``model`` axis over 1 raises."""
+    from rcnn_ocr_tpu_torch.training import config
+
+    doc = " ".join(config.__doc__.split())
+    assert "raises there" not in doc
+    assert "``mesh_shape`` over more than one device runs data parallelism" in doc
+    assert "a ``model`` axis over 1 raises" in doc
+
+
 def test_no_group_is_one_process():
     assert (mesh.process_index(), mesh.process_count()) == (0, 1)
     with mesh.batch_shard() as shard:

@@ -1,0 +1,379 @@
+"""The port's TIFF decoder (``data/tiff.py``) vs the JAX package's
+``imdecode_cv2``, on the CPU.
+
+* Every fixture of ``tests/torch_port_data/tiff/`` (each compression with
+  and without the predictor, gray at 1/8/16 bits both ways, palette at
+  1/4/8 with 16- and 8-bit colour maps, RGB(A) at 8/16, CMYK, planar, tiles,
+  II and MM, orientations 1-8, FillOrder 2, two pages, files from cv2 and
+  PIL): bit-equal to ``imdecode_cv2`` and to the pixels the card's smoke
+  reads (``expected.npz``).
+* A seeded fuzz over compression x predictor x photometric x bit depth x
+  strips or tiles x planar x byte order x orientation: bit-equal wherever
+  cv2 decodes; ``ValueError`` where it fails (uncompressed tiles whose
+  byte size is not a multiple of 1 KiB among them).
+* 16-bit samples reach 8 bits as cv2 takes them, on every 16-bit value.
+* ``image_size`` equals JAX's ``image_size`` (orientations 5-8 swap the
+  sides) without decoding.
+* CCITT, JPEG-in-TIFF, LZMA, ZSTD, WebP, YCbCr, floats, signed integers,
+  BigTIFF and old-style LZW raise ``UnsupportedImageFormat`` naming them.
+* TIFF datasets with no further change: ``run_training`` on TIFF lines
+  equals a run on PNGs of cv2's decode of them.
+"""
+
+import csv
+import io
+import struct
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import cv2
+import numpy as np
+import pytest
+from PIL import Image
+
+jax = pytest.importorskip("jax")
+
+from rcnn_ocr_tpu.data import transforms as jax_tf  # noqa: E402
+from rcnn_ocr_tpu_torch.data import image_io  # noqa: E402
+from tests.torch_port_data.make_tiff_fixtures import REFUSED, lzw, tiff_bytes  # noqa: E402
+
+FIXTURES = Path(__file__).resolve().parent / "torch_port_data" / "tiff"
+NAMES = sorted(p.name for p in FIXTURES.glob("*.tif") if p.name not in REFUSED)
+
+
+@pytest.fixture(scope="module")
+def expected():
+    with np.load(FIXTURES / "expected.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def _cv2(data):
+    try:
+        return jax_tf.imdecode_cv2(data)
+    except (ValueError, cv2.error):
+        return None
+
+
+def _assert_bit_equal(data):
+    want = jax_tf.imdecode_cv2(data)
+    got = image_io.imdecode(data)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+# --- fixtures ---------------------------------------------------------------------------
+
+def test_fixtures_cover_the_paths():
+    kinds = ("none", "packbits", "lzw", "deflate", "zip", "pred2", "gray1", "gray8", "gray16",
+             "miniswhite", "minisblack", "palette1", "palette4", "palette8", "map8", "rgb16",
+             "rgba8_unassociated", "rgba8_associated", "rgba16", "gray_alpha", "cmyk8",
+             "planar", "tiles", "_mm_", "fillorder2", "two_pages", "cv2_", "pil_", "tiff_line")
+    for kind in kinds:
+        assert any(kind in n for n in NAMES), kind
+    assert sum(f"orientation{o}_" in n for n in NAMES for o in range(1, 9)) == 10
+    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 160 * 1024
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_fixture_is_bit_equal_to_cv2(name, expected):
+    data = (FIXTURES / name).read_bytes()
+    got = _assert_bit_equal(data)
+    np.testing.assert_array_equal(got, expected[name])
+    assert image_io.imread(str(FIXTURES / name)).shape == got.shape
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_refused_fixtures_name_what_they_are(name):
+    with pytest.raises(image_io.UnsupportedImageFormat) as err:
+        image_io.imread(str(FIXTURES / name))
+    assert REFUSED[name] in str(err.value) and image_io.SUPPORTED in str(err.value)
+    assert _cv2((FIXTURES / name).read_bytes()) is not None  # cv2 reads them: still to port
+
+
+# --- fuzz -------------------------------------------------------------------------------
+
+def _random_tiff(rng):
+    """A random layout and its samples: (bytes, keyword arguments)."""
+    h, w = (int(v) for v in rng.integers(1, 50, 2))
+    phot = int(rng.choice([0, 1, 2, 3, 5]))
+    bits = int(rng.choice({0: [1, 8, 16], 1: [1, 8, 16], 2: [8, 16], 3: [1, 4, 8],
+                           5: [8]}[phot]))
+    spp = {0: 1, 1: 1, 2: 3, 3: 1, 5: 4}[phot]
+    extra = None
+    if phot in (1, 2) and bits >= 8 and rng.random() < 0.4:
+        spp, extra = spp + 1, int(rng.choice([0, 1, 2]))
+    samples = rng.integers(0, 1 << bits, (h, w, spp)).astype(np.uint16 if bits == 16 else np.uint8)
+    comp = str(rng.choice(["none", "lzw", "deflate", "zip", "packbits"]))
+    kw = dict(bits=bits, photometric=phot, compression=comp,
+              predictor=2 if bits >= 8 and rng.random() < 0.5 else 1,
+              planar=2 if spp > 1 and phot != 3 and rng.random() < 0.4 else 1,
+              tile=((int(rng.choice([16, 32, 48])), int(rng.choice([16, 32])))
+                    if rng.random() < 0.4 else None),
+              rows_per_strip=int(rng.integers(1, 20)), order=str(rng.choice(["<", ">"])),
+              orientation=int(rng.integers(1, 9)) if rng.random() < 0.4 else None,
+              extra_samples=extra,
+              colormap=(rng.integers(0, 65536 if rng.random() < 0.5 else 256, (1 << bits, 3))
+                        if phot == 3 else None))
+    return tiff_bytes(samples, **kw), kw
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_fuzz_is_bit_equal(seed):
+    rng = np.random.default_rng(900 + seed)
+    decoded = 0
+    for _ in range(40):
+        data, kw = _random_tiff(rng)
+        want = _cv2(data)
+        if want is None:
+            with pytest.raises(ValueError):
+                image_io.imdecode(data)
+            continue
+        np.testing.assert_array_equal(image_io.imdecode(data), want, err_msg=str(kw))
+        decoded += 1
+    assert decoded >= 30
+
+
+@pytest.mark.parametrize("kind", ["gray", "miniswhite", "rgb", "rgba", "gray_planar"])
+def test_every_16_bit_value_reaches_8_bits_as_cv2_takes_it(kind):
+    """libtiff's RGBA reader under OpenCV: gray keeps the high byte, RGB
+    rounds (``(v + 128) // 257``), an unassociated alpha premultiplies, and
+    planar gray is read as RGB (rounded)."""
+    v = np.arange(65536, dtype=np.uint16).reshape(256, 256, 1)
+    samples, kw = {
+        "gray": (v, dict(photometric=1)),
+        "miniswhite": (v, dict(photometric=0)),
+        "rgb": (np.concatenate([v, v[::-1], v[:, ::-1]], 2), dict(photometric=2)),
+        "rgba": (np.concatenate([v, v[::-1], v[:, ::-1], v.transpose(1, 0, 2)], 2),
+                 dict(photometric=2, extra_samples=2)),
+        "gray_planar": (np.concatenate([v, v[::-1]], 2),
+                        dict(photometric=1, planar=2, extra_samples=1)),
+    }[kind]
+    _assert_bit_equal(tiff_bytes(samples, bits=16, compression="deflate", rows_per_strip=64, **kw))
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+@pytest.mark.parametrize("tiled", [False, True], ids=["strips", "tiles"])
+def test_orientation_and_image_size_agree(orientation, tiled, tmp_path):
+    """cv2 applies the Orientation tag (6: a 17x33 image comes back 33x17);
+    for tiles it mirrors 2, 3, 6 and 7 within each tile, as libtiff's RGBA
+    tile reader does."""
+    img = np.random.default_rng(orientation).integers(0, 256, (17, 33, 3)).astype(np.uint8)
+    data = tiff_bytes(img, photometric=2, compression="lzw", orientation=orientation,
+                      tile=(16, 16) if tiled else None)
+    got = _assert_bit_equal(data)
+    assert got.shape[:2] == ((33, 17) if orientation >= 5 else (17, 33))
+    path = tmp_path / f"o{orientation}.tif"
+    path.write_bytes(data)
+    assert image_io.image_size(str(path)) == got.shape[:2] == jax_tf.image_size(str(path))
+
+
+def test_image_size_reads_the_header_as_jax_sizes_the_fixtures(monkeypatch):
+    want = {name: jax_tf.image_size(str(FIXTURES / name)) for name in NAMES}
+    monkeypatch.setattr(image_io, "imread", lambda path: pytest.fail(f"decoded {path}"))
+    assert {name: image_io.image_size(str(FIXTURES / name)) for name in NAMES} == want
+
+
+def test_first_page_of_a_multi_page_file():
+    rng = np.random.default_rng(3)
+    first, second = (rng.integers(0, 256, (9, 14, 3)).astype(np.uint8) for _ in range(2))
+    data = tiff_bytes(first, photometric=2, compression="deflate",
+                      pages=[dict(samples=second, photometric=2), dict(samples=second[:, :, :1])])
+    np.testing.assert_array_equal(_assert_bit_equal(data), first)
+    bio = io.BytesIO()
+    Image.fromarray(first).save(bio, format="TIFF", save_all=True,
+                                append_images=[Image.fromarray(second)], compression="tiff_lzw")
+    np.testing.assert_array_equal(_assert_bit_equal(bio.getvalue()), first)
+
+
+# --- refusals and damage ----------------------------------------------------------------
+
+def _pil_tiff(mode, **kw):
+    img = np.random.default_rng(4).integers(0, 256, (10, 12, 3)).astype(np.uint8)
+    bio = io.BytesIO()
+    Image.fromarray(img).convert(mode).save(bio, format="TIFF", **kw)
+    return bio.getvalue()
+
+
+def _patched_compression(code):
+    """An LZW file relabelled with another compression code."""
+    data = bytearray(tiff_bytes(np.zeros((4, 5, 1), np.uint8), compression="lzw"))
+    (ifd,) = struct.unpack_from("<I", data, 4)
+    (n,) = struct.unpack_from("<H", data, ifd)
+    for i in range(n):
+        e = ifd + 2 + 12 * i
+        if struct.unpack_from("<H", data, e)[0] == 259:
+            struct.pack_into("<H", data, e + 8, code)
+    return bytes(data)
+
+
+REFUSALS = {
+    "CCITT Group 4 fax TIFF compression (4)": lambda: _pil_tiff("1", compression="group4"),
+    "JPEG TIFF compression (7)": lambda: _pil_tiff("RGB", compression="jpeg"),
+    "ZSTD TIFF compression (50000)": lambda: _pil_tiff("L", compression="zstd"),
+    "LZMA TIFF compression (34925)": lambda: _patched_compression(34925),
+    "WebP TIFF compression (50001)": lambda: _patched_compression(50001),
+    "CCITT RLE TIFF compression (2)": lambda: _patched_compression(2),
+    "floating-point TIFF samples": lambda: _pil_tiff("F"),
+    "signed-integer TIFF samples": lambda: _pil_tiff("I"),
+    "YCbCr TIFF": lambda: _pil_tiff("YCbCr"),
+    "BigTIFF": lambda: b"II+\x00\x08\x00\x00\x00" + bytes(16),
+}
+
+
+def _old_style_lzw():
+    """A file whose LZW strip starts as the old, LSB-first codes do."""
+    img = np.zeros((4, 5, 1), np.uint8)
+    data = bytearray(tiff_bytes(img, compression="lzw", rows_per_strip=4))
+    (ifd,) = struct.unpack_from("<I", data, 4)
+    (n,) = struct.unpack_from("<H", data, ifd)
+    for i in range(n):
+        e = ifd + 2 + 12 * i
+        if struct.unpack_from("<H", data, e)[0] == 273:
+            (off,) = struct.unpack_from("<I", data, e + 8)
+            data[off : off + 2] = b"\x00\x01"  # Clear (256), least significant bit first
+    return bytes(data)
+
+
+REFUSALS["old-style (pre-TIFF 6.0) LZW"] = _old_style_lzw
+
+
+@pytest.mark.parametrize("kind", sorted(REFUSALS))
+def test_unsupported_variants_raise_naming_them(kind):
+    with pytest.raises(image_io.UnsupportedImageFormat) as err:
+        image_io.imdecode(REFUSALS[kind]())
+    assert kind in str(err.value) and image_io.SUPPORTED in str(err.value)
+
+
+CV2_FAILS = {
+    "gray at 4 bits": lambda: tiff_bytes(np.zeros((5, 6, 1), np.uint8), bits=4),
+    "gray at 2 bits": lambda: tiff_bytes(np.zeros((5, 6, 1), np.uint8), bits=2, photometric=0),
+    "palette at 2 bits": lambda: tiff_bytes(np.zeros((5, 6, 1), np.uint8), bits=2, photometric=3,
+                                            colormap=np.zeros((4, 3), np.uint16)),
+    "RGB at 4 bits": lambda: tiff_bytes(np.zeros((5, 6, 3), np.uint8), bits=4, photometric=2),
+    "truncated strip": lambda: tiff_bytes(np.ones((30, 40, 3), np.uint8), photometric=2)[:2000],
+    "truncated header": lambda: b"II*\x00\x08\x00",
+    "directory past the end": lambda: b"II*\x00\xff\x00\x00\x00" + bytes(8),
+    "differing BitsPerSample": lambda: _patched_bits(),
+}
+
+
+def _patched_bits():
+    data = bytearray(tiff_bytes(np.zeros((5, 6, 3), np.uint8), photometric=2))
+    i = data.find(struct.pack("<HHH", 8, 8, 8))
+    data[i + 4 : i + 6] = struct.pack("<H", 16)
+    return bytes(data)
+
+
+@pytest.mark.parametrize("kind", sorted(CV2_FAILS))
+def test_value_error_where_cv2_fails(kind):
+    data = CV2_FAILS[kind]()
+    assert _cv2(data) is None
+    with pytest.raises(ValueError) as err:
+        image_io.imdecode(data)
+    assert not isinstance(err.value, image_io.UnsupportedImageFormat)
+
+
+@pytest.mark.parametrize("compression", ["lzw", "deflate", "packbits"])
+def test_damaged_compressed_data_raises(compression):
+    """A deliberate divergence: libtiff's RGBA reader does not stop on a
+    strip that fails to decode, so cv2 returns what was decoded (and stale
+    buffer contents); the port raises ``ValueError`` naming the damage."""
+    img = np.random.default_rng(5).integers(0, 256, (20, 30, 3)).astype(np.uint8)
+    data = bytearray(tiff_bytes(img, photometric=2, compression=compression, rows_per_strip=20))
+    filler = {"lzw": b"\xff", "deflate": b"\x00", "packbits": b"\x80"}[compression]
+    data[40:400] = filler * 360  # the middle of the one strip
+    assert _cv2(bytes(data)) is not None
+    with pytest.raises(ValueError):
+        image_io.imdecode(bytes(data))
+
+
+@pytest.mark.parametrize("bits,spp,tile", [(8, 1, (16, 16)), (8, 3, (32, 48)), (16, 1, (48, 16)),
+                                           (8, 1, (32, 32)), (16, 1, (16, 32)), (8, 3, (64, 16))])
+def test_uncompressed_tiles_decode_where_cv2_does(bits, spp, tile):
+    """libtiff 4.7.1 under OpenCV 5.0 fails every uncompressed tile whose
+    byte size is not a multiple of 1024 ("Invalid tile byte count ...
+    Expected 256, got 1024" for 16x16 gray): the port raises there, and
+    decodes bit-equal where the size is one."""
+    img = np.random.default_rng(6).integers(0, 1 << bits, (20, 21, spp))
+    data = tiff_bytes(img.astype(np.uint16 if bits == 16 else np.uint8), bits=bits,
+                      photometric=2 if spp == 3 else 1, tile=tile)
+    if (tile[0] * tile[1] * spp * bits // 8) % 1024:
+        assert _cv2(data) is None
+        with pytest.raises(ValueError, match="multiple of 1024"):
+            image_io.imdecode(data)
+    else:
+        _assert_bit_equal(data)
+
+
+def test_lzw_round_trips_long_strings_and_a_full_table():
+    """The host LZW decoder on 4094-entry tables (Clear mid-strip, 12-bit
+    codes) and on strings longer than the output."""
+    from rcnn_ocr_tpu_torch.native import tiff_lzw_decode
+
+    rng = np.random.default_rng(7)
+    raw = bytes(rng.integers(0, 256, 20000).astype(np.uint8)) + bytes(5000)
+    assert tiff_lzw_decode(lzw(raw), len(raw)) == raw
+    assert tiff_lzw_decode(lzw(raw), 12345) == raw[:12345]
+    with pytest.raises(ValueError, match="short"):
+        tiff_lzw_decode(lzw(raw), len(raw) + 1)
+
+
+def test_threads_decode_alike():
+    datas = [(FIXTURES / n).read_bytes() for n in NAMES]
+    serial = [image_io.imdecode(d) for d in datas]
+    start = threading.Barrier(8)
+
+    def work(k):
+        start.wait()
+        return [image_io.imdecode(d) for d in datas[k::8]]
+
+    with ThreadPoolExecutor(8) as pool:
+        parts = list(pool.map(work, range(8)))
+    for k, part in enumerate(parts):
+        for got, want in zip(part, serial[k::8]):
+            np.testing.assert_array_equal(got, want)
+
+
+# --- TIFF datasets through the entry points ---------------------------------------------
+
+def test_run_training_reads_tiff_lines_as_their_pixels(tmp_path):
+    """One epoch on TIFF lines (LZW and Deflate with the predictor, PackBits,
+    16-bit) equals one on PNGs holding cv2's decode of them: the loader and
+    the width buckets read the TIFFs to the same pixels and sizes."""
+    from rcnn_ocr_tpu_torch.training.train import run_training
+    from tests.helpers import render_text_image
+    from tests.test_torch_port_train_loop import TOKENS, _cfg
+
+    rng = np.random.default_rng(0)
+    labels = ["".join(rng.choice(list("abcdefghij"), size=int(rng.integers(1, 5))))
+              for _ in range(24)]
+    (tmp_path / "charset.txt").write_text("\n".join(TOKENS) + "\n", encoding="utf-8")
+    results = {}
+    for ext in ("tif", "png"):
+        root = tmp_path / ext
+        root.mkdir()
+        draw = np.random.default_rng(1)
+        with open(root / "labels.csv", "w", newline="", encoding="utf-8") as f:
+            for i, label in enumerate(labels):
+                img = render_text_image(label, h=24, w=int(draw.integers(40, 160)), rng=draw)
+                kind = i % 4
+                if kind == 3:
+                    data = tiff_bytes(img.astype(np.uint16) * 257, bits=16, photometric=2,
+                                      compression="deflate", predictor=2)
+                else:
+                    data = tiff_bytes(img, photometric=2, predictor=2 if kind < 2 else 1,
+                                      compression=("lzw", "deflate", "packbits")[kind],
+                                      orientation=None)
+                if ext == "png":  # the JAX package's decode of the same TIFF
+                    data = image_io.png_encode(jax_tf.imdecode_cv2(data))
+                (root / f"img_{i:04d}.{ext}").write_bytes(data)
+                csv.writer(f).writerow([f"img_{i:04d}.{ext}", label])
+        env = {"tmp": tmp_path, "charset": str(tmp_path / "charset.txt"),
+               "csv": str(root / "labels.csv"), "root": str(root)}
+        results[ext] = run_training(_cfg(env, f"run_{ext}", epochs=1, head="both"),
+                                    device="cpu")
+    assert np.isfinite(results["tif"]["val_loss"])
+    assert results["tif"]["val_loss"] == results["png"]["val_loss"]
+    assert results["tif"]["val_acc"] == results["png"]["val_acc"]

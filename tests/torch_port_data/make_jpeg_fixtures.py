@@ -2,17 +2,29 @@
 
     python tests/torch_port_data/make_jpeg_fixtures.py
 
-Needs cv2 and PIL (the card's script reads only the files).  Writes into
-``tests/torch_port_data/jpeg/``:
+Needs cv2 and PIL, and ``gcc`` with libjpeg's headers and library
+(``jpeglib.h``, ``-ljpeg``) to build ``jpeg_writer.c``, which writes the
+variants neither cv2 nor PIL writes (the card's script reads only the
+files).  Writes into ``tests/torch_port_data/jpeg/``:
 
 * small JPEGs, one per decoder path: 4:4:4, 4:2:2, 4:2:0, 4:4:0 and 4:1:1
   subsampling, gray, restart intervals (colour and gray), EXIF orientations
   3, 6 and 8, qualities 50 / 75 / 90 / 100, odd and even sizes, PIL's
-  optimized Huffman tables, an Adobe-marked RGB JPEG, one progressive
-  JPEG (which the port refuses), a frame with no DHT segment (as Motion-JPEG
-  cameras send: the decoder takes the standard tables), and a damaged one
-  (a run of one-bits that is no Huffman code, and a restart marker out of
-  sequence) that cv2 decodes with warnings;
+  optimized Huffman tables, an Adobe-marked RGB JPEG, a frame with no DHT
+  segment (as Motion-JPEG cameras send: the decoder takes the standard
+  tables), and a damaged one (a run of one-bits that is no Huffman code,
+  and a restart marker out of sequence) that cv2 decodes with warnings;
+* progressive JPEGs from cv2 and PIL at each subsampling, and from
+  ``jpeg_writer``: custom scan scripts (non-interleaved DC, successive
+  approximation down to Al 2, restart intervals) and streams cut short
+  after a scan, or inside one, and closed by EOI (libjpeg smooths their
+  blocks);
+* arithmetic-coded JPEGs from ``jpeg_writer``: sequential and progressive,
+  with restarts and with DAC conditioning other than the default;
+* CMYK (PIL's Adobe-inverted, and ``jpeg_writer``'s with no Adobe marker)
+  and YCCK (4:4:4, and Y and K subsampled 2x2);
+* ``prog_line_N.jpg``, ``arith_line_N.jpg``, ``cmyk_line_N.jpg``: text
+  lines as ``line_NN.jpg`` draws them, for the card's daemon phase;
 * ``line_NN.jpg``: 64 seeded 4:2:0 text-line images (24-40 high, 2-6 times
   as wide: light ground, dark strokes, noise of +-3) at quality 90;
 * ``expected.npz``: cv2's RGB pixels (``cv2.imdecode(IMREAD_COLOR)`` then
@@ -26,7 +38,10 @@ from __future__ import annotations
 
 import io
 import os
+import shutil
 import struct
+import subprocess
+import tempfile
 
 import cv2
 import numpy as np
@@ -117,6 +132,95 @@ def damaged(data: bytes) -> bytes:
     return bytes(out)
 
 
+class CWriter:
+    """``jpeg_writer.c`` built with gcc against the system libjpeg."""
+
+    SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "jpeg_writer.c")
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp()
+        self.exe = os.path.join(self.dir, "jpeg_writer")
+        subprocess.run(["gcc", "-O2", "-o", self.exe, self.SOURCE, "-ljpeg"], check=True)
+
+    def __call__(self, pix: np.ndarray, *opts) -> bytes:
+        h, w = pix.shape[:2]
+        nc = 1 if pix.ndim == 2 else pix.shape[2]
+        src, dst = os.path.join(self.dir, "in.raw"), os.path.join(self.dir, "out.jpg")
+        with open(src, "wb") as f:
+            f.write(np.ascontiguousarray(pix, np.uint8).tobytes())
+        subprocess.run([self.exe, src, dst, str(w), str(h), str(nc), *map(str, opts)], check=True)
+        with open(dst, "rb") as f:
+            return f.read()
+
+    def close(self) -> None:
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def sos_offsets(data: bytes) -> list:
+    """Where each SOS marker starts (entropy data holds no 0xFF 0xDA)."""
+    return [i for i in range(2, len(data) - 1) if data[i] == 0xFF and data[i + 1] == 0xDA]
+
+
+def cut_after(data: bytes, scans: int) -> bytes:
+    """The stream's first ``scans`` scans, closed by EOI."""
+    return data[: sos_offsets(data)[scans]] + b"\xff\xd9"
+
+
+# non-interleaved DC with successive approximation (Al 1), AC bands split at
+# 5 and refined down from Al 2; then interleaved DC at Al 2 refined twice
+SCRIPTS = {
+    "ni_dc": ("0:0:0:0:1;1:0:0:0:1;2:0:0:0:1;0:1:5:0:2;2:1:63:0:1;1:1:63:0:1;0:6:63:0:2;"
+              "0:1:63:2:1;0:0:0:1:0;1:0:0:1:0;2:0:0:1:0;2:1:63:1:0;1:1:63:1:0;0:1:63:1:0"),
+    "al2": "0.1.2:0:0:0:2;0:1:9:0:0;0.1.2:0:0:2:1;0.1.2:0:0:1:0;0:10:63:0:0;1:1:63:0:0;2:1:63:0:0",
+}
+
+
+def variant_fixtures(rng, writer: CWriter) -> dict:
+    """The progressive, arithmetic, CMYK and YCCK fixtures."""
+    files = {}
+    for sampling in ("444", "422"):
+        files[f"progressive_s{sampling}_q85_23x41.jpg"] = cv2_jpeg(
+            smooth(rng, 23, 41), 85, sampling, IMWRITE_JPEG_PROGRESSIVE=1)
+    for sub in (0, 1, 2):
+        files[f"pil_progressive_sub{sub}_q80_21x35.jpg"] = pil_jpeg(
+            smooth(rng, 21, 35), quality=80, subsampling=sub, progressive=True)
+    files["progressive_gray_q75_19x27.jpg"] = writer(smooth(rng, 19, 27, 1), "-p", "-q", 75)
+    files["progressive_ni_dc_rst2_s420_26x38.jpg"] = writer(
+        smooth(rng, 26, 38), "-p", "-s", SCRIPTS["ni_dc"], "-f", "2,2,1,1,1,1", "-r", 2)
+    files["progressive_al2_rst1_s422_17x30.jpg"] = writer(
+        smooth(rng, 17, 30), "-p", "-s", SCRIPTS["al2"], "-f", "2,1,1,1,1,1", "-r", 1)
+    prog = writer(smooth(rng, 29, 43), "-p", "-f", "2,2,1,1,1,1", "-q", 85)
+    for k in (1, 3, 6):
+        files[f"cut_after_{k}_progressive_s420_29x43.jpg"] = cut_after(prog, k)
+    ss = sos_offsets(prog)
+    files["cut_inside_5_progressive_s420_29x43.jpg"] = prog[: (ss[4] + ss[5]) // 2] + b"\xff\xd9"
+    files["arith_s444_q90_18x25.jpg"] = writer(smooth(rng, 18, 25), "-a", "-f", "1,1,1,1,1,1")
+    files["arith_s420_rst1_q80_27x33.jpg"] = writer(smooth(rng, 27, 33), "-a", "-r", 1, "-q", 80)
+    files["arith_dac_s422_q90_20x31.jpg"] = writer(smooth(rng, 20, 31), "-a", "-f", "2,1,1,1,1,1",
+                                                   "-d", "2,6,12")
+    files["arith_progressive_s420_q85_25x37.jpg"] = writer(smooth(rng, 25, 37), "-a", "-p")
+    files["arith_progressive_ni_dc_rst3_22x29.jpg"] = writer(
+        smooth(rng, 22, 29), "-a", "-p", "-s", SCRIPTS["ni_dc"], "-r", 3)
+    aprog = writer(smooth(rng, 24, 33), "-a", "-p")
+    files["cut_after_4_arith_progressive_24x33.jpg"] = cut_after(aprog, 4)
+    bio = io.BytesIO()
+    cmyk = smooth(rng, 19, 28, 4)
+    Image.frombytes("CMYK", (28, 19), cmyk.tobytes()).save(bio, format="JPEG", quality=85)
+    files["pil_cmyk_q85_19x28.jpg"] = bio.getvalue()
+    files["cmyk_no_adobe_q90_17x23.jpg"] = writer(smooth(rng, 17, 23, 4), "-c", "cmyk", "-n")
+    files["ycck_s444_q90_18x26.jpg"] = writer(smooth(rng, 18, 26, 4), "-c", "ycck",
+                                              "-f", "1,1,1,1,1,1,1,1")
+    files["ycck_s2222_q85_21x33.jpg"] = writer(smooth(rng, 21, 33, 4), "-c", "ycck",
+                                               "-f", "2,2,1,1,1,1,2,2", "-q", 85)
+    for k in range(2):  # text lines for the card's daemon phase
+        line = line_image(rng)
+        files[f"prog_line_{k}.jpg"] = cv2_jpeg(line, 90, "420", IMWRITE_JPEG_PROGRESSIVE=1)
+        files[f"arith_line_{k}.jpg"] = writer(line, "-a", "-q", 90)
+        cmyk = np.concatenate([255 - line, np.full(line.shape[:2] + (1,), 255, np.uint8)], 2)
+        files[f"cmyk_line_{k}.jpg"] = writer(cmyk, "-c", "ycck", "-q", 90)
+    return files
+
+
 def fixtures() -> dict:
     rng = np.random.default_rng(20261017)
     files = {
@@ -146,6 +250,11 @@ def fixtures() -> dict:
     files["nodht_s422_q85_23x37.jpg"] = without_dht(cv2_jpeg(smooth(rng, 23, 37), 85, "422"))
     files["damaged_s420_rst1_q90_29x47.jpg"] = damaged(
         cv2_jpeg(smooth(rng, 29, 47), 90, "420", IMWRITE_JPEG_RST_INTERVAL=1))
+    writer = CWriter()
+    try:  # apart again, so the files above keep their bytes
+        files.update(variant_fixtures(np.random.default_rng(20261019), writer))
+    finally:
+        writer.close()
     return files
 
 
@@ -156,12 +265,11 @@ def main() -> None:
         with open(os.path.join(OUT, name), "wb") as f:
             f.write(data)
         bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-        if not name.startswith("progressive"):
-            assert bgr is not None, name
-            expected[name] = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+        assert bgr is not None, name
+        expected[name] = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
     np.savez_compressed(os.path.join(OUT, "expected.npz"), **expected)
     total = sum(os.path.getsize(os.path.join(OUT, f)) for f in os.listdir(OUT))
-    print(f"wrote {len(expected) + 1} JPEGs and expected.npz into {OUT}: {total} bytes")
+    print(f"wrote {len(expected)} JPEGs and expected.npz into {OUT}: {total} bytes")
 
 
 if __name__ == "__main__":
