@@ -69,15 +69,19 @@
    share of one profiled batch.
    Daemon phase: the host C++ JPEG decoder against cv2's pixels of the
    committed fixtures (tests/torch_port_data/jpeg/: baseline, progressive
-   whole and cut short, arithmetic-coded, CMYK and YCCK), and the TIFF
-   decoder against those of tests/torch_port_data/tiff/ (JPEG-in-TIFF and
-   CCITT refused naming them); then the port's ``OCRServer`` on 127.0.0.1
+   whole and cut short, arithmetic-coded, CMYK and YCCK), the TIFF
+   decoder against those of tests/torch_port_data/tiff/ (CCITT, JPEG-in-TIFF
+   and YCbCr among them; old-style JPEG, ZSTD, LZMA, WebP, float and signed
+   samples and BigTIFF refused naming them) and the BMP decoder against
+   those of tests/torch_port_data/bmp/ (1/4/8/16/24/32-bit, RLE8, RLE4, OS/2
+   to V5 headers); then the port's ``OCRServer`` on 127.0.0.1
    over the same weights (bf16, batch 256, 5 ms window, canvas 80x640) for
    ctc_greedy and then attention: the port's client, in a process of its
-   own, sends the 512 lines as PNG, 64 JPEG lines and 8 lines as
-   progressive, arithmetic and YCCK JPEG and TIFF, each beside a PNG of its
-   pixels, raw and in 8-image JSON batches, from 1 (16 + 16 lines and the
-   8 pairs), 16 and 64 threads; strings must equal in-process
+   own, sends the 512 lines as PNG, 64 JPEG lines and 20 lines as
+   progressive, arithmetic and YCCK JPEG, TIFF, G4 and G3 TIFF,
+   JPEG-in-TIFF (YCbCr 2x2), YCbCr TIFF (LZW), 1-bit and RLE8 BMP, each
+   beside a PNG of its pixels, raw and in 8-image JSON batches, from 1
+   (16 + 16 lines and the 20 pairs), 16 and 64 threads; strings must equal in-process
    ``predict_serving`` on >= 99% of rows, every variant line's strings its
    PNG twin's, and each dispatch launch 11 + 2 kernels.  The host decode
    time per line of each format is printed beside the card's name and
@@ -199,6 +203,10 @@
    ``--decode attention_beam`` with a bigram table of the training labels
    and ``--lm-weight 0,0.5``: each must exit 0 and write a report of all 256
    rows and a per-sample CSV of 256 rows; their wall times are printed.
+   Then ``--decode ctc_greedy`` over a CSV of the 12 lines of the newest
+   formats (G4 and G3 TIFF, JPEG-in-TIFF, YCbCr TIFF, 1-bit and RLE8 BMP)
+   and over one of PNG twins of their pixels: both exit 0 with all 12 rows
+   read and the same string for every line as for its twin.
 10. Scale-out phase, on the loop phase's set A (512 lines to train, 256 to
    validate) with configs/config.json in fp32 at the global batch of 128 for
    one epoch, each run a subprocess of ``python -m
@@ -272,6 +280,7 @@ MESH_LOAD = ((1, 64), (16, 256), (64, 512))
 RELOAD_MEM_MIB = 8
 JPEG_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "jpeg")
 TIFF_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "tiff")
+BMP_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "bmp")
 # lines in the formats the port's decoders read beside baseline JPEG and PNG:
 # (file, content type, variant), each sent to the daemon beside a PNG of its pixels
 VARIANT_LINES = [(f"{stem}_line_{k}.{ext}", ctype, variant)
@@ -279,8 +288,32 @@ VARIANT_LINES = [(f"{stem}_line_{k}.{ext}", ctype, variant)
                      ("prog", "jpg", "image/jpeg", "progressive JPEG"),
                      ("arith", "jpg", "image/jpeg", "arithmetic JPEG"),
                      ("cmyk", "jpg", "image/jpeg", "YCCK JPEG"),
-                     ("tiff", "tif", "image/tiff", "TIFF"))
+                     ("tiff", "tif", "image/tiff", "TIFF"),
+                     ("g4", "tif", "image/tiff", "G4 TIFF"),
+                     ("g3", "tif", "image/tiff", "G3 TIFF"),
+                     ("jpeg", "tif", "image/tiff", "JPEG-in-TIFF"),
+                     ("ycbcr", "tif", "image/tiff", "YCbCr TIFF"),
+                     ("bmp1", "bmp", "image/bmp", "1-bit BMP"),
+                     ("rle8", "bmp", "image/bmp", "RLE8 BMP"))
                  for k in range(2)]
+# the fax, JPEG-in-TIFF, YCbCr and BMP variants (the eval CLI reads them
+# beside their PNG twins)
+NEW_VARIANTS = ("G4 TIFF", "G3 TIFF", "JPEG-in-TIFF", "YCbCr TIFF", "1-bit BMP", "RLE8 BMP")
+# the TIFFs the port still refuses, and the words each refusal must name
+TIFF_REFUSED = {"refused_zstd.tif": "ZSTD TIFF compression (50000)",
+                "refused_old_jpeg.tif": "old-style JPEG TIFF compression (6)",
+                "refused_lzma.tif": "LZMA TIFF compression (34925)",
+                "refused_webp.tif": "WebP TIFF compression (50001)",
+                "refused_float.tif": "floating-point TIFF samples",
+                "refused_signed.tif": "signed-integer TIFF samples",
+                "refused_bigtiff.tif": "BigTIFF"}
+
+
+def fixture_path(name: str) -> str:
+    """A variant line's file among the committed fixtures."""
+    folder = {".tif": TIFF_FIXTURES, ".bmp": BMP_FIXTURES}.get(os.path.splitext(name)[1],
+                                                               JPEG_FIXTURES)
+    return os.path.join(folder, name)
 # training phase: configs/config.json's shape and optimizer
 TRAIN_BATCH, TRAIN_MAX_LEN, TRAIN_STEPS, GRAD_BATCH = 128, 40, 30, 32
 TRAIN_LR, TRAIN_WD = 5e-4, 2e-5
@@ -1071,10 +1104,12 @@ def jpeg_decoder_check() -> dict:
 
 
 def tiff_decoder_check() -> dict:
-    """The port's TIFF decoder (data/tiff.py, LZW in host C++) against
-    cv2's pixels of the committed fixtures (tests/torch_port_data/tiff/
-    expected.npz), read without cv2; the fixtures with no pixels there
-    (JPEG-in-TIFF, CCITT) are refused naming them, a truncated file raises."""
+    """The port's TIFF decoder (data/tiff.py; LZW and CCITT fax in host
+    C++, JPEG through the host JPEG decoder) against cv2's pixels of the
+    committed fixtures (tests/torch_port_data/tiff/expected.npz: Group 4
+    and JPEG-in-TIFF among them), read without cv2; the kinds still refused
+    (old-style JPEG, ZSTD, LZMA, WebP, floats, signed samples, BigTIFF)
+    raise naming them, a truncated file raises ValueError."""
     from rcnn_ocr_tpu_torch.data.image_io import UnsupportedImageFormat, imread
 
     with np.load(os.path.join(TIFF_FIXTURES, "expected.npz")) as z:
@@ -1082,14 +1117,19 @@ def tiff_decoder_check() -> dict:
     differing = [name for name, want in sorted(expected.items())
                  if not np.array_equal(imread(os.path.join(TIFF_FIXTURES, name)), want)]
     check(not differing, f"the TIFF decoder differs from cv2's pixels on {differing}")
+    kinds = {k: sum(n.startswith(k) for n in expected)
+             for k in ("g4", "g3", "mh", "ccitt_rlew", "jpeg_", "ycbcr", "pil_1_group4",
+                       "pil_l_jpeg")}
+    check(all(kinds.values()), f"a TIFF kind has no fixture: {kinds}")
     refused = sorted(set(f for f in os.listdir(TIFF_FIXTURES) if f.endswith(".tif"))
                      - set(expected))
+    check(refused == sorted(TIFF_REFUSED), f"the refused TIFF fixtures are {refused}")
     for name in refused:
         try:
             imread(os.path.join(TIFF_FIXTURES, name))
             check(False, f"{name} decoded (it must be refused)")
         except UnsupportedImageFormat as err:
-            check("TIFF compression" in str(err), f"{name}: the refusal names nothing: {err}")
+            check(TIFF_REFUSED[name] in str(err), f"{name}: the refusal names otherwise: {err}")
     with open(os.path.join(TIFF_FIXTURES, "tiff_line_0.tif"), "rb") as f:
         line = f.read()
     try:
@@ -1101,9 +1141,45 @@ def tiff_decoder_check() -> dict:
         pass
     print(f"  TIFF decoder: {len(expected)} fixtures bit-equal to cv2's pixels (none, "
           f"PackBits, LZW, Deflate, predictor 2; gray 1/8/16, palette 1/4/8, RGB(A) 8/16, "
-          f"CMYK; strips, tiles, planar, II and MM, orientations 1-8); {len(refused)} "
-          f"refused naming the compression; truncated raises ValueError")
-    return {"fixtures_bit_equal": len(expected), "refused": refused}
+          f"CMYK; strips, tiles, planar, II and MM, orientations 1-8; CCITT "
+          f"{kinds['g4'] + kinds['g3'] + kinds['mh'] + kinds['ccitt_rlew']}, JPEG-in-TIFF "
+          f"{kinds['jpeg_']}, YCbCr {kinds['ycbcr']}); {len(refused)} refused naming "
+          f"them; truncated raises ValueError")
+    return {"fixtures_bit_equal": len(expected), "kinds": kinds, "refused": refused}
+
+
+def bmp_decoder_check() -> dict:
+    """The port's BMP decoder (data/bmp.py) against cv2's pixels of the
+    committed fixtures (tests/torch_port_data/bmp/expected.npz: 1/4/8-bit,
+    16/24/32-bit, RLE8 and RLE4, OS/2 to V5 headers), read without cv2; a
+    2-bit BMP and a truncated one raise ValueError as cv2 fails on them."""
+    from rcnn_ocr_tpu_torch.data.image_io import UnsupportedImageFormat, imdecode, imread
+
+    with np.load(os.path.join(BMP_FIXTURES, "expected.npz")) as z:
+        expected = {k: z[k] for k in z.files}
+    differing = [name for name, want in sorted(expected.items())
+                 if not np.array_equal(imread(os.path.join(BMP_FIXTURES, name)), want)]
+    check(not differing, f"the BMP decoder differs from cv2's pixels on {differing}")
+    kinds = {k: sum(k in n for n in expected)
+             for k in ("pal1", "pal4", "pal8", "rgb555", "rgb565", "rgb24", "rgb32", "rle8",
+                       "rle4", "core", "_v5", "pil_1_")}
+    check(all(kinds.values()), f"a BMP kind has no fixture: {kinds}")
+    with open(os.path.join(BMP_FIXTURES, "pal4_11x19.bmp"), "rb") as f:
+        pal4 = f.read()
+    two_bit = pal4[:28] + b"\x02" + pal4[29:]
+    for what, data in (("a 2-bit BMP", two_bit), ("a BMP cut in half", pal4[: len(pal4) // 2])):
+        try:
+            imdecode(data)
+            check(False, f"{what} decoded (it must raise ValueError)")
+        except UnsupportedImageFormat as err:
+            check(False, f"{what} raised UnsupportedImageFormat, not ValueError: {err}")
+        except ValueError:
+            pass
+    print(f"  BMP decoder: {len(expected)} fixtures bit-equal to cv2's pixels (palettes "
+          f"1/4/8, 16-bit 5-5-5 / 5-6-5, 24 and 32-bit, RLE8 {kinds['rle8']} and RLE4 "
+          f"{kinds['rle4']}, OS/2 core to V5 headers, PIL's 1-bit); a 2-bit and a truncated "
+          f"BMP raise ValueError")
+    return {"fixtures_bit_equal": len(expected), "kinds": kinds}
 
 
 def _post(base: str, body: bytes, ctype: str, timeout: float = 120.0):
@@ -1200,7 +1276,7 @@ def daemon_phase(kernels, variables, images, power: str):
 
     t_phase = time.perf_counter()
     out = {"decoder": jpeg_decoder_check(), "tiff_decoder": tiff_decoder_check(),
-           "canvas": list(DAEMON_CANVAS), "batch": DAEMON_BATCH, "max_wait_ms": DAEMON_WAIT_MS}
+           "bmp_decoder": bmp_decoder_check(), "canvas": list(DAEMON_CANVAS), "batch": DAEMON_BATCH, "max_wait_ms": DAEMON_WAIT_MS}
     charset_path = os.path.join(REPO, "configs", "charset.txt")
 
     def engine():
@@ -1208,7 +1284,8 @@ def daemon_phase(kernels, variables, images, power: str):
                             img_w=IMG_W, dtype=torch.bfloat16)
 
     # traffic: the main path's 512 lines as PNG, the 64 JPEG fixture lines,
-    # then the variant lines (progressive, arithmetic and YCCK JPEG, TIFF),
+    # then the variant lines (progressive, arithmetic and YCCK JPEG, TIFF,
+    # fax and YCbCr TIFF, JPEG-in-TIFF, 1-bit and RLE8 BMP),
     # each followed by a PNG of the pixels it decodes to (its twin)
     wire = [("image/png", png_encode(im)) for im in images]
     kinds = ["PNG"] * len(images)
@@ -1218,8 +1295,7 @@ def daemon_phase(kernels, variables, images, power: str):
         kinds.append("baseline JPEG")
     twins = []
     for name, ctype, variant in VARIANT_LINES:
-        folder = TIFF_FIXTURES if name.endswith(".tif") else JPEG_FIXTURES
-        with open(os.path.join(folder, name), "rb") as f:
+        with open(fixture_path(name), "rb") as f:
             body = f.read()
         wire += [(ctype, body), ("image/png", png_encode(imdecode(body)))]
         kinds += [variant, "PNG twin"]
@@ -2994,6 +3070,72 @@ def eval_cli_runs(weights: str, val_dir: str, rows, train_csvs, cs) -> dict:
                   f"accuracy {m['accuracy']:.4f}, CER {m['cer']:.4f}, WER {m['wer']:.4f}"
                   + (f" at lm_weight {m['lm_weight']}" if "lm_weight" in m else "")
                   for m in metrics))
+    out["variant_formats"] = eval_cli_variants(weights, work, env)
+    return out
+
+
+def eval_cli_variants(weights: str, work: str, env: dict) -> dict:
+    """The eval CLI over a CSV of the NEW_VARIANTS lines (G4 and G3
+    TIFF, JPEG-in-TIFF, YCbCr TIFF, 1-bit and RLE8 BMP) and over one of PNG
+    twins of their pixels, the two processes side by side on the card:
+    both exit 0 with every row read (none left out as unreadable) and give
+    each line its twin's string."""
+    import csv
+
+    from rcnn_ocr_tpu_torch.data.image_io import imread, png_encode
+
+    names = [n for n, _, v in VARIANT_LINES if v in NEW_VARIANTS]
+    procs, out = {}, {}
+    t0 = time.perf_counter()
+    for kind in ("variants", "twins"):
+        folder = os.path.join(work, kind)
+        os.makedirs(folder)
+        files = []
+        for n in names:
+            if kind == "variants":
+                shutil.copy(fixture_path(n), folder)
+                files.append(n)
+            else:
+                with open(os.path.join(folder, n + ".png"), "wb") as f:
+                    f.write(png_encode(imread(fixture_path(n))))
+                files.append(n + ".png")
+        labels = os.path.join(folder, "labels.csv")
+        with open(labels, "w", newline="", encoding="utf-8") as f:
+            csv.writer(f).writerows([("filename", "text")] + [(n, "a") for n in files])
+        procs[kind] = subprocess.Popen(
+            [sys.executable, "-m", "rcnn_ocr_tpu_torch.evaluate", "--model", weights,
+             "--charset", os.path.join(REPO, "configs", "charset.txt"), "--csv", labels,
+             "--root", folder, "--img-h", str(IMG_H), "--img-w", str(IMG_W), "--max-length",
+             str(TRAIN_MAX_LEN), "--batch-size", str(len(files)), "--decode", "ctc_greedy",
+             "--report-json", os.path.join(folder, "report.json")], cwd=folder, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    predicted = {}
+    for kind, proc in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"evaluate over the {kind} exited {proc.returncode}:\n"
+                                    f"{log[-3000:]}")
+        folder = os.path.join(work, kind)
+        with open(os.path.join(folder, "report.json"), encoding="utf-8") as f:
+            n_read = json.load(f)["n"]
+        check(n_read == len(names), f"evaluate over the {kind} read {n_read} of {len(names)} rows")
+        with open(os.path.join(folder, f"evaluation_results_{os.path.basename(weights)}.csv"),
+                  encoding="utf-8") as f:
+            predicted[kind] = [r[2] for r in list(csv.reader(f))[1:]]
+        out[kind] = dict(wall_s=wall, rows=n_read)
+    apart = [(n, a, b) for n, a, b in zip(names, predicted["variants"], predicted["twins"])
+             if a != b]
+    check(len(predicted["variants"]) == len(names) and not apart,
+          f"evaluate read variant lines otherwise than their PNG twins: {apart}")
+    out["rows_equal"] = len(names)
+    print(f"  python -m rcnn_ocr_tpu_torch.evaluate --decode ctc_greedy over {len(names)} lines "
+          f"({', '.join(NEW_VARIANTS)}) and over their PNG twins, side by side: exit 0 in "
+          f"{out['variants']['wall_s']:.1f} / {out['twins']['wall_s']:.1f} s, every row read, "
+          f"rows equal on {len(names)}/{len(names)}")
     return out
 
 

@@ -56,7 +56,11 @@
 // decoder never reads past `n` bytes.
 //
 // Two calls: rcnn_jpeg_header for the output height and width, then
-// rcnn_jpeg_decode_u8 into a caller-owned [h, w, 3] buffer.
+// rcnn_jpeg_decode_u8 into a caller-owned [h, w, 3] buffer.  For
+// JPEG-in-TIFF, rcnn_jpeg_frame and rcnn_jpeg_decode_frame decode a strip
+// or tile (its JPEGTables spliced in by the caller) as libtiff has libjpeg
+// decode it: no EXIF orientation, and either no colour conversion (the
+// components as coded) or YCbCr to RGB whatever the markers say.
 
 #include <algorithm>
 #include <cstdint>
@@ -295,6 +299,33 @@ class Decoder {
     *out_w = swap ? height_ : width_;
   }
 
+  // The frame as a JPEG-in-TIFF strip reads it: SOF height and width, the
+  // components, the first one's sampling factors and the largest of the
+  // others'.  The stream must be parsed by header() first.
+  void frame(int64_t* info) const {
+    info[0] = height_;
+    info[1] = width_;
+    info[2] = ncomp_;
+    info[3] = comp_[0].h;
+    info[4] = comp_[0].v;
+    info[5] = info[6] = 1;
+    for (int c = 1; c < ncomp_; ++c) {
+      info[5] = std::max<int64_t>(info[5], comp_[c].h);
+      info[6] = std::max<int64_t>(info[6], comp_[c].v);
+    }
+  }
+
+  // kFile: what OpenCV gives for a JPEG file (colour by its markers, EXIF
+  // orientation); kRaw: every component upsampled, no colour conversion and
+  // no orientation ([h, w, ncomp]: libtiff's JCS_UNKNOWN); kYcc: YCbCr to
+  // RGB whatever the markers say, no orientation (libtiff's
+  // JPEGCOLORMODE_RGB for PhotometricInterpretation YCbCr); kYccPlain: as
+  // kYcc with the chroma replicated, not fancy-upsampled (libjpeg's
+  // do_fancy_upsampling off), which only tests ask for, to show that a
+  // fixture tells the two apart
+  enum Mode { kFile = 0, kRaw = 1, kYcc = 2, kYccPlain = 3 };
+  void set_mode(int mode) { mode_ = mode; }
+
   void decode(uint8_t* out) {
     pos_ = scan_start_;
     bool eoi = false;
@@ -340,7 +371,7 @@ class Decoder {
   // scan when smoothing (jdcoefct.c, libjpeg-turbo 2.1 and later)
   int64_t last_good_row_ = 0;
   int width_ = 0, height_ = 0, ncomp_ = 0, hmax_ = 1, vmax_ = 1;
-  int mcux_ = 0, mcuy_ = 0;
+  int mcux_ = 0, mcuy_ = 0, mode_ = kFile;
   Component comp_[4];
   uint16_t qt_[4][64] = {};
   bool qt_def_[4] = {};
@@ -1297,9 +1328,10 @@ class Decoder {
       for (int y = 0; y < H; ++y) std::memcpy(&out[static_cast<size_t>(y) * W], &src[static_cast<size_t>(y) * stride], W);
       return out;
     }
-    const bool h2v1 = hr == 2 && vr == 1 && dw > 2;
-    const bool h1v2 = hr == 1 && vr == 2;
-    const bool h2v2 = hr == 2 && vr == 2 && dw > 2;
+    const bool fancy = mode_ != kYccPlain;
+    const bool h2v1 = fancy && hr == 2 && vr == 1 && dw > 2;
+    const bool h1v2 = fancy && hr == 1 && vr == 2;
+    const bool h2v2 = fancy && hr == 2 && vr == 2 && dw > 2;
     std::vector<int> colsum(dw);
     for (int y = 0; y < H; ++y) {
       uint8_t* o = &out[static_cast<size_t>(y) * W];
@@ -1342,8 +1374,15 @@ class Decoder {
   void render(uint8_t* out) const {
     const int W = width_, H = height_;
     const size_t npix = static_cast<size_t>(W) * H;
-    std::vector<uint8_t> rgb(npix * 3);
     const bool smooth = smoothing();
+    if (mode_ == kRaw) {
+      for (int c = 0; c < ncomp_; ++c) {
+        std::vector<uint8_t> p = upsample(comp_[c], smooth);
+        for (size_t i = 0; i < npix; ++i) out[i * ncomp_ + c] = p[i];
+      }
+      return;
+    }
+    std::vector<uint8_t> rgb(npix * 3);
     if (ncomp_ == 1) {
       std::vector<uint8_t> g = upsample(comp_[0], smooth);
       for (size_t i = 0; i < npix; ++i) rgb[3 * i] = rgb[3 * i + 1] = rgb[3 * i + 2] = g[i];
@@ -1369,7 +1408,9 @@ class Decoder {
       std::vector<uint8_t> c0 = upsample(comp_[0], smooth), c1 = upsample(comp_[1], smooth),
                            c2 = upsample(comp_[2], smooth);
       bool is_rgb;
-      if (jfif_) {
+      if (mode_ == kYcc || mode_ == kYccPlain) {
+        is_rgb = false;
+      } else if (jfif_) {
         is_rgb = false;
       } else if (adobe_) {
         is_rgb = adobe_transform_ == 0;
@@ -1394,7 +1435,7 @@ class Decoder {
     }
     // OpenCV's ApplyExifOrientation: 2 flips columns, 3 both, 4 rows;
     // 5-8 transpose first, then flip as 1-4 do
-    const int o = orientation_;
+    const int o = mode_ == kFile ? orientation_ : 1;
     const bool transpose = o >= 5;
     const int oh = transpose ? W : H, ow = transpose ? H : W;
     const bool flip_c = o == 2 || o == 3 || o == 6 || o == 7;
@@ -1451,6 +1492,56 @@ extern "C" int64_t rcnn_jpeg_decode_u8(const uint8_t* data, int64_t n, uint8_t* 
     dec.header(&hh, &ww);
     if (hh != h || ww != w) {
       set_message(msg, msg_len, "output buffer does not match the JPEG's size");
+      return -1;
+    }
+    dec.decode(out);
+    return 0;
+  } catch (const JpegError& e) {
+    set_message(msg, msg_len, e.msg);
+    return e.code;
+  } catch (const std::exception& e) {
+    set_message(msg, msg_len, e.what());
+    return -1;
+  }
+}
+
+// The frame of a JPEG stream (a JPEG-in-TIFF strip or tile with its tables
+// spliced in): info = {SOF height, width, components, component 0's h and
+// v sampling, the largest h and v of the others}.  Returns 0, -1 or -2.
+extern "C" int64_t rcnn_jpeg_frame(const uint8_t* data, int64_t n, int64_t* info, char* msg,
+                                   int64_t msg_len) {
+  if (data == nullptr || n < 0 || info == nullptr) return -1;
+  try {
+    Decoder dec(data, static_cast<size_t>(n));
+    int64_t hh = 0, ww = 0;
+    dec.header(&hh, &ww);
+    dec.frame(info);
+    return 0;
+  } catch (const JpegError& e) {
+    set_message(msg, msg_len, e.msg);
+    return e.code;
+  } catch (const std::exception& e) {
+    set_message(msg, msg_len, e.what());
+    return -1;
+  }
+}
+
+// Decodes a JPEG stream as a TIFF strip or tile: mode 1 (Decoder::kRaw)
+// into out [h, w, components], mode 2 (kYcc) or 3 (kYccPlain) into out
+// [h, w, 3], h and w the SOF's.  Returns 0, -1 or -2 as above.
+extern "C" int64_t rcnn_jpeg_decode_frame(const uint8_t* data, int64_t n, int64_t mode,
+                                          uint8_t* out, int64_t h, int64_t w, int64_t c, char* msg,
+                                          int64_t msg_len) {
+  if (data == nullptr || n < 0 || out == nullptr || mode < 1 || mode > 3) return -1;
+  try {
+    Decoder dec(data, static_cast<size_t>(n));
+    dec.set_mode(static_cast<int>(mode));
+    int64_t hh = 0, ww = 0, info[7];
+    dec.header(&hh, &ww);
+    dec.frame(info);
+    if (info[0] != h || info[1] != w || (mode == 1 ? info[2] : 3) != c ||
+        (mode != 1 && info[2] != 3)) {
+      set_message(msg, msg_len, "output buffer does not match the JPEG frame");
       return -1;
     }
     dec.decode(out);

@@ -14,8 +14,11 @@ IMREAD_COLOR)`` followed by BGR -> RGB gives, as an RGB uint8 HWC array:
   pixels are bit-equal to cv2's.  None, Sub and Up rows are numpy
   (Sub as a wrapping cumulative sum); Average and Paeth rows depend on
   the pixel to their left, so they run as a loop over the row's bytes.
-* BMP: 24- and 32-bit (alpha dropped) and 8-bit palette, bottom-up or
-  top-down, uncompressed.
+* BMP (:mod:`rcnn_ocr_tpu_torch.data.bmp`): every BMP OpenCV reads, as
+  its ``grfmt_bmp.cpp`` reads it: 1-, 4- and 8-bit palettes, 16-bit 5-5-5
+  and 5-6-5, 24-bit, 32-bit (BI_BITFIELDS masks scaled as OpenCV 5 scales
+  them), RLE8 and RLE4 with every escape code, the OS/2 core header and
+  headers of 40 to 124 bytes, bottom-up or top-down.
 * JPEG: 8-bit sequential (baseline and extended) and progressive frames,
   Huffman or arithmetic-coded (with DAC conditioning), gray, YCbCr / RGB
   at any integral chroma subsampling, and CMYK / YCCK (Adobe-inverted, as
@@ -31,18 +34,21 @@ IMREAD_COLOR)`` followed by BGR -> RGB gives, as an RGB uint8 HWC array:
   naming the variant; truncated data and damaged headers raise
   ``ValueError`` (cv2 returns ``None``).
 * TIFF (:mod:`rcnn_ocr_tpu_torch.data.tiff`): the first page, II or MM,
-  strips or tiles, chunky or planar; uncompressed, PackBits, LZW (host
-  C++) and Deflate, with the horizontal predictor; gray at 1, 8 and 16
-  bits, palette at 1, 4 and 8, RGB(A) at 8 and 16, CMYK at 8, and the
-  Orientation tag, as libtiff's RGBA reader under OpenCV turns them into
-  8-bit RGB.  CCITT, JPEG-in-TIFF and the rarer compressions, YCbCr and
-  other photometric interpretations, BigTIFF and non-integer samples raise
-  :class:`UnsupportedImageFormat` naming them.
+  strips or tiles, chunky or planar; uncompressed, PackBits, LZW and the
+  CCITT fax codings (modified Huffman, RLEW, Group 3 1-D / 2-D, Group 4;
+  host C++), Deflate, with the horizontal predictor, and JPEG (through the
+  host JPEG decoder with the JPEGTables spliced in); gray at 1, 8 and 16
+  bits, palette at 1, 4 and 8, RGB(A) at 8 and 16, CMYK at 8, YCbCr at any
+  subsampling libtiff reads, and the Orientation tag, as libtiff's RGBA
+  reader under OpenCV turns them into 8-bit RGB.  Old-style JPEG and the
+  rarer compressions, other photometric interpretations, BigTIFF and
+  non-integer samples raise :class:`UnsupportedImageFormat` naming them.
 
 Other formats (GIF, WebP, ...) raise :class:`UnsupportedImageFormat`,
 which names the supported ones; ``image_size`` still reads their headers
-(JPEG's through the SOF walk and TIFF's first IFD, with orientations 5-8
-swapping the sides as the decode does).  :func:`png_encode` writes 8-bit
+(BMP's by its header size, JPEG's through the SOF walk and TIFF's first
+IFD, whatever its compression, with orientations 5-8 swapping the sides
+as the decode does).  :func:`png_encode` writes 8-bit
 PNGs.
 """
 
@@ -56,10 +62,11 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from rcnn_ocr_tpu_torch.data import tiff
+from rcnn_ocr_tpu_torch.data import bmp, tiff
 
 IMG_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff"}
-SUPPORTED = "PNG, BMP, JPEG (8-bit sequential or progressive) and TIFF (baseline)"
+SUPPORTED = ("PNG, BMP, JPEG (8-bit sequential or progressive) and TIFF (baseline, CCITT fax, "
+             "JPEG, YCbCr)")
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _TIFF_SIGS = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")  # TIFF and BigTIFF
@@ -210,41 +217,6 @@ def _png_decode(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(img[:, :, :3])
 
 
-# --- BMP -------------------------------------------------------------------------------
-
-def _bmp_decode(data: bytes) -> np.ndarray:
-    offset = int.from_bytes(data[10:14], "little")
-    dib = int.from_bytes(data[14:18], "little")
-    if dib == 12:
-        w, h = struct.unpack("<hh", data[18:22])
-        bitcount, compression, n_colors, entry = int.from_bytes(data[24:26], "little"), 0, 0, 3
-    else:
-        w, h, _, bitcount, compression = struct.unpack("<iiHHI", data[18:34])
-        n_colors, entry = int.from_bytes(data[46:50], "little"), 4
-    if compression not in (0, 3) or (compression == 3 and bitcount != 32):
-        raise ValueError(f"BMP compression {compression} is not supported")
-    if bitcount not in (8, 24, 32):
-        raise ValueError(f"BMP of {bitcount} bits per pixel is not supported")
-    top_down, h, w = h < 0, abs(h), abs(w)
-    stride = (w * bitcount + 31) // 32 * 4
-    if offset + stride * h > len(data):
-        raise ValueError("BMP pixel data is truncated")
-    rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h, stride)
-    if not top_down:
-        rows = rows[::-1]
-    if bitcount == 8:
-        n_colors = n_colors or 256
-        start = 14 + dib
-        palette = np.frombuffer(data, np.uint8, n_colors * entry, start).reshape(n_colors, entry)
-        idx = rows[:, :w]
-        if int(idx.max(initial=0)) >= n_colors:
-            raise ValueError("BMP palette index out of range")
-        bgr = palette[idx][:, :, :3]
-    else:
-        bgr = rows[:, : w * bitcount // 8].reshape(h, w, bitcount // 8)[:, :, :3]
-    return np.ascontiguousarray(bgr[:, :, ::-1])
-
-
 # --- public API ------------------------------------------------------------------------
 
 def imdecode(data) -> np.ndarray:
@@ -270,7 +242,7 @@ def imdecode(data) -> np.ndarray:
         except (struct.error, IndexError) as err:
             raise ValueError(f"damaged TIFF data: {err}") from err
     decode = (_png_decode if data.startswith(_PNG_SIG) else
-              _bmp_decode if data.startswith(b"BM") and len(data) >= 26 else None)
+              bmp.decode if data.startswith(b"BM") else None)
     if decode is not None:
         try:
             return decode(data)

@@ -12,6 +12,26 @@ tag), pixel for pixel:
   ``csrc/host/tiff_decode.cpp``), Deflate (8 and 32946, through ``zlib``);
   the horizontal Predictor (2) on LZW and Deflate data, 8 and 16 bits (as
   in libtiff, none and PackBits ignore the tag); FillOrder 2;
+* CCITT fax (1-bit samples, host C++ as libtiff's tif_fax3.c decodes
+  them): modified Huffman (2) and RLEW (32771), Group 3 (3) in 1-D or, by
+  T4Options bit 0, 2-D (EOLs byte-aligned or not), Group 4 (4); black runs
+  decode to 1 bits, which MinIsWhite and MinIsBlack then map to 0 / 255;
+* JPEG (7): each strip or tile through the host JPEG decoder with the
+  JPEGTables tag (347) spliced in front, as libtiff has libjpeg decode it:
+  gray and RGB with no colour conversion, YCbCr (photometric 6) to RGB with
+  libjpeg's fancy upsampling (JPEGCOLORMODE_RGB, as the RGBA reader sets
+  it); the luma sampling from YCbCrSubsampling, else the first strip's; a
+  last strip coded at full RowsPerStrip height is cropped, tiles cropped
+  at the image's edge;
+* YCbCr without JPEG (8 bits, 3 samples): data units of YCbCrSubsampling
+  (530, default 2x2) luma samples then Cb and Cr, each pixel its unit's
+  chroma, converted with tif_color.c's fixed-point tables built in float32
+  from YCbCrCoefficients (529) and ReferenceBlackWhite (532) or their
+  defaults; 4x4, 4x2, 4x1, 2x2, 2x1, 1x2 and 1x1 (libtiff's RGBA reader
+  has no other), planar only at 1x1; two libtiff quirks kept: a strip is
+  read as TIFFScanlineSize's whole rows (a 4x4 row of an odd number of
+  units loses its last two bytes, read as zeros) and a right-edge 4x4
+  tile's block rows are stepped 10 bytes a skipped unit, not 18;
 * samples as libtiff's ``tif_getimage.c`` turns them into 8-bit RGB:
   MinIsBlack / MinIsWhite at 1, 8 and 16 bits (16 bits: the high byte),
   palette at 1, 4 and 8 bits (a colour map with any entry over 255 is
@@ -27,15 +47,21 @@ tag), pixel for pixel:
   file libtiff mirrors 2, 3, 6 and 7 within each tile (``_orient``).
 
 Refused with ``NotImplementedError`` naming what it is (the caller turns it
-into ``UnsupportedImageFormat``): BigTIFF, CCITT (2, 3, 4), JPEG (6, 7) and
-any other compression, YCbCr, CIELab and other photometric
-interpretations, and sample formats other than unsigned integers.  Where
-OpenCV or libtiff fail (gray or RGB at 2 or 4 bits, palette at 2 or 16
-bits, RGB at other depths, uncompressed tiles whose size is not a multiple
-of 1 KiB, damaged or truncated data), ``ValueError``, as ``cv2.imdecode``
-gives ``None``.  One deliberate divergence: damaged compressed data raises,
+into ``UnsupportedImageFormat``): BigTIFF, old-style JPEG (6) and any other
+compression, planar YCbCr JPEG, subsampled YCbCr with the predictor,
+CIELab and other photometric interpretations, and sample formats other
+than unsigned integers.  Where OpenCV or libtiff fail (gray or RGB at 2 or
+4 bits, palette at 2 or 16 bits, RGB at other depths, YCbCr subsampled
+2x4 or 1x4, uncompressed tiles whose size is not a multiple of 1 KiB,
+damaged or truncated data), ``ValueError``, as ``cv2.imdecode`` gives
+``None``.  One deliberate divergence: damaged compressed data raises,
 where libtiff's RGBA reader, which does not stop on a strip that fails,
-gives OpenCV what it decoded.
+gives OpenCV what it decoded; so does damaged fax data (a bad code word, a
+row whose runs miss the width, data that ends before the last row, the
+uncompressed-mode extension), where libtiff's fax decoder warns and fills
+the rest of the row (its RLEW and modified-Huffman readers do so on some
+rows of valid data too: the bits left in the accumulator at a strip's end
+misplace the alignment).
 """
 
 from __future__ import annotations
@@ -48,11 +74,12 @@ import numpy as np
 
 _FORMATS = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i",
             10: "ii", 11: "f", 12: "d"}
-_DECODED = (1, 5, 8, 32773, 32946)  # none, LZW, Deflate, PackBits, old Deflate
-_COMPRESSION = {2: "CCITT RLE", 3: "CCITT Group 3 fax", 4: "CCITT Group 4 fax",
-                6: "old-style JPEG", 7: "JPEG", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP",
+# none, LZW, Deflate, PackBits, old Deflate; the CCITT fax codings; JPEG
+_DECODED = (1, 5, 8, 32773, 32946, 2, 3, 4, 32771, 7)
+_FAX = (2, 3, 4, 32771)
+_COMPRESSION = {6: "old-style JPEG", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP",
                 34887: "LERC", 32809: "ThunderScan", 34676: "SGI LogL", 34677: "SGI LogLuv"}
-_PHOTOMETRIC = {4: "transparency mask", 6: "YCbCr", 8: "CIELab", 9: "ICCLab", 10: "ITULab",
+_PHOTOMETRIC = {4: "transparency mask", 8: "CIELab", 9: "ICCLab", 10: "ITULab",
                 32803: "colour filter array", 32844: "LogL", 32845: "LogLuv",
                 34892: "linear raw"}
 _SAMPLE_FORMAT = {2: "signed-integer", 3: "floating-point", 4: "untyped", 5: "complex integer",
@@ -153,9 +180,62 @@ def _inflate(raw: bytes, size: int) -> bytes:
     return out
 
 
+def _jpeg(raw: bytes, tables: bytes, rows: int, cols: int, per: int, ycbcr: bool,
+          sampling: list, fits: bool) -> bytes:
+    """One JPEG-in-TIFF strip or tile -> its ``rows`` x ``cols`` pixels of
+    ``per`` 8-bit samples (``ycbcr``: RGB), as libtiff has libjpeg decode
+    it: the JPEGTables stream (tag 347) spliced in front, no colour
+    conversion but for PhotometricInterpretation YCbCr (JPEGCOLORMODE_RGB),
+    the luma sampling equal to ``sampling`` (YCbCrSubsampling, else the
+    first strip's, as libtiff's JPEGFixupTagsSubsampling takes it; 1x1 but
+    for YCbCr) and the chroma's 1x1.  A frame taller than the segment is
+    cropped where libtiff allows it (``fits``: the last strip); any other
+    size is refused as libtiff refuses it."""
+    from rcnn_ocr_tpu_torch.native import jpeg_decode_frame, jpeg_frame
+
+    stream = raw
+    if tables[:2] == b"\xff\xd8" and tables[-2:] == b"\xff\xd9" and raw[:2] == b"\xff\xd8":
+        stream = tables[:-2] + raw[2:]
+    fh, fw, nc, luma, chroma = jpeg_frame(stream)
+    if not sampling:
+        sampling.append(luma if ycbcr else (1, 1))
+    if nc != (3 if ycbcr else per) or luma != sampling[0] or (nc > 1 and chroma != (1, 1)):
+        raise ValueError(f"JPEG-in-TIFF frame of {nc} components sampled {luma} / {chroma}, "
+                         f"which libtiff refuses here (expected {sampling[0]})")
+    if fw != cols or fh < rows or (fh > rows and not fits):
+        raise ValueError(f"JPEG-in-TIFF frame of {fw}x{fh} for a strip or tile of "
+                         f"{cols}x{rows}, which libtiff refuses")
+    return jpeg_decode_frame(stream, ycbcr)[:rows].tobytes()
+
+
+def _ycbcr_units(buf: bytes, rows: int, cols: int, hs: int, vs: int, npix: int) -> bytes:
+    """A subsampled YCbCr strip or tile (data units of ``hs * vs`` luma
+    samples, then Cb and Cr) -> ``rows`` x ``cols`` pixels of Y, Cb, Cr,
+    each pixel taking its unit's chroma, as libtiff's putcontig8bitYCbCr*
+    functions read the ``npix`` columns the image shows.  Where a tile
+    shows fewer than its columns, putcontig8bitYCbCr44tile skips the rest
+    of a block row at 10 bytes a unit, not 18, so its later block rows are
+    read from there (columns past ``npix`` are left zero)."""
+    unit = hs * vs + 2
+    vb, hb = -(-rows // vs), -(-cols // hs)
+    flat = np.frombuffer(buf, np.uint8, vb * hb * unit)
+    if hs == vs == 4 and npix < cols:
+        used = -(-npix // 4)
+        step = used * unit + (cols - npix) // 4 * 10
+        at = np.arange(vb)[:, None] * step + np.arange(used)[None, :] * unit
+        u = np.zeros((vb, hb, unit), np.uint8)
+        u[:, :used] = flat[at[:, :, None] + np.arange(unit)]
+    else:
+        u = flat.reshape(vb, hb, unit)
+    y = u[:, :, : hs * vs].reshape(vb, hb, vs, hs).transpose(0, 2, 1, 3).reshape(vb * vs, hb * hs)
+    c = np.repeat(np.repeat(u[:, :, hs * vs :], vs, axis=0), hs, axis=1)
+    return np.ascontiguousarray(np.concatenate([y[:, :, None], c], axis=2)[:rows, :cols]).tobytes()
+
+
 def _chunk(data: bytes, offset: int, count: int, compression: int, size: int,
-           fill_order: int) -> bytes:
-    """One strip or tile, decompressed to its ``size`` bytes."""
+           fill_order: int, rows: int, cols: int, options: int) -> bytes:
+    """One strip or tile of ``rows`` x ``cols`` pixels, decompressed to its
+    ``size`` bytes."""
     if offset + count > len(data) or count < 0:
         raise ValueError("TIFF strip or tile lies outside the file")
     raw = data[offset : offset + count]
@@ -171,6 +251,10 @@ def _chunk(data: bytes, offset: int, count: int, compression: int, size: int,
         from rcnn_ocr_tpu_torch.native import tiff_lzw_decode
 
         return tiff_lzw_decode(raw, size)
+    if compression in _FAX:
+        from rcnn_ocr_tpu_torch.native import tiff_fax_decode
+
+        return tiff_fax_decode(raw, rows, cols, compression, options)
     return _inflate(raw, size)
 
 
@@ -225,6 +309,20 @@ def _samples(data: bytes, tags, order: str, bits: int, spp: int, photometric: in
         raise ValueError(f"TIFF Predictor {predictor} with {bits}-bit samples")
     fill_order = _one(tags, 266, 1)
     per = 1 if planar == 2 else spp  # samples in one strip or tile
+    if compression in _FAX and (bits != 1 or per != 1):
+        raise ValueError(f"CCITT-coded TIFF of {bits}-bit samples, {per} a pixel, which "
+                         "libtiff's fax decoder refuses")
+    options = _one(tags, 292, 0) if compression == 3 else 0
+    ycbcr = photometric == 6
+    hs, vs = (int(v) for v in (tags.get(530) or (2, 2))[:2]) if ycbcr else (1, 1)
+    if ycbcr and compression != 7 and (hs, vs) != (1, 1):
+        if planar == 2 or (hs << 4 | vs) not in (0x44, 0x42, 0x41, 0x22, 0x21, 0x12, 0x11):
+            raise ValueError(f"YCbCr TIFF subsampled {hs}x{vs}{' planar' if planar == 2 else ''}, "
+                             "which libtiff's RGBA reader does not read")
+        if predictor == 2:
+            raise NotImplementedError("subsampled YCbCr TIFF with the horizontal predictor")
+    sampling = [tuple(int(v) for v in tags[530][:2])] if ycbcr and 530 in tags else []
+    tables = bytes(tags.get(347, ()))
     planes = spp if planar == 2 else 1
     out = np.empty((h, w, spp), np.uint16 if bits == 16 else np.uint8)
     if 322 in tags:
@@ -242,7 +340,12 @@ def _samples(data: bytes, tags, order: str, bits: int, spp: int, photometric: in
         boxes = [(y, 0, min(rps, h - y), w) for y in range(0, h, rps)]
     if len(offsets) < len(boxes) * planes or len(counts) < len(boxes) * planes:
         raise ValueError("TIFF lists fewer strips or tiles than its size needs")
-    tile_bytes = tl * -(-tw * per * bits // 8) if 322 in tags else 0
+    if 322 not in tags:
+        tile_bytes = 0
+    elif (hs, vs) != (1, 1) and compression != 7:
+        tile_bytes = -(-tl // vs) * -(-tw // hs) * (hs * vs + 2)
+    else:
+        tile_bytes = tl * -(-tw * per * bits // 8)
     if compression == 1 and tile_bytes % 1024:
         # libtiff 4.7.1 under OpenCV 5.0: "Invalid tile byte count ...
         # Expected 256, got 1024" for every such tile, whatever the image
@@ -253,7 +356,25 @@ def _samples(data: bytes, tags, order: str, bits: int, spp: int, photometric: in
     for p in range(planes):
         for y, x, rows, cols in boxes:
             size = rows * -(-cols * per * bits // 8)
-            buf = _chunk(data, int(offsets[i]), int(counts[i]), compression, size, fill_order)
+            if compression == 7:
+                if offsets[i] + counts[i] > len(data):
+                    raise ValueError("TIFF strip or tile lies outside the file")
+                buf = _jpeg(data[offsets[i] : offsets[i] + counts[i]], tables, rows, cols, per,
+                            ycbcr, sampling, 322 not in tags and y + rows >= h)
+            elif (hs, vs) != (1, 1):
+                unit_row = -(-cols // hs) * (hs * vs + 2)
+                units = -(-rows // vs) * unit_row
+                # a strip is read as TIFFScanlineSize's whole rows, unit_row
+                # // vs bytes each: a 4x4 row of an odd number of units
+                # loses its last 2 bytes per block row there, zeros instead
+                got = units if 322 in tags else -(-rows // vs) * vs * (unit_row // vs)
+                buf = _chunk(data, int(offsets[i]), int(counts[i]), compression, got,
+                             fill_order, rows, cols, options)
+                buf = _ycbcr_units(buf + bytes(units - got), rows, cols, hs, vs,
+                                   min(cols, w - x))
+            else:
+                buf = _chunk(data, int(offsets[i]), int(counts[i]), compression, size,
+                             fill_order, rows, cols, options)
             blk = _unpack(buf, rows, cols, per, bits, order, predictor == 2)
             ch = slice(p, p + 1) if planar == 2 else slice(0, spp)
             out[y : y + rows, x : x + cols, ch] = blk[: h - y, : w - x]
@@ -284,7 +405,7 @@ def decode(data: bytes) -> np.ndarray:
     if fmt != 1:
         raise NotImplementedError(f"{_SAMPLE_FORMAT.get(fmt, f'SampleFormat {fmt}')} TIFF samples")
     photometric = _one(tags, 262)
-    if photometric in _PHOTOMETRIC or photometric > 5:
+    if photometric in _PHOTOMETRIC or photometric > 6:
         kind = _PHOTOMETRIC.get(photometric, f"PhotometricInterpretation {photometric}")
         raise NotImplementedError(f"{kind} TIFF")
     bits = _one(tags, 258, 1)
@@ -294,7 +415,8 @@ def decode(data: bytes) -> np.ndarray:
     extra = tags.get(338, ())
     planar = _one(tags, 284, 1)
     # what OpenCV's readHeader and libtiff's TIFFRGBAImageOK accept
-    ok_bits = {0: (1, 8, 16), 1: (1, 8, 16), 2: (8, 16), 3: (1, 4, 8), 5: (8,)}[photometric]
+    ok_bits = {0: (1, 8, 16), 1: (1, 8, 16), 2: (8, 16), 3: (1, 4, 8), 5: (8,),
+               6: (8,)}[photometric]
     if bits not in ok_bits:
         raise ValueError(f"{bits}-bit TIFF samples of PhotometricInterpretation {photometric}, "
                          "which OpenCV does not read")
@@ -304,6 +426,12 @@ def decode(data: bytes) -> np.ndarray:
         raise ValueError(f"TIFF of PhotometricInterpretation {photometric} with {spp} samples")
     if planar == 2 and photometric == 3:
         raise ValueError("planar palette TIFF, which libtiff's RGBA reader does not read")
+    if photometric == 6 and spp != 3:
+        raise ValueError(f"YCbCr TIFF of {spp} samples, which libtiff's RGBA reader does not read")
+    if compression == 7 and bits != 8:
+        raise ValueError(f"JPEG-in-TIFF of {bits}-bit samples, which libtiff refuses")
+    if compression == 7 and photometric == 6 and planar == 2:
+        raise NotImplementedError("planar YCbCr JPEG-in-TIFF")
     s, block_w = _samples(data, tags, order, bits, spp, photometric)
     # libtiff's alpha: ExtraSamples 2 is unassociated (premultiplied on
     # read), 1 associated, 0 associated past three samples
@@ -326,6 +454,8 @@ def decode(data: bytes) -> np.ndarray:
         if unassociated and spp > alpha:
             a = _to8(s[:, :, alpha : alpha + 1], bits).astype(np.uint32)
             rgb = ((rgb.astype(np.uint32) * a + 127) // 255).astype(np.uint8)
+    elif photometric == 6:  # JPEG's came out as RGB (JPEGCOLORMODE_RGB)
+        rgb = s if compression == 7 else _ycbcr_rgb(s, tags)
     elif photometric == 3:
         cmap = np.asarray(tags.get(320, ()), np.uint16)
         n = 1 << bits
@@ -339,6 +469,55 @@ def decode(data: bytes) -> np.ndarray:
         k = 255 - s[:, :, 3:4].astype(np.uint32)
         rgb = (k * (255 - s[:, :, :3].astype(np.uint32)) // 255).astype(np.uint8)
     return _orient(rgb, _orientation(tags), block_w)
+
+
+def _floats(tags, tag: int, default) -> list:
+    """A RATIONAL tag as libtiff reads it into floats: ``(float)num /
+    (float)den`` in single precision, 0 for a zero numerator."""
+    vals = tags.get(tag)
+    if not vals:
+        return [np.float32(v) for v in default]
+    return [np.float32(0) if n == 0 else np.float32(n) / np.float32(d)
+            for n, d in zip(vals[0::2], vals[1::2])]
+
+
+def _ycbcr_rgb(s: np.ndarray, tags) -> np.ndarray:
+    """8-bit Y, Cb, Cr -> RGB as libtiff's tif_color.c converts them
+    (TIFFYCbCrToRGBInit's fixed-point tables, SHIFT 16, built in float32
+    from YCbCrCoefficients (529) and ReferenceBlackWhite (532), with
+    libtiff's defaults when they are absent; TIFFYCbCrtoRGB)."""
+    f32 = np.float32
+    lr, lg, lb = _floats(tags, 529, (0.299, 0.587, 0.114))[:3]
+    rbw = _floats(tags, 532, (0, 255, 128, 255, 128, 255))[:6]
+    if np.isnan([lr, lg, lb]).any() or lg == 0:
+        raise ValueError("TIFF YCbCrCoefficients that libtiff refuses")
+    if len(rbw) < 6 or not all(f32(-0x7FFFFFFF + 128) < v < f32(0x7FFFFFFF) for v in rbw):
+        raise ValueError("TIFF ReferenceBlackWhite that libtiff refuses")
+
+    def fix(x):  # FIX(CLAMP(x, 0, 2)): the float times 65536, + 0.5 in double
+        x = min(max(x, f32(0)), f32(2)) if x >= 0 else f32(0)
+        return int(float(x * f32(65536)) + 0.5)
+
+    f1 = f32(2) - f32(2) * lr
+    f3 = f32(2) - f32(2) * lb
+    d1, d2 = fix(f1), -fix(lr * f1 / lg)
+    d3, d4 = fix(f3), -fix(lb * f3 / lg)
+    x = np.arange(-128, 128, dtype=np.int64)
+
+    def code2v(c, rb, rw, cr):  # Code2V, CLAMPw to +-4096, truncated
+        den = rw - rb
+        v = (c - int(rb)).astype(f32) * f32(cr) / (den if den != 0 else f32(1))
+        return np.clip(v, f32(-4096), f32(4096)).astype(np.int64)
+
+    cr = code2v(x, rbw[4] - f32(128), rbw[5] - f32(128), 127)
+    cb = code2v(x, rbw[2] - f32(128), rbw[3] - f32(128), 127)
+    cr_r, cb_b = (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16
+    cr_g, cb_g = d2 * cr, d4 * cb + 32768
+    y_tab = code2v(x + 128, rbw[0], rbw[1], 255)
+    yy, ub, vr = (s[:, :, k].astype(np.intp) for k in range(3))
+    yv = y_tab[yy]
+    rgb = np.stack([yv + cr_r[vr], yv + ((cb_g[ub] + cr_g[vr]) >> 16), yv + cb_b[ub]], axis=2)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
 
 
 def _orient(rgb: np.ndarray, o: int, block_w: int) -> np.ndarray:

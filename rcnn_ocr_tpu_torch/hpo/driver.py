@@ -21,8 +21,8 @@ documents: ``optuna_ocr.db`` and its "LSTM 2 512" variant) over the port's
   ``parallel_trials=K`` runs K trials at once in threads of a one-rank
   process, each pinned (:func:`rcnn_ocr_tpu_torch.parallel.mesh.device_scope`)
   to its group of the cards (:func:`_device_groups`), and trains on its
-  group's first card; under several ranks it raises (ROADMAP queue 1,
-  item 13).
+  group's first card; under several ranks it raises (ROADMAP.md queue 1:
+  tensor parallelism).
 
 Usage::
 
@@ -332,7 +332,7 @@ def run_hpo(
         raise NotImplementedError(
             f"parallel_trials={parallel_trials} in a job of {process_count()} ranks: "
             "concurrent trials inside a data-parallel job are not ported "
-            "(ROADMAP queue 1, item 13); run one trial at a time over the ranks, or "
+            "(ROADMAP.md queue 1: tensor parallelism); run one trial at a time over the ranks, or "
             "parallel trials in a one-rank process")
     is_lead = process_index() == 0
     if prune and not _accepts_report(objective):

@@ -28,7 +28,7 @@ scale computed per call (``act_quant="dynamic"``) or a calibrated one
 ``quant_stats`` leaf of the same path, recorded inside
 :func:`recording_act_absmax`).  The stem and the 1x1 ``downsample`` stay
 float, as in JAX.  The space-to-depth stem and ``quantize_stem`` are not
-ported (ROADMAP.md, queue 1, item 13).
+ported (ROADMAP.md queue 1: the s2d and int8 stems).
 """
 
 from __future__ import annotations
@@ -208,7 +208,7 @@ class SEResNet31(nn.Module):
         if quantize_stem or stem_s2d:
             raise NotImplementedError(
                 "the space-to-depth stem and the int8 stem (quantize_stem) are not in the "
-                "PyTorch port (ROADMAP.md, queue 1, item 13)"
+                "PyTorch port (ROADMAP.md queue 1: the s2d and int8 stems)"
             )
         self.width_mult = width_mult
         self.dtype = dtype

@@ -1,5 +1,5 @@
 """ctypes bindings of the port's host C++: the CTC prefix beam search, the
-serving letterbox, the JPEG decoder and TIFF's LZW decoder.
+serving letterbox, the JPEG decoder and TIFF's LZW and CCITT fax decoders.
 
 The sources are ``rcnn_ocr_tpu_torch/csrc/host/ctc_beam.cpp`` (the search of
 the JAX package's ``native/ctc_beam.cpp``), ``csrc/host/letterbox.cpp`` (its
@@ -12,7 +12,8 @@ and flags, so an edited source is rebuilt, and loaded with ``ctypes``.  A
 failed build raises with the compiler's output; nothing falls back to
 Python.  Bound: the batched beam entry points
 ``rcnn_ctc_beam_search_batch[_mt][_v2]``, ``rcnn_letterbox_u8``,
-``rcnn_jpeg_header``, ``rcnn_jpeg_decode_u8`` and ``rcnn_tiff_lzw_decode``.
+``rcnn_jpeg_header``, ``rcnn_jpeg_decode_u8``, ``rcnn_jpeg_frame``,
+``rcnn_jpeg_decode_frame``, ``rcnn_tiff_lzw_decode`` and ``rcnn_tiff_fax_decode``.
 A ctypes call releases
 the interpreter lock, so threads decode in parallel.
 """
@@ -51,10 +52,18 @@ ENTRIES = {
     # data, n, out_hw | out, h, w; then msg, msg_len
     "jpeg_decode": {"rcnn_jpeg_header": [ctypes.c_char_p, _I64, _P64, ctypes.c_char_p, _I64],
                     "rcnn_jpeg_decode_u8": [ctypes.c_char_p, _I64, ctypes.POINTER(ctypes.c_uint8),
-                                            _I64, _I64, ctypes.c_char_p, _I64]},
+                                            _I64, _I64, ctypes.c_char_p, _I64],
+                    # data, n, info[7] | mode, out, h, w, c; then msg, msg_len
+                    "rcnn_jpeg_frame": [ctypes.c_char_p, _I64, _P64, ctypes.c_char_p, _I64],
+                    "rcnn_jpeg_decode_frame": [ctypes.c_char_p, _I64, _I64,
+                                               ctypes.POINTER(ctypes.c_uint8), _I64, _I64, _I64,
+                                               ctypes.c_char_p, _I64]},
     # data, n, out, out_len, msg, msg_len
     "tiff_decode": {"rcnn_tiff_lzw_decode": [ctypes.c_char_p, _I64, ctypes.POINTER(ctypes.c_uint8),
-                                             _I64, ctypes.c_char_p, _I64]},
+                                             _I64, ctypes.c_char_p, _I64],
+                    # data, n, out, rows, cols, compression, options, msg, msg_len
+                    "rcnn_tiff_fax_decode": [ctypes.c_char_p, _I64, ctypes.POINTER(ctypes.c_uint8),
+                                             _I64, _I64, _I64, _I64, ctypes.c_char_p, _I64]},
 }
 
 _lock = threading.Lock()
@@ -209,6 +218,49 @@ def jpeg_decode_u8(data: bytes) -> np.ndarray:
     raise ValueError(f"damaged JPEG data: {text}")
 
 
+def jpeg_frame(data: bytes) -> tuple:
+    """A JPEG stream's frame as a TIFF strip reads it: ``(height, width,
+    components, (h, v) sampling of the first component, the largest (h, v)
+    of the others)``.  Raises as :func:`jpeg_decode_u8` does."""
+    lib = load("jpeg_decode")
+    data = bytes(data)
+    msg = ctypes.create_string_buffer(256)
+    info = np.zeros(7, dtype=np.int64)
+    res = lib.rcnn_jpeg_frame(data, len(data), info.ctypes.data_as(_P64), msg, len(msg))
+    if res == 0:
+        h, w, c, h0, v0, ho, vo = (int(v) for v in info)
+        return h, w, c, (h0, v0), (ho, vo)
+    text = msg.value.decode("utf-8", "replace")
+    if res == -2:
+        raise NotImplementedError(text)
+    raise ValueError(f"damaged JPEG data: {text}")
+
+
+def jpeg_decode_frame(data: bytes, ycbcr: bool, fancy: bool = True) -> np.ndarray:
+    """A JPEG-in-TIFF strip or tile (its tables spliced in) as libtiff has
+    libjpeg decode it, at the SOF's size and with no EXIF orientation:
+    ``ycbcr`` converts YCbCr to RGB (``[h, w, 3]``) whatever the markers say,
+    else the components come as coded (``[h, w, components]``, each
+    upsampled).  ``fancy=False`` replicates the chroma instead of libjpeg's
+    fancy upsampling (for tests that show a fixture tells them apart).
+    Raises as :func:`jpeg_decode_u8` does."""
+    lib = load("jpeg_decode")
+    data = bytes(data)
+    h, w, c, _, _ = jpeg_frame(data)
+    c = 3 if ycbcr else c
+    out = np.empty((h, w, c), dtype=np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    res = lib.rcnn_jpeg_decode_frame(data, len(data), (2 if fancy else 3) if ycbcr else 1,
+                                     out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w, c,
+                                     msg, len(msg))
+    if res == 0:
+        return out
+    text = msg.value.decode("utf-8", "replace")
+    if res == -2:
+        raise NotImplementedError(text)
+    raise ValueError(f"damaged JPEG data: {text}")
+
+
 def tiff_lzw_decode(data: bytes, size: int) -> bytes:
     """One LZW-compressed TIFF strip or tile -> its first ``size`` bytes, as
     libtiff decodes it.  Raises ``ValueError`` on damaged data or data short
@@ -225,3 +277,21 @@ def tiff_lzw_decode(data: bytes, size: int) -> bytes:
     if res == -2:
         raise NotImplementedError(text)
     raise ValueError(text)
+
+
+def tiff_fax_decode(data: bytes, rows: int, cols: int, compression: int, options: int = 0) -> bytes:
+    """One CCITT-coded TIFF strip or tile (compression 2, 3, 4 or 32771;
+    ``options`` the T4Options of Group 3) -> ``rows`` rows of ``cols``
+    1-bit pixels, ``(cols + 7) // 8`` bytes a row, black runs as 1 bits, as
+    libtiff's fax decoder gives them.  Raises ``ValueError`` on damaged
+    data (where libtiff warns and fills the row)."""
+    lib = load("tiff_decode")
+    data = bytes(data)
+    out = np.empty(int(rows) * ((int(cols) + 7) // 8), dtype=np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    res = lib.rcnn_tiff_fax_decode(data, len(data), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                                   int(rows), int(cols), int(compression), int(options), msg,
+                                   len(msg))
+    if res == out.size:
+        return out.tobytes()
+    raise ValueError(msg.value.decode("utf-8", "replace"))

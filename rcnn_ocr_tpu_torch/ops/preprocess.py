@@ -113,7 +113,7 @@ def resize_pad_u8(raw: torch.Tensor, sizes: torch.Tensor, img_h: int, img_w: int
     if method == "linear":
         raise NotImplementedError(
             "resize_pad_normalize(method='linear') is not in the PyTorch port "
-            "(ROADMAP.md, queue 1, item 13: the triangle-kernel resize no engine uses)")
+            "(ROADMAP.md queue 1: the linear resize, the triangle-kernel resize no engine uses)")
     if method != "area":
         raise ValueError(f"method must be 'area' or 'linear', got {method!r}")
     batch, canvas_h, canvas_w = raw.shape[:3]

@@ -32,7 +32,7 @@ on its own card, and the port writes the reductions out:
 The one collective used is all_reduce, which gloo serves on CUDA tensors
 too (two ranks may share one card over gloo; NCCL refuses that).
 A ``model`` axis over 1 (tensor parallelism) is not ported and raises
-(ROADMAP queue 1, item 13).
+(ROADMAP.md queue 1: tensor parallelism).
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ import torch.distributed as dist
 
 from rcnn_ocr_tpu_torch.ops import kernels
 
-UNPORTED = "ROADMAP queue 1, item 13"
+UNPORTED = "ROADMAP.md queue 1: tensor parallelism"
 
 _DEVICE_SCOPE = threading.local()
 _SHARD = threading.local()

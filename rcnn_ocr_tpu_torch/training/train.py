@@ -37,7 +37,7 @@ Data parallelism across processes (:mod:`rcnn_ocr_tpu_torch.parallel`), as
 JAX's loop runs over several hosts: under an initialized process group the
 data axis is the ranks (``mesh_shape`` must tile them, else a warning and
 pure DP; a ``model`` axis over 1 raises, tensor parallelism is not ported,
-ROADMAP queue 1, item 13).  The static batch rounds up to a multiple of the
+ROADMAP.md queue 1: tensor parallelism).  The static batch rounds up to a multiple of the
 ranks (and of ``grad_accum``); every rank builds the same samplers and keeps
 its block of each global batch (``ProcessShardedBatchSampler``), its host
 augmentation seeded by the global row; the step reduces as

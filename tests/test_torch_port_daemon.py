@@ -15,8 +15,10 @@ Port only:
 * JAX's daemon and the port's over the same weights (fp32) answer the same
   PNG, JPEG and JSON-batch requests with the same status, keys and strings,
   with and without confidences, and expose the same metric names; the same
-  for progressive and CMYK JPEG and TIFF bodies (which the port's daemon
-  answered with 400 before its decoders read them);
+  for progressive and CMYK JPEG and TIFF bodies, and Group 4 TIFF, RLE8 and
+  1-bit BMP and YCbCr JPEG-in-TIFF bodies against PNG twins of their
+  pixels (which the port's daemon answered with 400 before its decoders
+  read them);
 * the live engine's long-line routes give JAX's strings through the fn;
 * a daemon over the port's engine equals the in-process
   ``predict_serving``;
@@ -816,6 +818,45 @@ def test_port_daemon_answers_progressive_and_tiff_bodies_as_the_jax_daemon(engin
     assert answers["port"] == answers["jax"]
     texts = [t for _, a in answers["port"] for t in a["texts"]]
     assert len(texts) == 5 and len(set(texts)) > 1
+
+
+@pytest.mark.parametrize("method", ["ctc_greedy", "attention"])
+def test_port_daemon_answers_fax_bmp_and_ycbcr_bodies_as_their_png_twins(engines, method):
+    """A Group 4 TIFF, an RLE8 and a 1-bit BMP and a YCbCr JPEG-in-TIFF
+    (which the port's daemon answered 400 before its decoders read them):
+    both daemons answer each as they answer a PNG of cv2's pixels of it."""
+    from PIL import Image
+
+    from rcnn_ocr_tpu.data.transforms import imdecode_cv2
+    from tests.torch_port_data.make_bmp_fixtures import bmp_bytes
+    from tests.torch_port_data.make_tiff_fixtures import jpeg_tiff, tiff_bytes
+
+    imgs, _ = _requests()
+    bilevel = (imgs[0].mean(axis=2) < 128).astype(np.uint8)[:, :, None]
+    levels = np.repeat(np.array([[0], [85], [170], [255]], np.uint8), 3, axis=1)
+    one_bit = io.BytesIO()
+    Image.fromarray(imgs[2]).convert("1").save(one_bit, format="BMP")
+    bodies = [("image/tiff", tiff_bytes(bilevel, bits=1, photometric=0, compression="g4",
+                                        rows_per_strip=len(bilevel))),
+              ("image/bmp", bmp_bytes((imgs[1].mean(axis=2) // 64).astype(np.uint8), 8, "rle8",
+                                      palette=levels)),
+              ("image/bmp", one_bit.getvalue()),
+              ("image/tiff", jpeg_tiff(imgs[4], 6, sampling="420", rows_per_strip=16))]
+    bodies += [("image/png", _png_bytes(imdecode_cv2(body))) for _, body in bodies]
+    answers = {}
+    for name, eng, serving in (("port", engines[0], port_serving),
+                               ("jax", engines[1], jax_serving)):
+        fn = serving.serving_predict_fn(eng, method=method, batch_size=4, canvas=(48, 96),
+                                        max_length=5)
+        server = serving.OCRServer(fn, host="127.0.0.1", port=0, max_batch=4, max_wait_ms=0)
+        base, thread = _start(server)
+        try:
+            answers[name] = [_answer(base, ctype, body) for ctype, body in bodies]
+        finally:
+            _stop(server, thread)
+    assert [s for s, _ in answers["port"]] == [s for s, _ in answers["jax"]] == [200] * 8
+    assert answers["port"] == answers["jax"]
+    assert answers["port"][:4] == answers["port"][4:]
 
 
 def test_port_daemon_equals_in_process_predict_serving(engines):

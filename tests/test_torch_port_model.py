@@ -170,13 +170,14 @@ def test_attention_decoder_blank_mask_matches_jax():
 
 
 def test_eval_only_flags_raise():
-    """The s2d stem and the int8 stem are not ported (item 13; int8 itself
-    is, ``tests/test_torch_port_quant.py``); train mode is the ``train``
-    argument, as in JAX, so nn.Module's training flag changes nothing."""
+    """The s2d stem and the int8 stem are not ported (ROADMAP.md queue 1:
+    the s2d and int8 stems; int8 itself is, ``tests/test_torch_port_quant.py``);
+    train mode is the ``train`` argument, as in JAX, so nn.Module's training
+    flag changes nothing."""
     assert SEResNet31(quantize=True, width_mult=0.125).quantize
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="queue 1: the s2d and int8 stems"):
         SEResNet31(stem_s2d=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="queue 1: the s2d and int8 stems"):
         SEResNet31(quantize=True, quantize_stem=True)
     tm = SEResNet31(width_mult=0.125)  # nn.Module starts in training mode
     x = torch.randn(2, 32, 16, 3, generator=torch.Generator().manual_seed(0))

@@ -466,7 +466,7 @@ def test_make_mesh_falls_back_and_refuses_a_model_axis():
         m = mesh.make_mesh((4, 1), ("data", "model"), devices=range(4))
     assert m.shape == {"data": 4, "model": 1} and not caught
     for shape in ((2, 2), (1, 2), (3, 2)):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError, match="queue 1: tensor parallelism"):
             mesh.make_mesh(shape, ("data", "model"), devices=range(4))
 
 

@@ -6,7 +6,7 @@
   channel count that is not a multiple of 8;
 * the cases of ``tests/test_quant.py`` and ``tests/test_quant_static.py``,
   run over both packages as parametrised cases (the int8 stem is refused by
-  the port: ROADMAP item 13);
+  the port: ROADMAP.md queue 1, the s2d and int8 stems);
 * the whole ``RCNN(quantize=True)`` (width 0.125, hidden 32), dynamic and
   static: CTC argmax ids and greedy strings equal JAX's on every row, the
   encoder states within ``ENC_ATOL`` (a code that flips at a rounding
@@ -261,7 +261,7 @@ def test_backbone_calibration_records_and_applies(pkg, rng):
 @pytest.mark.parametrize("pkg", PACKAGES)
 def test_quantize_stem_wiring(pkg, rng):
     """JAX quantizes the stem with quantize_stem; the port refuses it
-    (ROADMAP item 13) and keeps its stem float."""
+    (ROADMAP.md queue 1: the s2d and int8 stems) and keeps its stem float."""
     x = rng.normal(size=(2, 32, 64, 3)).astype(np.float32)
     v = _jax_backbone_vars(x)
     if pkg == "jax":
@@ -270,7 +270,7 @@ def test_quantize_stem_wiring(pkg, rng):
         _, mut = stem.apply(v, jnp.asarray(x), train=False, mutable=["quant_stats"])
         assert {"stem0", "stem1"} <= set(mut["quant_stats"])
         return
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="queue 1: the s2d and int8 stems"):
         SEResNet31(width_mult=0.25, quantize=True, quantize_stem=True)
     sta = _port_backbone(v, act_quant="static")
     assert not hasattr(sta.stem0.conv, "act_absmax") and not sta.stem0.quantize

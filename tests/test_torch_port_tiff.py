@@ -4,9 +4,12 @@
 * Every fixture of ``tests/torch_port_data/tiff/`` (each compression with
   and without the predictor, gray at 1/8/16 bits both ways, palette at
   1/4/8 with 16- and 8-bit colour maps, RGB(A) at 8/16, CMYK, planar, tiles,
-  II and MM, orientations 1-8, FillOrder 2, two pages, files from cv2 and
-  PIL): bit-equal to ``imdecode_cv2`` and to the pixels the card's smoke
-  reads (``expected.npz``).
+  II and MM, orientations 1-8, FillOrder 2, two pages; CCITT modified
+  Huffman, RLEW, Group 3 1-D and 2-D and Group 4; JPEG-in-TIFF gray, RGB
+  and YCbCr at every subsampling, strips, tiles and a tall last strip;
+  YCbCr at every subsampling libtiff reads; files from cv2 and PIL):
+  bit-equal to ``imdecode_cv2`` and to the pixels the card's smoke reads
+  (``expected.npz``).
 * A seeded fuzz over compression x predictor x photometric x bit depth x
   strips or tiles x planar x byte order x orientation: bit-equal wherever
   cv2 decodes; ``ValueError`` where it fails (uncompressed tiles whose
@@ -14,8 +17,16 @@
 * 16-bit samples reach 8 bits as cv2 takes them, on every 16-bit value.
 * ``image_size`` equals JAX's ``image_size`` (orientations 5-8 swap the
   sides) without decoding.
-* CCITT, JPEG-in-TIFF, LZMA, ZSTD, WebP, YCbCr, floats, signed integers,
-  BigTIFF and old-style LZW raise ``UnsupportedImageFormat`` naming them.
+* Seeded fuzzes of CCITT (compression 2 / 3 / 4 / 32771 x T4Options x
+  FillOrder x photometric 0 / 1 x strips or tiles, runs past 2560), YCbCr
+  (subsampling x compression x ReferenceBlackWhite x YCbCrCoefficients x
+  planar x tiles) and JPEG-in-TIFF (photometric 1 / 2 / 6 x subsampling x
+  strips or tiles x JPEGTables or not x a tall last strip): bit-equal
+  wherever cv2 decodes cleanly; damaged fax data raises ``ValueError``
+  where libtiff warns and fills the row.
+* Old-style JPEG, LZMA, ZSTD, WebP, floats, signed integers, BigTIFF and
+  old-style LZW raise ``UnsupportedImageFormat`` naming them; the kinds
+  refused before they were ported (CCITT, JPEG, YCbCr) decode bit-equal.
 * TIFF datasets with no further change: ``run_training`` on TIFF lines
   equals a run on PNGs of cv2's decode of them.
 """
@@ -36,7 +47,8 @@ jax = pytest.importorskip("jax")
 
 from rcnn_ocr_tpu.data import transforms as jax_tf  # noqa: E402
 from rcnn_ocr_tpu_torch.data import image_io  # noqa: E402
-from tests.torch_port_data.make_tiff_fixtures import REFUSED, lzw, tiff_bytes  # noqa: E402
+from tests.torch_port_data.make_tiff_fixtures import (  # noqa: E402
+    REFUSED, jpeg_tiff, lzw, tiff_bytes)
 
 FIXTURES = Path(__file__).resolve().parent / "torch_port_data" / "tiff"
 NAMES = sorted(p.name for p in FIXTURES.glob("*.tif") if p.name not in REFUSED)
@@ -69,11 +81,17 @@ def test_fixtures_cover_the_paths():
     kinds = ("none", "packbits", "lzw", "deflate", "zip", "pred2", "gray1", "gray8", "gray16",
              "miniswhite", "minisblack", "palette1", "palette4", "palette8", "map8", "rgb16",
              "rgba8_unassociated", "rgba8_associated", "rgba16", "gray_alpha", "cmyk8",
-             "planar", "tiles", "_mm_", "fillorder2", "two_pages", "cv2_", "pil_", "tiff_line")
+             "planar", "tiles", "_mm_", "fillorder2", "two_pages", "cv2_", "pil_", "tiff_line",
+             "g4_", "g3_1d", "g3_2d", "g3_2d_fill", "mh_", "ccitt_rlew", "_wide_",
+             "pil_1_group4", "pil_1_group3", "pil_1_tiff_ccitt", "g4_line", "g3_line",
+             "jpeg_gray", "jpeg_rgb", "jpeg_ycbcr420", "jpeg_ycbcr422_tiles", "notag",
+             "tall_last", "no_tables", "pil_l_jpeg", "pil_ycbcr_jpeg", "jpeg_line",
+             "ycbcr11", "ycbcr22", "ycbcr21", "ycbcr12", "ycbcr42", "ycbcr41", "ycbcr44",
+             "ycbcr44_tiles", "pil_ycbcr_raw", "ycbcr_line")
     for kind in kinds:
         assert any(kind in n for n in NAMES), kind
     assert sum(f"orientation{o}_" in n for n in NAMES for o in range(1, 9)) == 10
-    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 160 * 1024
+    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 256 * 1024
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -89,7 +107,6 @@ def test_refused_fixtures_name_what_they_are(name):
     with pytest.raises(image_io.UnsupportedImageFormat) as err:
         image_io.imread(str(FIXTURES / name))
     assert REFUSED[name] in str(err.value) and image_io.SUPPORTED in str(err.value)
-    assert _cv2((FIXTURES / name).read_bytes()) is not None  # cv2 reads them: still to port
 
 
 # --- fuzz -------------------------------------------------------------------------------
@@ -187,6 +204,194 @@ def test_first_page_of_a_multi_page_file():
     np.testing.assert_array_equal(_assert_bit_equal(bio.getvalue()), first)
 
 
+# --- CCITT, YCbCr and JPEG-in-TIFF ------------------------------------------------------
+
+def _bilevel(rng, h, w):
+    if rng.random() < 0.3:
+        return (rng.random((h, w)) < rng.random()).astype(np.uint8)
+    img = np.zeros((h, w), np.uint8)
+    for _ in range(int(rng.integers(1, 12))):
+        y0, x0 = int(rng.integers(0, h)), int(rng.integers(0, w))
+        img[y0 : y0 + int(rng.integers(1, h + 1)), x0 : x0 + int(rng.integers(1, w + 1))] ^= 1
+    return img
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_fax_fuzz_is_bit_equal(seed, capfd):
+    """Modified Huffman, RLEW, Group 3 (T4Options 0 / 1 / 4 / 5) and Group
+    4, MinIsWhite and MinIsBlack, FillOrder 1 and 2, strips and tiles, rows
+    up to 3,000 pixels (the extended make-up codes): bit-equal wherever
+    libtiff decodes without a warning.  Where libtiff warns (its RLEW and
+    modified-Huffman readers misplace a row after a strip's last byte runs
+    out mid-accumulator), it fills the row and cv2 returns that; the port
+    raises ValueError, and only there."""
+    rng = np.random.default_rng(1300 + seed)
+    clean = 0
+    for _ in range(30):
+        h, w = int(rng.integers(1, 30)), int(rng.integers(1, 70))
+        if rng.random() < 0.1:
+            h, w = int(rng.integers(1, 4)), int(rng.integers(1700, 3000))
+        comp = str(rng.choice(["ccitt_rle", "ccitt_rlew", "g3", "g4"]))
+        tile = ((int(rng.choice([16, 32])), int(rng.choice([16, 32])))
+                if w < 100 and rng.random() < 0.2 else None)
+        kw = dict(bits=1, photometric=int(rng.integers(0, 2)), compression=comp,
+                  t4options=int(rng.choice([0, 1, 4, 5])) if comp == "g3" else None,
+                  fill_order=int(rng.integers(1, 3)), rows_per_strip=int(rng.integers(1, h + 1)),
+                  tile=tile)
+        data = tiff_bytes(_bilevel(rng, h, w)[:, :, None], **kw)
+        capfd.readouterr()
+        want = _cv2(data)
+        warned = "TIFF_Warning" in capfd.readouterr().err
+        assert want is not None
+        if warned:
+            with pytest.raises(ValueError):
+                image_io.imdecode(data)
+            continue
+        np.testing.assert_array_equal(image_io.imdecode(data), want, err_msg=str((h, w, kw)))
+        clean += 1
+    assert clean >= 20
+
+
+def _ycc_image(rng, h, w):
+    img = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    return cv2.GaussianBlur(img, (3, 3), 0).reshape(h, w, 3) if rng.random() < 0.5 else img
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_ycbcr_fuzz_is_bit_equal(seed):
+    """YCbCr without JPEG: subsampling 1/2/4 on each axis, none / LZW /
+    Deflate / PackBits, ReferenceBlackWhite and YCbCrCoefficients or their
+    defaults, strips of any height, tiles, planar: bit-equal where cv2
+    decodes, ValueError where it fails (2x4 and 1x4, planar subsampled)."""
+    rng = np.random.default_rng(1400 + seed)
+    decoded = 0
+    for _ in range(30):
+        h, w = (int(v) for v in rng.integers(1, 45, 2))
+        hs, vs = [(1, 1), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4), (1, 2), (2, 4),
+                  (1, 4)][int(rng.integers(0, 9))]
+        extra = []
+        if rng.random() < 0.4:
+            extra.append((532, 5, [(int(rng.integers(0, 40)), 1), (int(rng.integers(200, 256)), 1),
+                                   (int(rng.integers(100, 128)), 1), (int(rng.integers(200, 300)), 1),
+                                   (int(rng.integers(0, 128)), int(rng.integers(1, 3))),
+                                   (int(rng.integers(129, 300)), 1)]))
+        if rng.random() < 0.3:
+            extra.append((529, 5, [(int(rng.integers(200, 400)), 1000),
+                                   (int(rng.integers(500, 650)), 1000),
+                                   (int(rng.integers(50, 200)), 1000)]))
+        kw = dict(photometric=6, compression=str(rng.choice(["none", "lzw", "deflate",
+                                                             "packbits"])),
+                  tile=((int(rng.choice([16, 32])), int(rng.choice([16, 32])))
+                        if rng.random() < 0.3 else None),
+                  rows_per_strip=int(rng.integers(1, h + 1)))
+        if rng.random() < 0.15:
+            kw.update(planar=2, extra_tags=extra + [(530, 3, [hs, vs])])
+        else:
+            kw.update(subsampling=(hs, vs), extra_tags=extra)
+        data = tiff_bytes(_ycc_image(rng, h, w), **kw)
+        want = _cv2(data)
+        if want is None:
+            with pytest.raises(ValueError):
+                image_io.imdecode(data)
+            continue
+        np.testing.assert_array_equal(image_io.imdecode(data), want,
+                                      err_msg=str((h, w, hs, vs, kw)))
+        decoded += 1
+    assert decoded >= 12
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_jpeg_in_tiff_fuzz_is_bit_equal(seed):
+    """JPEG-in-TIFF as libtiff has libjpeg decode it: gray (1) and RGB (2)
+    with no colour conversion, YCbCr (6) to RGB with fancy upsampling at
+    4:4:4 / 4:2:2 / 4:2:0 / 4:1:1 / 4:4:0; strips or tiles, JPEGTables or
+    tables in each strip, a last strip coded at full height, the
+    YCbCrSubsampling tag or the first strip's sampling."""
+    rng = np.random.default_rng(1500 + seed)
+    for _ in range(20):
+        h, w = (int(v) for v in rng.integers(1, 45, 2))
+        phot = int(rng.choice([1, 2, 6]))
+        img = _ycc_image(rng, h, w)
+        kw = dict(tile=((int(rng.choice([16, 32])), int(rng.choice([16, 32])))
+                        if rng.random() < 0.3 else None),
+                  rows_per_strip=int(rng.integers(1, h + 1)), quality=int(rng.integers(50, 100)),
+                  sampling=str(rng.choice(["444", "422", "420", "411", "440"])) if phot == 6
+                  else "444", tables=bool(rng.random() < 0.8), tall_last=bool(rng.random() < 0.3),
+                  subsampling_tag=bool(rng.random() < 0.7))
+        data = jpeg_tiff(img[:, :, :1] if phot == 1 else img, phot, **kw)
+        np.testing.assert_array_equal(image_io.imdecode(data), jax_tf.imdecode_cv2(data),
+                                      err_msg=str((h, w, phot, kw)))
+
+
+def test_jpeg_ycbcr_upsampling_is_fancy_as_cv2s():
+    """libtiff leaves libjpeg's fancy upsampling on: on the fixture whose
+    2x2 chroma has sharp edges, the fancy decode of its strip equals cv2's
+    pixels and a decode with the chroma replicated does not."""
+    from rcnn_ocr_tpu_torch.native import jpeg_decode_frame
+
+    data = (FIXTURES / "jpeg_ycbcr420_sharp_16x24.tif").read_bytes()
+    want = jax_tf.imdecode_cv2(data)
+    order, offset = image_io.tiff._header(data)
+    tags = image_io.tiff._tags(data, order, offset)
+    (off,), (count,) = tags[273], tags[279]
+    stream = bytes(tags[347])[:-2] + data[off : off + count][2:]
+    np.testing.assert_array_equal(jpeg_decode_frame(stream, ycbcr=True), want)
+    plain = jpeg_decode_frame(stream, ycbcr=True, fancy=False)
+    assert (plain != want).any(axis=2).sum() > 50
+
+
+@pytest.mark.parametrize("kind", ["g4", "g3_2d", "jpeg_ycbcr", "ycbcr22"])
+@pytest.mark.parametrize("orientation", [3, 6])
+def test_orientation_of_the_new_codings(kind, orientation, tmp_path):
+    """The Orientation tag applies to fax, JPEG and YCbCr pages as to the
+    others, and ``image_size`` swaps the sides without decoding."""
+    rng = np.random.default_rng(orientation)
+    if kind in ("g4", "g3_2d"):
+        data = tiff_bytes(_bilevel(rng, 17, 33)[:, :, None], bits=1, photometric=0,
+                          compression=kind[:2], t4options=1 if kind == "g3_2d" else None,
+                          orientation=orientation)
+    elif kind == "jpeg_ycbcr":
+        data = jpeg_tiff(_ycc_image(rng, 17, 33), 6, sampling="420", rows_per_strip=16,
+                         orientation=orientation)
+    else:
+        data = tiff_bytes(_ycc_image(rng, 17, 33), photometric=6, compression="lzw",
+                          subsampling=(2, 2), orientation=orientation)
+    got = _assert_bit_equal(data)
+    assert got.shape[:2] == ((33, 17) if orientation >= 5 else (17, 33))
+    path = tmp_path / "o.tif"
+    path.write_bytes(data)
+    assert image_io.image_size(str(path)) == got.shape[:2] == jax_tf.image_size(str(path))
+
+
+@pytest.mark.parametrize("compression", ["g4", "g3", "ccitt_rle"])
+def test_damaged_fax_data_raises(compression, capfd):
+    """A deliberate divergence, as for other damaged compressed data:
+    libtiff's fax decoder warns on a bad code or a row that does not add
+    up and fills the row, and cv2 returns that; the port raises."""
+    img = np.random.default_rng(9).integers(0, 2, (20, 40, 1)).astype(np.uint8)
+    data = bytearray(tiff_bytes(img, bits=1, compression=compression, rows_per_strip=20,
+                                t4options=1 if compression == "g3" else None))
+    data[12:40] = b"\x00\xff" * 14  # the middle of the one strip
+    capfd.readouterr()
+    assert _cv2(bytes(data)) is not None
+    assert "TIFF_Warning" in capfd.readouterr().err
+    with pytest.raises(ValueError, match="damaged fax data"):
+        image_io.imdecode(bytes(data))
+
+
+def test_fax_decoder_raises_on_data_short_of_the_rows():
+    from rcnn_ocr_tpu_torch.native import tiff_fax_decode
+    from tests.torch_port_data.make_tiff_fixtures import fax_encode
+
+    img = np.random.default_rng(10).integers(0, 2, (12, 30)).astype(np.uint8)
+    coded = fax_encode(img, "g4")
+    assert len(tiff_fax_decode(coded, 12, 30, 4)) == 12 * 4
+    with pytest.raises(ValueError, match="damaged fax data"):
+        tiff_fax_decode(coded, 13, 30, 4)  # EOFB before the 13th row
+    with pytest.raises(ValueError, match="damaged fax data"):
+        tiff_fax_decode(coded[: len(coded) // 2], 12, 30, 4)
+
+
 # --- refusals and damage ----------------------------------------------------------------
 
 def _pil_tiff(mode, **kw):
@@ -209,17 +414,42 @@ def _patched_compression(code):
 
 
 REFUSALS = {
-    "CCITT Group 4 fax TIFF compression (4)": lambda: _pil_tiff("1", compression="group4"),
-    "JPEG TIFF compression (7)": lambda: _pil_tiff("RGB", compression="jpeg"),
     "ZSTD TIFF compression (50000)": lambda: _pil_tiff("L", compression="zstd"),
     "LZMA TIFF compression (34925)": lambda: _patched_compression(34925),
     "WebP TIFF compression (50001)": lambda: _patched_compression(50001),
-    "CCITT RLE TIFF compression (2)": lambda: _patched_compression(2),
+    "old-style JPEG TIFF compression (6)": lambda: _patched_compression(6),
     "floating-point TIFF samples": lambda: _pil_tiff("F"),
     "signed-integer TIFF samples": lambda: _pil_tiff("I"),
-    "YCbCr TIFF": lambda: _pil_tiff("YCbCr"),
     "BigTIFF": lambda: b"II+\x00\x08\x00\x00\x00" + bytes(16),
+    "planar YCbCr JPEG-in-TIFF": lambda: _planar_ycbcr_jpeg(),
 }
+
+
+def _planar_ycbcr_jpeg():
+    """A JPEG-in-TIFF relabelled planar YCbCr (one JPEG per plane)."""
+    img = np.random.default_rng(8).integers(0, 256, (8, 16, 3)).astype(np.uint8)
+    data = bytearray(jpeg_tiff(img, 6, rows_per_strip=8))
+    (ifd,) = struct.unpack_from("<I", data, 4)
+    (n,) = struct.unpack_from("<H", data, ifd)
+    for i in range(n):
+        e = ifd + 2 + 12 * i
+        if struct.unpack_from("<H", data, e)[0] == 284:
+            struct.pack_into("<H", data, e + 8, 2)
+    return bytes(data)
+
+
+# kinds refused before CCITT, JPEG-in-TIFF and YCbCr were ported
+FORMERLY_REFUSED = {
+    "CCITT Group 4 fax TIFF compression (4)": lambda: _pil_tiff("1", compression="group4"),
+    "JPEG TIFF compression (7)": lambda: _pil_tiff("RGB", compression="jpeg"),
+    "CCITT RLE TIFF compression (2)": lambda: _pil_tiff("1", compression="tiff_ccitt"),
+    "YCbCr TIFF": lambda: _pil_tiff("YCbCr"),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(FORMERLY_REFUSED))
+def test_formerly_refused_kinds_decode_bit_equal(kind):
+    _assert_bit_equal(FORMERLY_REFUSED[kind]())
 
 
 def _old_style_lzw():

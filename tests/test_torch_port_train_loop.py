@@ -509,7 +509,7 @@ def test_device_augment_and_the_refusals(tiny):
         run_training(_cfg(tiny, "edge", device_augment=True, p_EdgeCrop=0.5), device="cpu")
     # a model axis (tensor parallelism) is refused; a data axis that does not
     # tile the one process falls back to it with a warning, as in JAX
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="queue 1: tensor parallelism"):
         run_training(_cfg(tiny, "no_mesh_shape", mesh_shape=[1, 2],
                           mesh_axes=["data", "model"]), device="cpu")
     with pytest.warns(UserWarning, match="falling back"):

@@ -31,7 +31,8 @@ import zlib
 import numpy as np
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tiff")
-COMPRESSION = {"none": 1, "lzw": 5, "deflate": 8, "zip": 32946, "packbits": 32773}
+COMPRESSION = {"none": 1, "lzw": 5, "deflate": 8, "zip": 32946, "packbits": 32773,
+               "ccitt_rle": 2, "ccitt_rlew": 32771, "g3": 3, "g4": 4, "jpeg": 7}
 _REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 
@@ -99,6 +100,257 @@ def lzw(data: bytes) -> bytes:
     return bytes(out)
 
 
+# --- CCITT fax (T.4 / T.6), as libtiff's encoder writes it ------------------------------
+
+_WHITE_TERM = (
+    "00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 01000 001000 000011 "
+    "110100 110101 101010 101011 0100111 0001100 0001000 0010111 0000011 0000100 0101000 "
+    "0101011 0010011 0100100 0011000 00000010 00000011 00011010 00011011 00010010 00010011 "
+    "00010100 00010101 00010110 00010111 00101000 00101001 00101010 00101011 00101100 "
+    "00101101 00000100 00000101 00001010 00001011 01010010 01010011 01010100 01010101 "
+    "00100100 00100101 01011000 01011001 01011010 01011011 01001010 01001011 00110010 "
+    "00110011 00110100").split()
+_BLACK_TERM = (
+    "0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 0000101 0000111 "
+    "00000100 00000111 000011000 0000010111 0000011000 0000001000 00001100111 00001101000 "
+    "00001101100 00000110111 00000101000 00000010111 00000011000 000011001010 000011001011 "
+    "000011001100 000011001101 000001101000 000001101001 000001101010 000001101011 "
+    "000011010010 000011010011 000011010100 000011010101 000011010110 000011010111 "
+    "000001101100 000001101101 000011011010 000011011011 000001010100 000001010101 "
+    "000001010110 000001010111 000001100100 000001100101 000001010010 000001010011 "
+    "000000100100 000000110111 000000111000 000000100111 000000101000 000001011000 "
+    "000001011001 000000101011 000000101100 000001011010 000001100110 000001100111").split()
+_WHITE_MAKEUP = (
+    "11011 10010 010111 0110111 00110110 00110111 01100100 01100101 01101000 01100111 "
+    "011001100 011001101 011010010 011010011 011010100 011010101 011010110 011010111 "
+    "011011000 011011001 011011010 011011011 010011000 010011001 010011010 011000 "
+    "010011011").split()
+_BLACK_MAKEUP = (
+    "0000001111 000011001000 000011001001 000001011011 000000110011 000000110100 "
+    "000000110101 0000001101100 0000001101101 0000001001010 0000001001011 0000001001100 "
+    "0000001001101 0000001110010 0000001110011 0000001110100 0000001110101 0000001110110 "
+    "0000001110111 0000001010010 0000001010011 0000001010100 0000001010101 0000001011010 "
+    "0000001011011 0000001100100 0000001100101").split()
+_EXT_MAKEUP = ("00000001000 00000001100 00000001101 000000010010 000000010011 000000010100 "
+               "000000010101 000000010110 000000010111 000000011100 000000011101 000000011110 "
+               "000000011111").split()
+_EOL = "000000000001"
+_VERTICAL = {-3: "0000010", -2: "000010", -1: "010", 0: "1", 1: "011", 2: "000011",
+             3: "0000011"}  # a1 - b1
+
+
+def _span(run: int, black: bool) -> str:
+    """libtiff's putspan: extended make-up codes of 2560 while the run is
+    2624 or more, one make-up code, then the terminating code."""
+    term, makeup = (_BLACK_TERM, _BLACK_MAKEUP) if black else (_WHITE_TERM, _WHITE_MAKEUP)
+    out = []
+    while run >= 2624:
+        out.append(_EXT_MAKEUP[-1])
+        run -= 2560
+    if run >= 64:
+        k = run >> 6
+        out.append(makeup[k - 1] if k <= 27 else _EXT_MAKEUP[k - 28])
+        run -= k << 6
+    out.append(term[run])
+    return "".join(out)
+
+
+def _diff(row, start: int, color: int) -> int:
+    """The first position at or after ``start`` whose pixel is not ``color``."""
+    x = start
+    while x < len(row) and row[x] == color:
+        x += 1
+    return x
+
+
+def _row_1d(row) -> str:
+    out, x, color = [], 0, 0
+    while x < len(row):
+        end = _diff(row, x, color)
+        out.append(_span(end - x, color == 1))
+        x, color = end, 1 - color
+    if not len(row):
+        out.append(_span(0, False))
+    return "".join(out)
+
+
+def _row_2d(row, ref) -> str:
+    """libtiff's Fax3Encode2DRow of ``row`` against the reference ``ref``."""
+    w = len(row)
+
+    def px(r, x):
+        return r[x] if x < w else 0
+
+    out = []
+    a0 = 0
+    a1 = 0 if row[0] else _diff(row, 0, 0)
+    b1 = 0 if ref[0] else _diff(ref, 0, 0)
+    while True:
+        b2 = w if b1 >= w else _diff(ref, b1, px(ref, b1))
+        if b2 >= a1:
+            d = b1 - a1
+            if -3 <= d <= 3:
+                out.append(_VERTICAL[-d])
+                a0 = a1
+            else:
+                a2 = w if a1 >= w else _diff(row, a1, px(row, a1))
+                white_first = a0 + a1 == 0 or px(row, a0) == 0
+                out.append("001" + _span(a1 - a0, not white_first) + _span(a2 - a1, white_first))
+                a0 = a2
+        else:
+            out.append("0001")
+            a0 = b2
+        if a0 >= w:
+            return "".join(out)
+        a1 = _diff(row, a0, px(row, a0))
+        b1 = _diff(ref, a0, 1 - px(row, a0))
+        b1 = _diff(ref, b1, px(row, a0))
+
+
+def fax_encode(bits: np.ndarray, compression: str, t4options: int = 0, k: int = 4,
+               rtc: bool = True) -> bytes:
+    """CCITT coding of ``[rows, cols]`` 0/1 pixels, 1 coded as black runs:
+    ``ccitt_rle`` (modified Huffman, each row from a byte boundary),
+    ``ccitt_rlew`` (each row from a 16-bit word), ``g3`` (an EOL before each
+    row, byte-aligned with T4Options bit 2, with bit 0 a 1-D / 2-D tag bit
+    after it and every ``k``-th row 1-D, the rest 2-D; RTC last with
+    ``rtc``) or ``g4`` (2-D rows against a white first reference, EOFB
+    last)."""
+    rows = [[int(v) for v in r] for r in np.asarray(bits).reshape(bits.shape[0], -1)]
+    out = []
+
+    def align(unit):
+        out.append("0" * (-len("".join(out)) % unit))
+
+    ref = [0] * (len(rows[0]) if rows else 0)
+    two_d = compression == "g3" and t4options & 1
+    for i, row in enumerate(rows):
+        if compression in ("ccitt_rle", "ccitt_rlew"):
+            out.append(_row_1d(row))
+            align(8 if compression == "ccitt_rle" else 16)
+            continue
+        if compression == "g4":
+            out.append(_row_2d(row, ref))
+        else:
+            if t4options & 4:  # fill so that the EOL ends on a byte boundary
+                out.append("0" * ((-(len("".join(out)) + 12)) % 8))
+            out.append(_EOL)
+            if two_d:
+                one_d = i % k == 0
+                out.append("1" if one_d else "0")
+                out.append(_row_1d(row) if one_d else _row_2d(row, ref))
+            else:
+                out.append(_row_1d(row))
+        ref = row
+    if compression == "g4":
+        out.append(_EOL * 2)
+    elif compression == "g3" and rtc:
+        out.append((_EOL + ("1" if two_d else "")) * 6)
+    bitstr = "".join(out)
+    bitstr += "0" * (-len(bitstr) % 8)
+    return bytes(int(bitstr[i : i + 8], 2) for i in range(0, len(bitstr), 8))
+
+
+# --- YCbCr and JPEG-in-TIFF -------------------------------------------------------------
+
+def ycbcr_units(blk: np.ndarray, hs: int, vs: int) -> bytes:
+    """``[rows, cols, 3]`` Y, Cb, Cr -> data units of ``hs * vs`` luma
+    samples (row by row) then the unit's mean Cb and Cr, the block's edges
+    replicated to whole units."""
+    rows, cols = blk.shape[:2]
+    vb, hb = -(-rows // vs), -(-cols // hs)
+    full = np.pad(blk.astype(np.int64), ((0, vb * vs - rows), (0, hb * hs - cols), (0, 0)),
+                  mode="edge")
+    u = full.reshape(vb, vs, hb, hs, 3).transpose(0, 2, 1, 3, 4)
+    y = u[..., 0].reshape(vb, hb, vs * hs)
+    c = (u[..., 1:].reshape(vb, hb, vs * hs, 2).mean(axis=2) + 0.5).astype(np.int64)
+    return np.concatenate([y, c], axis=2).astype(np.uint8).tobytes()
+
+
+def jpeg_split(stream: bytes, keep_app: bool = False):
+    """A JPEG stream -> (tables, abbreviated stream): SOI, its DQT and DHT
+    segments and EOI for the JPEGTables tag, and SOI plus the rest (APPn
+    segments only with ``keep_app``) for the strip or tile."""
+    tables, rest, i = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8"), 2
+    while i < len(stream):
+        marker = stream[i + 1]
+        if marker == 0xDA:
+            rest += stream[i:]
+            break
+        n = struct.unpack(">H", stream[i + 2 : i + 4])[0]
+        seg = stream[i : i + 2 + n]
+        if marker in (0xDB, 0xC4):
+            tables += seg
+        elif keep_app or not 0xE0 <= marker <= 0xEF:
+            rest += seg
+        i += 2 + n
+    return bytes(tables + b"\xff\xd9"), bytes(rest)
+
+
+def jpeg_encode(block: np.ndarray, photometric: int, quality: int = 90,
+                sampling: str = "444") -> bytes:
+    """A JPEG of ``block`` as a TIFF writer stores it: gray for
+    PhotometricInterpretation 1, RGB coded with no colour transform for 2
+    (PIL's raw YCbCr path: the samples go in as they are), YCbCr from RGB
+    at ``sampling`` (cv2's 444 / 422 / 420 / 411 / 440) for 6."""
+    import cv2
+    from PIL import Image
+
+    if photometric == 1:
+        return cv2.imencode(".jpg", np.ascontiguousarray(block[:, :, 0]),
+                            [cv2.IMWRITE_JPEG_QUALITY, quality])[1].tobytes()
+    if photometric == 2:
+        bio = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(block), "YCbCr").save(bio, format="JPEG",
+                                                                    quality=quality,
+                                                                    subsampling=0)
+        return bio.getvalue()
+    factor = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{sampling}")
+    return cv2.imencode(".jpg", np.ascontiguousarray(block[:, :, ::-1]),
+                        [cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                         factor])[1].tobytes()
+
+
+_LUMA = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "411": (4, 1), "440": (1, 2)}
+
+
+def jpeg_tiff(img: np.ndarray, photometric: int, tile=None, rows_per_strip: int = 8,
+              quality: int = 90, sampling: str = "444", tables: bool = True,
+              tall_last: bool = False, subsampling_tag: bool = True, **kw) -> bytes:
+    """A JPEG-in-TIFF (compression 7) of ``img`` ``[H, W, 1 or 3]``: one
+    JPEG per strip or tile (tiles padded by replicating the edge), its DQT
+    and DHT moved into JPEGTables (tag 347) with ``tables``, the last strip
+    coded at the full RowsPerStrip height with ``tall_last`` (libtiff reads
+    such a frame and crops it), YCbCrSubsampling written for photometric 6
+    with ``subsampling_tag`` (else libtiff takes the first strip's)."""
+    h, w = img.shape[:2]
+    blocks = []
+    if tile is None:
+        for y in range(0, h, rows_per_strip):
+            blk = img[y : y + rows_per_strip]
+            if tall_last and len(blk) < rows_per_strip:
+                blk = np.pad(blk, ((0, rows_per_strip - len(blk)), (0, 0), (0, 0)), mode="edge")
+            blocks.append(blk)
+    else:
+        tw, tl = tile
+        for y in range(0, h, tl):
+            for x in range(0, w, tw):
+                part = img[y : y + tl, x : x + tw]
+                blocks.append(np.pad(part, ((0, tl - part.shape[0]), (0, tw - part.shape[1]),
+                                            (0, 0)), mode="edge"))
+    streams = [jpeg_encode(b, photometric, quality, sampling) for b in blocks]
+    extra = list(kw.pop("extra_tags", ()))
+    chunks = streams
+    if tables:
+        split = [jpeg_split(st) for st in streams]
+        chunks = [b for _, b in split]
+        extra.append((347, 7, list(split[0][0])))
+    if photometric == 6 and subsampling_tag:
+        extra.append((530, 3, list(_LUMA[sampling])))
+    return tiff_bytes(img, photometric=photometric, compression="jpeg", tile=tile,
+                      rows_per_strip=rows_per_strip, chunks=chunks, extra_tags=extra, **kw)
+
+
 def compress(raw: bytes, compression: str) -> bytes:
     if compression == "none":
         return raw
@@ -139,16 +391,25 @@ def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = 1,
                compression: str = "none", predictor: int = 1, planar: int = 1,
                tile=None, rows_per_strip: int = 8, order: str = "<",
                orientation=None, extra_samples=None, colormap=None,
-               fill_order: int = 1, pages=None) -> bytes:
+               fill_order: int = 1, pages=None, t4options=None, extra_tags=(),
+               chunks=None, subsampling=None) -> bytes:
     """One TIFF from ``samples`` ``[H, W, spp]`` (values below ``2**bits``):
     strips of ``rows_per_strip`` rows or tiles of ``tile = (w, h)``, chunky
     (``planar=1``) or planar (2), ``order`` ``"<"`` (II) or ``">"`` (MM).
-    ``pages`` are further ``tiff_bytes`` keyword dicts, written as later
-    IFDs."""
+    CCITT compressions code 1-bit samples with :func:`fax_encode`
+    (``t4options`` written as tag 292 when given).  ``extra_tags`` are
+    ``(tag, type, values)``: type 3 or 4 integers, 5 ``(numerator,
+    denominator)`` pairs, 7 bytes.  ``chunks`` replaces the coded strips or
+    tiles (the samples then only size the image).  ``subsampling`` ``(h,
+    v)`` packs YCbCr samples (PhotometricInterpretation 6) into data units
+    of ``h * v`` luma samples then Cb and Cr (each unit's chroma its mean,
+    edges replicated) and writes tag 530.  ``pages`` are further
+    ``tiff_bytes`` keyword dicts, written as later IFDs."""
     pages = [dict(samples=samples, bits=bits, photometric=photometric, compression=compression,
                   predictor=predictor, planar=planar, tile=tile, rows_per_strip=rows_per_strip,
                   orientation=orientation, extra_samples=extra_samples, colormap=colormap,
-                  fill_order=fill_order)] + list(pages or [])
+                  fill_order=fill_order, t4options=t4options, extra_tags=extra_tags,
+                  chunks=chunks, subsampling=subsampling)] + list(pages or [])
     body = bytearray(b"II*\x00" if order == "<" else b"MM\x00*")
     body += struct.pack(order + "I", 0)
     link = 4  # where the next IFD offset goes
@@ -157,7 +418,9 @@ def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = 1,
                                              "predictor": 1, "planar": 1, "tile": None,
                                              "rows_per_strip": 8, "orientation": None,
                                              "extra_samples": None, "colormap": None,
-                                             "fill_order": 1, **page})
+                                             "fill_order": 1, "t4options": None,
+                                             "extra_tags": (), "chunks": None,
+                                             "subsampling": None, **page})
         body[link : link + 4] = struct.pack(order + "I", ifd_at)
         link = len(body) - 4
     return bytes(body)
@@ -165,14 +428,14 @@ def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = 1,
 
 def _write_page(body: bytearray, order: str, samples, bits, photometric, compression,
                 predictor, planar, tile, rows_per_strip, orientation, extra_samples,
-                colormap, fill_order) -> int:
+                colormap, fill_order, t4options, extra_tags, chunks, subsampling) -> int:
     samples = np.asarray(samples)
     if samples.ndim == 2:
         samples = samples[:, :, None]
     h, w, spp = samples.shape
     planes = [samples] if planar == 1 else [samples[:, :, i : i + 1] for i in range(spp)]
-    chunks = []
-    for plane in planes:
+    coded, chunks = chunks, []
+    for plane in planes if coded is None else ():
         if tile is None:
             blocks = [plane[y : y + rows_per_strip] for y in range(0, h, rows_per_strip)]
         else:
@@ -187,10 +450,16 @@ def _write_page(body: bytearray, order: str, samples, bits, photometric, compres
         for blk in blocks:
             if predictor == 2:
                 blk = _predict(blk, bits)
-            raw = compress(_rows(blk, bits, order), compression)
+            if compression in ("ccitt_rle", "ccitt_rlew", "g3", "g4"):
+                raw = fax_encode(blk[:, :, 0], compression, t4options or 0)
+            elif subsampling is not None:
+                raw = compress(ycbcr_units(blk, *subsampling), compression)
+            else:
+                raw = compress(_rows(blk, bits, order), compression)
             if fill_order == 2:  # bits stored least significant first
                 raw = _REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
             chunks.append(raw)
+    chunks = list(coded) if coded is not None else chunks
     offsets = []
     for c in chunks:
         if len(body) % 2:
@@ -218,10 +487,24 @@ def _write_page(body: bytearray, order: str, samples, bits, photometric, compres
                  (325, 4, [len(c) for c in chunks])]
     if extra_samples is not None:
         tags.append((338, 3, [extra_samples]))
-    tags.sort()
+    if t4options is not None:
+        tags.append((292, 4, [t4options]))
+    if subsampling is not None:
+        tags.append((530, 3, list(subsampling)))
+    tags = sorted(tags + list(extra_tags), key=lambda t: t[0])
+
+    def packed(typ, vals):
+        if typ == 7:
+            return bytes(vals), len(vals)
+        if typ == 5:
+            return struct.pack(order + "II" * len(vals), *(int(v) for p in vals for v in p)), \
+                len(vals)
+        return struct.pack(order + ("H" if typ == 3 else "I") * len(vals), *map(int, vals)), \
+            len(vals)
+
     data, where = bytearray(), {}
     for tag, typ, vals in tags:  # values over 4 bytes go before the IFD
-        raw = struct.pack(order + ("H" if typ == 3 else "I") * len(vals), *map(int, vals))
+        raw, _ = packed(typ, vals)
         if len(raw) > 4:
             where[tag] = len(body) + len(data)
             data += raw + b"\0" * (len(raw) % 2)
@@ -229,9 +512,9 @@ def _write_page(body: bytearray, order: str, samples, bits, photometric, compres
     ifd_at = len(body)
     body += struct.pack(order + "H", len(tags))
     for tag, typ, vals in tags:
-        raw = struct.pack(order + ("H" if typ == 3 else "I") * len(vals), *map(int, vals))
+        raw, count = packed(typ, vals)
         value = struct.pack(order + "I", where[tag]) if tag in where else raw.ljust(4, b"\0")
-        body += struct.pack(order + "HHI", tag, typ, len(vals)) + value
+        body += struct.pack(order + "HHI", tag, typ, count) + value
     body += struct.pack(order + "I", 0)  # the next IFD, set by the caller
     return ifd_at
 
@@ -341,13 +624,176 @@ def fixtures() -> dict:
         line = _line(rng)
         files[f"tiff_line_{k}.tif"] = tiff_bytes(line, photometric=2, compression=("lzw", "deflate")[k],
                                                  predictor=2, rows_per_strip=8)
+    files.update(_fax_fixtures(rng))
+    files.update(_ycbcr_fixtures(rng))
+    files.update(_jpeg_fixtures(rng))
+    files.update(_refusals())
     return files
 
 
-# the refusals of ``data/tiff.py``, which the tests read but expected.npz
-# has no pixels for
-REFUSED = {"pil_l_jpeg_12x18.tif": "JPEG TIFF compression (7)",
-           "pil_1_group4_12x18.tif": "CCITT Group 4 fax TIFF compression (4)"}
+def _bilevel(rng, h: int, w: int) -> np.ndarray:
+    """0/1 pixels: rectangles of 1 (text-like strokes) over 0, a few specks."""
+    img = np.zeros((h, w), np.uint8)
+    for _ in range(int(rng.integers(4, 12))):
+        y0, x0 = int(rng.integers(0, h)), int(rng.integers(0, w))
+        img[y0 : y0 + int(rng.integers(1, 8)), x0 : x0 + int(rng.integers(1, 12))] = 1
+    img[rng.random((h, w)) < 0.03] ^= 1
+    return img[:, :, None]
+
+
+def _ycc(rgb: np.ndarray) -> np.ndarray:
+    """RGB -> Y, Cb, Cr (BT.601, full range), as a writer stores them."""
+    import cv2
+
+    return cv2.cvtColor(rgb, cv2.COLOR_RGB2YCrCb)[:, :, [0, 2, 1]]
+
+
+def _fax_fixtures(rng) -> dict:
+    from PIL import Image
+
+    files = {}
+    img = _bilevel(rng, 19, 37)
+    for comp, t4, name in (("g4", None, "g4"), ("g3", 0, "g3_1d"), ("g3", 1, "g3_2d"),
+                           ("g3", 5, "g3_2d_fill"), ("ccitt_rle", None, "mh")):
+        for phot, pname in ((0, "miniswhite"), (1, "minisblack")):
+            files[f"{name}_{pname}_19x37.tif"] = tiff_bytes(
+                img, bits=1, photometric=phot, compression=comp, t4options=t4,
+                rows_per_strip=7)
+    files["g4_fillorder2_19x37.tif"] = tiff_bytes(img, bits=1, photometric=0, compression="g4",
+                                                  fill_order=2, rows_per_strip=19)
+    files["g3_2d_tiles_mm_19x37.tif"] = tiff_bytes(img, bits=1, photometric=0, compression="g3",
+                                                   t4options=1, tile=(32, 16), order=">")
+    # libtiff's RLEW reader drops the word alignment where its accumulator
+    # holds 16 bits or more at a row's end (and warns on what follows), so
+    # this one is three rows long
+    files["ccitt_rlew_3x37.tif"] = tiff_bytes(img[:3], bits=1, photometric=0,
+                                              compression="ccitt_rlew", rows_per_strip=3)
+    wide = _bilevel(rng, 3, 2700)  # runs past 1728 and 2560: the extended make-up codes
+    wide[1, 5:2690] = 1
+    wide[2, :] = 0
+    for comp, t4 in (("g4", None), ("g3", 1), ("ccitt_rle", None)):
+        files[f"{comp}_wide_3x2700.tif"] = tiff_bytes(wide, bits=1, photometric=0,
+                                                      compression=comp, t4options=t4)
+    for comp in ("group3", "tiff_ccitt"):
+        bio = io.BytesIO()
+        Image.fromarray(img[:, :, 0] * 255).convert("1").save(bio, format="TIFF",
+                                                              compression=comp)
+        files[f"pil_1_{comp}_19x37.tif"] = bio.getvalue()
+    for k in range(2):  # text lines for the card's daemon phase, G4 and G3 2-D
+        line = (_line(rng).mean(axis=2) < 128).astype(np.uint8)[:, :, None]
+        files[f"g4_line_{k}.tif"] = tiff_bytes(line, bits=1, photometric=0, compression="g4",
+                                               rows_per_strip=len(line))
+        line = (_line(rng).mean(axis=2) < 128).astype(np.uint8)[:, :, None]
+        files[f"g3_line_{k}.tif"] = tiff_bytes(line, bits=1, photometric=0, compression="g3",
+                                               t4options=5, rows_per_strip=len(line))
+    return files
+
+
+def _ycbcr_fixtures(rng) -> dict:
+    from PIL import Image
+
+    files = {}
+    ycc = _ycc(_smooth(rng, 21, 29))
+    rbw = (532, 5, [(15, 1), (235, 1), (128, 1), (240, 1), (128, 1), (240, 1)])
+    luma = (529, 5, [(2126, 10000), (7152, 10000), (722, 10000)])
+    for (hs, vs), comp, extra in (((1, 1), "none", ()), ((2, 2), "lzw", ()),
+                                  ((2, 1), "packbits", (rbw,)), ((1, 2), "deflate", (luma,)),
+                                  ((4, 2), "lzw", (rbw, luma)), ((4, 1), "deflate", ()),
+                                  ((4, 4), "lzw", ())):
+        files[f"ycbcr{hs}{vs}_{comp}_21x29.tif"] = tiff_bytes(
+            ycc, photometric=6, compression=comp, subsampling=(hs, vs), rows_per_strip=8,
+            extra_tags=extra)
+    files["ycbcr44_tiles_lzw_21x29.tif"] = tiff_bytes(ycc, photometric=6, compression="lzw",
+                                                      subsampling=(4, 4), tile=(16, 16))
+    files["ycbcr22_tiles_deflate_mm_21x29.tif"] = tiff_bytes(
+        ycc, photometric=6, compression="deflate", subsampling=(2, 2), tile=(16, 16), order=">")
+    files["ycbcr11_planar_lzw_21x29.tif"] = tiff_bytes(
+        ycc, photometric=6, compression="lzw", planar=2, extra_tags=[(530, 3, [1, 1])])
+    files["ycbcr44_odd_rows_lzw_13x11.tif"] = tiff_bytes(
+        ycc[:13, :11], photometric=6, compression="lzw", subsampling=(4, 4), rows_per_strip=13)
+    bio = io.BytesIO()
+    Image.fromarray(_smooth(rng, 12, 18)).convert("YCbCr").save(bio, format="TIFF")
+    files["pil_ycbcr_raw_12x18.tif"] = bio.getvalue()
+    for k in range(2):  # text lines for the card's daemon phase
+        files[f"ycbcr_line_{k}.tif"] = tiff_bytes(_ycc(_line(rng)), photometric=6,
+                                                  compression="lzw", subsampling=(2, 2),
+                                                  rows_per_strip=8)
+    return files
+
+
+def _jpeg_fixtures(rng) -> dict:
+    from PIL import Image
+
+    files = {}
+    rgb = _smooth(rng, 21, 37)
+    # 2x2 chroma with sharp edges: fancy and plain upsampling part on them
+    sharp = np.zeros((16, 24, 3), np.uint8)
+    sharp[:, :, 1] = 120
+    sharp[::4, :, 0] = 255
+    sharp[:, ::6, 2] = 255
+    sharp[5:11, 7:17] = (20, 200, 40)
+    files["jpeg_ycbcr420_sharp_16x24.tif"] = jpeg_tiff(sharp, 6, rows_per_strip=16,
+                                                       sampling="420", quality=95)
+    for phot, sampling, name, kw in (
+            (1, "444", "gray", dict(rows_per_strip=8)),
+            (2, "444", "rgb", dict(rows_per_strip=8)),
+            (6, "420", "ycbcr420", dict(rows_per_strip=16)),
+            (6, "422", "ycbcr422_tiles", dict(tile=(16, 16))),
+            (6, "411", "ycbcr411_notag", dict(rows_per_strip=8, subsampling_tag=False)),
+            (6, "440", "ycbcr440_tall_last", dict(rows_per_strip=16, tall_last=True)),
+            (6, "444", "ycbcr444_no_tables_mm", dict(rows_per_strip=16, tables=False,
+                                                     order=">")),
+            (2, "444", "rgb_tiles_tall", dict(tile=(16, 32)))):
+        img = rgb[:, :, :1] if phot == 1 else rgb
+        files[f"jpeg_{name}_21x37.tif"] = jpeg_tiff(img, phot, sampling=sampling, **kw)
+    for mode in ("RGB", "YCbCr"):
+        bio = io.BytesIO()
+        Image.fromarray(_smooth(rng, 12, 18)).convert(mode).save(bio, format="TIFF",
+                                                                 compression="jpeg")
+        files[f"pil_{mode.lower()}_jpeg_12x18.tif"] = bio.getvalue()
+    for k in range(2):  # text lines for the card's daemon phase
+        files[f"jpeg_line_{k}.tif"] = jpeg_tiff(_line(rng), 6, sampling="420",
+                                                rows_per_strip=16)
+    return files
+
+
+def _relabelled(compression: int) -> bytes:
+    """An LZW file whose compression tag says ``compression``."""
+    data = bytearray(tiff_bytes(np.zeros((4, 5, 1), np.uint8), compression="lzw"))
+    (ifd,) = struct.unpack_from("<I", data, 4)
+    (n,) = struct.unpack_from("<H", data, ifd)
+    for i in range(n):
+        e = ifd + 2 + 12 * i
+        if struct.unpack_from("<H", data, e)[0] == 259:
+            struct.pack_into("<H", data, e + 8, compression)
+    return bytes(data)
+
+
+def _refusals() -> dict:
+    from PIL import Image
+
+    files = {}
+    gray = np.arange(40, dtype=np.uint8).reshape(5, 8)
+    for mode, kw, name in (("L", {"compression": "zstd"}, "zstd"), ("F", {}, "float"),
+                           ("I", {}, "signed")):
+        bio = io.BytesIO()
+        Image.fromarray(gray).convert(mode).save(bio, format="TIFF", **kw)
+        files[f"refused_{name}.tif"] = bio.getvalue()
+    for code, name in ((6, "old_jpeg"), (34925, "lzma"), (50001, "webp")):
+        files[f"refused_{name}.tif"] = _relabelled(code)
+    files["refused_bigtiff.tif"] = b"II+\x00\x08\x00\x00\x00" + bytes(16)
+    return files
+
+
+# the refusals of ``data/tiff.py`` (the words each must name), which the
+# tests and the card's smoke read but expected.npz has no pixels for
+REFUSED = {"refused_zstd.tif": "ZSTD TIFF compression (50000)",
+           "refused_old_jpeg.tif": "old-style JPEG TIFF compression (6)",
+           "refused_lzma.tif": "LZMA TIFF compression (34925)",
+           "refused_webp.tif": "WebP TIFF compression (50001)",
+           "refused_float.tif": "floating-point TIFF samples",
+           "refused_signed.tif": "signed-integer TIFF samples",
+           "refused_bigtiff.tif": "BigTIFF"}
 
 
 def main() -> None:
@@ -358,13 +804,16 @@ def main() -> None:
     for name, data in fixtures().items():
         with open(os.path.join(OUT, name), "wb") as f:
             f.write(data)
+        if name in REFUSED:
+            continue
         bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
         assert bgr is not None, name
-        if name not in REFUSED:
-            expected[name] = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+        expected[name] = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
     np.savez_compressed(os.path.join(OUT, "expected.npz"), **expected)
     total = sum(os.path.getsize(os.path.join(OUT, f)) for f in os.listdir(OUT))
     print(f"wrote {len(expected) + len(REFUSED)} TIFFs and expected.npz into {OUT}: {total} bytes")
+    for name in sorted(set(os.listdir(OUT)) - set(expected) - set(REFUSED) - {"expected.npz"}):
+        print(f"  {name} is written by no fixture any more")
 
 
 if __name__ == "__main__":
