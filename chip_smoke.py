@@ -128,7 +128,21 @@
    --artifact`` in a process of its own answers 64 lines from 16 client
    threads with the in-process strings; a SIGHUP after a re-export at batch
    128, with clients in flight, drops no request.
-7c. Mesh phase (serving across replicas), on the main path's model and 512
+7c. Model-options phase, on the main path's model and 512 lines at
+   bs 256, 32x128: (1) ``RCNN(stem_s2d=True)`` (the exact space-to-depth
+   rewrite of stem0) against the default stem in fp32: encoder states
+   within ``TOL["enc"]``, CTC tokens equal on every row, attention tokens
+   on >= 99% (bf16 agreement printed).  (2) The stem0 conv alone in bf16:
+   cuDNN's 3x3 against the rewrite (and its 2x2 conv alone), held to each
+   other at ``TOL["bf16"]`` and timed beside the bytes bound.  (3) A static
+   int8 model with an int8 stem (``quantize_stem``, calibrated by
+   ``calibrate`` on 256 lines: stem0 / stem1 ``act_absmax`` finite and
+   > 0) against the static int8 model with a float stem: strings agreement
+   and both img/s printed.  (4) ``resize_pad_normalize(method="linear")``
+   on the serving phase's canvas, card against its CPU twin within 1e-5,
+   then encoded and decoded beside the area resize (agreement printed).
+   Every encode launches 11 + 2 (the ``model_options`` path).
+7d. Mesh phase (serving across replicas), on the main path's model and 512
    lines, bf16 at batch 256.  (1) ``OCRInference(mesh=True)`` on the visible
    cards; with one card its ``predict`` and ``predict_ctc`` strings,
    confidences and launch counts must equal ``mesh=None``'s bit for bit.
@@ -197,7 +211,17 @@
    training gives few).  Prints the loop's img/s, step ms, loader wait per
    step, validation and checkpoint ms per epoch, PNG decode (with the
    images' size) and host augment ms per image and the profiled idle share
-   beside the bare train step's img/s.  Last, ``python -m
+   beside the bare train step's img/s.  Then the checkpoint tools on the
+   three slots (files under build/chip_smoke/ckpt_tools/), as
+   subprocesses where flax does not import: ``python -m
+   rcnn_ocr_tpu_torch.average_checkpoints`` uniform and with ``--weights
+   0.5,0.3,0.2`` must exit 0 with every leaf bit-equal to numpy's float64
+   mix of the slots; ``python -m rcnn_ocr_tpu_torch.ckpt_info --json`` on
+   each slot and average must exit 0 and describe the blob, on a copy
+   stamped format 2 exit 2, on a missing path exit 1; ``OCRInference`` on
+   the uniform average reads set B's validation lines with 11 + 2 launches
+   a batch (the ``checkpoint_average`` path), its exactly-right count
+   printed beside last_weights' and each tool's wall time.  Last, ``python -m
    rcnn_ocr_tpu_torch.evaluate`` runs as a subprocess on last_weights.msgpack
    over set B's validation PNGs, ``--decode ctc_beam`` and then
    ``--decode attention_beam`` with a bigram table of the training labels
@@ -2098,6 +2122,196 @@ def int8_artifact_phase(kernels, variables, images, power: str):
     return out
 
 
+def model_options_phase(kernels, variables, images, power: str) -> dict:
+    """The model options JAX's model takes and no engine passes, on the main
+    path's weights and 512 lines at bs 256 and 32x128: ``RCNN(stem_s2d=True)``
+    against the default stem, the stem0 conv's time both ways, the static
+    int8 stem against the int8 model with a float stem, and the linear device
+    resize against its CPU twin and against ``area``."""
+    import torch.nn.functional as F
+
+    from rcnn_ocr_tpu_torch.inference import OCRInference
+    from rcnn_ocr_tpu_torch.models.rcnn import RCNN
+    from rcnn_ocr_tpu_torch.ops.ctc import ctc_greedy_decode
+    from rcnn_ocr_tpu_torch.ops.preprocess import (
+        host_letterbox,
+        host_resize_geometry,
+        resize_pad_normalize,
+    )
+    from rcnn_ocr_tpu_torch.ops.stem import conv3x3_s2d, s2d_kernel, space_to_depth_pad1
+
+    charset_path = os.path.join(REPO, "configs", "charset.txt")
+    out = {}
+    launches = collections.Counter()
+
+    def engine(dtype, **kw):
+        return OCRInference(variables, charset_path=charset_path, device="cuda", img_h=IMG_H,
+                            img_w=IMG_W, dtype=dtype, **kw)
+
+    def counted(what, call, encodes):
+        """``call()`` with the launch counters from 0: 11 + 2 per encode."""
+        kernels.reset_launch_counts()
+        got = call()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check(counts == {"se_scale": 11 * encodes, "bilstm_scan": 2 * encodes},
+              f"{what} launched {counts}: not 11 + 2 per encode over {encodes} encodes")
+        launches.update(counts)
+        return got
+
+    def s2d_twin(eng):
+        m = RCNN(**eng._model_kwargs, stem_s2d=True)
+        m.load_state_dict(eng.model.state_dict())
+        return m.eval().cuda()
+
+    def decode(model, x, blank):
+        enc = model.encode(x)
+        tokens, valid = ctc_greedy_decode(model._ctc_head(enc), blank)
+        return enc, tokens, valid, model.attn(enc, batch_max_length=MAX_LENGTH).argmax(-1)
+
+    # (1) the s2d stem against the default one, fp32 (held) and bf16 (printed)
+    fp32 = engine(torch.float32)
+    blank = fp32.charset.ctc_blank_id
+    s2d = s2d_twin(fp32)
+    enc_err, ctc_same, attn_same, rows = 0.0, 0, 0, 0
+    with torch.inference_mode():
+        for _, n_real, x in device_batches(fp32, images, BATCH):
+            enc_d, tok_d, val_d, att_d = decode(fp32.model, x, blank)
+            enc_s, tok_s, val_s, att_s = counted("s2d fp32 encode", lambda: decode(s2d, x, blank), 1)
+            enc_err = max(enc_err, held(enc_s, enc_d, what="s2d stem vs default, fp32 encoder "
+                                        "states", **TOL["enc"]))
+            ctc_same += int(((tok_s == tok_d).all(dim=1) & (val_s == val_d))[:n_real].sum())
+            attn_same += int((att_s == att_d).all(dim=1)[:n_real].sum())
+            rows += n_real
+    check(ctc_same == rows, f"s2d stem: CTC tokens equal the default's on {ctc_same}/{rows}")
+    check(attn_same >= 0.99 * rows, f"s2d stem: attention tokens equal on {attn_same}/{rows}")
+    bf16 = engine(torch.bfloat16)
+    s2d_bf16 = s2d_twin(bf16)
+    bf16_ctc = bf16_attn = 0
+    with torch.inference_mode():
+        for _, n_real, x in device_batches(bf16, images, BATCH):
+            _, tok_d, val_d, att_d = decode(bf16.model, x, blank)
+            _, tok_s, val_s, att_s = counted("s2d bf16 encode", lambda: decode(s2d_bf16, x, blank),
+                                             1)
+            bf16_ctc += int(((tok_s == tok_d).all(dim=1) & (val_s == val_d))[:n_real].sum())
+            bf16_attn += int((att_s == att_d).all(dim=1)[:n_real].sum())
+    out["s2d"] = dict(enc_max_abs_err_fp32=enc_err, ctc_rows_equal_fp32=ctc_same,
+                      attn_rows_equal_fp32=attn_same, ctc_rows_equal_bf16=bf16_ctc,
+                      attn_rows_equal_bf16=bf16_attn, rows=rows)
+    print(f"  s2d stem vs default: fp32 CTC tokens equal on {ctc_same}/{rows}, attention on "
+          f"{attn_same}/{rows} (held); bf16 CTC {bf16_ctc}/{rows}, attention {bf16_attn}/{rows} "
+          "(printed)")
+
+    # (2) the stem0 conv alone, bf16 at bs 256: cuDNN 3x3 on C=3 against the
+    # rewrite (s2d + 2x2 conv on C=12 + d2s), and the 2x2 conv alone
+    _, _, x = next(device_batches(bf16, images[:BATCH], BATCH))
+    xs = x.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    w = bf16.model.cnn.stem0.conv.weight
+    with torch.inference_mode():
+        want = F.conv2d(xs, w.to(torch.bfloat16), None, 1, 1)
+        got = conv3x3_s2d(xs, w)
+        # both accumulate in fp32 and round once to bf16: one ulp apart at most
+        held(got, want, what="stem0 conv, s2d vs cuDNN 3x3, bf16", **TOL["bf16"])
+        packed, kernel = space_to_depth_pad1(xs), s2d_kernel(w).to(torch.bfloat16)
+        packed = packed.contiguous(memory_format=torch.channels_last)
+        times = {"default_ms": time_ms(lambda: F.conv2d(xs, w.to(torch.bfloat16), None, 1, 1)),
+                 "s2d_ms": time_ms(lambda: conv3x3_s2d(xs, w)),
+                 "s2d_conv_alone_ms": time_ms(lambda: F.conv2d(packed, kernel))}
+    moved = xs.numel() * 2 + want.numel() * 2
+    times["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+    out["stem0_conv"] = times
+    print(f"  stem0 conv [{BATCH},3,{IMG_H},{IMG_W}] -> {w.shape[0]} ch, bf16: cuDNN 3x3 "
+          f"{times['default_ms']:.4f} ms, s2d rewrite {times['s2d_ms']:.4f} ms (its 2x2 conv "
+          f"alone {times['s2d_conv_alone_ms']:.4f} ms), bytes bound {times['bound_ms']:.4f} ms "
+          f"on {power}")
+
+    # (3) the static int8 stem, calibrated on 256 lines, against the int8
+    # model with a float stem; no engine takes quantize_stem (JAX's neither),
+    # so this engine's model arguments are set before calibrate() rebuilds it
+    n_batches = -(-N_IMAGES // BATCH)
+    float_stem = engine(torch.bfloat16, quantize=True)
+    int8_stem = engine(torch.bfloat16, quantize=True)
+    int8_stem._model_kwargs["quantize_stem"] = True
+    for eng in (float_stem, int8_stem):
+        counted("calibrate", lambda: eng.calibrate(images[:BATCH], batch_size=BATCH), 1)
+    absmax = {n: float(b) for n, b in int8_stem.model.named_buffers() if n.endswith("act_absmax")}
+    stem_absmax = {n: v for n, v in absmax.items() if n.startswith("cnn.stem")}
+    check(len(absmax) == 26 and len(stem_absmax) == 2, f"int8 stem: act_absmax of {sorted(absmax)}")
+    check(all(np.isfinite(v) and v > 0 for v in absmax.values()),
+          f"int8 stem: act_absmax not all finite and > 0: {stem_absmax}")
+    check("cnn.stem0.conv.act_absmax" not in dict(float_stem.model.named_buffers()),
+          "the float-stem int8 model holds a stem act_absmax")
+    stats = int8_stem.variables["quant_stats"]["cnn"]
+    check({"stem0", "stem1"} <= set(stats), "quant_stats lacks stem0 / stem1")
+    texts, img_s, encode_ms = {}, {}, {}
+    _, _, x = next(device_batches(float_stem, images[:BATCH], BATCH))
+    for name, eng in (("float_stem", float_stem), ("int8_stem", int8_stem)):
+        with torch.inference_mode():  # the device's share, without the host's
+            encode_ms[name] = time_ms(lambda: eng.model.encode(x), iters=5)
+        eng.predict(images[:BATCH], max_length=MAX_LENGTH, batch_size=BATCH)  # warm-up
+        t0 = time.perf_counter()
+        attn = counted(f"{name} predict", lambda: eng.predict(
+            images, max_length=MAX_LENGTH, batch_size=BATCH), n_batches)
+        t_attn = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ctc = counted(f"{name} predict_ctc", lambda: eng.predict_ctc(images, batch_size=BATCH),
+                      n_batches)
+        t_ctc = time.perf_counter() - t0
+        texts[name] = (attn, ctc)
+        img_s[name] = {"attention": N_IMAGES / t_attn, "ctc": N_IMAGES / t_ctc}
+    agree = [sum(a == b for a, b in zip(texts["int8_stem"][i], texts["float_stem"][i]))
+             for i in (0, 1)]
+    out["int8_stem"] = dict(stem_act_absmax=stem_absmax, img_s=img_s, encode_ms=encode_ms,
+                            strings_equal_float_stem={"attention": agree[0], "ctc": agree[1]})
+    print(f"  int8 stem (static, calibrated on {BATCH} lines): stem act_absmax {stem_absmax}; "
+          f"strings equal to the float-stem int8 model's on attention {agree[0]}/{N_IMAGES}, "
+          f"CTC {agree[1]}/{N_IMAGES} (random weights: printed); img/s attention "
+          f"{img_s['int8_stem']['attention']:.1f} vs {img_s['float_stem']['attention']:.1f}, "
+          f"CTC {img_s['int8_stem']['ctc']:.1f} vs {img_s['float_stem']['ctc']:.1f} (bs {BATCH}, "
+          f"bf16, host resize included); device encode of a batch {encode_ms['int8_stem']:.3f} "
+          f"vs {encode_ms['float_stem']:.3f} ms on {power}")
+    del float_stem, int8_stem
+
+    # (4) the linear device resize on the serving phase's canvas: card vs the
+    # CPU twin, then encoded and decoded beside the area resize
+    canvas = (max(im.shape[0] for im in images), max(im.shape[1] for im in images))
+    lin_err, ctc_same, attn_same = 0.0, 0, 0
+    resize_ms = {}
+    for lo in range(0, N_IMAGES, BATCH):
+        chunk = images[lo : lo + BATCH]
+        raw, sizes = host_letterbox(chunk, *canvas)
+        sizes = np.concatenate([sizes, host_resize_geometry(sizes, IMG_H, IMG_W)], axis=1)
+        raw_t, sizes_t = torch.from_numpy(raw), torch.from_numpy(sizes)
+        raw_c, sizes_c = raw_t.cuda(), sizes_t.cuda()
+        lin = resize_pad_normalize(raw_c, sizes_c, IMG_H, IMG_W, method="linear")
+        twin = resize_pad_normalize(raw_t, sizes_t, IMG_H, IMG_W, method="linear")
+        err = float((lin.cpu() - twin).abs().max())
+        check(err <= 1e-5, f"linear resize: card vs CPU max abs diff {err:.3e} > 1e-5")
+        lin_err = max(lin_err, err)
+        area = resize_pad_normalize(raw_c, sizes_c, IMG_H, IMG_W, method="area")
+        if not resize_ms:
+            resize_ms = {m: time_ms(lambda m=m: resize_pad_normalize(raw_c, sizes_c, IMG_H, IMG_W,
+                                                                     method=m), iters=10)
+                         for m in ("linear", "area")}
+        with torch.inference_mode():
+            _, tok_l, val_l, att_l = counted("linear-resize encode",
+                                             lambda: decode(bf16.model, lin, blank), 1)
+            _, tok_a, val_a, att_a = decode(bf16.model, area, blank)
+        n = len(chunk)
+        ctc_same += int(((tok_l == tok_a).all(dim=1) & (val_l == val_a))[:n].sum())
+        attn_same += int((att_l == att_a).all(dim=1)[:n].sum())
+    out["linear_resize"] = dict(canvas=list(canvas), card_vs_cpu_max_abs_diff=lin_err,
+                                ctc_rows_equal_area=ctc_same, attn_rows_equal_area=attn_same,
+                                resize_ms=resize_ms)
+    print(f"  linear resize on the {canvas[0]}x{canvas[1]} canvas: card vs CPU max abs diff "
+          f"{lin_err:.3e} (<= 1e-5); bf16 tokens equal to the area resize's on CTC "
+          f"{ctc_same}/{N_IMAGES}, attention {attn_same}/{N_IMAGES} (printed); device resize "
+          f"of a bs-{BATCH} batch: linear {resize_ms['linear']:.3f} ms, area "
+          f"{resize_ms['area']:.3f} ms on {power}")
+    out["launch_counts"] = dict(launches)
+    return out
+
+
 def serve_and_load(args, png_path: str, what: str, power: str) -> dict:
     """``python -m rcnn_ocr_tpu_torch.serve`` with ``args`` in a process of its
     own, driven by ``python -m rcnn_ocr_tpu_torch.serve_loadtest`` with one
@@ -2655,12 +2869,18 @@ def training_phase(kernels, cs, charset_path: str, power: str):
                 eval_ctc_val_loss=float(ev["ctc_val_loss"]))
 
 
-def json_leaves(tree):
+def json_leaves_with_paths(tree, prefix=""):
+    """``(path, leaf)`` of a nested dict of arrays, in sorted key order."""
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from json_leaves(tree[k])
+            yield from json_leaves_with_paths(tree[k], f"{prefix}/{k}")
     else:
-        yield tree
+        yield prefix, tree
+
+
+def json_leaves(tree):
+    for _, leaf in json_leaves_with_paths(tree):
+        yield leaf
 
 
 # --- the training loop --------------------------------------------------------------
@@ -3017,8 +3237,110 @@ def training_loop_phase(kernels, cs, train_img_s: float, power: str):
                rows=len(rows), train_losses=losses, val_losses=val_losses,
                epochs=first["epochs"] + second["epochs"], launches=loop_launches,
                resumed_global_step=second["global_step"], preempted_slot_step=blob["global_step"])
+    out["ckpt_tools"] = checkpoint_tools(kernels, exp_dir, val_paths, rows,
+                                         served["attention"], power)
     out["eval_cli"] = eval_cli_runs(weights, val_dir, rows, shipped["train_csvs"], cs)
     return out
+
+
+def checkpoint_tools(kernels, exp_dir: str, val_paths, rows, last_texts, power: str) -> dict:
+    """``python -m rcnn_ocr_tpu_torch.average_checkpoints`` and ``ckpt_info``
+    as subprocesses on the loop's three slots (where flax does not import,
+    these take the place of the JAX package's tools): the averages bit-equal
+    to a float64 numpy recomputation, ``--json`` fields equal to the blobs',
+    exit 2 on a format-2 copy and 1 on a missing path, and ``OCRInference``
+    reading set B's validation lines with the uniform average."""
+    from rcnn_ocr_tpu_torch.inference import OCRInference
+    from rcnn_ocr_tpu_torch.training import checkpoint as ckpt
+
+    work = os.path.join(REPO, "build", "chip_smoke", "ckpt_tools")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    slots = [os.path.join(exp_dir, f"{s}{ckpt.CKPT_SUFFIX}") for s in ("best_acc", "best_loss",
+                                                                         "last")]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    walls = {}
+
+    def tool(name, *args):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"rcnn_ocr_tpu_torch.{name}", *args],
+                              cwd=work, env=env, capture_output=True, text=True, timeout=300)
+        walls.setdefault(name, []).append(time.perf_counter() - t0)
+        return proc
+
+    blobs = [ckpt.load_checkpoint_blob(p) for p in slots]
+    averages = {}
+    for label, weights in (("uniform", None), ("weighted", "0.5,0.3,0.2")):
+        path = os.path.join(work, f"avg_{label}.msgpack")
+        proc = tool("average_checkpoints", "--out", path, *slots,
+                    *(["--weights", weights] if weights else []))
+        check(proc.returncode == 0, f"average_checkpoints {label} exited {proc.returncode}:\n"
+                                    f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        w = (np.asarray([float(v) for v in weights.split(",")]) if weights
+             else np.ones(len(slots)))
+        w = w / w.sum()
+        got = ckpt.load_checkpoint_blob(path)
+        n_leaves = 0
+        for col in ("params", "batch_stats"):
+            trees = [(b.get("ema_params") or b["params"]) if col == "params" else b[col]
+                     for b in blobs]
+            flat = [dict(json_leaves_with_paths(t)) for t in trees]
+            for key, leaf in json_leaves_with_paths(got[col]):
+                acc = np.asarray(flat[0][key], np.float64) * w[0]
+                for f, wi in zip(flat[1:], w[1:]):
+                    acc = acc + np.asarray(f[key], np.float64) * wi
+                want = acc.astype(np.asarray(flat[0][key]).dtype)
+                check(leaf.dtype == want.dtype and np.array_equal(leaf, want),
+                      f"average {label}: {col}/{key} differs from numpy's float64 mix")
+                n_leaves += 1
+        check(got["itos"] == blobs[0]["itos"] and got["config"] == blobs[0]["config"],
+              f"average {label}: charset / config not the first slot's")
+        averages[label] = path
+        print(f"  average_checkpoints {label}: exit 0 in {walls['average_checkpoints'][-1]:.1f} s; "
+              f"{n_leaves} leaves bit-equal to numpy's float64 mix of the 3 slots")
+
+    stamped = os.path.join(work, "format2.msgpack")
+    ckpt._atomic_write(stamped, dict(blobs[-1], format_version=2))
+    for path in slots + list(averages.values()):
+        proc = tool("ckpt_info", path, "--json")
+        check(proc.returncode == 0, f"ckpt_info {path} exited {proc.returncode}: {proc.stdout}")
+        info, blob = json.loads(proc.stdout), ckpt.load_checkpoint_blob(path)
+        full = "epoch" in blob
+        n = sum(1 for _ in json_leaves_with_paths(blob["params"]))
+        want = {"format_version": blob["format_version"], "readable": True,
+                "kind": "full_checkpoint" if full else "weights",
+                "has_ema_params": "ema_params" in blob, "has_batch_stats": True,
+                "has_quant_calibration": False}
+        if full:
+            want.update(epoch=blob["epoch"], global_step=blob["global_step"],
+                        best_val_loss=blob["best_val_loss"], best_val_acc=blob["best_val_acc"],
+                        charset_size=len(blob["itos"]))
+        check({k: info[k] for k in want} == want and info["params"]["leaves"] == n,
+              f"ckpt_info {path}: {info} does not describe the blob")
+    for path, rc in ((stamped, 2), (os.path.join(work, "missing.msgpack"), 1)):
+        proc = tool("ckpt_info", path, "--json")
+        check(proc.returncode == rc, f"ckpt_info {path} exited {proc.returncode}, not {rc}")
+    print(f"  ckpt_info --json: the 3 slots and 2 averages described as their blobs (exit 0), a "
+          f"format-2 copy exit 2, a missing path exit 1; "
+          f"{np.mean(walls['ckpt_info']):.1f} s wall per call")
+
+    charset_path = os.path.join(REPO, "configs", "charset.txt")
+    engine = OCRInference(averages["uniform"], charset_path=charset_path, device="cuda",
+                          img_h=IMG_H, img_w=IMG_W, dtype=torch.bfloat16)
+    batches = -(-len(val_paths) // TRAIN_BATCH)
+    kernels.reset_launch_counts()
+    texts = engine.predict(val_paths, max_length=TRAIN_MAX_LEN, batch_size=TRAIN_BATCH)
+    counts = kernels.launch_counts()
+    check(counts == {"se_scale": 11 * batches, "bilstm_scan": 2 * batches},
+          f"OCRInference on the average launched {counts} over {batches} batches")
+    right = sum(t == r[1] for t, r in zip(texts, rows))
+    last_right = sum(t == r[1] for t, r in zip(last_texts, rows))
+    print(f"  OCRInference(average of 3 slots) on set B's {len(rows)} validation lines: "
+          f"{right} exactly right beside last_weights' {last_right} (attention, bf16), 11 + 2 "
+          f"launches per batch; tool wall times {({k: [round(t, 2) for t in v] for k, v in walls.items()})} s "
+          f"on {power}")
+    return {"wall_s": walls, "avg_exactly_right": right, "last_exactly_right": last_right,
+            "rows": len(rows), "launch_counts": counts}
 
 
 def eval_cli_runs(weights: str, val_dir: str, rows, train_csvs, cs) -> dict:
@@ -3401,6 +3723,11 @@ def main() -> int:
     int8 = int8_artifact_phase(kernels, variables, images, power)
     int8["seconds"] = time.perf_counter() - t_int8
     print(f"  int8 + artifacts phase {int8['seconds']:.1f} s")
+    print("model-options phase")
+    t_options = time.perf_counter()
+    options = model_options_phase(kernels, variables, images, power)
+    options["seconds"] = time.perf_counter() - t_options
+    print(f"  model-options phase {options['seconds']:.1f} s")
     print("mesh phase")
     mesh = mesh_phase(kernels, variables, images, power, daemon)
     del variables
@@ -3428,9 +3755,11 @@ def main() -> int:
                    "daemon": daemon["launch_counts"][name],
                    "long_lines": long_line["launch_counts"][name],
                    "int8_artifacts": int8["launch_counts"][name],
+                   "model_options": options["launch_counts"][name],
                    "mesh": mesh["launch_counts"][name],
                    "train": train["launch_counts"][name],
                    "train_loop": loop["launches"][name],
+                   "checkpoint_average": loop["ckpt_tools"]["launch_counts"][name],
                    "dp": scale["dp_launches"][name],
                    "hpo": scale["hpo_launches"][name]}
         row.update(launches=by_path["inference"], launches_by_path=by_path,
@@ -3442,7 +3771,7 @@ def main() -> int:
             check(n > 0, f"{name} never launched on the {p} path")
     result = {"card": power, "kernels": rows, "main_path": path, "beam": beams,
               "serving": serving, "daemon": daemon, "long_lines": long_line,
-              "int8_artifacts": int8, "mesh": mesh,
+              "int8_artifacts": int8, "model_options": options, "mesh": mesh,
               "training": training, "training_loop": loop, "scale_out": scale,
               "seconds": time.perf_counter() - t_start}
     if args.json_out:

@@ -10,8 +10,10 @@ norm (running ones advanced), DropBlock after each squeeze-excite when
 the attention decoder's α-dropout (``p = 0.1``, as JAX fixes it) and
 scheduled sampling.  Every random bit comes from the ``generator`` argument.
 
-``quantize`` / ``act_quant`` select the backbone's int8 inference path
-(``rcnn_ocr_tpu/models/rcnn.py:67-82``; see
+``quantize`` / ``act_quant`` select the backbone's int8 inference path,
+``quantize_stem`` extends it to the stem and ``stem_s2d`` takes the
+space-to-depth rewrite of the first stem conv
+(``rcnn_ocr_tpu/models/rcnn.py:67-83``; see
 :mod:`rcnn_ocr_tpu_torch.models.seresnet31`).
 """
 
@@ -40,7 +42,8 @@ class RCNN(nn.Module):
                  dtype: torch.dtype = torch.float32, enc_dropout_p: float = 0.1,
                  dropblock_p: float = 0.0, dropblock_block_size: int = 5,
                  sampling_prob: float = 0.0, quantize: bool = False,
-                 act_quant: str = "dynamic"):
+                 act_quant: str = "dynamic", quantize_stem: bool = False,
+                 stem_s2d: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.hidden_size = hidden_size
@@ -53,7 +56,8 @@ class RCNN(nn.Module):
         self.act_quant = act_quant
         self.cnn = SEResNet31(out_channels=512, width_mult=width_mult, dtype=dtype,
                               dropblock_p=dropblock_p, dropblock_block_size=dropblock_block_size,
-                              quantize=quantize, act_quant=act_quant)
+                              quantize=quantize, act_quant=act_quant,
+                              quantize_stem=quantize_stem, stem_s2d=stem_s2d)
         in_size = self.cnn._w(512)
         for i in range(lstm_layers):
             setattr(self, f"enc_rnn{i}", BiLSTM(in_size, hidden_size, hidden_size, dtype=dtype))

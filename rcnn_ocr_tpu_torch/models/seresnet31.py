@@ -27,8 +27,16 @@ scale computed per call (``act_quant="dynamic"``) or a calibrated one
 (``"static"``: each quantized conv holds an ``act_absmax`` buffer, JAX's
 ``quant_stats`` leaf of the same path, recorded inside
 :func:`recording_act_absmax`).  The stem and the 1x1 ``downsample`` stay
-float, as in JAX.  The space-to-depth stem and ``quantize_stem`` are not
-ported (ROADMAP.md queue 1: the s2d and int8 stems).
+float, as in JAX, unless ``quantize_stem``: then ``stem0`` and ``stem1``
+run in int8 too (``q_stem = quantize and quantize_stem``, so the flag does
+nothing without ``quantize``), with their own ``act_absmax`` under
+``act_quant="static"``.
+
+``stem_s2d=True`` runs ``stem0`` (3x3, stride 1, pad 1, C=3 input) through
+the exact space-to-depth rewrite of :mod:`rcnn_ocr_tpu_torch.ops.stem` in
+eval mode when H and W are even (JAX's ``_RawConv(s2d=True)``); train mode
+and odd sizes take the plain conv.  It composes with the float stem only:
+``stem_s2d`` with an int8 stem raises ``ValueError``, as in JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from torch import nn
 from rcnn_ocr_tpu_torch.models.dropblock import dropblock_2d
 from rcnn_ocr_tpu_torch.ops.quant import int8_conv_nhwc, int8_conv_nhwc_static
 from rcnn_ocr_tpu_torch.ops.se_scale import se_scale
+from rcnn_ocr_tpu_torch.ops.stem import conv3x3_s2d
 from rcnn_ocr_tpu_torch.parallel.mesh import current_shard, global_sum
 
 BN_MOMENTUM = 0.9  # flax's convention: running = 0.9 * running + 0.1 * batch
@@ -97,11 +106,13 @@ def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
 
 class ConvBN(nn.Module):
     """Bias-free conv (explicit symmetric padding) -> fp32 batch norm; the
-    conv in int8 in eval mode when ``quantize`` (see the module docstring)."""
+    conv in int8 in eval mode when ``quantize``, or through the
+    space-to-depth rewrite when ``s2d`` and the conv is 3x3/s1/p1 on an
+    even-sized eval-mode input (see the module docstring)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: Tuple[int, int] = (3, 3),
                  stride: Tuple[int, int] = (1, 1), padding: Tuple[int, int] = (1, 1),
-                 quantize: bool = False, act_quant: str = "dynamic"):
+                 quantize: bool = False, act_quant: str = "dynamic", s2d: bool = False):
         super().__init__()
         if act_quant not in ("dynamic", "static"):
             raise ValueError(f"act_quant must be 'dynamic' or 'static', got {act_quant!r}")
@@ -109,6 +120,7 @@ class ConvBN(nn.Module):
         self.bn = nn.BatchNorm2d(out_ch, eps=1e-5)
         self.quantize = quantize
         self.act_quant = act_quant
+        self.s2d = s2d
         self.recording = False  # set by recording_act_absmax
         if quantize and act_quant == "static":
             self.conv.register_buffer("act_absmax", torch.zeros(()))
@@ -126,6 +138,13 @@ class ConvBN(nn.Module):
         # JAX casts the int8 result to the compute dtype before the batch norm
         return y.permute(0, 3, 1, 2).to(x.dtype).float()
 
+    def _takes_s2d(self, x: torch.Tensor, train: bool) -> bool:
+        """JAX's conditions for the rewrite (``seresnet31.py:_RawConv``)."""
+        c = self.conv
+        return (self.s2d and not train and tuple(c.kernel_size) == (3, 3)
+                and tuple(c.stride) == (1, 1) and tuple(c.padding) == (1, 1)
+                and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0)
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         c = self.conv
         if self.recording:
@@ -133,6 +152,8 @@ class ConvBN(nn.Module):
             c.act_absmax.copy_(torch.maximum(c.act_absmax, x.float().abs().amax()))
         if self.quantize and not train and not self.recording:
             y = self._int8(x)
+        elif self._takes_s2d(x, train):
+            y = conv3x3_s2d(x, c.weight).contiguous(memory_format=torch.channels_last).float()
         else:
             y = F.conv2d(x, c.weight.to(x.dtype), None, c.stride, c.padding).float()
         bn = self.bn
@@ -205,18 +226,22 @@ class SEResNet31(nn.Module):
                  quantize: bool = False, act_quant: str = "dynamic",
                  quantize_stem: bool = False, stem_s2d: bool = False):
         super().__init__()
-        if quantize_stem or stem_s2d:
-            raise NotImplementedError(
-                "the space-to-depth stem and the int8 stem (quantize_stem) are not in the "
-                "PyTorch port (ROADMAP.md queue 1: the s2d and int8 stems)"
+        q_stem = quantize and quantize_stem
+        if q_stem and stem_s2d:
+            # JAX's int8 branch returns before the s2d rewrite is considered:
+            # accepting both would run the plain int8 conv under an s2d label
+            raise ValueError(
+                "stem_s2d composes with the fp/bf16 stem only; the int8 "
+                "stem (quantize_stem) bypasses the space-to-depth rewrite "
+                "— pick one"
             )
         self.width_mult = width_mult
         self.dtype = dtype
         self.quantize = quantize
         self.act_quant = act_quant
         q = dict(quantize=quantize, act_quant=act_quant)
-        self.stem0 = ConvBN(3, self._w(64))
-        self.stem1 = ConvBN(self._w(64), self._w(128))
+        self.stem0 = ConvBN(3, self._w(64), quantize=q_stem, act_quant=act_quant, s2d=stem_s2d)
+        self.stem1 = ConvBN(self._w(64), self._w(128), quantize=q_stem, act_quant=act_quant)
         self.block_names = []
         in_ch = self._w(128)
         for li, (width, blocks, stride) in enumerate(STAGES, start=1):

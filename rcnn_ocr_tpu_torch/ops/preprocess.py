@@ -2,7 +2,7 @@
 
 Counterpart of ``rcnn_ocr_tpu/ops/preprocess.py`` (``_coverage_weights``,
 ``_bilinear_weights``, ``host_resize_geometry``, ``resize_pad_normalize``
-with ``method="area"``, ``host_letterbox``).  The serving path ships raw
+with ``method="area"`` and ``"linear"``, ``host_letterbox``).  The serving path ships raw
 uint8 pixels letterboxed into a fixed canvas; the device scales each image
 onto the model canvas, keeping its aspect (left-aligned, vertically
 centered), fills the rest with white and normalizes to [-1, 1].
@@ -15,6 +15,13 @@ the card as on the host: the pixel is a rounded sum of up to Hc x Wc
 products, and TF32 (a 10-bit mantissa), which a caller may enable for
 float32 matmuls, would move it across a .5 on many pixels; float64 matmuls
 never use TF32, so the output does not depend on that global setting.
+
+``method="linear"`` is JAX's other resize, ``jax.image.scale_and_translate``
+with the triangle kernel and antialiasing over the whole canvas
+(:func:`_triangle_weights`): the canvas's zeros beyond the image are input
+too and bleed into its bottom and right edge, and the result is not
+rounded to uint8, so it has only a normalized form.  Its weights are float32,
+as JAX builds them, and its products float64, as the area path's.
 """
 
 from __future__ import annotations
@@ -67,6 +74,30 @@ def _bilinear_weights(n_out: int, n_src: int, src_len: torch.Tensor, dst_len: to
     return torch.where(keep, w, torch.zeros_like(w))
 
 
+def _triangle_weights(n_out: int, n_in: int, scale: torch.Tensor,
+                      translation: torch.Tensor) -> torch.Tensor:
+    """``[B, n_out, n_in]`` float32 weights of ``jax.image.scale_and_translate``
+    (``method="linear"``, ``antialias=True``; jax 0.9.0's
+    ``compute_weight_mat``): a triangle kernel widened by ``1/scale`` when
+    shrinking, sample ``(i + 0.5)/scale - t/scale - 0.5``, each output's
+    weights normalized by their sum (0 where that sum is below 1000 float32
+    epsilons) and 0 where the sample lies outside ``[-0.5, n_in - 0.5]``.
+    ``scale`` and ``translation`` are ``[B]`` float32 tensors."""
+    scale, translation = scale[:, None, None], translation[:, None, None]
+    inv_scale = 1.0 / scale
+    kernel_scale = torch.clamp_min(inv_scale, 1.0)
+    i = torch.arange(n_out, dtype=torch.float32, device=scale.device)[None, :, None]
+    j = torch.arange(n_in, dtype=torch.float32, device=scale.device)[None, None, :]
+    sample_f = (i + 0.5) * inv_scale - translation * inv_scale - 0.5  # [B, n_out, 1]
+    w = (1.0 - (sample_f - j).abs() / kernel_scale).clamp_min(0.0)
+    total = w.sum(dim=2, keepdim=True)
+    zero = torch.zeros_like(w)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)), zero)
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return torch.where(inside, w, zero)
+
+
 def host_resize_geometry(sizes, img_h: int, img_w: int) -> np.ndarray:
     """Per-image ``(dst_h, dst_w, y0)`` int32 ``[B, 3]`` of the placed rect,
     in float64 with round-half-even as ``ResizeAndPad`` computes it.  Append
@@ -100,6 +131,28 @@ def _placed_rects(sizes: torch.Tensor, img_h: int, img_w: int):
     return h, w, new_h, new_w, y0, shrink
 
 
+def _resample(raw: torch.Tensor, wh: torch.Tensor, ww: torch.Tensor) -> torch.Tensor:
+    """``einsum("bhH,bHWc,bwW->bhwc", wh, raw, ww)`` in float64, as two
+    batched products; the second takes (h, c) as rows so that ``ww`` is not
+    broadcast (and copied) per row."""
+    batch, canvas_h, canvas_w = raw.shape[:3]
+    img_h, img_w = wh.shape[1], ww.shape[1]
+    wh, ww = wh.to(torch.float64), ww.to(torch.float64)
+    rows = torch.bmm(wh, raw.to(torch.float64).reshape(batch, canvas_h, canvas_w * 3))
+    rows = rows.reshape(batch, img_h, canvas_w, 3).transpose(2, 3)  # [B, h, 3, Wc]
+    out = torch.bmm(rows.reshape(batch, img_h * 3, canvas_w), ww.transpose(1, 2))
+    return out.reshape(batch, img_h, 3, img_w).transpose(2, 3)  # [B, h, w, 3]
+
+
+def _inside(y0: torch.Tensor, new_h: torch.Tensor, new_w: torch.Tensor, img_h: int,
+            img_w: int) -> torch.Tensor:
+    """``[B, img_h, img_w, 1]``: the pixels of each placed rect (the rest is white)."""
+    r = torch.arange(img_h, dtype=y0.dtype, device=y0.device)[None, :, None]
+    c = torch.arange(img_w, dtype=y0.dtype, device=y0.device)[None, None, :]
+    return ((r >= y0[:, None, None]) & (r < (y0 + new_h)[:, None, None])
+            & (c < new_w[:, None, None]))[..., None]
+
+
 def resize_pad_u8(raw: torch.Tensor, sizes: torch.Tensor, img_h: int, img_w: int,
                   method: str = "area") -> torch.Tensor:
     """uint8 canvas batch ``[B, Hc, Wc, 3]`` (each image in its top-left
@@ -107,16 +160,15 @@ def resize_pad_u8(raw: torch.Tensor, sizes: torch.Tensor, img_h: int, img_w: int
 
     ``sizes`` is ``[B, 2]`` int ``(h, w)``, or ``[B, 5]`` ``(h, w, dst_h,
     dst_w, y0)`` with :func:`host_resize_geometry`'s rect, which serving
-    sends so that every rect is the host's.  ``method="linear"`` (JAX's
-    ``jax.image.scale_and_translate`` triangle kernel, which no engine
-    passes) is not ported."""
+    sends so that every rect is the host's.  Only ``method="area"`` has a
+    uint8 form: ``"linear"`` raises ``ValueError`` (JAX does not round the
+    linear resize; :func:`resize_pad_normalize` computes it)."""
     if method == "linear":
-        raise NotImplementedError(
-            "resize_pad_normalize(method='linear') is not in the PyTorch port "
-            "(ROADMAP.md queue 1: the linear resize, the triangle-kernel resize no engine uses)")
+        raise ValueError("the linear resize has no uint8 form (JAX does not round it to "
+                         "uint8); use resize_pad_normalize(method='linear')")
     if method != "area":
         raise ValueError(f"method must be 'area' or 'linear', got {method!r}")
-    batch, canvas_h, canvas_w = raw.shape[:3]
+    canvas_h, canvas_w = raw.shape[1:3]
     h, w, new_h, new_w, y0, shrink = _placed_rects(sizes, img_h, img_w)
     h, w, new_h, new_w, y0 = (t.to(torch.float64) for t in (h, w, new_h, new_w, y0))
     zero = torch.zeros_like(y0)
@@ -125,29 +177,31 @@ def resize_pad_u8(raw: torch.Tensor, sizes: torch.Tensor, img_h: int, img_w: int
                      _bilinear_weights(img_h, canvas_h, h, new_h, y0))
     ww = torch.where(pick, _coverage_weights(img_w, canvas_w, w, new_w, zero),
                      _bilinear_weights(img_w, canvas_w, w, new_w, zero))
-    # einsum("hH,HWc,wW->hwc") per image as two batched products; the second
-    # takes (h, c) as rows so that ww is not broadcast (and copied) per row
-    rows = torch.bmm(wh, raw.to(torch.float64).reshape(batch, canvas_h, canvas_w * 3))
-    rows = rows.reshape(batch, img_h, canvas_w, 3).transpose(2, 3)  # [B, h, 3, Wc]
-    out = torch.bmm(rows.reshape(batch, img_h * 3, canvas_w), ww.transpose(1, 2))
-    out = out.reshape(batch, img_h, 3, img_w).transpose(2, 3)  # [B, h, w, 3]
     # the host materializes cv2.resize's uint8 output before normalizing
-    out = torch.round(out.clamp(0.0, 255.0))
-    r = torch.arange(img_h, dtype=torch.float64, device=raw.device)[None, :, None]
-    c = torch.arange(img_w, dtype=torch.float64, device=raw.device)[None, None, :]
-    inside = ((r >= y0[:, None, None]) & (r < (y0 + new_h)[:, None, None])
-              & (c < new_w[:, None, None]))
-    out = torch.where(inside[..., None], out, torch.full_like(out, 255.0))
+    out = torch.round(_resample(raw, wh, ww).clamp(0.0, 255.0))
+    out = torch.where(_inside(y0, new_h, new_w, img_h, img_w), out, torch.full_like(out, 255.0))
     return out.to(torch.uint8)
 
 
 def resize_pad_normalize(raw: torch.Tensor, sizes: torch.Tensor, img_h: int, img_w: int,
                          method: str = "area") -> torch.Tensor:
-    """:func:`resize_pad_u8` then the [-1, 1] normalize of
-    :func:`~rcnn_ocr_tpu_torch.ops.augment.device_normalize` (float32
-    ``[B, img_h, img_w, 3]``): a row whose pixels equal the host
-    ``ResizeAndPad``'s is bit-equal to ``predict``'s normalized batch."""
-    return device_normalize(resize_pad_u8(raw, sizes, img_h, img_w, method))
+    """The normalized [-1, 1] model input, float32 ``[B, img_h, img_w, 3]``.
+
+    ``method="area"``: :func:`resize_pad_u8` then the lookup of
+    :func:`~rcnn_ocr_tpu_torch.ops.augment.device_normalize`, so a row whose
+    pixels equal the host ``ResizeAndPad``'s is bit-equal to ``predict``'s
+    normalized batch.  ``method="linear"``: JAX's triangle-kernel resize of
+    the whole canvas (module docstring), unrounded, the rect's outside
+    white, then ``(x / 255 - 0.5) / 0.5`` in float32 as JAX computes it."""
+    if method != "linear":
+        return device_normalize(resize_pad_u8(raw, sizes, img_h, img_w, method))
+    canvas_h, canvas_w = raw.shape[1:3]
+    h, w, new_h, new_w, y0, _ = _placed_rects(sizes, img_h, img_w)
+    wh = _triangle_weights(img_h, canvas_h, new_h / h, y0)
+    ww = _triangle_weights(img_w, canvas_w, new_w / w, torch.zeros_like(y0))
+    out = _resample(raw, wh, ww).to(torch.float32)
+    out = torch.where(_inside(y0, new_h, new_w, img_h, img_w), out, torch.full_like(out, 255.0))
+    return (out / 255.0 - 0.5) / 0.5
 
 
 def host_letterbox(images: List[np.ndarray], canvas_h: int, canvas_w: int,

@@ -91,12 +91,14 @@ def int8_conv_accumulate(xq: torch.Tensor, wq: torch.Tensor, strides: Sequence[i
     patches = xp.unfold(1, kh, sh).unfold(2, kw, sw)
     ho, wo = patches.shape[1], patches.shape[2]
     m, k = batch * ho * wo, kh * kw * cin
-    # one copy of the patches into a matrix padded to _int_mm's rules: 16
-    # more rows (it takes more than 16) and depth and width to multiples of
-    # 8.  The row padding is unconditional, so no branch reads the batch and
-    # a program exported with a symbolic batch runs at any size.
+    # one copy of the patches into a matrix padded to _int_mm's rules: 16 to
+    # 47 more rows, to a multiple of 32 (it takes more than 16, and on the
+    # H100 cuBLASLt refuses a depth of 64 or less unless the rows are a
+    # multiple of 32: the int8 stem's 27), and depth and width to multiples
+    # of 8.  The row padding is unconditional, so no branch reads the batch
+    # and a program exported with a symbolic batch runs at any size.
     k_pad, n_pad = _round_up(k, 8) - k, _round_up(cout, 8) - cout
-    rows = xq.new_empty((m + 16, k + k_pad))
+    rows = xq.new_empty((_round_up(m + 16, 32), k + k_pad))
     rows[:m, :k].view(batch, ho, wo, kh, kw, cin).copy_(patches.permute(0, 1, 2, 4, 5, 3))
     rows[m:].zero_()
     if k_pad:

@@ -617,6 +617,10 @@ def test_daemon_on_the_card_answers_png_and_jpeg_and_reloads(cuda_device, tmp_pa
     ((64, 4, 16, 512), 512, 2, (2, 1), ((0, 0), (1, 1))),  # out0
     ((64, 2, 17, 512), 512, 2, 1, "VALID"),  # out1
     ((2, 5, 7, 12), 20, 3, 2, ((1, 1), (1, 1))),  # 8 rows, channels not multiples of 8
+    # the int8 stem: depth 27 (stem0), whose product cuBLASLt takes only at
+    # a row count that is a multiple of 32, and stem1 at full resolution
+    ((64, 32, 128, 3), 64, 3, 1, ((1, 1), (1, 1))),
+    ((64, 32, 128, 64), 128, 3, 1, ((1, 1), (1, 1))),
 ])
 def test_int8_accumulators_on_the_card_equal_the_cpu(cuda_device, shape, cout, kernel, stride,
                                                      padding):
@@ -632,6 +636,39 @@ def test_int8_accumulators_on_the_card_equal_the_cpu(cuda_device, shape, cout, k
     got = int8_conv_accumulate(xq.to(cuda_device), wq.to(cuda_device), strides, padding)
     assert got.device.type == "cuda" and got.dtype == torch.int32
     assert torch.equal(got.cpu(), int8_conv_accumulate(xq, wq, strides, padding))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_s2d_stem_conv_on_the_card_matches_the_plain_conv(cuda_device, dtype):
+    """The space-to-depth rewrite of stem0 against cuDNN's 3x3 conv on the
+    same card: within rounding (fp32: 1e-5; bf16: one output ulp)."""
+    import torch.nn.functional as F
+
+    from rcnn_ocr_tpu_torch.ops.stem import conv3x3_s2d
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(16, 3, 32, 128, device=cuda_device, generator=g).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.randn(64, 3, 3, 3, device=cuda_device, generator=g) / 27 ** 0.5
+    want = F.conv2d(x, w.to(dtype), None, 1, 1).float()
+    got = conv3x3_s2d(x, w).float()
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2 ** -6, atol=1e-6)
+    torch.testing.assert_close(got, want, **tol)
+
+
+def test_linear_resize_on_the_card_equals_the_cpu(cuda_device):
+    """resize_pad_normalize(method="linear") on the card against the same
+    function on the CPU: float32 weights, float64 products, within 1e-5."""
+    from rcnn_ocr_tpu_torch.ops.preprocess import host_letterbox, resize_pad_normalize
+
+    imgs = _mixed_lines(12, seed=3)
+    raw, sizes = host_letterbox(imgs, 80, 500)
+    raw, sizes = torch.from_numpy(raw), torch.from_numpy(sizes)
+    want = resize_pad_normalize(raw, sizes, 32, 128, method="linear")
+    got = resize_pad_normalize(raw.to(cuda_device), sizes.to(cuda_device), 32, 128,
+                               method="linear")
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("exported_on", ["cuda", "cpu"])

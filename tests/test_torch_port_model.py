@@ -6,6 +6,14 @@ holds JAX-vs-torch work to (tests/test_torch_parity.py:88,110,126):
 rtol 1e-4 / atol 2e-4 on encoder states and feature maps, rtol 1e-3 /
 atol 5e-4 on logits with equal argmaxes.  The BiLSTM module is held at
 1e-5 like its kernel.
+
+The space-to-depth stem (``rcnn_ocr_tpu_torch/ops/stem.py``) mirrors
+``tests/test_stem_s2d.py`` against the JAX functions: the rewritten conv
+within rtol 1e-5 of the plain one (atol 1e-5 / 1e-4 for the 27- and
+144-term sums), its pieces equal to JAX's, the backbone with ``stem_s2d``
+against JAX's default and s2d backbones, train mode unchanged, odd sizes
+falling back to the plain conv, and ``RCNN(stem_s2d=True)``'s greedy and CTC
+tokens equal to JAX's.
 """
 
 import jax
@@ -18,11 +26,13 @@ from rcnn_ocr_tpu.models import RCNN as JaxRCNN
 from rcnn_ocr_tpu.models.attention import AttentionDecoder as JaxAttention
 from rcnn_ocr_tpu.models.lstm import BiLSTM as JaxBiLSTM
 from rcnn_ocr_tpu.models.seresnet31 import SEResNet31 as JaxSEResNet31
+from rcnn_ocr_tpu.ops import stem as jax_stem
 from rcnn_ocr_tpu_torch.interop.jax_params import load_jax_variables
 from rcnn_ocr_tpu_torch.models.attention import AttentionDecoder
 from rcnn_ocr_tpu_torch.models.lstm import BiLSTM
 from rcnn_ocr_tpu_torch.models.rcnn import RCNN, TIME_DOWNSAMPLE
-from rcnn_ocr_tpu_torch.models.seresnet31 import SEResNet31
+from rcnn_ocr_tpu_torch.models.seresnet31 import ConvBN, SEResNet31
+from rcnn_ocr_tpu_torch.ops import stem as port_stem
 
 ENC = dict(rtol=1e-4, atol=2e-4)
 LOGITS = dict(rtol=1e-3, atol=5e-4)
@@ -170,15 +180,21 @@ def test_attention_decoder_blank_mask_matches_jax():
 
 
 def test_eval_only_flags_raise():
-    """The s2d stem and the int8 stem are not ported (ROADMAP.md queue 1:
-    the s2d and int8 stems; int8 itself is, ``tests/test_torch_port_quant.py``);
-    train mode is the ``train`` argument, as in JAX, so nn.Module's training
-    flag changes nothing."""
+    """stem_s2d with the int8 stem raises ValueError in both packages (the
+    int8 conv would bypass the rewrite); quantize_stem without quantize and
+    stem_s2d alone build; train mode is the ``train`` argument, as in JAX, so
+    nn.Module's training flag changes nothing."""
     assert SEResNet31(quantize=True, width_mult=0.125).quantize
-    with pytest.raises(NotImplementedError, match="queue 1: the s2d and int8 stems"):
-        SEResNet31(stem_s2d=True)
-    with pytest.raises(NotImplementedError, match="queue 1: the s2d and int8 stems"):
-        SEResNet31(quantize=True, quantize_stem=True)
+    x0 = jnp.zeros((1, 32, 16, 3))
+    for build in (lambda: SEResNet31(width_mult=0.125, quantize=True, quantize_stem=True,
+                                     stem_s2d=True),
+                  lambda: JaxSEResNet31(width_mult=0.125, quantize=True, quantize_stem=True,
+                                        stem_s2d=True).init(jax.random.PRNGKey(0), x0)):
+        with pytest.raises(ValueError, match="stem_s2d composes with the fp/bf16 stem only"):
+            build()
+    assert SEResNet31(width_mult=0.125, stem_s2d=True).stem0.s2d
+    assert not SEResNet31(width_mult=0.125, quantize_stem=True).stem0.quantize
+    assert SEResNet31(width_mult=0.125, quantize=True, quantize_stem=True).stem1.quantize
     tm = SEResNet31(width_mult=0.125)  # nn.Module starts in training mode
     x = torch.randn(2, 32, 16, 3, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
@@ -186,3 +202,120 @@ def test_eval_only_flags_raise():
         stats = tm.stem0.bn.running_mean.clone()
         tm(x, train=True)
     assert not torch.equal(tm.stem0.bn.running_mean, stats)
+
+
+# --- the space-to-depth stem -------------------------------------------------------
+
+def _conv3x3_p1(x, k):
+    return jax.lax.conv_general_dilated(
+        x, k, window_strides=(1, 1), padding=((1, 1), (1, 1)),
+        dimension_numbers=("NHWC", "HWIO", "NHWC"))
+
+
+def _nchw(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("shape,cout,atol", [((2, 8, 12, 3), 5, 1e-5),
+                                             ((1, 6, 10, 16), 8, 1e-4)])
+def test_s2d_conv_exact(shape, cout, atol):
+    """tests/test_stem_s2d.py's two op cases (C=3, and wide channels): the
+    port's rewrite against JAX's plain conv, and each piece equal to JAX's."""
+    rng = np.random.default_rng(shape[-1])
+    x = rng.normal(size=shape).astype(np.float32)
+    k = rng.normal(size=(3, 3, shape[-1], cout)).astype(np.float32)
+    want = np.asarray(_conv3x3_p1(jnp.asarray(x), jnp.asarray(k)))
+    w = torch.from_numpy(k).permute(3, 2, 0, 1)  # HWIO -> OIHW
+    got = port_stem.conv3x3_s2d(_nchw(x), w).permute(0, 2, 3, 1).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol)
+    np.testing.assert_array_equal(port_stem.s2d_kernel(w).permute(2, 3, 1, 0).numpy(),
+                                  np.asarray(jax_stem.s2d_kernel(jnp.asarray(k))))
+    xs = port_stem.space_to_depth_pad1(_nchw(x))
+    np.testing.assert_array_equal(xs.permute(0, 2, 3, 1).numpy(),
+                                  np.asarray(jax_stem.space_to_depth_pad1(jnp.asarray(x))))
+    y = rng.normal(size=(2, 3, 5, 4 * cout)).astype(np.float32)
+    np.testing.assert_array_equal(port_stem.depth_to_space(_nchw(y)).permute(0, 2, 3, 1).numpy(),
+                                  np.asarray(jax_stem.depth_to_space(jnp.asarray(y))))
+    with pytest.raises(ValueError, match="3x3"):
+        port_stem.s2d_kernel(torch.zeros(4, 3, 2, 2))
+
+
+@pytest.fixture(scope="module")
+def backbone_vars():
+    x = np.random.default_rng(2).normal(size=(2, 32, 64, 3)).astype(np.float32)
+    v = JaxSEResNet31(width_mult=0.25, dtype=jnp.float32).init(
+        {"params": jax.random.PRNGKey(0)}, jnp.asarray(x), train=False)
+    return _numpy_tree(v), x
+
+
+def _port_backbone(v, **kw):
+    holder = torch.nn.Module()
+    holder.cnn = SEResNet31(width_mult=0.25, **kw).eval()
+    load_jax_variables(holder, {col: {"cnn": tree} for col, tree in v.items()})
+    return holder.cnn
+
+
+def test_backbone_stem_s2d_matches_default(backbone_vars):
+    """SEResNet31(stem_s2d=True) in fp32 at inference: JAX's default and s2d
+    backbones on the same variables, within the feature-map tolerance."""
+    v, x = backbone_vars
+    tm = _port_backbone(v, stem_s2d=True)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
+    for kw in ({}, {"stem_s2d": True}):
+        want = np.asarray(JaxSEResNet31(width_mult=0.25, dtype=jnp.float32, **kw).apply(
+            v, jnp.asarray(x), train=False))
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, **ENC)
+
+
+def test_backbone_stem_s2d_train_mode_unchanged(backbone_vars):
+    """The rewrite is inference-only: with train=True the s2d backbone's
+    output and batch-norm updates equal the default's bit for bit."""
+    v, x = backbone_vars
+    base, s2d = _port_backbone(v), _port_backbone(v, stem_s2d=True)
+    with torch.no_grad():
+        want = base(torch.from_numpy(x), train=True)
+        got = s2d(torch.from_numpy(x), train=True)
+    assert torch.equal(got, want)
+    for (name, a), (_, b) in zip(base.named_buffers(), s2d.named_buffers()):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("hw", [(9, 12), (10, 13), (10, 12)])
+def test_s2d_conv_bn_falls_back_on_odd_sizes(hw):
+    """ConvBN(s2d=True) takes the rewrite only on even H and W (JAX's
+    conditions); an odd side runs the plain conv, bit for bit."""
+    torch.manual_seed(0)
+    plain, s2d = ConvBN(3, 8).eval(), ConvBN(3, 8, s2d=True).eval()
+    s2d.load_state_dict(plain.state_dict())
+    x = torch.randn(2, 3, *hw)
+    assert s2d._takes_s2d(x, train=False) == (hw == (10, 12))
+    assert not s2d._takes_s2d(x, train=True)
+    with torch.no_grad():
+        if hw == (10, 12):
+            torch.testing.assert_close(s2d(x), plain(x), rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(s2d(x), plain(x))
+    strided = ConvBN(3, 8, stride=(2, 2), s2d=True)
+    assert not strided._takes_s2d(torch.zeros(1, 3, 10, 12), train=False)
+
+
+def test_rcnn_stem_s2d_tokens_match_jax(rcnn_pair):
+    """RCNN(stem_s2d=True): the encoder states, greedy tokens and CTC argmax
+    of JAX's RCNN(stem_s2d=True) on the same variables."""
+    _, _, variables, x = rcnn_pair
+    kw = dict(num_classes=V, hidden_size=HIDDEN, width_mult=WIDTH, with_ctc_head=True)
+    jm = JaxRCNN(**kw, dtype=jnp.float32, stem_s2d=True)
+    tm = load_jax_variables(RCNN(**kw, stem_s2d=True).eval(), variables)
+    want_enc = np.asarray(jm.apply(variables, x, train=False, method=jm.encode))
+    want_greedy = np.asarray(jm.apply(variables, x, train=False, batch_max_length=MAX_LEN))
+    want_ctc = np.asarray(jm.apply(variables, x, train=False, method=jm.ctc_logits))
+    with torch.no_grad():
+        got_enc = tm.encode(torch.from_numpy(x)).numpy()
+        got_greedy = tm(torch.from_numpy(x), batch_max_length=MAX_LEN).numpy()
+        got_ctc = tm.ctc_logits(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got_enc, want_enc, **ENC)
+    np.testing.assert_array_equal(got_greedy.argmax(-1), want_greedy.argmax(-1))
+    np.testing.assert_array_equal(got_ctc.argmax(-1), want_ctc.argmax(-1))

@@ -16,6 +16,12 @@ Held (``rcnn_ocr_tpu_torch/ops/preprocess.py`` against
   also within one step of the port's ``ResizeAndPad`` (equal on >= 99.9%)
   and, with the 5-column sizes, bit-equal to it on every pixel, which makes
   a served row bit-equal to ``predict``'s;
+* ``resize_pad_normalize(method="linear")`` (JAX's
+  ``scale_and_translate`` triangle kernel over the whole canvas, unrounded)
+  within 1e-5 of JAX's on seeded canvases, images shrinking and growing,
+  smaller than their canvas, with 2- and 5-column sizes; ``resize_pad_u8``
+  refuses ``"linear"`` (it has no uint8 form) and both refuse an unknown
+  method;
 * ``host_letterbox``: the C++ copy equals the numpy twin and JAX's output,
   crop included, and warns of a crop once per process.
 """
@@ -119,12 +125,54 @@ def test_resize_pad_normalize_matches_jax(columns):
 
 
 def test_unknown_and_linear_methods_raise():
+    """An unknown method raises in both functions; "linear" has no uint8
+    form and raises in resize_pad_u8, while resize_pad_normalize computes it
+    (JAX's value on this canvas: a white pad around the linear resize)."""
     raw = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
     sizes = torch.tensor([[8, 8]])
-    with pytest.raises(ValueError, match="method"):
-        pre.resize_pad_normalize(raw, sizes, 8, 8, method="aera")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pre.resize_pad_normalize(raw, sizes, 8, 8, method="linear")
+    for fn in (pre.resize_pad_normalize, pre.resize_pad_u8):
+        with pytest.raises(ValueError, match="method"):
+            fn(raw, sizes, 8, 8, method="aera")
+    with pytest.raises(ValueError, match="no uint8 form"):
+        pre.resize_pad_u8(raw, sizes, 8, 8, method="linear")
+    got = pre.resize_pad_normalize(raw, torch.tensor([[4, 6]]), 8, 8, method="linear").numpy()
+    want = np.asarray(jax_pre.resize_pad_normalize(jnp.asarray(raw.numpy()),
+                                                   jnp.asarray([[4, 6]]), 8, 8, method="linear"))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("columns", [5, 2])
+@pytest.mark.parametrize("canvas,model", [((60, 160), (32, 64)), ((24, 50), (32, 100)),
+                                          ((80, 300), (32, 128))])
+def test_linear_resize_matches_jax(columns, canvas, model):
+    """method="linear" against JAX's on seeded canvases: images that shrink
+    and grow, all but one smaller than their canvas, so the canvas's zeros
+    beyond them enter the bottom and right edges of the resize (JAX's
+    weights span the whole canvas); the one that fills its canvas reads
+    other edges on a larger canvas."""
+    ih, iw = model
+    rng = np.random.default_rng(canvas[0])
+    imgs = [rng.integers(0, 256, size=(int(rng.integers(4, canvas[0] + 1)),
+                                       int(rng.integers(4, canvas[1] + 1)), 3), dtype=np.uint8)
+            for _ in range(11)]
+    imgs.append(rng.integers(0, 256, size=(*canvas, 3), dtype=np.uint8))  # fills its canvas
+    raw, sizes = pre.host_letterbox(imgs, *canvas)
+    if columns == 5:
+        sizes = np.concatenate([sizes, pre.host_resize_geometry(sizes, ih, iw)], axis=1)
+    got = pre.resize_pad_normalize(torch.from_numpy(raw), torch.from_numpy(sizes), ih, iw,
+                                   method="linear")
+    assert got.dtype == torch.float32 and got.shape == (12, ih, iw, 3)
+    want = np.asarray(jax_pre.resize_pad_normalize(jnp.asarray(raw), jnp.asarray(sizes), ih, iw,
+                                                   method="linear"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    # the canvas matters: on a larger one, zeros enter the last image's edges
+    bigger, _ = pre.host_letterbox(imgs, canvas[0] + 8, canvas[1] + 8)
+    again = pre.resize_pad_normalize(torch.from_numpy(bigger), torch.from_numpy(sizes), ih, iw,
+                                     method="linear")
+    want_bigger = np.asarray(jax_pre.resize_pad_normalize(
+        jnp.asarray(bigger), jnp.asarray(sizes), ih, iw, method="linear"))
+    np.testing.assert_allclose(again.numpy(), want_bigger, rtol=0, atol=1e-5)
+    assert not torch.equal(again[-1], got[-1])
 
 
 def test_host_letterbox_matches_the_twin_and_jax(monkeypatch):

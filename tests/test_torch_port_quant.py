@@ -5,8 +5,12 @@
   outputs bit-equal, at stride 1 and 2, the out head's 2x2 shapes and a
   channel count that is not a multiple of 8;
 * the cases of ``tests/test_quant.py`` and ``tests/test_quant_static.py``,
-  run over both packages as parametrised cases (the int8 stem is refused by
-  the port: ROADMAP.md queue 1, the s2d and int8 stems);
+  run over both packages as parametrised cases, the int8 stem
+  (``quantize_stem``) among them;
+* the static int8 stem of the whole model: its calibrated ``quant_stats``
+  (``stem0`` / ``stem1`` included) equal JAX's within ``STATS_RTOL``, the
+  encoder states within ``ENC_ATOL``, and they map both ways through
+  ``load_jax_variables`` / ``to_jax_variables``;
 * the whole ``RCNN(quantize=True)`` (width 0.125, hidden 32), dynamic and
   static: CTC argmax ids and greedy strings equal JAX's on every row, the
   encoder states within ``ENC_ATOL`` (a code that flips at a rounding
@@ -260,20 +264,102 @@ def test_backbone_calibration_records_and_applies(pkg, rng):
 
 @pytest.mark.parametrize("pkg", PACKAGES)
 def test_quantize_stem_wiring(pkg, rng):
-    """JAX quantizes the stem with quantize_stem; the port refuses it
-    (ROADMAP.md queue 1: the s2d and int8 stems) and keeps its stem float."""
+    """quantize_stem=True int8-quantizes stem0/stem1 too, in each package:
+    their act_absmax appear under calibration (the port's equal to JAX's
+    within STATS_RTOL on the same variables), and the calibrated output
+    stays close to the float backbone's."""
+    x = rng.normal(size=(2, 32, 64, 3)).astype(np.float32)
+    v = _jax_backbone_vars(x)
+    jstem = JaxSEResNet31(width_mult=0.25, dtype=jnp.float32, quantize=True,
+                          act_quant="static", quantize_stem=True)
+    _, jmut = jstem.apply(v, jnp.asarray(x), train=False, mutable=["quant_stats"])
+    want = np.asarray(JaxSEResNet31(width_mult=0.25, dtype=jnp.float32).apply(
+        v, jnp.asarray(x), train=False))
+    if pkg == "jax":
+        assert {"stem0", "stem1"} <= set(jmut["quant_stats"])
+        got = np.asarray(jstem.apply({**v, "quant_stats": jmut["quant_stats"]}, jnp.asarray(x),
+                                     train=False))
+    else:
+        sta = _port_backbone(v, act_quant="static", quantize_stem=True)
+        assert sta.stem0.quantize and sta.stem1.quantize
+        with torch.no_grad():
+            with recording_act_absmax(sta):
+                sta(_t(x))
+            got = sta(_t(x)).numpy()
+        holder = torch.nn.Module()
+        holder.cnn = sta
+        ported = _leaves(to_jax_variables(holder)["quant_stats"]["cnn"])
+        calibrated = _leaves(jmut["quant_stats"])
+        assert len(ported) == 26 and sorted(ported) == sorted(calibrated)
+        assert "['stem0']['conv']['act_absmax']" in ported
+        for key, val in calibrated.items():
+            np.testing.assert_allclose(ported[key], val, rtol=STATS_RTOL, atol=0, err_msg=key)
+    rel = np.abs(got - want).mean() / (np.abs(want).mean() + 1e-9)
+    assert rel < 0.08, rel
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_quantize_stem_needs_quantize(pkg, rng):
+    """quantize_stem without quantize does nothing: the float backbone's
+    output, bit for bit, and no act_absmax anywhere."""
     x = rng.normal(size=(2, 32, 64, 3)).astype(np.float32)
     v = _jax_backbone_vars(x)
     if pkg == "jax":
-        stem = JaxSEResNet31(width_mult=0.25, dtype=jnp.float32, quantize=True,
-                             act_quant="static", quantize_stem=True)
-        _, mut = stem.apply(v, jnp.asarray(x), train=False, mutable=["quant_stats"])
-        assert {"stem0", "stem1"} <= set(mut["quant_stats"])
+        base = JaxSEResNet31(width_mult=0.25, dtype=jnp.float32)
+        flag = JaxSEResNet31(width_mult=0.25, dtype=jnp.float32, quantize_stem=True,
+                             act_quant="static")
+        _, mut = flag.apply(v, jnp.asarray(x), train=False, mutable=["quant_stats"])
+        assert not mut.get("quant_stats")
+        np.testing.assert_array_equal(np.asarray(flag.apply(v, jnp.asarray(x), train=False)),
+                                      np.asarray(base.apply(v, jnp.asarray(x), train=False)))
         return
-    with pytest.raises(NotImplementedError, match="queue 1: the s2d and int8 stems"):
-        SEResNet31(width_mult=0.25, quantize=True, quantize_stem=True)
-    sta = _port_backbone(v, act_quant="static")
-    assert not hasattr(sta.stem0.conv, "act_absmax") and not sta.stem0.quantize
+    holder = torch.nn.Module()
+    holder.cnn = SEResNet31(width_mult=0.25, quantize_stem=True, act_quant="static").eval()
+    load_jax_variables(holder, jax.tree_util.tree_map(np.asarray, {
+        col: {"cnn": tree} for col, tree in v.items()}))
+    plain = torch.nn.Module()
+    plain.cnn = SEResNet31(width_mult=0.25).eval()
+    load_jax_variables(plain, jax.tree_util.tree_map(np.asarray, {
+        col: {"cnn": tree} for col, tree in v.items()}))
+    assert not holder.cnn.stem0.quantize and not any(
+        n.endswith("act_absmax") for n, _ in holder.named_buffers())
+    with torch.no_grad():
+        assert torch.equal(holder.cnn(_t(x)), plain.cnn(_t(x)))
+
+
+def test_static_int8_stem_rcnn_matches_jax(jax_model_vars):
+    """The whole model with a calibrated static int8 stem: quant_stats
+    (stem0 / stem1 among 26) within STATS_RTOL of JAX's calibration of the
+    same images; loaded into both, encoder states within ENC_ATOL and the CTC
+    argmax equal on every row."""
+    kw = dict(num_classes=len(TOKENS), hidden_size=HIDDEN, width_mult=WIDTH, with_ctc_head=True)
+    q = dict(quantize=True, act_quant="static", quantize_stem=True)
+    jv = dict(jax_model_vars)
+    cal_x, x = _batch(4, seed=8), _batch(6, seed=7)
+    jm = JaxRCNN(**kw, dtype=jnp.float32, **q)
+    _, mut = jm.apply(jv, jnp.asarray(cal_x), train=False, method=jm.encode,
+                      mutable=["quant_stats"])
+    jv["quant_stats"] = jax.tree_util.tree_map(np.asarray, mut["quant_stats"])
+    tm = RCNN(**kw, **q).eval()
+    load_jax_variables(tm, {**jax_model_vars,
+                            "quant_stats": to_jax_variables(tm)["quant_stats"]})
+    with torch.no_grad(), recording_act_absmax(tm):
+        tm.encode(_t(cal_x))
+    got_stats, want_stats = _leaves(to_jax_variables(tm)["quant_stats"]), _leaves(jv["quant_stats"])
+    assert sorted(got_stats) == sorted(want_stats) and len(got_stats) == 26
+    assert "['cnn']['stem1']['conv']['act_absmax']" in got_stats
+    for key in want_stats:
+        np.testing.assert_allclose(got_stats[key], want_stats[key], rtol=STATS_RTOL, atol=0,
+                                   err_msg=key)
+    tm_jax_stats = load_jax_variables(RCNN(**kw, **q).eval(), jv)  # JAX's scales, both ways
+    want_enc = np.asarray(jm.apply(jv, jnp.asarray(x), train=False, method=jm.encode))
+    want_ctc = np.asarray(jm.apply(jv, jnp.asarray(x), train=False, method=jm.ctc_logits))
+    with torch.no_grad():
+        got_enc = tm_jax_stats.encode(_t(x)).numpy()
+        got_ctc = tm_jax_stats.ctc_logits(_t(x)).numpy()
+    np.testing.assert_allclose(got_enc, want_enc, rtol=0, atol=ENC_ATOL)
+    np.testing.assert_array_equal(got_ctc.argmax(-1), want_ctc.argmax(-1))
+    assert _leaves(to_jax_variables(tm_jax_stats)["quant_stats"]).keys() == want_stats.keys()
 
 
 # --- the whole model against JAX ------------------------------------------------------
