@@ -74,14 +74,19 @@
    and YCbCr among them; old-style JPEG, ZSTD, LZMA, WebP, float and signed
    samples and BigTIFF refused naming them) and the BMP decoder against
    those of tests/torch_port_data/bmp/ (1/4/8/16/24/32-bit, RLE8, RLE4, OS/2
-   to V5 headers); then the port's ``OCRServer`` on 127.0.0.1
+   to V5 headers), and the WebP, GIF and Netpbm decoders against those of
+   tests/torch_port_data/{webp,gif,pnm}/ (each also: a line cut short
+   raises ValueError, AVIF and JPEG 2000 headers refused naming them);
+   then the port's ``OCRServer`` on 127.0.0.1
    over the same weights (bf16, batch 256, 5 ms window, canvas 80x640) for
    ctc_greedy and then attention: the port's client, in a process of its
-   own, sends the 512 lines as PNG, 64 JPEG lines and 20 lines as
+   own, sends the 512 lines as PNG, 64 JPEG lines and 28 lines as
    progressive, arithmetic and YCCK JPEG, TIFF, G4 and G3 TIFF,
-   JPEG-in-TIFF (YCbCr 2x2), YCbCr TIFF (LZW), 1-bit and RLE8 BMP, each
+   JPEG-in-TIFF (YCbCr 2x2), YCbCr TIFF (LZW), 1-bit and RLE8 BMP, lossy
+   WebP, lossless WebP with alpha, interlaced GIF with a transparent index
+   and binary PGM, each
    beside a PNG of its pixels, raw and in 8-image JSON batches, from 1
-   (16 + 16 lines and the 20 pairs), 16 and 64 threads; strings must equal in-process
+   (16 + 16 lines and the 28 pairs), 16 and 64 threads; strings must equal in-process
    ``predict_serving`` on >= 99% of rows, every variant line's strings its
    PNG twin's, and each dispatch launch 11 + 2 kernels.  The host decode
    time per line of each format is printed beside the card's name and
@@ -227,9 +232,10 @@
    ``--decode attention_beam`` with a bigram table of the training labels
    and ``--lm-weight 0,0.5``: each must exit 0 and write a report of all 256
    rows and a per-sample CSV of 256 rows; their wall times are printed.
-   Then ``--decode ctc_greedy`` over a CSV of the 12 lines of the newest
-   formats (G4 and G3 TIFF, JPEG-in-TIFF, YCbCr TIFF, 1-bit and RLE8 BMP)
-   and over one of PNG twins of their pixels: both exit 0 with all 12 rows
+   Then ``--decode ctc_greedy`` over a CSV of the 20 lines of the newest
+   formats (G4 and G3 TIFF, JPEG-in-TIFF, YCbCr TIFF, 1-bit and RLE8 BMP,
+   lossy WebP, lossless WebP with alpha, interlaced GIF, binary PGM)
+   and over one of PNG twins of their pixels: both exit 0 with all 20 rows
    read and the same string for every line as for its twin.
 10. Scale-out phase, on the loop phase's set A (512 lines to train, 256 to
    validate) with configs/config.json in fp32 at the global batch of 128 for
@@ -305,6 +311,9 @@ RELOAD_MEM_MIB = 8
 JPEG_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "jpeg")
 TIFF_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "tiff")
 BMP_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "bmp")
+WEBP_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "webp")
+GIF_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "gif")
+PNM_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "pnm")
 # lines in the formats the port's decoders read beside baseline JPEG and PNG:
 # (file, content type, variant), each sent to the daemon beside a PNG of its pixels
 VARIANT_LINES = [(f"{stem}_line_{k}.{ext}", ctype, variant)
@@ -318,11 +327,16 @@ VARIANT_LINES = [(f"{stem}_line_{k}.{ext}", ctype, variant)
                      ("jpeg", "tif", "image/tiff", "JPEG-in-TIFF"),
                      ("ycbcr", "tif", "image/tiff", "YCbCr TIFF"),
                      ("bmp1", "bmp", "image/bmp", "1-bit BMP"),
-                     ("rle8", "bmp", "image/bmp", "RLE8 BMP"))
+                     ("rle8", "bmp", "image/bmp", "RLE8 BMP"),
+                     ("webp", "webp", "image/webp", "lossy WebP"),
+                     ("webpa", "webp", "image/webp", "lossless WebP with alpha"),
+                     ("gif", "gif", "image/gif", "interlaced GIF"),
+                     ("pgm", "pgm", "image/x-portable-graymap", "binary PGM"))
                  for k in range(2)]
-# the fax, JPEG-in-TIFF, YCbCr and BMP variants (the eval CLI reads them
-# beside their PNG twins)
-NEW_VARIANTS = ("G4 TIFF", "G3 TIFF", "JPEG-in-TIFF", "YCbCr TIFF", "1-bit BMP", "RLE8 BMP")
+# the fax, JPEG-in-TIFF, YCbCr, BMP, WebP, GIF and PGM variants (the eval CLI
+# reads them beside their PNG twins)
+NEW_VARIANTS = ("G4 TIFF", "G3 TIFF", "JPEG-in-TIFF", "YCbCr TIFF", "1-bit BMP", "RLE8 BMP",
+                "lossy WebP", "lossless WebP with alpha", "interlaced GIF", "binary PGM")
 # the TIFFs the port still refuses, and the words each refusal must name
 TIFF_REFUSED = {"refused_zstd.tif": "ZSTD TIFF compression (50000)",
                 "refused_old_jpeg.tif": "old-style JPEG TIFF compression (6)",
@@ -335,8 +349,9 @@ TIFF_REFUSED = {"refused_zstd.tif": "ZSTD TIFF compression (50000)",
 
 def fixture_path(name: str) -> str:
     """A variant line's file among the committed fixtures."""
-    folder = {".tif": TIFF_FIXTURES, ".bmp": BMP_FIXTURES}.get(os.path.splitext(name)[1],
-                                                               JPEG_FIXTURES)
+    folder = {".tif": TIFF_FIXTURES, ".bmp": BMP_FIXTURES, ".webp": WEBP_FIXTURES,
+              ".gif": GIF_FIXTURES, ".pgm": PNM_FIXTURES}.get(os.path.splitext(name)[1],
+                                                             JPEG_FIXTURES)
     return os.path.join(folder, name)
 # training phase: configs/config.json's shape and optimizer
 TRAIN_BATCH, TRAIN_MAX_LEN, TRAIN_STEPS, GRAD_BATCH = 128, 40, 30, 32
@@ -1206,6 +1221,79 @@ def bmp_decoder_check() -> dict:
     return {"fixtures_bit_equal": len(expected), "kinds": kinds}
 
 
+# headers of formats the port still refuses, and the name each refusal gives
+REFUSED_HEADERS = {"AVIF": b"\x00\x00\x00\x1cftypavif\x00\x00\x00\x00avifmif1miaf" + bytes(32),
+                   "JPEG 2000 (JP2)": b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40),
+                   "JPEG 2000 (codestream)": b"\xff\x4f\xff\x51\x00\x29" + bytes(48)}
+
+
+def web_decoder_check(folder: str, ext: str, kinds, line: str, oversized: bytes) -> dict:
+    """One of the port's WebP, GIF and Netpbm decoders against cv2's pixels
+    of the committed fixtures in ``folder`` (``expected.npz``), read
+    without cv2: every file bit-equal, every kind named in ``kinds``
+    present, the line ``line`` cut in half and missing its last byte
+    raising ValueError, ``oversized`` (a few bytes declaring an image past
+    OpenCV's size limit, which cv2 refuses) raising ValueError, and an AVIF
+    and a JPEG 2000 header refused naming the format."""
+    from rcnn_ocr_tpu_torch.data.image_io import UnsupportedImageFormat, imdecode, imread
+
+    with np.load(os.path.join(folder, "expected.npz")) as z:
+        expected = {k: z[k] for k in z.files}
+    differing = [name for name, want in sorted(expected.items())
+                 if not np.array_equal(imread(os.path.join(folder, name)), want)]
+    check(not differing, f"the {ext} decoder differs from cv2's pixels on {differing}")
+    found = {k: sum(k in n for n in expected) for k in kinds}
+    check(all(found.values()), f"a {ext} kind has no fixture: {found}")
+    with open(os.path.join(folder, line), "rb") as f:
+        data = f.read()
+    for what, cut in (("cut in half", data[: len(data) // 2]), ("missing its last byte", data[:-1]),
+                      ("past OpenCV's size limit", oversized)):
+        try:
+            imdecode(cut)
+            check(False, f"{line} {what} decoded (it must raise ValueError)")
+        except UnsupportedImageFormat as err:
+            check(False, f"{line} {what} raised UnsupportedImageFormat, not ValueError: {err}")
+        except ValueError:
+            pass
+    for name, header in REFUSED_HEADERS.items():
+        try:
+            imdecode(header)
+            check(False, f"a {name} header decoded (it must be refused)")
+        except UnsupportedImageFormat as err:
+            check(f"cannot decode {name}:" in str(err), f"the {name} refusal says: {err}")
+    print(f"  {ext} decoder: {len(expected)} fixtures bit-equal to cv2's pixels ("
+          + ", ".join(f"{k.strip('_')} {v}" for k, v in found.items())
+          + f"); {line} cut short and a file past OpenCV's size limit raise ValueError; "
+          "AVIF and JPEG 2000 refused naming them")
+    return {"fixtures_bit_equal": len(expected), "kinds": found}
+
+
+def webp_decoder_check() -> dict:
+    """The port's WebP decoder (data/webp.py, VP8 and VP8L in host C++)."""
+    return web_decoder_check(WEBP_FIXTURES, "WebP", (
+        "cv2_lossy", "lossless", "alpha_lossy", "alpha_lossless", "anim_", "segments",
+        "simple", "lfdelta", "8parts", "bigcoeffs", "all_transforms", "16_modes", "meta",
+        "bundle", "alph_raw", "alph_vp8l"), "webp_line_0.webp",
+        # an animation's VP8X canvas of 2^24 x 2^24
+        b"RIFF\x16\x00\x00\x00WEBPVP8X\x0a\x00\x00\x00\x02\x00\x00\x00" + b"\xff" * 6)
+
+
+def gif_decoder_check() -> dict:
+    """The port's GIF decoder (data/gif.py, LZW in host C++)."""
+    return web_decoder_check(GIF_FIXTURES, "GIF", (
+        "pil_2colors", "pil_256colors", "interlaced", "pil_anim", "offset_transparent",
+        "local_table", "no_tables", "deferred_clear", "full_table", "eoi_midstream"),
+        "gif_line_0.gif", b"GIF89a\xff\xff\xff\xff\x00\x00\x00;")  # a 65535x65535 screen
+
+
+def pnm_decoder_check() -> dict:
+    """The port's Netpbm decoder (data/pnm.py)."""
+    return web_decoder_check(PNM_FIXTURES, "Netpbm", (
+        "p1_", "p2_", "p3_", "p4_", "p5_", "p6_", "p7_", "maxval15", "maxval100", "maxval1000",
+        "maxval65535", "cv2_ascii"), "pgm_line_0.pgm",
+        b"P5\n1048577 1\n255\n" + bytes(1048577))  # one pixel wider than 1 << 20
+
+
 def _post(base: str, body: bytes, ctype: str, timeout: float = 120.0):
     import urllib.error
     import urllib.request
@@ -1300,7 +1388,9 @@ def daemon_phase(kernels, variables, images, power: str):
 
     t_phase = time.perf_counter()
     out = {"decoder": jpeg_decoder_check(), "tiff_decoder": tiff_decoder_check(),
-           "bmp_decoder": bmp_decoder_check(), "canvas": list(DAEMON_CANVAS), "batch": DAEMON_BATCH, "max_wait_ms": DAEMON_WAIT_MS}
+           "bmp_decoder": bmp_decoder_check(), "webp_decoder": webp_decoder_check(),
+           "gif_decoder": gif_decoder_check(), "pnm_decoder": pnm_decoder_check(),
+           "canvas": list(DAEMON_CANVAS), "batch": DAEMON_BATCH, "max_wait_ms": DAEMON_WAIT_MS}
     charset_path = os.path.join(REPO, "configs", "charset.txt")
 
     def engine():
@@ -1309,7 +1399,8 @@ def daemon_phase(kernels, variables, images, power: str):
 
     # traffic: the main path's 512 lines as PNG, the 64 JPEG fixture lines,
     # then the variant lines (progressive, arithmetic and YCCK JPEG, TIFF,
-    # fax and YCbCr TIFF, JPEG-in-TIFF, 1-bit and RLE8 BMP),
+    # fax and YCbCr TIFF, JPEG-in-TIFF, 1-bit and RLE8 BMP, lossy and
+    # lossless-with-alpha WebP, interlaced GIF, binary PGM),
     # each followed by a PNG of the pixels it decodes to (its twin)
     wire = [("image/png", png_encode(im)) for im in images]
     kinds = ["PNG"] * len(images)
@@ -3398,7 +3489,8 @@ def eval_cli_runs(weights: str, val_dir: str, rows, train_csvs, cs) -> dict:
 
 def eval_cli_variants(weights: str, work: str, env: dict) -> dict:
     """The eval CLI over a CSV of the NEW_VARIANTS lines (G4 and G3
-    TIFF, JPEG-in-TIFF, YCbCr TIFF, 1-bit and RLE8 BMP) and over one of PNG
+    TIFF, JPEG-in-TIFF, YCbCr TIFF, 1-bit and RLE8 BMP, lossy and
+    lossless-with-alpha WebP, interlaced GIF, binary PGM) and over one of PNG
     twins of their pixels, the two processes side by side on the card:
     both exit 0 with every row read (none left out as unreadable) and give
     each line its twin's string."""

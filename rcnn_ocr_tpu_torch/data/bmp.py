@@ -40,6 +40,8 @@ import struct
 
 import numpy as np
 
+from rcnn_ocr_tpu_torch.data.size_limit import check_size
+
 _MASKS = {(0x7C00, 0x03E0, 0x001F): 15, (0xF800, 0x07E0, 0x001F): 16}
 
 
@@ -95,6 +97,7 @@ def decode(data: bytes) -> np.ndarray:
     else:
         raise ValueError(f"BMP header of {size} bytes")
     top_down, h = h < 0, abs(h)
+    check_size(w, h, "BMP")
     if h * w * 3 >= 1 << 30:
         raise ValueError(f"BMP of {w}x{h} pixels, which OpenCV refuses (1 GiB)")
     if offset < 0 or offset > len(data):

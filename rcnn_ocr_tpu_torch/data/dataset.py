@@ -18,9 +18,11 @@ Counterpart of ``rcnn_ocr_tpu/data/dataset.py`` (``SkipLog``,
 * samplers draw from ``numpy.random.default_rng(seed)`` exactly as JAX's do,
   so the same seeds give the same index sequences.
 
-Images are read by :mod:`rcnn_ocr_tpu_torch.data.image_io` (PNG and BMP);
-a file in another format raises its ``UnsupportedImageFormat`` instead of
-being quarantined.  ``fetch`` passes an ``rng`` on to the transform (the
+Images are read by :mod:`rcnn_ocr_tpu_torch.data.image_io` (PNG, BMP, JPEG,
+TIFF, WebP, GIF and Netpbm, whatever extension the CSV gives them, as
+JAX's reads any file it names through cv2); a file in a format the port
+refuses (AVIF, JPEG 2000, ...) raises its ``UnsupportedImageFormat`` instead
+of being quarantined.  ``fetch`` passes an ``rng`` on to the transform (the
 loader seeds one per sample); the substitute draw is seeded too.
 """
 

@@ -1,5 +1,5 @@
-"""Image files without OpenCV or PIL: PNG, BMP, JPEG and TIFF decoding,
-header probes and a PNG writer.
+"""Image files without OpenCV or PIL: PNG, BMP, JPEG, TIFF, WebP, GIF and
+Netpbm decoding, header probes and a PNG writer.
 
 Counterpart of ``rcnn_ocr_tpu/data/transforms.py:imread_cv2``,
 ``imdecode_cv2``, ``image_size``, ``_exif_orientation`` and
@@ -44,11 +44,28 @@ IMREAD_COLOR)`` followed by BGR -> RGB gives, as an RGB uint8 HWC array:
   rarer compressions, other photometric interpretations, BigTIFF and
   non-integer samples raise :class:`UnsupportedImageFormat` naming them.
 
-Other formats (GIF, WebP, ...) raise :class:`UnsupportedImageFormat`,
-which names the supported ones; ``image_size`` still reads their headers
-(BMP's by its header size, JPEG's through the SOF walk and TIFF's first
-IFD, whatever its compression, with orientations 5-8 swapping the sides
-as the decode does).  :func:`png_encode` writes 8-bit
+* WebP (:mod:`rcnn_ocr_tpu_torch.data.webp`): lossy (VP8) and lossless
+  (VP8L) bitstreams in the port's host C++ (``csrc/host/webp_decode.cpp``),
+  VP8X files with ALPH (decoded and checked, its values dropped: the colour
+  under alpha 0 comes out as coded) and animations (the first frame), as
+  libwebp decodes them for OpenCV.
+* GIF (:mod:`rcnn_ocr_tpu_torch.data.gif`): GIF87a / GIF89a, the first
+  frame on the logical screen, global and local colour tables, interlace,
+  transparency (the background colour shows), LZW in host C++
+  (``csrc/host/gif_decode.cpp``), as OpenCV's own GIF reader gives it.
+* Netpbm (:mod:`rcnn_ocr_tpu_torch.data.pnm`): PBM, PGM and PPM, ASCII and
+  binary, with comments and any maxval, and PAM's gray, RGB and
+  black-and-white tuple types, as OpenCV's readers give them.
+
+The formats OpenCV reads that the port does not decode raise
+:class:`UnsupportedImageFormat` naming the format by its magic: AVIF, JPEG
+2000 (JP2 or a raw codestream), Sun raster, PFM, Radiance HDR and OpenEXR
+(and PAM's alpha tuple types, whose pixels OpenCV's reader leaves to
+memory it never wrote); anything else is "an unknown format".
+``image_size`` reads the headers of PNG, BMP, GIF (the logical screen),
+JPEG (through the SOF walk) and TIFF (the first IFD, whatever its
+compression, with orientations 5-8 swapping the sides as the decode does)
+and decodes the others, as JAX's does.  :func:`png_encode` writes 8-bit
 PNGs.
 """
 
@@ -62,11 +79,20 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from rcnn_ocr_tpu_torch.data import bmp, tiff
+from rcnn_ocr_tpu_torch.data import bmp, gif, pnm, tiff, webp
+from rcnn_ocr_tpu_torch.data.size_limit import PNG_MAX_SIDE, check_size
 
 IMG_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff"}
-SUPPORTED = ("PNG, BMP, JPEG (8-bit sequential or progressive) and TIFF (baseline, CCITT fax, "
-             "JPEG, YCbCr)")
+SUPPORTED = ("PNG, BMP, JPEG (8-bit sequential or progressive), WebP, GIF, Netpbm (PBM, PGM, "
+             "PPM, PAM) and TIFF (baseline, CCITT fax, JPEG, YCbCr)")
+# formats OpenCV reads and the port does not, by their magic bytes
+_REFUSED = ((lambda d: d[4:12] in (b"ftypavif", b"ftypavis"), "AVIF"),
+            (lambda d: d.startswith(b"\x00\x00\x00\x0cjP  \r\n\x87\n"), "JPEG 2000 (JP2)"),
+            (lambda d: d.startswith(b"\xff\x4f\xff\x51"), "JPEG 2000 (codestream)"),
+            (lambda d: d.startswith(b"\x59\xa6\x6a\x95"), "Sun raster"),
+            (lambda d: d[:2] in (b"PF", b"Pf"), "PFM"),
+            (lambda d: d.startswith((b"#?RADIANCE", b"#?RGBE")), "Radiance HDR"),
+            (lambda d: d.startswith(b"\x76\x2f\x31\x01"), "OpenEXR"))
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _TIFF_SIGS = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")  # TIFF and BigTIFF
@@ -193,6 +219,7 @@ def _png_decode(data: bytes) -> np.ndarray:
         raise ValueError(f"PNG color type {ctype} / bit depth {depth} is invalid")
     if ctype == 3 and plte is None:
         raise ValueError("palette PNG without PLTE")
+    check_size(width, height, "PNG", max_side=PNG_MAX_SIDE)
     channels = _PNG_CHANNELS[ctype]
     bits = channels * depth
     bpp = max(1, bits // 8)
@@ -242,15 +269,26 @@ def imdecode(data) -> np.ndarray:
         except (struct.error, IndexError) as err:
             raise ValueError(f"damaged TIFF data: {err}") from err
     decode = (_png_decode if data.startswith(_PNG_SIG) else
-              bmp.decode if data.startswith(b"BM") else None)
+              bmp.decode if data.startswith(b"BM") else
+              webp.decode if data[:4] == b"RIFF" and data[8:12] == b"WEBP" else
+              gif.decode if data[:6] in (b"GIF87a", b"GIF89a") else
+              pnm.decode if _is_pnm(data) else None)
     if decode is not None:
         try:
             return decode(data)
+        except NotImplementedError as err:  # a variant refused by name (PAM's alpha types)
+            raise UnsupportedImageFormat(
+                f"cannot decode {err}: the PyTorch port decodes {SUPPORTED} images") from None
         except (zlib.error, struct.error, IndexError) as err:
             raise ValueError(f"damaged image data: {err}") from err
-    kind = "GIF" if data[:6] in (b"GIF87a", b"GIF89a") else "an unknown format"
+    kind = next((name for match, name in _REFUSED if match(data)), "an unknown format")
     raise UnsupportedImageFormat(
         f"cannot decode {kind}: the PyTorch port decodes {SUPPORTED} images")
+
+
+def _is_pnm(data: bytes) -> bool:
+    """``P1``-``P7`` followed by whitespace, as OpenCV recognises Netpbm."""
+    return len(data) >= 3 and data[0] == 0x50 and 0x31 <= data[1] <= 0x37 and data[2:3].isspace()
 
 
 def png_encode(img: np.ndarray) -> bytes:

@@ -72,6 +72,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from rcnn_ocr_tpu_torch.data.size_limit import check_size
+
 _FORMATS = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i",
             10: "ii", 11: "f", 12: "d"}
 # none, LZW, Deflate, PackBits, old Deflate; the CCITT fax codings; JPEG
@@ -298,8 +300,9 @@ def _samples(data: bytes, tags, order: str, bits: int, spp: int, photometric: in
     planar) and the width of the blocks they were read in (a tile's, or
     the image's for strips)."""
     h, w = _one(tags, 257), _one(tags, 256)
-    if h <= 0 or w <= 0 or h * w > (1 << 30):
+    if h <= 0 or w <= 0:
         raise ValueError(f"TIFF of {w}x{h} pixels")
+    check_size(w, h, "TIFF")
     compression = _one(tags, 259, 1)
     planar = _one(tags, 284, 1)
     if planar not in (1, 2):

@@ -1,10 +1,12 @@
 """ctypes bindings of the port's host C++: the CTC prefix beam search, the
-serving letterbox, the JPEG decoder and TIFF's LZW and CCITT fax decoders.
+serving letterbox, the JPEG decoder, TIFF's LZW and CCITT fax decoders,
+GIF's LZW decoder and WebP's VP8 and VP8L decoders.
 
 The sources are ``rcnn_ocr_tpu_torch/csrc/host/ctc_beam.cpp`` (the search of
 the JAX package's ``native/ctc_beam.cpp``), ``csrc/host/letterbox.cpp`` (its
 ``native/letterbox.cpp``), kept as the port's own copies, and
-``csrc/host/jpeg_decode.cpp`` and ``csrc/host/tiff_decode.cpp`` (the port's
+``csrc/host/jpeg_decode.cpp``, ``csrc/host/tiff_decode.cpp``,
+``csrc/host/gif_decode.cpp`` and ``csrc/host/webp_decode.cpp`` (the port's
 own: JAX decodes with cv2).  At
 first use each is compiled with ``g++ -O3 -std=c++17 -fPIC -shared -pthread`` into
 ``build/rcnn_ocr_tpu_torch/`` under a name that carries a hash of the source
@@ -13,7 +15,8 @@ failed build raises with the compiler's output; nothing falls back to
 Python.  Bound: the batched beam entry points
 ``rcnn_ctc_beam_search_batch[_mt][_v2]``, ``rcnn_letterbox_u8``,
 ``rcnn_jpeg_header``, ``rcnn_jpeg_decode_u8``, ``rcnn_jpeg_frame``,
-``rcnn_jpeg_decode_frame``, ``rcnn_tiff_lzw_decode`` and ``rcnn_tiff_fax_decode``.
+``rcnn_jpeg_decode_frame``, ``rcnn_tiff_lzw_decode``, ``rcnn_tiff_fax_decode``,
+``rcnn_gif_lzw_decode``, ``rcnn_webp_vp8l_decode`` and ``rcnn_webp_vp8_decode``.
 A ctypes call releases
 the interpreter lock, so threads decode in parallel.
 """
@@ -64,6 +67,15 @@ ENTRIES = {
                     # data, n, out, rows, cols, compression, options, msg, msg_len
                     "rcnn_tiff_fax_decode": [ctypes.c_char_p, _I64, ctypes.POINTER(ctypes.c_uint8),
                                              _I64, _I64, _I64, _I64, ctypes.c_char_p, _I64]},
+    # data, n, min_code_size, out, out_len, msg, msg_len
+    "gif_decode": {"rcnn_gif_lzw_decode": [ctypes.c_char_p, _I64, _I64, ctypes.POINTER(ctypes.c_uint8),
+                                           _I64, ctypes.c_char_p, _I64]},
+    # data, n, width, height, header, out, msg, msg_len
+    "webp_decode": {"rcnn_webp_vp8l_decode": [ctypes.c_char_p, _I64, _I64, _I64, _I64,
+                                              ctypes.POINTER(ctypes.c_uint32), ctypes.c_char_p, _I64],
+                    # data, n, width, height, out, msg, msg_len
+                    "rcnn_webp_vp8_decode": [ctypes.c_char_p, _I64, _I64, _I64,
+                                             ctypes.POINTER(ctypes.c_uint8), ctypes.c_char_p, _I64]},
 }
 
 _lock = threading.Lock()
@@ -295,3 +307,52 @@ def tiff_fax_decode(data: bytes, rows: int, cols: int, compression: int, options
     if res == out.size:
         return out.tobytes()
     raise ValueError(msg.value.decode("utf-8", "replace"))
+
+
+def gif_lzw_decode(data: bytes, min_code_size: int, size: int) -> np.ndarray:
+    """One GIF frame's LZW data (its sub-blocks joined) -> ``size`` colour
+    indices, as OpenCV's GIF reader decodes them.  Raises ``ValueError``
+    where OpenCV fails the frame."""
+    lib = load("gif_decode")
+    data = bytes(data)
+    out = np.empty(int(size), dtype=np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    res = lib.rcnn_gif_lzw_decode(data, len(data), int(min_code_size),
+                                  out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.size, msg,
+                                  len(msg))
+    if res < 0:
+        raise ValueError(f"damaged GIF data: {msg.value.decode('utf-8', 'replace')}")
+    return out
+
+
+def webp_decode_vp8l(data: bytes, width: int, height: int, header: bool = True) -> np.ndarray:
+    """A VP8L stream (``header``: with its 5-byte header, else an ALPH
+    chunk's headerless one) of a ``width`` x ``height`` image -> its ARGB
+    words ``[height, width]`` uint32, as libwebp decodes them.  Raises
+    ``ValueError`` where libwebp fails."""
+    lib = load("webp_decode")
+    data = bytes(data)
+    out = np.empty((int(height), int(width)), dtype=np.uint32)
+    msg = ctypes.create_string_buffer(256)
+    res = lib.rcnn_webp_vp8l_decode(data, len(data), int(width), int(height), int(bool(header)),
+                                    out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), msg,
+                                    len(msg))
+    if res < 0:
+        raise ValueError(f"damaged WebP data: {msg.value.decode('utf-8', 'replace')}")
+    return out
+
+
+def webp_decode_vp8(data: bytes, width: int, height: int) -> np.ndarray:
+    """A VP8 key frame (a ``VP8 `` chunk's payload) of a ``width`` x
+    ``height`` image -> RGB uint8 ``[height, width, 3]``, as libwebp decodes
+    it to BGR (fancy upsampling).  Raises ``ValueError`` where libwebp
+    fails."""
+    lib = load("webp_decode")
+    data = bytes(data)
+    out = np.empty((int(height), int(width), 3), dtype=np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    res = lib.rcnn_webp_vp8_decode(data, len(data), int(width), int(height),
+                                   out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), msg, len(msg))
+    if res < 0:
+        raise ValueError(f"damaged WebP data: {msg.value.decode('utf-8', 'replace')}")
+    return out

@@ -9,9 +9,10 @@ engine behind it is the port's
 ``predict_serving`` (or a long-line decode) by :func:`serving_predict_fn`,
 or a loaded :class:`~rcnn_ocr_tpu_torch.export.ServingArtifact`;
 request bodies are decoded by the port's own
-:func:`~rcnn_ocr_tpu_torch.data.image_io.imdecode` (PNG, BMP and baseline
-JPEG, no cv2), whose JPEG decoder is host C++ called through ctypes, so
-handler threads decode in parallel.
+:func:`~rcnn_ocr_tpu_torch.data.image_io.imdecode` (PNG, BMP, JPEG, TIFF,
+WebP, GIF and Netpbm, no cv2), whose JPEG, TIFF, WebP and GIF bit-level
+loops are host C++ called through ctypes, so handler threads decode in
+parallel.
 
 Handler threads enqueue decoded images and block; ONE dispatcher thread
 drains the queue into batches of up to ``max_batch`` (waiting at most
@@ -27,7 +28,7 @@ HTTP API::
     GET  /metrics   -> the same data in the Prometheus text exposition
                        format (+ responses-by-status and engine-error
                        counters), ready to scrape
-    POST /predict   body = raw encoded image bytes (PNG/JPEG/BMP)
+    POST /predict   body = raw encoded image bytes (PNG/JPEG/BMP/TIFF/WebP/GIF/PNM)
                     or JSON {"images": ["<base64>", ...]}
                     -> {"texts": ["...", ...]}   (raw body -> one entry)
                     (+ "confidences": [...] when the daemon runs with

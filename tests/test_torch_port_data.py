@@ -4,9 +4,10 @@
   files cv2 writes (gray, RGB, RGBA, 16-bit; 24/32-bit and gray BMP) and on
   hand-built PNGs (each filter type 0-4, palette and sub-byte depths,
   gray+alpha, Adam7); ``image_size`` equal to JAX's on PNG, BMP, GIF and
-  JPEG headers (an EXIF-rotated JPEG too); a lossless JPEG or a GIF
-  raises an error naming the supported formats (the JPEGs and TIFFs that
-  decode: ``tests/test_torch_port_jpeg.py``, ``tests/test_torch_port_tiff.py``).
+  JPEG headers (an EXIF-rotated JPEG too); a lossless JPEG or a Sun
+  raster file raises an error naming the supported formats (the JPEGs,
+  TIFFs, WebPs, GIFs and Netpbm files that decode:
+  ``tests/test_torch_port_{jpeg,tiff,webp,gif,pnm}.py``).
 * ``OCRDataset`` on a CSV with missing files, foreign characters,
   too-long and empty labels: the same samples and skip counts.
 * Samplers: index sequences equal for the same seeds; ``exact_quotas``,
@@ -194,12 +195,70 @@ def test_jpeg_decoding_raises_naming_the_supported_formats(tmp_path):
         image_io.imread(str(path))
     with pytest.raises(NotImplementedError, match="lossless JPEG"):
         tf.load_rgb_uint8(str(path))
-    gif = tmp_path / "line.gif"
+    ras = tmp_path / "line.ras"  # a format still refused, named by its magic
+    ras.write_bytes(b"\x59\xa6\x6a\x95" + struct.pack(">IIII", 8, 8, 24, 192) + b"\x00" * 208)
+    with pytest.raises(image_io.UnsupportedImageFormat, match="cannot decode Sun raster"):
+        image_io.imread(str(ras))
+    gif = tmp_path / "line.gif"  # GIFs decode now: a header alone fails as in cv2
     gif.write_bytes(b"GIF89a" + struct.pack("<HH", 8, 8) + b"\x00" * 24)
-    with pytest.raises(image_io.UnsupportedImageFormat, match="cannot decode GIF"):
+    with pytest.raises(ValueError):
         image_io.imread(str(gif))
+    assert cv2.imdecode(np.frombuffer(gif.read_bytes(), np.uint8), cv2.IMREAD_COLOR) is None
     with pytest.raises(ValueError, match="truncated"):
         image_io.imdecode(png_bytes(np.zeros((2, 2, 3), np.uint8), 2, 8)[:-30])
+
+
+def _zero_png(width: int, height: int, rows: int = -1) -> bytes:
+    """An 8-bit RGB PNG of ``width`` x ``height`` zeros, every row filter
+    None; with ``rows`` its data holds only that many rows."""
+    raw = bytes((1 + 3 * width) * (height if rows < 0 else rows))
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    ihdr = struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw))
+            + chunk(b"IEND", b""))
+
+
+def _encoded(ext: str, h: int, w: int) -> bytes:
+    return cv2.imencode(ext, np.zeros((h, w, 3), np.uint8))[1].tobytes()
+
+
+SIZE_LIMIT = {  # case: (file, whether cv2 decodes it)
+    "PNG 1,000,000 wide": (lambda: _zero_png(1_000_000, 1), True),
+    "PNG 1,000,001 wide": (lambda: _zero_png(1_000_001, 1), False),
+    "PNG 1,000,001 tall": (lambda: _zero_png(1, 1_000_001), False),
+    "PNG declaring 40000x40000 over one row of data": (lambda: _zero_png(40_000, 40_000, 1),
+                                                        False),
+    "BMP 1 << 20 wide": (lambda: _encoded(".bmp", 1, 1 << 20), True),
+    "BMP one pixel wider than 1 << 20": (lambda: _encoded(".bmp", 1, (1 << 20) + 1), False),
+    "BMP one pixel taller than 1 << 20": (lambda: _encoded(".bmp", (1 << 20) + 1, 1), False),
+    "TIFF 1 << 20 wide": (lambda: _encoded(".tiff", 1, 1 << 20), True),
+    "TIFF one pixel wider than 1 << 20": (lambda: _encoded(".tiff", 1, (1 << 20) + 1), False),
+    "TIFF one pixel taller than 1 << 20": (lambda: _encoded(".tiff", (1 << 20) + 1, 1), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SIZE_LIMIT))
+def test_sides_past_opencv_limit_raise_value_error(case):
+    """cv2 refuses a header past its size limit (libpng's 1,000,000 a side
+    for PNG, else sides over 1 << 20; over 1 << 30 pixels) before it
+    allocates; the port raises ``ValueError`` before it allocates too, so
+    a PNG of a hundred bytes cannot make it fill 4.5 GB."""
+    make, decodes = SIZE_LIMIT[case]
+    data = make()
+    try:
+        want = jax_tf.imdecode_cv2(data)
+    except (ValueError, cv2.error):
+        want = None
+    assert (want is not None) == decodes
+    if want is None:
+        with pytest.raises(ValueError) as err:
+            image_io.imdecode(data)
+        assert not isinstance(err.value, image_io.UnsupportedImageFormat)
+    else:
+        np.testing.assert_array_equal(image_io.imdecode(data), want)
 
 
 # --- datasets and samplers -----------------------------------------------------------
