@@ -75,18 +75,25 @@
    samples and BigTIFF refused naming them) and the BMP decoder against
    those of tests/torch_port_data/bmp/ (1/4/8/16/24/32-bit, RLE8, RLE4, OS/2
    to V5 headers), and the WebP, GIF and Netpbm decoders against those of
-   tests/torch_port_data/{webp,gif,pnm}/ (each also: a line cut short
-   raises ValueError, AVIF and JPEG 2000 headers refused naming them);
+   tests/torch_port_data/{webp,gif,pnm}/, the JPEG 2000 decoder (host
+   C++) against those of tests/torch_port_data/jp2/ (PIL's, cv2's and
+   OpenJPEG's writers: every code-block style, POC, ROI, PPM/PPT, tiles
+   and tile-parts, palettes; HT code-blocks refused naming HTJ2K) and
+   the Sun raster, PFM and Radiance HDR decoders against those of
+   tests/torch_port_data/raster/ (each also: a line cut short and a header
+   past OpenCV's size limit raise ValueError, an AVIF header is refused
+   naming it);
    then the port's ``OCRServer`` on 127.0.0.1
    over the same weights (bf16, batch 256, 5 ms window, canvas 80x640) for
    ctc_greedy and then attention: the port's client, in a process of its
-   own, sends the 512 lines as PNG, 64 JPEG lines and 28 lines as
+   own, sends the 512 lines as PNG, 64 JPEG lines and 38 lines as
    progressive, arithmetic and YCCK JPEG, TIFF, G4 and G3 TIFF,
    JPEG-in-TIFF (YCbCr 2x2), YCbCr TIFF (LZW), 1-bit and RLE8 BMP, lossy
-   WebP, lossless WebP with alpha, interlaced GIF with a transparent index
-   and binary PGM, each
+   WebP, lossless WebP with alpha, interlaced GIF with a transparent index,
+   binary PGM, lossless JP2, an irreversible J2K codestream, a colormapped
+   Sun raster, a PF PFM and a run-length encoded HDR, each
    beside a PNG of its pixels, raw and in 8-image JSON batches, from 1
-   (16 + 16 lines and the 28 pairs), 16 and 64 threads; strings must equal in-process
+   (16 + 16 lines and the 38 pairs), 16 and 64 threads; strings must equal in-process
    ``predict_serving`` on >= 99% of rows, every variant line's strings its
    PNG twin's, and each dispatch launch 11 + 2 kernels.  The host decode
    time per line of each format is printed beside the card's name and
@@ -276,6 +283,7 @@ import multiprocessing
 import os
 import shutil
 import signal
+import struct
 import subprocess
 import sys
 import threading
@@ -314,6 +322,8 @@ BMP_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "bmp")
 WEBP_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "webp")
 GIF_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "gif")
 PNM_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "pnm")
+JP2_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "jp2")
+RASTER_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "raster")
 # lines in the formats the port's decoders read beside baseline JPEG and PNG:
 # (file, content type, variant), each sent to the daemon beside a PNG of its pixels
 VARIANT_LINES = [(f"{stem}_line_{k}.{ext}", ctype, variant)
@@ -331,12 +341,19 @@ VARIANT_LINES = [(f"{stem}_line_{k}.{ext}", ctype, variant)
                      ("webp", "webp", "image/webp", "lossy WebP"),
                      ("webpa", "webp", "image/webp", "lossless WebP with alpha"),
                      ("gif", "gif", "image/gif", "interlaced GIF"),
-                     ("pgm", "pgm", "image/x-portable-graymap", "binary PGM"))
+                     ("pgm", "pgm", "image/x-portable-graymap", "binary PGM"),
+                     ("jp2", "jp2", "image/jp2", "lossless JP2"),
+                     ("j2k", "j2k", "image/jp2", "irreversible J2K codestream"),
+                     ("ras", "ras", "image/x-sun-raster", "colormapped Sun raster"),
+                     ("pfm", "pfm", "application/octet-stream", "PF PFM"),
+                     ("hdr", "hdr", "image/vnd.radiance", "RLE HDR"))
                  for k in range(2)]
 # the fax, JPEG-in-TIFF, YCbCr, BMP, WebP, GIF and PGM variants (the eval CLI
 # reads them beside their PNG twins)
 NEW_VARIANTS = ("G4 TIFF", "G3 TIFF", "JPEG-in-TIFF", "YCbCr TIFF", "1-bit BMP", "RLE8 BMP",
-                "lossy WebP", "lossless WebP with alpha", "interlaced GIF", "binary PGM")
+                "lossy WebP", "lossless WebP with alpha", "interlaced GIF", "binary PGM",
+                "lossless JP2", "irreversible J2K codestream", "colormapped Sun raster", "PF PFM",
+                "RLE HDR")
 # the TIFFs the port still refuses, and the words each refusal must name
 TIFF_REFUSED = {"refused_zstd.tif": "ZSTD TIFF compression (50000)",
                 "refused_old_jpeg.tif": "old-style JPEG TIFF compression (6)",
@@ -350,8 +367,9 @@ TIFF_REFUSED = {"refused_zstd.tif": "ZSTD TIFF compression (50000)",
 def fixture_path(name: str) -> str:
     """A variant line's file among the committed fixtures."""
     folder = {".tif": TIFF_FIXTURES, ".bmp": BMP_FIXTURES, ".webp": WEBP_FIXTURES,
-              ".gif": GIF_FIXTURES, ".pgm": PNM_FIXTURES}.get(os.path.splitext(name)[1],
-                                                             JPEG_FIXTURES)
+              ".gif": GIF_FIXTURES, ".pgm": PNM_FIXTURES, ".jp2": JP2_FIXTURES,
+              ".j2k": JP2_FIXTURES, ".ras": RASTER_FIXTURES, ".pfm": RASTER_FIXTURES,
+              ".hdr": RASTER_FIXTURES}.get(os.path.splitext(name)[1], JPEG_FIXTURES)
     return os.path.join(folder, name)
 # training phase: configs/config.json's shape and optimizer
 TRAIN_BATCH, TRAIN_MAX_LEN, TRAIN_STEPS, GRAD_BATCH = 128, 40, 30, 32
@@ -1222,23 +1240,24 @@ def bmp_decoder_check() -> dict:
 
 
 # headers of formats the port still refuses, and the name each refusal gives
-REFUSED_HEADERS = {"AVIF": b"\x00\x00\x00\x1cftypavif\x00\x00\x00\x00avifmif1miaf" + bytes(32),
-                   "JPEG 2000 (JP2)": b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40),
-                   "JPEG 2000 (codestream)": b"\xff\x4f\xff\x51\x00\x29" + bytes(48)}
+# (JPEG 2000 decodes now: only AVIF is refused by its magic)
+REFUSED_HEADERS = {"AVIF": b"\x00\x00\x00\x1cftypavif\x00\x00\x00\x00avifmif1miaf" + bytes(32)}
 
 
-def web_decoder_check(folder: str, ext: str, kinds, line: str, oversized: bytes) -> dict:
+def web_decoder_check(folder: str, ext: str, kinds, line: str, oversized: bytes,
+                      suffix: str = "") -> dict:
     """One of the port's WebP, GIF and Netpbm decoders against cv2's pixels
     of the committed fixtures in ``folder`` (``expected.npz``), read
     without cv2: every file bit-equal, every kind named in ``kinds``
     present, the line ``line`` cut in half and missing its last byte
     raising ValueError, ``oversized`` (a few bytes declaring an image past
     OpenCV's size limit, which cv2 refuses) raising ValueError, and an AVIF
-    and a JPEG 2000 header refused naming the format."""
+    header refused naming the format.  With ``suffix``, the fixtures whose
+    names end with it."""
     from rcnn_ocr_tpu_torch.data.image_io import UnsupportedImageFormat, imdecode, imread
 
     with np.load(os.path.join(folder, "expected.npz")) as z:
-        expected = {k: z[k] for k in z.files}
+        expected = {k: z[k] for k in z.files if k.endswith(suffix)}
     differing = [name for name, want in sorted(expected.items())
                  if not np.array_equal(imread(os.path.join(folder, name)), want)]
     check(not differing, f"the {ext} decoder differs from cv2's pixels on {differing}")
@@ -1264,7 +1283,7 @@ def web_decoder_check(folder: str, ext: str, kinds, line: str, oversized: bytes)
     print(f"  {ext} decoder: {len(expected)} fixtures bit-equal to cv2's pixels ("
           + ", ".join(f"{k.strip('_')} {v}" for k, v in found.items())
           + f"); {line} cut short and a file past OpenCV's size limit raise ValueError; "
-          "AVIF and JPEG 2000 refused naming them")
+          "AVIF refused naming it")
     return {"fixtures_bit_equal": len(expected), "kinds": found}
 
 
@@ -1292,6 +1311,49 @@ def pnm_decoder_check() -> dict:
         "p1_", "p2_", "p3_", "p4_", "p5_", "p6_", "p7_", "maxval15", "maxval100", "maxval1000",
         "maxval65535", "cv2_ascii"), "pgm_line_0.pgm",
         b"P5\n1048577 1\n255\n" + bytes(1048577))  # one pixel wider than 1 << 20
+
+
+def jp2_decoder_check() -> dict:
+    """The port's JPEG 2000 decoder (data/jpeg2000.py, the codestream in
+    host C++), and a codestream with HT code-blocks refused naming HTJ2K."""
+    from rcnn_ocr_tpu_torch.data.image_io import UnsupportedImageFormat, imdecode
+
+    with open(os.path.join(JP2_FIXTURES, "pil_RGB_codestream_37x53.j2k"), "rb") as f:
+        data = bytearray(f.read())
+    oversized = bytearray(data)  # SIZ's image and tile widths made 1048577
+    struct.pack_into(">I", oversized, 8, 1048577)
+    struct.pack_into(">I", oversized, 24, 1048577)
+    out = web_decoder_check(JP2_FIXTURES, "JPEG 2000", (
+        "pil_L_", "pil_LA_", "pil_RGBA_", "pil_I16_", "irreversible", "LRCP", "RLCP", "RPCL",
+        "PCRL", "CPRL", "tiles", "layers", "codestream", "cv2_", "bypass", "reset", "termall",
+        "vsc", "pterm", "segsym", "sop_eph", "poc", "roi", "tile_parts", "ppm", "ppt", "prec12",
+        "sycc", "palette", "cdef"), "jp2_line_0.jp2", bytes(oversized))
+    data[data.index(b"\xff\x52") + 12] |= 0x40  # the HT code-block style
+    try:
+        imdecode(bytes(data))
+        check(False, "a codestream of HT code-blocks decoded (it must be refused)")
+    except UnsupportedImageFormat as err:
+        check("HTJ2K" in str(err), f"the HTJ2K refusal says: {err}")
+    print("  JPEG 2000: HT code-blocks refused naming HTJ2K")
+    return out
+
+
+def raster_decoder_check() -> dict:
+    """The port's Sun raster, PFM and Radiance HDR decoders (numpy)."""
+    out = {}
+    for ext, line, oversized in (
+            ("ras", "ras_line_0.ras", b"\x59\xa6\x6a\x95" + struct.pack(">7I", 1048577, 1, 8,
+                                                                       0, 1, 0, 0) + bytes(64)),
+            ("pfm", "pfm_line_0.pfm", b"PF\n1048577 1\n-1\n" + bytes(64)),
+            ("hdr", "hdr_line_0.hdr", b"#?RGBE\nFORMAT=32-bit_rle_rgbe\n\n-Y 1 +X 1048577\n"
+             + bytes(64))):
+        kinds = {"ras": ("cv2_", "1bit", "8bit_cmap", "short_cmap", "24bit", "32bit", "type0"),
+                 "pfm": ("cv2_", "little_endian", "big_endian", "scale", "header_fields"),
+                 "hdr": ("cv2_rle", "cv2_flat", "rle_then_flat", "rgbe_header", "narrow_flat")}[ext]
+        out[ext] = web_decoder_check(RASTER_FIXTURES, {"ras": "Sun raster", "pfm": "PFM",
+                                                       "hdr": "Radiance HDR"}[ext], kinds, line,
+                                     oversized, suffix="." + ext)
+    return out
 
 
 def _post(base: str, body: bytes, ctype: str, timeout: float = 120.0):
@@ -1390,6 +1452,7 @@ def daemon_phase(kernels, variables, images, power: str):
     out = {"decoder": jpeg_decoder_check(), "tiff_decoder": tiff_decoder_check(),
            "bmp_decoder": bmp_decoder_check(), "webp_decoder": webp_decoder_check(),
            "gif_decoder": gif_decoder_check(), "pnm_decoder": pnm_decoder_check(),
+           "jp2_decoder": jp2_decoder_check(), "raster_decoder": raster_decoder_check(),
            "canvas": list(DAEMON_CANVAS), "batch": DAEMON_BATCH, "max_wait_ms": DAEMON_WAIT_MS}
     charset_path = os.path.join(REPO, "configs", "charset.txt")
 

@@ -19,11 +19,15 @@ Counterpart of ``rcnn_ocr_tpu/data/dataset.py`` (``SkipLog``,
   so the same seeds give the same index sequences.
 
 Images are read by :mod:`rcnn_ocr_tpu_torch.data.image_io` (PNG, BMP, JPEG,
-TIFF, WebP, GIF and Netpbm, whatever extension the CSV gives them, as
-JAX's reads any file it names through cv2); a file in a format the port
-refuses (AVIF, JPEG 2000, ...) raises its ``UnsupportedImageFormat`` instead
-of being quarantined.  ``fetch`` passes an ``rng`` on to the transform (the
-loader seeds one per sample); the substitute draw is seeded too.
+JPEG 2000, TIFF, WebP, GIF, Netpbm, Sun raster, PFM and Radiance HDR,
+whatever extension the CSV gives them, as JAX's reads any file it names
+through cv2).  A file cv2 cannot read either (empty, cut short, not an
+image, OpenEXR, which this cv2 lacks) raises ``ValueError`` and is
+quarantined as JAX's quarantines it; a file in a format or variant cv2
+reads and the port refuses (AVIF, HTJ2K, ...) raises its
+``UnsupportedImageFormat`` instead of being quarantined.  ``fetch`` passes
+an ``rng`` on to the transform (the loader seeds one per sample); the
+substitute draw is seeded too.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Image files without OpenCV or PIL: PNG, BMP, JPEG, TIFF, WebP, GIF and
-Netpbm decoding, header probes and a PNG writer.
+"""Image files without OpenCV or PIL: PNG, BMP, JPEG, TIFF, WebP, GIF,
+Netpbm, JPEG 2000, Sun raster, PFM and Radiance HDR decoding, header
+probes and a PNG writer.
 
 Counterpart of ``rcnn_ocr_tpu/data/transforms.py:imread_cv2``,
 ``imdecode_cv2``, ``image_size``, ``_exif_orientation`` and
@@ -56,12 +57,22 @@ IMREAD_COLOR)`` followed by BGR -> RGB gives, as an RGB uint8 HWC array:
 * Netpbm (:mod:`rcnn_ocr_tpu_torch.data.pnm`): PBM, PGM and PPM, ASCII and
   binary, with comments and any maxval, and PAM's gray, RGB and
   black-and-white tuple types, as OpenCV's readers give them.
+* JPEG 2000 (:mod:`rcnn_ocr_tpu_torch.data.jpeg2000`): JP2 files and raw
+  codestreams, the codestream in host C++ (``csrc/host/j2k_decode.cpp``)
+  as OpenJPEG decodes it, the JP2 boxes and OpenCV's conversion in Python;
+  HT (Part 15) code-blocks raise :class:`UnsupportedImageFormat`.
+* Sun raster (:mod:`rcnn_ocr_tpu_torch.data.sunras`), PFM
+  (:mod:`rcnn_ocr_tpu_torch.data.pfm`) and Radiance HDR
+  (:mod:`rcnn_ocr_tpu_torch.data.hdr`), in numpy, as OpenCV's readers give
+  them.
 
-The formats OpenCV reads that the port does not decode raise
-:class:`UnsupportedImageFormat` naming the format by its magic: AVIF, JPEG
-2000 (JP2 or a raw codestream), Sun raster, PFM, Radiance HDR and OpenEXR
-(and PAM's alpha tuple types, whose pixels OpenCV's reader leaves to
-memory it never wrote); anything else is "an unknown format".
+Of the formats OpenCV reads, AVIF raises :class:`UnsupportedImageFormat`
+naming it by its magic (so do PAM's alpha tuple types, whose pixels
+OpenCV's reader leaves to memory it never wrote, and the variants each
+decoder refuses by name).  Bytes that no decoder claims are no image cv2
+reads either (an empty file, a download cut inside a signature, a text
+file, OpenEXR, which this cv2 lacks): they raise ``ValueError``, which
+the datasets quarantine as JAX's quarantine what cv2 fails on.
 ``image_size`` reads the headers of PNG, BMP, GIF (the logical screen),
 JPEG (through the SOF walk) and TIFF (the first IFD, whatever its
 compression, with orientations 5-8 swapping the sides as the decode does)
@@ -79,20 +90,15 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from rcnn_ocr_tpu_torch.data import bmp, gif, pnm, tiff, webp
+from rcnn_ocr_tpu_torch.data import bmp, gif, hdr, jpeg2000, pfm, pnm, sunras, tiff, webp
 from rcnn_ocr_tpu_torch.data.size_limit import PNG_MAX_SIDE, check_size
 
 IMG_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff"}
-SUPPORTED = ("PNG, BMP, JPEG (8-bit sequential or progressive), WebP, GIF, Netpbm (PBM, PGM, "
-             "PPM, PAM) and TIFF (baseline, CCITT fax, JPEG, YCbCr)")
+SUPPORTED = ("PNG, BMP, JPEG (8-bit sequential or progressive), JPEG 2000 (Part 1), WebP, GIF, "
+             "Netpbm (PBM, PGM, PPM, PAM), Sun raster, PFM, Radiance HDR and TIFF (baseline, "
+             "CCITT fax, JPEG, YCbCr)")
 # formats OpenCV reads and the port does not, by their magic bytes
-_REFUSED = ((lambda d: d[4:12] in (b"ftypavif", b"ftypavis"), "AVIF"),
-            (lambda d: d.startswith(b"\x00\x00\x00\x0cjP  \r\n\x87\n"), "JPEG 2000 (JP2)"),
-            (lambda d: d.startswith(b"\xff\x4f\xff\x51"), "JPEG 2000 (codestream)"),
-            (lambda d: d.startswith(b"\x59\xa6\x6a\x95"), "Sun raster"),
-            (lambda d: d[:2] in (b"PF", b"Pf"), "PFM"),
-            (lambda d: d.startswith((b"#?RADIANCE", b"#?RGBE")), "Radiance HDR"),
-            (lambda d: d.startswith(b"\x76\x2f\x31\x01"), "OpenEXR"))
+_REFUSED = ((lambda d: d[4:12] in (b"ftypavif", b"ftypavis"), "AVIF"),)
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _TIFF_SIGS = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")  # TIFF and BigTIFF
@@ -248,9 +254,9 @@ def _png_decode(data: bytes) -> np.ndarray:
 
 def imdecode(data) -> np.ndarray:
     """Encoded image bytes -> RGB uint8 HWC (the counterpart of
-    ``imdecode_cv2``).  Raises ``ValueError`` on damaged data and
-    :class:`UnsupportedImageFormat` on a format or JPEG variant it does not
-    decode."""
+    ``imdecode_cv2``).  Raises ``ValueError`` on damaged data and on bytes
+    that are no image cv2 reads, and :class:`UnsupportedImageFormat` on a
+    format or variant cv2 reads and the port does not decode."""
     data = bytes(data)
     if data.startswith(b"\xff\xd8"):
         from rcnn_ocr_tpu_torch.native import jpeg_decode_u8
@@ -272,7 +278,11 @@ def imdecode(data) -> np.ndarray:
               bmp.decode if data.startswith(b"BM") else
               webp.decode if data[:4] == b"RIFF" and data[8:12] == b"WEBP" else
               gif.decode if data[:6] in (b"GIF87a", b"GIF89a") else
-              pnm.decode if _is_pnm(data) else None)
+              pnm.decode if _is_pnm(data) else
+              jpeg2000.decode if jpeg2000.is_jpeg2000(data) else
+              sunras.decode if data.startswith(sunras.MAGIC) else
+              pfm.decode if data[:2] in (b"PF", b"Pf") else
+              hdr.decode if data.startswith(hdr.SIGNATURES) else None)
     if decode is not None:
         try:
             return decode(data)
@@ -281,9 +291,17 @@ def imdecode(data) -> np.ndarray:
                 f"cannot decode {err}: the PyTorch port decodes {SUPPORTED} images") from None
         except (zlib.error, struct.error, IndexError) as err:
             raise ValueError(f"damaged image data: {err}") from err
-    kind = next((name for match, name in _REFUSED if match(data)), "an unknown format")
+    kind = next((name for match, name in _REFUSED if match(data)), None)
+    if kind is None:  # cv2 gives None too: a damaged sample, not a format to port
+        raise ValueError(f"not an image cv2 reads: {_describe(data)}")
     raise UnsupportedImageFormat(
         f"cannot decode {kind}: the PyTorch port decodes {SUPPORTED} images")
+
+
+def _describe(data: bytes) -> str:
+    if not data:
+        return "an empty file"
+    return f"{len(data)} bytes starting {data[:8]!r}"
 
 
 def _is_pnm(data: bytes) -> bool:

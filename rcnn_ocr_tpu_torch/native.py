@@ -1,14 +1,17 @@
 """ctypes bindings of the port's host C++: the CTC prefix beam search, the
 serving letterbox, the JPEG decoder, TIFF's LZW and CCITT fax decoders,
-GIF's LZW decoder and WebP's VP8 and VP8L decoders.
+GIF's LZW decoder, WebP's VP8 and VP8L decoders and the JPEG 2000
+codestream decoder.
 
 The sources are ``rcnn_ocr_tpu_torch/csrc/host/ctc_beam.cpp`` (the search of
 the JAX package's ``native/ctc_beam.cpp``), ``csrc/host/letterbox.cpp`` (its
 ``native/letterbox.cpp``), kept as the port's own copies, and
 ``csrc/host/jpeg_decode.cpp``, ``csrc/host/tiff_decode.cpp``,
-``csrc/host/gif_decode.cpp`` and ``csrc/host/webp_decode.cpp`` (the port's
-own: JAX decodes with cv2).  At
-first use each is compiled with ``g++ -O3 -std=c++17 -fPIC -shared -pthread`` into
+``csrc/host/gif_decode.cpp``, ``csrc/host/webp_decode.cpp`` and
+``csrc/host/j2k_decode.cpp`` (the port's own: JAX decodes with cv2).  At
+first use each is compiled with ``g++ -O3 -std=c++17 -fPIC -shared -pthread
+-ffp-contract=off`` (no fused multiply-add, so the JPEG 2000 decoder's float
+wavelet rounds as OpenJPEG's) into
 ``build/rcnn_ocr_tpu_torch/`` under a name that carries a hash of the source
 and flags, so an edited source is rebuilt, and loaded with ``ctypes``.  A
 failed build raises with the compiler's output; nothing falls back to
@@ -16,7 +19,8 @@ Python.  Bound: the batched beam entry points
 ``rcnn_ctc_beam_search_batch[_mt][_v2]``, ``rcnn_letterbox_u8``,
 ``rcnn_jpeg_header``, ``rcnn_jpeg_decode_u8``, ``rcnn_jpeg_frame``,
 ``rcnn_jpeg_decode_frame``, ``rcnn_tiff_lzw_decode``, ``rcnn_tiff_fax_decode``,
-``rcnn_gif_lzw_decode``, ``rcnn_webp_vp8l_decode`` and ``rcnn_webp_vp8_decode``.
+``rcnn_gif_lzw_decode``, ``rcnn_webp_vp8l_decode``, ``rcnn_webp_vp8_decode``,
+``rcnn_j2k_header`` and ``rcnn_j2k_decode``.
 A ctypes call releases
 the interpreter lock, so threads decode in parallel.
 """
@@ -37,7 +41,9 @@ import numpy as np
 from rcnn_ocr_tpu_torch.ops.kernels import BUILD_DIR
 
 HOST_DIR = Path(__file__).resolve().parent / "csrc" / "host"
-CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
+# -ffp-contract=off: no multiply-add is fused, so float code (the JPEG 2000
+# 9/7 wavelet) rounds as the reference decoders' does
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-ffp-contract=off"]
 
 _F, _I64 = ctypes.POINTER(ctypes.c_float), ctypes.c_int64
 _P64, _P32 = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32)
@@ -76,6 +82,9 @@ ENTRIES = {
                     # data, n, width, height, out, msg, msg_len
                     "rcnn_webp_vp8_decode": [ctypes.c_char_p, _I64, _I64, _I64,
                                              ctypes.POINTER(ctypes.c_uint8), ctypes.c_char_p, _I64]},
+    # data, n, info | out, total; then msg, msg_len
+    "j2k_decode": {"rcnn_j2k_header": [ctypes.c_char_p, _I64, _P64, ctypes.c_char_p, _I64],
+                   "rcnn_j2k_decode": [ctypes.c_char_p, _I64, _P32, _I64, ctypes.c_char_p, _I64]},
 }
 
 _lock = threading.Lock()
@@ -356,3 +365,44 @@ def webp_decode_vp8(data: bytes, width: int, height: int) -> np.ndarray:
     if res < 0:
         raise ValueError(f"damaged WebP data: {msg.value.decode('utf-8', 'replace')}")
     return out
+
+
+def j2k_header(data: bytes) -> tuple:
+    """A JPEG 2000 codestream's main header -> ``((x0, y0, x1, y1), comps)``,
+    each component ``(dx, dy, width, height, x0, y0, precision, signed)``.
+    Raises ``ValueError`` where OpenJPEG fails the header and
+    ``NotImplementedError`` naming what it refuses (HTJ2K)."""
+    lib = load("j2k_decode")
+    data = bytes(data)
+    info = np.zeros(5 + 8 * 16384, dtype=np.int64)  # SIZ holds at most 16384 components
+    msg = ctypes.create_string_buffer(256)
+    res = lib.rcnn_j2k_header(data, len(data), info.ctypes.data_as(_P64), msg, len(msg))
+    _j2k_raise(res, msg)
+    comps = [tuple(int(v) for v in info[5 + 8 * c : 13 + 8 * c]) for c in range(int(info[4]))]
+    return tuple(int(v) for v in info[:4]), comps
+
+
+def j2k_decode(data: bytes, comps) -> list:
+    """Decode a JPEG 2000 codestream into one int32 ``[height, width]`` plane
+    a component (``comps`` as :func:`j2k_header` gives them), the samples
+    OpenJPEG gives: DC-shifted and clamped to each component's range."""
+    lib = load("j2k_decode")
+    data = bytes(data)
+    sizes = [int(c[2]) * int(c[3]) for c in comps]
+    out = np.empty(sum(sizes), dtype=np.int32)
+    msg = ctypes.create_string_buffer(256)
+    res = lib.rcnn_j2k_decode(data, len(data), out.ctypes.data_as(_P32), out.size, msg, len(msg))
+    _j2k_raise(res, msg)
+    planes, pos = [], 0
+    for c, size in zip(comps, sizes):
+        planes.append(out[pos : pos + size].reshape(int(c[3]), int(c[2])))
+        pos += size
+    return planes
+
+
+def _j2k_raise(res: int, msg) -> None:
+    text = msg.value.decode("utf-8", "replace")
+    if res == -2:
+        raise NotImplementedError(text)
+    if res < 0:
+        raise ValueError(text)

@@ -10,9 +10,9 @@ engine behind it is the port's
 or a loaded :class:`~rcnn_ocr_tpu_torch.export.ServingArtifact`;
 request bodies are decoded by the port's own
 :func:`~rcnn_ocr_tpu_torch.data.image_io.imdecode` (PNG, BMP, JPEG, TIFF,
-WebP, GIF and Netpbm, no cv2), whose JPEG, TIFF, WebP and GIF bit-level
-loops are host C++ called through ctypes, so handler threads decode in
-parallel.
+WebP, GIF, Netpbm, JPEG 2000, Sun raster, PFM and Radiance HDR, no cv2),
+whose JPEG, TIFF, WebP, GIF and JPEG 2000 bit-level loops are host C++
+called through ctypes, so handler threads decode in parallel.
 
 Handler threads enqueue decoded images and block; ONE dispatcher thread
 drains the queue into batches of up to ``max_batch`` (waiting at most

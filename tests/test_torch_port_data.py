@@ -195,10 +195,9 @@ def test_jpeg_decoding_raises_naming_the_supported_formats(tmp_path):
         image_io.imread(str(path))
     with pytest.raises(NotImplementedError, match="lossless JPEG"):
         tf.load_rgb_uint8(str(path))
-    ras = tmp_path / "line.ras"  # a format still refused, named by its magic
+    ras = tmp_path / "line.ras"  # Sun rasters decode now: a header over zeros as in cv2
     ras.write_bytes(b"\x59\xa6\x6a\x95" + struct.pack(">IIII", 8, 8, 24, 192) + b"\x00" * 208)
-    with pytest.raises(image_io.UnsupportedImageFormat, match="cannot decode Sun raster"):
-        image_io.imread(str(ras))
+    np.testing.assert_array_equal(image_io.imread(str(ras)), jax_tf.imread_cv2(str(ras)))
     gif = tmp_path / "line.gif"  # GIFs decode now: a header alone fails as in cv2
     gif.write_bytes(b"GIF89a" + struct.pack("<HH", 8, 8) + b"\x00" * 24)
     with pytest.raises(ValueError):
@@ -296,6 +295,62 @@ def test_ocr_dataset_screens_rows_like_jax(tmp_path):
     want_img, want_label = theirs[3]
     assert label == want_label == "a b"
     np.testing.assert_array_equal(img, want_img)
+
+
+def assert_datasets_agree(csv_path, root, n_rows: int, seed: int = 5):
+    """The port's and JAX's ``OCRDataset`` on one CSV, their substitute
+    draws seeded alike: every fetch gives the same label and pixels (a
+    quarantined row's substitute among them), and the same rows end
+    quarantined with the same counts.  Returns the quarantined rows."""
+    import random
+
+    kw = dict(max_len=4, verbose=False)
+    ours = dataset.OCRDataset(str(csv_path), str(root), CS.stoi, **kw)
+    theirs = jax_dataset.OCRDataset(str(csv_path), str(root), JCS.stoi, **kw)
+    assert ours.samples == theirs.samples and len(ours) == n_rows
+    ours._substitute_rng, theirs._substitute_rng = random.Random(seed), random.Random(seed)
+    for _ in range(2):  # the second pass meets the quarantine already marked
+        for i in range(n_rows):
+            got, label = ours[i]
+            want, want_label = theirs[i]
+            assert label == want_label, i
+            np.testing.assert_array_equal(got, want, err_msg=str(i))
+    assert ours._invalid_mask == theirs._invalid_mask
+    assert ours.skip_counts == theirs._reasons
+    return [i for i, bad in enumerate(ours._invalid_mask) if bad]
+
+
+def test_files_cv2_cannot_read_are_quarantined_as_jax_quarantines_them(tmp_path):
+    """A zero-byte file, a download cut inside the PNG signature, a text
+    file named ``.png`` and an OpenEXR file (this cv2 has no OpenEXR): cv2
+    reads none of them, so JAX's dataset quarantines each and serves a
+    healthy row in its place.  The port raised ``UnsupportedImageFormat``
+    ("an unknown format", and OpenEXR by name) and stopped the run; it now
+    raises ``ValueError`` and quarantines them alike."""
+    root = tmp_path / "ds"
+    root.mkdir()
+    rng = np.random.default_rng(3)
+    bad = {"empty.png": b"", "cut.png": b"\x89PN", "text.png": b"not an image, a note\n",
+           "scan.exr": b"\x76\x2f\x31\x01\x02\x00\x00\x00" + bytes(40)}
+    rows = []
+    for i in range(10):
+        if i % 3 == 1 and bad:
+            name, data = bad.popitem()
+        else:
+            name = f"line_{i}.png"
+            data = png_bytes(rng.integers(0, 256, (6, 9 + i, 3), dtype=np.uint8), 2, 8)
+        (root / name).write_bytes(data)
+        rows.append([name, "abcdefghij"[i]])
+    csv_path = root / "labels.csv"
+    with open(csv_path, "w", newline="", encoding="utf-8") as f:
+        csv.writer(f).writerows(rows)
+    for name, _ in rows[1::3]:
+        with pytest.raises(Exception):  # cv2 gives None (or raises, on zero bytes)
+            jax_tf.imread_cv2(str(root / name))
+        with pytest.raises(ValueError, match="not an image cv2 reads") as err:
+            image_io.imread(str(root / name))
+        assert not isinstance(err.value, image_io.UnsupportedImageFormat)
+    assert assert_datasets_agree(csv_path, root, len(rows)) == [1, 4, 7]
 
 
 def _epochs(sampler, n=2):

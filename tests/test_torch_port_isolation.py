@@ -73,6 +73,7 @@ def test_port_sources_are_not_gitignored():
     files = SOURCES + sorted(csrc.glob("**/*.cu")) + sorted(csrc.glob("**/*.cpp"))
     assert csrc / "host" / "ctc_beam.cpp" in files
     assert csrc / "host" / "letterbox.cpp" in files
+    assert csrc / "host" / "j2k_decode.cpp" in files
     port = REPO / "rcnn_ocr_tpu_torch"
     assert port / "parallel" / "mesh.py" in files and port / "hpo" / "driver.py" in files
     assert {port / "serve_loadtest.py", port / "export_torch.py",

@@ -17,8 +17,10 @@
   streams take RFC 6386's tables from the decoder's own source
   (``make_web_fixtures._table``); cv2's pixels, not the port's, are what
   they are held to, so a wrong table still fails.
-* The refusal: AVIF, JPEG 2000, Sun raster, PFM, Radiance HDR and OpenEXR
-  raise ``UnsupportedImageFormat`` naming the format.
+* The refusal: AVIF raises ``UnsupportedImageFormat`` naming the format;
+  the headers of JPEG 2000, Sun raster, PFM, Radiance HDR and OpenEXR
+  files, once refused by name, are held to cv2 (``ValueError`` where it
+  gives ``None``), as is garbage.
 * The fault of the port against the reference, repaired: a CSV naming
   ``.webp``, ``.gif`` and ``.pgm`` lines trains and evaluates under JAX
   (its dataset and eval CLI read any file the CSV names through cv2); the
@@ -295,17 +297,18 @@ def test_truncated_file_raises_value_error(kind, cut):
 REFUSED = {  # case: (the name the refusal gives, the file's first bytes)
     "AVIF": ("AVIF", b"\x00\x00\x00\x1cftypavif\x00\x00\x00\x00avifmif1miaf" + bytes(32)),
     "AVIF sequence": ("AVIF", b"\x00\x00\x00\x1cftypavis\x00\x00\x00\x00avismif1" + bytes(32)),
-    "JP2": ("JPEG 2000 (JP2)", b"\x00\x00\x00\x0cjP  \r\n\x87\n\x00\x00\x00\x14ftypjp2 "
-            + bytes(32)),
-    "J2K": ("JPEG 2000 (codestream)", b"\xff\x4f\xff\x51\x00\x29" + bytes(48)),
-    "Sun raster": ("Sun raster", b"\x59\xa6\x6a\x95" + bytes(28)),
-    "PFM": ("PFM", b"PF\n2 1\n-1.0\n" + bytes(24)),
-    "PFM gray": ("PFM", b"Pf\n2 1\n-1.0\n" + bytes(8)),
-    "Radiance HDR": ("Radiance HDR", b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 1 +X 2\n"
-                     + bytes(8)),
-    "Radiance HDR RGBE": ("Radiance HDR", b"#?RGBE\nFORMAT=32-bit_rle_rgbe\n\n-Y 1 +X 2\n"
-                          + bytes(8)),
-    "OpenEXR": ("OpenEXR", b"\x76\x2f\x31\x01\x02\x00\x00\x00" + bytes(24)),
+}
+# headers the port refused by name until it read their formats (OpenEXR:
+# this cv2 has none): each now held to cv2
+HEADERS = {
+    "JP2": b"\x00\x00\x00\x0cjP  \r\n\x87\n\x00\x00\x00\x14ftypjp2 " + bytes(32),
+    "J2K": b"\xff\x4f\xff\x51\x00\x29" + bytes(48),
+    "Sun raster": b"\x59\xa6\x6a\x95" + bytes(28),
+    "PFM": b"PF\n2 1\n-1.0\n" + bytes(24),
+    "PFM gray": b"Pf\n2 1\n-1.0\n" + bytes(8),
+    "Radiance HDR": b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 1 +X 2\n" + bytes(8),
+    "Radiance HDR RGBE": b"#?RGBE\nFORMAT=32-bit_rle_rgbe\n\n-Y 1 +X 2\n" + bytes(8),
+    "OpenEXR": b"\x76\x2f\x31\x01\x02\x00\x00\x00" + bytes(24),
 }
 
 
@@ -316,9 +319,20 @@ def test_formats_still_refused_are_named(kind):
         image_io.imdecode(data)
 
 
+@pytest.mark.parametrize("kind", sorted(HEADERS))
+def test_headers_of_formats_once_refused_are_held_to_cv2(kind):
+    """PFM and HDR headers over zeros decode (to black); the others give
+    cv2 ``None`` and the port ``ValueError``."""
+    assert _assert_as_cv2(HEADERS[kind], kind) == kind.startswith(("PFM", "Radiance"))
+
+
 def test_garbage_is_an_unknown_format():
-    with pytest.raises(image_io.UnsupportedImageFormat, match="an unknown format"):
+    """Bytes cv2 reads as no image are a damaged sample (``ValueError``,
+    which the datasets quarantine), not a format to refuse by name."""
+    with pytest.raises(ValueError, match="not an image cv2 reads") as err:
         image_io.imdecode(b"not an image at all")
+    assert not isinstance(err.value, image_io.UnsupportedImageFormat)
+    assert _cv2(b"not an image at all") is None
 
 
 # --- the fault: WebP, GIF and Netpbm rows under the datasets and the eval CLI --------
