@@ -69,10 +69,15 @@
    share of one profiled batch.
    Daemon phase: the host C++ JPEG decoder against cv2's pixels of the
    committed fixtures (tests/torch_port_data/jpeg/: baseline, progressive
-   whole and cut short, arithmetic-coded, CMYK and YCCK), the TIFF
-   decoder against those of tests/torch_port_data/tiff/ (CCITT, JPEG-in-TIFF
-   and YCbCr among them; old-style JPEG, ZSTD, LZMA, WebP, float and signed
-   samples and BigTIFF refused naming them) and the BMP decoder against
+   whole and cut short, arithmetic-coded, CMYK and YCCK, lossless; the
+   files cv2 gives None on, lossless gray and YCbCr, SOF11, hierarchical,
+   12-bit and DNL frames, raise ValueError naming them), the TIFF decoder
+   against those of tests/torch_port_data/tiff/ (CCITT, JPEG-in-TIFF,
+   YCbCr, BigTIFF, signed samples, old-style LZW, planar YCbCr JPEG, CIELab
+   and SGI LogL among them; the files cv2 gives None on, ZSTD, LZMA, WebP,
+   LERC, PixarLog and old-style JPEG compression, float, untyped and 32-bit
+   samples, ICCLab, ITULab and ThunderScan, raise ValueError naming them;
+   SGI LogLuv, which cv2 reads, is refused naming it) and the BMP decoder against
    those of tests/torch_port_data/bmp/ (1/4/8/16/24/32-bit, RLE8, RLE4, OS/2
    to V5 headers), and the WebP, GIF and Netpbm decoders against those of
    tests/torch_port_data/{webp,gif,pnm}/, the JPEG 2000 decoder (host
@@ -86,18 +91,21 @@
    then the port's ``OCRServer`` on 127.0.0.1
    over the same weights (bf16, batch 256, 5 ms window, canvas 80x640) for
    ctc_greedy and then attention: the port's client, in a process of its
-   own, sends the 512 lines as PNG, 64 JPEG lines and 38 lines as
-   progressive, arithmetic and YCCK JPEG, TIFF, G4 and G3 TIFF,
+   own, sends the 512 lines as PNG, 64 JPEG lines and 41 lines as
+   progressive, arithmetic, YCCK and lossless JPEG, TIFF, BigTIFF, CIELab
+   TIFF, G4 and G3 TIFF,
    JPEG-in-TIFF (YCbCr 2x2), YCbCr TIFF (LZW), 1-bit and RLE8 BMP, lossy
    WebP, lossless WebP with alpha, interlaced GIF with a transparent index,
    binary PGM, lossless JP2, an irreversible J2K codestream, a colormapped
    Sun raster, a PF PFM and a run-length encoded HDR, each
    beside a PNG of its pixels, raw and in 8-image JSON batches, from 1
-   (16 + 16 lines and the 38 pairs), 16 and 64 threads; strings must equal in-process
+   (16 + 16 lines and the 41 pairs), 16 and 64 threads; strings must equal in-process
    ``predict_serving`` on >= 99% of rows, every variant line's strings its
    PNG twin's, and each dispatch launch 11 + 2 kernels.  The host decode
    time per line of each format is printed beside the card's name and
-   power limit.  Two SIGHUP reloads
+   power limit.  A ZSTD TIFF (cv2 gives None: its libtiff lacks ZSTD) gets
+   the daemon's status and body for other bytes cv2 cannot read (a text
+   file): 400 and the decoder's ValueError.  Two SIGHUP reloads
    with 16 clients in flight must drop nothing, and the old engine must be
    released (a second reload adds no memory to the first; with the cuBLAS
    workspaces cleared, memory returns to where it was); a drain with 64
@@ -137,9 +145,10 @@
    ``platforms=("cuda", "cpu")`` runs on the card as well.  Prints export
    seconds, the cold start (load + first batch), img/s against the live
    engine and every file's size.  (5) ``python -m rcnn_ocr_tpu_torch.serve
-   --artifact`` in a process of its own answers 64 lines from 16 client
-   threads with the in-process strings; a SIGHUP after a re-export at batch
-   128, with clients in flight, drops no request.
+   --artifact`` in a process of its own (started beside the CPU export)
+   answers 64 lines from 16 client threads with the in-process strings; a
+   SIGHUP after a re-export at batch 128, with clients in flight, drops no
+   request.
 7c. Model-options phase, on the main path's model and 512 lines at
    bs 256, 32x128: (1) ``RCNN(stem_s2d=True)`` (the exact space-to-depth
    rewrite of stem0) against the default stem in fp32: encoder states
@@ -169,13 +178,25 @@
    versions.  (3) A ``ctc_greedy`` artifact loaded with the mesh equals the
    same artifact without one on every row.  (4) ``python -m
    rcnn_ocr_tpu_torch.serve --mesh`` and the same daemon without ``--mesh``,
-   each in a process of its own, under ``python -m
-   rcnn_ocr_tpu_torch.serve_loadtest`` at 1, 16 and 64 clients (every
-   request answered); their JSON lines are printed beside the daemon
+   each in a process of its own (the two started side by side), under
+   ``python -m rcnn_ocr_tpu_torch.serve_loadtest`` at 1, 16 and 64 clients
+   (32, 128 and 256 requests, every one answered); their JSON lines are printed beside the daemon
    phase's readings.  (5) The model exported as a full-layout ``.pth`` and
    read back by ``OCRInference``: the same attention strings.  Prints img/s
    of every engine measured in this call and says whether a run across
    cards happened.
+7e. CLI phase: the main path's weights written as a msgpack checkpoint;
+   ``python -m rcnn_ocr_tpu_torch.minimal_inference MODEL CHARSET LINE.png``
+   once as a subprocess, as a user runs it (its wall from process start to
+   exit is the cold start), then its flag matrix in-process (greedy,
+   ``--serving``, ``--beam-width 5 --lm --lm-weight 0.5 --length-penalty
+   0.6`` plain and under ``--serving``, ``--width-buckets 64,128``, the
+   default size, ``--quantize``, and the mesh phase's ``.pth``) over a PNG
+   line and the lossless JPEG, BigTIFF and CIELab TIFF lines: each run,
+   counted from 0, launches 11 + 2 for its one image (the ``cli`` path) and
+   prints the string the engine it built gives through ``predict`` /
+   ``predict_serving`` at batch 1; the subprocess prints the in-process
+   greedy string, and ``--lm-weight`` without a beam raises ValueError.
 8. Training phase.  (a) Gradient check: the same full-width model in fp32
    at batch 32, train mode, head "both" with dropout, DropBlock and
    sampling off, one ``make_train_step`` (SGD at lr 0, so the weights stay)
@@ -239,16 +260,19 @@
    ``--decode attention_beam`` with a bigram table of the training labels
    and ``--lm-weight 0,0.5``: each must exit 0 and write a report of all 256
    rows and a per-sample CSV of 256 rows; their wall times are printed.
-   Then ``--decode ctc_greedy`` over a CSV of the 20 lines of the newest
+   Then ``--decode ctc_greedy`` over a CSV of the 33 lines of the newest
    formats (G4 and G3 TIFF, JPEG-in-TIFF, YCbCr TIFF, 1-bit and RLE8 BMP,
-   lossy WebP, lossless WebP with alpha, interlaced GIF, binary PGM)
-   and over one of PNG twins of their pixels: both exit 0 with all 20 rows
+   lossy WebP, lossless WebP with alpha, interlaced GIF, binary PGM, JPEG
+   2000, Sun raster, PFM, HDR, lossless JPEG, BigTIFF, CIELab TIFF)
+   and over one of PNG twins of their pixels: both exit 0 with all 33 rows
    read and the same string for every line as for its twin.
-10. Scale-out phase, on the loop phase's set A (512 lines to train, 256 to
-   validate) with configs/config.json in fp32 at the global batch of 128 for
-   one epoch, each run a subprocess of ``python -m
-   rcnn_ocr_tpu_torch.training.train --deterministic`` with TF32 off and every
-   collective bounded by a timeout: (1) under ``python -m
+10. Scale-out phase, on half of the loop phase's set A (its first 384
+   lines: 256 to train, 128 to validate) with configs/config.json in fp32
+   at the global batch of 128 for one epoch, each run a subprocess of
+   ``python -m rcnn_ocr_tpu_torch.training.train --deterministic`` with
+   TF32 off and every collective bounded by a timeout, the three jobs side
+   by side on the card (their numbers do not move; their times are under
+   contention): (1) under ``python -m
    torch.distributed.run --nproc-per-node 1`` (NCCL) its losses must equal
    the run with no group exactly; (2) two ranks over gloo on cuda:0 must
    match the run with no group within rtol 1e-3 per epoch (train and val
@@ -261,12 +285,12 @@
    finite, launching 11 + 2 per batch (K2 at H=512); prints each trial's
    params, value, epochs, pruning, seconds and launches.  (4) ``python -m
    rcnn_ocr_tpu_torch.hpo_search --trials 2 --epochs-per-trial 1
-   --parallel-trials 2`` must warn and run one trial at a time on the one
-   card.  (5) ``python -m rcnn_ocr_tpu_torch.hpo.report`` and the JAX
+   --parallel-trials 2``, run beside the study, must warn and run one trial
+   at a time on the one card.  (5) ``python -m rcnn_ocr_tpu_torch.hpo.report`` and the JAX
    package's stdlib ``tools/hpo_report.py``, run as subprocesses, must print
    the same report of the study.
 
-Prints one ``{"kernels": [...]}`` line and, last, the device line
+Prints each phase's seconds, one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits non-zero
 before the last line.  Exits non-zero without a result when no CUDA device
 is present or the package is not beside this script.
@@ -314,7 +338,7 @@ COLD_BYTES = 100_000_000  # twice the H100's 50 MB L2
 DAEMON_CANVAS, DAEMON_BATCH, DAEMON_WAIT_MS = (80, 640), 256, 5.0
 DAEMON_CONCURRENCY = (1, 16, 64)
 # mesh phase: the load tool's (concurrency, requests) levels
-MESH_LOAD = ((1, 64), (16, 256), (64, 512))
+MESH_LOAD = ((1, 32), (16, 128), (64, 256))
 RELOAD_MEM_MIB = 8
 JPEG_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "jpeg")
 TIFF_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "tiff")
@@ -347,21 +371,60 @@ VARIANT_LINES = [(f"{stem}_line_{k}.{ext}", ctype, variant)
                      ("ras", "ras", "image/x-sun-raster", "colormapped Sun raster"),
                      ("pfm", "pfm", "application/octet-stream", "PF PFM"),
                      ("hdr", "hdr", "image/vnd.radiance", "RLE HDR"))
-                 for k in range(2)]
+                 for k in range(2)] + [
+    ("lossless_line_0.jpg", "image/jpeg", "lossless JPEG"),
+    ("bigtiff_line_0.tif", "image/tiff", "BigTIFF"),
+    ("cielab_line_0.tif", "image/tiff", "CIELab TIFF")]
 # the fax, JPEG-in-TIFF, YCbCr, BMP, WebP, GIF and PGM variants (the eval CLI
 # reads them beside their PNG twins)
 NEW_VARIANTS = ("G4 TIFF", "G3 TIFF", "JPEG-in-TIFF", "YCbCr TIFF", "1-bit BMP", "RLE8 BMP",
                 "lossy WebP", "lossless WebP with alpha", "interlaced GIF", "binary PGM",
                 "lossless JP2", "irreversible J2K codestream", "colormapped Sun raster", "PF PFM",
-                "RLE HDR")
-# the TIFFs the port still refuses, and the words each refusal must name
-TIFF_REFUSED = {"refused_zstd.tif": "ZSTD TIFF compression (50000)",
-                "refused_old_jpeg.tif": "old-style JPEG TIFF compression (6)",
-                "refused_lzma.tif": "LZMA TIFF compression (34925)",
-                "refused_webp.tif": "WebP TIFF compression (50001)",
-                "refused_float.tif": "floating-point TIFF samples",
-                "refused_signed.tif": "signed-integer TIFF samples",
-                "refused_bigtiff.tif": "BigTIFF"}
+                "RLE HDR", "lossless JPEG", "BigTIFF", "CIELab TIFF")
+# the TIFFs cv2 reads and the port still refuses, and the words each
+# refusal must name
+TIFF_REFUSED = {"refused_logluv16.tif": "SGI LogLuv TIFF"}
+# the fixtures cv2 gives None on (tests/torch_port_data/make_*_fixtures.py's
+# CV2_NONE), and the words the port's ValueError must name
+TIFF_CV2_NONE = {"none_zstd.tif": "ZSTD TIFF compression (50000)",
+                 "none_old_jpeg.tif": "old-style JPEG TIFF compression (6)",
+                 "none_lzma.tif": "LZMA TIFF compression (34925)",
+                 "none_webp.tif": "WebP TIFF compression (50001)",
+                 "none_lerc.tif": "LERC TIFF compression (34887)",
+                 "none_pixarlog.tif": "PixarLog TIFF compression (32909)",
+                 "none_float.tif": "floating-point TIFF samples",
+                 "none_float16.tif": "floating-point TIFF samples",
+                 "none_untyped.tif": "untyped TIFF samples",
+                 "none_signed32.tif": "32-bit TIFF samples",
+                 "none_icclab.tif": "ICCLab TIFF",
+                 "none_itulab.tif": "ITULab TIFF",
+                 "none_thunderscan4.tif": "4-bit TIFF samples",
+                 "none_bigtiff_no_directory.tif": "directory"}
+JPEG_CV2_NONE = {"none_lossless_gray.jpg": "lossless gray",
+                 "none_lossless_ycbcr_jfif.jpg": "lossless YCbCr",
+                 "none_lossless_12bit.jpg": "12-bit lossless",
+                 "none_lossless_arith_sof11.jpg": "SOF11",
+                 "none_lossless_restart_not_a_row.jpg": "restart interval",
+                 "none_hierarchical_sof5.jpg": "hierarchical",
+                 "none_12bit_sof1.jpg": "12-bit",
+                 "none_dnl_height.jpg": "DNL"}
+
+
+def cv2_none_check(folder: str, cases: dict) -> int:
+    """Each file of ``cases`` raises ValueError naming its cause (cv2 gives
+    None on it, so the datasets quarantine the row), never
+    UnsupportedImageFormat."""
+    from rcnn_ocr_tpu_torch.data.image_io import UnsupportedImageFormat, imread
+
+    for name, words in sorted(cases.items()):
+        try:
+            imread(os.path.join(folder, name))
+            check(False, f"{name} decoded (cv2 gives None: it must raise ValueError)")
+        except UnsupportedImageFormat as err:
+            check(False, f"{name} raised UnsupportedImageFormat, not ValueError: {err}")
+        except ValueError as err:
+            check(words in str(err), f"{name}: the ValueError names otherwise: {err}")
+    return len(cases)
 
 
 def fixture_path(name: str) -> str:
@@ -381,8 +444,11 @@ TRAIN_LR, TRAIN_WD = 5e-4, 2e-5
 LOOP_CHARS, LOOP_TRAIN, LOOP_VAL, LOOP_EPOCHS = 30, 512, 256, 2
 LOOP_SMALL, LOOP_SMALL_TRAIN, LOOP_PROFILE_STEPS = 640, 512, 4
 # scale-out phase: the collectives' timeout, a training subprocess's, and the
-# HPO study ("LSTM 2 512") in trials and epochs
+# HPO study ("LSTM 2 512") in trials and epochs; its runs train on the first
+# DP_TRAIN + DP_VAL rows of set A (labels_half.csv), DP_VAL of them split off
+# to validate
 DP_TIMEOUT_S, DP_RUN_TIMEOUT_S, HPO_TRIALS, HPO_EPOCHS = 120, 400, 3, 2
+DP_TRAIN, DP_VAL = LOOP_TRAIN // 2, LOOP_VAL // 2
 
 TOL = {
     # kernel vs plain, same inputs; fp32: summation order only
@@ -1122,8 +1188,10 @@ def serving_phase(kernels, variables, images, power: str):
 def jpeg_decoder_check() -> dict:
     """The host C++ JPEG decoder against cv2's pixels of the committed
     fixtures (tests/torch_port_data/jpeg/expected.npz: baseline, progressive
-    whole and cut short, arithmetic-coded, CMYK and YCCK), read without
-    cv2; a lossless frame is refused naming it, a truncated one raises."""
+    whole and cut short, arithmetic-coded, CMYK and YCCK, lossless), read
+    without cv2; the fixtures cv2 gives None on (lossless gray and YCbCr,
+    SOF11, hierarchical, 12-bit, DNL) and a truncated stream raise
+    ValueError."""
     from rcnn_ocr_tpu_torch.native import jpeg_decode_u8
 
     with np.load(os.path.join(JPEG_FIXTURES, "expected.npz")) as z:
@@ -1136,16 +1204,11 @@ def jpeg_decoder_check() -> dict:
             differing.append(name)
     check(not differing, f"jpeg_decode_u8 differs from cv2's pixels on {differing}")
     variants = {v: sum(v in name for name in expected)
-                for v in ("progressive", "cut_", "arith", "cmyk", "ycck")}
+                for v in ("progressive", "cut_", "arith", "cmyk", "ycck", "lossless")}
     check(all(variants.values()), f"a variant has no fixture: {variants}")
+    none = cv2_none_check(JPEG_FIXTURES, JPEG_CV2_NONE)
     with open(os.path.join(JPEG_FIXTURES, "line_00.jpg"), "rb") as f:
         line = f.read()
-    sof = line.find(b"\xff\xc0")
-    try:
-        jpeg_decode_u8(line[: sof + 1] + b"\xc3" + line[sof + 2 :])
-        check(False, "a lossless (SOF3) JPEG decoded (it must be refused)")
-    except NotImplementedError as err:
-        check("lossless" in str(err), f"the refusal names no variant: {err}")
     try:
         jpeg_decode_u8(line[: len(line) // 2])
         check(False, "a JPEG cut in half decoded (it must raise ValueError)")
@@ -1155,18 +1218,21 @@ def jpeg_decoder_check() -> dict:
           f"(subsamplings 4:4:4/4:2:2/4:2:0/4:4:0/4:1:1, gray, restarts, EXIF 3/6/8, "
           f"no DHT, damaged, 64 lines; {variants['progressive']} progressive, "
           f"{variants['cut_']} cut short, {variants['arith']} arithmetic, "
-          f"{variants['cmyk'] + variants['ycck']} CMYK / YCCK); lossless refused, "
-          f"truncated raises ValueError")
-    return {"fixtures_bit_equal": len(expected), "variants": variants}
+          f"{variants['cmyk'] + variants['ycck']} CMYK / YCCK, {variants['lossless']} "
+          f"lossless); {none} that cv2 gives None on and a truncated one raise ValueError")
+    return {"fixtures_bit_equal": len(expected), "variants": variants, "cv2_none": none}
 
 
 def tiff_decoder_check() -> dict:
-    """The port's TIFF decoder (data/tiff.py; LZW and CCITT fax in host
-    C++, JPEG through the host JPEG decoder) against cv2's pixels of the
-    committed fixtures (tests/torch_port_data/tiff/expected.npz: Group 4
-    and JPEG-in-TIFF among them), read without cv2; the kinds still refused
-    (old-style JPEG, ZSTD, LZMA, WebP, floats, signed samples, BigTIFF)
-    raise naming them, a truncated file raises ValueError."""
+    """The port's TIFF decoder (data/tiff.py; LZW, CCITT fax and SGI LogL
+    in host C++, JPEG through the host JPEG decoder) against cv2's pixels of
+    the committed fixtures (tests/torch_port_data/tiff/expected.npz: Group 4,
+    JPEG-in-TIFF, BigTIFF, signed samples, old-style LZW, planar YCbCr JPEG,
+    CIELab and LogL among them), read without cv2; the files cv2 gives None
+    on (ZSTD, LZMA, WebP, LERC, PixarLog, old-style JPEG, floats, untyped
+    and 32-bit samples, ICCLab, ITULab, ThunderScan) raise ValueError naming
+    the cause, SGI LogLuv (which cv2 reads) is refused naming it, a
+    truncated file raises ValueError."""
     from rcnn_ocr_tpu_torch.data.image_io import UnsupportedImageFormat, imread
 
     with np.load(os.path.join(TIFF_FIXTURES, "expected.npz")) as z:
@@ -1176,10 +1242,12 @@ def tiff_decoder_check() -> dict:
     check(not differing, f"the TIFF decoder differs from cv2's pixels on {differing}")
     kinds = {k: sum(n.startswith(k) for n in expected)
              for k in ("g4", "g3", "mh", "ccitt_rlew", "jpeg_", "ycbcr", "pil_1_group4",
-                       "pil_l_jpeg")}
+                       "pil_l_jpeg", "bigtiff", "signed", "lzw_old", "jpeg_ycbcr_planar",
+                       "cielab", "pil_lab", "sgilog")}
     check(all(kinds.values()), f"a TIFF kind has no fixture: {kinds}")
+    none = cv2_none_check(TIFF_FIXTURES, TIFF_CV2_NONE)
     refused = sorted(set(f for f in os.listdir(TIFF_FIXTURES) if f.endswith(".tif"))
-                     - set(expected))
+                     - set(expected) - set(TIFF_CV2_NONE))
     check(refused == sorted(TIFF_REFUSED), f"the refused TIFF fixtures are {refused}")
     for name in refused:
         try:
@@ -1200,9 +1268,13 @@ def tiff_decoder_check() -> dict:
           f"PackBits, LZW, Deflate, predictor 2; gray 1/8/16, palette 1/4/8, RGB(A) 8/16, "
           f"CMYK; strips, tiles, planar, II and MM, orientations 1-8; CCITT "
           f"{kinds['g4'] + kinds['g3'] + kinds['mh'] + kinds['ccitt_rlew']}, JPEG-in-TIFF "
-          f"{kinds['jpeg_']}, YCbCr {kinds['ycbcr']}); {len(refused)} refused naming "
-          f"them; truncated raises ValueError")
-    return {"fixtures_bit_equal": len(expected), "kinds": kinds, "refused": refused}
+          f"{kinds['jpeg_']}, YCbCr {kinds['ycbcr']}, BigTIFF {kinds['bigtiff']}, signed "
+          f"{kinds['signed']}, old-style LZW {kinds['lzw_old']}, planar YCbCr JPEG "
+          f"{kinds['jpeg_ycbcr_planar']}, CIELab {kinds['cielab'] + kinds['pil_lab']}, LogL "
+          f"{kinds['sgilog']}); {none} that cv2 gives None on and a truncated one raise "
+          f"ValueError; {len(refused)} refused naming them")
+    return {"fixtures_bit_equal": len(expected), "kinds": kinds, "refused": refused,
+            "cv2_none": none}
 
 
 def bmp_decoder_check() -> dict:
@@ -1413,6 +1485,32 @@ def drive_daemon(base: str, jobs, concurrency: int, stop=None):
     return t0, time.monotonic(), out
 
 
+def undecodable_replies(base: str, imdecode) -> dict:
+    """A ZSTD TIFF (cv2 gives None: its libtiff lacks ZSTD) posted to the
+    daemon gets what other bytes cv2 cannot read get (a text file posted
+    as a PNG): status 400 and the body ``{"error": "bad request: <the
+    decoder's ValueError>"}``, never the refusal of a format cv2 reads."""
+    with open(os.path.join(TIFF_FIXTURES, "none_zstd.tif"), "rb") as f:
+        zstd = f.read()
+    replies = {}
+    for what, body, ctype in (("ZSTD TIFF", zstd, "image/tiff"),
+                              ("text", b"not an image, a note\n", "image/png")):
+        try:
+            imdecode(body)
+            check(False, f"{what}: the daemon's decoder read it")
+        except ValueError as err:
+            if isinstance(err, NotImplementedError):
+                check(False, f"{what}: refused as unsupported, not ValueError: {err}")
+            want = {"error": f"bad request: {err}"}
+        replies[what] = _post(base, body, ctype)
+        check(replies[what] == (400, want), f"{what}: the daemon answered {replies[what]}, "
+                                            f"expected {(400, want)}")
+    print(f"  bytes cv2 cannot read: a ZSTD TIFF answered {replies['ZSTD TIFF'][0]} "
+          f"{replies['ZSTD TIFF'][1]}, as a text file is ({replies['text'][0]} "
+          f"{replies['text'][1]})")
+    return {k: {"status": v[0], "body": v[1]} for k, v in replies.items()}
+
+
 def client_process(base: str, levels, conn) -> None:
     """A client process's work: each (name, jobs, concurrency) level in turn
     through :func:`drive_daemon`, the results sent back on ``conn``.  The
@@ -1573,6 +1671,8 @@ def daemon_phase(kernels, variables, images, power: str):
         base = "http://%s:%d" % server.address[:2]
         _post(base, wire[0][1], wire[0][0])  # warm-up, not counted
         res = {"levels": {}}
+        if method == "ctc_greedy":
+            res["cv2_none"] = undecodable_replies(base, imdecode)
         kernels.reset_launch_counts()
         dispatches.clear()
         # the clients: a process of their own (spawned: it imports this
@@ -2182,6 +2282,9 @@ def int8_artifact_phase(kernels, variables, images, power: str):
               f"{'lines' if long else 'img'}/s on {power}; {batches} encoded batches; "
               f"files {sizes}")
         del art
+    # (5)'s daemon starts now, beside the CPU export below
+    daemon_dir = os.path.join(root, "ctc_greedy_int8_static")
+    artifact_daemon = serve_start(["--artifact", daemon_dir], "serve_artifact")
     # exported on the CPU, listing both platforms, moved to the card
     cpu_eng = engine(source=static.variables, device="cpu", quantize=True)
     path = os.path.join(root, "ctc_greedy_int8_static_from_cpu")
@@ -2202,30 +2305,23 @@ def int8_artifact_phase(kernels, variables, images, power: str):
 
     # (5) python -m rcnn_ocr_tpu_torch.serve --artifact, with a SIGHUP reload
     # from a re-export at another batch size while clients are in flight
-    daemon_dir = os.path.join(root, "ctc_greedy_int8_static")
     sample = images[:64]
     bodies = [png_encode(im) for im in sample]
     want_256 = ServingArtifact.load(daemon_dir).predict(sample)
-    env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.Popen([sys.executable, "-m", "rcnn_ocr_tpu_torch.serve", "--artifact",
-                             daemon_dir, "--port", "0"], cwd=REPO, env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    proc = artifact_daemon["proc"]
     try:
-        t0 = time.perf_counter()
-        base = None
-        for line in proc.stdout:
-            if line.startswith("Serving on "):
-                base = line.split()[2]
-                break
+        artifact_daemon["ready"].wait(600)
+        base = artifact_daemon["base"]
         check(base is not None, "the artifact daemon never started serving")
-        start_s = time.perf_counter() - t0
+        start_s = artifact_daemon["start_s"]
         jobs = [([i], "raw", ("image/png", bodies[i])) for i in range(len(sample))]
         _, _, served = drive_daemon(base, jobs, 16)
         ok = [(idx, texts) for idx, _, status, texts in served if status == 200]
         check(len(ok) == len(jobs), f"artifact daemon answered {len(ok)}/{len(jobs)} with 200")
         same = sum(texts == [want_256[idx[0]]] for idx, texts in ok)
         check(same == len(jobs), f"artifact daemon: {same}/{len(jobs)} strings equal in-process")
-        print(f"  serve --artifact: up in {start_s:.1f} s (process start, load, warm-up); "
+        print(f"  serve --artifact: up in {start_s:.1f} s (process start, load, warm-up; "
+              f"beside the CPU export); "
               f"{len(jobs)} lines at c=16, all 200, strings equal in-process on {same}")
         export_serving_artifact(static, daemon_dir, method="ctc_greedy", batch_size=BATCH // 2,
                                 canvas=canvas)
@@ -2265,13 +2361,7 @@ def int8_artifact_phase(kernels, variables, images, power: str):
         print(f"  SIGHUP to a re-export at batch {BATCH // 2}: {len(during)} requests across "
               f"the reload, all 200, each equal to one of the two artifacts' strings")
     finally:
-        proc.send_signal(signal.SIGTERM)
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(10)
-    check(proc.returncode == 0, f"the artifact daemon exited {proc.returncode}")
+        serve_stop(artifact_daemon, "the artifact daemon")
     out["launch_counts"] = dict(launches)
     return out
 
@@ -2466,25 +2556,54 @@ def model_options_phase(kernels, variables, images, power: str) -> dict:
     return out
 
 
-def serve_and_load(args, png_path: str, what: str, power: str) -> dict:
-    """``python -m rcnn_ocr_tpu_torch.serve`` with ``args`` in a process of its
-    own, driven by ``python -m rcnn_ocr_tpu_torch.serve_loadtest`` with one
-    line at each of MESH_LOAD's concurrencies: their final JSON lines, and
-    the daemon's start-up seconds."""
+def serve_start(args, name: str) -> dict:
+    """``python -m rcnn_ocr_tpu_torch.serve`` with ``args`` started in a
+    process of its own (its stderr in build/chip_smoke/``name``.err); a
+    thread notes when it prints ``Serving on``."""
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.Popen([sys.executable, "-m", "rcnn_ocr_tpu_torch.serve", *args,
-                             "--port", "0"], cwd=REPO, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    started = {"t0": time.perf_counter(), "ready": threading.Event(), "base": None,
+               "err": os.path.join(REPO, "build", "chip_smoke", f"{name}.err")}
+    os.makedirs(os.path.dirname(started["err"]), exist_ok=True)
+    with open(started["err"], "w") as err:
+        started["proc"] = proc = subprocess.Popen(
+            [sys.executable, "-m", "rcnn_ocr_tpu_torch.serve", *args, "--port", "0"], cwd=REPO,
+            env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+
+    def watch():
+        for line in proc.stdout:
+            if line.startswith("Serving on ") and started["base"] is None:
+                started.update(base=line.split()[2], start_s=time.perf_counter() - started["t0"])
+                started["ready"].set()
+        started["ready"].set()  # the process ended
+    threading.Thread(target=watch, daemon=True).start()
+    return started
+
+
+def serve_stop(started: dict, what: str) -> None:
+    proc = started["proc"]
+    proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(10)
+    check(proc.returncode == 0, f"{what}: the daemon exited {proc.returncode}")
+
+
+def serve_and_load(started: dict, png_path: str, what: str, power: str) -> dict:
+    """A daemon from :func:`serve_start`, driven by ``python -m
+    rcnn_ocr_tpu_torch.serve_loadtest`` with one line at each of MESH_LOAD's
+    concurrencies: their final JSON lines, and the daemon's start-up
+    seconds; the daemon is stopped after."""
+    env = dict(os.environ, PYTHONPATH=REPO)
     out = {"levels": {}}
     try:
-        t0 = time.perf_counter()
-        base = None
-        for line in proc.stdout:
-            if line.startswith("Serving on "):
-                base = line.split()[2]
-                break
-        check(base is not None, f"{what}: the daemon never started serving")
-        out["start_s"] = time.perf_counter() - t0
+        started["ready"].wait(600)
+        base = started["base"]
+        if base is None:
+            with open(started["err"], encoding="utf-8", errors="replace") as f:
+                check(False, f"{what}: the daemon never started serving:\n{f.read()[-3000:]}")
+        out["start_s"] = started["start_s"]
         with open(png_path, "rb") as f:
             t0 = time.perf_counter()
             _post(base, f.read(), "image/png")  # the first batch's warm-up, not counted
@@ -2506,13 +2625,7 @@ def serve_and_load(args, png_path: str, what: str, power: str) -> dict:
             out["levels"][f"c{conc}"] = result
             print(f"  {what} c={conc}: {last} on {power}")
     finally:
-        proc.send_signal(signal.SIGTERM)
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(10)
-    check(proc.returncode == 0, f"{what}: the daemon exited {proc.returncode}")
+        serve_stop(started, what)
     return out
 
 
@@ -2729,8 +2842,17 @@ def mesh_phase(kernels, variables, images, power: str, daemon: dict) -> dict:
     args = ["--model", weights, "--charset", charset_path, "--img-h", str(IMG_H), "--img-w",
             str(IMG_W), "--canvas", ",".join(map(str, DAEMON_CANVAS)), "--batch-size",
             str(BATCH), "--method", "ctc_greedy"]
-    out["serve_mesh"] = serve_and_load([*args, "--mesh"], png_path, "serve --mesh", power)
-    out["serve"] = serve_and_load(args, png_path, "serve", power)
+    # the two daemons start side by side, then are loaded one at a time
+    daemons = {"serve --mesh": serve_start([*args, "--mesh"], "serve_mesh"),
+               "serve": serve_start(args, "serve")}
+    try:
+        out["serve_mesh"] = serve_and_load(daemons["serve --mesh"], png_path, "serve --mesh",
+                                           power)
+        out["serve"] = serve_and_load(daemons["serve"], png_path, "serve", power)
+    finally:
+        for started in daemons.values():
+            if started["proc"].poll() is None:
+                started["proc"].kill()
     ref = daemon["ctc_greedy"]["levels"]
     print("  the daemon phase's ctc_greedy daemon (512 distinct lines, in-process): " + ", ".join(
         f"c={c} {ref[f'c{c}_raw']['req_s']:.1f} req/s p50 {ref[f'c{c}_raw']['p50_ms']:.2f} ms"
@@ -2756,6 +2878,137 @@ def mesh_phase(kernels, variables, images, power: str, daemon: dict) -> dict:
     out["launch_counts"] = dict(launches)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  mesh phase: {out['seconds']:.1f} s")
+    return out
+
+
+def cli_phase(kernels, variables, images, power: str) -> dict:
+    """``python -m rcnn_ocr_tpu_torch.minimal_inference``, the single-image
+    CLI, on the main path's weights written as a msgpack checkpoint: once as
+    a subprocess (its wall from process start to exit is the cold start),
+    then its flag matrix in-process, each run counted from 0: 11 + 2
+    launches for its one image, and its printed string equal to the same
+    engine's ``predict`` / ``predict_serving`` on that image at batch 1
+    (the call the script makes; bf16 compared at equal block size).  The
+    images are a PNG line and the lossless JPEG, BigTIFF and CIELab TIFF
+    lines; the mesh phase's ``.pth`` export is read too, and
+    ``--lm-weight`` without a beam raises as the JAX script's does."""
+    import contextlib
+    import io
+
+    from rcnn_ocr_tpu_torch import minimal_inference as cli
+    from rcnn_ocr_tpu_torch.data.image_io import png_encode
+    from rcnn_ocr_tpu_torch.inference import OCRInference
+    from rcnn_ocr_tpu_torch.lm import save_lm
+    from rcnn_ocr_tpu_torch.training.checkpoint import msgpack_serialize
+    from rcnn_ocr_tpu_torch.vocab.charset import Charset
+
+    t_phase = time.perf_counter()
+    root = os.path.join(REPO, "build", "chip_smoke", "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    charset_path = os.path.join(REPO, "configs", "charset.txt")
+    weights = os.path.join(root, "weights.msgpack")
+    with open(weights, "wb") as f:
+        f.write(msgpack_serialize(variables))
+    lm_path = os.path.join(root, "lm.npz")
+    cs = Charset.from_file(charset_path)
+    save_lm(lm_path, seeded_lm(cs), cs.itos)
+    paths = {"png": os.path.join(root, "line.png")}
+    with open(paths["png"], "wb") as f:
+        f.write(png_encode(images[0]))
+    for kind, name in (("lossless", "lossless_line_0.jpg"), ("bigtiff", "bigtiff_line_0.tif"),
+                       ("cielab", "cielab_line_0.tif")):
+        paths[kind] = fixture_path(name)
+    size = ["--img-h", str(IMG_H), "--img-w", str(IMG_W)]
+    out = {"runs": {}}
+
+    # (1) a user's run: a process of its own
+    cmd = [sys.executable, "-m", "rcnn_ocr_tpu_torch.minimal_inference", weights, charset_path,
+           paths["png"], *size]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=300)
+    out["cold_start_s"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"minimal_inference exited {proc.returncode}:\n"
+                                f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    sub_line = proc.stdout.strip().splitlines()[-1]
+
+    # (2) the flag matrix in-process, the engine each run builds kept
+    built = []
+
+    def recording(*args, **kw):
+        built.append(OCRInference(*args, **kw))
+        return built[-1]
+
+    beam = ["--beam-width", str(BEAM_WIDTH), "--lm", lm_path, "--lm-weight", str(LM_WEIGHT),
+            "--length-penalty", "0.6"]
+    pth = os.path.join(REPO, "build", "chip_smoke", "mesh", "model.pth")
+    matrix = {  # name: (model, image, flags)
+        "greedy": (weights, "png", size),
+        "serving": (weights, "lossless", ["--serving", *size]),
+        "beam_lm": (weights, "bigtiff", [*beam, *size]),
+        "serving_beam_lm": (weights, "cielab", ["--serving", *beam, *size]),
+        "width_buckets": (weights, "png", ["--width-buckets", "64,128", *size]),
+        "default_size": (weights, "lossless", []),
+        "quantize": (weights, "png", ["--quantize", *size]),
+        "pth": (pth, "cielab", size),
+    }
+    launches = collections.Counter()
+    cli.OCRInference = recording
+    try:
+        for name, (model, image, flags) in matrix.items():
+            argv = [model, charset_path, paths[image], *flags]
+            printed = io.StringIO()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                cli.main(argv)
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            check(counts == {"se_scale": 11, "bilstm_scan": 2},
+                  f"minimal_inference {name} launched {counts} (11 + 2 for its one image)")
+            launches.update(counts)
+            engine = built[-1]
+            if "--serving" in flags:
+                use_beam = "--beam-width" in flags
+                want = engine.predict_serving(
+                    paths[image], canvas="auto",
+                    method="attention_beam" if use_beam else "attention",
+                    beam_width=BEAM_WIDTH if use_beam else 16,
+                    length_penalty=0.6 if use_beam else 0.0,
+                    lm_weight=LM_WEIGHT if use_beam else 0.0)
+            elif "--beam-width" in flags:
+                want = engine.predict(paths[image], beam_width=BEAM_WIDTH, length_penalty=0.6,
+                                      lm_weight=LM_WEIGHT)
+            else:
+                want = engine.predict(paths[image])
+            line = printed.getvalue().strip().splitlines()[-1]
+            check(line == f"Result: '{want}'", f"minimal_inference {name} printed {line!r}, "
+                  f"the engine's {'predict_serving' if '--serving' in flags else 'predict'} "
+                  f"gives {want!r}")
+            out["runs"][name] = {"wall_s": wall, "image": image, "text": want,
+                                 "engine_dtype": str(engine.dtype),
+                                 "quantize": "--quantize" in flags}
+            print(f"  minimal_inference {name} ({os.path.basename(model)}, {image}): {line}, "
+                  f"= the engine's call; 11 + 2 launches; {wall:.2f} s in-process")
+            del engine
+            built.clear()
+        try:
+            cli.main([weights, charset_path, paths["png"], *size, "--lm-weight", "0.5"])
+            check(False, "--lm-weight without a beam ran (the JAX script raises)")
+        except ValueError as err:
+            check("beam" in str(err), f"--lm-weight without a beam: {err}")
+    finally:
+        cli.OCRInference = OCRInference
+    check(sub_line == f"Result: '{out['runs']['greedy']['text']}'",
+          f"the subprocess printed {sub_line!r}, in-process greedy "
+          f"{out['runs']['greedy']['text']!r}")
+    out["launch_counts"] = dict(launches)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  python -m rcnn_ocr_tpu_torch.minimal_inference as a user runs it: {sub_line} in "
+          f"{out['cold_start_s']:.1f} s from process start to exit (the cold start: imports, "
+          f"kernel libraries, weights, one image) on {power}; = the in-process greedy run; "
+          f"--lm-weight without a beam raises ValueError; cli phase {out['seconds']:.1f} s")
     return out
 
 
@@ -3106,7 +3359,8 @@ def write_line_dataset(root: str, itos, seed: int = 0) -> dict:
             with open(os.path.join(d, f"{i:05d}.png"), "wb") as f:
                 f.write(png_bytes(np.repeat(img[:, :, None], 3, axis=2)))
             rows.append((f"{i:05d}.png", label))
-        for csv_name, part in (("labels.csv", rows), ("labels_small.csv", rows[:LOOP_SMALL])):
+        for csv_name, part in (("labels.csv", rows), ("labels_small.csv", rows[:LOOP_SMALL]),
+                               ("labels_half.csv", rows[: DP_TRAIN + DP_VAL])):
             with open(os.path.join(d, csv_name), "w", newline="", encoding="utf-8") as f:
                 csv.writer(f).writerows(part)
         paths[name] = d
@@ -3619,25 +3873,26 @@ def eval_cli_variants(weights: str, work: str, env: dict) -> dict:
 # --- scale-out: data parallelism across processes, and the HPO driver -----------
 
 def dp_config(paths: dict, exp_dir: str, **overrides) -> dict:
-    """configs/config.json on set A alone (its random split for validation),
-    1 epoch in fp32 at the shipped global batch of 128."""
+    """configs/config.json on half of set A (its random split for
+    validation), 1 epoch in fp32 at the shipped global batch of 128."""
     with open(os.path.join(REPO, "configs", "config.json"), encoding="utf-8") as f:
         cfg = json.load(f)
     a = paths["handwritten/train"]
-    cfg.update(train_csvs=[os.path.join(a, "labels.csv")], train_roots=[a], val_csvs=None,
-               val_roots=None, train_proportions=None, val_size=LOOP_VAL,
+    cfg.update(train_csvs=[os.path.join(a, "labels_half.csv")], train_roots=[a], val_csvs=None,
+               val_roots=None, train_proportions=None, val_size=DP_VAL,
                charset_path=os.path.join(REPO, "configs", "charset.txt"), exp_dir=exp_dir,
                epochs=1, eval_every=1, num_workers=8, compute_dtype="float32", progress=False)
     cfg.update(overrides)
     return cfg
 
 
-def train_cli(name: str, cfg: dict, nproc: int = 0, extra=()) -> list:
-    """``python -m rcnn_ocr_tpu_torch.training.train`` on ``cfg``, alone
-    (``nproc=0``) or under ``python -m torch.distributed.run`` with ``nproc``
-    ranks; every collective bounded by DP_TIMEOUT_S, the whole run by a
-    subprocess timeout.  TF32 is off (NVIDIA_TF32_OVERRIDE=0), so that fp32
-    is fp32.  Returns each rank's result (the CLI's --result-json)."""
+def train_cli_start(name: str, cfg: dict, nproc: int = 0, extra=()):
+    """``python -m rcnn_ocr_tpu_torch.training.train`` on ``cfg`` started in
+    the background, alone (``nproc=0``) or under ``python -m
+    torch.distributed.run`` with ``nproc`` ranks; every collective bounded
+    by DP_TIMEOUT_S, the whole run by a subprocess timeout.  TF32 is off
+    (NVIDIA_TF32_OVERRIDE=0), so that fp32 is fp32.  Returns the call that
+    waits for it and gives each rank's result (the CLI's --result-json)."""
     work = os.path.join(REPO, "build", "chip_smoke", "scale_out")
     cfg_path = os.path.join(work, f"{name}.json")
     with open(cfg_path, "w", encoding="utf-8") as f:
@@ -3650,19 +3905,52 @@ def train_cli(name: str, cfg: dict, nproc: int = 0, extra=()) -> list:
     if nproc:
         cmd += ["--dist-timeout", str(DP_TIMEOUT_S)]
     env = dict(os.environ, PYTHONPATH=REPO, NVIDIA_TF32_OVERRIDE="0")
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
-                          timeout=DP_RUN_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"{name}: {' '.join(cmd[1:])} exited {proc.returncode}:\n"
-                                f"{proc.stdout[-3000:]}{proc.stderr[-5000:]}")
-    # one process (or one rank) writes the named file, N ranks one file each
-    paths = [result] if nproc <= 1 else [f"{result[:-5]}.rank{r}.json" for r in range(nproc)]
-    out = []
-    for path in paths:
-        with open(path, encoding="utf-8") as f:
-            out.append(dict(json.load(f), wall_s=wall))
-    return out
+    proc, logs = popen_logged(cmd, os.path.join(work, name), env)
+
+    def finish() -> list:
+        stdout, stderr = wait_logged(proc, logs)
+        wall = logs["wall_s"]
+        check(proc.returncode == 0, f"{name}: {' '.join(cmd[1:])} exited {proc.returncode}:\n"
+                                    f"{stdout[-3000:]}{stderr[-5000:]}")
+        # one process (or one rank) writes the named file, N ranks one file each
+        paths = [result] if nproc <= 1 else [f"{result[:-5]}.rank{r}.json" for r in range(nproc)]
+        out = []
+        for path in paths:
+            with open(path, encoding="utf-8") as f:
+                out.append(dict(json.load(f), wall_s=wall))
+        return out
+    return finish
+
+
+def popen_logged(cmd, stem: str, env: dict, timeout: float = DP_RUN_TIMEOUT_S):
+    """``cmd`` started from the repo with its output in ``stem``.out and
+    ``stem``.err (files, not pipes: nothing stalls while another process is
+    waited for), killed past ``timeout``; a thread notes when it ends."""
+    logs = {"paths": (stem + ".out", stem + ".err"), "t0": time.perf_counter()}
+    with open(logs["paths"][0], "w") as out, open(logs["paths"][1], "w") as err:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=out, stderr=err, text=True)
+
+    def watch():
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        logs["wall_s"] = time.perf_counter() - logs["t0"]
+    logs["watcher"] = threading.Thread(target=watch, daemon=True)
+    logs["watcher"].start()
+    return proc, logs
+
+
+def wait_logged(proc, logs):
+    """Waits for a :func:`popen_logged` process and returns its stdout and
+    stderr (its wall from start to exit is ``logs["wall_s"]`` then)."""
+    logs["watcher"].join()
+    texts = []
+    for path in logs["paths"]:
+        with open(path, encoding="utf-8", errors="replace") as f:
+            texts.append(f.read())
+    return texts
 
 
 def epoch_losses(result: dict) -> list:
@@ -3706,11 +3994,26 @@ def scale_out_phase(kernels, paths: dict, power: str) -> dict:
     exp = {name: os.path.join(base, "scale_out", f"exp_{name}")
            for name in ("alone", "nccl1", "gloo2")}
     out = {"dp_launches": {"se_scale": 0, "bilstm_scan": 0}}
+    # the card's memory for the processes that run side by side: this
+    # process's allocator gives back what earlier phases left cached
+    gc.collect()
+    cached = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    out["parent_reserved_gib"] = (cached / 2**30, torch.cuda.memory_reserved() / 2**30)
+    print(f"  this process's CUDA memory reserved before the side-by-side runs: "
+          f"{out['parent_reserved_gib'][0]:.1f} GiB, {out['parent_reserved_gib'][1]:.1f} after "
+          f"releasing the cache ({torch.cuda.memory_allocated() / 2**30:.1f} allocated)")
 
-    # (1) one rank of NCCL equals the run with no group, bit for bit
+    # (1) one rank of NCCL equals the run with no group, bit for bit; (2)
+    # two gloo ranks on cuda:0 match one process at the same global batch.
+    # The three jobs run side by side on the card (--deterministic: the
+    # contention moves their times, not their numbers)
     t0 = time.perf_counter()
-    (alone,) = train_cli("alone", dp_config(paths, exp["alone"]))
-    (nccl1,) = train_cli("nccl1", dp_config(paths, exp["nccl1"]), nproc=1)
+    runs = [train_cli_start("alone", dp_config(paths, exp["alone"])),
+            train_cli_start("nccl1", dp_config(paths, exp["nccl1"]), nproc=1),
+            train_cli_start("gloo2", dp_config(paths, exp["gloo2"]), nproc=2,
+                            extra=["--device", "cuda:0", "--backend", "gloo"])]
+    (alone,), (nccl1,), ranks = (finish() for finish in runs)
     check(epoch_losses(nccl1) == epoch_losses(alone) and nccl1["val_acc"] == alone["val_acc"],
           f"one NCCL rank {epoch_losses(nccl1)} differs from no group {epoch_losses(alone)}")
     print(f"  one NCCL rank = no group, exactly: (train loss, val loss) per epoch "
@@ -3718,9 +4021,6 @@ def scale_out_phase(kernels, paths: dict, power: str) -> dict:
     for k, v in dp_launch_check(nccl1, 2, "one NCCL rank").items():
         out["dp_launches"][k] += v
 
-    # (2) two gloo ranks on cuda:0 vs one process, same global batch
-    ranks = train_cli("gloo2", dp_config(paths, exp["gloo2"]), nproc=2,
-                      extra=["--device", "cuda:0", "--backend", "gloo"])
     check([r["rank"] for r in ranks] == [0, 1] and all(r["ranks"] == 2 for r in ranks),
           "the gloo job did not run two ranks")
     reading = []
@@ -3757,9 +4057,19 @@ def scale_out_phase(kernels, paths: dict, power: str) -> dict:
         print(f"  {name} on {power}: " + ", ".join(
             f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in t.items()))
 
-    # (3) the HPO study, "LSTM 2 512": 3 trials x 2 epochs of set A, full width
+    # (3) the HPO study, "LSTM 2 512": 3 trials x 2 epochs of half of set A,
+    # full width; beside it on the card (4) the CLI with DEFAULT_SPACE and
+    # --parallel-trials 2, which must cap at the one card
     hpo_cfg = dp_config(paths, "", epochs=HPO_EPOCHS, compute_dtype="bfloat16")
     hpo_cfg.pop("exp_dir")
+    cli_cfg = os.path.join(base, "scale_out", "hpo_cli.json")
+    with open(cli_cfg, "w", encoding="utf-8") as f:
+        json.dump(dict(hpo_cfg, epochs=3), f)
+    cmd = [sys.executable, "-m", "rcnn_ocr_tpu_torch.hpo_search", "--config", cli_cfg,
+           "--trials", "2", "--epochs-per-trial", "1", "--parallel-trials", "2",
+           "--storage-dir", os.path.join(base, "hpo_cli"), "--study", "cli"]
+    cli_proc, cli_logs = popen_logged(cmd, os.path.join(base, "scale_out", "hpo_cli"),
+                                      dict(os.environ, PYTHONPATH=REPO))
     space = dict(hpo_driver.DEFAULT_SPACE, hidden_size=("cat", (512,)), lstm_layers=("cat", (2,)))
     per_trial = []
 
@@ -3782,8 +4092,8 @@ def scale_out_phase(kernels, paths: dict, power: str) -> dict:
     out["hpo_s"] = time.perf_counter() - t0
     check(len(study["trials"]) == HPO_TRIALS and len(per_trial) == HPO_TRIALS,
           f"the study ran {len(study['trials'])} trials")
-    steps_per_epoch = LOOP_TRAIN // TRAIN_BATCH
-    val_per_epoch = -(-LOOP_VAL // TRAIN_BATCH)
+    steps_per_epoch = DP_TRAIN // TRAIN_BATCH
+    val_per_epoch = -(-DP_VAL // TRAIN_BATCH)
     for t, launches in zip(study["trials"], per_trial):
         check(np.isfinite(t["value"]) and t["params"]["hidden_size"] == 512
               and t["params"]["lstm_layers"] == 2, f"trial {t}")
@@ -3798,27 +4108,20 @@ def scale_out_phase(kernels, paths: dict, power: str) -> dict:
                                      for k, v in sorted(t["params"].items())))
     out["hpo_trials"] = study["trials"]
 
-    # (4) the CLI with DEFAULT_SPACE and --parallel-trials 2 on one card
-    cli_cfg = os.path.join(base, "scale_out", "hpo_cli.json")
-    with open(cli_cfg, "w", encoding="utf-8") as f:
-        json.dump(dict(hpo_cfg, epochs=3), f)
-    cmd = [sys.executable, "-m", "rcnn_ocr_tpu_torch.hpo_search", "--config", cli_cfg,
-           "--trials", "2", "--epochs-per-trial", "1", "--parallel-trials", "2",
-           "--storage-dir", os.path.join(base, "hpo_cli"), "--study", "cli"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
-                          capture_output=True, text=True, timeout=DP_RUN_TIMEOUT_S)
-    out["hpo_cli_s"] = time.perf_counter() - t0
-    check(proc.returncode == 0, f"hpo_search exited {proc.returncode}:\n"
-                                f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
-    check("parallel_trials=2 > 1 devices; running 1 concurrent trials" in proc.stderr,
-          f"hpo_search did not cap at the one card:\n{proc.stderr[-2000:]}")
+    # (4) the CLI, started beside the study
+    cli_out, cli_err = wait_logged(cli_proc, cli_logs)
+    out["hpo_cli_s"] = cli_logs["wall_s"]
+    check(cli_proc.returncode == 0, f"hpo_search exited {cli_proc.returncode}:\n"
+                                    f"{cli_out[-3000:]}{cli_err[-3000:]}")
+    check("parallel_trials=2 > 1 devices; running 1 concurrent trials" in cli_err,
+          f"hpo_search did not cap at the one card:\n{cli_err[-2000:]}")
     with open(os.path.join(base, "hpo_cli", "cli_results.json"), encoding="utf-8") as f:
         cli = json.load(f)
     check(len(cli["trials"]) == 2 and all(t["epochs_run"] == 1 for t in cli["trials"]),
           f"hpo_search trials {cli['trials']}")
     print(f"  python -m rcnn_ocr_tpu_torch.hpo_search --parallel-trials 2: warned and ran one "
-          f"trial at a time on the one card, {out['hpo_cli_s']:.1f} s; trials " + "; ".join(
+          f"trial at a time on the one card, {out['hpo_cli_s']:.1f} s (beside the study); "
+          f"trials " + "; ".join(
               f"{t['number']}: value {t['value']:.4f}, {t['seconds']} s, hidden "
               f"{t['params']['hidden_size']} x {t['params']['lstm_layers']}"
               for t in cli["trials"]))
@@ -3856,35 +4159,53 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    phase_s = {}
+    mark = [time.perf_counter()]
+
+    def timed(name: str) -> None:  # the phase that just ended
+        now = time.perf_counter()
+        phase_s[name] = now - mark[0]
+        mark[0] = now
+        print(f"  {name} phase {phase_s[name]:.1f} s")
+
     build(kernels)
+    timed("build")
     gen = torch.Generator(device="cuda").manual_seed(0)
     print("kernel phase")
     rows = kernel_phase(gen)
     for row in rows:
         for call in row["calls"]:
             print(f"  {row['name']} " + ", ".join(f"{k} {v}" for k, v in call.items()))
+    timed("kernel")
     print("main path phase")
     path, variables, images = main_path(kernels, power)
+    timed("main path")
     print("beam phase")
     beams = beam_phase(kernels, variables, images, power)
+    timed("beam")
     print("serving phase")
     serving = serving_phase(kernels, variables, images, power)
+    timed("serving")
     print("daemon phase")
     daemon = daemon_phase(kernels, variables, images, power)
+    timed("daemon")
     print("long-line phase")
     long_line = long_line_phase(kernels, variables, power)
+    timed("long-line")
     print("int8 + artifacts phase")
-    t_int8 = time.perf_counter()
     int8 = int8_artifact_phase(kernels, variables, images, power)
-    int8["seconds"] = time.perf_counter() - t_int8
-    print(f"  int8 + artifacts phase {int8['seconds']:.1f} s")
+    timed("int8 + artifacts")
+    int8["seconds"] = phase_s["int8 + artifacts"]
     print("model-options phase")
-    t_options = time.perf_counter()
     options = model_options_phase(kernels, variables, images, power)
-    options["seconds"] = time.perf_counter() - t_options
-    print(f"  model-options phase {options['seconds']:.1f} s")
+    timed("model-options")
+    options["seconds"] = phase_s["model-options"]
     print("mesh phase")
     mesh = mesh_phase(kernels, variables, images, power, daemon)
+    timed("mesh")
+    print("cli phase")
+    cli = cli_phase(kernels, variables, images, power)
+    timed("cli")
     del variables
     print("training phase")
     from rcnn_ocr_tpu_torch.vocab.charset import Charset
@@ -3892,13 +4213,14 @@ def main() -> int:
     charset_path = os.path.join(REPO, "configs", "charset.txt")
     cs = Charset.from_file(charset_path)
     training = training_phase(kernels, cs, charset_path, power)
+    timed("training")
     print("training-loop phase")
     loop = training_loop_phase(kernels, cs, training["train"]["img_s"], power)
+    timed("training-loop")
     print("scale-out phase")
-    t_scale = time.perf_counter()
     scale = scale_out_phase(kernels, loop["paths"], power)
-    scale["seconds"] = time.perf_counter() - t_scale
-    print(f"  scale-out phase {scale['seconds']:.1f} s")
+    timed("scale-out")
+    scale["seconds"] = phase_s["scale-out"]
     backward = {"se_scale": "autograd: plain torch (the hand VJP of se_pallas.py:_se_bwd)",
                 "bilstm_scan": "autograd: plain torch (recompute through scan_reference)"}
     train = training["train"]
@@ -3912,6 +4234,7 @@ def main() -> int:
                    "int8_artifacts": int8["launch_counts"][name],
                    "model_options": options["launch_counts"][name],
                    "mesh": mesh["launch_counts"][name],
+                   "cli": cli["launch_counts"][name],
                    "train": train["launch_counts"][name],
                    "train_loop": loop["launches"][name],
                    "checkpoint_average": loop["ckpt_tools"]["launch_counts"][name],
@@ -3926,9 +4249,9 @@ def main() -> int:
             check(n > 0, f"{name} never launched on the {p} path")
     result = {"card": power, "kernels": rows, "main_path": path, "beam": beams,
               "serving": serving, "daemon": daemon, "long_lines": long_line,
-              "int8_artifacts": int8, "model_options": options, "mesh": mesh,
+              "int8_artifacts": int8, "model_options": options, "mesh": mesh, "cli": cli,
               "training": training, "training_loop": loop, "scale_out": scale,
-              "seconds": time.perf_counter() - t_start}
+              "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)
         with open(args.json_out, "w") as f:
@@ -3938,6 +4261,7 @@ def main() -> int:
             "launches_per_encode", "dtype", "batch", "library_call", "launches_by_path",
             "backward_route", "launches_per_train_step", "train_fwd_ms_per_step",
             "train_bwd_ms_per_step")
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(f"total {result['seconds']:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(power)

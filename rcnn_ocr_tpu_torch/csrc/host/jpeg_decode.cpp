@@ -6,8 +6,8 @@
 // * markers: SOI, APPn (APP0 JFIF, APP1 EXIF, APP14 Adobe), DQT (8- and
 //   16-bit tables), DHT, DAC, SOF0/SOF1 (sequential Huffman), SOF2
 //   (progressive Huffman), SOF9/SOF10 (sequential and progressive
-//   arithmetic), DRI, SOS (interleaved or single-component scans, one or
-//   more), RSTn, EOI;
+//   arithmetic), SOF3 (lossless Huffman), DRI, SOS (interleaved or
+//   single-component scans, one or more), RSTn, EOI;
 // * every scan decodes into a whole-image coefficient buffer per component
 //   (jdcoefct.c), which is reconstructed after EOI.  A single-component scan
 //   walks that component's own blocks, not the MCU-padded grid;
@@ -30,6 +30,19 @@
 //   (a stream cut short and closed by EOI) take jdcoefct.c's block
 //   smoothing: coefficients 1-9 estimated from a 5x5 window of DC values,
 //   DC itself too when no AC data arrived (decompress_smooth_data);
+// * lossless frames (SOF3, T.81 Annex H, as libjpeg-turbo 3 decodes them:
+//   jdlhuff.c, jddiffct.c, jdlossls.c): precisions 2 to 8, the sample
+//   differences Huffman-coded (category 16 is 32768 with no extra bits),
+//   undifferenced per row in 16-bit arithmetic with predictors 1-7, the
+//   first row of a scan and of each restart interval from 2^(P-Pt-1) and
+//   its left neighbour, every other row's first sample from the one above;
+//   restart intervals a whole number of MCU rows; the point transform
+//   shifts each sample left by Pt; no upsampling filter (libjpeg's
+//   min_DCT_scaled_size is 1, so chroma is replicated) and no colour
+//   conversion: libjpeg-turbo converts no lossless frame to another colour
+//   space, so gray, YCbCr and YCCK frames fail (JERR_CONVERSION_NOTIMPL)
+//   and 3 components without a JFIF or Adobe marker are RGB whatever their
+//   ids;
 // * chroma upsampling (jdsample.c, "fancy", libjpeg's default): h2v1 and
 //   h2v2 triangle filters with their alternating biases, h1v2, and plain
 //   replication for other integral factors or planes two columns wide;
@@ -49,11 +62,13 @@
 // jdmarker.c:jpeg_resync_to_restart does, and a scan that names a Huffman
 // table no DHT defined uses the standard tables (jstdhuff.c).
 //
-// Refused (return -2, the message names the variant): lossless (SOF3,
-// SOF11), hierarchical (SOF5-7, SOF13-15), precisions other than 8 bits,
-// DNL markers and 2-component images.  Damaged headers and truncated data
-// (where OpenCV's decode fails) return -1.  Both write a message.  The
-// decoder never reads past `n` bytes.
+// What OpenCV's decode fails on returns -1 with a message naming it:
+// damaged headers and truncated data, and the frames libjpeg-turbo refuses
+// under OpenCV (arithmetic-coded lossless SOF11, hierarchical SOF5-7 and
+// SOF13-15, precisions other than 8 bits (2 to 8 in lossless frames), a
+// height left to a DNL marker, 2-component images, fractional chroma
+// subsampling, and the lossless colour conversions above).  The decoder
+// never reads past `n` bytes.
 //
 // Two calls: rcnn_jpeg_header for the output height and width, then
 // rcnn_jpeg_decode_u8 into a caller-owned [h, w, 3] buffer.  For
@@ -72,12 +87,11 @@
 namespace {
 
 struct JpegError {
-  int code;  // -1 damaged or truncated, -2 unsupported
+  int code;  // -1: OpenCV's decode fails too
   std::string msg;
 };
 
 [[noreturn]] void damaged(const std::string& msg) { throw JpegError{-1, msg}; }
-[[noreturn]] void unsupported(const std::string& msg) { throw JpegError{-2, msg}; }
 
 // jpeg_natural_order plus 16 entries of 63: a corrupt run length that
 // overshoots k lands on coefficient 63, as in libjpeg.
@@ -177,6 +191,7 @@ constexpr int kMinGetBits = 57;  // libjpeg-turbo's MIN_GET_BITS, 64-bit buffer
 
 struct Huffman {
   bool defined = false;
+  int max_dc = 0;  // the largest symbol of a DC table (16 only in lossless scans)
   uint8_t vals[256] = {};
   int32_t maxcode[18] = {};
   int32_t valoffset[18] = {};
@@ -226,8 +241,10 @@ struct Huffman {
       }
     }
     if (dc) {
+      max_dc = 0;
       for (int i = 0; i < count; ++i) {
-        if (values[i] > 15) damaged("bad Huffman table (DC symbol above 15)");
+        if (values[i] > 16) damaged("bad Huffman table (DC symbol above 16)");
+        max_dc = std::max<int>(max_dc, values[i]);
       }
     }
     defined = true;
@@ -243,6 +260,14 @@ struct Component {
   bool coded = false;
   uint16_t quant[64] = {};  // latched at the component's first scan
   std::vector<int16_t> coef;
+  // lossless frames: the samples (dh x dw), the scan's sample differences
+  // (jddiffct.c's diff_buf: v rows of whole MCUs, kept between rows and
+  // scans), the row above undifferenced, and whether the next row is a
+  // first row (of the scan or of a restart interval)
+  std::vector<uint8_t> pix;
+  std::vector<int32_t> diff, above;
+  int diff_w = 0;
+  bool first_row = true;
   // progressive status per coefficient (jdphuff.c): -1 never coded, else
   // the Al of its last scan; and its value before the component's last scan
   int coef_bits[64], prev_coef_bits[64];
@@ -353,7 +378,8 @@ class Decoder {
     // coefficients and a zero quantization table: mid-gray, as in libjpeg
     for (int c = 0; c < ncomp_; ++c) {
       Component& k = comp_[c];
-      if (!k.coded) k.coef.assign(static_cast<size_t>(k.bw) * k.bh * 64, 0);
+      if (!k.coded && lossless_) k.pix.assign(static_cast<size_t>(k.dw) * k.dh, 0);
+      if (!k.coded && !lossless_) k.coef.assign(static_cast<size_t>(k.bw) * k.bh * 64, 0);
     }
     render(out);
   }
@@ -363,7 +389,8 @@ class Decoder {
   size_t n_;
   size_t pos_ = 0, scan_start_ = 0;
 
-  bool sof_ = false, scanned_ = false, progressive_ = false, arith_ = false;
+  bool sof_ = false, scanned_ = false, progressive_ = false, arith_ = false, lossless_ = false;
+  int precision_ = 8;
   bool multi_scan_ = false;  // jdinput.c's has_multiple_scans
   int scans_ = 0;
   // the last iMCU row a scan finished with its data all there: the rows
@@ -436,15 +463,19 @@ class Decoder {
         sof(end);
         break;
       case 0xC3:
+        lossless_ = true;
+        sof(end);
+        break;
       case 0xCB:
-        unsupported("lossless JPEG (SOF" + std::to_string(m - 0xC0) + ")");
+        damaged("arithmetic-coded lossless JPEG (SOF11), which libjpeg-turbo does not decode");
       case 0xC5:
       case 0xC6:
       case 0xC7:
       case 0xCD:
       case 0xCE:
       case 0xCF:
-        unsupported("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) + ")");
+        damaged("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) +
+                "), which libjpeg-turbo does not decode");
       case 0xCC:
         dac(end);
         break;
@@ -459,7 +490,7 @@ class Decoder {
         restart_interval_ = u16();
         break;
       case 0xDC:
-        unsupported("JPEG with a DNL marker");
+        damaged("JPEG with a DNL marker, which libjpeg-turbo does not read");
       case 0xE0:
         if (len >= 16 && std::memcmp(d_ + start, "JFIF\0", 5) == 0) jfif_ = true;
         break;
@@ -488,11 +519,15 @@ class Decoder {
     height_ = u16();
     width_ = u16();
     ncomp_ = u8();
-    if (precision != 8) unsupported(std::to_string(precision) + "-bit JPEG");
-    if (height_ == 0) unsupported("JPEG with its height in a DNL marker");
+    if (lossless_ ? precision < 2 || precision > 8 : precision != 8) {
+      damaged(std::to_string(precision) + "-bit " + (lossless_ ? "lossless " : "") +
+              "JPEG, which OpenCV does not read");
+    }
+    precision_ = precision;
+    if (height_ == 0) damaged("JPEG with its height in a DNL marker, which libjpeg-turbo does not read");
     if (width_ == 0) damaged("JPEG of width 0");
     if (ncomp_ < 1 || ncomp_ > 4) damaged("bad SOF component count");
-    if (ncomp_ == 2) unsupported("2-component JPEG");
+    if (ncomp_ == 2) damaged("2-component JPEG, which OpenCV does not convert to colour");
     if (static_cast<int64_t>(width_) * height_ > (int64_t(1) << 30)) {
       damaged("JPEG larger than 2^30 pixels");
     }
@@ -513,7 +548,7 @@ class Decoder {
     for (int c = 0; c < ncomp_; ++c) {
       Component& k = comp_[c];
       if (hmax_ % k.h || vmax_ % k.v) {
-        unsupported("JPEG with fractional chroma subsampling");
+        damaged("JPEG with fractional chroma subsampling, which libjpeg-turbo does not decode");
       }
       k.dw = static_cast<int>((static_cast<int64_t>(width_) * k.h + hmax_ - 1) / hmax_);
       k.dh = static_cast<int>((static_cast<int64_t>(height_) * k.v + vmax_ - 1) / vmax_);
@@ -521,6 +556,12 @@ class Decoder {
       k.hib = (k.dh + 7) / 8;
       k.bw = mcux_ * k.h;
       k.bh = mcuy_ * k.v;
+      // lossless: one sample a data unit, MCUs of h x v samples
+      k.diff_w = static_cast<int>(((static_cast<int64_t>(k.dw) + k.h - 1) / k.h) * k.h);
+    }
+    if (lossless_) {
+      mcux_ = (width_ + hmax_ - 1) / hmax_;
+      mcuy_ = (height_ + vmax_ - 1) / vmax_;
     }
     sof_ = true;
   }
@@ -1003,7 +1044,11 @@ class Decoder {
     ah_ = ahl >> 4;
     al_ = ahl & 15;
     if (scans_ == 0) multi_scan_ = progressive_ || ns < ncomp_;
-    if (progressive_) {
+    if (lossless_) {  // jdlossls.c:start_pass_lossless
+      if (ss_ < 1 || ss_ > 7 || se_ != 0 || ah_ != 0 || al_ >= precision_) {
+        damaged("bad lossless JPEG scan parameters");
+      }
+    } else if (progressive_) {
       progression(sc, ns);
     } else {  // a sequential scan codes all 64 coefficients whatever it says
       ss_ = 0;
@@ -1012,7 +1057,8 @@ class Decoder {
     }
     for (int i = 0; i < ns; ++i) {
       Component* k = sc[i];
-      bool dc = !progressive_ || (ss_ == 0 && ah_ == 0), ac = !progressive_ || ss_ != 0;
+      bool dc = lossless_ || !progressive_ || (ss_ == 0 && ah_ == 0);
+      bool ac = !lossless_ && (!progressive_ || ss_ != 0);
       if (!arith_) {
         // jdhuff.c:jpeg_make_d_derived_tbl falls back on jstdhuff.c's tables
         for (int is_ac = 0; is_ac < 2; ++is_ac) {
@@ -1020,26 +1066,41 @@ class Decoder {
           int th = is_ac ? k->ac_tbl : k->dc_tbl;
           if (th > 3) damaged("bad SOS table ids");
           Huffman& t = is_ac ? ac_[th] : dc_[th];
-          if (t.defined) continue;
-          if (th > 1) damaged("scan uses an undefined Huffman table");
-          if (is_ac) {
-            t.build(kStdAcBits[th], kStdAcVals[th], 162, false);
-          } else {
-            t.build(kStdDcBits[th], kStdDcVals, 12, true);
+          if (!t.defined) {
+            if (th > 1) damaged("scan uses an undefined Huffman table");
+            if (is_ac) {
+              t.build(kStdAcBits[th], kStdAcVals[th], 162, false);
+            } else {
+              t.build(kStdDcBits[th], kStdDcVals, 12, true);
+            }
+          }
+          // jpeg_make_d_derived_tbl: DC symbols up to 15, 16 in lossless scans
+          if (!is_ac && t.max_dc > (lossless_ ? 16 : 15)) {
+            damaged("bad Huffman table (DC symbol above 15)");
           }
         }
       }
-      if (!k->coded) {
+      if (!k->coded && lossless_) {
+        k->pix.assign(static_cast<size_t>(k->dw) * k->dh, 0);
+        k->diff.assign(static_cast<size_t>(k->diff_w) * k->v, 0);
+        k->above.assign(static_cast<size_t>(k->dw), 0);
+        k->coded = true;
+      } else if (!k->coded) {
         if (!qt_def_[k->tq]) damaged("component uses an undefined quantization table");
         std::memcpy(k->quant, qt_[k->tq], sizeof(k->quant));
         k->coef.assign(static_cast<size_t>(k->bw) * k->bh * 64, 0);
         k->coded = true;
       }
+      k->first_row = true;
     }
 
     int blocks = 0;
     for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
     if (ns > 1 && blocks > 10) damaged("too many blocks in an MCU");
+    if (lossless_) {
+      lossless_scan(sc, ns);
+      return;
+    }
     int64_t mcus_x = ns == 1 ? sc[0]->wib : mcux_;
     int64_t mcus_y = ns == 1 ? sc[0]->hib : mcuy_;
     int64_t total = mcus_x * mcus_y;
@@ -1074,8 +1135,12 @@ class Decoder {
       }
 
     }
-    // jdhuff.c:finish_pass discards the buffered bits; the marker reader
-    // then skips to the next marker
+    end_scan();
+  }
+
+  // jdhuff.c:finish_pass discards the buffered bits; the marker reader
+  // then skips to the next marker
+  void end_scan() {
     if (!marker_hit_) {
       while (pos_ < n_ && !(d_[pos_] == 0xFF && pos_ + 1 < n_ && d_[pos_ + 1] != 0 &&
                             d_[pos_ + 1] != 0xFF)) {
@@ -1084,6 +1149,112 @@ class Decoder {
     }
     scanned_ = true;
     ++scans_;
+  }
+
+  // One lossless scan as libjpeg-turbo 3 decodes it, an iMCU row at a time
+  // (jddiffct.c:decompress_data): each MCU row's differences (jdlhuff.c:
+  // decode_mcus; after the data ran out at a marker, a later row's call
+  // leaves the buffer as it was), a restart before an MCU row when the
+  // interval's rows are done, then each component's rows of the iMCU row
+  // undifferenced (jdlossls.c) and shifted left by the point transform.
+  void lossless_scan(Component* const* sc, int ns) {
+    buf_ = 0;
+    bits_ = 0;
+    marker_hit_ = insufficient_ = false;
+    const bool one = ns == 1;
+    const int64_t per_row = one ? sc[0]->dw : mcux_;  // MCUs in an MCU row
+    if (restart_interval_ % per_row) {
+      damaged("lossless JPEG restart interval that is not a whole number of MCU rows");
+    }
+    const int64_t imcu_rows = (height_ + vmax_ - 1) / vmax_;
+    int64_t rows_to_go = restart_interval_ / per_row;
+    int next_rst = 0, pred[4] = {};
+    const int initial = 1 << (precision_ - al_ - 1);
+    for (int64_t r = 0; r < imcu_rows; ++r) {
+      const bool last = r == imcu_rows - 1;
+      auto rows_of = [&](const Component& k) {
+        int left = k.dh % k.v;
+        return last && left ? left : k.v;
+      };
+      const int mcu_rows = one ? rows_of(*sc[0]) : 1;
+      for (int mr = 0; mr < mcu_rows; ++mr) {
+        if (restart_interval_) {
+          if (rows_to_go == 0) {
+            restart(next_rst, pred, sc, ns);
+            for (int i = 0; i < ns; ++i) sc[i]->first_row = true;
+            rows_to_go = restart_interval_ / per_row;
+          }
+        }
+        if (!insufficient_) {
+          for (int64_t mx = 0; mx < per_row; ++mx) {
+            for (int i = 0; i < ns; ++i) {
+              Component& k = *sc[i];
+              const Huffman& t = dc_[k.dc_tbl];
+              const int bh = one ? 1 : k.v, bwid = one ? 1 : k.h;
+              for (int y = 0; y < bh; ++y) {
+                for (int x = 0; x < bwid; ++x) {
+                  int s = huff(t);
+                  int d = s == 0 ? 0 : s == 16 ? 32768 : extend(get_bits(s), s);
+                  k.diff[static_cast<size_t>(one ? mr : y) * k.diff_w + mx * bwid + x] = d;
+                }
+              }
+            }
+          }
+        }
+        if (restart_interval_) --rows_to_go;
+      }
+      for (int i = 0; i < ns; ++i) {
+        Component& k = *sc[i];
+        const int rows = rows_of(k);
+        for (int y = 0; y < rows; ++y) {
+          const int64_t yy = r * k.v + y;
+          if (yy >= k.dh) break;
+          undifference(k, &k.diff[static_cast<size_t>(y) * k.diff_w], initial,
+                       &k.pix[static_cast<size_t>(yy) * k.dw]);
+        }
+      }
+    }
+    end_scan();
+  }
+
+  // jdlossls.c: one row of differences to samples, in 16-bit arithmetic;
+  // the first row of a scan or restart interval from `initial` and then the
+  // left neighbour, any other from the sample above and then the scan's
+  // predictor (Ss)
+  void undifference(Component& k, const int32_t* d, int initial, uint8_t* out) {
+    int32_t* above = k.above.data();
+    const int w = k.dw;
+    int64_t ra = 0, rb = 0, rc = 0;
+    if (k.first_row) {
+      ra = (d[0] + initial) & 0xFFFF;
+      above[0] = static_cast<int32_t>(ra);
+      for (int x = 1; x < w; ++x) {
+        ra = (d[x] + ra) & 0xFFFF;
+        above[x] = static_cast<int32_t>(ra);
+      }
+      k.first_row = false;
+    } else {
+      rb = above[0];
+      ra = (d[0] + rb) & 0xFFFF;
+      above[0] = static_cast<int32_t>(ra);
+      for (int x = 1; x < w; ++x) {
+        rc = rb;
+        rb = above[x];
+        int64_t p;
+        switch (ss_) {
+          case 1: p = ra; break;
+          case 2: p = rb; break;
+          case 3: p = rc; break;
+          case 4: p = ra + rb - rc; break;
+          case 5: p = ra + ((rb - rc) >> 1); break;
+          case 6: p = rb + ((ra - rc) >> 1); break;
+          default: p = (ra + rb) >> 1; break;
+        }
+        ra = (d[x] + p) & 0xFFFF;
+        above[x] = static_cast<int32_t>(ra);
+      }
+    }
+    for (int x = 0; x < w; ++x) out[x] = static_cast<uint8_t>(above[x] << al_);
   }
 
   // jdhuff.c:process_restart with jdmarker.c:read_restart_marker: the
@@ -1285,6 +1456,12 @@ class Decoder {
   std::vector<uint8_t> plane(const Component& k, bool smooth) const {
     int stride = k.wib * 8;
     std::vector<uint8_t> p(static_cast<size_t>(k.hib) * 8 * stride);
+    if (lossless_) {
+      for (int y = 0; y < k.dh; ++y) {
+        std::memcpy(&p[static_cast<size_t>(y) * stride], &k.pix[static_cast<size_t>(y) * k.dw], k.dw);
+      }
+      return p;
+    }
     int16_t ws[64];
     int rws[5], D[26], prev_bits[10];
     for (int i = 1; i < 10; ++i) prev_bits[i] = scans_ > 1 ? k.prev_coef_bits[i] : -1;
@@ -1328,7 +1505,8 @@ class Decoder {
       for (int y = 0; y < H; ++y) std::memcpy(&out[static_cast<size_t>(y) * W], &src[static_cast<size_t>(y) * stride], W);
       return out;
     }
-    const bool fancy = mode_ != kYccPlain;
+    // jdsample.c: no fancy upsampling where min_DCT_scaled_size is 1 (lossless)
+    const bool fancy = mode_ != kYccPlain && !lossless_;
     const bool h2v1 = fancy && hr == 2 && vr == 1 && dw > 2;
     const bool h1v2 = fancy && hr == 1 && vr == 2;
     const bool h2v2 = fancy && hr == 2 && vr == 2 && dw > 2;
@@ -1383,6 +1561,16 @@ class Decoder {
       return;
     }
     std::vector<uint8_t> rgb(npix * 3);
+    // jdcolor.c (libjpeg-turbo 3): a lossless frame is output in its own
+    // colour space or not at all, and OpenCV asks for BGR or CMYK
+    const bool ycc_space = mode_ == kYcc || mode_ == kYccPlain || jfif_ ||
+                           (adobe_ && adobe_transform_ != 0);
+    if (lossless_ && (ncomp_ == 1 || (ncomp_ == 3 && ycc_space) ||
+                      (ncomp_ == 4 && adobe_ && adobe_transform_ != 0))) {
+      damaged(std::string("lossless ") +
+              (ncomp_ == 1 ? "gray" : ncomp_ == 3 ? "YCbCr" : "YCCK") +
+              " JPEG, which libjpeg-turbo does not convert to OpenCV's colour space");
+    }
     if (ncomp_ == 1) {
       std::vector<uint8_t> g = upsample(comp_[0], smooth);
       for (size_t i = 0; i < npix; ++i) rgb[3 * i] = rgb[3 * i + 1] = rgb[3 * i + 2] = g[i];
@@ -1414,8 +1602,8 @@ class Decoder {
         is_rgb = false;
       } else if (adobe_) {
         is_rgb = adobe_transform_ == 0;
-      } else {
-        is_rgb = comp_[0].id == 82 && comp_[1].id == 71 && comp_[2].id == 66;
+      } else {  // jdapimin.c:default_decompress_parms guesses from the ids
+        is_rgb = lossless_ || (comp_[0].id == 82 && comp_[1].id == 71 && comp_[2].id == 66);
       }
       if (is_rgb) {
         for (size_t i = 0; i < npix; ++i) {
@@ -1464,7 +1652,7 @@ void set_message(char* msg, int64_t msg_len, const std::string& text) {
 }  // namespace
 
 // Output size of a JPEG stream: out_hw = {height, width} after the EXIF
-// orientation.  Returns 0, -1 (damaged) or -2 (unsupported; msg names it).
+// orientation.  Returns 0 or -1 (what OpenCV fails on; msg names it).
 extern "C" int64_t rcnn_jpeg_header(const uint8_t* data, int64_t n, int64_t* out_hw, char* msg,
                                     int64_t msg_len) {
   if (data == nullptr || n < 0 || out_hw == nullptr) return -1;
@@ -1482,7 +1670,7 @@ extern "C" int64_t rcnn_jpeg_header(const uint8_t* data, int64_t n, int64_t* out
 }
 
 // Decodes a JPEG stream into out, a contiguous [h, w, 3] RGB uint8 buffer of
-// the size rcnn_jpeg_header gave.  Returns 0, -1 or -2 as above.
+// the size rcnn_jpeg_header gave.  Returns 0 or -1 as above.
 extern "C" int64_t rcnn_jpeg_decode_u8(const uint8_t* data, int64_t n, uint8_t* out, int64_t h,
                                        int64_t w, char* msg, int64_t msg_len) {
   if (data == nullptr || n < 0 || out == nullptr) return -1;
@@ -1507,7 +1695,7 @@ extern "C" int64_t rcnn_jpeg_decode_u8(const uint8_t* data, int64_t n, uint8_t* 
 
 // The frame of a JPEG stream (a JPEG-in-TIFF strip or tile with its tables
 // spliced in): info = {SOF height, width, components, component 0's h and
-// v sampling, the largest h and v of the others}.  Returns 0, -1 or -2.
+// v sampling, the largest h and v of the others}.  Returns 0 or -1.
 extern "C" int64_t rcnn_jpeg_frame(const uint8_t* data, int64_t n, int64_t* info, char* msg,
                                    int64_t msg_len) {
   if (data == nullptr || n < 0 || info == nullptr) return -1;
@@ -1528,7 +1716,7 @@ extern "C" int64_t rcnn_jpeg_frame(const uint8_t* data, int64_t n, int64_t* info
 
 // Decodes a JPEG stream as a TIFF strip or tile: mode 1 (Decoder::kRaw)
 // into out [h, w, components], mode 2 (kYcc) or 3 (kYccPlain) into out
-// [h, w, 3], h and w the SOF's.  Returns 0, -1 or -2 as above.
+// [h, w, 3], h and w the SOF's.  Returns 0 or -1 as above.
 extern "C" int64_t rcnn_jpeg_decode_frame(const uint8_t* data, int64_t n, int64_t mode,
                                           uint8_t* out, int64_t h, int64_t w, int64_t c, char* msg,
                                           int64_t msg_len) {

@@ -1,17 +1,23 @@
-// TIFF decompression in host C++: LZW (compression 5) and the CCITT fax
-// codings (2, 3, 4 and 32771), byte for byte what libtiff decodes.
+// TIFF decompression in host C++: LZW (compression 5), the CCITT fax
+// codings (2, 3, 4 and 32771) and SGI LogL (34676), byte for byte what
+// libtiff decodes.
 //
 // LZW, as libtiff's LZWDecode: codes of 9 to 12 bits read most significant
 // bit first, Clear (256) resetting the table, EOI (257) ending the strip or
 // tile, and the code width growing one code early (when the next free
 // entry reaches 2^n - 1), as TIFF 6.0 specifies it.  A string longer than
 // the output left is cut where the output ends, as libtiff cuts it.
+// The old-style LZW of writers before TIFF 6.0, as libtiff's
+// LZWDecodeCompat reads it: codes least significant bit first, the width
+// growing when the next free entry reaches 2^n (not one code early), and
+// a table of up to 5119 entries (CSIZE) at 12 bits.  libtiff takes the
+// style from the first strip or tile it decodes (LZWPreDecode: a first
+// byte of 0 and a second with bit 0 set) and keeps it for the file: the
+// caller passes it.
 // Errors, where libtiff fails the strip (and OpenCV's decode with it):
 // return -1 with a message: a code past the table, a table entry used
 // before it is defined, a first code that is not Clear, or data that ends
-// (with or without EOI) before `dst_len` bytes are out.  The old-style LZW
-// of writers before TIFF 6.0 (least significant bit first), which libtiff
-// also reads, returns -2.
+// (with or without EOI) before `dst_len` bytes are out.
 //
 // Fax, as libtiff's tif_fax3.c decodes it (Fax3DecodeRLE, Fax3Decode1D,
 // Fax3Decode2D, Fax4Decode): the T.4 white and black run-length codes
@@ -42,6 +48,7 @@
 namespace {
 
 constexpr int kClear = 256, kEoi = 257, kFirst = 258, kMaxBits = 12, kSize = 1 << kMaxBits;
+constexpr int kCompatSize = kSize - 1 + 1024;  // libtiff's CSIZE
 
 void set_message(char* msg, int64_t msg_len, const std::string& text) {
   if (msg != nullptr && msg_len > 0) {
@@ -57,16 +64,15 @@ struct Entry {
 
 }  // namespace
 
-// Decodes the LZW strip or tile `src[0:n]` into `dst[0:dst_len]`.  Returns
-// dst_len, or -1 (damaged) / -2 (old-style LZW) with a message.
+// Decodes the LZW strip or tile `src[0:n]` into `dst[0:dst_len]`, in the
+// old style when `old_style` is 1.  Returns dst_len, or -1 (damaged) with
+// a message.
 extern "C" int64_t rcnn_tiff_lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst,
-                                        int64_t dst_len, char* msg, int64_t msg_len) {
+                                        int64_t dst_len, int64_t old_style, char* msg,
+                                        int64_t msg_len) {
   if (src == nullptr || dst == nullptr || n < 0 || dst_len < 0) return -1;
-  if (n >= 2 && src[0] == 0 && (src[1] & 1)) {
-    set_message(msg, msg_len, "old-style (pre-TIFF 6.0) LZW");
-    return -2;
-  }
-  std::vector<Entry> tab(kSize);
+  const bool compat = old_style == 1;
+  std::vector<Entry> tab(compat ? kCompatSize : kSize);
   for (int i = 0; i < 256; ++i) {
     tab[i].length = 1;
     tab[i].value = tab[i].first = static_cast<uint8_t>(i);
@@ -77,10 +83,19 @@ extern "C" int64_t rcnn_tiff_lzw_decode(const uint8_t* src, int64_t n, uint8_t* 
   auto next_code = [&]() -> int {
     while (nacc < nbits) {
       if (pos >= n) return kEoi;  // libtiff: "not terminated with EOI code"
-      acc = (acc << 8) | src[pos++];
+      if (compat) {  // GetNextCodeCompat: least significant bit first
+        acc |= static_cast<uint64_t>(src[pos++]) << nacc;
+      } else {
+        acc = (acc << 8) | src[pos++];
+      }
       nacc += 8;
     }
     nacc -= nbits;
+    if (compat) {
+      int code = static_cast<int>(acc & ((1u << nbits) - 1));
+      acc >>= nbits;
+      return code;
+    }
     return static_cast<int>((acc >> nacc) & ((1u << nbits) - 1));
   };
   auto fail = [&](const char* what) -> int64_t {
@@ -88,7 +103,7 @@ extern "C" int64_t rcnn_tiff_lzw_decode(const uint8_t* src, int64_t n, uint8_t* 
     return -1;
   };
   auto clear = [&]() {
-    for (int i = kFirst; i < kSize; ++i) tab[i] = Entry();
+    for (size_t i = kFirst; i < tab.size(); ++i) tab[i] = Entry();
     free_ent = kFirst;
     nbits = 9;
   };
@@ -107,7 +122,7 @@ extern "C" int64_t rcnn_tiff_lzw_decode(const uint8_t* src, int64_t n, uint8_t* 
       continue;
     }
     if (old < 0) return fail("the first code is not Clear");
-    if (free_ent >= kSize) return fail("the code table overflows");
+    if (free_ent >= static_cast<int>(tab.size())) return fail("the code table overflows");
     // the new entry: the previous string plus the first byte of this one
     // (of the previous string itself when this code is the new entry)
     Entry& e = tab[free_ent];
@@ -115,7 +130,7 @@ extern "C" int64_t rcnn_tiff_lzw_decode(const uint8_t* src, int64_t n, uint8_t* 
     e.first = tab[old].first;
     e.length = static_cast<uint16_t>(tab[old].length + 1);
     e.value = code < free_ent ? tab[code].first : e.first;
-    if (++free_ent > (1 << nbits) - 2 && nbits < kMaxBits) ++nbits;
+    if (++free_ent > (1 << nbits) - (compat ? 1 : 2) && nbits < kMaxBits) ++nbits;
     old = code;
     const Entry& c = tab[code];
     if (c.length == 0) return fail("a code used before it is defined");
@@ -562,4 +577,45 @@ extern "C" int64_t rcnn_tiff_fax_decode(const uint8_t* src, int64_t n, uint8_t* 
     set_message(msg, msg_len, std::string("damaged fax data: ") + e.what());
     return -1;
   }
+}
+
+// SGI LogL (compression 34676 on PhotometricInterpretation LogL), as
+// libtiff's LogL16Decode reads it a row at a time: the high bytes of the
+// row's `cols` 16-bit values and then the low bytes, each a run-length
+// code (a byte of 128 or more repeats the next byte that less 126 times,
+// a smaller one copies that many bytes; 0 copies none).  Decodes `rows`
+// rows of `src[0:n]` into `dst` (rows * cols values).  Returns the values
+// written, or -1 with a message where libtiff fails the row ("Not enough
+// data").
+extern "C" int64_t rcnn_tiff_sgilog16_decode(const uint8_t* src, int64_t n, int16_t* dst,
+                                             int64_t rows, int64_t cols, char* msg,
+                                             int64_t msg_len) {
+  if (src == nullptr || dst == nullptr || n < 0 || rows < 0 || cols < 0) return -1;
+  const uint8_t* bp = src;
+  int64_t cc = n;
+  for (int64_t r = 0; r < rows; ++r) {
+    int16_t* tp = dst + r * cols;
+    std::fill(tp, tp + cols, int16_t(0));
+    for (int shft = 8; shft >= 0; shft -= 8) {
+      int64_t i = 0;
+      while (i < cols && cc > 0) {
+        if (*bp >= 128) {  // a run
+          if (cc < 2) break;
+          int rc = *bp++ + (2 - 128);
+          int16_t b = static_cast<int16_t>(*bp++ << shft);
+          cc -= 2;
+          while (rc-- && i < cols) tp[i++] |= b;
+        } else {  // literal bytes
+          int rc = *bp++;
+          while (--cc && rc-- && i < cols) tp[i++] |= static_cast<int16_t>(*bp++ << shft);
+        }
+      }
+      if (i != cols) {
+        set_message(msg, msg_len, "SGI LogL data ends " + std::to_string(cols - i) +
+                                      " pixels short of row " + std::to_string(r));
+        return -1;
+      }
+    }
+  }
+  return rows * cols;
 }

@@ -22,9 +22,10 @@ Images are read by :mod:`rcnn_ocr_tpu_torch.data.image_io` (PNG, BMP, JPEG,
 JPEG 2000, TIFF, WebP, GIF, Netpbm, Sun raster, PFM and Radiance HDR,
 whatever extension the CSV gives them, as JAX's reads any file it names
 through cv2).  A file cv2 cannot read either (empty, cut short, not an
-image, OpenEXR, which this cv2 lacks) raises ``ValueError`` and is
+image, OpenEXR, which this cv2 lacks, a 32-bit float or ZSTD TIFF, a
+12-bit or hierarchical JPEG, ...) raises ``ValueError`` and is
 quarantined as JAX's quarantines it; a file in a format or variant cv2
-reads and the port refuses (AVIF, HTJ2K, ...) raises its
+reads and the port refuses (AVIF, HTJ2K, SGI LogLuv TIFF) raises its
 ``UnsupportedImageFormat`` instead of being quarantined.  ``fetch`` passes
 an ``rng`` on to the transform (the loader seeds one per sample); the
 substitute draw is seeded too.

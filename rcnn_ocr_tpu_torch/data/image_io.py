@@ -23,27 +23,34 @@ IMREAD_COLOR)`` followed by BGR -> RGB gives, as an RGB uint8 HWC array:
 * JPEG: 8-bit sequential (baseline and extended) and progressive frames,
   Huffman or arithmetic-coded (with DAC conditioning), gray, YCbCr / RGB
   at any integral chroma subsampling, and CMYK / YCCK (Adobe-inverted, as
-  OpenCV converts them), with restart markers and EXIF orientation,
+  OpenCV converts them), and lossless frames (SOF3: predictors 1-7, the
+  point transform, precisions 2-8, RGB and CMYK, as libjpeg-turbo 3
+  decodes them), with restart markers and EXIF orientation,
   through the port's host C++ (``csrc/host/jpeg_decode.cpp`` via
   :func:`rcnn_ocr_tpu_torch.native.jpeg_decode_u8`, built with g++ at
   first use): libjpeg-turbo's ISLOW IDCT, block smoothing of progressive
   streams cut short, fancy upsampling and colour tables, so the pixels are
   bit-equal to cv2's.  Frames with no DHT take the standard tables, and
   damaged entropy data decodes as libjpeg-turbo decodes it with warnings
-  (bad codes, restart markers out of sequence).  Lossless, hierarchical and
-  12-bit frames and DNL markers raise :class:`UnsupportedImageFormat`
-  naming the variant; truncated data and damaged headers raise
-  ``ValueError`` (cv2 returns ``None``).
-* TIFF (:mod:`rcnn_ocr_tpu_torch.data.tiff`): the first page, II or MM,
-  strips or tiles, chunky or planar; uncompressed, PackBits, LZW and the
-  CCITT fax codings (modified Huffman, RLEW, Group 3 1-D / 2-D, Group 4;
-  host C++), Deflate, with the horizontal predictor, and JPEG (through the
-  host JPEG decoder with the JPEGTables spliced in); gray at 1, 8 and 16
-  bits, palette at 1, 4 and 8, RGB(A) at 8 and 16, CMYK at 8, YCbCr at any
-  subsampling libtiff reads, and the Orientation tag, as libtiff's RGBA
-  reader under OpenCV turns them into 8-bit RGB.  Old-style JPEG and the
-  rarer compressions, other photometric interpretations, BigTIFF and
-  non-integer samples raise :class:`UnsupportedImageFormat` naming them.
+  (bad codes, restart markers out of sequence).  What cv2 gives ``None``
+  on raises ``ValueError`` naming it: hierarchical, 12-bit and
+  arithmetic-coded lossless frames, DNL heights, lossless gray, YCbCr and
+  YCCK frames (libjpeg-turbo converts no lossless frame), truncated data
+  and damaged headers.
+* TIFF (:mod:`rcnn_ocr_tpu_torch.data.tiff`): the first page of a TIFF or
+  BigTIFF, II or MM, strips or tiles, chunky or planar; uncompressed,
+  PackBits, LZW (old-style too) and the CCITT fax codings (modified
+  Huffman, RLEW, Group 3 1-D / 2-D, Group 4; host C++), Deflate, with the
+  horizontal predictor, JPEG (through the host JPEG decoder with the
+  JPEGTables spliced in; planar YCbCr a plane a JPEG) and SGI LogL; gray
+  at 1, 8 and 16 bits (signed too), palette at 1, 4 and 8, RGB(A) at 8
+  and 16, CMYK at 8, YCbCr at any subsampling libtiff reads, CIELab at 8
+  and 16, and the Orientation tag, as libtiff's RGBA reader under OpenCV
+  turns them into 8-bit RGB.  What cv2 gives ``None`` on raises
+  ``ValueError`` naming it (floating-point and 32-bit samples, ICCLab and
+  ITULab, the compressions OpenCV's libtiff lacks: LZMA, ZSTD, WebP, LERC,
+  PixarLog, old-style JPEG); SGI LogLuv at 8 or 16 bits, which cv2 reads,
+  raises :class:`UnsupportedImageFormat`.
 
 * WebP (:mod:`rcnn_ocr_tpu_torch.data.webp`): lossy (VP8) and lossless
   (VP8L) bitstreams in the port's host C++ (``csrc/host/webp_decode.cpp``),
@@ -68,13 +75,14 @@ IMREAD_COLOR)`` followed by BGR -> RGB gives, as an RGB uint8 HWC array:
 
 Of the formats OpenCV reads, AVIF raises :class:`UnsupportedImageFormat`
 naming it by its magic (so do PAM's alpha tuple types, whose pixels
-OpenCV's reader leaves to memory it never wrote, and the variants each
-decoder refuses by name).  Bytes that no decoder claims are no image cv2
-reads either (an empty file, a download cut inside a signature, a text
-file, OpenEXR, which this cv2 lacks): they raise ``ValueError``, which
-the datasets quarantine as JAX's quarantine what cv2 fails on.
+OpenCV's reader leaves to memory it never wrote, HTJ2K code-blocks, SGI
+LogLuv TIFFs and the predictor on subsampled YCbCr TIFF).  Bytes that no
+decoder claims are no image cv2 reads either (an empty file, a download
+cut inside a signature, a text file, OpenEXR, which this cv2 lacks): they
+raise ``ValueError``, which the datasets quarantine as JAX's quarantine
+what cv2 fails on.
 ``image_size`` reads the headers of PNG, BMP, GIF (the logical screen),
-JPEG (through the SOF walk) and TIFF (the first IFD, whatever its
+JPEG (through the SOF walk) and TIFF and BigTIFF (the first IFD, whatever its
 compression, with orientations 5-8 swapping the sides as the decode does)
 and decodes the others, as JAX's does.  :func:`png_encode` writes 8-bit
 PNGs.
@@ -94,9 +102,9 @@ from rcnn_ocr_tpu_torch.data import bmp, gif, hdr, jpeg2000, pfm, pnm, sunras, t
 from rcnn_ocr_tpu_torch.data.size_limit import PNG_MAX_SIDE, check_size
 
 IMG_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff"}
-SUPPORTED = ("PNG, BMP, JPEG (8-bit sequential or progressive), JPEG 2000 (Part 1), WebP, GIF, "
-             "Netpbm (PBM, PGM, PPM, PAM), Sun raster, PFM, Radiance HDR and TIFF (baseline, "
-             "CCITT fax, JPEG, YCbCr)")
+SUPPORTED = ("PNG, BMP, JPEG (8-bit sequential or progressive, lossless), JPEG 2000 (Part 1), "
+             "WebP, GIF, Netpbm (PBM, PGM, PPM, PAM), Sun raster, PFM, Radiance HDR and TIFF "
+             "(baseline and BigTIFF, CCITT fax, JPEG, YCbCr, CIELab, SGI LogL)")
 # formats OpenCV reads and the port does not, by their magic bytes
 _REFUSED = ((lambda d: d[4:12] in (b"ftypavif", b"ftypavis"), "AVIF"),)
 
@@ -261,11 +269,7 @@ def imdecode(data) -> np.ndarray:
     if data.startswith(b"\xff\xd8"):
         from rcnn_ocr_tpu_torch.native import jpeg_decode_u8
 
-        try:
-            return jpeg_decode_u8(data)
-        except NotImplementedError as err:
-            raise UnsupportedImageFormat(
-                f"cannot decode {err}: the PyTorch port decodes {SUPPORTED} images") from None
+        return jpeg_decode_u8(data)
     if data[:4] in _TIFF_SIGS:
         try:
             return tiff.decode(data)
@@ -368,7 +372,7 @@ def image_size(path: str) -> Tuple[int, int]:
                 return abs(h), abs(w)
         elif head[:6] in (b"GIF87a", b"GIF89a"):
             return int.from_bytes(head[8:10], "little"), int.from_bytes(head[6:8], "little")
-        elif head[:4] in _TIFF_SIGS[:2]:  # the first IFD, orientations 5-8 swapping
+        elif head[:4] in _TIFF_SIGS:  # the first IFD, orientations 5-8 swapping
             f.seek(0)
             try:
                 return tiff.size(f.read())

@@ -5,11 +5,15 @@ for a TIFF (OpenCV reads it through libtiff's RGBA interface,
 ``TIFFReadRGBAStrip`` / ``TIFFReadRGBATile``, then applies the Orientation
 tag), pixel for pixel:
 
-* the header and the first IFD in ``struct``: II and MM byte order, strips
-  or tiles, PlanarConfiguration 1 (chunky) and 2 (planar), later pages
-  ignored;
+* the header and the first IFD in ``struct``: II and MM byte order, TIFF
+  and BigTIFF (8-byte offsets and counts, 20-byte IFD entries, the LONG8,
+  SLONG8 and IFD8 types), strips or tiles, PlanarConfiguration 1 (chunky)
+  and 2 (planar), later pages ignored;
 * compression: none, PackBits (32773), LZW (5, in the port's host C++:
-  ``csrc/host/tiff_decode.cpp``), Deflate (8 and 32946, through ``zlib``);
+  ``csrc/host/tiff_decode.cpp``; also the old style of writers before TIFF
+  6.0, least significant bit first, as libtiff's LZWDecodeCompat reads it
+  when the first strip or tile starts so), Deflate (8 and 32946, through
+  ``zlib``);
   the horizontal Predictor (2) on LZW and Deflate data, 8 and 16 bits (as
   in libtiff, none and PackBits ignore the tag); FillOrder 2;
 * CCITT fax (1-bit samples, host C++ as libtiff's tif_fax3.c decodes
@@ -22,7 +26,9 @@ tag), pixel for pixel:
   libjpeg's fancy upsampling (JPEGCOLORMODE_RGB, as the RGBA reader sets
   it); the luma sampling from YCbCrSubsampling, else the first strip's; a
   last strip coded at full RowsPerStrip height is cropped, tiles cropped
-  at the image's edge;
+  at the image's edge; planar YCbCr (YCbCrSubsampling 1x1, the only planar
+  case of libtiff's RGBA reader) a one-component JPEG a plane, its samples
+  converted as YCbCr without JPEG is;
 * YCbCr without JPEG (8 bits, 3 samples): data units of YCbCrSubsampling
   (530, default 2x2) luma samples then Cb and Cr, each pixel its unit's
   chroma, converted with tif_color.c's fixed-point tables built in float32
@@ -32,7 +38,15 @@ tag), pixel for pixel:
   read as TIFFScanlineSize's whole rows (a 4x4 row of an odd number of
   units loses its last two bytes, read as zeros) and a right-edge 4x4
   tile's block rows are stepped 10 bytes a skipped unit, not 18;
-* samples as libtiff's ``tif_getimage.c`` turns them into 8-bit RGB:
+* CIELab (photometric 8), 8-bit L with signed a* and b* or all 16-bit,
+  chunky: tif_color.c's TIFFCIELab16ToXYZ and TIFFXYZToRGB over the
+  display_sRGB tables and the WhitePoint tag (default D50), in float32 in
+  libtiff's order of operations;
+* SGI LogL (compression 34676 on photometric LogL, host C++ as libtiff's
+  LogL16Decode reads it a row at a time), each 16-bit log luminance to
+  8-bit gray as L16toGry takes it, ``256 * sqrt(Y)``;
+* samples as libtiff's ``tif_getimage.c`` turns them into 8-bit RGB
+  (signed integer samples as their unsigned bits, as libtiff reads them):
   MinIsBlack / MinIsWhite at 1, 8 and 16 bits (16 bits: the high byte),
   palette at 1, 4 and 8 bits (a colour map with any entry over 255 is
   shifted right by 8, else taken as 8-bit values, libtiff's ``checkcmap``),
@@ -47,16 +61,24 @@ tag), pixel for pixel:
   file libtiff mirrors 2, 3, 6 and 7 within each tile (``_orient``).
 
 Refused with ``NotImplementedError`` naming what it is (the caller turns it
-into ``UnsupportedImageFormat``): BigTIFF, old-style JPEG (6) and any other
-compression, planar YCbCr JPEG, subsampled YCbCr with the predictor,
-CIELab and other photometric interpretations, and sample formats other
-than unsigned integers.  Where OpenCV or libtiff fail (gray or RGB at 2 or
-4 bits, palette at 2 or 16 bits, RGB at other depths, YCbCr subsampled
-2x4 or 1x4, uncompressed tiles whose size is not a multiple of 1 KiB,
-damaged or truncated data), ``ValueError``, as ``cv2.imdecode`` gives
-``None``.  One deliberate divergence: damaged compressed data raises,
-where libtiff's RGBA reader, which does not stop on a strip that fails,
-gives OpenCV what it decoded; so does damaged fax data (a bad code word, a
+into ``UnsupportedImageFormat``), as cv2 reads them: SGI LogLuv at 8 or 16
+bits (compression 34676 or 34677) and subsampled YCbCr with the predictor
+(not probed).  Where OpenCV or libtiff fail, ``ValueError``, as
+``cv2.imdecode`` gives ``None``, checked before the compression as OpenCV's
+``TiffDecoder::readHeader`` and libtiff's ``TIFFRGBAImageOK`` check them:
+floating-point, untyped and complex samples, 32- and 64-bit samples,
+photometric interpretations the RGBA reader lacks (ICCLab, ITULab, colour
+filter arrays and the rest), gray or RGB at 2 or 4 bits (NeXT and
+ThunderScan among them), palette at 2 or 16 bits, RGB at other depths,
+CIELab planar or with other sample counts, LogLuv at 32 bits; then the
+compressions OpenCV's libtiff lacks (old-style JPEG 6, LZMA, ZSTD, WebP,
+LERC, PixarLog, JBIG); YCbCr subsampled 2x4 or 1x4,
+planar YCbCr JPEG without 1x1 subsampling, uncompressed tiles whose size
+is not a multiple of 1 KiB, damaged or truncated data.  One deliberate
+divergence: damaged compressed data raises, and so do strips of an
+unknown compression, where libtiff's RGBA reader, which does not stop on
+a strip that fails, gives OpenCV what it decoded (or its buffer as it
+was); so does damaged fax data (a bad code word, a
 row whose runs miss the width, data that ends before the last row, the
 uncompressed-mode extension), where libtiff's fax decoder warns and fills
 the rest of the row (its RLEW and modified-Huffman readers do so on some
@@ -66,6 +88,8 @@ misplace the alignment).
 
 from __future__ import annotations
 
+import functools
+import math
 import struct
 import zlib
 from typing import Dict, Tuple
@@ -76,50 +100,63 @@ from rcnn_ocr_tpu_torch.data.size_limit import check_size
 
 _FORMATS = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i",
             10: "ii", 11: "f", 12: "d"}
+_BIG_FORMATS = {**_FORMATS, 16: "Q", 17: "q", 18: "Q"}  # BigTIFF's LONG8, SLONG8, IFD8
 # none, LZW, Deflate, PackBits, old Deflate; the CCITT fax codings; JPEG
+# (SGI LogL, 34676, only on PhotometricInterpretation LogL)
 _DECODED = (1, 5, 8, 32773, 32946, 2, 3, 4, 32771, 7)
 _FAX = (2, 3, 4, 32771)
 _COMPRESSION = {6: "old-style JPEG", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP",
-                34887: "LERC", 32809: "ThunderScan", 34676: "SGI LogL", 34677: "SGI LogLuv"}
-_PHOTOMETRIC = {4: "transparency mask", 8: "CIELab", 9: "ICCLab", 10: "ITULab",
-                32803: "colour filter array", 32844: "LogL", 32845: "LogLuv",
+                34887: "LERC", 32909: "PixarLog", 34661: "JBIG", 32766: "NeXT",
+                32809: "ThunderScan", 34676: "SGI LogL", 34677: "SGI LogLuv"}
+_PHOTOMETRIC = {4: "transparency mask", 9: "ICCLab", 10: "ITULab", 32803: "colour filter array",
                 34892: "linear raw"}
 _SAMPLE_FORMAT = {2: "signed-integer", 3: "floating-point", 4: "untyped", 5: "complex integer",
                   6: "complex floating-point"}
 _REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 
-def _header(data: bytes) -> Tuple[str, int]:
+def _header(data: bytes) -> Tuple[str, int, bool]:
+    """Byte order, the first IFD's offset and whether the file is a
+    BigTIFF (magic 43: 8-byte offsets, counts and IFD entry values)."""
     if len(data) < 8:
         raise ValueError("TIFF header is truncated")
     order = {b"II": "<", b"MM": ">"}[bytes(data[:2])]
-    magic, offset = struct.unpack_from(order + "HI", data, 2)
+    (magic,) = struct.unpack_from(order + "H", data, 2)
     if magic == 43:
-        raise NotImplementedError("BigTIFF")
+        if len(data) < 16:
+            raise ValueError("BigTIFF header is truncated")
+        width, zero, offset = struct.unpack_from(order + "HHQ", data, 4)
+        if width != 8 or zero != 0:
+            raise ValueError(f"BigTIFF offsets of {width} bytes")
+        return order, offset, True
     if magic != 42:
         raise ValueError(f"TIFF magic number {magic} is not 42")
-    return order, offset
+    return order, struct.unpack_from(order + "I", data, 4)[0], False
 
 
-def _tags(data: bytes, order: str, offset: int) -> Dict[int, tuple]:
+def _tags(data: bytes, order: str, offset: int, big: bool = False) -> Dict[int, tuple]:
     """The first IFD's tags -> their values (unknown field types skipped,
-    as libtiff skips them)."""
-    if offset < 8 or offset + 2 > len(data):
+    as libtiff skips them); a BigTIFF's IFD has an 8-byte count and
+    20-byte entries whose values fit in 8 bytes before an offset."""
+    count_fmt, entry_size, inline, formats = ("Q", 20, 8, _BIG_FORMATS) if big else \
+        ("H", 12, 4, _FORMATS)
+    head = struct.calcsize(count_fmt)
+    if offset < (16 if big else 8) or offset + head > len(data):
         raise ValueError("TIFF directory lies outside the file")
-    (n,) = struct.unpack_from(order + "H", data, offset)
-    if offset + 2 + 12 * n > len(data):
+    (n,) = struct.unpack_from(order + count_fmt, data, offset)
+    if offset + head + entry_size * n > len(data):
         raise ValueError("TIFF directory is truncated")
     tags = {}
     for i in range(n):
-        entry = offset + 2 + 12 * i
-        tag, typ, count = struct.unpack_from(order + "HHI", data, entry)
-        fmt = _FORMATS.get(typ)
+        entry = offset + head + entry_size * i
+        tag, typ, count = struct.unpack_from(order + "HH" + ("Q" if big else "I"), data, entry)
+        fmt = formats.get(typ)
         if fmt is None:
             continue
         size = struct.calcsize(order + fmt) * count
-        at = entry + 8
-        if size > 4:
-            (at,) = struct.unpack_from(order + "I", data, at)
+        at = entry + entry_size - inline
+        if size > inline:
+            (at,) = struct.unpack_from(order + ("Q" if big else "I"), data, at)
         if at + size > len(data):
             raise ValueError(f"TIFF tag {tag} lies outside the file")
         tags[tag] = struct.unpack_from(order + fmt * count, data, at)
@@ -143,8 +180,7 @@ def _orientation(tags) -> int:
 def size(data: bytes) -> Tuple[int, int]:
     """(height, width) of the first page after its orientation, from the
     header alone."""
-    order, offset = _header(data)
-    tags = _tags(data, order, offset)
+    tags = _tags(data, *_header(data))
     h, w = _one(tags, 257), _one(tags, 256)
     return (w, h) if _orientation(tags) >= 5 else (h, w)
 
@@ -234,15 +270,21 @@ def _ycbcr_units(buf: bytes, rows: int, cols: int, hs: int, vs: int, npix: int) 
     return np.ascontiguousarray(np.concatenate([y[:, :, None], c], axis=2)[:rows, :cols]).tobytes()
 
 
-def _chunk(data: bytes, offset: int, count: int, compression: int, size: int,
-           fill_order: int, rows: int, cols: int, options: int) -> bytes:
-    """One strip or tile of ``rows`` x ``cols`` pixels, decompressed to its
-    ``size`` bytes."""
+def _raw(data: bytes, offset: int, count: int, fill_order: int) -> bytes:
+    """A strip or tile's bytes as libtiff reads them (FillOrder 2 reversed)."""
     if offset + count > len(data) or count < 0:
         raise ValueError("TIFF strip or tile lies outside the file")
     raw = data[offset : offset + count]
     if fill_order == 2:
         raw = _REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
+    return raw
+
+
+def _chunk(data: bytes, offset: int, count: int, compression: int, size: int,
+           fill_order: int, rows: int, cols: int, options: int, old_lzw: bool = False) -> bytes:
+    """One strip or tile of ``rows`` x ``cols`` pixels, decompressed to its
+    ``size`` bytes (``old_lzw``: LZW in the pre-TIFF 6.0 style)."""
+    raw = _raw(data, offset, count, fill_order)
     if compression == 1:
         if len(raw) < size:
             raise ValueError("TIFF strip or tile is truncated")
@@ -252,7 +294,7 @@ def _chunk(data: bytes, offset: int, count: int, compression: int, size: int,
     if compression == 5:
         from rcnn_ocr_tpu_torch.native import tiff_lzw_decode
 
-        return tiff_lzw_decode(raw, size)
+        return tiff_lzw_decode(raw, size, old_lzw)
     if compression in _FAX:
         from rcnn_ocr_tpu_torch.native import tiff_fax_decode
 
@@ -308,6 +350,7 @@ def _samples(data: bytes, tags, order: str, bits: int, spp: int, photometric: in
     if planar not in (1, 2):
         raise ValueError(f"TIFF PlanarConfiguration {planar}")
     predictor = _one(tags, 317, 1) if compression in (5, 8, 32946) else 1
+    logl = compression == 34676
     if predictor not in (1, 2) or (predictor == 2 and bits not in (8, 16)):
         raise ValueError(f"TIFF Predictor {predictor} with {bits}-bit samples")
     fill_order = _one(tags, 266, 1)
@@ -324,6 +367,9 @@ def _samples(data: bytes, tags, order: str, bits: int, spp: int, photometric: in
                              "which libtiff's RGBA reader does not read")
         if predictor == 2:
             raise NotImplementedError("subsampled YCbCr TIFF with the horizontal predictor")
+    if ycbcr and compression == 7 and planar == 2 and (hs, vs) != (1, 1):
+        raise ValueError(f"planar YCbCr JPEG-in-TIFF subsampled {hs}x{vs}, which libtiff's RGBA "
+                         "reader does not read")
     sampling = [tuple(int(v) for v in tags[530][:2])] if ycbcr and 530 in tags else []
     tables = bytes(tags.get(347, ()))
     planes = spp if planar == 2 else 1
@@ -355,6 +401,11 @@ def _samples(data: bytes, tags, order: str, bits: int, spp: int, photometric: in
         raise ValueError(f"uncompressed TIFF tiles of {tile_bytes} bytes, not a multiple of "
                          "1024, which libtiff's reader under OpenCV refuses")
     skew = planar == 1 and photometric in (0, 1) and (bits == 16 or spp > 1)
+    # LZWPreDecode: old-style codes start 0x00 then an odd byte (Clear, least
+    # significant bit first); libtiff keeps the style of the first strip or
+    # tile it decodes for the file
+    first = _raw(data, int(offsets[0]), int(counts[0]), fill_order) if compression == 5 else b""
+    old_lzw = len(first) >= 2 and first[0] == 0 and bool(first[1] & 1)
     i = 0
     for p in range(planes):
         for y, x, rows, cols in boxes:
@@ -363,7 +414,12 @@ def _samples(data: bytes, tags, order: str, bits: int, spp: int, photometric: in
                 if offsets[i] + counts[i] > len(data):
                     raise ValueError("TIFF strip or tile lies outside the file")
                 buf = _jpeg(data[offsets[i] : offsets[i] + counts[i]], tables, rows, cols, per,
-                            ycbcr, sampling, 322 not in tags and y + rows >= h)
+                            ycbcr and planar == 1, sampling, 322 not in tags and y + rows >= h)
+            elif logl:
+                from rcnn_ocr_tpu_torch.native import tiff_sgilog16_decode
+
+                raw = _raw(data, int(offsets[i]), int(counts[i]), fill_order)
+                buf = _logl_gray()[tiff_sgilog16_decode(raw, rows, cols).view(np.uint16)].tobytes()
             elif (hs, vs) != (1, 1):
                 unit_row = -(-cols // hs) * (hs * vs + 2)
                 units = -(-rows // vs) * unit_row
@@ -372,12 +428,12 @@ def _samples(data: bytes, tags, order: str, bits: int, spp: int, photometric: in
                 # loses its last 2 bytes per block row there, zeros instead
                 got = units if 322 in tags else -(-rows // vs) * vs * (unit_row // vs)
                 buf = _chunk(data, int(offsets[i]), int(counts[i]), compression, got,
-                             fill_order, rows, cols, options)
+                             fill_order, rows, cols, options, old_lzw)
                 buf = _ycbcr_units(buf + bytes(units - got), rows, cols, hs, vs,
                                    min(cols, w - x))
             else:
                 buf = _chunk(data, int(offsets[i]), int(counts[i]), compression, size,
-                             fill_order, rows, cols, options)
+                             fill_order, rows, cols, options, old_lzw)
             blk = _unpack(buf, rows, cols, per, bits, order, predictor == 2)
             ch = slice(p, p + 1) if planar == 2 else slice(0, spp)
             out[y : y + rows, x : x + cols, ch] = blk[: h - y, : w - x]
@@ -385,6 +441,20 @@ def _samples(data: bytes, tags, order: str, bits: int, spp: int, photometric: in
                 out[y : y + rows, x:, 0] = _skewed(blk, w - x, min(rows, h - y), bits)
             i += 1
     return out, tw
+
+
+@functools.lru_cache(maxsize=None)
+def _logl_gray() -> np.ndarray:
+    """tif_luv.c's L16toGry for each 16-bit LogL value: Y = exp(ln 2 / 256
+    * (Le + 0.5) - ln 2 * 64) from the 15-bit log luminance Le (0 for Le 0
+    or a negative sign), then 0 at or under 0, 255 at or over 1, else
+    ``(int)(256 * sqrt(Y))``, through the C library's exp."""
+    ln2 = 0.69314718055994530942  # M_LN2
+    gray = np.zeros(1 << 16, np.uint8)
+    for le in range(1, 1 << 15):
+        y = math.exp(ln2 / 256.0 * (le + 0.5) - ln2 * 64.0)
+        gray[le] = 255 if y >= 1.0 else int(256.0 * math.sqrt(y))
+    return gray
 
 
 def _to8(v: np.ndarray, bits: int) -> np.ndarray:
@@ -398,19 +468,19 @@ def decode(data: bytes) -> np.ndarray:
     """The first page of a TIFF file -> RGB uint8 ``[H, W, 3]``, as
     ``cv2.imdecode(data, IMREAD_COLOR)`` then BGR -> RGB gives it."""
     data = bytes(data)
-    order, offset = _header(data)
-    tags = _tags(data, order, offset)
+    order, offset, big = _header(data)
+    tags = _tags(data, order, offset, big)
     compression = _one(tags, 259, 1)
-    if compression not in _DECODED:
-        name = _COMPRESSION.get(compression, "an unknown")
-        raise NotImplementedError(f"{name} TIFF compression ({compression})")
+    # OpenCV's own refusals (TiffDecoder::readHeader, TIFFRGBAImageOK), then
+    # the compressions its libtiff lacks: cv2 gives None on each
     fmt = _one(tags, 339, 1)
-    if fmt != 1:
-        raise NotImplementedError(f"{_SAMPLE_FORMAT.get(fmt, f'SampleFormat {fmt}')} TIFF samples")
+    if fmt not in (1, 2):  # signed samples are read as their unsigned bits
+        kind = _SAMPLE_FORMAT.get(fmt, f"SampleFormat {fmt}")
+        raise ValueError(f"{kind} TIFF samples, which OpenCV does not read")
     photometric = _one(tags, 262)
-    if photometric in _PHOTOMETRIC or photometric > 6:
+    if photometric not in (0, 1, 2, 3, 5, 6, 8, 32844, 32845):
         kind = _PHOTOMETRIC.get(photometric, f"PhotometricInterpretation {photometric}")
-        raise NotImplementedError(f"{kind} TIFF")
+        raise ValueError(f"{kind} TIFF, which OpenCV does not read")
     bits = _one(tags, 258, 1)
     if len(set(tags.get(258, ()))) > 1:
         raise ValueError("TIFF BitsPerSample differs between samples, which libtiff refuses")
@@ -419,10 +489,22 @@ def decode(data: bytes) -> np.ndarray:
     planar = _one(tags, 284, 1)
     # what OpenCV's readHeader and libtiff's TIFFRGBAImageOK accept
     ok_bits = {0: (1, 8, 16), 1: (1, 8, 16), 2: (8, 16), 3: (1, 4, 8), 5: (8,),
-               6: (8,)}[photometric]
+               6: (8,), 8: (8, 16), 32844: (1, 8, 16), 32845: (1, 8, 16)}[photometric]
     if bits not in ok_bits:
         raise ValueError(f"{bits}-bit TIFF samples of PhotometricInterpretation {photometric}, "
                          "which OpenCV does not read")
+    if photometric == 32844 and (compression != 34676 or spp != 1):
+        raise ValueError(f"LogL TIFF of compression {compression} and {spp} samples, which "
+                         "libtiff refuses")
+    if photometric == 32845:
+        if compression not in (34676, 34677) or planar != 1 or spp != 3 or extra:
+            raise ValueError(f"LogLuv TIFF of compression {compression}, {spp} samples, "
+                             f"PlanarConfiguration {planar}, which libtiff refuses")
+        raise NotImplementedError(f"SGI LogLuv TIFF ({bits}-bit samples)")
+    if compression not in _DECODED and photometric != 32844:
+        name = _COMPRESSION.get(compression, "an unknown")
+        raise ValueError(f"{name} TIFF compression ({compression}), which OpenCV's libtiff "
+                         "does not decode")
     if bits < 8 and spp != 1:
         raise ValueError(f"{bits}-bit TIFF of {spp} samples a pixel")
     if (photometric == 2 and spp < 3) or (photometric == 5 and spp < 4):
@@ -431,10 +513,13 @@ def decode(data: bytes) -> np.ndarray:
         raise ValueError("planar palette TIFF, which libtiff's RGBA reader does not read")
     if photometric == 6 and spp != 3:
         raise ValueError(f"YCbCr TIFF of {spp} samples, which libtiff's RGBA reader does not read")
+    if photometric == 8 and (spp - len(extra) != 3 or spp != 3 or planar == 2):
+        raise ValueError(f"CIELab TIFF of {spp} samples{' planar' if planar == 2 else ''}, which "
+                         "libtiff's RGBA reader does not read")
     if compression == 7 and bits != 8:
         raise ValueError(f"JPEG-in-TIFF of {bits}-bit samples, which libtiff refuses")
-    if compression == 7 and photometric == 6 and planar == 2:
-        raise NotImplementedError("planar YCbCr JPEG-in-TIFF")
+    if photometric == 32844:  # read as 8-bit gray (SGILOGDATAFMT_8BIT)
+        photometric, bits = 1, 8
     s, block_w = _samples(data, tags, order, bits, spp, photometric)
     # libtiff's alpha: ExtraSamples 2 is unassociated (premultiplied on
     # read), 1 associated, 0 associated past three samples
@@ -457,8 +542,10 @@ def decode(data: bytes) -> np.ndarray:
         if unassociated and spp > alpha:
             a = _to8(s[:, :, alpha : alpha + 1], bits).astype(np.uint32)
             rgb = ((rgb.astype(np.uint32) * a + 127) // 255).astype(np.uint8)
+    elif photometric == 8:
+        rgb = _cielab_rgb(s, tags, bits)
     elif photometric == 6:  # JPEG's came out as RGB (JPEGCOLORMODE_RGB)
-        rgb = s if compression == 7 else _ycbcr_rgb(s, tags)
+        rgb = s if compression == 7 and planar == 1 else _ycbcr_rgb(s, tags)
     elif photometric == 3:
         cmap = np.asarray(tags.get(320, ()), np.uint16)
         n = 1 << bits
@@ -521,6 +608,69 @@ def _ycbcr_rgb(s: np.ndarray, tags) -> np.ndarray:
     yv = y_tab[yy]
     rgb = np.stack([yv + cr_r[vr], yv + ((cb_g[ub] + cr_g[vr]) >> 16), yv + cb_b[ub]], axis=2)
     return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+# tif_getimage.c's display_sRGB: the XYZ -> luminance matrix, the light
+# output of reference white and of black, gamma 2.4 and white at 255
+_SRGB = np.array([[3.2410, -1.5374, -0.4986], [-0.9692, 1.8760, 0.0416],
+                  [0.0556, -0.2040, 1.0570]], np.float32)
+_LAB_RANGE = 1500  # CIELABTORGB_TABLE_RANGE
+@functools.lru_cache(maxsize=None)
+def _cielab_table() -> np.ndarray:
+    """TIFFCIELabToRGBInit's Yr2r (and Yg2g, Yb2b: the same display),
+    ``255 * (float)pow(i / 1500., 1 / 2.4F)`` through the C library's pow."""
+    gamma = 1.0 / float(np.float32(2.4))
+    powed = np.array([math.pow(i / _LAB_RANGE, gamma) for i in range(_LAB_RANGE + 1)],
+                     np.float64).astype(np.float32)
+    return np.float32(255) * powed
+
+
+def _cielab_rgb(s: np.ndarray, tags, bits: int) -> np.ndarray:
+    """CIE L*a*b* (8-bit L with signed a*, b*, or 16-bit L with signed
+    16-bit a*, b*) -> RGB as libtiff's RGBA reader converts it: the
+    reference white from the WhitePoint tag (318, default D50), then
+    tif_color.c's TIFFCIELab16ToXYZ and TIFFXYZToRGB over the display_sRGB
+    tables, in float32 in libtiff's order of operations."""
+    f = np.float32
+    d50 = (f(96.4250), f(100.0), f(82.4680))
+    total = d50[0] + d50[1] + d50[2]
+    wp = _floats(tags, 318, (d50[0] / total, d50[1] / total))
+    if len(wp) < 2:
+        wp = [d50[0] / total, d50[1] / total]
+    if wp[1] == 0:
+        raise ValueError("CIELab TIFF with a WhitePoint y of 0, which libtiff refuses")
+    x0 = wp[0] / wp[1] * f(100)
+    y0 = f(100)
+    z0 = (f(1) - wp[0] - wp[1]) / wp[1] * f(100)
+    if bits == 8:
+        l_ = s[:, :, 0].astype(np.uint32) * 257
+        a = s[:, :, 1].astype(np.uint8).view(np.int8).astype(np.int32) * 256
+        b = s[:, :, 2].astype(np.uint8).view(np.int8).astype(np.int32) * 256
+    else:
+        l_ = s[:, :, 0].astype(np.uint32)
+        a = s[:, :, 1].astype(np.uint16).view(np.int16).astype(np.int32)
+        b = s[:, :, 2].astype(np.uint16).view(np.int16).astype(np.int32)
+    with np.errstate(all="ignore"):
+        lum = l_.astype(f) * f(100) / f(65535)
+        dark = lum < f(8.856)
+        y_dark = (lum * y0) / f(903.292)
+        cby = np.where(dark, f(7.787) * (y_dark / y0) + f(16) / f(116), (lum + f(16)) / f(116))
+        y = np.where(dark, y_dark, y0 * cby * cby * cby)
+
+        def axis(t, white):
+            return np.where(t < f(0.2069), white * (t - f(0.13793)) / f(7.787),
+                            white * t * t * t)
+
+        x = axis(a.astype(f) / f(256) / f(500) + cby, x0)
+        z = axis(cby - b.astype(f) / f(256) / f(200), z0)
+        table, step = _cielab_table(), (f(100) - f(1)) / f(_LAB_RANGE)
+        out = []
+        for row in _SRGB:
+            yc = row[0] * x + row[1] * y + row[2] * z
+            yc = np.minimum(np.maximum(yc, f(1)), f(100))
+            i = np.minimum(((yc - f(1)) / step).astype(np.int64), _LAB_RANGE)
+            out.append(np.minimum((table[i].astype(np.float64) + 0.5).astype(np.int64), 255))
+    return np.stack(out, axis=2).astype(np.uint8)
 
 
 def _orient(rgb: np.ndarray, o: int, block_w: int) -> np.ndarray:

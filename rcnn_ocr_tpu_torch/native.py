@@ -18,7 +18,8 @@ failed build raises with the compiler's output; nothing falls back to
 Python.  Bound: the batched beam entry points
 ``rcnn_ctc_beam_search_batch[_mt][_v2]``, ``rcnn_letterbox_u8``,
 ``rcnn_jpeg_header``, ``rcnn_jpeg_decode_u8``, ``rcnn_jpeg_frame``,
-``rcnn_jpeg_decode_frame``, ``rcnn_tiff_lzw_decode``, ``rcnn_tiff_fax_decode``,
+``rcnn_jpeg_decode_frame``, ``rcnn_tiff_lzw_decode``, ``rcnn_tiff_sgilog16_decode``,
+``rcnn_tiff_fax_decode``,
 ``rcnn_gif_lzw_decode``, ``rcnn_webp_vp8l_decode``, ``rcnn_webp_vp8_decode``,
 ``rcnn_j2k_header`` and ``rcnn_j2k_decode``.
 A ctypes call releases
@@ -67,9 +68,13 @@ ENTRIES = {
                     "rcnn_jpeg_decode_frame": [ctypes.c_char_p, _I64, _I64,
                                                ctypes.POINTER(ctypes.c_uint8), _I64, _I64, _I64,
                                                ctypes.c_char_p, _I64]},
-    # data, n, out, out_len, msg, msg_len
+    # data, n, out, out_len, old_style, msg, msg_len
     "tiff_decode": {"rcnn_tiff_lzw_decode": [ctypes.c_char_p, _I64, ctypes.POINTER(ctypes.c_uint8),
-                                             _I64, ctypes.c_char_p, _I64],
+                                             _I64, _I64, ctypes.c_char_p, _I64],
+                    # data, n, out, rows, cols, msg, msg_len
+                    "rcnn_tiff_sgilog16_decode": [ctypes.c_char_p, _I64,
+                                                  ctypes.POINTER(ctypes.c_int16), _I64, _I64,
+                                                  ctypes.c_char_p, _I64],
                     # data, n, out, rows, cols, compression, options, msg, msg_len
                     "rcnn_tiff_fax_decode": [ctypes.c_char_p, _I64, ctypes.POINTER(ctypes.c_uint8),
                                              _I64, _I64, _I64, _I64, ctypes.c_char_p, _I64]},
@@ -216,27 +221,28 @@ def letterbox_u8(images: Sequence[np.ndarray], canvas_h: int, canvas_w: int,
 
 def jpeg_decode_u8(data: bytes) -> np.ndarray:
     """A JPEG stream (sequential or progressive, Huffman or arithmetic,
-    gray, YCbCr, RGB, CMYK or YCCK) -> RGB uint8 ``[H, W, 3]``, bit-equal to
-    ``cv2.imdecode(data, IMREAD_COLOR)`` then BGR -> RGB (EXIF orientation
-    applied).  Raises ``NotImplementedError`` naming a variant it does not
-    decode (lossless, hierarchical, 12-bit, DNL) and ``ValueError`` on
-    damaged or truncated data."""
+    gray, YCbCr, RGB, CMYK or YCCK; lossless RGB or CMYK) -> RGB uint8
+    ``[H, W, 3]``, bit-equal to ``cv2.imdecode(data, IMREAD_COLOR)`` then
+    BGR -> RGB (EXIF orientation applied).  Raises ``ValueError`` where
+    that gives ``None``: damaged or truncated data, and the frames
+    libjpeg-turbo refuses under OpenCV (hierarchical, arithmetic-coded
+    lossless, 12-bit, a DNL height, lossless gray or YCbCr), naming them."""
+    from rcnn_ocr_tpu_torch.data.size_limit import check_size
+
     lib = load("jpeg_decode")
     data = bytes(data)
     msg = ctypes.create_string_buffer(256)
     hw = np.zeros(2, dtype=np.int64)
     res = lib.rcnn_jpeg_header(data, len(data), hw.ctypes.data_as(_P64), msg, len(msg))
     if res == 0:
+        check_size(int(hw[1]), int(hw[0]), "JPEG")
         out = np.empty((int(hw[0]), int(hw[1]), 3), dtype=np.uint8)
         res = lib.rcnn_jpeg_decode_u8(data, len(data),
                                       out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
                                       int(hw[0]), int(hw[1]), msg, len(msg))
         if res == 0:
             return out
-    text = msg.value.decode("utf-8", "replace")
-    if res == -2:
-        raise NotImplementedError(text)
-    raise ValueError(f"damaged JPEG data: {text}")
+    raise ValueError(f"damaged JPEG data: {msg.value.decode('utf-8', 'replace')}")
 
 
 def jpeg_frame(data: bytes) -> tuple:
@@ -251,10 +257,7 @@ def jpeg_frame(data: bytes) -> tuple:
     if res == 0:
         h, w, c, h0, v0, ho, vo = (int(v) for v in info)
         return h, w, c, (h0, v0), (ho, vo)
-    text = msg.value.decode("utf-8", "replace")
-    if res == -2:
-        raise NotImplementedError(text)
-    raise ValueError(f"damaged JPEG data: {text}")
+    raise ValueError(f"damaged JPEG data: {msg.value.decode('utf-8', 'replace')}")
 
 
 def jpeg_decode_frame(data: bytes, ycbcr: bool, fancy: bool = True) -> np.ndarray:
@@ -276,28 +279,38 @@ def jpeg_decode_frame(data: bytes, ycbcr: bool, fancy: bool = True) -> np.ndarra
                                      msg, len(msg))
     if res == 0:
         return out
-    text = msg.value.decode("utf-8", "replace")
-    if res == -2:
-        raise NotImplementedError(text)
-    raise ValueError(f"damaged JPEG data: {text}")
+    raise ValueError(f"damaged JPEG data: {msg.value.decode('utf-8', 'replace')}")
 
 
-def tiff_lzw_decode(data: bytes, size: int) -> bytes:
+def tiff_lzw_decode(data: bytes, size: int, old_style: bool = False) -> bytes:
     """One LZW-compressed TIFF strip or tile -> its first ``size`` bytes, as
-    libtiff decodes it.  Raises ``ValueError`` on damaged data or data short
-    of ``size`` bytes, ``NotImplementedError`` on old-style LZW."""
+    libtiff decodes it (``old_style``: as its LZWDecodeCompat does).
+    Raises ``ValueError`` on damaged data or data short of ``size`` bytes."""
     lib = load("tiff_decode")
     data = bytes(data)
     out = np.empty(int(size), dtype=np.uint8)
     msg = ctypes.create_string_buffer(256)
     res = lib.rcnn_tiff_lzw_decode(data, len(data), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                                   out.size, msg, len(msg))
+                                   out.size, int(old_style), msg, len(msg))
     if res == out.size:
         return out.tobytes()
-    text = msg.value.decode("utf-8", "replace")
-    if res == -2:
-        raise NotImplementedError(text)
-    raise ValueError(text)
+    raise ValueError(msg.value.decode("utf-8", "replace"))
+
+
+def tiff_sgilog16_decode(data: bytes, rows: int, cols: int) -> np.ndarray:
+    """One SGI LogL strip or tile -> its ``rows`` x ``cols`` 16-bit LogL
+    values (int16), as libtiff's LogL16Decode reads them.  Raises
+    ``ValueError`` where libtiff fails a row."""
+    lib = load("tiff_decode")
+    data = bytes(data)
+    out = np.empty((int(rows), int(cols)), dtype=np.int16)
+    msg = ctypes.create_string_buffer(256)
+    res = lib.rcnn_tiff_sgilog16_decode(data, len(data),
+                                        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+                                        int(rows), int(cols), msg, len(msg))
+    if res != out.size:
+        raise ValueError(f"damaged SGI LogL data: {msg.value.decode('utf-8', 'replace')}")
+    return out
 
 
 def tiff_fax_decode(data: bytes, rows: int, cols: int, compression: int, options: int = 0) -> bytes:

@@ -32,6 +32,7 @@ import os
 import struct
 import warnings
 import zlib
+from pathlib import Path
 
 import cv2
 import jax
@@ -189,12 +190,24 @@ def test_image_size_matches_jax_on_headers(tmp_path):
 def test_jpeg_decoding_raises_naming_the_supported_formats(tmp_path):
     path = tmp_path / "line.jpg"
     data = bytearray(cv2.imencode(".jpg", np.zeros((8, 8, 3), np.uint8))[1].tobytes())
-    data[data.find(b"\xff\xc0") + 1] = 0xC3  # a lossless frame, still refused
+    # a DCT stream relabelled lossless: cv2 gives None (a DCT scan's
+    # parameters), so the port raises ValueError, which the datasets
+    # quarantine; a format cv2 reads and the port refuses (AVIF) names
+    # the supported ones
+    data[data.find(b"\xff\xc0") + 1] = 0xC3
     path.write_bytes(bytes(data))
-    with pytest.raises(image_io.UnsupportedImageFormat, match="PNG, BMP, JPEG .* and TIFF"):
+    assert cv2.imdecode(np.frombuffer(bytes(data), np.uint8), cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError, match="lossless JPEG scan parameters") as err:
         image_io.imread(str(path))
-    with pytest.raises(NotImplementedError, match="lossless JPEG"):
+    assert not isinstance(err.value, image_io.UnsupportedImageFormat)
+    with pytest.raises(ValueError, match="lossless JPEG"):
         tf.load_rgb_uint8(str(path))
+    avif = tmp_path / "line.avif"
+    avif.write_bytes(b"\x00\x00\x00\x1cftypavif\x00\x00\x00\x00avifmif1miaf" + bytes(32))
+    with pytest.raises(image_io.UnsupportedImageFormat, match="PNG, BMP, JPEG .* and TIFF"):
+        image_io.imread(str(avif))
+    with pytest.raises(NotImplementedError, match="AVIF"):
+        tf.load_rgb_uint8(str(avif))
     ras = tmp_path / "line.ras"  # Sun rasters decode now: a header over zeros as in cv2
     ras.write_bytes(b"\x59\xa6\x6a\x95" + struct.pack(">IIII", 8, 8, 24, 192) + b"\x00" * 208)
     np.testing.assert_array_equal(image_io.imread(str(ras)), jax_tf.imread_cv2(str(ras)))
@@ -351,6 +364,46 @@ def test_files_cv2_cannot_read_are_quarantined_as_jax_quarantines_them(tmp_path)
             image_io.imread(str(root / name))
         assert not isinstance(err.value, image_io.UnsupportedImageFormat)
     assert assert_datasets_agree(csv_path, root, len(rows)) == [1, 4, 7]
+
+
+def test_variants_cv2_gives_none_on_are_quarantined_and_new_ones_read_as_jax(tmp_path):
+    """A CSV naming files cv2 gives None on (a 32-bit float TIFF, ZSTD,
+    untyped samples and ICCLab TIFFs, lossless gray, 12-bit and hierarchical
+    JPEGs) beside the variants this port now decodes (lossless RGB JPEG,
+    BigTIFF, signed gray, old-style LZW, planar YCbCr JPEG-in-TIFF, CIELab,
+    SGI LogL).  JAX's dataset quarantines the first and trains on the
+    second; the port stopped the run on both (``UnsupportedImageFormat``)
+    and now agrees: equal labels and pixels, equal quarantined rows."""
+    import shutil
+
+    fixtures = Path(__file__).resolve().parent / "torch_port_data"
+    none = ["tiff/none_float.tif", "tiff/none_zstd.tif", "tiff/none_untyped.tif",
+            "tiff/none_icclab.tif", "jpeg/none_lossless_gray.jpg", "jpeg/none_12bit_sof1.jpg",
+            "jpeg/none_hierarchical_sof5.jpg"]
+    read = ["jpeg/lossless_line_0.jpg", "jpeg/lossless_p5_sub112112_9x11.jpg",
+            "tiff/bigtiff_line_0.tif", "tiff/signed16_gray_minisblack_10x13.tif",
+            "tiff/lzw_old_rgb8_14x27.tif", "tiff/jpeg_ycbcr_planar_17x23.tif",
+            "tiff/cielab_line_0.tif", "tiff/sgilog_logl_12x17.tif"]
+    root = tmp_path / "ds"
+    root.mkdir()
+    rows = []
+    for i, rel in enumerate(none + read):
+        shutil.copy(fixtures / rel, root / Path(rel).name)
+        rows.append([Path(rel).name, "abcdefghij"[i % 10]])
+    for i in range(3):
+        (root / f"line_{i}.png").write_bytes(
+            png_bytes(np.random.default_rng(i).integers(0, 256, (6, 9, 3), dtype=np.uint8), 2, 8))
+        rows.append([f"line_{i}.png", "abc"[i]])
+    csv_path = root / "labels.csv"
+    with open(csv_path, "w", newline="", encoding="utf-8") as f:
+        csv.writer(f).writerows(rows)
+    for name, _ in rows[: len(none)]:
+        with pytest.raises(ValueError):  # cv2 gives None
+            jax_tf.imdecode_cv2((root / name).read_bytes())
+        with pytest.raises(ValueError) as err:
+            image_io.imread(str(root / name))
+        assert not isinstance(err.value, image_io.UnsupportedImageFormat)
+    assert assert_datasets_agree(csv_path, root, len(rows)) == list(range(len(none)))
 
 
 def _epochs(sampler, n=2):

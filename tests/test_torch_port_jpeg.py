@@ -15,12 +15,19 @@
   the system libjpeg (these skip only where no ``jpeglib.h`` is found),
   custom scan scripts, arithmetic coding and CMYK / YCCK; damaged
   progressive and arithmetic data decode as cv2 decodes it.
-* Lossless, hierarchical and 12-bit frames and DNL markers raise
-  ``UnsupportedImageFormat`` naming the variant; the variants this decoder
-  used to refuse (progressive from cv2 and PIL, arithmetic, CMYK) decode
-  bit-equal; a truncated stream raises ``ValueError`` as JAX's does (cv2
-  returns None), and one cut short but closed by an EOI decodes as cv2
-  does (zero-filled).
+* Lossless frames (SOF3, written by the fixture script's own encoder):
+  the fixtures and a seeded fuzz over predictors, point transforms,
+  precisions, restart intervals, scans, sampling factors, markers and
+  component ids, bit-equal where cv2 decodes and ``ValueError`` where it
+  gives ``None`` (gray, YCbCr and YCCK frames, precisions over 8, restart
+  intervals that are no whole number of rows).
+* Where cv2 gives ``None`` the port raises ``ValueError`` naming the
+  variant, as JAX's ``imdecode_cv2`` does: hierarchical, 12-bit and
+  arithmetic-coded lossless frames, DNL heights, lossless gray and YCbCr
+  (the ``none_*`` fixtures too); the variants this decoder used to refuse
+  (progressive from cv2 and PIL, arithmetic, CMYK) decode bit-equal; a
+  truncated stream raises ``ValueError`` as JAX's does, and one cut short
+  but closed by an EOI decodes as cv2 does (zero-filled).
 * Frames with no DHT segment (Motion-JPEG) decode with the standard
   tables, and a seeded fuzz of damaged entropy data (bytes changed, runs
   of garbage, restart markers renumbered or dropped) decodes bit-equal to
@@ -53,9 +60,11 @@ import jax.numpy as jnp  # noqa: E402
 from rcnn_ocr_tpu.data import transforms as jax_tf  # noqa: E402
 from rcnn_ocr_tpu_torch.data import image_io  # noqa: E402
 from tests.test_torch_port_beam_engine import IMG_H, IMG_W, MAX_LEN, _images, files  # noqa: E402,F401
+from tests.torch_port_data.make_jpeg_fixtures import (  # noqa: E402
+    CV2_NONE, JFIF, adobe, lossless_jpeg)
 
 FIXTURES = Path(__file__).resolve().parent / "torch_port_data" / "jpeg"
-NAMES = sorted(p.name for p in FIXTURES.glob("*.jpg"))
+NAMES = sorted(p.name for p in FIXTURES.glob("*.jpg") if p.name not in CV2_NONE)
 SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444, "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
             "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420, "440": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440,
             "411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411}
@@ -125,7 +134,10 @@ def test_fixtures_cover_the_paths():
     kinds = ("s444", "s422", "s420", "s440", "s411", "gray", "rst", "exif3", "exif6", "exif8",
              "q50", "q100", "optimized", "adobe_rgb", "nodht", "damaged", "progressive",
              "pil_progressive", "ni_dc", "al2", "cut_after", "cut_inside", "arith_s",
-             "arith_progressive", "dac", "cmyk", "ycck", "prog_line", "arith_line", "cmyk_line")
+             "arith_progressive", "dac", "cmyk", "ycck", "prog_line", "arith_line", "cmyk_line",
+             "lossless_p1", "lossless_p2", "lossless_p3", "lossless_p4", "lossless_p5",
+             "lossless_p6", "lossless_p7", "pt2", "rst2rows", "separate", "sub221111",
+             "sub112112", "adobe0", "rgb_ids", "lossless_cmyk", "prec5", "lossless_line")
     for kind in kinds:
         assert any(kind in n for n in NAMES), kind
     assert sum(n.startswith("line_") for n in NAMES) == 64
@@ -464,14 +476,85 @@ def _variant(kind):
     }[kind]()
 
 
-@pytest.mark.parametrize("kind", ["lossless JPEG (SOF3)", "lossless JPEG (SOF11)",
-                                  "hierarchical JPEG (SOF5)", "hierarchical JPEG (SOF13)",
-                                  "12-bit JPEG", "DNL marker"])
-def test_unsupported_variants_raise_naming_them(kind):
-    with pytest.raises(image_io.UnsupportedImageFormat) as err:
-        image_io.imdecode(_variant(kind))
-    assert kind in str(err.value)
-    assert image_io.SUPPORTED in str(err.value)
+# what the port's ValueError names each variant by
+_CV2_NONE_WORDS = {"lossless JPEG (SOF3)": "lossless JPEG scan parameters",
+                   "lossless JPEG (SOF11)": "SOF11", "hierarchical JPEG (SOF5)": "SOF5",
+                   "hierarchical JPEG (SOF13)": "SOF13", "12-bit JPEG": "12-bit",
+                   "DNL marker": "DNL"}
+
+
+@pytest.mark.parametrize("kind", list(_CV2_NONE_WORDS))
+def test_variants_cv2_cannot_read_raise_value_error_naming_them(kind):
+    """cv2 gives None on these (a baseline stream relabelled SOF3 has a DCT
+    scan's parameters), so JAX quarantines such a row: the port's
+    ``ValueError`` lets its datasets do the same."""
+    data = _variant(kind)
+    with pytest.raises(ValueError):
+        jax_tf.imdecode_cv2(data)
+    with pytest.raises(ValueError, match=_CV2_NONE_WORDS[kind]) as err:
+        image_io.imdecode(data)
+    assert not isinstance(err.value, NotImplementedError)
+
+
+@pytest.mark.parametrize("name", sorted(CV2_NONE))
+def test_cv2_none_fixtures_raise_value_error_naming_them(name):
+    data = (FIXTURES / name).read_bytes()
+    with pytest.raises(ValueError):
+        jax_tf.imdecode_cv2(data)
+    with pytest.raises(ValueError, match=CV2_NONE[name]):
+        image_io.imread(str(FIXTURES / name))
+
+
+def test_the_card_smoke_holds_the_same_cv2_none_files():
+    import chip_smoke
+
+    assert chip_smoke.JPEG_CV2_NONE == CV2_NONE
+
+
+def _random_lossless(rng):
+    """A random lossless JPEG: mostly RGB frames cv2 decodes, some it does
+    not (gray, YCbCr, precisions over 8, restarts off a row's end)."""
+    h, w = (int(v) for v in rng.integers(1, 24, 2))
+    nc = int(rng.choice([3, 3, 3, 4, 1]))
+    precision = int(rng.choice([8, 8, 8, 2, 5, 7, 12]))
+    img = rng.integers(0, 1 << min(precision, 8), (h, w, nc))
+    if rng.random() < 0.6:  # smooth rows, small differences
+        img = np.cumsum(img // 8, axis=1) % (1 << min(precision, 8))
+    sampling = None
+    if nc >= 3 and rng.random() < 0.4:
+        sampling = [tuple(int(v) for v in rng.choice([1, 2], 2)) for _ in range(nc)]
+    separate = nc > 1 and rng.random() < 0.3
+    hmax = max(f[0] for f in sampling) if sampling else 1
+    restart = 0
+    if rng.random() < 0.4:
+        row = w if separate else -(-w // hmax)  # (a subsampled scan's rows are its own)
+        restart = row * int(rng.integers(1, 3)) + (1 if rng.random() < 0.1 else 0)
+        if separate and sampling:
+            restart = 0
+    return lossless_jpeg(
+        img, predictor=int(rng.integers(1, 8)),
+        pt=int(rng.integers(0, min(3, precision))) if rng.random() < 0.3 else 0,
+        restart=restart, precision=precision, sampling=sampling, separate=separate,
+        markers=[b"", b"", JFIF, adobe(0), adobe(1)][int(rng.integers(0, 5))],
+        ids=(82, 71, 66) if nc == 3 and rng.random() < 0.2 else None,
+        flat=rng.random() < 0.3)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_lossless_fuzz_is_bit_equal(seed):
+    rng = np.random.default_rng(seed)
+    decoded = 0
+    for _ in range(40):
+        data = _random_lossless(rng)
+        try:
+            want = jax_tf.imdecode_cv2(data)
+        except ValueError:
+            with pytest.raises(ValueError):
+                image_io.imdecode(data)
+            continue
+        np.testing.assert_array_equal(image_io.imdecode(data), want)
+        decoded += 1
+    assert decoded >= 15
 
 
 @pytest.mark.parametrize("kind", ["progressive JPEG", "progressive JPEG (PIL)",

@@ -24,9 +24,19 @@
   strips or tiles x JPEGTables or not x a tall last strip): bit-equal
   wherever cv2 decodes cleanly; damaged fax data raises ``ValueError``
   where libtiff warns and fills the row.
-* Old-style JPEG, LZMA, ZSTD, WebP, floats, signed integers, BigTIFF and
-  old-style LZW raise ``UnsupportedImageFormat`` naming them; the kinds
-  refused before they were ported (CCITT, JPEG, YCbCr) decode bit-equal.
+* BigTIFF (PIL's, and classic files rewritten with 20-byte entries and
+  LONG8 offsets), signed 8- and 16-bit samples, old-style LZW, planar YCbCr
+  JPEG-in-TIFF, CIELab at 8 and 16 bits and SGI LogL: the fixtures and
+  seeded fuzzes bit-equal to cv2 (LogL on every 16-bit value).
+* Where cv2 gives ``None`` the port raises ``ValueError`` naming the
+  cause, before it looks at the compression as OpenCV does: old-style
+  JPEG, LZMA, ZSTD, WebP, LERC and PixarLog compression, floating-point,
+  untyped and 32-bit samples, ICCLab and ITULab, 4-bit ThunderScan, LogLuv
+  at 32 bits (the ``none_*`` fixtures and more); SGI LogLuv at 16 bits,
+  which cv2 reads, raises ``UnsupportedImageFormat`` naming it; the kinds
+  refused before they were ported (CCITT, JPEG, YCbCr, BigTIFF, signed
+  samples, planar YCbCr JPEG, old-style LZW, CIELab, LogL) decode
+  bit-equal.
 * TIFF datasets with no further change: ``run_training`` on TIFF lines
   equals a run on PNGs of cv2's decode of them.
 """
@@ -48,10 +58,11 @@ jax = pytest.importorskip("jax")
 from rcnn_ocr_tpu.data import transforms as jax_tf  # noqa: E402
 from rcnn_ocr_tpu_torch.data import image_io  # noqa: E402
 from tests.torch_port_data.make_tiff_fixtures import (  # noqa: E402
-    REFUSED, jpeg_tiff, lzw, tiff_bytes)
+    CV2_NONE, REFUSED, _ycc, big_tiff, jpeg_tiff, lzw, lzw_old_style, tiff_bytes)
 
 FIXTURES = Path(__file__).resolve().parent / "torch_port_data" / "tiff"
-NAMES = sorted(p.name for p in FIXTURES.glob("*.tif") if p.name not in REFUSED)
+NAMES = sorted(p.name for p in FIXTURES.glob("*.tif")
+               if p.name not in REFUSED and p.name not in CV2_NONE)
 
 
 @pytest.fixture(scope="module")
@@ -87,7 +98,12 @@ def test_fixtures_cover_the_paths():
              "jpeg_gray", "jpeg_rgb", "jpeg_ycbcr420", "jpeg_ycbcr422_tiles", "notag",
              "tall_last", "no_tables", "pil_l_jpeg", "pil_ycbcr_jpeg", "jpeg_line",
              "ycbcr11", "ycbcr22", "ycbcr21", "ycbcr12", "ycbcr42", "ycbcr41", "ycbcr44",
-             "ycbcr44_tiles", "pil_ycbcr_raw", "ycbcr_line")
+             "ycbcr44_tiles", "pil_ycbcr_raw", "ycbcr_line", "bigtiff_pil_rgb",
+             "bigtiff_pil_l", "bigtiff_pil_i16", "bigtiff_pil_1", "bigtiff_tiles_mm", "signed8",
+             "signed16_gray_minisblack", "signed16_gray_miniswhite", "lzw_old_rgb8",
+             "lzw_old_gray16_pred2_tiles", "jpeg_ycbcr_planar_", "jpeg_ycbcr_planar_tiles",
+             "cielab8", "cielab16_whitepoint", "pil_lab", "sgilog_logl", "bigtiff_line",
+             "cielab_line")
     for kind in kinds:
         assert any(kind in n for n in NAMES), kind
     assert sum(f"orientation{o}_" in n for n in NAMES for o in range(1, 9)) == 10
@@ -104,9 +120,23 @@ def test_fixture_is_bit_equal_to_cv2(name, expected):
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_refused_fixtures_name_what_they_are(name):
+    assert _cv2((FIXTURES / name).read_bytes()) is not None  # cv2 reads it
     with pytest.raises(image_io.UnsupportedImageFormat) as err:
         image_io.imread(str(FIXTURES / name))
     assert REFUSED[name] in str(err.value) and image_io.SUPPORTED in str(err.value)
+
+
+@pytest.mark.parametrize("name", sorted(CV2_NONE))
+def test_cv2_none_fixtures_raise_value_error_naming_them(name):
+    """cv2 gives None on these, so JAX quarantines such a row: the port's
+    ``ValueError`` (never ``UnsupportedImageFormat``) lets its datasets do
+    the same."""
+    data = (FIXTURES / name).read_bytes()
+    assert _cv2(data) is None
+    with pytest.raises(ValueError) as err:
+        image_io.imread(str(FIXTURES / name))
+    assert CV2_NONE[name] in str(err.value)
+    assert not isinstance(err.value, image_io.UnsupportedImageFormat)
 
 
 # --- fuzz -------------------------------------------------------------------------------
@@ -150,6 +180,137 @@ def test_fuzz_is_bit_equal(seed):
         np.testing.assert_array_equal(image_io.imdecode(data), want, err_msg=str(kw))
         decoded += 1
     assert decoded >= 30
+
+
+def _held_to_cv2(make, seed: int, n: int, at_least: int) -> None:
+    """``n`` files from ``make(rng)``: bit-equal where cv2 decodes,
+    ``ValueError`` where it gives None."""
+    rng = np.random.default_rng(seed)
+    decoded = 0
+    for _ in range(n):
+        data = make(rng)
+        want = _cv2(data)
+        if want is None:
+            with pytest.raises(ValueError):
+                image_io.imdecode(data)
+            continue
+        np.testing.assert_array_equal(image_io.imdecode(data), want)
+        decoded += 1
+    assert decoded >= at_least
+
+
+def _layout(rng):
+    """Strips or tiles, byte order and orientation at random."""
+    return dict(tile=(int(rng.choice([16, 32])), 16) if rng.random() < 0.3 else None,
+                rows_per_strip=int(rng.integers(1, 20)), order=str(rng.choice(["<", ">"])),
+                orientation=int(rng.integers(1, 9)) if rng.random() < 0.3 else None)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_bigtiff_fuzz_is_bit_equal(seed):
+    """The fuzz's random layouts rewritten as BigTIFFs (LONG8 offsets,
+    20-byte entries, values up to 8 bytes inline)."""
+    _held_to_cv2(lambda rng: big_tiff(_random_tiff(rng)[0]), 1100 + seed, 25, 15)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_signed_sample_fuzz_is_bit_equal(seed):
+    """SampleFormat 2 at 1, 8 and 16 bits: libtiff's RGBA reader takes the
+    samples' unsigned bits, negative values included."""
+    def make(rng):
+        phot = int(rng.choice([0, 1, 2, 3]))
+        bits = int(rng.choice({0: [1, 8, 16], 1: [1, 8, 16], 2: [8, 16], 3: [8]}[phot]))
+        spp = 3 if phot == 2 else 1
+        h, w = (int(v) for v in rng.integers(1, 40, 2))
+        v = rng.integers(-(1 << (bits - 1)) if bits > 1 else 0, 1 << (bits - 1) if bits > 1 else 2,
+                         (h, w, spp)) & ((1 << bits) - 1)
+        return tiff_bytes(v.astype(np.uint16 if bits == 16 else np.uint8), bits=bits,
+                          photometric=phot,
+                          compression=str(rng.choice(["none", "lzw", "deflate"])),
+                          predictor=2 if bits >= 8 and rng.random() < 0.4 else 1,
+                          planar=2 if spp == 3 and rng.random() < 0.3 else 1,
+                          colormap=rng.integers(0, 65536, (256, 3)) if phot == 3 else None,
+                          extra_tags=[(339, 3, [2] * spp)], **_layout(rng))
+    _held_to_cv2(make, 1200 + seed, 25, 20)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_old_style_lzw_fuzz_is_bit_equal(seed):
+    """Old-style LZW strips and tiles, long enough for 12-bit codes and a
+    Clear mid-strip."""
+    def make(rng):
+        h, w = (int(v) for v in rng.integers(1, 90, 2))
+        spp, bits = int(rng.choice([1, 3])), int(rng.choice([8, 16]))
+        v = rng.integers(0, 1 << bits, (h, w, spp))
+        if rng.random() < 0.6:  # runs, for long strings
+            v = np.cumsum(rng.integers(0, 2, (h, w, spp)), axis=1) % (1 << bits)
+        return tiff_bytes(v.astype(np.uint16 if bits == 16 else np.uint8), bits=bits,
+                          photometric=2 if spp == 3 else 1, compression="lzw_old",
+                          predictor=int(rng.choice([1, 2])),
+                          planar=int(rng.choice([1, 2])) if spp == 3 else 1,
+                          fill_order=int(rng.choice([1, 2])), **_layout(rng))
+    _held_to_cv2(make, 1300 + seed, 20, 20)
+
+
+def test_old_style_lzw_round_trips_long_strings_and_a_full_table():
+    from rcnn_ocr_tpu_torch.native import tiff_lzw_decode
+
+    rng = np.random.default_rng(17)
+    raw = bytes(rng.integers(0, 256, 20000).astype(np.uint8)) + bytes(5000)
+    coded = lzw_old_style(raw)
+    assert coded[0] == 0 and coded[1] & 1 and lzw(raw)[0] == 0x80  # how libtiff tells them
+    assert tiff_lzw_decode(coded, len(raw), old_style=True) == raw
+    assert tiff_lzw_decode(coded, 12345, old_style=True) == raw[:12345]
+    with pytest.raises(ValueError):
+        tiff_lzw_decode(coded, len(raw))  # read in the new style
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_planar_ycbcr_jpeg_fuzz_is_bit_equal(seed):
+    """Planar YCbCr JPEG-in-TIFF, a one-component JPEG a plane: strips,
+    tiles, tall last strips, JPEGTables or not, ReferenceBlackWhite; no
+    YCbCrSubsampling tag (2x2 then) gives cv2's None."""
+    def make(rng):
+        h, w = (int(v) for v in rng.integers(1, 40, 2))
+        rbw = [(532, 5, [(16, 1), (235, 1), (128, 1), (240, 1), (128, 1), (240, 1)])]
+        return jpeg_tiff(rng.integers(0, 256, (h, w, 3)).astype(np.uint8), 6, planar=2,
+                         tile=(16, 16) if rng.random() < 0.3 else None,
+                         rows_per_strip=int(rng.integers(1, 20)),
+                         tables=bool(rng.random() < 0.7), tall_last=bool(rng.random() < 0.3),
+                         subsampling_tag=bool(rng.random() < 0.9),
+                         extra_tags=rbw if rng.random() < 0.3 else [],
+                         order=str(rng.choice(["<", ">"])))
+    _held_to_cv2(make, 1400 + seed, 15, 10)
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_cielab_fuzz_is_bit_equal(bits):
+    """CIELab over random L*, a*, b* (every 8-bit triple's region) and
+    WhitePoints: libtiff's float tables, value for value."""
+    def make(rng):
+        v = rng.integers(0, 1 << bits, (int(rng.integers(1, 48)), int(rng.integers(1, 48)), 3))
+        wp = [(318, 5, [(int(rng.integers(1, 1000)), 1000), (int(rng.integers(1, 1000)), 1000)])]
+        return tiff_bytes(v.astype(np.uint16 if bits == 16 else np.uint8), bits=bits,
+                          photometric=8, compression=str(rng.choice(["none", "lzw"])),
+                          predictor=int(rng.choice([1, 2])),
+                          extra_tags=wp if rng.random() < 0.4 else [], **_layout(rng))
+    _held_to_cv2(make, 1500 + bits, 14, 8)
+
+
+def test_every_sgi_logl_value_reaches_gray_as_cv2_takes_it():
+    v = np.arange(65536, dtype=np.uint32).reshape(256, 256, 1).astype(np.uint16)
+    _assert_bit_equal(tiff_bytes(v, bits=16, photometric=32844, compression="sgilog",
+                                 rows_per_strip=37, extra_tags=[(339, 3, [2])]))
+
+
+def test_sgi_logl_fuzz_is_bit_equal():
+    def make(rng):
+        v = rng.integers(0, 65536, (int(rng.integers(1, 40)), int(rng.integers(1, 40)), 1))
+        if rng.random() < 0.5:  # runs for the run-length code
+            v = np.repeat(v[:, : max(1, v.shape[1] // 4)], 4, axis=1)[:, : v.shape[1]]
+        return tiff_bytes(v.astype(np.uint16), bits=16, photometric=32844, compression="sgilog",
+                          **_layout(rng))
+    _held_to_cv2(make, 1600, 15, 15)
 
 
 @pytest.mark.parametrize("kind", ["gray", "miniswhite", "rgb", "rgba", "gray_planar"])
@@ -331,8 +492,7 @@ def test_jpeg_ycbcr_upsampling_is_fancy_as_cv2s():
 
     data = (FIXTURES / "jpeg_ycbcr420_sharp_16x24.tif").read_bytes()
     want = jax_tf.imdecode_cv2(data)
-    order, offset = image_io.tiff._header(data)
-    tags = image_io.tiff._tags(data, order, offset)
+    tags = image_io.tiff._tags(data, *image_io.tiff._header(data))
     (off,), (count,) = tags[273], tags[279]
     stream = bytes(tags[347])[:-2] + data[off : off + count][2:]
     np.testing.assert_array_equal(jpeg_decode_frame(stream, ycbcr=True), want)
@@ -413,20 +573,22 @@ def _patched_compression(code):
     return bytes(data)
 
 
+def _logluv(bits):
+    """An SGI LogLuv file (3 samples of ``bits``, 32-bit LogLuv words)."""
+    return tiff_bytes(np.zeros((2, 3, 3), np.uint16), bits=bits, photometric=32845,
+                      compression="sgilog", rows_per_strip=2, chunks=[bytes([3, 1, 2, 3] * 8)])
+
+
+# what cv2 reads and the port refuses, naming it
 REFUSALS = {
-    "ZSTD TIFF compression (50000)": lambda: _pil_tiff("L", compression="zstd"),
-    "LZMA TIFF compression (34925)": lambda: _patched_compression(34925),
-    "WebP TIFF compression (50001)": lambda: _patched_compression(50001),
-    "old-style JPEG TIFF compression (6)": lambda: _patched_compression(6),
-    "floating-point TIFF samples": lambda: _pil_tiff("F"),
-    "signed-integer TIFF samples": lambda: _pil_tiff("I"),
-    "BigTIFF": lambda: b"II+\x00\x08\x00\x00\x00" + bytes(16),
-    "planar YCbCr JPEG-in-TIFF": lambda: _planar_ycbcr_jpeg(),
+    "SGI LogLuv TIFF (16-bit": lambda: _logluv(16),
+    "SGI LogLuv TIFF (8-bit": lambda: _logluv(8),
 }
 
 
 def _planar_ycbcr_jpeg():
-    """A JPEG-in-TIFF relabelled planar YCbCr (one JPEG per plane)."""
+    """A JPEG-in-TIFF relabelled planar YCbCr, its one strip three
+    components (a planar file needs a strip a plane)."""
     img = np.random.default_rng(8).integers(0, 256, (8, 16, 3)).astype(np.uint8)
     data = bytearray(jpeg_tiff(img, 6, rows_per_strip=8))
     (ifd,) = struct.unpack_from("<I", data, 4)
@@ -438,12 +600,26 @@ def _planar_ycbcr_jpeg():
     return bytes(data)
 
 
-# kinds refused before CCITT, JPEG-in-TIFF and YCbCr were ported
+# kinds refused before they were ported
 FORMERLY_REFUSED = {
     "CCITT Group 4 fax TIFF compression (4)": lambda: _pil_tiff("1", compression="group4"),
     "JPEG TIFF compression (7)": lambda: _pil_tiff("RGB", compression="jpeg"),
     "CCITT RLE TIFF compression (2)": lambda: _pil_tiff("1", compression="tiff_ccitt"),
     "YCbCr TIFF": lambda: _pil_tiff("YCbCr"),
+    "BigTIFF": lambda: _pil_tiff("RGB", big_tiff=True, compression="tiff_lzw"),
+    "signed-integer TIFF samples": lambda: tiff_bytes(
+        np.arange(-60, 60, dtype=np.int64).reshape(8, 15, 1).astype(np.uint8),
+        extra_tags=[(339, 3, [2])]),
+    "planar YCbCr JPEG-in-TIFF": lambda: jpeg_tiff(
+        _ycc(np.random.default_rng(8).integers(0, 256, (8, 16, 3)).astype(np.uint8)), 6,
+        planar=2, rows_per_strip=8),
+    "old-style (pre-TIFF 6.0) LZW": lambda: tiff_bytes(
+        np.random.default_rng(9).integers(0, 256, (9, 11, 3)).astype(np.uint8), photometric=2,
+        compression="lzw_old"),
+    "CIELab TIFF": lambda: _pil_tiff("LAB"),
+    "SGI LogL TIFF": lambda: tiff_bytes(
+        np.random.default_rng(10).integers(0, 65536, (6, 9, 1)).astype(np.uint16), bits=16,
+        photometric=32844, compression="sgilog"),
 }
 
 
@@ -452,31 +628,61 @@ def test_formerly_refused_kinds_decode_bit_equal(kind):
     _assert_bit_equal(FORMERLY_REFUSED[kind]())
 
 
-def _old_style_lzw():
-    """A file whose LZW strip starts as the old, LSB-first codes do."""
-    img = np.zeros((4, 5, 1), np.uint8)
-    data = bytearray(tiff_bytes(img, compression="lzw", rows_per_strip=4))
-    (ifd,) = struct.unpack_from("<I", data, 4)
-    (n,) = struct.unpack_from("<H", data, ifd)
-    for i in range(n):
-        e = ifd + 2 + 12 * i
-        if struct.unpack_from("<H", data, e)[0] == 273:
-            (off,) = struct.unpack_from("<I", data, e + 8)
-            data[off : off + 2] = b"\x00\x01"  # Clear (256), least significant bit first
-    return bytes(data)
-
-
-REFUSALS["old-style (pre-TIFF 6.0) LZW"] = _old_style_lzw
-
-
 @pytest.mark.parametrize("kind", sorted(REFUSALS))
 def test_unsupported_variants_raise_naming_them(kind):
+    data = REFUSALS[kind]()
+    assert _cv2(data) is not None  # cv2 reads it
     with pytest.raises(image_io.UnsupportedImageFormat) as err:
-        image_io.imdecode(REFUSALS[kind]())
+        image_io.imdecode(data)
     assert kind in str(err.value) and image_io.SUPPORTED in str(err.value)
 
 
+def _sample_format(fmt, bits=8, spp=1):
+    return tiff_bytes(np.zeros((5, 6, spp), np.uint16 if bits == 16 else np.uint8), bits=bits,
+                      photometric=2 if spp == 3 else 1, extra_tags=[(339, 3, [fmt] * spp)])
+
+
+def _chunked(bits, photometric, compression, spp=1, **kw):
+    """A file of ``bits`` samples whose strip holds stand-in bytes (cv2's
+    refusal comes before it reads them)."""
+    return tiff_bytes(np.zeros((4, 5, spp), np.uint16), bits=bits, photometric=photometric,
+                      compression=compression, rows_per_strip=4, chunks=[bytes(64)], **kw)
+
+
+# what cv2 gives None on; the first eight were refused as unsupported
+# before the port held them to cv2's None
 CV2_FAILS = {
+    "ZSTD TIFF compression (50000)": lambda: _pil_tiff("L", compression="zstd"),
+    "LZMA TIFF compression (34925)": lambda: _patched_compression(34925),
+    "WebP TIFF compression (50001)": lambda: _patched_compression(50001),
+    "old-style JPEG TIFF compression (6)": lambda: _patched_compression(6),
+    "floating-point TIFF samples": lambda: _pil_tiff("F"),
+    "32-bit TIFF samples": lambda: _pil_tiff("I"),
+    "BigTIFF with no directory": lambda: b"II+\x00\x08\x00\x00\x00" + bytes(16),
+    "planar YCbCr JPEG-in-TIFF without its planes' strips": _planar_ycbcr_jpeg,
+    "LERC TIFF compression (34887)": lambda: _patched_compression(34887),
+    "PixarLog TIFF compression (32909)": lambda: _patched_compression(32909),
+    "JBIG TIFF compression (34661)": lambda: _patched_compression(34661),
+    "untyped TIFF samples": lambda: _sample_format(4),
+    "complex integer TIFF samples": lambda: _sample_format(5, 16),
+    "16-bit floating-point TIFF samples": lambda: _sample_format(3, 16, 3),
+    "8-bit floating-point TIFF samples": lambda: _sample_format(3),
+    "ICCLab TIFF": lambda: tiff_bytes(np.zeros((5, 6, 3), np.uint8), photometric=9),
+    "ITULab TIFF": lambda: tiff_bytes(np.zeros((5, 6, 3), np.uint8), photometric=10),
+    "colour filter array TIFF": lambda: tiff_bytes(np.zeros((5, 6, 1), np.uint8),
+                                                   photometric=32803),
+    "planar CIELab": lambda: tiff_bytes(np.zeros((5, 6, 3), np.uint8), photometric=8, planar=2),
+    "CIELab of 4 samples": lambda: tiff_bytes(np.zeros((5, 6, 4), np.uint8), photometric=8,
+                                              extra_samples=0),
+    "LogL TIFF without SGI LogL compression": lambda: tiff_bytes(
+        np.zeros((4, 5, 1), np.uint16), bits=16, photometric=32844),
+    "LogLuv at 32 bits": lambda: _chunked(32, 32845, "sgilog", spp=3),
+    "ThunderScan 4-bit gray": lambda: _chunked(4, 1, "none",
+                                               extra_tags=[(259, 3, [32809])]),
+    "NeXT 2-bit gray": lambda: _chunked(2, 1, "none", extra_tags=[(259, 3, [32766])]),
+    "planar YCbCr JPEG-in-TIFF subsampled 2x2": lambda: jpeg_tiff(
+        np.zeros((8, 16, 3), np.uint8), 6, planar=2, subsampling_tag=False),
+
     "gray at 4 bits": lambda: tiff_bytes(np.zeros((5, 6, 1), np.uint8), bits=4),
     "gray at 2 bits": lambda: tiff_bytes(np.zeros((5, 6, 1), np.uint8), bits=2, photometric=0),
     "palette at 2 bits": lambda: tiff_bytes(np.zeros((5, 6, 1), np.uint8), bits=2, photometric=3,
@@ -517,6 +723,44 @@ def test_damaged_compressed_data_raises(compression):
     assert _cv2(bytes(data)) is not None
     with pytest.raises(ValueError):
         image_io.imdecode(bytes(data))
+
+
+def _old_style_lzw_stub():
+    """A new-style LZW strip whose first bytes say old style (Clear, least
+    significant bit first): the rest is no old-style code stream."""
+    img = np.zeros((4, 5, 1), np.uint8)
+    data = bytearray(tiff_bytes(img, compression="lzw", rows_per_strip=4))
+    (ifd,) = struct.unpack_from("<I", data, 4)
+    (n,) = struct.unpack_from("<H", data, ifd)
+    for i in range(n):
+        e = ifd + 2 + 12 * i
+        if struct.unpack_from("<H", data, e)[0] == 273:
+            (off,) = struct.unpack_from("<I", data, e + 8)
+            data[off : off + 2] = b"\x00\x01"
+    return bytes(data)
+
+
+# each file and the words of the port's ValueError
+UNDECODABLE_STRIPS = {
+    "damaged old-style LZW": (_old_style_lzw_stub, "damaged LZW data"),
+    "damaged SGI LogL rows": (lambda: tiff_bytes(
+        np.zeros((4, 5, 1), np.uint16), bits=16, photometric=32844, compression="sgilog",
+        chunks=[bytes([3, 1, 2])]), "damaged SGI LogL data"),
+    "an unknown compression": (lambda: _patched_compression(40000),
+                               r"unknown TIFF compression \(40000\)"),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(UNDECODABLE_STRIPS))
+def test_strips_libtiff_fails_raise_where_cv2_returns_its_buffer(kind):
+    """The same deliberate divergence for strips no codec decodes: libtiff
+    fails each and its RGBA reader goes on, so cv2 returns its buffer as
+    it was; the port raises ``ValueError``."""
+    make, words = UNDECODABLE_STRIPS[kind]
+    data = make()
+    assert _cv2(data) is not None
+    with pytest.raises(ValueError, match=words):
+        image_io.imdecode(data)
 
 
 @pytest.mark.parametrize("bits,spp,tile", [(8, 1, (16, 16)), (8, 3, (32, 48)), (16, 1, (48, 16)),
@@ -607,3 +851,9 @@ def test_run_training_reads_tiff_lines_as_their_pixels(tmp_path):
     assert np.isfinite(results["tif"]["val_loss"])
     assert results["tif"]["val_loss"] == results["png"]["val_loss"]
     assert results["tif"]["val_acc"] == results["png"]["val_acc"]
+
+
+def test_the_card_smoke_holds_the_same_cv2_none_and_refused_files():
+    import chip_smoke
+
+    assert chip_smoke.TIFF_CV2_NONE == CV2_NONE and chip_smoke.TIFF_REFUSED == REFUSED

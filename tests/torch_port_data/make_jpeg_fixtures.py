@@ -27,6 +27,14 @@ files).  Writes into ``tests/torch_port_data/jpeg/``:
   lines as ``line_NN.jpg`` draws them, for the card's daemon phase;
 * ``line_NN.jpg``: 64 seeded 4:2:0 text-line images (24-40 high, 2-6 times
   as wide: light ground, dark strokes, noise of +-3) at quality 90;
+* lossless JPEGs (SOF3) from :func:`lossless_jpeg`, a hand-written T.81
+  Annex H encoder (no container library writes SOF3): RGB under each of
+  predictors 1-7, a point transform, restart intervals, one scan a
+  component, subsampled components, an Adobe marker, 'R','G','B' ids,
+  CMYK, precisions under 8, and ``lossless_line_N.jpg`` text lines;
+* the files of :data:`CV2_NONE`, on which ``cv2.imdecode`` gives ``None``
+  (lossless gray and YCbCr, SOF11, hierarchical, 12-bit and DNL frames),
+  with no pixels;
 * ``expected.npz``: cv2's RGB pixels (``cv2.imdecode(IMREAD_COLOR)`` then
   BGR -> RGB) of every decodable file, keyed by file name.
 
@@ -156,6 +164,173 @@ class CWriter:
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
+# --- lossless (SOF3) -------------------------------------------------------------------
+
+JFIF = b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
+# code lengths of categories 0-16 (short ones for small differences)
+LOSSLESS_CODES = [3, 2, 2, 3, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15]
+
+
+def adobe(transform: int) -> bytes:
+    """An APP14 Adobe segment with the colour ``transform``."""
+    return b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00" + bytes([transform])
+
+
+def lossless_jpeg(img: np.ndarray, predictor: int = 1, pt: int = 0, restart: int = 0,
+                  precision: int = 8, ids=None, sampling=None, markers: bytes = b"",
+                  separate: bool = False, sof: int = 0xC3, flat: bool = False) -> bytes:
+    """A lossless JPEG of ``img`` (``[H, W]`` or ``[H, W, C]``, values below
+    ``2**precision``) as T.81 Annex H codes it: each component's samples
+    shifted right by the point transform ``pt``, differences from
+    ``predictor`` (1-7; the first row of the scan and of each restart
+    interval from ``2**(precision - pt - 1)`` and the left neighbour, every
+    other row's first sample from the one above) coded by one Huffman table
+    (:data:`LOSSLESS_CODES`: 2 to 15 bits for categories 0-16, or 5 bits
+    each with ``flat``).  ``sampling`` is each component's
+    ``(h, v)``, ``separate`` writes a scan a component, ``restart`` the DRI
+    interval in MCUs, ``markers`` go after SOI."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[:, :, None]
+    h, w, nc = img.shape
+    ids = list(ids or range(1, nc + 1))
+    sampling = list(sampling or [(1, 1)] * nc)
+    hmax, vmax = max(f[0] for f in sampling), max(f[1] for f in sampling)
+    planes = [img[:: vmax // vs, :: hmax // hs, c][: -(-h * vs // vmax), : -(-w * hs // hmax)]
+              .astype(np.int64) >> pt for c, (hs, vs) in enumerate(sampling)]
+    lengths = [5] * 17 if flat else LOSSLESS_CODES
+    order = sorted(range(17), key=lambda c: (lengths[c], c))
+    codes, code = {}, 0
+    for i, cat in enumerate(order):  # canonical codes, shortest first
+        if i:
+            code = (code + 1) << (lengths[cat] - lengths[order[i - 1]])
+        codes[cat] = format(code, f"0{lengths[cat]}b")
+    out = bytearray(b"\xff\xd8" + markers)
+    out += struct.pack(">BBHBHHB", 0xFF, sof, 8 + 3 * nc, precision, h, w, nc)
+    for c in range(nc):
+        out += bytes([ids[c], sampling[c][0] << 4 | sampling[c][1], 0])
+    out += struct.pack(">BBHB", 0xFF, 0xC4, 36, 0)
+    out += bytes(sum(lengths[c] == n for c in range(17)) for n in range(1, 17)) + bytes(order)
+    if restart:
+        out += struct.pack(">BBHH", 0xFF, 0xDD, 4, restart)
+    for comps in ([[c] for c in range(nc)] if separate else [list(range(nc))]):
+        out += struct.pack(">BBHB", 0xFF, 0xDA, 6 + 2 * len(comps), len(comps))
+        for c in comps:
+            out += bytes([ids[c], 0])
+        out += bytes([predictor, 0, pt])
+        units = {c: (1, 1) if len(comps) == 1 else sampling[c] for c in comps}
+        diffs = {c: _differences(planes[c], predictor, pt, precision, units[c][1],
+                                 restart // (planes[c].shape[1] if len(comps) == 1
+                                             else -(-w // hmax)) if restart else 0)
+                 for c in comps}
+        mcux = planes[comps[0]].shape[1] if len(comps) == 1 else -(-w // hmax)
+        mcuy = planes[comps[0]].shape[0] if len(comps) == 1 else -(-h // vmax)
+        bits, n = [], 0
+        for my in range(mcuy):
+            for mx in range(mcux):
+                if restart and n and n % restart == 0:
+                    out += _packed(bits) + bytes([0xFF, 0xD0 + (n // restart - 1) % 8])
+                    bits = []
+                n += 1
+                for c in comps:
+                    hs, vs = units[c]
+                    d = diffs[c]
+                    for y in range(my * vs, my * vs + vs):
+                        for x in range(mx * hs, mx * hs + hs):
+                            v = int(d[y, x]) if y < d.shape[0] and x < d.shape[1] else 0
+                            cat = 16 if v == -32768 else abs(v).bit_length()
+                            bits.append(codes[cat])
+                            if 0 < cat < 16:
+                                bits.append(format(v if v > 0 else v - 1 + (1 << cat),
+                                                   f"0{cat}b")[-cat:])
+        out += _packed(bits)
+    return bytes(out + b"\xff\xd9")
+
+
+def _differences(p: np.ndarray, psv: int, pt: int, precision: int, rows_per_mcu: int,
+                 restart_rows: int) -> np.ndarray:
+    """Each sample's difference from its prediction, as a signed 16-bit value."""
+    d = np.zeros_like(p)
+    for y in range(p.shape[0]):
+        first = y == 0 or (restart_rows and y % rows_per_mcu == 0
+                           and (y // rows_per_mcu) % restart_rows == 0)
+        for x in range(p.shape[1]):
+            ra = int(p[y, x - 1]) if x else 0
+            rb = int(p[y - 1, x]) if y else 0
+            rc = int(p[y - 1, x - 1]) if x and y else 0
+            if first:
+                pred = (1 << (precision - pt - 1)) if x == 0 else ra
+            elif x == 0:
+                pred = rb
+            else:
+                pred = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1), rb + ((ra - rc) >> 1),
+                        (ra + rb) >> 1)[psv - 1]
+            v = (int(p[y, x]) - pred) & 0xFFFF
+            d[y, x] = v - 0x10000 if v >= 0x8000 else v
+    return d
+
+
+def _packed(bits: list) -> bytes:
+    """Bit strings -> bytes, the last padded with ones, 0xFF stuffed."""
+    s = "".join(bits)
+    s += "1" * (-len(s) % 8)
+    out = bytearray()
+    for i in range(0, len(s), 8):
+        out.append(int(s[i : i + 8], 2))
+        if out[-1] == 0xFF:
+            out.append(0)
+    return bytes(out)
+
+
+def lossless_fixtures(rng) -> dict:
+    """Small lossless JPEGs (the fixtures' directory keeps under 512 KiB)."""
+    files = {}
+    for p in range(1, 8):
+        h, w = (int(v) for v in rng.integers(5, 12, 2))
+        files[f"lossless_p{p}_{h}x{w}.jpg"] = lossless_jpeg(smooth(rng, h, w), predictor=p)
+    files["lossless_p4_pt2_flat_9x11.jpg"] = lossless_jpeg(smooth(rng, 9, 11), 4, pt=2, flat=True)
+    files["lossless_p7_rst2rows_10x7.jpg"] = lossless_jpeg(smooth(rng, 10, 7), 7, restart=14)
+    files["lossless_p6_separate_rst_8x9.jpg"] = lossless_jpeg(
+        smooth(rng, 8, 9), 6, restart=9, separate=True)
+    files["lossless_p1_sub221111_9x11.jpg"] = lossless_jpeg(
+        smooth(rng, 9, 11), 1, sampling=[(2, 2), (1, 1), (1, 1)])
+    files["lossless_p5_sub112112_9x11.jpg"] = lossless_jpeg(
+        smooth(rng, 9, 11), 5, sampling=[(1, 1), (2, 1), (1, 2)], restart=6)
+    files["lossless_adobe0_p2_7x9.jpg"] = lossless_jpeg(smooth(rng, 7, 9), 2, markers=adobe(0))
+    files["lossless_rgb_ids_p3_7x8.jpg"] = lossless_jpeg(smooth(rng, 7, 8), 3, ids=(82, 71, 66))
+    files["lossless_cmyk_p1_6x9.jpg"] = lossless_jpeg(smooth(rng, 6, 9, 4), 1)
+    files["lossless_prec5_p4_8x10.jpg"] = lossless_jpeg(smooth(rng, 8, 10) >> 3, 4, precision=5)
+    # a text line for the card's daemon phase
+    files["lossless_line_0.jpg"] = lossless_jpeg(line_image(rng)[:22, :64], 4)
+    gray, rgb = smooth(rng, 4, 5, 1), smooth(rng, 4, 5)
+    base = cv2_jpeg(rgb, 90, "444")
+    sof = base.find(b"\xff\xc0")
+    files.update({
+        "none_lossless_gray.jpg": lossless_jpeg(gray, 1),
+        "none_lossless_ycbcr_jfif.jpg": lossless_jpeg(rgb, 1, markers=JFIF),
+        "none_lossless_12bit.jpg": lossless_jpeg(rgb.astype(np.int64) << 4, 1, precision=12),
+        "none_lossless_arith_sof11.jpg": lossless_jpeg(rgb, 1, sof=0xCB),
+        "none_lossless_restart_not_a_row.jpg": lossless_jpeg(rgb, 1, restart=3),
+        "none_hierarchical_sof5.jpg": base[: sof + 1] + b"\xc5" + base[sof + 2 :],
+        "none_12bit_sof1.jpg": base[: sof + 1] + b"\xc1\x00\x11\x0c" + base[sof + 5 :],
+        "none_dnl_height.jpg": base[: sof + 5] + b"\x00\x00" + base[sof + 7 :],
+    })
+    return files
+
+
+# the files cv2.imdecode gives None on, and the words the port's ValueError
+# names each by; the tests and the card's smoke read them, expected.npz has
+# no pixels for them
+CV2_NONE = {"none_lossless_gray.jpg": "lossless gray",
+            "none_lossless_ycbcr_jfif.jpg": "lossless YCbCr",
+            "none_lossless_12bit.jpg": "12-bit lossless",
+            "none_lossless_arith_sof11.jpg": "SOF11",
+            "none_lossless_restart_not_a_row.jpg": "restart interval",
+            "none_hierarchical_sof5.jpg": "hierarchical",
+            "none_12bit_sof1.jpg": "12-bit",
+            "none_dnl_height.jpg": "DNL"}
+
+
 def sos_offsets(data: bytes) -> list:
     """Where each SOS marker starts (entropy data holds no 0xFF 0xDA)."""
     return [i for i in range(2, len(data) - 1) if data[i] == 0xFF and data[i + 1] == 0xDA]
@@ -255,6 +430,7 @@ def fixtures() -> dict:
         files.update(variant_fixtures(np.random.default_rng(20261019), writer))
     finally:
         writer.close()
+    files.update(lossless_fixtures(np.random.default_rng(20261020)))
     return files
 
 
@@ -265,6 +441,9 @@ def main() -> None:
         with open(os.path.join(OUT, name), "wb") as f:
             f.write(data)
         bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        if name in CV2_NONE:
+            assert bgr is None, name
+            continue
         assert bgr is not None, name
         expected[name] = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
     np.savez_compressed(os.path.join(OUT, "expected.npz"), **expected)
