@@ -270,16 +270,35 @@
    lines: 256 to train, 128 to validate) with configs/config.json in fp32
    at the global batch of 128 for one epoch, each run a subprocess of
    ``python -m rcnn_ocr_tpu_torch.training.train --deterministic`` with
-   TF32 off and every collective bounded by a timeout, the three jobs side
-   by side on the card (their numbers do not move; their times are under
-   contention): (1) under ``python -m
+   TF32 off and every collective bounded by a timeout, the first three
+   jobs side by side on the card and then the last two (their numbers do
+   not move; their times are under contention): (1) under ``python -m
    torch.distributed.run --nproc-per-node 1`` (NCCL) its losses must equal
    the run with no group exactly; (2) two ranks over gloo on cuda:0 must
    match the run with no group within rtol 1e-3 per epoch (train and val
    loss), report the same validation metrics, and leave only rank 0's files
    (slots, CSV, one events file, a log without rank 1); each rank launches
    11 + 2 kernels per batch.  Prints step, all-reduce and loader-wait ms per
-   step of each.  (3) ``run_hpo`` over the shipped configuration in bf16:
+   step of each.  (2b) ``tp2``: both heads (so that every leaf a model
+   axis shards trains; without ``--deterministic``, since the CTC loss's
+   backward has no deterministic CUDA kernel) and ``mesh_shape [1, 2]``
+   over ``("data", "model")``, two gloo ranks on cuda:0 holding the 29
+   leaves JAX's
+   ``param_shardings`` shards on a model axis of 2 (each rank's
+   ``tp_report`` must equal that list), K1 on the gathered channels and K2
+   with ``w_hh`` gathered, 11 + 2 launches per batch on each rank, against
+   ``alone_both``, the run with no group of the same configuration: losses
+   within rtol 1e-3, the same validation metrics on both ranks, only rank
+   0's files, and a 'last' checkpoint of the whole JAX tree (every leaf's
+   shape as ``alone_both``'s) that ``OCRInference`` loads in fp32 and reads
+   the validation lines with: CTC strings equal to ``alone_both``'s on
+   every line and attention strings on at least 90% (two trainings that
+   differ only in reduction order flip 1-4 of 128 greedy decodes of these
+   two-step weights at near-tied tokens; the data axis's gloo2-vs-alone
+   pair is printed beside), its weights within 2 * lr * steps of
+   ``alone_both``'s on every element.  Prints per rank step ms, the model axis's collective
+   seconds and bytes per step, the all-reduce's, parameter, gradient and
+   Adam bytes against the run with no group's, and peak CUDA memory.  (3) ``run_hpo`` over the shipped configuration in bf16:
    3 trials x 2 epochs with ``hidden_size`` 512 and ``lstm_layers`` 2 pinned
    ("LSTM 2 512") and the rest of ``DEFAULT_SPACE`` sampled; every trial
    finite, launching 11 + 2 per batch (K2 at H=512); prints each trial's
@@ -3886,13 +3905,16 @@ def dp_config(paths: dict, exp_dir: str, **overrides) -> dict:
     return cfg
 
 
-def train_cli_start(name: str, cfg: dict, nproc: int = 0, extra=()):
+def train_cli_start(name: str, cfg: dict, nproc: int = 0, extra=(), deterministic: bool = True):
     """``python -m rcnn_ocr_tpu_torch.training.train`` on ``cfg`` started in
     the background, alone (``nproc=0``) or under ``python -m
     torch.distributed.run`` with ``nproc`` ranks; every collective bounded
     by DP_TIMEOUT_S, the whole run by a subprocess timeout.  TF32 is off
-    (NVIDIA_TF32_OVERRIDE=0), so that fp32 is fp32.  Returns the call that
-    waits for it and gives each rank's result (the CLI's --result-json)."""
+    (NVIDIA_TF32_OVERRIDE=0), so that fp32 is fp32; ``--deterministic``
+    unless ``deterministic`` is false (the CTC loss's backward has no
+    deterministic CUDA kernel, so a run with a CTC head leaves it off).
+    Returns the call that waits for it and gives each rank's result (the
+    CLI's --result-json)."""
     work = os.path.join(REPO, "build", "chip_smoke", "scale_out")
     cfg_path = os.path.join(work, f"{name}.json")
     with open(cfg_path, "w", encoding="utf-8") as f:
@@ -3901,7 +3923,7 @@ def train_cli_start(name: str, cfg: dict, nproc: int = 0, extra=()):
     launcher = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
                  "--nproc-per-node", str(nproc)] if nproc else [sys.executable])
     cmd = launcher + ["-m", "rcnn_ocr_tpu_torch.training.train", cfg_path, "--result-json",
-                      result, "--deterministic", *extra]
+                      result, *(["--deterministic"] if deterministic else []), *extra]
     if nproc:
         cmd += ["--dist-timeout", str(DP_TIMEOUT_S)]
     env = dict(os.environ, PYTHONPATH=REPO, NVIDIA_TF32_OVERRIDE="0")
@@ -3981,9 +4003,168 @@ def dp_launch_check(result: dict, lstm_layers: int, what: str) -> dict:
     return got
 
 
+def expected_tp_report(lstm_layers: int = 2) -> dict:
+    """The leaves JAX's DEFAULT_TP_RULES shard on a model axis of 2 at the
+    production shape with both heads, and their specs, written out."""
+    conv = "PartitionSpec(None, None, None, 'model')"
+    want = {f"cnn/layer{stage}_block{b}/conv{c}/conv/kernel": conv
+            for stage, blocks in ((3, 5), (4, 3)) for b in range(blocks) for c in (1, 2)}
+    for i in range(lstm_layers):
+        want.update({f"enc_rnn{i}/w_ih": "PartitionSpec(None, None, 'model')",
+                     f"enc_rnn{i}/w_hh": "PartitionSpec(None, None, 'model')",
+                     f"enc_rnn{i}/bias": "PartitionSpec(None, 'model')",
+                     f"enc_rnn{i}/proj/kernel": "PartitionSpec('model', None)"})
+    want.update({"attn/w_gen": "PartitionSpec(None, 'model')",
+                 "attn/b_gen": "PartitionSpec('model',)",
+                 "attn/w_emb": "PartitionSpec(None, 'model')",
+                 "ctc_proj/kernel": "PartitionSpec(None, 'model')",
+                 "ctc_proj/bias": "PartitionSpec('model',)"})
+    return want
+
+
+def flat_leaves(tree, prefix: str = ""):
+    """(path, array) for every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from flat_leaves(sub, f"{prefix}/{key}")
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def validation_paths(cfg: dict) -> list:
+    """The image paths of the random split a scale-out run validates on."""
+    from rcnn_ocr_tpu_torch.data.dataset import OCRDataset, random_split
+    from rcnn_ocr_tpu_torch.vocab.charset import Charset
+
+    cs = Charset.from_file(cfg["charset_path"])
+    full = OCRDataset(cfg["train_csvs"][0], cfg["train_roots"][0], cs.stoi,
+                      img_height=cfg["img_h"], img_max_width=cfg["img_w"],
+                      max_len=cfg["max_len"], strict_max_len=True)
+    _, va = random_split(full, len(full) - cfg["val_size"], cfg["val_size"], seed=cfg["seed"])
+    return [va.sample_path(i) for i in range(len(va))]
+
+
+def tensor_parallel_check(ranks: list, alone: dict, exp: dict, power: str) -> dict:
+    """The ``tp2`` job's checks and numbers (see the module docstring, 10.2b)
+    against ``alone``, the run with no group of the same configuration
+    (``exp["alone_both"]``)."""
+    from rcnn_ocr_tpu_torch.inference import OCRInference
+    from rcnn_ocr_tpu_torch.training import checkpoint as ckpt
+
+    check([r["rank"] for r in ranks] == [0, 1] and all(r["ranks"] == 2 for r in ranks),
+          "the tensor-parallel job did not run two ranks")
+    want = expected_tp_report()
+    for r, res in enumerate(ranks):
+        check(res["tp_report"] == want, f"tp2 rank {r} shards {sorted(res['tp_report'])}, "
+                                        f"expected the {len(want)} leaves {sorted(want)}")
+    reading = []
+    for (a, b), (c, d) in zip(epoch_losses(ranks[0]), epoch_losses(alone)):
+        reading += [abs(a - c) / abs(c), abs(b - d) / abs(d)]
+        check(abs(a - c) <= 1e-3 * abs(c) and abs(b - d) <= 1e-3 * abs(d),
+              f"tp2 (train, val) {(a, b)} vs one process {(c, d)}: beyond rtol 1e-3")
+    check(all(ranks[0]["epochs"][0][k] == ranks[1]["epochs"][0][k]
+              for k in ("train_loss", "val_loss", "val_acc", "val_cer", "val_wer")),
+          "the two tensor-parallel ranks report different metrics")
+    launches = {"se_scale": 0, "bilstm_scan": 0}
+    for r, res in enumerate(ranks):
+        for k, v in dp_launch_check(res, 2, f"tp2 rank {r}").items():
+            launches[k] += v
+    files = sorted(os.listdir(exp["tp2"]))
+    check(all(f"{slot}{ckpt.CKPT_SUFFIX}" in files for slot in ("last", "best_loss", "best_acc"))
+          and not [f for f in files if f.endswith(".tmp")], f"tp2 exp dir holds {files}")
+    with open(os.path.join(exp["tp2"], "train.log"), encoding="utf-8") as f:
+        log = f.read()
+    check("rank 0;" in log and "rank 1;" not in log, "a tp2 rank besides 0 wrote train.log")
+    check(f"TP-sharded params: {len(want)} on model axis 2" in log, "tp2 logged no tp_report")
+
+    # the 'last' slot is the whole JAX tree, and serves alone_both's strings
+    def shapes(tree):
+        return {k: v.shape for k, v in flat_leaves(tree)}
+
+    blobs = {who: ckpt.load_checkpoint_blob(os.path.join(exp[who], f"last{ckpt.CKPT_SUFFIX}"))
+             for who in ("alone_both", "tp2")}
+    for key in ("params", "batch_stats", "opt_state"):
+        check(shapes(blobs["tp2"][key]) == shapes(blobs["alone_both"][key]),
+              f"tp2's checkpoint {key} is not the whole tree")
+    with open(os.path.join(REPO, "build", "chip_smoke", "scale_out", "tp2.json"),
+              encoding="utf-8") as f:
+        cfg = json.load(f)
+    # the same training from one start: Adam moves an element at most lr a
+    # step, so two runs part by at most 2 * lr * steps on any element (a
+    # block joined out of place or not gathered parts by a weight's size)
+    bound = 2 * cfg["lr"] * ranks[0]["global_step"]
+    got, ref = (dict(flat_leaves(blobs[who]["params"])) for who in ("tp2", "alone_both"))
+    weight_diff = max(float(np.abs(got[k] - ref[k]).max()) for k in ref)
+    check(weight_diff <= bound, f"tp2's weights part from alone_both's by {weight_diff:.3e} "
+                                f"> 2 * lr * steps = {bound:.3e}")
+    paths = validation_paths(cfg)
+    strings = {}
+    for who in ("alone_both", "tp2", "alone", "gloo2"):
+        engine = OCRInference(os.path.join(exp[who], f"last{ckpt.WEIGHTS_SUFFIX}"),
+                              charset_path=cfg["charset_path"], device="cuda",
+                              img_h=cfg["img_h"], img_w=cfg["img_w"], dtype=torch.float32)
+        strings[who] = (engine.predict(paths, max_length=cfg["max_len"], batch_size=128),
+                        engine.predict_ctc(paths, batch_size=128)
+                        if engine.model.ctc_proj is not None else None)
+        del engine
+    n = len(paths)
+
+    def agree(a, b, k):
+        return sum(x == y for x, y in zip(strings[a][k], strings[b][k]))
+
+    same_attn, same_ctc = agree("tp2", "alone_both", 0), agree("tp2", "alone_both", 1)
+    control = agree("gloo2", "alone", 0)
+    # two trainings that differ only in reduction order flip 1-4 of 128
+    # greedy attention decodes of these two-step weights at near-tied
+    # tokens (PERF.md; the data axis's pair is printed beside), so
+    # the weights' bound above carries the check and the attention
+    # strings need 90% (a block joined out of place reads no line alike)
+    check(same_ctc == n and same_attn >= 0.9 * n,
+          f"tp2's checkpoint read {same_ctc}/{n} CTC and {same_attn}/{n} attention strings "
+          f"as the run with no group's (two gloo ranks vs no group: {control}/{n})")
+
+    out = {"rel_diff": max(reading), "losses": epoch_losses(ranks[0]), "files": files,
+           "tp_report_leaves": len(want), "weight_max_abs_diff": weight_diff,
+           "weight_bound": bound,
+           "strings_equal": {"ctc": same_ctc, "attention": same_attn, "lines": n,
+                             "attention_gloo2_vs_alone": control},
+           "launches": launches, "ranks": []}
+    alone_bytes = alone["state_bytes"]
+    for r, res in enumerate(ranks):
+        e = res["epochs"][0]
+        steps = max(1, e["steps"])
+        row = dict(dp_timing(res), tp_collective_ms_per_step=e["tp_collective_s"] * 1e3 / steps,
+                   tp_collective_mb_per_step=e["tp_collective_bytes"] / 2**20 / steps,
+                   state_bytes=res["state_bytes"],
+                   state_share={k: res["state_bytes"][k] / alone_bytes[k] for k in alone_bytes},
+                   max_memory_allocated_gib=res["max_memory_allocated"] / 2**30)
+        check(all(0.5 < v < 0.65 for v in row["state_share"].values()),
+              f"tp2 rank {r} holds {row['state_share']} of one process's state")
+        out["ranks"].append(row)
+    out["alone_state_bytes"] = alone_bytes
+    out["alone_max_memory_allocated_gib"] = alone["max_memory_allocated"] / 2**30
+    print(f"  tp2 (data 1 x model 2, gloo on cuda:0) vs one process: (train, val) "
+          f"{out['losses']} vs {epoch_losses(alone)}, largest relative difference "
+          f"{out['rel_diff']:.3e} (rtol 1e-3); both ranks val_acc {ranks[0]['val_acc']}; "
+          f"{len(want)} leaves sharded on each rank; 'last' is the whole tree, its weights "
+          f"within {weight_diff:.3e} of alone_both's (bound {bound:.3e}), and reads "
+          f"{same_ctc}/{n} CTC and {same_attn}/{n} attention strings as alone_both's "
+          f"(two gloo ranks vs no group, attention only: {control}/{n})")
+    for r, row in enumerate(out["ranks"]):
+        print(f"  tp2 rank {r} on {power}: step_ms {row['step_ms']:.3f}, model-axis "
+              f"collectives {row['tp_collective_ms_per_step']:.3f} ms and "
+              f"{row['tp_collective_mb_per_step']:.1f} MiB per step, all-reduce "
+              f"{row['allreduce_ms_per_step']:.3f} ms per step, params + grads + Adam "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row["state_share"].items())
+              + f" of one process's, peak CUDA memory {row['max_memory_allocated_gib']:.2f} GiB "
+              f"(one process {out['alone_max_memory_allocated_gib']:.2f})")
+    return out
+
+
 def scale_out_phase(kernels, paths: dict, power: str) -> dict:
     """One-rank NCCL vs no group; two gloo ranks on the one card vs one
-    process; an HPO study at hidden 512 and the hpo_search CLI."""
+    process, over the data axis and over the model axis; an HPO study at
+    hidden 512 and the hpo_search CLI."""
     from rcnn_ocr_tpu_torch.hpo import driver as hpo_driver
     from rcnn_ocr_tpu_torch.training import checkpoint as ckpt
 
@@ -3992,7 +4173,7 @@ def scale_out_phase(kernels, paths: dict, power: str) -> dict:
         shutil.rmtree(os.path.join(base, sub), ignore_errors=True)
     os.makedirs(os.path.join(base, "scale_out"))
     exp = {name: os.path.join(base, "scale_out", f"exp_{name}")
-           for name in ("alone", "nccl1", "gloo2")}
+           for name in ("alone", "nccl1", "gloo2", "alone_both", "tp2")}
     out = {"dp_launches": {"se_scale": 0, "bilstm_scan": 0}}
     # the card's memory for the processes that run side by side: this
     # process's allocator gives back what earlier phases left cached
@@ -4007,7 +4188,9 @@ def scale_out_phase(kernels, paths: dict, power: str) -> dict:
     # (1) one rank of NCCL equals the run with no group, bit for bit; (2)
     # two gloo ranks on cuda:0 match one process at the same global batch.
     # The three jobs run side by side on the card (--deterministic: the
-    # contention moves their times, not their numbers)
+    # contention moves their times, not their numbers; more processes
+    # beside them would press the card's memory, where a deterministic
+    # convolution may take another algorithm and so other bits)
     t0 = time.perf_counter()
     runs = [train_cli_start("alone", dp_config(paths, exp["alone"])),
             train_cli_start("nccl1", dp_config(paths, exp["nccl1"]), nproc=1),
@@ -4051,9 +4234,28 @@ def scale_out_phase(kernels, paths: dict, power: str) -> dict:
     out.update(alone=dp_timing(alone), nccl1=dp_timing(nccl1),
                gloo2=[dp_timing(r) for r in ranks], gloo2_rel_diff=max(reading),
                losses={"alone": epoch_losses(alone), "gloo2": epoch_losses(ranks[0])},
-               gloo2_files=files, dp_s=time.perf_counter() - t0)
+               gloo2_files=files)
+    out["dp_s"] = time.perf_counter() - t0
+    # (2b) two gloo ranks on a model axis of 2 match one process too, both
+    # with both heads, so that every leaf the model axis shards is trained
+    # (without --deterministic: the CTC loss's backward has no
+    # deterministic CUDA kernel); the two jobs side by side
+    t0 = time.perf_counter()
+    both = dict(head="both")
+    runs = [train_cli_start("alone_both", dp_config(paths, exp["alone_both"], **both),
+                            deterministic=False),
+            train_cli_start("tp2", dp_config(paths, exp["tp2"], mesh_shape=[1, 2],
+                                             mesh_axes=["data", "model"], **both),
+                            nproc=2, extra=["--device", "cuda:0", "--backend", "gloo"],
+                            deterministic=False)]
+    (alone_both,), tp_ranks = (finish() for finish in runs)
+    out["tp2"] = tensor_parallel_check(tp_ranks, alone_both, exp, power)
+    out["alone_both"] = dp_timing(alone_both)
+    out["tp_launches"] = out["tp2"].pop("launches")
+    out["tp_s"] = time.perf_counter() - t0
     for name, t in (("no group", out["alone"]), ("one NCCL rank", out["nccl1"]),
-                    ("gloo rank 0 of 2", out["gloo2"][0]), ("gloo rank 1 of 2", out["gloo2"][1])):
+                    ("gloo rank 0 of 2", out["gloo2"][0]), ("gloo rank 1 of 2", out["gloo2"][1]),
+                    ("no group, both heads", out["alone_both"])):
         print(f"  {name} on {power}: " + ", ".join(
             f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in t.items()))
 
@@ -4239,6 +4441,7 @@ def main() -> int:
                    "train_loop": loop["launches"][name],
                    "checkpoint_average": loop["ckpt_tools"]["launch_counts"][name],
                    "dp": scale["dp_launches"][name],
+                   "tp": scale["tp_launches"][name],
                    "hpo": scale["hpo_launches"][name]}
         row.update(launches=by_path["inference"], launches_by_path=by_path,
                    max_err=row["max_abs_err"], backward_route=backward[name],

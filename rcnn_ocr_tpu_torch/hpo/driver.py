@@ -21,8 +21,8 @@ documents: ``optuna_ocr.db`` and its "LSTM 2 512" variant) over the port's
   ``parallel_trials=K`` runs K trials at once in threads of a one-rank
   process, each pinned (:func:`rcnn_ocr_tpu_torch.parallel.mesh.device_scope`)
   to its group of the cards (:func:`_device_groups`), and trains on its
-  group's first card; under several ranks it raises (ROADMAP.md queue 1:
-  tensor parallelism).
+  group's first card; under several ranks it raises (ROADMAP.md queue 1
+  item 2: HPO's concurrent trials across ranks).
 
 Usage::
 
@@ -39,6 +39,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from rcnn_ocr_tpu_torch.parallel.mesh import (
+    UNPORTED,
     device_scope,
     process_count,
     process_index,
@@ -331,9 +332,8 @@ def run_hpo(
     if parallel_trials > 1 and process_count() > 1:
         raise NotImplementedError(
             f"parallel_trials={parallel_trials} in a job of {process_count()} ranks: "
-            "concurrent trials inside a data-parallel job are not ported "
-            "(ROADMAP.md queue 1: tensor parallelism); run one trial at a time over the ranks, or "
-            "parallel trials in a one-rank process")
+            f"concurrent trials inside a job of several ranks are not ported ({UNPORTED}); "
+            "run one trial at a time over the ranks, or parallel trials in a one-rank process")
     is_lead = process_index() == 0
     if prune and not _accepts_report(objective):
         # a 3-arg custom objective can't receive the pruning callback —

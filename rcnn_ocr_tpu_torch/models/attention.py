@@ -28,6 +28,11 @@ The random bits come from the caller's ``torch.Generator``: the coins for
 all steps are drawn before any dropout mask, so they do not depend on
 whether dropout is on (JAX keeps them apart by folding in ``100_000 + t``).
 :meth:`AttentionDecoder.beam_search` is JAX's ``_beam_search`` (eval only).
+
+On a model axis (``DEFAULT_TP_RULES``) ``w_emb`` holds gate columns and is
+gathered whole for the row gather, and ``w_gen`` / ``b_gen`` hold vocabulary
+columns: every step's logits are computed on them and gathered before the
+loss, the argmax or the softmax.
 """
 
 from __future__ import annotations
@@ -40,6 +45,12 @@ from torch import nn
 from rcnn_ocr_tpu_torch.models.dropblock import dropout
 from rcnn_ocr_tpu_torch.models.lstm import lstm_cell_gates
 from rcnn_ocr_tpu_torch.ops.topk import top_k
+from rcnn_ocr_tpu_torch.parallel.mesh import (
+    copy_to_model,
+    gather_from_model,
+    gather_param,
+    tp_shard,
+)
 
 
 class AttentionDecoder(nn.Module):
@@ -94,6 +105,8 @@ class AttentionDecoder(nn.Module):
         w_ctx = self.w_ctx.to(dt)
         w_hh = self.w_hh.to(dt)
         w_gen = self.w_gen.to(dt)
+        w_emb = gather_param(self.w_emb)  # the embedding rows, whole on every rank
+        gen = tp_shard(self.w_gen)  # b_gen holds the same vocabulary columns
 
         def step(h, c, targets, keys=keys, values=bh):
             proj_h = torch.matmul(h.to(dt), w_h2h).float() + self.b_h2h
@@ -105,7 +118,7 @@ class AttentionDecoder(nn.Module):
             context = torch.bmm(alpha.to(dt)[:, None, :], values)[:, 0].float()
             gates = (
                 torch.matmul(context.to(dt), w_ctx).float()
-                + self.w_emb[targets]  # one-hot matmul == row gather
+                + w_emb[targets]  # one-hot matmul == row gather
                 + torch.matmul(h.to(dt), w_hh).float()
                 + self.b_cell
             )
@@ -113,7 +126,11 @@ class AttentionDecoder(nn.Module):
             return h_new, c_new, align
 
         def logits_of(h):
-            return torch.matmul(h.to(dt), w_gen).float() + self.b_gen
+            if gen is None:
+                return torch.matmul(h.to(dt), w_gen).float() + self.b_gen
+            # this rank's V/M vocabulary columns, gathered before any use
+            part = torch.matmul(copy_to_model(h.to(dt), gen.mesh), w_gen).float() + self.b_gen
+            return gather_from_model(part, -1, gen.mesh)
 
         return step, logits_of, keys, bh
 

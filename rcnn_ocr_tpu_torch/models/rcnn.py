@@ -15,6 +15,10 @@ scheduled sampling.  Every random bit comes from the ``generator`` argument.
 space-to-depth rewrite of the first stem conv
 (``rcnn_ocr_tpu/models/rcnn.py:67-83``; see
 :mod:`rcnn_ocr_tpu_torch.models.seresnet31`).
+
+On a model axis (:func:`rcnn_ocr_tpu_torch.interop.jax_params.shard_model`)
+each module computes on its shards and gathers (see its docstring);
+``ctc_proj`` holds vocabulary rows and gathers its logits.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from rcnn_ocr_tpu_torch.models.attention import AttentionDecoder
 from rcnn_ocr_tpu_torch.models.dropblock import dropout
 from rcnn_ocr_tpu_torch.models.lstm import BiLSTM
 from rcnn_ocr_tpu_torch.models.seresnet31 import SEResNet31
+from rcnn_ocr_tpu_torch.parallel.mesh import copy_to_model, gather_from_model, tp_shard
 
 # encoder time steps per input width: T = W / TIME_DOWNSAMPLE
 TIME_DOWNSAMPLE = 8
@@ -82,9 +87,15 @@ class RCNN(nn.Module):
         return f
 
     def _ctc_head(self, enc: torch.Tensor) -> torch.Tensor:
-        p = self.ctc_proj
-        return nn.functional.linear(enc.to(self.dtype), p.weight.to(self.dtype),
-                                    p.bias.to(self.dtype)).float()
+        p, dt = self.ctc_proj, self.dtype
+        s = tp_shard(p.weight)
+        if s is None:
+            return nn.functional.linear(enc.to(dt), p.weight.to(dt), p.bias.to(dt)).float()
+        # vocabulary-sharded (weight rows and bias alike): this rank's V/M
+        # columns, gathered
+        part = nn.functional.linear(copy_to_model(enc.to(dt), s.mesh), p.weight.to(dt),
+                                    p.bias.to(dt))
+        return gather_from_model(part, -1, s.mesh).float()
 
     def ctc_logits(self, x: torch.Tensor, train: bool = False,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -52,7 +52,13 @@ from rcnn_ocr_tpu_torch.models.dropblock import dropblock_2d
 from rcnn_ocr_tpu_torch.ops.quant import int8_conv_nhwc, int8_conv_nhwc_static
 from rcnn_ocr_tpu_torch.ops.se_scale import se_scale
 from rcnn_ocr_tpu_torch.ops.stem import conv3x3_s2d
-from rcnn_ocr_tpu_torch.parallel.mesh import current_shard, global_sum
+from rcnn_ocr_tpu_torch.parallel.mesh import (
+    copy_to_model,
+    current_shard,
+    gather_from_model,
+    global_sum,
+    tp_shard,
+)
 
 BN_MOMENTUM = 0.9  # flax's convention: running = 0.9 * running + 0.1 * batch
 
@@ -108,7 +114,9 @@ class ConvBN(nn.Module):
     """Bias-free conv (explicit symmetric padding) -> fp32 batch norm; the
     conv in int8 in eval mode when ``quantize``, or through the
     space-to-depth rewrite when ``s2d`` and the conv is 3x3/s1/p1 on an
-    even-sized eval-mode input (see the module docstring)."""
+    even-sized eval-mode input (see the module docstring).  A conv weight
+    sharded on a model axis (``layer3``/``layer4`` ``conv1``/``conv2``)
+    computes its output channels and gathers them before the batch norm."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: Tuple[int, int] = (3, 3),
                  stride: Tuple[int, int] = (1, 1), padding: Tuple[int, int] = (1, 1),
@@ -154,6 +162,13 @@ class ConvBN(nn.Module):
             y = self._int8(x)
         elif self._takes_s2d(x, train):
             y = conv3x3_s2d(x, c.weight).contiguous(memory_format=torch.channels_last).float()
+        elif tp_shard(c.weight) is not None:
+            # this rank's output channels from the whole input; the batch
+            # norm (the first consumer) takes them gathered
+            mesh = tp_shard(c.weight).mesh
+            y = F.conv2d(copy_to_model(x, mesh), c.weight.to(x.dtype), None, c.stride,
+                         c.padding)
+            y = gather_from_model(y.permute(0, 2, 3, 1), -1, mesh).permute(0, 3, 1, 2).float()
         else:
             y = F.conv2d(x, c.weight.to(x.dtype), None, c.stride, c.padding).float()
         bn = self.bn

@@ -23,6 +23,14 @@ moments map to the torch optimizer's ``exp_avg`` / ``exp_avg_sq`` /
 ``step`` (SGD: ``momentum_buffer``) through the parameter names of
 :mod:`rcnn_ocr_tpu_torch.interop.jax_params`, so JAX resumes a checkpoint
 the port wrote and the port resumes one JAX wrote.
+
+On a model axis the files hold the whole tree all the same: building a blob
+(:func:`checkpoint_blob`, :func:`weights_blob`, :func:`optimizer_state_tree`)
+gathers every sharded parameter, EMA leaf and moment from the model ranks,
+so every rank of the job builds it (a collective) and the lead rank writes
+it; loading (:func:`restore_train_state`, :func:`load_optimizer_state`)
+cuts each leaf to the rank's block.  A sharded run resumes from one
+process's checkpoint, and one process from a sharded run's.
 """
 
 from __future__ import annotations
@@ -67,7 +75,7 @@ CKPT_SUFFIX = "_ckpt.msgpack"
 WEIGHTS_SUFFIX = "_weights.msgpack"
 
 
-def _weights_blob(state) -> Dict[str, Any]:
+def weights_blob(state) -> Dict[str, Any]:
     """The model variables an EMA run deploys (its EMA parameters, as JAX's
     ``_weights_blob``), else the model's own."""
     return {"format_version": CHECKPOINT_FORMAT_VERSION,
@@ -77,7 +85,7 @@ def _weights_blob(state) -> Dict[str, Any]:
 def save_weights(path: str, state) -> None:
     """Write a train state's bare weights file ``{"format_version",
     "params", "batch_stats"}``, atomically."""
-    _atomic_write(path, _weights_blob(state))
+    _atomic_write(path, weights_blob(state))
 
 
 # --- optimizer state <-> optax's tree ------------------------------------------------
@@ -163,7 +171,7 @@ def load_optimizer_state(state, tree: Dict[str, Any]) -> None:
 
 # --- full checkpoints -----------------------------------------------------------------
 
-def _ckpt_blob(state, scheduler_state, epoch, global_step, best_val_loss, best_val_acc,
+def checkpoint_blob(state, scheduler_state, epoch, global_step, best_val_loss, best_val_acc,
                itos, stoi, config, log_dir) -> Dict[str, Any]:
     variables = to_jax_variables(state.model)
     blob = {
@@ -191,7 +199,7 @@ def save_checkpoint(path: str, state, scheduler_state: Optional[Dict[str, Any]],
                     itos: List[str], stoi: Dict[str, int], config: Dict[str, Any],
                     log_dir: str) -> None:
     """Write a full checkpoint (JAX's layout) atomically."""
-    _atomic_write(path, _ckpt_blob(state, scheduler_state, epoch, global_step, best_val_loss,
+    _atomic_write(path, checkpoint_blob(state, scheduler_state, epoch, global_step, best_val_loss,
                                    best_val_acc, itos, stoi, config, log_dir))
 
 
@@ -247,12 +255,12 @@ class AsyncCheckpointer:
 
     def save_checkpoint(self, path: str, state, scheduler_state, epoch, global_step,
                         best_val_loss, best_val_acc, itos, stoi, config, log_dir) -> None:
-        self._q.put((path, _ckpt_blob(state, scheduler_state, epoch, global_step,
+        self._q.put((path, checkpoint_blob(state, scheduler_state, epoch, global_step,
                                       best_val_loss, best_val_acc, itos, stoi, config,
                                       log_dir)))
 
     def save_weights(self, path: str, state) -> None:
-        self._q.put((path, _weights_blob(state)))
+        self._q.put((path, weights_blob(state)))
 
     def wait(self) -> None:
         """Block until every queued write is on disk; raise the first error."""

@@ -19,8 +19,9 @@ on them though its train transform reads them).  On one card some keys
 mean nothing and are only logged by the training loop (``use_pallas``,
 ``compile_cache_dir``).  ``mesh_shape`` over more than one device runs data
 parallelism over the ranks of a process group (``training/train.py``: the
-data axis must tile the ranks, else a warning and pure DP); a ``model`` axis
-over 1 raises, since tensor parallelism is not ported.  ``export_artifact``
+shape must tile the ranks, else a warning and pure DP); a ``model`` axis
+over 1 also shards the big weights over the ranks of each data row, tensor
+parallelism as JAX's ``param_shardings`` places it.  ``export_artifact``
 is validated by :func:`rcnn_ocr_tpu_torch.export.validate_export_request`.
 """
 
@@ -62,7 +63,7 @@ DEFAULTS: Dict[str, Any] = {
     "head": "attention",  # "attention" | "ctc" | "both"
     "ctc_loss_weight": 1.0,
     "compute_dtype": "bfloat16",
-    "mesh_shape": None,  # one card: None or a shape of one device
+    "mesh_shape": None,  # e.g. [2] or [2, 2] over as many ranks; None = all ranks, data-parallel
     "mesh_axes": ["data"],
     "width_buckets": None,  # a list of widths, or an int K for the automatic DP
     "proportional_quotas": "expected",  # width_buckets x train_proportions: or "batch"

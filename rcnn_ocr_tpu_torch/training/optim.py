@@ -28,6 +28,8 @@ from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 
+from rcnn_ocr_tpu_torch.parallel.mesh import model_all_reduce, tp_shard
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerSpec:
@@ -58,10 +60,25 @@ class OptimizerSpec:
 
 def clip_by_global_norm_(params: List[torch.Tensor], max_norm: float) -> torch.Tensor:
     """Scale the gradients in place by ``max_norm / ‖g‖`` when the global
-    norm ``‖g‖ >= max_norm`` (optax's rule); returns ``‖g‖``.  No host sync."""
+    norm ``‖g‖ >= max_norm`` (optax's rule); returns ``‖g‖``.  No host sync
+    (on a model axis, one all_reduce).
+
+    ``‖g‖`` is the norm of the logical parameters: on a model axis the
+    squares of the sharded parameters' blocks are summed over the model
+    ranks once, and a replicated parameter, whole on every rank, counts
+    once."""
     grads = [p.grad for p in params]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    shards = [tp_shard(p) for p in params]
+    sharded = [g for g, s in zip(grads, shards) if s is not None]
+    if not sharded:
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    else:
+        def sq(gs):
+            return torch.stack([torch.linalg.vector_norm(g.float()) ** 2 for g in gs]).sum()
+        own = model_all_reduce(sq(sharded), next(s for s in shards if s is not None).mesh)
+        rest = [g for g, s in zip(grads, shards) if s is None]
+        norm = torch.sqrt(own + sq(rest) if rest else own)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale.to(grads[0].dtype))
     return norm

@@ -33,21 +33,25 @@ calibrating static int8 scales on validation images when asked.
 ``use_pallas`` and ``compile_cache_dir`` mean nothing on the card and are
 only logged.
 
-Data parallelism across processes (:mod:`rcnn_ocr_tpu_torch.parallel`), as
-JAX's loop runs over several hosts: under an initialized process group the
-data axis is the ranks (``mesh_shape`` must tile them, else a warning and
-pure DP; a ``model`` axis over 1 raises, tensor parallelism is not ported,
-ROADMAP.md queue 1: tensor parallelism).  The static batch rounds up to a multiple of the
-ranks (and of ``grad_accum``); every rank builds the same samplers and keeps
-its block of each global batch (``ProcessShardedBatchSampler``), its host
-augmentation seeded by the global row; the step reduces as
+Data and tensor parallelism across processes
+(:mod:`rcnn_ocr_tpu_torch.parallel`), as JAX's loop runs over a
+``("data", "model")`` mesh: under an initialized process group
+``mesh_shape`` / ``mesh_axes`` lay the ranks out as data x model (a shape
+that does not tile them warns and falls back to pure DP, as in JAX).  The
+model is placed on the model axis (``interop/jax_params.py:shard_model``,
+JAX's ``param_shardings``; its ``tp_report`` is logged once).  The static
+batch rounds up to a multiple of the data axis (and of ``grad_accum``);
+every rank builds the same samplers and keeps its data index's block of
+each global batch (``ProcessShardedBatchSampler``), its host augmentation
+seeded by the global row; the step reduces as
 :mod:`rcnn_ocr_tpu_torch.training.train_step` says; validation's text
-metrics are summed over the ranks (``global_metric_sum``), so every rank
-takes the same best-slot, scheduler, pruning and stopping decisions, and a
-SIGTERM seen by any rank stops all of them after the same step.  The lead
-rank alone writes ``train.log``, ``config.json``, TensorBoard, the metrics
-CSV, the three slots and the artifact; every rank resumes from the same
-slot.
+metrics are summed over the data group (``global_metric_sum``), so every
+rank takes the same best-slot, scheduler, pruning and stopping decisions,
+and a SIGTERM seen by any rank stops all of them after the same step.  The
+lead rank (world rank 0) alone writes ``train.log``, ``config.json``,
+TensorBoard, the metrics CSV, the three slots and the artifact (on a model
+axis every rank takes part in gathering a slot's whole tree); every rank
+resumes from the same slot, cut to its blocks.
 
     python -m rcnn_ocr_tpu_torch.training.train config.json [--device cpu]
     python -m torch.distributed.run --standalone --nproc-per-node N \
@@ -95,7 +99,7 @@ from rcnn_ocr_tpu_torch.export import (
     validate_export_request,
 )
 from rcnn_ocr_tpu_torch.inference import OCRInference, resolve_device
-from rcnn_ocr_tpu_torch.interop.jax_params import load_jax_variables
+from rcnn_ocr_tpu_torch.interop.jax_params import load_jax_variables, shard_model
 from rcnn_ocr_tpu_torch.models.rcnn import RCNN, TIME_DOWNSAMPLE, init_train_params
 from rcnn_ocr_tpu_torch.ops import kernels
 from rcnn_ocr_tpu_torch.ops.ctc import ctc_greedy_collapse_np
@@ -176,9 +180,9 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
         raise ValueError("p_EdgeCrop requires host augmentation (device_augment=false): "
                          "the crop applies to the raw image before ResizeAndPad")
 
-    # the data axis: the process group's ranks (a model axis over 1 raises)
+    # the mesh: the process group's ranks as data x model
     mesh = make_mesh(cfg.get("mesh_shape"), tuple(cfg.get("mesh_axes") or ("data",)))
-    n_data = mesh.shape[mesh.axis_names[0]]
+    n_data, data_index = mesh.n_data, mesh.data_index
     rank, is_lead = process_index(), process_index() == 0
 
     exp_dir = cfg.get("exp_dir")
@@ -261,6 +265,13 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
         dtype=compute_dtype)
     init_train_params(model, torch.Generator().manual_seed(seed))
     logger.info(f"Model parameters: {sum(p.numel() for p in model.parameters()):,}")
+    # the model axis: every rank drew the same weights and keeps its blocks
+    tp_report = shard_model(model, mesh)
+    if mesh.n_model > 1:
+        logger.info(f"TP-sharded params: {len(tp_report)} on model axis {mesh.n_model} "
+                    f"(model index {mesh.model_index}); this rank holds "
+                    f"{sum(p.numel() for p in model.parameters()):,} parameters"
+                    + "".join(f"\n  {k}: {v}" for k, v in sorted(tp_report.items())))
 
     # --- optimizer / scheduler / state ---
     tx = build_optimizer(optimizer_name, lr, weight_decay, momentum,
@@ -386,26 +397,23 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
         hist = {w: flat_buckets.count(w) for w in sorted(set(flat_buckets))}
         logger.info(f"Width buckets {width_buckets}: train histogram {hist}")
 
-    # every rank builds the same samplers (same seed) and keeps its block of
-    # each global batch
+    # every rank builds the same samplers (same seed) and keeps its data
+    # index's block of each global batch
     pcount = process_count()
     local_static_bs = static_bs
-    if pcount > 1:
-        if static_bs % pcount:
-            raise ValueError(f"batch_size (static {static_bs}) must divide evenly across "
-                             f"{pcount} processes")
-        local_static_bs = static_bs // pcount
-        train_sampler = ProcessShardedBatchSampler(train_sampler, rank, pcount)
-        logger.info(f"Data-parallel feed: {pcount} ranks x {local_static_bs} local rows -> "
-                    f"global batch {static_bs}")
+    if n_data > 1:
+        local_static_bs = static_bs // n_data
+        train_sampler = ProcessShardedBatchSampler(train_sampler, data_index, n_data)
+        logger.info(f"Data-parallel feed: {n_data} data indices x {local_static_bs} local "
+                    f"rows -> global batch {static_bs}")
 
     def val_sampler(vs, vb):
         if vb is not None:
             sampler = BucketedBatchSampler(vb, batch_size, shuffle=False)
         else:
             sampler = ShuffleBatchSampler(vs, batch_size, shuffle=False)
-        if pcount > 1:
-            sampler = ProcessShardedBatchSampler(sampler, rank, pcount)
+        if n_data > 1:
+            sampler = ProcessShardedBatchSampler(sampler, data_index, n_data)
         return sampler
 
     cache_dir = cfg.get("cache_dir")
@@ -413,13 +421,13 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
         train_dataset, train_sampler, charset, max_len, num_workers=loader_workers,
         static_batch_size=local_static_bs, with_ctc=with_ctc, bucket_of=train_bucket_of,
         transform_for_width=train_transform_for if width_buckets else None,
-        cache_dir=cache_dir, seed=seed, shard_index=rank)
+        cache_dir=cache_dir, seed=seed, shard_index=data_index)
     val_loaders = [
         DataLoader(vs, val_sampler(vs, vb), charset, max_len, num_workers=loader_workers,
                    static_batch_size=local_static_bs, with_ctc=with_ctc, bucket_of=vb,
                    transform_for_width=((lambda w: ResizeAndPad(img_h=img_h, img_w=w))
                                         if vb is not None else None),
-                   cache_dir=cache_dir, seed=seed, shard_index=rank)
+                   cache_dir=cache_dir, seed=seed, shard_index=data_index)
         for vs, vb in zip(val_sets, val_bucket_ofs)]
     logger.info(f"Datasets: train={sum(len(ds) for ds in train_sets)} samples across "
                 f"{len(train_sets)} set(s); val={sum(len(ds) for ds in val_sets)} samples "
@@ -476,12 +484,16 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
              else None)
 
     def save_slot(slot: str, epoch: int, val_loss, val_acc):
-        if not is_lead:
+        if not is_lead and not tp_report:
             return
         t_save = time.perf_counter()
         args = (state, scheduler.state_dict() if scheduler is not None else None, epoch,
                 global_step, val_loss, val_acc, list(charset.itos), charset.stoi,
                 config_snapshot, log_dir)
+        if not is_lead:  # the lead's blobs gather the shards: take part, write nothing
+            ckpt_io.checkpoint_blob(*args)
+            ckpt_io.weights_blob(state)
+            return
         if saver is not None:
             saver.save_checkpoint(ckpt_paths[slot], *args)
             saver.save_weights(weight_paths[slot], state)
@@ -524,6 +536,7 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
             loss_accum = None  # on the device: no sync per step
             n_batches = imgs_seen = 0
             allreduce_s0 = train_step.allreduce_s
+            tp0 = train_step.tp_collective_s, train_step.tp_collective_bytes
             profiling = profile_steps > 0 and epoch == start_epoch and is_lead
             window = None
             warmup = min(PROFILE_WARMUP, max(0, len(train_loader) - profile_steps))
@@ -572,6 +585,8 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
                       "train_s": train_time, "loader_wait_s": train_loader.wait_seconds,
                       "val_batches": 0, "checkpoint_s": 0.0,
                       "allreduce_s": train_step.allreduce_s - allreduce_s0,
+                      "tp_collective_s": train_step.tp_collective_s - tp0[0],
+                      "tp_collective_bytes": train_step.tp_collective_bytes - tp0[1],
                       "train_loss": avg_train_loss, "step_timer": step_timer.summary()}
             result["epochs"].append(timing)
             writer.add_scalar("Loss/train_epoch", avg_train_loss, epoch)
@@ -596,7 +611,7 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
                 t_val = time.perf_counter()
                 avg_val_loss, val_acc, val_cer, val_wer, timing["val_batches"] = _validate(
                     val_loaders, eval_step, state, charset, max_len, writer, epoch,
-                    show_progress)
+                    show_progress, mesh.data_group)
                 timing["val_s"] = time.perf_counter() - t_val
                 for name, tag in ((avg_val_loss, "Loss/val_epoch"), (val_acc, "Accuracy/val"),
                                   (val_cer, "CER/val"), (val_wer, "WER/val")):
@@ -654,7 +669,10 @@ def run_training(cfg: Config, device: str = "cuda", eval_callback=None) -> Dict:
         writer.close()
     logger.info("Training finished.")
     result.update({"val_acc": best_val_acc, "val_loss": best_val_loss, "exp_dir": exp_dir,
-                   "global_step": global_step})
+                   "global_step": global_step, "tp_report": tp_report,
+                   "state_bytes": _state_bytes(state)})
+    if dev.type == "cuda":
+        result["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     # export the serving artifact from the requested slot (a preempted run
     # exports when it resumes; a pruned trial is thrown away)
     if export_req and is_lead and not result.get("preempted") and not result.get("pruned"):
@@ -704,14 +722,26 @@ def _export_artifact(req: Dict, slot_path: str, charset_path: str, exp_dir: str,
     return out_dir
 
 
+def _state_bytes(state) -> Dict[str, int]:
+    """This rank's bytes of parameters, gradients and optimizer moments (on
+    a model axis, its blocks)."""
+    params = list(state.model.parameters())
+    moments = [t for p in params for t in state.optimizer.state.get(p, {}).values()
+               if isinstance(t, torch.Tensor) and t.dim() > 0]
+    return {"params": sum(p.numel() * p.element_size() for p in params),
+            "grads": sum(p.grad.numel() * p.grad.element_size() for p in params
+                         if p.grad is not None),
+            "optimizer": sum(t.numel() * t.element_size() for t in moments)}
+
+
 def _validate(val_loaders, eval_step, state, charset: Charset, max_len: int, writer,
-              epoch: int, show_progress: bool):
+              epoch: int, show_progress: bool, data_group=None):
     """Loss, accuracy, CER and WER per validation set (TensorBoard) and in
     total (returned, with the number of batches): teacher-forced loss,
     greedy attention decodes, or the collapsed CTC frame argmaxes for a CTC
     head.  Under a group the losses are global per batch (the eval step's)
-    and the text metrics of each rank's rows are summed over the ranks, so
-    every rank returns the same numbers."""
+    and the text metrics of each data index's rows are summed over the data
+    group, so every rank returns the same numbers."""
     itos = list(charset.itos)
     total_loss = 0.0
     total_batches = total_n = total_correct = 0
@@ -746,7 +776,7 @@ def _validate(val_loaders, eval_step, state, charset: Charset, max_len: int, wri
         n_set, n_correct, cer_sum, wer_sum = global_metric_sum([
             len(refs), sum(1 for r, h in zip(refs, hyps) if r == h),
             sum(character_error_rate(r, h) for r, h in zip(refs, hyps)),
-            sum(word_error_rate(r, h) for r, h in zip(refs, hyps))])
+            sum(word_error_rate(r, h) for r, h in zip(refs, hyps))], data_group)
         n_set, n_correct = int(n_set), int(n_correct)
         writer.add_scalar(f"Loss/val_set_{i}", set_loss / max(1, set_batches), epoch)
         writer.add_scalar(f"Accuracy/val_set_{i}", n_correct / max(1, n_set), epoch)

@@ -27,6 +27,18 @@ the global gradient and every rank returns the global losses.  The eval
 step's losses are global the same way.  Without a group nothing of this
 runs and the arithmetic is the same.
 
+On a model axis (a model placed by
+:func:`rcnn_ocr_tpu_torch.interop.jax_params.shard_model`, whose
+``model.mesh`` the steps read) every reduction above runs over the data
+group: the ranks of one data row hold the same rows and draw the same
+masks, a replicated parameter's gradient is already the same on each of
+them, and a sharded one's is this rank's block.  The optimizer, the clip
+(:func:`rcnn_ocr_tpu_torch.training.optim.clip_by_global_norm_`), the
+microbatches and the EMA work on each rank's blocks.  ``train_step``
+counts the host seconds and the bytes of the model axis's collectives
+(``tp_collective_s``, ``tp_collective_bytes``) beside the gradient
+all_reduce's ``allreduce_s``.
+
 ``grad_accum=A > 1`` takes the batch stacked ``[A, B/A, ...]`` like JAX's
 and runs the A microbatches in turn at fixed parameters: the update uses
 the mean of their gradients, and batch norm's running statistics advance
@@ -49,7 +61,7 @@ from rcnn_ocr_tpu_torch.inference import resolve_device
 from rcnn_ocr_tpu_torch.ops import augment as augment_ops
 from rcnn_ocr_tpu_torch.ops.augment import device_normalize
 from rcnn_ocr_tpu_torch.ops.ctc import ctc_loss
-from rcnn_ocr_tpu_torch.parallel.mesh import batch_shard, global_sum, sum_into_place
+from rcnn_ocr_tpu_torch.parallel.mesh import TP_TRAFFIC, batch_shard, global_sum, sum_into_place
 from rcnn_ocr_tpu_torch.training.optim import OptimizerSpec
 
 HEADS = ("attention", "ctc", "both")
@@ -175,7 +187,8 @@ def make_train_step(model: nn.Module, tx: OptimizerSpec, max_len: int, pad_id: i
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         sums: Dict[str, torch.Tensor] = {}
-        with batch_shard() as shard:
+        tp0 = TP_TRAFFIC["seconds"], TP_TRAFFIC["bytes"]
+        with batch_shard(getattr(model, "mesh", None)) as shard:
             for a in range(grad_accum):
                 micro = batch if grad_accum == 1 else {k: v[a] for k, v in batch.items()}
                 total, losses = loss_fn(micro, generator)
@@ -187,10 +200,12 @@ def make_train_step(model: nn.Module, tx: OptimizerSpec, max_len: int, pad_id: i
             names = list(sums)
             loss_vec = torch.stack([sums[k] for k in names]).float()
             grads = [p.grad for p in model.parameters() if p.grad is not None]
-            sum_into_place(grads + [loss_vec])
+            sum_into_place(grads + [loss_vec], shard.group)
             sums = dict(zip(names, loss_vec.unbind()))
             train_step.allreduce_s += time.perf_counter() - t0
         tx.apply(opt)
+        train_step.tp_collective_s += TP_TRAFFIC["seconds"] - tp0[0]
+        train_step.tp_collective_bytes += TP_TRAFFIC["bytes"] - tp0[1]
         if ema_decay > 0.0:
             d = float(ema_decay)
             names = list(state.ema_params)
@@ -206,6 +221,10 @@ def make_train_step(model: nn.Module, tx: OptimizerSpec, max_len: int, pad_id: i
     # copies through the host, so this holds the copies and the wait for
     # the slowest rank; NCCL's is the enqueue
     train_step.allreduce_s = 0.0
+    # host seconds and bytes of the model axis's collectives (gathers,
+    # input-gradient sums, the clip's norm): none without a model axis
+    train_step.tp_collective_s = 0.0
+    train_step.tp_collective_bytes = 0
     return train_step
 
 
@@ -249,12 +268,12 @@ def make_eval_step(model: nn.Module, max_len: int, pad_id: int, head: str = "att
                 p.data = own[n]
 
     def evaluate(device: torch.device, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        with batch_shard() as shard:
+        with batch_shard(getattr(model, "mesh", None)) as shard:
             out = evaluate_rows(device, batch)
             if shard is not None:  # the ranks' shares of the losses -> global losses
                 names = [k for k in out if k.endswith("val_loss")]
                 losses = torch.stack([out[k] for k in names]).float()
-                sum_into_place([losses])
+                sum_into_place([losses], shard.group)
                 out.update(zip(names, losses.unbind()))
         return out
 

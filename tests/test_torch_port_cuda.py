@@ -772,3 +772,32 @@ def test_kernels_launch_on_the_tensors_card_from_another_current_card(cuda_devic
                                rtol=8e-3, atol=1e-6)
     torch.testing.assert_close(out["lstm"], scan_reference(xs, w_hh, 256), rtol=1e-5,
                                atol=1e-5)
+
+
+def test_model_axis_functions_over_two_gloo_ranks_on_the_card(cuda_device, tmp_path):
+    """Tensor parallelism on one card runs as gloo ranks on cuda:0: every
+    model-axis collective is an all_reduce of a card's tensor (gathers too,
+    over a zeroed buffer), which gloo serves through the host.  Two ranks
+    run each autograd Function forward and backward on known values, and a
+    channels-last conv output gathered along its channels, in fp32 and bf16
+    (summed in fp32 over gloo), and must give them exactly."""
+    import subprocess
+    import sys
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    repo = os.path.dirname(tests)
+    sys.path.insert(0, tests)
+    import torch_port_tp_worker as worker
+
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         os.path.join(tests, "torch_port_tp_worker.py"), str(tmp_path), "1", "2",
+         "--units-only-on", "cuda:0"],
+        env=dict(os.environ, PYTHONPATH=repo), capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-5000:]
+    for r in range(2):
+        got = dict(np.load(tmp_path / f"rank{r}.npz"))
+        assert int(got["model_index"]) == r
+        for dtype in ("fp32", "bf16"):
+            worker.assert_units(got, f"{dtype}_unit_")
+

@@ -36,7 +36,7 @@ too) and are held to the same work in one process, and to JAX:
 * Units: ``ProcessShardedBatchSampler`` against JAX's on the same global
   batches (carry included), the loader's global row seeds,
   ``global_metric_sum`` over 2 ranks, ``make_mesh``'s fallback warning and
-  its refusal of a ``model`` axis.
+  its ``model`` axis (tensor parallelism itself: ``test_torch_port_tp.py``).
 """
 
 import csv
@@ -465,21 +465,36 @@ def test_make_mesh_falls_back_and_refuses_a_model_axis():
         warnings.simplefilter("always")
         m = mesh.make_mesh((4, 1), ("data", "model"), devices=range(4))
     assert m.shape == {"data": 4, "model": 1} and not caught
-    for shape in ((2, 2), (1, 2), (3, 2)):
-        with pytest.raises(NotImplementedError, match="queue 1: tensor parallelism"):
-            mesh.make_mesh(shape, ("data", "model"), devices=range(4))
+    # a model axis builds, as JAX's make_mesh does; (3, 2) does not tile 4
+    # ranks and falls back to pure data parallelism with JAX's warning
+    for shape in ((2, 2), (1, 4)):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            m = mesh.make_mesh(shape, ("data", "model"), devices=range(4))
+        assert m.shape == dict(zip(("data", "model"), shape)) and not caught
+        assert (m.n_data, m.n_model) == shape
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        m = mesh.make_mesh((3, 2), ("data", "model"), devices=range(4))
+    assert m.shape == {"data": 4, "model": 1}
+    assert any("falling back" in str(w.message) for w in caught)
+    m = mesh.make_mesh((1, 2), ("data", "model"), devices=range(2))
+    assert (m.n_data, m.n_model) == (1, 2)
 
 
 def test_config_docstring_says_what_mesh_shape_does():
     """``training/config.py`` said a ``mesh_shape`` over more than one device
     raises; since data parallelism was ported it runs over the ranks, and
-    only a ``model`` axis over 1 raises."""
+    since tensor parallelism was ported a ``model`` axis over 1 shards the
+    weights."""
     from rcnn_ocr_tpu_torch.training import config
 
     doc = " ".join(config.__doc__.split())
     assert "raises there" not in doc
     assert "``mesh_shape`` over more than one device runs data parallelism" in doc
-    assert "a ``model`` axis over 1 raises" in doc
+    assert "a ``model`` axis over 1 raises" not in doc
+    assert ("a ``model`` axis over 1 also shards the big weights over the ranks of each "
+            "data row") in doc
 
 
 def test_no_group_is_one_process():

@@ -507,10 +507,10 @@ def test_device_augment_and_the_refusals(tiny):
     assert np.isfinite(result["val_loss"])
     with pytest.raises(ValueError, match="p_EdgeCrop"):
         run_training(_cfg(tiny, "edge", device_augment=True, p_EdgeCrop=0.5), device="cpu")
-    # a model axis (tensor parallelism) is refused; a data axis that does not
-    # tile the one process falls back to it with a warning, as in JAX
-    with pytest.raises(NotImplementedError, match="queue 1: tensor parallelism"):
-        run_training(_cfg(tiny, "no_mesh_shape", mesh_shape=[1, 2],
+    # a model axis of 2 does not tile the one process, and a data axis of 2
+    # neither: each falls back to it with a warning, as in JAX
+    with pytest.warns(UserWarning, match="falling back"):
+        run_training(_cfg(tiny, "no_mesh_shape", epochs=1, mesh_shape=[1, 2],
                           mesh_axes=["data", "model"]), device="cpu")
     with pytest.warns(UserWarning, match="falling back"):
         run_training(_cfg(tiny, "mesh_fallback", epochs=1, mesh_shape=[2]), device="cpu")
