@@ -21,6 +21,9 @@
    streaming route and bf16 the resident one in clusters of 16, each held
    against the plain version and timed warm and cold beside its bound and
    cuDNN's ``nn.LSTM(512->512)`` and ``nn.LSTM(1024->512)``, bidirectional.
+   A check that fails here names the worst value's index, launches the
+   kernel once more and says whether it is bit-equal, and gives the kernel's
+   and the plain version's distance from the function in fp64.
 4. Main path: a seeded full-width model (width 1.0, hidden 256, 194 classes
    from configs/charset.txt, both heads) handed through ``to_jax_variables``
    to the public ``OCRInference``, which decodes 512 seeded uint8 line
@@ -197,6 +200,25 @@
    prints the string the engine it built gives through ``predict`` /
    ``predict_serving`` at batch 1; the subprocess prints the in-process
    greedy string, and ``--lm-weight`` without a beam raises ValueError.
+7f. Synthetic phase (files under build/chip_smoke/synthetic/): the port's
+   line generator (``data/synthetic.py``: the hand-written TrueType reader
+   and rasterizer, the effects, the JPEG encoder; host C++ built from the
+   repo's sources at first use) with the carried font
+   tests/torch_port_data/fonts/DejaVuSans.ttf.  A seeded set a difficulty
+   must give tests/torch_port_data/synthetic/expected.json's sha256 of its
+   CSV and of every image's pixels (this host's bytes are the CPU's).  The
+   CLI's default dataset (512 train + 128 val medium lines at img_h 48,
+   charset.txt, config.json with one epoch) and 128 hard lines are written
+   through ``generate_dataset``, printing lines/s and host ms per line per
+   stage (glyphs, warp, blur, noise, JPEG, resize, PNG write); ``python -m
+   rcnn_ocr_tpu_torch.make_synthetic_dataset`` runs as a subprocess on 64
+   + 16 lines where the host has fonts (else a line says it has none);
+   ``python -m rcnn_ocr_tpu_torch.training.train`` trains the written
+   config.json (the shipped model, batch 128, one epoch): finite losses,
+   11 + 2 launches per train step and validation batch (the ``synthetic``
+   path); ``python -m rcnn_ocr_tpu_torch.evaluate`` on val/eval.csv reads
+   all 128 rows and prints the accuracy (not held).  The phase must end
+   within 120 s.
 8. Training phase.  (a) Gradient check: the same full-width model in fp32
    at batch 32, train mode, head "both" with dropout, DropBlock and
    sampling off, one ``make_train_step`` (SGD at lr 0, so the weights stay)
@@ -256,11 +278,12 @@
    a batch (the ``checkpoint_average`` path), its exactly-right count
    printed beside last_weights' and each tool's wall time.  Last, ``python -m
    rcnn_ocr_tpu_torch.evaluate`` runs as a subprocess on last_weights.msgpack
-   over set B's validation PNGs, ``--decode ctc_beam`` and then
+   over set B's validation PNGs, ``--decode ctc_beam`` and
    ``--decode attention_beam`` with a bigram table of the training labels
    and ``--lm-weight 0,0.5``: each must exit 0 and write a report of all 256
    rows and a per-sample CSV of 256 rows; their wall times are printed.
-   Then ``--decode ctc_greedy`` over a CSV of the 33 lines of the newest
+   Beside them (four processes on the card at once), ``--decode
+   ctc_greedy`` over a CSV of the 33 lines of the newest
    formats (G4 and G3 TIFF, JPEG-in-TIFF, YCbCr TIFF, 1-bit and RLE8 BMP,
    lossy WebP, lossless WebP with alpha, interlaced GIF, binary PGM, JPEG
    2000, Sun raster, PFM, HDR, lossless JPEG, BigTIFF, CIELab TIFF)
@@ -468,6 +491,14 @@ LOOP_SMALL, LOOP_SMALL_TRAIN, LOOP_PROFILE_STEPS = 640, 512, 4
 # to validate
 DP_TIMEOUT_S, DP_RUN_TIMEOUT_S, HPO_TRIALS, HPO_EPOCHS = 120, 400, 3, 2
 DP_TRAIN, DP_VAL = LOOP_TRAIN // 2, LOOP_VAL // 2
+# synthetic phase: the generator CLI's defaults (512 + 128 medium lines at
+# img_h 48, seed 0) and SYNTH_HARD hard lines for the JPEG stage, from the
+# carried font; the written config trains one epoch; the CLI itself runs on
+# SYNTH_CLI_TRAIN + SYNTH_CLI_VAL lines where the host has fonts
+SYNTH_TRAIN, SYNTH_VAL, SYNTH_HARD, SYNTH_CLI_TRAIN, SYNTH_CLI_VAL = 512, 128, 128, 64, 16
+SYNTH_FONT = os.path.join(REPO, "tests", "torch_port_data", "fonts", "DejaVuSans.ttf")
+SYNTH_EXPECTED = os.path.join(REPO, "tests", "torch_port_data", "synthetic", "expected.json")
+SYNTH_PHASE_S = 120.0
 
 TOL = {
     # kernel vs plain, same inputs; fp32: summation order only
@@ -516,8 +547,17 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def held(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float, what: str) -> float:
-    """Max abs error of ``got`` vs ``want``; raises beyond ``atol + rtol*|want|``."""
+def held(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float, what: str,
+         again=None, exact=None) -> float:
+    """Max abs error of ``got`` vs ``want``; raises beyond ``atol + rtol*|want|``.
+
+    Where the kernel's output ``got`` is held, ``again()`` launches it once
+    more on the same inputs and ``exact()`` computes the function in fp64.
+    They are called only when the check fails, and the check fails all the
+    same: the message then says where the worst value lies, whether the
+    second launch is bit-equal to the first, and how far the kernel and
+    the plain version each lie from fp64, which tells a kernel that is
+    wrong or not deterministic from a plain version that rounds worse."""
     got, want = got.float(), want.float()
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
     err = (got - want).abs()
@@ -525,7 +565,22 @@ def held(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float, what: 
     max_abs = err.max().item()
     print(f"  {what}: max abs err {max_abs:.3e}, {int((err > 0).sum())} of {err.numel()} "
           f"differ (rtol {rtol}, atol {atol})")
-    check(excess <= 0, f"{what}: outside rtol {rtol} / atol {atol} (max abs err {max_abs:.3e})")
+    if excess > 0:
+        worst = np.unravel_index(int(err.argmax()), tuple(err.shape))
+        msg = (f"{what}: outside rtol {rtol} / atol {atol} (max abs err {max_abs:.3e} at "
+               f"index {tuple(int(i) for i in worst)}: kernel {got[worst].item():.9g}, "
+               f"plain {want[worst].item():.9g})")
+        if again is not None:
+            second = again().float()
+            moved = (second != got).sum().item()
+            msg += (f"; a second launch is bit-equal to the first" if moved == 0 else
+                    f"; a second launch differs from the first in {moved} values (max "
+                    f"{(second - got).abs().max().item():.3e})")
+        if exact is not None:
+            ref = exact().double()
+            msg += (f"; max abs err vs fp64: kernel {(got.double() - ref).abs().max().item():.3e}"
+                    f", plain {(want.double() - ref).abs().max().item():.3e}")
+        check(False, msg)
     return max_abs
 
 
@@ -581,6 +636,25 @@ def build(kernels) -> None:
                 print(f"    {line.strip()}")
 
 
+def se_scale_fp64(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """K1's function in fp64 (for the message of a failed check)."""
+    x = x.double()
+    g = torch.sigmoid(torch.relu(x.mean(dim=(1, 2)) @ w1.double()) @ w2.double())
+    return x * g[:, None, None, :]
+
+
+def scan_fp64(xs: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> torch.Tensor:
+    """K2's recurrence in fp64 (for the message of a failed check)."""
+    from rcnn_ocr_tpu_torch.models.lstm import lstm_cell_gates
+
+    h = xs.new_zeros((2, xs.shape[2], hidden), dtype=torch.float64)
+    c, w, ys = torch.zeros_like(h), w_hh.double(), []
+    for x in xs:
+        h, c = lstm_cell_gates(x.double() + torch.bmm(h, w), c, hidden)
+        ys.append(h)
+    return torch.stack(ys)
+
+
 def kernel_phase(gen: torch.Generator):
     from rcnn_ocr_tpu_torch.ops.bilstm_scan import bilstm_scan, scan_reference
     from rcnn_ocr_tpu_torch.ops.bilstm_scan import route as lstm_route
@@ -608,7 +682,9 @@ def kernel_phase(gen: torch.Generator):
                       f"se_scale [{b},{h},{w},{c}] {name} took the {plan['route']} route")
                 xb = torch.randn(b, h, w, c, device=dev, generator=gen).to(dt)
                 err = held(se_scale(xb, w1, w2), se_scale_reference(xb, w1, w2), what=
-                           f"se_scale [{b},{h},{w},{c}] {name} vs plain", **tol)
+                           f"se_scale [{b},{h},{w},{c}] {name} vs plain",
+                           again=lambda: se_scale(xb, w1, w2),
+                           exact=lambda: se_scale_fp64(xb, w1, w2), **tol)
                 errs.append(err)
                 nbytes = 2 * xb.numel() * xb.element_size() + 2 * c * s * 4
                 sets = cold_sets(lambda: (torch.randn(b, h, w, c, device=dev, generator=gen)
@@ -649,7 +725,8 @@ def kernel_phase(gen: torch.Generator):
             xs = torch.randn(T, 2, b, 4 * H, device=dev, generator=gen)
             err = held(bilstm_scan(xs, w_hh, H), scan_reference(xs, w_hh, H),
                        what=f"bilstm_scan [{T},2,{b},{4 * H}] w_hh {name} vs plain",
-                       **TOL["fp32"])
+                       again=lambda: bilstm_scan(xs, w_hh, H),
+                       exact=lambda: scan_fp64(xs, w_hh, H), **TOL["fp32"])
             errs.append(err)
             flop = 2 * T * 2 * b * H * 4 * H
             nbytes = xs.numel() * 4 + T * 2 * b * H * 4 + w_hh.numel() * w_hh.element_size()
@@ -686,7 +763,8 @@ def kernel_phase(gen: torch.Generator):
             xs = torch.randn(T, 2, b, 4 * H2, device=dev, generator=gen)
             err = held(bilstm_scan(xs, w_hh, H2), scan_reference(xs, w_hh, H2),
                        what=f"bilstm_scan [{T},2,{b},{4 * H2}] w_hh {name} vs plain",
-                       **TOL["fp32"])
+                       again=lambda: bilstm_scan(xs, w_hh, H2),
+                       exact=lambda: scan_fp64(xs, w_hh, H2), **TOL["fp32"])
             errs.append(err)
             flop = 2 * T * 2 * b * H2 * 4 * H2
             nbytes = xs.numel() * 4 + T * 2 * b * H2 * 4 + w_hh.numel() * w_hh.element_size()
@@ -3773,9 +3851,12 @@ def checkpoint_tools(kernels, exp_dir: str, val_paths, rows, last_texts, power: 
 def eval_cli_runs(weights: str, val_dir: str, rows, train_csvs, cs) -> dict:
     """``python -m rcnn_ocr_tpu_torch.evaluate`` as a user runs it, on the
     loop's last weights over set B's validation PNGs: ``--decode ctc_beam``,
-    then ``attention_beam`` with a bigram LM from the training labels and an
-    LM-weight sweep.  Each must exit 0 and write a report of all rows and a
-    per-sample CSV of as many rows."""
+    and ``attention_beam`` with a bigram LM from the training labels and an
+    LM-weight sweep, each from a folder of its own, side by side with each
+    other and with :func:`eval_cli_variants`' pair (four processes on the
+    card; each wall is a process's start to its exit among the others).
+    Each must exit 0 and write a report of all rows and a per-sample CSV of
+    as many rows."""
     import csv
 
     from rcnn_ocr_tpu_torch.lm import iter_labels, save_lm, train_bigram_lm
@@ -3796,30 +3877,34 @@ def eval_cli_runs(weights: str, val_dir: str, rows, train_csvs, cs) -> dict:
             "attention_beam_lm_sweep": ["--decode", "attention_beam", "--lm", lm_path,
                                         "--lm-weight", f"0,{LM_WEIGHT}"]}
     env = dict(os.environ, PYTHONPATH=REPO)
-    out = {}
+    procs, out = {}, {}
     for name, extra in runs.items():
-        report = os.path.join(work, f"{name}.json")
-        t0 = time.perf_counter()
-        proc = subprocess.run(base + extra + ["--report-json", report], cwd=work, env=env,
-                              capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
+        folder = os.path.join(work, name)
+        os.makedirs(folder)
+        procs[name] = popen_logged(base + extra + ["--report-json",
+                                                   os.path.join(folder, "report.json")],
+                                   os.path.join(folder, "log"), env, timeout=600, cwd=folder)
+    out["variant_formats"] = eval_cli_variants(weights, work, env)
+    for name, (proc, logs) in procs.items():
+        stdout, stderr = wait_logged(proc, logs)
         check(proc.returncode == 0, f"evaluate {name} exited {proc.returncode}:\n"
-                                    f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
-        with open(report, encoding="utf-8") as f:
+                                    f"{stdout[-3000:]}{stderr[-3000:]}")
+        folder = os.path.join(work, name)
+        with open(os.path.join(folder, "report.json"), encoding="utf-8") as f:
             payload = json.load(f)
         metrics = payload["sweep"] if "sweep" in payload else [payload]
         check(all(m["n"] == len(rows) for m in metrics), f"evaluate {name}: report {payload}")
-        with open(os.path.join(work, f"evaluation_results_{os.path.basename(weights)}.csv"),
+        with open(os.path.join(folder, f"evaluation_results_{os.path.basename(weights)}.csv"),
                   encoding="utf-8") as f:
             sample_rows = list(csv.reader(f))[1:]
         check(len(sample_rows) == len(rows), f"evaluate {name}: {len(sample_rows)} sample rows")
-        out[name] = dict(wall_s=wall, metrics=metrics)
-        print(f"  python -m rcnn_ocr_tpu_torch.evaluate {' '.join(extra)}: exit 0 in {wall:.1f} s "
-              f"wall (one process: start, build check, load, {len(rows)} PNGs); " + "; ".join(
+        out[name] = dict(wall_s=logs["wall_s"], metrics=metrics)
+        print(f"  python -m rcnn_ocr_tpu_torch.evaluate {' '.join(runs[name])}: exit 0 in "
+              f"{logs['wall_s']:.1f} s wall (one process: start, build check, load, {len(rows)} "
+              f"PNGs; beside three others); " + "; ".join(
                   f"accuracy {m['accuracy']:.4f}, CER {m['cer']:.4f}, WER {m['wer']:.4f}"
                   + (f" at lm_weight {m['lm_weight']}" if "lm_weight" in m else "")
                   for m in metrics))
-    out["variant_formats"] = eval_cli_variants(weights, work, env)
     return out
 
 
@@ -3891,6 +3976,151 @@ def eval_cli_variants(weights: str, work: str, env: dict) -> dict:
 
 # --- scale-out: data parallelism across processes, and the HPO driver -----------
 
+def synthetic_fixtures():
+    """tests/torch_port_data/make_synthetic_fixtures.py as a module: the
+    seeded sets and the digest recipe expected.json was written with."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_synthetic_fixtures", os.path.join(os.path.dirname(SYNTH_EXPECTED), "..",
+                                                "make_synthetic_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def synthetic_phase(power: str) -> dict:
+    """The port's synthetic generator on the card's host, then its dataset on
+    the card.  Builds the host libraries it needs (the TrueType reader and
+    the JPEG encoder) from the repo's sources; holds a seeded set a
+    difficulty from the carried font to ``expected.json``'s digest (the
+    bytes this host gives must be the CPU's); writes the CLI's default
+    dataset (512 + 128 medium lines, img_h 48, charset, config with one
+    epoch) through ``generate_dataset`` with the carried font, and 128 hard
+    lines, printing lines/s and host ms per line per stage; runs ``python
+    -m rcnn_ocr_tpu_torch.make_synthetic_dataset`` where the host has fonts
+    (beside the training); trains the written config.json (the shipped
+    model, bs 128, one epoch) with ``python -m
+    rcnn_ocr_tpu_torch.training.train``: finite losses and 11 + 2 launches
+    a batch; then ``python -m rcnn_ocr_tpu_torch.evaluate`` on val/eval.csv
+    (every row read; the accuracy printed, not held).  Within
+    SYNTH_PHASE_S."""
+    from rcnn_ocr_tpu_torch import native
+    from rcnn_ocr_tpu_torch.data import synthetic
+    from rcnn_ocr_tpu_torch.make_synthetic_dataset import write_dataset
+
+    t_phase = time.perf_counter()
+    work = os.path.join(REPO, "build", "chip_smoke", "synthetic")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {}
+    t0 = time.perf_counter()
+    for lib in ("truetype", "jpeg_encode", "jpeg_decode"):
+        native.load(lib)
+    out["host_build_s"] = time.perf_counter() - t0
+    print(f"  host libraries truetype, jpeg_encode, jpeg_decode built or loaded in "
+          f"{out['host_build_s']:.2f} s")
+
+    with open(SYNTH_EXPECTED, encoding="utf-8") as f:
+        expected = json.load(f)
+    digests = synthetic_fixtures().render_digests(os.path.join(work, "digest"))
+    for difficulty, want in expected.items():
+        got = digests[difficulty]
+        bad = [k for k, (a, b) in enumerate(zip(got["images"], want["images"])) if a != b]
+        check(got["csv"] == want["csv"] and not bad,
+              f"synthetic {difficulty}: this host's bytes are not the CPU's (CSV "
+              f"{'equal' if got['csv'] == want['csv'] else 'differs'}, images {bad} differ)")
+    print(f"  digest: {len(expected)} seeded sets ({', '.join(expected)}), "
+          f"{sum(v['n'] for v in expected.values())} lines, equal to expected.json")
+
+    data = os.path.join(work, "data")
+    with synthetic.stage_seconds() as spent:
+        t0 = time.perf_counter()
+        made = write_dataset(data, SYNTH_TRAIN, SYNTH_VAL, fonts=[SYNTH_FONT], epochs=1)
+        gen_s = time.perf_counter() - t0
+    n = SYNTH_TRAIN + SYNTH_VAL
+    out["medium"] = dict(lines=n, seconds=gen_s, lines_per_s=n / gen_s,
+                         ms_per_line={k: v / n * 1e3 for k, v in spent.items()})
+    with synthetic.stage_seconds() as spent:
+        t0 = time.perf_counter()
+        synthetic.generate_dataset(os.path.join(work, "hard"), SYNTH_HARD, difficulty="hard",
+                                   fonts=[SYNTH_FONT])
+        hard_s = time.perf_counter() - t0
+    out["hard"] = dict(lines=SYNTH_HARD, seconds=hard_s, lines_per_s=SYNTH_HARD / hard_s,
+                       ms_per_line={k: v / SYNTH_HARD * 1e3 for k, v in spent.items()})
+    for name in ("medium", "hard"):
+        r = out[name]
+        print(f"  generate {name}: {r['lines']} lines in {r['seconds']:.2f} s, "
+              f"{r['lines_per_s']:.1f} lines/s on the host; ms per line: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in r["ms_per_line"].items()) + f" ({power})")
+
+    fonts = synthetic.discover_fonts()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    cli = None
+    if fonts:
+        cli_cmd = [sys.executable, "-m", "rcnn_ocr_tpu_torch.make_synthetic_dataset", "--out",
+                   os.path.join(work, "cli"), "--n-train", str(SYNTH_CLI_TRAIN), "--n-val",
+                   str(SYNTH_CLI_VAL)]
+        cli = popen_logged(cli_cmd, os.path.join(work, "cli"), env, timeout=SYNTH_PHASE_S)
+    else:
+        print("  make_synthetic_dataset CLI not run: this host has no TrueType fonts under "
+              "/usr/share/fonts or /usr/local/share/fonts")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    result_path = os.path.join(work, "train_result.json")
+    train_cmd = [sys.executable, "-m", "rcnn_ocr_tpu_torch.training.train", made["config"],
+                 "--result-json", result_path]
+    proc, logs = popen_logged(train_cmd, os.path.join(work, "train"), env, timeout=SYNTH_PHASE_S)
+    stdout, stderr = wait_logged(proc, logs)
+    check(proc.returncode == 0, f"synthetic training exited {proc.returncode}:\n"
+                                f"{stdout[-3000:]}{stderr[-5000:]}")
+    with open(result_path, encoding="utf-8") as f:
+        result = json.load(f)
+    losses = epoch_losses(result)
+    check(len(losses) == 1 and all(np.isfinite(v) for v in losses[0]),
+          f"synthetic training: epoch losses {losses}")
+    out["launches"] = dp_launch_check(result, 2, "synthetic training")
+    out["train"] = dict(wall_s=logs["wall_s"], losses=losses, epochs=result["epochs"])
+    print(f"  python -m rcnn_ocr_tpu_torch.training.train {os.path.relpath(made['config'], REPO)}"
+          f": exit 0 in {logs['wall_s']:.1f} s wall, train / val loss {losses[0]}, "
+          f"launches {out['launches']}")
+    if cli is not None:
+        stdout, stderr = wait_logged(*cli)
+        check(cli[0].returncode == 0, f"make_synthetic_dataset exited {cli[0].returncode}:\n"
+                                      f"{stdout[-3000:]}{stderr[-3000:]}")
+        for rel in ("train/labels.csv", "val/eval.csv", "charset.txt", "config.json"):
+            check(os.path.exists(os.path.join(work, "cli", rel)), f"the CLI wrote no {rel}")
+        out["cli"] = dict(wall_s=cli[1]["wall_s"], fonts=len(fonts))
+        print(f"  python -m rcnn_ocr_tpu_torch.make_synthetic_dataset ({len(fonts)} fonts on this "
+              f"host): exit 0 in {cli[1]['wall_s']:.1f} s wall, "
+              f"{SYNTH_CLI_TRAIN} + {SYNTH_CLI_VAL} lines")
+
+    exp = os.path.join(data, "exp")
+    report = os.path.join(work, "eval.json")
+    eval_cmd = [sys.executable, "-m", "rcnn_ocr_tpu_torch.evaluate", "--model",
+                os.path.join(exp, "last_weights.msgpack"), "--charset", made["charset"],
+                "--csv", made["eval_csv"], "--root", os.path.dirname(made["eval_csv"]),
+                "--batch-size", "128", "--report-json", report]
+    t0 = time.perf_counter()
+    proc = subprocess.run(eval_cmd, cwd=work, env=env, capture_output=True, text=True,
+                          timeout=SYNTH_PHASE_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"evaluate exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                                f"{proc.stderr[-3000:]}")
+    with open(report, encoding="utf-8") as f:
+        metrics = json.load(f)
+    check(metrics["n"] == SYNTH_VAL, f"evaluate read {metrics['n']} of {SYNTH_VAL} rows")
+    out["evaluate"] = dict(wall_s=wall, accuracy=metrics["accuracy"], cer=metrics["cer"])
+    print(f"  python -m rcnn_ocr_tpu_torch.evaluate on val/eval.csv: exit 0 in {wall:.1f} s, "
+          f"{metrics['n']} rows, accuracy {metrics['accuracy']:.4f}, CER {metrics['cer']:.4f} "
+          f"(one epoch of random labels: printed, not held)")
+    out["seconds"] = time.perf_counter() - t_phase
+    check(out["seconds"] <= SYNTH_PHASE_S,
+          f"the synthetic phase took {out['seconds']:.1f} s, over {SYNTH_PHASE_S:.0f}")
+    return out
+
+
 def dp_config(paths: dict, exp_dir: str, **overrides) -> dict:
     """configs/config.json on half of set A (its random split for
     validation), 1 epoch in fp32 at the shipped global batch of 128."""
@@ -3944,13 +4174,14 @@ def train_cli_start(name: str, cfg: dict, nproc: int = 0, extra=(), deterministi
     return finish
 
 
-def popen_logged(cmd, stem: str, env: dict, timeout: float = DP_RUN_TIMEOUT_S):
-    """``cmd`` started from the repo with its output in ``stem``.out and
-    ``stem``.err (files, not pipes: nothing stalls while another process is
-    waited for), killed past ``timeout``; a thread notes when it ends."""
+def popen_logged(cmd, stem: str, env: dict, timeout: float = DP_RUN_TIMEOUT_S,
+                 cwd: str = REPO):
+    """``cmd`` started from ``cwd`` (the repo) with its output in ``stem``.out
+    and ``stem``.err (files, not pipes: nothing stalls while another process
+    is waited for), killed past ``timeout``; a thread notes when it ends."""
     logs = {"paths": (stem + ".out", stem + ".err"), "t0": time.perf_counter()}
     with open(logs["paths"][0], "w") as out, open(logs["paths"][1], "w") as err:
-        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=out, stderr=err, text=True)
+        proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=out, stderr=err, text=True)
 
     def watch():
         try:
@@ -4408,6 +4639,9 @@ def main() -> int:
     print("cli phase")
     cli = cli_phase(kernels, variables, images, power)
     timed("cli")
+    print("synthetic phase")
+    synth = synthetic_phase(power)
+    timed("synthetic")
     del variables
     print("training phase")
     from rcnn_ocr_tpu_torch.vocab.charset import Charset
@@ -4437,6 +4671,7 @@ def main() -> int:
                    "model_options": options["launch_counts"][name],
                    "mesh": mesh["launch_counts"][name],
                    "cli": cli["launch_counts"][name],
+                   "synthetic": synth["launches"][name],
                    "train": train["launch_counts"][name],
                    "train_loop": loop["launches"][name],
                    "checkpoint_average": loop["ckpt_tools"]["launch_counts"][name],
@@ -4452,7 +4687,7 @@ def main() -> int:
             check(n > 0, f"{name} never launched on the {p} path")
     result = {"card": power, "kernels": rows, "main_path": path, "beam": beams,
               "serving": serving, "daemon": daemon, "long_lines": long_line,
-              "int8_artifacts": int8, "model_options": options, "mesh": mesh, "cli": cli,
+              "int8_artifacts": int8, "model_options": options, "mesh": mesh, "cli": cli, "synthetic": synth,
               "training": training, "training_loop": loop, "scale_out": scale,
               "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}
     if args.json_out:

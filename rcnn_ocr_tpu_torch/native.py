@@ -1,14 +1,16 @@
 """ctypes bindings of the port's host C++: the CTC prefix beam search, the
 serving letterbox, the JPEG decoder, TIFF's LZW and CCITT fax decoders,
-GIF's LZW decoder, WebP's VP8 and VP8L decoders and the JPEG 2000
-codestream decoder.
+GIF's LZW decoder, WebP's VP8 and VP8L decoders, the JPEG 2000
+codestream decoder, and the synthetic generator's JPEG encoder and
+TrueType reader.
 
 The sources are ``rcnn_ocr_tpu_torch/csrc/host/ctc_beam.cpp`` (the search of
 the JAX package's ``native/ctc_beam.cpp``), ``csrc/host/letterbox.cpp`` (its
 ``native/letterbox.cpp``), kept as the port's own copies, and
 ``csrc/host/jpeg_decode.cpp``, ``csrc/host/tiff_decode.cpp``,
-``csrc/host/gif_decode.cpp``, ``csrc/host/webp_decode.cpp`` and
-``csrc/host/j2k_decode.cpp`` (the port's own: JAX decodes with cv2).  At
+``csrc/host/gif_decode.cpp``, ``csrc/host/webp_decode.cpp``,
+``csrc/host/j2k_decode.cpp``, ``csrc/host/jpeg_encode.cpp`` and
+``csrc/host/truetype.cpp`` (the port's own: JAX uses cv2 and PIL).  At
 first use each is compiled with ``g++ -O3 -std=c++17 -fPIC -shared -pthread
 -ffp-contract=off`` (no fused multiply-add, so the JPEG 2000 decoder's float
 wavelet rounds as OpenJPEG's) into
@@ -21,7 +23,8 @@ Python.  Bound: the batched beam entry points
 ``rcnn_jpeg_decode_frame``, ``rcnn_tiff_lzw_decode``, ``rcnn_tiff_sgilog16_decode``,
 ``rcnn_tiff_fax_decode``,
 ``rcnn_gif_lzw_decode``, ``rcnn_webp_vp8l_decode``, ``rcnn_webp_vp8_decode``,
-``rcnn_j2k_header`` and ``rcnn_j2k_decode``.
+``rcnn_j2k_header``, ``rcnn_j2k_decode``, ``rcnn_jpeg_encode_gray`` and the
+``rcnn_tt_*`` font entry points (``data/truetype.py`` wraps them).
 A ctypes call releases
 the interpreter lock, so threads decode in parallel.
 """
@@ -87,6 +90,23 @@ ENTRIES = {
                     # data, n, width, height, out, msg, msg_len
                     "rcnn_webp_vp8_decode": [ctypes.c_char_p, _I64, _I64, _I64,
                                              ctypes.POINTER(ctypes.c_uint8), ctypes.c_char_p, _I64]},
+    # image, h, w, quality, out, cap, msg, msg_len
+    "jpeg_encode": {"rcnn_jpeg_encode_gray": [ctypes.POINTER(ctypes.c_uint8), _I64, _I64, _I64,
+                                              ctypes.POINTER(ctypes.c_uint8), _I64, ctypes.c_char_p,
+                                              _I64]},
+    # data, n, handle | handle, size, text, n, ...; then msg, msg_len
+    "truetype": {"rcnn_tt_open": [ctypes.c_char_p, _I64, _P64, ctypes.c_char_p, _I64],
+                 "rcnn_tt_close": [_I64],
+                 # handle, size, text, n, ids, advances, offsets, cap
+                 "rcnn_tt_shape": [_I64, _I64, ctypes.POINTER(ctypes.c_uint32), _I64, _P32, _P64,
+                                   _P64, _I64, ctypes.c_char_p, _I64],
+                 # handle, size, text, n, box[6]
+                 "rcnn_tt_text_box": [_I64, _I64, ctypes.POINTER(ctypes.c_uint32), _I64, _P64,
+                                      ctypes.c_char_p, _I64],
+                 # handle, size, text, n, canvas, h, w, x, y, ink
+                 "rcnn_tt_draw": [_I64, _I64, ctypes.POINTER(ctypes.c_uint32), _I64,
+                                  ctypes.POINTER(ctypes.c_uint8), _I64, _I64, _I64, _I64, _I64,
+                                  ctypes.c_char_p, _I64]},
     # data, n, info | out, total; then msg, msg_len
     "j2k_decode": {"rcnn_j2k_header": [ctypes.c_char_p, _I64, _P64, ctypes.c_char_p, _I64],
                    "rcnn_j2k_decode": [ctypes.c_char_p, _I64, _P32, _I64, ctypes.c_char_p, _I64]},
@@ -280,6 +300,30 @@ def jpeg_decode_frame(data: bytes, ycbcr: bool, fancy: bool = True) -> np.ndarra
     if res == 0:
         return out
     raise ValueError(f"damaged JPEG data: {msg.value.decode('utf-8', 'replace')}")
+
+
+def jpeg_encode_gray(img: np.ndarray, quality: int) -> bytes:
+    """A gray uint8 ``[H, W]`` image as a baseline JPEG, the bytes
+    ``cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, quality])`` gives
+    (libjpeg-turbo's defaults: JFIF, the quality-scaled standard table, the
+    standard Huffman tables, the ISLOW DCT)."""
+    lib = load("jpeg_encode")
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    if img.ndim != 2:
+        raise ValueError(f"jpeg_encode_gray takes a [H, W] image, got shape {img.shape}")
+    msg = ctypes.create_string_buffer(256)
+    out = np.empty(img.size + 1024, np.uint8)
+    for _ in range(2):
+        n = lib.rcnn_jpeg_encode_gray(img.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                                      img.shape[0], img.shape[1], int(quality),
+                                      out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.size,
+                                      msg, len(msg))
+        if n < 0:
+            raise ValueError(msg.value.decode("utf-8", "replace"))
+        if n <= out.size:
+            return out[:n].tobytes()
+        out = np.empty(n, np.uint8)
+    raise RuntimeError("rcnn_jpeg_encode_gray changed its length between two calls")
 
 
 def tiff_lzw_decode(data: bytes, size: int, old_style: bool = False) -> bytes:

@@ -2,7 +2,7 @@
 
 * a fresh interpreter imports every module of ``rcnn_ocr_tpu_torch`` and
   runs a tiny CPU forward, then must hold none of jax, flax, optax, cv2,
-  PIL, msgpack or ``rcnn_ocr_tpu`` in ``sys.modules``;
+  PIL, fontTools, msgpack or ``rcnn_ocr_tpu`` in ``sys.modules``;
 * a source scan finds no such import in the package or in chip_smoke.py.
 """
 
@@ -15,7 +15,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cv2", "PIL", "msgpack", "rcnn_ocr_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cv2", "PIL", "fontTools", "msgpack", "rcnn_ocr_tpu"}
 SOURCES = sorted((REPO / "rcnn_ocr_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 _PROBE = r"""
@@ -74,6 +74,7 @@ def test_port_sources_are_not_gitignored():
     assert csrc / "host" / "ctc_beam.cpp" in files
     assert csrc / "host" / "letterbox.cpp" in files
     assert csrc / "host" / "j2k_decode.cpp" in files
+    assert {csrc / "host" / "truetype.cpp", csrc / "host" / "jpeg_encode.cpp"} <= set(files)
     port = REPO / "rcnn_ocr_tpu_torch"
     assert port / "parallel" / "mesh.py" in files and port / "hpo" / "driver.py" in files
     assert {port / "serve_loadtest.py", port / "export_torch.py",
