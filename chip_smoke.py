@@ -79,8 +79,13 @@
    YCbCr, BigTIFF, signed samples, old-style LZW, planar YCbCr JPEG, CIELab
    and SGI LogL among them; the files cv2 gives None on, ZSTD, LZMA, WebP,
    LERC, PixarLog and old-style JPEG compression, float, untyped and 32-bit
-   samples, ICCLab, ITULab and ThunderScan, raise ValueError naming them;
-   SGI LogLuv, which cv2 reads, is refused naming it) and the BMP decoder against
+   samples, ICCLab, ITULab and ThunderScan, raise ValueError naming them)
+   and of tests/torch_port_data/tiff_variants/ (SGI LogLuv32 and LogLuv24,
+   subsampled YCbCr with the predictor), the PNG decoder against those of
+   tests/torch_port_data/png/ (EXIF orientations 1-8 in both byte orders
+   before and after the image data, the chunk rules libpng forgives; the
+   files cv2 gives None on raise ValueError naming the cause) and the BMP
+   decoder against
    those of tests/torch_port_data/bmp/ (1/4/8/16/24/32-bit, RLE8, RLE4, OS/2
    to V5 headers), and the WebP, GIF and Netpbm decoders against those of
    tests/torch_port_data/{webp,gif,pnm}/, the JPEG 2000 decoder (host
@@ -390,6 +395,7 @@ GIF_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "gif")
 PNM_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "pnm")
 JP2_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "jp2")
 RASTER_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "raster")
+TIFF_VARIANT_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "tiff_variants")
 # lines in the formats the port's decoders read beside baseline JPEG and PNG:
 # (file, content type, variant), each sent to the daemon beside a PNG of its pixels
 VARIANT_LINES = [(f"{stem}_line_{k}.{ext}", ctype, variant)
@@ -416,16 +422,31 @@ VARIANT_LINES = [(f"{stem}_line_{k}.{ext}", ctype, variant)
                  for k in range(2)] + [
     ("lossless_line_0.jpg", "image/jpeg", "lossless JPEG"),
     ("bigtiff_line_0.tif", "image/tiff", "BigTIFF"),
-    ("cielab_line_0.tif", "image/tiff", "CIELab TIFF")]
+    ("cielab_line_0.tif", "image/tiff", "CIELab TIFF"),
+    ("pngo_line_0.png", "image/png", "PNG of EXIF orientation 6"),
+    ("webpo_line_0.webp", "image/webp", "WebP of EXIF orientation 6"),
+    ("luv32_line_0.tif", "image/tiff", "LogLuv32 TIFF"),
+    ("luv24_line_0.tif", "image/tiff", "LogLuv24 TIFF")]
 # the fax, JPEG-in-TIFF, YCbCr, BMP, WebP, GIF and PGM variants (the eval CLI
 # reads them beside their PNG twins)
 NEW_VARIANTS = ("G4 TIFF", "G3 TIFF", "JPEG-in-TIFF", "YCbCr TIFF", "1-bit BMP", "RLE8 BMP",
                 "lossy WebP", "lossless WebP with alpha", "interlaced GIF", "binary PGM",
                 "lossless JP2", "irreversible J2K codestream", "colormapped Sun raster", "PF PFM",
-                "RLE HDR", "lossless JPEG", "BigTIFF", "CIELab TIFF")
-# the TIFFs cv2 reads and the port still refuses, and the words each
-# refusal must name
-TIFF_REFUSED = {"refused_logluv16.tif": "SGI LogLuv TIFF"}
+                "RLE HDR", "lossless JPEG", "BigTIFF", "CIELab TIFF", "PNG of EXIF orientation 6",
+                "WebP of EXIF orientation 6", "LogLuv32 TIFF", "LogLuv24 TIFF")
+PNG_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "png")
+# tests/torch_port_data/make_png_fixtures.py's CV2_NONE
+PNG_CV2_NONE = {"none_no_iend_7x11.png": "truncated",
+                "none_crc_idat_7x11.png": "b'IDAT' fails its CRC",
+                "none_crc_ihdr_7x11.png": "b'IHDR' fails its CRC",
+                "none_plte_after_idat_7x11.png": "without a PLTE before its IDAT",
+                "none_idat_broken_7x11.png": "before its zlib stream ends",
+                "none_second_ihdr_7x11.png": "b'IHDR' after the image data",
+                "none_unknown_critical_7x11.png": "critical chunk b'ABCD' is unknown",
+                "none_zlib_short_7x11.png": "ends before the image is whole",
+                "none_adler_in_rows_7x11.png": "incorrect data check",
+                "none_reserved_bit_7x11.png": "reserved bit",
+                "none_actl_no_frames_7x11.png": "acTL"}
 # the fixtures cv2 gives None on (tests/torch_port_data/make_*_fixtures.py's
 # CV2_NONE), and the words the port's ValueError must name
 TIFF_CV2_NONE = {"none_zstd.tif": "ZSTD TIFF compression (50000)",
@@ -471,7 +492,10 @@ def cv2_none_check(folder: str, cases: dict) -> int:
 
 def fixture_path(name: str) -> str:
     """A variant line's file among the committed fixtures."""
-    folder = {".tif": TIFF_FIXTURES, ".bmp": BMP_FIXTURES, ".webp": WEBP_FIXTURES,
+    if name.startswith("luv"):
+        return os.path.join(TIFF_VARIANT_FIXTURES, name)
+    folder = {".tif": TIFF_FIXTURES, ".png": PNG_FIXTURES, ".bmp": BMP_FIXTURES,
+              ".webp": WEBP_FIXTURES,
               ".gif": GIF_FIXTURES, ".pgm": PNM_FIXTURES, ".jp2": JP2_FIXTURES,
               ".j2k": JP2_FIXTURES, ".ras": RASTER_FIXTURES, ".pfm": RASTER_FIXTURES,
               ".hdr": RASTER_FIXTURES}.get(os.path.splitext(name)[1], JPEG_FIXTURES)
@@ -1328,9 +1352,11 @@ def tiff_decoder_check() -> dict:
     CIELab and LogL among them), read without cv2; the files cv2 gives None
     on (ZSTD, LZMA, WebP, LERC, PixarLog, old-style JPEG, floats, untyped
     and 32-bit samples, ICCLab, ITULab, ThunderScan) raise ValueError naming
-    the cause, SGI LogLuv (which cv2 reads) is refused naming it, a
-    truncated file raises ValueError."""
-    from rcnn_ocr_tpu_torch.data.image_io import UnsupportedImageFormat, imread
+    the cause, a truncated file raises ValueError; and those of
+    tests/torch_port_data/tiff_variants/ (SGI LogLuv32 and LogLuv24 at 8
+    and 16 bits, strips and tiles, subsampled YCbCr with the horizontal
+    predictor where libtiff undoes it and where it refuses to)."""
+    from rcnn_ocr_tpu_torch.data.image_io import imread
 
     with np.load(os.path.join(TIFF_FIXTURES, "expected.npz")) as z:
         expected = {k: z[k] for k in z.files}
@@ -1343,15 +1369,17 @@ def tiff_decoder_check() -> dict:
                        "cielab", "pil_lab", "sgilog")}
     check(all(kinds.values()), f"a TIFF kind has no fixture: {kinds}")
     none = cv2_none_check(TIFF_FIXTURES, TIFF_CV2_NONE)
-    refused = sorted(set(f for f in os.listdir(TIFF_FIXTURES) if f.endswith(".tif"))
-                     - set(expected) - set(TIFF_CV2_NONE))
-    check(refused == sorted(TIFF_REFUSED), f"the refused TIFF fixtures are {refused}")
-    for name in refused:
-        try:
-            imread(os.path.join(TIFF_FIXTURES, name))
-            check(False, f"{name} decoded (it must be refused)")
-        except UnsupportedImageFormat as err:
-            check(TIFF_REFUSED[name] in str(err), f"{name}: the refusal names otherwise: {err}")
+    unread = sorted(set(f for f in os.listdir(TIFF_FIXTURES) if f.endswith(".tif"))
+                    - set(expected) - set(TIFF_CV2_NONE))
+    check(not unread, f"TIFF fixtures without cv2's pixels: {unread}")
+    with np.load(os.path.join(TIFF_VARIANT_FIXTURES, "expected.npz")) as z:
+        variants = {k: z[k] for k in z.files}
+    differing = [name for name, want in sorted(variants.items())
+                 if not np.array_equal(imread(os.path.join(TIFF_VARIANT_FIXTURES, name)), want)]
+    check(not differing, f"the TIFF decoder differs from cv2's pixels on {differing}")
+    for k in ("logluv32", "logluv24", "pred2", "luv32_line", "luv24_line"):
+        kinds[k] = sum(n.startswith(k) or f"_{k}" in n for n in variants)
+    check(all(kinds.values()), f"a TIFF kind has no fixture: {kinds}")
     with open(os.path.join(TIFF_FIXTURES, "tiff_line_0.tif"), "rb") as f:
         line = f.read()
     try:
@@ -1368,9 +1396,10 @@ def tiff_decoder_check() -> dict:
           f"{kinds['jpeg_']}, YCbCr {kinds['ycbcr']}, BigTIFF {kinds['bigtiff']}, signed "
           f"{kinds['signed']}, old-style LZW {kinds['lzw_old']}, planar YCbCr JPEG "
           f"{kinds['jpeg_ycbcr_planar']}, CIELab {kinds['cielab'] + kinds['pil_lab']}, LogL "
-          f"{kinds['sgilog']}); {none} that cv2 gives None on and a truncated one raise "
-          f"ValueError; {len(refused)} refused naming them")
-    return {"fixtures_bit_equal": len(expected), "kinds": kinds, "refused": refused,
+          f"{kinds['sgilog']}) and {len(variants)} more (LogLuv32 {kinds['logluv32']}, "
+          f"LogLuv24 {kinds['logluv24']}, YCbCr with the predictor {kinds['pred2']}, LogLuv "
+          f"lines); {none} that cv2 gives None on and a truncated one raise ValueError")
+    return {"fixtures_bit_equal": len(expected) + len(variants), "kinds": kinds,
             "cv2_none": none}
 
 
@@ -1461,16 +1490,41 @@ def webp_decoder_check() -> dict:
     return web_decoder_check(WEBP_FIXTURES, "WebP", (
         "cv2_lossy", "lossless", "alpha_lossy", "alpha_lossless", "anim_", "segments",
         "simple", "lfdelta", "8parts", "bigcoeffs", "all_transforms", "16_modes", "meta",
-        "bundle", "alph_raw", "alph_vp8l"), "webp_line_0.webp",
+        "bundle", "alph_raw", "alph_vp8l", "exif6_ii_vp8l", "exif5_mm_before_vp8", "exif6_anim",
+        "exif6_no_flag", "exif6_prefixed", "exif6_after_junk", "webpo_line"), "webp_line_0.webp",
         # an animation's VP8X canvas of 2^24 x 2^24
         b"RIFF\x16\x00\x00\x00WEBPVP8X\x0a\x00\x00\x00\x02\x00\x00\x00" + b"\xff" * 6)
+
+
+def png_ihdr(width: int, height: int) -> bytes:
+    """A PNG's signature and an 8-bit RGB IHDR of ``width`` x ``height``."""
+    import zlib
+
+    body = b"IHDR" + struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + struct.pack(">I", 13) + body
+            + struct.pack(">I", zlib.crc32(body)))
+
+
+def png_decoder_check() -> dict:
+    """The port's PNG decoder (data/png.py, data/exif.py): the eXIf
+    orientations, the chunk rules libpng under OpenCV forgives, the files
+    cv2 gives None on raising ValueError naming the cause."""
+    out = web_decoder_check(PNG_FIXTURES, "PNG", (
+        "exif1_", "exif6_mm_pre", "exif6_ii_post", "exif8_", "crc_text", "crc_iend",
+        "crc_exif6", "exif6_then_exif3", "exif6_prefixed", "exif6_cut_entry", "exif6_long",
+        "plte_", "idat_split", "idat_extra", "zlib_past", "zlib_trailing", "after_iend",
+        "adler_after_rows", "palette_index_past", "pngo_line"), "pngo_line_0.png",
+        png_ihdr(1000001, 1))  # one pixel wider than libpng's 1,000,000
+    out["cv2_none"] = cv2_none_check(PNG_FIXTURES, PNG_CV2_NONE)
+    print(f"  PNG: {out['cv2_none']} files cv2 gives None on raise ValueError naming the cause")
+    return out
 
 
 def gif_decoder_check() -> dict:
     """The port's GIF decoder (data/gif.py, LZW in host C++)."""
     return web_decoder_check(GIF_FIXTURES, "GIF", (
         "pil_2colors", "pil_256colors", "interlaced", "pil_anim", "offset_transparent",
-        "local_table", "no_tables", "deferred_clear", "full_table", "eoi_midstream"),
+        "local_table", "no_tables", "deferred_clear", "full_table", "eoi_midstream", "app_"),
         "gif_line_0.gif", b"GIF89a\xff\xff\xff\xff\x00\x00\x00;")  # a 65535x65535 screen
 
 
@@ -1648,7 +1702,7 @@ def daemon_phase(kernels, variables, images, power: str):
            "bmp_decoder": bmp_decoder_check(), "webp_decoder": webp_decoder_check(),
            "gif_decoder": gif_decoder_check(), "pnm_decoder": pnm_decoder_check(),
            "jp2_decoder": jp2_decoder_check(), "raster_decoder": raster_decoder_check(),
-           "canvas": list(DAEMON_CANVAS), "batch": DAEMON_BATCH, "max_wait_ms": DAEMON_WAIT_MS}
+           "png_decoder": png_decoder_check(), "canvas": list(DAEMON_CANVAS), "batch": DAEMON_BATCH, "max_wait_ms": DAEMON_WAIT_MS}
     charset_path = os.path.join(REPO, "configs", "charset.txt")
 
     def engine():

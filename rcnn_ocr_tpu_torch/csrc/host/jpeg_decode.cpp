@@ -404,7 +404,7 @@ class Decoder {
   bool qt_def_[4] = {};
   Huffman dc_[4], ac_[4];
   int restart_interval_ = 0;
-  bool jfif_ = false, adobe_ = false, app1_seen_ = false;
+  bool jfif_ = false, adobe_ = false, orientation_read_ = false;
   int adobe_transform_ = 0, orientation_ = 1;
 
   // entropy state
@@ -495,10 +495,14 @@ class Decoder {
         if (len >= 16 && std::memcmp(d_ + start, "JFIF\0", 5) == 0) jfif_ = true;
         break;
       case 0xE1:
-        // OpenCV reads the orientation from the first APP1 segment only
-        if (!app1_seen_) {
-          app1_seen_ = true;
-          orientation_ = exif_orientation(d_ + start, end - start);
+        // OpenCV's ExifReader reads every "Exif" APP1 before the first scan
+        // into one map, where the first Orientation entry stays
+        if (scans_ == 0 && !orientation_read_) {
+          const int o = exif_orientation(d_ + start, end - start);
+          if (o >= 0) {
+            orientation_read_ = true;
+            orientation_ = (o >= 1 && o <= 8) ? o : 1;
+          }
         }
         break;
       case 0xEE:
@@ -614,36 +618,59 @@ class Decoder {
   }
 
   static int exif_orientation(const uint8_t* p, size_t n) {
-    // OpenCV skips the 6 bytes of "Exif\0\0" and parses a TIFF header
-    if (n < 14 || std::memcmp(p, "Exif\0\0", 6) != 0) return 1;
+    // The Orientation entry's value (-1 where there is none) of an APP1
+    // body: OpenCV skips the 6 bytes of "Exif\0\0" and parses a TIFF
+    // header as its ExifReader does (data/exif.py says how): Intel order
+    // only for "II", the first IFD's entries in order, a read past the end
+    // stopping the parse with what was read kept, so the first Orientation
+    // entry counts unless an earlier string or rational tag reads outside
+    // the block
+    if (n < 14 || std::memcmp(p, "Exif\0\0", 6) != 0) return -1;
     const uint8_t* t = p + 6;
-    size_t tn = n - 6;
-    bool le;
-    if (t[0] == 'I' && t[1] == 'I') {
-      le = true;
-    } else if (t[0] == 'M' && t[1] == 'M') {
-      le = false;
-    } else {
-      return 1;
-    }
+    const size_t tn = n - 6;
+    const bool le = t[0] == 'I' && t[1] == 'I';
+    struct Short {};
     auto rd16 = [&](size_t o) -> uint32_t {
+      if (o + 1 >= tn) throw Short();
       return le ? (t[o] | (t[o + 1] << 8)) : ((t[o] << 8) | t[o + 1]);
     };
     auto rd32 = [&](size_t o) -> uint32_t {
       return le ? (rd16(o) | (rd16(o + 2) << 16)) : ((rd16(o) << 16) | rd16(o + 2));
     };
-    size_t ifd = rd32(4);
-    if (ifd + 2 > tn) return 1;
-    uint32_t entries = rd16(ifd);
-    for (uint32_t i = 0; i < entries; ++i) {
-      size_t e = ifd + 2 + 12 * static_cast<size_t>(i);
-      if (e + 12 > tn) return 1;
-      if (rd16(e) == 0x0112) {
-        uint32_t v = rd16(e + 8);
-        return (v >= 1 && v <= 8) ? static_cast<int>(v) : 1;
+    try {
+      if (rd16(2) != 0x2A) return -1;
+      const size_t ifd = rd32(4);
+      const uint32_t entries = rd16(ifd);
+      for (uint32_t i = 0; i < entries; ++i) {
+        const size_t e = ifd + 2 + 12 * static_cast<size_t>(i);
+        const uint32_t tag = rd16(e);
+        if (tag == 0x0112) return static_cast<int>(rd16(e + 8));
+        int rationals = 0;
+        switch (tag) {
+          case 0x010E: case 0x010F: case 0x0110: case 0x0131: case 0x0132: case 0x8298: {
+            const size_t size = rd32(e + 4);
+            const size_t at = size > 4 ? rd32(e + 8) : 8;
+            if (at > tn || at + size > tn) throw Short();
+            break;
+          }
+          case 0x011A: case 0x011B: rationals = 1; break;
+          case 0x013E: rationals = 2; break;
+          case 0x0211: rationals = 3; break;
+          case 0x013F: case 0x0214: rationals = 6; break;
+          case 0x0128: case 0x0213: rd16(e + 8); break;
+          default: break;
+        }
+        if (rationals > 0) {
+          const size_t at = rd32(e + 8);
+          for (int k = 0; k < rationals; ++k) {
+            rd32(at + 8 * static_cast<size_t>(k));
+            rd32(at + 8 * static_cast<size_t>(k) + 4);
+          }
+        }
       }
+    } catch (const Short&) {
     }
-    return 1;
+    return -1;
   }
 
   // --- entropy decoding -------------------------------------------------

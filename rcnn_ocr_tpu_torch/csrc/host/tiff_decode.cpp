@@ -1,6 +1,6 @@
 // TIFF decompression in host C++: LZW (compression 5), the CCITT fax
-// codings (2, 3, 4 and 32771) and SGI LogL (34676), byte for byte what
-// libtiff decodes.
+// codings (2, 3, 4 and 32771) and the run-length rows of SGI LogL and
+// LogLuv32 (34676), byte for byte what libtiff decodes.
 //
 // LZW, as libtiff's LZWDecode: codes of 9 to 12 bits read most significant
 // bit first, Clear (256) resetting the table, EOI (257) ending the strip or
@@ -579,43 +579,59 @@ extern "C" int64_t rcnn_tiff_fax_decode(const uint8_t* src, int64_t n, uint8_t* 
   }
 }
 
-// SGI LogL (compression 34676 on PhotometricInterpretation LogL), as
-// libtiff's LogL16Decode reads it a row at a time: the high bytes of the
-// row's `cols` 16-bit values and then the low bytes, each a run-length
-// code (a byte of 128 or more repeats the next byte that less 126 times,
-// a smaller one copies that many bytes; 0 copies none).  Decodes `rows`
-// rows of `src[0:n]` into `dst` (rows * cols values).  Returns the values
-// written, or -1 with a message where libtiff fails the row ("Not enough
-// data").
-extern "C" int64_t rcnn_tiff_sgilog16_decode(const uint8_t* src, int64_t n, int16_t* dst,
-                                             int64_t rows, int64_t cols, char* msg,
-                                             int64_t msg_len) {
+// SGI's run-length rows (compression 34676), as libtiff's LogL16Decode and
+// LogLuvDecode32 read them a row at a time: the row's `cols` values as
+// byte planes, most significant first (2 for LogL's 16-bit values, 4 for
+// LogLuv's 32-bit ones), each a run-length code (a byte of 128 or more
+// repeats the next byte that less 126 times, a smaller one copies that many
+// bytes; 0 copies none).  Decodes `rows` rows of `src[0:n]` into `dst`
+// (rows * cols values).  Returns the values written, or -1 with a message
+// where libtiff fails the row ("Not enough data").
+template <typename T>
+int64_t sgilog_rows(const uint8_t* src, int64_t n, T* dst, int64_t rows, int64_t cols,
+                    char* msg, int64_t msg_len) {
   if (src == nullptr || dst == nullptr || n < 0 || rows < 0 || cols < 0) return -1;
   const uint8_t* bp = src;
   int64_t cc = n;
   for (int64_t r = 0; r < rows; ++r) {
-    int16_t* tp = dst + r * cols;
-    std::fill(tp, tp + cols, int16_t(0));
-    for (int shft = 8; shft >= 0; shft -= 8) {
+    T* tp = dst + r * cols;
+    std::fill(tp, tp + cols, T(0));
+    for (int shft = 8 * (static_cast<int>(sizeof(T)) - 1); shft >= 0; shft -= 8) {
       int64_t i = 0;
       while (i < cols && cc > 0) {
         if (*bp >= 128) {  // a run
           if (cc < 2) break;
           int rc = *bp++ + (2 - 128);
-          int16_t b = static_cast<int16_t>(*bp++ << shft);
+          T b = static_cast<T>(static_cast<uint32_t>(*bp++) << shft);
           cc -= 2;
           while (rc-- && i < cols) tp[i++] |= b;
         } else {  // literal bytes
           int rc = *bp++;
-          while (--cc && rc-- && i < cols) tp[i++] |= static_cast<int16_t>(*bp++ << shft);
+          while (--cc && rc-- && i < cols) {
+            tp[i++] |= static_cast<T>(static_cast<uint32_t>(*bp++) << shft);
+          }
         }
       }
       if (i != cols) {
-        set_message(msg, msg_len, "SGI LogL data ends " + std::to_string(cols - i) +
+        set_message(msg, msg_len, "SGI log data ends " + std::to_string(cols - i) +
                                       " pixels short of row " + std::to_string(r));
         return -1;
       }
     }
   }
   return rows * cols;
+}
+
+// SGI LogL (PhotometricInterpretation LogL): 16-bit values.
+extern "C" int64_t rcnn_tiff_sgilog16_decode(const uint8_t* src, int64_t n, int16_t* dst,
+                                             int64_t rows, int64_t cols, char* msg,
+                                             int64_t msg_len) {
+  return sgilog_rows<int16_t>(src, n, dst, rows, cols, msg, msg_len);
+}
+
+// SGI LogLuv32 (PhotometricInterpretation LogLuv): 32-bit values.
+extern "C" int64_t rcnn_tiff_sgilog32_decode(const uint8_t* src, int64_t n, uint32_t* dst,
+                                             int64_t rows, int64_t cols, char* msg,
+                                             int64_t msg_len) {
+  return sgilog_rows<uint32_t>(src, n, dst, rows, cols, msg, msg_len);
 }

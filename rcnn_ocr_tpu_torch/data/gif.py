@@ -2,11 +2,13 @@
 uint8, pixel for pixel as OpenCV's ``grfmt_gif.cpp`` gives it under
 ``cv2.imdecode(buf, IMREAD_COLOR)``.
 
-* The whole file is walked first, as OpenCV counts its frames: blocks are
-  image descriptors (their colour table and LZW sub-blocks skipped),
-  extensions (sub-blocks skipped; a graphic control extension must have a
-  4-byte first block) and the trailer, which must come; anything else, or
-  data that ends before the trailer, is an error.  Bytes after the trailer
+* The whole file is walked first, as OpenCV counts its frames
+  (:func:`_frame_walk`, with its reading of application extensions), then
+  again as its decoder reads it: blocks are image descriptors (their
+  colour table and LZW sub-blocks skipped), extensions (sub-blocks
+  skipped; a graphic control extension must have a 4-byte first block) and
+  the trailer, which must come; anything else, or data that ends before
+  the trailer, is an error.  Bytes after the trailer
   are ignored.
 * The first frame's descriptor must lie inside the logical screen and have
   sides above 0; its LZW data (minimum code size 2 to 11) must fill the
@@ -47,6 +49,48 @@ def _sub_blocks(data: bytes, pos: int) -> int:
             raise ValueError("GIF data ends inside a block")
 
 
+def _frame_walk(data: bytes, pos: int) -> None:
+    """OpenCV's frame count (``getFrameCount_``), which walks the blocks
+    after the screen descriptor before anything is decoded, and fails the
+    file on a block type it does not know or on data that ends first.  It
+    reads an application extension's sub-blocks as OpenCV does: an 11-byte
+    one is an identifier, and a 3-byte one after an identifier other than
+    ``NETSCAPE2.0`` (or before any) is read as 2 bytes, so the walk goes on
+    one byte early and usually leaves the block structure."""
+    def byte() -> int:
+        nonlocal pos
+        if pos >= len(data):
+            raise ValueError("GIF data ends before its trailer")
+        pos += 1
+        return data[pos - 1]
+
+    def skip_sub_blocks() -> None:
+        nonlocal pos
+        while (size := byte()) != 0:
+            pos += size
+
+    while True:
+        block = byte()
+        if block == 0x3B:
+            return
+        if block == 0x2C:
+            pos += 8
+            flags = byte()
+            pos += (3 * (2 << (flags & 7)) if flags & 0x80 else 0) + 1
+            skip_sub_blocks()
+        elif block == 0x21:
+            if byte() != 0xFF:
+                skip_sub_blocks()
+                continue
+            netscape = False
+            while (size := byte()) != 0:
+                if size == 11:
+                    netscape = data[pos : pos + 11] == b"NETSCAPE2.0"
+                pos += 2 if size == 3 and not netscape else size
+        else:
+            raise ValueError(f"GIF block 0x{block:02x} is unknown to OpenCV's frame count")
+
+
 def _table(data: bytes, pos: int, flags: int):
     """A colour table of ``2 << (flags & 7)`` entries at ``pos``."""
     n = 2 << (flags & 7)
@@ -73,6 +117,7 @@ def decode(data: bytes) -> np.ndarray:
     if sw == 0 or sh == 0:
         raise ValueError("GIF logical screen is empty")
     check_size(sw, sh, "GIF logical screen")
+    _frame_walk(data, pos)
     first = None
     transparent = None
     try:

@@ -7,14 +7,13 @@ Counterpart of ``rcnn_ocr_tpu/data/transforms.py:imread_cv2``,
 ``build_file_index``.  The decoders give what ``cv2.imread(path,
 IMREAD_COLOR)`` followed by BGR -> RGB gives, as an RGB uint8 HWC array:
 
-* PNG (zlib and numpy): bit depths 1/2/4/8/16; gray, gray+alpha, RGB, RGBA
-  and palette; plain or Adam7-interlaced; row filters None/Sub/Up/Average/
-  Paeth.  16-bit samples keep their high byte, gray samples under 8 bits
-  are scaled to 0..255 (1 -> 255, 2 -> 85 steps, 4 -> 17 steps), alpha and
-  transparency are dropped (not composited).  PNG is lossless, so the
-  pixels are bit-equal to cv2's.  None, Sub and Up rows are numpy
-  (Sub as a wrapping cumulative sum); Average and Paeth rows depend on
-  the pixel to their left, so they run as a loop over the row's bytes.
+* PNG (:mod:`rcnn_ocr_tpu_torch.data.png`, zlib and numpy): bit depths
+  1/2/4/8/16; gray, gray+alpha, RGB, RGBA and palette; plain or
+  Adam7-interlaced; the chunk rules, CRCs and zlib stream as libpng's
+  sequential reader under OpenCV checks them, and the ``eXIf`` chunk's
+  orientation.  16-bit samples keep their high byte, gray samples under 8
+  bits are scaled to 0..255, alpha and transparency are dropped (not
+  composited).  PNG is lossless, so the pixels are bit-equal to cv2's.
 * BMP (:mod:`rcnn_ocr_tpu_torch.data.bmp`): every BMP OpenCV reads, as
   its ``grfmt_bmp.cpp`` reads it: 1-, 4- and 8-bit palettes, 16-bit 5-5-5
   and 5-6-5, 24-bit, 32-bit (BI_BITFIELDS masks scaled as OpenCV 5 scales
@@ -42,21 +41,22 @@ IMREAD_COLOR)`` followed by BGR -> RGB gives, as an RGB uint8 HWC array:
   PackBits, LZW (old-style too) and the CCITT fax codings (modified
   Huffman, RLEW, Group 3 1-D / 2-D, Group 4; host C++), Deflate, with the
   horizontal predictor, JPEG (through the host JPEG decoder with the
-  JPEGTables spliced in; planar YCbCr a plane a JPEG) and SGI LogL; gray
-  at 1, 8 and 16 bits (signed too), palette at 1, 4 and 8, RGB(A) at 8
-  and 16, CMYK at 8, YCbCr at any subsampling libtiff reads, CIELab at 8
-  and 16, and the Orientation tag, as libtiff's RGBA reader under OpenCV
-  turns them into 8-bit RGB.  What cv2 gives ``None`` on raises
-  ``ValueError`` naming it (floating-point and 32-bit samples, ICCLab and
-  ITULab, the compressions OpenCV's libtiff lacks: LZMA, ZSTD, WebP, LERC,
-  PixarLog, old-style JPEG); SGI LogLuv at 8 or 16 bits, which cv2 reads,
-  raises :class:`UnsupportedImageFormat`.
+  JPEGTables spliced in; planar YCbCr a plane a JPEG), SGI LogL and SGI
+  LogLuv (32- and 24-bit); gray at 1, 8 and 16 bits (signed too), palette
+  at 1, 4 and 8, RGB(A) at 8 and 16, CMYK at 8, YCbCr at any subsampling
+  libtiff reads (with the predictor too), CIELab at 8 and 16, and the
+  Orientation tag, as libtiff's RGBA reader under OpenCV turns them into
+  8-bit RGB.  What cv2 gives ``None`` on raises ``ValueError`` naming it
+  (floating-point and 32-bit samples, ICCLab and ITULab, the compressions
+  OpenCV's libtiff lacks: LZMA, ZSTD, WebP, LERC, PixarLog, old-style
+  JPEG).
 
 * WebP (:mod:`rcnn_ocr_tpu_torch.data.webp`): lossy (VP8) and lossless
   (VP8L) bitstreams in the port's host C++ (``csrc/host/webp_decode.cpp``),
   VP8X files with ALPH (decoded and checked, its values dropped: the colour
   under alpha 0 comes out as coded) and animations (the first frame), as
-  libwebp decodes them for OpenCV.
+  libwebp decodes them for OpenCV, turned by an ``EXIF`` chunk's
+  orientation where libwebp's demuxer reads the file.
 * GIF (:mod:`rcnn_ocr_tpu_torch.data.gif`): GIF87a / GIF89a, the first
   frame on the logical screen, global and local colour tables, interlace,
   transparency (the background colour shows), LZW in host C++
@@ -75,17 +75,21 @@ IMREAD_COLOR)`` followed by BGR -> RGB gives, as an RGB uint8 HWC array:
 
 Of the formats OpenCV reads, AVIF raises :class:`UnsupportedImageFormat`
 naming it by its magic (so do PAM's alpha tuple types, whose pixels
-OpenCV's reader leaves to memory it never wrote, HTJ2K code-blocks, SGI
-LogLuv TIFFs and the predictor on subsampled YCbCr TIFF).  Bytes that no
+OpenCV's reader leaves to memory it never wrote, and HTJ2K code-blocks).
+EXIF orientation turns JPEG, PNG and WebP images as OpenCV turns them
+(:mod:`rcnn_ocr_tpu_torch.data.exif`); OpenCV reads it from no other
+container the port decodes (a JPEG 2000 ``uuid`` box of Exif is not
+applied).  Bytes that no
 decoder claims are no image cv2 reads either (an empty file, a download
 cut inside a signature, a text file, OpenEXR, which this cv2 lacks): they
 raise ``ValueError``, which the datasets quarantine as JAX's quarantine
 what cv2 fails on.
-``image_size`` reads the headers of PNG, BMP, GIF (the logical screen),
-JPEG (through the SOF walk) and TIFF and BigTIFF (the first IFD, whatever its
-compression, with orientations 5-8 swapping the sides as the decode does)
-and decodes the others, as JAX's does.  :func:`png_encode` writes 8-bit
-PNGs.
+``image_size`` reads the headers of PNG (IHDR's sides: like JAX's, it does
+not turn them by ``eXIf`` as the decode does), BMP, GIF (the logical
+screen), JPEG (through the SOF walk) and TIFF and BigTIFF (the first IFD,
+whatever its compression, with orientations 5-8 swapping the sides as the
+decode does) and decodes the others, as JAX's does.  :func:`png_encode`
+writes 8-bit PNGs.
 """
 
 from __future__ import annotations
@@ -98,22 +102,18 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from rcnn_ocr_tpu_torch.data import bmp, gif, hdr, jpeg2000, pfm, pnm, sunras, tiff, webp
-from rcnn_ocr_tpu_torch.data.size_limit import PNG_MAX_SIDE, check_size
+from rcnn_ocr_tpu_torch.data import (bmp, gif, hdr, jpeg2000, pfm, png, pnm, sunras, tiff,
+                                     webp)
 
 IMG_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff"}
 SUPPORTED = ("PNG, BMP, JPEG (8-bit sequential or progressive, lossless), JPEG 2000 (Part 1), "
              "WebP, GIF, Netpbm (PBM, PGM, PPM, PAM), Sun raster, PFM, Radiance HDR and TIFF "
-             "(baseline and BigTIFF, CCITT fax, JPEG, YCbCr, CIELab, SGI LogL)")
+             "(baseline and BigTIFF, CCITT fax, JPEG, YCbCr, CIELab, SGI LogL and LogLuv)")
 # formats OpenCV reads and the port does not, by their magic bytes
 _REFUSED = ((lambda d: d[4:12] in (b"ftypavif", b"ftypavis"), "AVIF"),)
 
-_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_PNG_SIG = png.SIGNATURE
 _TIFF_SIGS = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")  # TIFF and BigTIFF
-_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-# Adam7 passes: (x0, y0, dx, dy)
-_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
-          (0, 1, 1, 2))
 
 
 class UnsupportedImageFormat(NotImplementedError):
@@ -137,127 +137,6 @@ def build_file_index(roots, exts=IMG_EXTS) -> Dict[str, List[str]]:
     return index
 
 
-# --- PNG -------------------------------------------------------------------------------
-
-def _unfilter(data: bytes, pos: int, h: int, stride: int, bpp: int) -> Tuple[np.ndarray, int]:
-    """Undo the row filters of ``h`` scanlines of ``stride`` bytes starting at
-    ``data[pos]``; returns the ``[h, stride]`` uint8 rows and the new position."""
-    out = np.empty((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        if pos + 1 + stride > len(data):
-            raise ValueError("PNG image data is truncated")
-        ftype = data[pos]
-        raw = np.frombuffer(data, np.uint8, stride, pos + 1)
-        pos += 1 + stride
-        if ftype == 0:
-            cur = raw
-        elif ftype == 1:  # Sub: a running sum mod 256 along each byte lane
-            cur = np.cumsum(raw.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
-        elif ftype == 2:  # Up
-            cur = raw + prev
-        elif ftype in (3, 4):
-            cur = np.frombuffer(_unfilter_left(ftype, bytearray(raw), prev.tobytes(), bpp),
-                                np.uint8)
-        else:
-            raise ValueError(f"PNG row filter {ftype} is not one of 0-4")
-        out[y] = cur
-        prev = out[y]
-    return out, pos
-
-
-def _unfilter_left(ftype: int, c: bytearray, p: bytes, bpp: int) -> bytearray:
-    """Average (3) or Paeth (4) in place on one row: each byte depends on the
-    decoded byte ``bpp`` to its left, so this is a loop."""
-    n = len(c)
-    if ftype == 3:
-        for i in range(min(bpp, n)):
-            c[i] = (c[i] + (p[i] >> 1)) & 255
-        for i in range(bpp, n):
-            c[i] = (c[i] + ((c[i - bpp] + p[i]) >> 1)) & 255
-        return c
-    for i in range(min(bpp, n)):  # a = c = 0: the predictor is b
-        c[i] = (c[i] + p[i]) & 255
-    for i in range(bpp, n):
-        a, b, cc = c[i - bpp], p[i], p[i - bpp]
-        d_b, d_a = b - cc, a - cc  # |p - a| = |b - c|, |p - b| = |a - c|
-        pa, pb, pc = abs(d_b), abs(d_a), abs(d_b + d_a)
-        if pa <= pb and pa <= pc:
-            pred = a
-        elif pb <= pc:
-            pred = b
-        else:
-            pred = cc
-        c[i] = (c[i] + pred) & 255
-    return c
-
-
-def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
-    """Unfiltered scanlines -> ``[h, width, channels]`` uint8 samples (16-bit
-    samples keep their high byte; sub-byte samples are unpacked, unscaled)."""
-    h = rows.shape[0]
-    if depth == 8:
-        return rows[:, : width * channels].reshape(h, width, channels)
-    if depth == 16:
-        return rows[:, : width * channels * 2].reshape(h, width, channels, 2)[..., 0]
-    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-    vals = (rows[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
-    return vals.reshape(h, -1)[:, :width].reshape(h, width, 1)
-
-
-def _png_decode(data: bytes) -> np.ndarray:
-    pos = len(_PNG_SIG)
-    ihdr = plte = None
-    idat: List[bytes] = []
-    while pos + 8 <= len(data):
-        length, kind = struct.unpack(">I4s", data[pos : pos + 8])
-        body = data[pos + 8 : pos + 8 + length]
-        crc = data[pos + 8 + length : pos + 12 + length]
-        if len(body) != length or len(crc) != 4:
-            raise ValueError("PNG chunk is truncated")
-        if zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
-            raise ValueError(f"PNG chunk {kind!r} fails its CRC")
-        pos += 12 + length
-        if kind == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
-            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if ihdr is None or not idat:
-        raise ValueError("PNG without IHDR or IDAT")
-    width, height, depth, ctype, _, _, interlace = ihdr
-    if ctype not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16):
-        raise ValueError(f"PNG color type {ctype} / bit depth {depth} is invalid")
-    if ctype == 3 and plte is None:
-        raise ValueError("palette PNG without PLTE")
-    check_size(width, height, "PNG", max_side=PNG_MAX_SIDE)
-    channels = _PNG_CHANNELS[ctype]
-    bits = channels * depth
-    bpp = max(1, bits // 8)
-    raw = zlib.decompress(b"".join(idat))
-    img = np.empty((height, width, channels), np.uint8)
-    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
-    pos = 0
-    for x0, y0, dx, dy in passes:
-        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
-        if pw <= 0 or ph <= 0:
-            continue
-        rows, pos = _unfilter(raw, pos, ph, -(-pw * bits // 8), bpp)
-        img[y0::dy, x0::dx] = _samples(rows, pw, channels, depth)
-    if ctype == 3:
-        if int(img.max(initial=0)) >= len(plte):
-            raise ValueError("PNG palette index out of range")
-        return plte[img[:, :, 0]]
-    if depth < 8:
-        img = img * np.uint8(255 // ((1 << depth) - 1))
-    if channels <= 2:  # gray (+ alpha): the gray sample on all three channels
-        return np.repeat(img[:, :, :1], 3, axis=2)
-    return np.ascontiguousarray(img[:, :, :3])
-
-
 # --- public API ------------------------------------------------------------------------
 
 def imdecode(data) -> np.ndarray:
@@ -273,12 +152,9 @@ def imdecode(data) -> np.ndarray:
     if data[:4] in _TIFF_SIGS:
         try:
             return tiff.decode(data)
-        except NotImplementedError as err:
-            raise UnsupportedImageFormat(
-                f"cannot decode {err}: the PyTorch port decodes {SUPPORTED} images") from None
         except (struct.error, IndexError) as err:
             raise ValueError(f"damaged TIFF data: {err}") from err
-    decode = (_png_decode if data.startswith(_PNG_SIG) else
+    decode = (png.decode if data.startswith(_PNG_SIG) else
               bmp.decode if data.startswith(b"BM") else
               webp.decode if data[:4] == b"RIFF" and data[8:12] == b"WEBP" else
               gif.decode if data[:6] in (b"GIF87a", b"GIF89a") else

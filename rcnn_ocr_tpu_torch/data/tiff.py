@@ -34,7 +34,9 @@ tag), pixel for pixel:
   chroma, converted with tif_color.c's fixed-point tables built in float32
   from YCbCrCoefficients (529) and ReferenceBlackWhite (532) or their
   defaults; 4x4, 4x2, 4x1, 2x2, 2x1, 1x2 and 1x1 (libtiff's RGBA reader
-  has no other), planar only at 1x1; two libtiff quirks kept: a strip is
+  has no other), planar only at 1x1; the horizontal predictor undone on
+  the data-unit bytes as libtiff undoes it, where it does
+  (``_ycbcr_predictor``); two libtiff quirks kept: a strip is
   read as TIFFScanlineSize's whole rows (a 4x4 row of an odd number of
   units loses its last two bytes, read as zeros) and a right-edge 4x4
   tile's block rows are stepped 10 bytes a skipped unit, not 18;
@@ -45,6 +47,13 @@ tag), pixel for pixel:
 * SGI LogL (compression 34676 on photometric LogL, host C++ as libtiff's
   LogL16Decode reads it a row at a time), each 16-bit log luminance to
   8-bit gray as L16toGry takes it, ``256 * sqrt(Y)``;
+* SGI LogLuv (photometric 32845, chunky, 3 samples of 1, 8 or 16 bits) as
+  the RGBA reader has the codec give it, SGILOGDATAFMT_8BIT: LogLuv32
+  (34676, four run-length byte planes a row, host C++ as LogLuvDecode32)
+  through LogLuv32toXYZ, LogLuv24 (34677, three bytes a pixel) through
+  LogLuv24toXYZ and uv_decode's table of 163 rows (``_UV_ROWS``, read back
+  from cv2's pixels of all 2**24 codes), then XYZtoRGB24, in the C code's
+  double arithmetic with XYZ rounded to float (``_luv_rgb``);
 * samples as libtiff's ``tif_getimage.c`` turns them into 8-bit RGB
   (signed integer samples as their unsigned bits, as libtiff reads them):
   MinIsBlack / MinIsWhite at 1, 8 and 16 bits (16 bits: the high byte),
@@ -60,10 +69,7 @@ tag), pixel for pixel:
   axes, 4 the rows, 5-8 transpose first and then flip as 1-4 do; in a tiled
   file libtiff mirrors 2, 3, 6 and 7 within each tile (``_orient``).
 
-Refused with ``NotImplementedError`` naming what it is (the caller turns it
-into ``UnsupportedImageFormat``), as cv2 reads them: SGI LogLuv at 8 or 16
-bits (compression 34676 or 34677) and subsampled YCbCr with the predictor
-(not probed).  Where OpenCV or libtiff fail, ``ValueError``, as
+Where OpenCV or libtiff fail, ``ValueError``, as
 ``cv2.imdecode`` gives ``None``, checked before the compression as OpenCV's
 ``TiffDecoder::readHeader`` and libtiff's ``TIFFRGBAImageOK`` check them:
 floating-point, untyped and complex samples, 32- and 64-bit samples,
@@ -302,6 +308,20 @@ def _chunk(data: bytes, offset: int, count: int, compression: int, size: int,
     return _inflate(raw, size)
 
 
+def _ycbcr_predictor(buf: bytes, row: int) -> bytes:
+    """libtiff's horizontal predictor on a subsampled YCbCr strip or tile:
+    PredictorDecodeTile runs horAcc8 over the decoded data-unit bytes as if
+    they were three-sample pixels, in pieces of ``row`` bytes (TIFFScanlineSize
+    for strips, TIFFTileRowSize, three bytes a column, for tiles).  Where
+    the data is not whole pieces, or a piece not whole pixels, libtiff fails
+    the strip before it changes a byte and its RGBA reader converts the
+    bytes as they are, so they stay so."""
+    if row % 3 or len(buf) % row:
+        return buf
+    pix = np.frombuffer(buf, np.uint8).reshape(-1, row // 3, 3)
+    return np.cumsum(pix, axis=1, dtype=np.uint8).tobytes()
+
+
 def _unpack(buf: bytes, rows: int, cols: int, spp: int, bits: int, order: str,
             predictor: bool) -> np.ndarray:
     """Decoded rows -> ``[rows, cols, spp]`` samples (uint8 or uint16), each
@@ -350,7 +370,7 @@ def _samples(data: bytes, tags, order: str, bits: int, spp: int, photometric: in
     if planar not in (1, 2):
         raise ValueError(f"TIFF PlanarConfiguration {planar}")
     predictor = _one(tags, 317, 1) if compression in (5, 8, 32946) else 1
-    logl = compression == 34676
+    sgilog = compression in (34676, 34677)
     if predictor not in (1, 2) or (predictor == 2 and bits not in (8, 16)):
         raise ValueError(f"TIFF Predictor {predictor} with {bits}-bit samples")
     fill_order = _one(tags, 266, 1)
@@ -365,8 +385,6 @@ def _samples(data: bytes, tags, order: str, bits: int, spp: int, photometric: in
         if planar == 2 or (hs << 4 | vs) not in (0x44, 0x42, 0x41, 0x22, 0x21, 0x12, 0x11):
             raise ValueError(f"YCbCr TIFF subsampled {hs}x{vs}{' planar' if planar == 2 else ''}, "
                              "which libtiff's RGBA reader does not read")
-        if predictor == 2:
-            raise NotImplementedError("subsampled YCbCr TIFF with the horizontal predictor")
     if ycbcr and compression == 7 and planar == 2 and (hs, vs) != (1, 1):
         raise ValueError(f"planar YCbCr JPEG-in-TIFF subsampled {hs}x{vs}, which libtiff's RGBA "
                          "reader does not read")
@@ -415,11 +433,9 @@ def _samples(data: bytes, tags, order: str, bits: int, spp: int, photometric: in
                     raise ValueError("TIFF strip or tile lies outside the file")
                 buf = _jpeg(data[offsets[i] : offsets[i] + counts[i]], tables, rows, cols, per,
                             ycbcr and planar == 1, sampling, 322 not in tags and y + rows >= h)
-            elif logl:
-                from rcnn_ocr_tpu_torch.native import tiff_sgilog16_decode
-
+            elif sgilog:
                 raw = _raw(data, int(offsets[i]), int(counts[i]), fill_order)
-                buf = _logl_gray()[tiff_sgilog16_decode(raw, rows, cols).view(np.uint16)].tobytes()
+                buf = _sgilog(raw, rows, cols, compression, spp)
             elif (hs, vs) != (1, 1):
                 unit_row = -(-cols // hs) * (hs * vs + 2)
                 units = -(-rows // vs) * unit_row
@@ -429,12 +445,15 @@ def _samples(data: bytes, tags, order: str, bits: int, spp: int, photometric: in
                 got = units if 322 in tags else -(-rows // vs) * vs * (unit_row // vs)
                 buf = _chunk(data, int(offsets[i]), int(counts[i]), compression, got,
                              fill_order, rows, cols, options, old_lzw)
+                if predictor == 2:  # undone on the unit bytes, a scanline or tile row a piece
+                    buf = _ycbcr_predictor(buf, 3 * cols if 322 in tags else unit_row // vs)
                 buf = _ycbcr_units(buf + bytes(units - got), rows, cols, hs, vs,
                                    min(cols, w - x))
             else:
                 buf = _chunk(data, int(offsets[i]), int(counts[i]), compression, size,
                              fill_order, rows, cols, options, old_lzw)
-            blk = _unpack(buf, rows, cols, per, bits, order, predictor == 2)
+            blk = _unpack(buf, rows, cols, per, bits, order,
+                          predictor == 2 and (hs, vs) == (1, 1))
             ch = slice(p, p + 1) if planar == 2 else slice(0, spp)
             out[y : y + rows, x : x + cols, ch] = blk[: h - y, : w - x]
             if skew and x + cols > w:
@@ -443,18 +462,159 @@ def _samples(data: bytes, tags, order: str, bits: int, spp: int, photometric: in
     return out, tw
 
 
+def _sgilog(raw: bytes, rows: int, cols: int, compression: int, spp: int) -> bytes:
+    """One SGI LogL or LogLuv strip or tile -> 8-bit gray (LogL) or RGB
+    (LogLuv) bytes, as libtiff's codec hands them to its RGBA reader with
+    SGILOGDATAFMT_8BIT."""
+    from rcnn_ocr_tpu_torch import native
+
+    if spp == 1:  # LogL: 16-bit values in two run-length byte planes
+        return _logl_gray()[native.tiff_sgilog16_decode(raw, rows, cols).view(np.uint16)].tobytes()
+    if compression == 34676:  # LogLuv32: four run-length byte planes
+        return _luv32_rgb(native.tiff_sgilog32_decode(raw, rows, cols)).tobytes()
+    n = rows * cols  # LogLuv24: three bytes a pixel, most significant first
+    if len(raw) < 3 * n:
+        raise ValueError(f"SGI LogLuv24 data is {3 * n - len(raw)} bytes short of its rows")
+    b = np.frombuffer(raw, np.uint8, 3 * n).reshape(n, 3).astype(np.uint32)
+    return _luv24_rgb(b[:, 0] << 16 | b[:, 1] << 8 | b[:, 2]).tobytes()
+
+
+_LN2 = 0.69314718055994530942  # M_LN2
+# libtiff's uv_row (uvcode.h) as (ustart, nus): its 163 rows of the (u', v')
+# gamut, read back from cv2's decode of all 2**24 LogLuv24 codes by
+# tests/torch_port_data/derive_uv_rows.py (where several six-decimal
+# ustarts reproduce a row, the smallest); bit-equal on every code
+_UV_ROWS: Tuple[Tuple[float, int], ...] = (
+    (0.247663, 4), (0.243777, 6), (0.241684, 7), (0.237874, 9),
+    (0.235906, 10), (0.232153, 12), (0.228352, 14), (0.226259, 15),
+    (0.222371, 17), (0.220410, 18), (0.214710, 21), (0.212714, 22),
+    (0.210721, 23), (0.204976, 26), (0.202986, 27), (0.199245, 29),
+    (0.195525, 31), (0.193560, 32), (0.189878, 34), (0.186216, 36),
+    (0.186216, 36), (0.182592, 38), (0.179003, 40), (0.175466, 42),
+    (0.172001, 44), (0.172001, 44), (0.168612, 46), (0.168612, 46),
+    (0.163575, 49), (0.158642, 52), (0.158642, 52), (0.158642, 52),
+    (0.153815, 55), (0.153815, 55), (0.149097, 58), (0.149097, 58),
+    (0.142746, 62), (0.142746, 62), (0.142746, 62), (0.138270, 65),
+    (0.138270, 65), (0.138270, 65), (0.132166, 69), (0.132166, 69),
+    (0.126204, 73), (0.126204, 73), (0.126204, 73), (0.120381, 77),
+    (0.120381, 77), (0.120381, 77), (0.120381, 77), (0.112962, 82),
+    (0.112962, 82), (0.112962, 82), (0.107450, 86), (0.107450, 86),
+    (0.107450, 86), (0.107450, 86), (0.100343, 91), (0.100343, 91),
+    (0.100343, 91), (0.095126, 95), (0.095126, 95), (0.095126, 95),
+    (0.095126, 95), (0.088276, 100), (0.088276, 100), (0.088276, 100),
+    (0.088276, 100), (0.081523, 105), (0.081523, 105), (0.081523, 105),
+    (0.081523, 105), (0.074861, 110), (0.074861, 110), (0.074861, 110),
+    (0.074861, 110), (0.068290, 115), (0.068290, 115), (0.068290, 115),
+    (0.068290, 115), (0.063573, 119), (0.063573, 119), (0.063573, 119),
+    (0.063573, 119), (0.057219, 124), (0.057219, 124), (0.057219, 124),
+    (0.057219, 124), (0.050985, 129), (0.050985, 129), (0.050985, 129),
+    (0.050985, 129), (0.050985, 129), (0.044859, 134), (0.044859, 134),
+    (0.044859, 134), (0.044859, 134), (0.040571, 138), (0.040571, 138),
+    (0.040571, 138), (0.040571, 138), (0.036339, 142), (0.036339, 142),
+    (0.036339, 142), (0.036339, 142), (0.032139, 146), (0.032139, 146),
+    (0.032139, 146), (0.032139, 146), (0.027947, 150), (0.027947, 150),
+    (0.027947, 150), (0.023739, 154), (0.023739, 154), (0.023739, 154),
+    (0.023739, 154), (0.019504, 158), (0.019504, 158), (0.019504, 158),
+    (0.016976, 161), (0.016976, 161), (0.016976, 161), (0.016976, 161),
+    (0.012639, 165), (0.012639, 165), (0.012639, 165), (0.009991, 168),
+    (0.009991, 168), (0.009991, 168), (0.009016, 170), (0.009016, 170),
+    (0.009016, 170), (0.006217, 173), (0.006217, 173), (0.005097, 175),
+    (0.005097, 175), (0.005097, 175), (0.003909, 177), (0.003909, 177),
+    (0.002340, 177), (0.002389, 170), (0.001068, 164), (0.001653, 157),
+    (0.000717, 150), (0.001614, 143), (0.000270, 136), (0.000484, 129),
+    (0.001103, 123), (0.001242, 115), (0.001188, 109), (0.001011, 103),
+    (0.000709, 97), (0.000301, 89), (0.002416, 82), (0.003251, 76),
+    (0.003246, 69), (0.004141, 62), (0.005963, 55), (0.008839, 47),
+    (0.010490, 40), (0.016994, 31), (0.023657, 21),
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _logl16_y() -> np.ndarray:
+    """tif_luv.c's LogL16toY for each 15-bit log luminance (a set sign bit
+    makes Y negative, which LogLuv reads as black): exp(ln 2 / 256 * (Le +
+    0.5) - ln 2 * 64), 0 for Le 0, through the C library's exp."""
+    y = np.zeros(1 << 16, np.float64)
+    y[1 : 1 << 15] = [math.exp(_LN2 / 256.0 * (le + 0.5) - _LN2 * 64.0) for le in
+                      range(1, 1 << 15)]
+    return y
+
+
 @functools.lru_cache(maxsize=None)
 def _logl_gray() -> np.ndarray:
-    """tif_luv.c's L16toGry for each 16-bit LogL value: Y = exp(ln 2 / 256
-    * (Le + 0.5) - ln 2 * 64) from the 15-bit log luminance Le (0 for Le 0
-    or a negative sign), then 0 at or under 0, 255 at or over 1, else
-    ``(int)(256 * sqrt(Y))``, through the C library's exp."""
-    ln2 = 0.69314718055994530942  # M_LN2
+    """tif_luv.c's L16toGry for each 16-bit LogL value: Y from LogL16toY
+    (0 for Le 0 or a negative sign), then 0 at or under 0, 255 at or over
+    1, else ``(int)(256 * sqrt(Y))``."""
+    y = _logl16_y()
     gray = np.zeros(1 << 16, np.uint8)
     for le in range(1, 1 << 15):
-        y = math.exp(ln2 / 256.0 * (le + 0.5) - ln2 * 64.0)
-        gray[le] = 255 if y >= 1.0 else int(256.0 * math.sqrt(y))
+        gray[le] = 255 if y[le] >= 1.0 else int(256.0 * math.sqrt(y[le]))
     return gray
+
+
+def _luv_rgb(lum: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """tif_luv.c's LogLuv32toXYZ / LogLuv24toXYZ from the luminance and
+    (u', v'), then XYZtoRGB24 (CCIR-709 primaries, gamma 2): double
+    arithmetic in the C code's order, XYZ rounded to float, each channel 0
+    at or under 0, 255 at or over 1, else ``(int)(256 * sqrt(c))``."""
+    s = 1.0 / (6.0 * u - 16.0 * v + 12.0)
+    x = 9.0 * u * s
+    y = 4.0 * v * s
+    lit = lum > 0.0
+    xyz = [np.where(lit, c, 0.0).astype(np.float32).astype(np.float64)
+           for c in (x / y * lum, lum, (1.0 - x - y) / y * lum)]
+    out = np.empty(lum.shape + (3,), np.uint8)
+    for k, (a, b, c) in enumerate(((2.690, -1.276, -0.414), (-1.022, 1.978, 0.044),
+                                   (0.061, -0.224, 1.163))):
+        ch = a * xyz[0] + b * xyz[1] + c * xyz[2]
+        q = (256.0 * np.sqrt(np.clip(ch, 0.0, 1.0))).astype(np.int64)
+        out[..., k] = np.where(ch <= 0.0, 0, np.where(ch >= 1.0, 255, q))
+    return out
+
+
+def _luv32_rgb(p: np.ndarray) -> np.ndarray:
+    """32-bit LogLuv values -> RGB: a signed 16-bit log luminance, then u'
+    and v' as bytes, ``(b + 0.5) / 410``."""
+    lum = _logl16_y()[p >> 16]
+    u = 1.0 / 410.0 * (((p >> 8) & 255) + 0.5)
+    v = 1.0 / 410.0 * ((p & 255) + 0.5)
+    return _luv_rgb(lum, u, v)
+
+
+def _luv24_rgb(p: np.ndarray) -> np.ndarray:
+    """24-bit LogLuv values -> RGB: a 10-bit log luminance, exp(ln 2 / 64 *
+    (Le + 0.5) - ln 2 * 12) (0 for Le 0), then a 14-bit (u', v') index
+    through :func:`_uv24`."""
+    u, v = _uv24()
+    c = p & 0x3FFF
+    return _luv_rgb(_logl10_y()[(p >> 14) & 0x3FF], u[c], v[c])
+
+
+@functools.lru_cache(maxsize=None)
+def _logl10_y() -> np.ndarray:
+    """tif_luv.c's LogL10toY for each 10-bit log luminance, through the C
+    library's exp."""
+    return np.array([0.0] + [math.exp(_LN2 / 64.0 * (le + 0.5) - _LN2 * 12.0)
+                             for le in range(1, 1024)])
+
+
+@functools.lru_cache(maxsize=None)
+def _uv24() -> Tuple[np.ndarray, np.ndarray]:
+    """tif_luv.c's uv_decode for each 14-bit index: index ``c`` lies in the
+    row ``vi`` of :data:`_UV_ROWS` whose ``ncum`` is the last at or under
+    it, ``u = ustart + (c - ncum + 0.5) * UV_SQSIZ`` and ``v = UV_VSTART +
+    (vi + 0.5) * UV_SQSIZ`` (the constants floats); indices past the
+    table's 16289 take the neutral (u', v')."""
+    sq, vstart = float(np.float32(0.0035)), float(np.float32(0.01694))
+    u = np.full(1 << 14, 0.210526316)
+    v = np.full(1 << 14, 0.473684211)
+    ncum = 0
+    for vi, (ustart, nus) in enumerate(_UV_ROWS):
+        ui = np.arange(nus)
+        u[ncum : ncum + nus] = float(np.float32(ustart)) + (ui + 0.5) * sq
+        v[ncum : ncum + nus] = vstart + (vi + 0.5) * sq
+        ncum += nus
+    return u, v
 
 
 def _to8(v: np.ndarray, bits: int) -> np.ndarray:
@@ -496,16 +656,15 @@ def decode(data: bytes) -> np.ndarray:
     if photometric == 32844 and (compression != 34676 or spp != 1):
         raise ValueError(f"LogL TIFF of compression {compression} and {spp} samples, which "
                          "libtiff refuses")
-    if photometric == 32845:
-        if compression not in (34676, 34677) or planar != 1 or spp != 3 or extra:
-            raise ValueError(f"LogLuv TIFF of compression {compression}, {spp} samples, "
-                             f"PlanarConfiguration {planar}, which libtiff refuses")
-        raise NotImplementedError(f"SGI LogLuv TIFF ({bits}-bit samples)")
-    if compression not in _DECODED and photometric != 32844:
+    if photometric == 32845 and (compression not in (34676, 34677) or planar != 1 or spp != 3
+                                 or extra):
+        raise ValueError(f"LogLuv TIFF of compression {compression}, {spp} samples, "
+                         f"PlanarConfiguration {planar}, which libtiff refuses")
+    if compression not in _DECODED and photometric not in (32844, 32845):
         name = _COMPRESSION.get(compression, "an unknown")
         raise ValueError(f"{name} TIFF compression ({compression}), which OpenCV's libtiff "
                          "does not decode")
-    if bits < 8 and spp != 1:
+    if bits < 8 and spp != 1 and photometric != 32845:  # LogLuv's codec ignores the depth
         raise ValueError(f"{bits}-bit TIFF of {spp} samples a pixel")
     if (photometric == 2 and spp < 3) or (photometric == 5 and spp < 4):
         raise ValueError(f"TIFF of PhotometricInterpretation {photometric} with {spp} samples")
@@ -520,6 +679,8 @@ def decode(data: bytes) -> np.ndarray:
         raise ValueError(f"JPEG-in-TIFF of {bits}-bit samples, which libtiff refuses")
     if photometric == 32844:  # read as 8-bit gray (SGILOGDATAFMT_8BIT)
         photometric, bits = 1, 8
+    elif photometric == 32845:  # read as 8-bit RGB (SGILOGDATAFMT_8BIT)
+        photometric, bits = 2, 8
     s, block_w = _samples(data, tags, order, bits, spp, photometric)
     # libtiff's alpha: ExtraSamples 2 is unassociated (premultiplied on
     # read), 1 associated, 0 associated past three samples

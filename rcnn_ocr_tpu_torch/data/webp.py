@@ -5,7 +5,7 @@ through :func:`rcnn_ocr_tpu_torch.native.webp_decode_vp8l` and
 pixel as ``cv2.imdecode(buf, IMREAD_COLOR)`` gives it through libwebp.
 
 * Simple files: one ``VP8 `` (lossy) or ``VP8L`` (lossless) chunk.
-* Extended files (``VP8X``): unknown and metadata chunks (ICCP, EXIF, XMP)
+* Extended files (``VP8X``): unknown and metadata chunks (ICCP, XMP)
   skipped; an ``ALPH`` chunk before a lossy frame is decoded and checked
   as libwebp checks it (its header's reserved bits, compression, filter and
   preprocessing fields, raw data of at least width x height bytes, or a
@@ -18,6 +18,15 @@ pixel as ``cv2.imdecode(buf, IMREAD_COLOR)`` gives it through libwebp.
   first frame, decoded into a canvas of zeros (black) at its offset, as
   libwebp's animation decoder starts a key frame; the frame must lie
   inside the canvas.
+* EXIF orientation, as OpenCV applies it: the payload of the first
+  ``EXIF`` chunk of a VP8X file whose EXIF flag (0x08) is set, read by
+  :mod:`~rcnn_ocr_tpu_torch.data.exif` as a bare TIFF header (a leading
+  ``Exif\0\0`` hides it), turns the image (an animation's first frame
+  with its canvas).  OpenCV takes the chunk from libwebp's demuxer, so
+  the chunk counts only where the demuxer accepts the whole file
+  (:func:`_exif_block`): the chunk need not follow the image, but bytes
+  that are no chunk, a chunk past the RIFF size, a second image or
+  reserved VP8X flags leave the image unturned.
 
 Sizes are checked as libwebp checks them: a RIFF size past the end of the
 data (a truncated file) or under 12 bytes, a chunk past the RIFF size or
@@ -33,9 +42,12 @@ import struct
 
 import numpy as np
 
+from rcnn_ocr_tpu_torch.data import exif
 from rcnn_ocr_tpu_torch.data.size_limit import check_size
 
 _ANIMATION_FLAG = 0x02  # VP8X flags; the alpha flag (0x10) changes nothing cv2 gives
+_EXIF_FLAG = 0x08
+_VALID_FLAGS = 0x3E  # alpha, animation, ICC, EXIF, XMP: libwebp's demuxer refuses others
 
 
 def _chunk(data: bytes, pos: int, end: int):
@@ -88,18 +100,22 @@ def _check_alpha(alph: bytes, w: int, h: int) -> None:
         webp_decode_vp8l(alph[1:], w, h, header=False)
 
 
-def _frame(data: bytes, pos: int, end: int, animated: bool):
+def _frame(data: bytes, pos: int, end: int, animated: bool, extended: bool = False):
     """Decode the image at ``pos`` (optional ALPH, then VP8 or VP8L; other
     chunks before them skipped) -> RGB ``[h, w, 3]``.  As libwebp, the
     bitstream reads on past its chunk: a still image's to the end of the
     data (padding, later chunks, bytes after the RIFF size), an animation
     frame's through its chunk's padding byte; it matters only to a
-    stream that runs short."""
+    stream that runs short.  In a still VP8X file (``extended``) the chunks
+    through the image, padding included, must lie inside the RIFF size, as
+    libwebp's ParseOptionalChunks counts them."""
     from rcnn_ocr_tpu_torch.native import webp_decode_vp8, webp_decode_vp8l
 
     alph = None
     while True:
         tag, start, size, pos = _chunk(data, pos, end)
+        if extended and pos > end:
+            raise ValueError(f"WebP chunk {tag!r} and its padding run past the RIFF size")
         stream = data[start : start + size + (size & 1) if animated else len(data)]
         if tag == b"ALPH":
             alph = data[start : start + size]
@@ -135,12 +151,16 @@ def decode(data: bytes) -> np.ndarray:
     cw = int.from_bytes(data[start + 4 : start + 7], "little") + 1
     ch = int.from_bytes(data[start + 7 : start + 10], "little") + 1
     check_size(cw, ch, "WebP canvas")
+    valid, block = _demux(data, pos, end, flags)
+    o = exif.orientation(block) if valid and block is not None and flags & _EXIF_FLAG else 1
     if not flags & _ANIMATION_FLAG:
-        img = _frame(data, pos, end, animated=False)
+        img = _frame(data, pos, end, animated=False, extended=True)
         if img.shape[:2] != (ch, cw):
             raise ValueError(f"WebP frame {img.shape[1]}x{img.shape[0]} differs from its "
                              f"{cw}x{ch} canvas")
-        return img
+        return exif.apply(img, o)
+    if not valid:  # OpenCV decodes animations through libwebp's demuxer
+        raise ValueError("WebP animation that libwebp's demuxer refuses")
     seen_anim = False
     while True:  # ANIM, then the first ANMF
         tag, start, size, pos = _chunk(data, pos, end)
@@ -162,4 +182,49 @@ def decode(data: bytes) -> np.ndarray:
         raise ValueError("WebP animation frame differs from its ANMF sides")
     img = np.zeros((ch, cw, 3), np.uint8)
     img[y : y + fh, x : x + fw] = frame
-    return img
+    return exif.apply(img, o)
+
+
+def _demux(data: bytes, pos: int, end: int, flags: int):
+    """Whether libwebp's demuxer (WebPDemux on the whole file) accepts the
+    file after its VP8X chunk at ``pos``, and the first EXIF chunk's
+    payload (``None`` where there is none): every chunk whole inside the
+    RIFF size and the walk ending on it, one image (ALPH, then VP8 or
+    VP8L) in a still file and none outside ANMF in an animation, ANMF only
+    after an ANIM of at least 6 bytes, no second VP8X, no reserved flag."""
+    animated = bool(flags & _ANIMATION_FLAG)
+    block = None
+    seen_image = seen_anim = seen_frame = False
+    while pos < end:
+        if end - pos < 8:
+            return False, None
+        tag = data[pos : pos + 4]
+        size = struct.unpack_from("<I", data, pos + 4)[0]
+        padded = size + (size & 1)
+        if padded > end - pos - 8 or tag == b"VP8X":
+            return False, None
+        if tag in (b"ALPH", b"VP8 ", b"VP8L"):
+            if animated or seen_image:
+                return False, None
+            if tag == b"ALPH":  # StoreFrame: an optional ALPH, then the image
+                pos += 8 + padded
+                if end - pos < 8 or data[pos : pos + 4] != b"VP8 ":
+                    return False, None  # VP8L carries its own alpha
+                size = struct.unpack_from("<I", data, pos + 4)[0]
+                padded = size + (size & 1)
+                if padded > end - pos - 8:
+                    return False, None
+            seen_image = True
+        elif tag == b"ANIM":
+            if padded < 6:
+                return False, None
+            seen_anim = True
+        elif tag == b"ANMF":
+            if not seen_anim:
+                return False, None
+            seen_frame = True
+        elif tag == b"EXIF" and block is None:
+            block = data[pos + 8 : pos + 8 + size]
+        pos += 8 + padded
+    valid = not flags & ~_VALID_FLAGS and (seen_frame if animated else seen_image)
+    return valid, block

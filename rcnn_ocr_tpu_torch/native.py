@@ -78,6 +78,9 @@ ENTRIES = {
                     "rcnn_tiff_sgilog16_decode": [ctypes.c_char_p, _I64,
                                                   ctypes.POINTER(ctypes.c_int16), _I64, _I64,
                                                   ctypes.c_char_p, _I64],
+                    "rcnn_tiff_sgilog32_decode": [ctypes.c_char_p, _I64,
+                                                  ctypes.POINTER(ctypes.c_uint32), _I64, _I64,
+                                                  ctypes.c_char_p, _I64],
                     # data, n, out, rows, cols, compression, options, msg, msg_len
                     "rcnn_tiff_fax_decode": [ctypes.c_char_p, _I64, ctypes.POINTER(ctypes.c_uint8),
                                              _I64, _I64, _I64, _I64, ctypes.c_char_p, _I64]},
@@ -354,6 +357,22 @@ def tiff_sgilog16_decode(data: bytes, rows: int, cols: int) -> np.ndarray:
                                         int(rows), int(cols), msg, len(msg))
     if res != out.size:
         raise ValueError(f"damaged SGI LogL data: {msg.value.decode('utf-8', 'replace')}")
+    return out
+
+
+def tiff_sgilog32_decode(data: bytes, rows: int, cols: int) -> np.ndarray:
+    """One SGI LogLuv32 strip or tile (compression 34676) -> its ``rows`` x
+    ``cols`` 32-bit LogLuv values (uint32), as libtiff's LogLuvDecode32
+    reads them.  Raises ``ValueError`` where libtiff fails a row."""
+    lib = load("tiff_decode")
+    data = bytes(data)
+    out = np.empty((int(rows), int(cols)), dtype=np.uint32)
+    msg = ctypes.create_string_buffer(256)
+    res = lib.rcnn_tiff_sgilog32_decode(data, len(data),
+                                        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+                                        int(rows), int(cols), msg, len(msg))
+    if res != out.size:
+        raise ValueError(f"damaged SGI LogLuv data: {msg.value.decode('utf-8', 'replace')}")
     return out
 
 

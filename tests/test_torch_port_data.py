@@ -406,6 +406,33 @@ def test_variants_cv2_gives_none_on_are_quarantined_and_new_ones_read_as_jax(tmp
     assert assert_datasets_agree(csv_path, root, len(rows)) == list(range(len(none)))
 
 
+def test_png_webp_and_tiff_faults_are_quarantined_as_jax_quarantines_them(tmp_path):
+    """A row of each fault class the port had against cv2: a PNG and a
+    WebP whose EXIF orientation JAX's cv2 applies (the port read them
+    unturned), a PNG whose ancillary chunk fails its CRC (cv2 drops the
+    chunk; the port quarantined the row), a PNG cut before IEND (cv2 gives
+    None; the port trained on it); beside them the TIFF variants now read
+    (LogLuv32, LogLuv24, subsampled YCbCr with the predictor).  Both
+    datasets read the same pixels and quarantine only the cut PNG."""
+    import shutil
+
+    fixtures = Path(__file__).resolve().parent / "torch_port_data"
+    rels = ["png/exif6_mm_pre_7x11.png", "png/none_no_iend_7x11.png",
+            "png/crc_text_7x11.png", "webp/exif6_ii_vp8l_13x21.webp", "png/pngo_line_0.png",
+            "tiff_variants/luv32_line_0.tif", "tiff_variants/luv24_line_0.tif",
+            "tiff_variants/ycbcr22_pred2_lzw_strips_21x29.tif"]
+    root = tmp_path / "ds"
+    root.mkdir()
+    rows = []
+    for i, rel in enumerate(rels):
+        shutil.copy(fixtures / rel, root / Path(rel).name)
+        rows.append([Path(rel).name, "abcdefghij"[i]])
+    csv_path = root / "labels.csv"
+    with open(csv_path, "w", newline="", encoding="utf-8") as f:
+        csv.writer(f).writerows(rows)
+    assert assert_datasets_agree(csv_path, root, len(rows)) == [1]
+
+
 def _epochs(sampler, n=2):
     return [[list(b) if not isinstance(b, loader.BucketBatch) else (b.width, list(b.indices))
              for b in sampler] for _ in range(n)]

@@ -18,6 +18,9 @@ the CPU.
   screen over 1 << 30 pixels fails before anything is allocated.
 * ``image_size`` is JAX's (the logical screen) without a decode, on an
   animation whose first frame is smaller than its screen too.
+* Application extensions as OpenCV's frame count reads them (a 3-byte
+  sub-block outside ``NETSCAPE2.0`` read a byte short): named cases and a
+  seeded fuzz, bit-equal or ``ValueError`` where cv2 gives ``None``.
 """
 
 import io
@@ -32,7 +35,8 @@ jax = pytest.importorskip("jax")
 
 from rcnn_ocr_tpu.data import transforms as jax_tf  # noqa: E402
 from rcnn_ocr_tpu_torch.data import image_io  # noqa: E402
-from tests.torch_port_data.make_web_fixtures import _pack_lsb, gif_bytes  # noqa: E402
+from tests.torch_port_data.make_web_fixtures import (  # noqa: E402
+    _pack_lsb, application_extension, gif_bytes)
 
 FIXTURES = Path(__file__).resolve().parent / "torch_port_data" / "gif"
 NAMES = sorted(p.name for p in FIXTURES.glob("*.gif"))
@@ -265,3 +269,69 @@ def test_fuzz_of_encoder_output_is_bit_equal(seed):
         frames[0].save(bio, format="GIF", save_all=True, append_images=frames[1:],
                        transparency=0, disposal=2)
         assert _assert_as_cv2(bio.getvalue(), (seed, k, "anim"))
+
+
+def _with_extensions(exts, seed=0):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, 8, (5, 7))
+    return gif_bytes([dict(idx=idx, mcs=3, extensions=exts)], (7, 5), PAL)
+
+
+APPLICATION_CASES = {
+    "NETSCAPE loop": [application_extension(b"NETSCAPE2.0", [b"\x01\x00\x00"])],
+    "NETSCAPE 3 bytes not a loop": [application_extension(b"NETSCAPE2.0", [b"ABC"])],
+    "NETSCAPE 11 bytes then 3": [application_extension(b"NETSCAPE2.0", [b"z" * 11, b"ABC"])],
+    "NETSCAPE2.1 3 bytes": [application_extension(b"NETSCAPE2.1", [b"\x01\x00\x00"])],
+    "XMP of 3 bytes": [application_extension(b"XMP DataXMP", [b"abc"])],
+    "XMP of 1, 2, 4 bytes": [application_extension(b"XMP DataXMP", [b"a", b"ab", b"abcd"])],
+    "ICC of 3 bytes last": [application_extension(b"ICCRGBG1012", [bytes(255), b"end"])],
+    "ICC of 255 bytes": [application_extension(b"ICCRGBG1012", [bytes(255)])],
+    "3-byte identifier": [application_extension(b"ICC", [])],
+    "3 bytes that land on the end": [application_extension(b"ANIMEXTS1.0",
+                                                           [b"\x05\x06\x02", b"\x00"])],
+    "NETSCAPE then another of 3": [application_extension(b"NETSCAPE2.0", [b"\x01\x00\x00"]),
+                                   application_extension(b"ABCDEFGHIJK", [b"abc"])],
+    "comment of 3 bytes": [b"\x21\xfe\x03abc\x00"],
+    "unknown label of 3 bytes": [b"\x21\x22\x03abc\x00"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(APPLICATION_CASES))
+def test_application_extensions_read_as_opencv_counts_frames(case):
+    """OpenCV's frame count reads a 3-byte sub-block of an application
+    extension as 2 bytes unless the last 11-byte sub-block was
+    ``NETSCAPE2.0`` (then it is the loop count): the walk goes on a byte
+    early and mostly meets a block type it does not know (cv2's None). The
+    port raised on none of these and decoded files cv2 fails."""
+    _assert_as_cv2(_with_extensions(APPLICATION_CASES[case]), case)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_application_extension_fuzz_is_bit_equal(seed):
+    """Application, comment and unknown extensions of random identifiers
+    and sub-block sizes (3 among them) before or after the frame."""
+    rng = np.random.default_rng(2600 + seed)
+    idents = [b"NETSCAPE2.0", b"XMP DataXMP", b"ICCRGBG1012", b"ANIMEXTS1.0", b"NETSCAPE2.1"]
+    decoded = failed = 0
+    for k in range(150):
+        exts = []
+        for _ in range(int(rng.integers(1, 3))):
+            label = int(rng.choice([0xFF, 0xFF, 0xFF, 0xFE, 0x01, 0x22]))
+            blocks = [bytes(rng.integers(0, 256, int(rng.choice([1, 2, 3, 3, 4, 11, 255])))
+                            .astype(np.uint8)) for _ in range(int(rng.integers(0, 4)))]
+            if label == 0xFF:
+                ident = idents[int(rng.integers(0, len(idents)))]
+                if rng.random() < 0.15:
+                    ident = ident[: int(rng.integers(0, 12))]
+                exts.append(application_extension(ident, blocks))
+            else:
+                exts.append(b"\x21" + bytes([label]) + b"".join(bytes([len(b)]) + b
+                                                                 for b in blocks) + b"\x00")
+        data = _with_extensions(exts, seed * 1000 + k)
+        if rng.random() < 0.3:  # after the frame, before the trailer
+            data = _with_extensions([], seed * 1000 + k)[:-1] + b"".join(exts) + b"\x3b"
+        if _assert_as_cv2(data, (seed, k)):
+            decoded += 1
+        else:
+            failed += 1
+    assert decoded >= 30 and failed >= 15

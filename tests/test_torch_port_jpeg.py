@@ -43,6 +43,7 @@
 import csv
 import io
 import shutil
+import struct
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -716,3 +717,72 @@ def test_run_training_reads_jpeg_lines_as_their_pixels(tmp_path):
     assert np.isfinite(results["jpg"]["val_loss"])
     assert results["jpg"]["val_loss"] == results["png"]["val_loss"]
     assert results["jpg"]["val_acc"] == results["png"]["val_acc"]
+
+
+def _with_app1(jpeg: bytes, block: bytes) -> bytes:
+    app1 = b"Exif\x00\x00" + block
+    return jpeg[:2] + b"\xff\xe1" + struct.pack(">H", len(app1) + 2) + app1 + jpeg[2:]
+
+
+def _orientation_block(order: bytes, entry_bytes: int = 12, before=b"") -> bytes:
+    """A TIFF header of byte order ``order`` and an IFD whose entries are
+    ``before`` then an Orientation of 6 cut to ``entry_bytes``."""
+    e = "<" if order == b"II" else ">"
+    n = len(before) // 12 + 1
+    head = order + (b"*\x00" if order == b"II" else b"\x00*")
+    return (head + struct.pack(e + "IH", 8, n) + before
+            + struct.pack(e + "HHIHH", 0x112, 3, 1, 6, 0)[:entry_bytes])
+
+
+EXIF_READS = {
+    # OpenCV reads the entry's value at bytes 8-9: two bytes of padding may be missing
+    "an Orientation entry cut to 10 bytes": _orientation_block(b"MM", 10),
+    # two first bytes that differ read as Motorola order
+    "byte order 'MI'": b"MI" + _orientation_block(b"MM")[2:],
+    # a string entry whose data lies past the block stops the parse before it
+    "a string past the block first": _orientation_block(
+        b"MM", before=struct.pack(">HHII", 0x10E, 2, 100, 1000)),
+    "a rational past the block first": _orientation_block(
+        b"II", before=struct.pack("<HHII", 0x11A, 5, 1, 1000)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EXIF_READS))
+def test_exif_orientation_is_read_as_opencv_reads_it(case):
+    """The APP1 EXIF block read as OpenCV's ExifReader reads it (the port
+    read 'MI' and a 10-byte entry as no orientation)."""
+    jpeg = (FIXTURES / "arith_dac_s422_q90_20x31.jpg").read_bytes()
+    data = _with_app1(jpeg, EXIF_READS[case])
+    np.testing.assert_array_equal(image_io.imdecode(data), jax_tf.imdecode_cv2(data))
+
+
+def _app1(body: bytes) -> bytes:
+    return b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body
+
+
+_XMP = _app1(b"http://ns.adobe.com/xap/1.0/\x00<x:xmpmeta/>")
+EXIF_SEGMENTS = {
+    "XMP before the EXIF": [_XMP, _app1(b"Exif\x00\x00" + _orientation_block(b"MM"))],
+    "an EXIF without Orientation first": [
+        _app1(b"Exif\x00\x00MM\x00*" + struct.pack(">IH", 8, 0) + bytes(4)),
+        _app1(b"Exif\x00\x00" + _orientation_block(b"II"))],
+    "an EXIF whose Orientation is cut first": [
+        _app1(b"Exif\x00\x00" + _orientation_block(b"MM", 9)),
+        _app1(b"Exif\x00\x00" + _orientation_block(b"MM"))],
+    "an Orientation of 0 first": [
+        _app1(b"Exif\x00\x00MM\x00*" + struct.pack(">IHHHIHH", 8, 1, 0x112, 3, 1, 0, 0)),
+        _app1(b"Exif\x00\x00" + _orientation_block(b"MM"))],
+    "an APP1 that is not EXIF first": [_app1(b"XXXX\x00\x00" + _orientation_block(b"MM")[:8]),
+                                       _app1(b"Exif\x00\x00" + _orientation_block(b"II"))],
+    "an empty APP1 first": [_app1(b""), _app1(b"Exif\x00\x00" + _orientation_block(b"MM"))],
+}
+
+
+@pytest.mark.parametrize("case", sorted(EXIF_SEGMENTS))
+def test_exif_app1_segments_are_read_as_opencv_reads_them(case):
+    """Every APP1 that starts "Exif\\0\\0" feeds OpenCV's one ExifReader map,
+    where the first Orientation entry stays (the port read only the first
+    APP1, whatever it held)."""
+    jpeg = (FIXTURES / "arith_dac_s422_q90_20x31.jpg").read_bytes()
+    data = jpeg[:2] + b"".join(EXIF_SEGMENTS[case]) + jpeg[2:]
+    np.testing.assert_array_equal(image_io.imdecode(data), jax_tf.imdecode_cv2(data))

@@ -32,11 +32,18 @@
   cause, before it looks at the compression as OpenCV does: old-style
   JPEG, LZMA, ZSTD, WebP, LERC and PixarLog compression, floating-point,
   untyped and 32-bit samples, ICCLab and ITULab, 4-bit ThunderScan, LogLuv
-  at 32 bits (the ``none_*`` fixtures and more); SGI LogLuv at 16 bits,
-  which cv2 reads, raises ``UnsupportedImageFormat`` naming it; the kinds
-  refused before they were ported (CCITT, JPEG, YCbCr, BigTIFF, signed
-  samples, planar YCbCr JPEG, old-style LZW, CIELab, LogL) decode
-  bit-equal.
+  at 32 bits (the ``none_*`` fixtures and more); the kinds refused before
+  they were ported (CCITT, JPEG, YCbCr, BigTIFF, signed samples, planar
+  YCbCr JPEG, old-style LZW, CIELab, LogL, LogLuv) decode bit-equal.
+* SGI LogLuv and the predictor on subsampled YCbCr (the fixtures of
+  ``tests/torch_port_data/tiff_variants/``): LogLuv32 on a seeded fuzz and
+  on every (u', v') byte pair at a spread of luminances, LogLuv24 on all
+  2**24 codes (the table of ``data/tiff.py``'s ``_UV_ROWS``, read back
+  from cv2 by ``tests/torch_port_data/derive_uv_rows.py``), both at 1, 8
+  and 16 bits, strips and tiles; subsampled YCbCr with the predictor on a
+  seeded fuzz over subsampling, LZW and Deflate, strips and tiles, where
+  libtiff undoes the predictor and where it refuses to (the bytes then
+  stay as coded): all bit-equal to cv2.
 * TIFF datasets with no further change: ``run_training`` on TIFF lines
   equals a run on PNGs of cv2's decode of them.
 """
@@ -58,11 +65,12 @@ jax = pytest.importorskip("jax")
 from rcnn_ocr_tpu.data import transforms as jax_tf  # noqa: E402
 from rcnn_ocr_tpu_torch.data import image_io  # noqa: E402
 from tests.torch_port_data.make_tiff_fixtures import (  # noqa: E402
-    CV2_NONE, REFUSED, _ycc, big_tiff, jpeg_tiff, lzw, lzw_old_style, tiff_bytes)
+    CV2_NONE, _ycc, big_tiff, jpeg_tiff, logluv_tiff, lzw, lzw_old_style, tiff_bytes)
 
 FIXTURES = Path(__file__).resolve().parent / "torch_port_data" / "tiff"
-NAMES = sorted(p.name for p in FIXTURES.glob("*.tif")
-               if p.name not in REFUSED and p.name not in CV2_NONE)
+NAMES = sorted(p.name for p in FIXTURES.glob("*.tif") if p.name not in CV2_NONE)
+VARIANTS = FIXTURES.parent / "tiff_variants"
+VARIANT_NAMES = sorted(p.name for p in VARIANTS.glob("*.tif"))
 
 
 @pytest.fixture(scope="module")
@@ -116,14 +124,6 @@ def test_fixture_is_bit_equal_to_cv2(name, expected):
     got = _assert_bit_equal(data)
     np.testing.assert_array_equal(got, expected[name])
     assert image_io.imread(str(FIXTURES / name)).shape == got.shape
-
-
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_refused_fixtures_name_what_they_are(name):
-    assert _cv2((FIXTURES / name).read_bytes()) is not None  # cv2 reads it
-    with pytest.raises(image_io.UnsupportedImageFormat) as err:
-        image_io.imread(str(FIXTURES / name))
-    assert REFUSED[name] in str(err.value) and image_io.SUPPORTED in str(err.value)
 
 
 @pytest.mark.parametrize("name", sorted(CV2_NONE))
@@ -579,13 +579,6 @@ def _logluv(bits):
                       compression="sgilog", rows_per_strip=2, chunks=[bytes([3, 1, 2, 3] * 8)])
 
 
-# what cv2 reads and the port refuses, naming it
-REFUSALS = {
-    "SGI LogLuv TIFF (16-bit": lambda: _logluv(16),
-    "SGI LogLuv TIFF (8-bit": lambda: _logluv(8),
-}
-
-
 def _planar_ycbcr_jpeg():
     """A JPEG-in-TIFF relabelled planar YCbCr, its one strip three
     components (a planar file needs a strip a plane)."""
@@ -620,21 +613,14 @@ FORMERLY_REFUSED = {
     "SGI LogL TIFF": lambda: tiff_bytes(
         np.random.default_rng(10).integers(0, 65536, (6, 9, 1)).astype(np.uint16), bits=16,
         photometric=32844, compression="sgilog"),
+    "SGI LogLuv TIFF (16-bit": lambda: _logluv(16),
+    "SGI LogLuv TIFF (8-bit": lambda: _logluv(8),
 }
 
 
 @pytest.mark.parametrize("kind", sorted(FORMERLY_REFUSED))
 def test_formerly_refused_kinds_decode_bit_equal(kind):
     _assert_bit_equal(FORMERLY_REFUSED[kind]())
-
-
-@pytest.mark.parametrize("kind", sorted(REFUSALS))
-def test_unsupported_variants_raise_naming_them(kind):
-    data = REFUSALS[kind]()
-    assert _cv2(data) is not None  # cv2 reads it
-    with pytest.raises(image_io.UnsupportedImageFormat) as err:
-        image_io.imdecode(data)
-    assert kind in str(err.value) and image_io.SUPPORTED in str(err.value)
 
 
 def _sample_format(fmt, bits=8, spp=1):
@@ -856,4 +842,114 @@ def test_run_training_reads_tiff_lines_as_their_pixels(tmp_path):
 def test_the_card_smoke_holds_the_same_cv2_none_and_refused_files():
     import chip_smoke
 
-    assert chip_smoke.TIFF_CV2_NONE == CV2_NONE and chip_smoke.TIFF_REFUSED == REFUSED
+    # no TIFF cv2 reads is refused any more
+    assert chip_smoke.TIFF_CV2_NONE == CV2_NONE and not hasattr(chip_smoke, "TIFF_REFUSED")
+
+
+# --- SGI LogLuv and the predictor on subsampled YCbCr -------------------------------------
+
+@pytest.mark.parametrize("name", VARIANT_NAMES)
+def test_variant_fixture_is_bit_equal_to_cv2(name):
+    with np.load(VARIANTS / "expected.npz") as z:
+        want = z[name]
+    got = _assert_bit_equal((VARIANTS / name).read_bytes())
+    np.testing.assert_array_equal(got, want)
+
+
+def test_variant_fixtures_cover_the_paths():
+    for kind in ("logluv32_16_strips", "logluv32_8_tiles_mm", "logluv24_8_strips",
+                 "logluv24_16_tiles", "ycbcr22_pred2", "ycbcr42_pred2_deflate_strips",
+                 "ycbcr44_pred2_lzw_tiles", "luv32_line", "luv24_line"):
+        assert any(kind in n for n in VARIANT_NAMES), kind
+    assert sum(p.stat().st_size for p in VARIANTS.iterdir()) < 64 * 1024
+
+
+def _luv_kw(rng):
+    tile = (16, 16) if rng.random() < 0.3 else None
+    return dict(bits=int(rng.choice([1, 8, 16])), tile=tile,
+                rows_per_strip=int(rng.integers(1, 9)), order=str(rng.choice(["<", ">"])))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_logluv32_fuzz_is_bit_equal(seed):
+    """Random 32-bit LogLuv values (mid luminances, black, negative signs,
+    runs in each byte plane), 1, 8 or 16 bits a sample, strips or tiles."""
+    rng = np.random.default_rng(2300 + seed)
+    for _ in range(12):
+        h, w = (int(v) for v in rng.integers(1, 40, 2))
+        v = rng.integers(0, 1 << 32, (h, w), dtype=np.uint64).astype(np.uint32)
+        mid = rng.random((h, w)) < 0.6
+        v[mid] = (v[mid] & 0xFFFF) | (rng.integers(0x2800, 0x4900, mid.sum()).astype(np.uint32)
+                                      << 16)
+        if h > 1:
+            v[1, : w // 2] = v[1, 0]  # a run
+        _assert_bit_equal(logluv_tiff(v, **_luv_kw(rng)))
+
+
+@pytest.mark.parametrize("group", range(4))
+def test_logluv32_every_uv_byte_pair_is_bit_equal(group):
+    """All 65,536 (u', v') byte pairs at four log luminances a group,
+    spread from dark to past white."""
+    les = np.linspace(0x2000, 0x4A00, 16).astype(np.uint32)[group::4]
+    uv = np.arange(1 << 16, dtype=np.uint32)
+    v = (les[:, None] << 16 | uv[None, :]).reshape(-1, 1024)
+    _assert_bit_equal(logluv_tiff(v, rows_per_strip=64))
+
+
+def test_logluv24_every_code_is_bit_equal():
+    """All 2**24 LogLuv24 codes: every 10-bit log luminance with every
+    14-bit (u', v') index, those past the table's 16,289 decoding neutral."""
+    v = np.arange(1 << 24, dtype=np.uint32).reshape(4096, 4096)
+    data = logluv_tiff(v, compression="sgilog24", bits=8, rows_per_strip=256)
+    want = jax_tf.imdecode_cv2(data)
+    got = image_io.imdecode(data)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_logluv24_fuzz_is_bit_equal(seed):
+    rng = np.random.default_rng(2400 + seed)
+    for _ in range(12):
+        h, w = (int(v) for v in rng.integers(1, 40, 2))
+        v = rng.integers(0, 1 << 24, (h, w)).astype(np.uint32)
+        _assert_bit_equal(logluv_tiff(v, compression="sgilog24", **_luv_kw(rng)))
+
+
+@pytest.mark.parametrize("compression", ["sgilog", "sgilog24"])
+def test_logluv_short_data_raises(compression):
+    """A strip short of its rows: libtiff fails the row ("Not enough data")
+    and its RGBA reader goes on with the buffer as it was; the port raises
+    ``ValueError``, as for the other damaged strips."""
+    v = np.random.default_rng(3).integers(0, 1 << 24, (6, 9)).astype(np.uint32)
+    data = logluv_tiff(v, compression=compression, rows_per_strip=6)
+    (ifd,) = struct.unpack_from("<I", data, 4)
+    (n,) = struct.unpack_from("<H", data, ifd)
+    data = bytearray(data)
+    for i in range(n):  # the strip's byte count halved
+        e = ifd + 2 + 12 * i
+        if struct.unpack_from("<H", data, e)[0] == 279:
+            count = struct.unpack_from("<I", data, e + 8)[0]
+            struct.pack_into("<I", data, e + 8, count // 2)
+    with pytest.raises(ValueError, match="LogLuv"):
+        image_io.imdecode(bytes(data))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_ycbcr_predictor_fuzz_is_bit_equal(seed):
+    """Subsampled YCbCr with the horizontal predictor: libtiff undoes it on
+    the data-unit bytes, three apart, a scanline (strips) or a tile row
+    (tiles) at a time, where those pieces are whole three-byte pixels and
+    the strip or tile whole pieces; elsewhere it refuses and its RGBA
+    reader converts the bytes as coded.  cv2 reads them all."""
+    rng = np.random.default_rng(2500 + seed)
+    for _ in range(15):
+        h, w = (int(v) for v in rng.integers(1, 45, 2))
+        hs, vs = [(2, 2), (2, 1), (1, 2), (4, 2), (4, 4), (4, 1)][int(rng.integers(0, 6))]
+        data = tiff_bytes(_ycc_image(rng, h, w), photometric=6, predictor=2,
+                          compression=str(rng.choice(["lzw", "deflate", "zip"])),
+                          subsampling=(hs, vs),
+                          tile=((int(rng.choice([16, 32])), int(rng.choice([16, 32])))
+                                if rng.random() < 0.4 else None),
+                          rows_per_strip=int(rng.integers(1, h + 1)),
+                          order=str(rng.choice(["<", ">"])))
+        _assert_bit_equal(data)

@@ -32,6 +32,7 @@ import csv
 import io
 import os
 import re
+import struct
 from pathlib import Path
 
 import cv2
@@ -412,3 +413,127 @@ def test_eval_cli_on_webp_gif_and_pgm_lines_matches_jax(files, tmp_path, monkeyp
         lambda: evaluate.evaluate_model(ckpt, charset, device="cpu", dtype=torch.float32, **kw))
     assert got == want and got["n"] == len(LABELS)
     assert list(got_csv.values()) == list(want_csv.values())
+
+
+# --- EXIF orientation --------------------------------------------------------------------
+
+def _exif_parts():
+    from tests.torch_port_data.make_png_fixtures import exif_tiff
+
+    rng = np.random.default_rng(21)
+    px = rng.integers(0, 1 << 24, (9, 14)).astype(np.int64) | (0xFF << 24)
+    image = chunk(b"VP8L", vp8l_bytes(px.astype(np.uint32), seed=4))
+    return exif_tiff, image, 14, 9
+
+
+@pytest.mark.parametrize("where", ["before", "after"])
+@pytest.mark.parametrize("order", ["MM", "II"])
+@pytest.mark.parametrize("o", range(10))
+def test_exif_orientation_grid_matches_cv2(o, order, where):
+    """An EXIF chunk of orientation 0-9, either byte order, before or
+    after the image: the image turned as cv2 turns it."""
+    from rcnn_ocr_tpu_torch.data import exif
+
+    exif_tiff, image, w, h = _exif_parts()
+    x = chunk(b"EXIF", exif_tiff(o, order))
+    data = riff(vp8x(w, h, 0x08), *((x, image) if where == "before" else (image, x)))
+    assert _assert_as_cv2(data, (o, order, where))
+    plain = image_io.imdecode(riff(image))
+    np.testing.assert_array_equal(image_io.imdecode(data),
+                                  exif.apply(plain, o if 1 <= o <= 8 else 1))
+
+
+def _exif_cases():
+    exif_tiff, image, w, h = _exif_parts()
+    x6, x3 = chunk(b"EXIF", exif_tiff(6)), chunk(b"EXIF", exif_tiff(3, "II"))
+    lossy = chunk(b"VP8 ", vp8_frame(w, h, seed=5))
+    return {
+        "flag unset": riff(vp8x(w, h, 0), image, x6),
+        "flag with alpha": riff(vp8x(w, h, 0x18), image, x6),
+        "reserved flag": riff(vp8x(w, h, 0x09), image, x6),
+        "Exif prefix": riff(vp8x(w, h, 0x08), image,
+                            chunk(b"EXIF", exif_tiff(6, prefix=b"Exif\x00\x00"))),
+        "two EXIF chunks": riff(vp8x(w, h, 0x08), image, x6, x3),
+        "empty EXIF": riff(vp8x(w, h, 0x08), image, chunk(b"EXIF", b"")),
+        "odd-sized EXIF": riff(vp8x(w, h, 0x08), image, chunk(b"EXIF", exif_tiff(6) + b"x")),
+        "junk before EXIF": riff(vp8x(w, h, 0x08), image, b"\x01\x02\x03", x6),
+        "EXIF cut by the file's end": riff(vp8x(w, h, 0x08), image, x6[:-4]),
+        "EXIF past the RIFF size": riff(vp8x(w, h, 0x08), image, x6)[:-6],
+        "unknown chunk before EXIF": riff(vp8x(w, h, 0x08), image, chunk(b"ABCD", b"xy"), x6),
+        "ICCP before EXIF": riff(vp8x(w, h, 0x28), chunk(b"ICCP", bytes(10)), x6, image),
+        "second image": riff(vp8x(w, h, 0x08), image, image, x6),
+        "simple file, EXIF after": riff(image, x6),
+        "lossy, EXIF before": riff(vp8x(w, h, 0x08), x6, lossy),
+        "animation": riff(vp8x(w + 2, h + 4, 0x0A), chunk(b"ANIM", bytes(6)),
+                          anmf(2, 4, w, h, image), x6),
+        "animation, EXIF before ANIM": riff(vp8x(w, h, 0x0A), x6, chunk(b"ANIM", bytes(6)),
+                                            anmf(0, 0, w, h, image)),
+        "animation, flag unset": riff(vp8x(w, h, 0x02), chunk(b"ANIM", bytes(6)),
+                                      anmf(0, 0, w, h, image), x6),
+        "animation, reserved flag": riff(vp8x(w, h, 0x8A), chunk(b"ANIM", bytes(6)),
+                                         anmf(0, 0, w, h, image), x6),
+        "animation, image outside ANMF": riff(vp8x(w, h, 0x0A), chunk(b"ANIM", bytes(6)),
+                                              anmf(0, 0, w, h, image), image),
+        "VP8X image padded past the RIFF size": _odd_riff(riff(vp8x(w, h, 0x08), image)),
+    }
+
+
+def _odd_riff(data):
+    """The RIFF size one short, so an odd image chunk's padding byte lies
+    past it (libwebp's ParseOptionalChunks counts the padding)."""
+    size = struct.unpack_from("<I", data, 4)[0]
+    return data[:4] + struct.pack("<I", size - 1) + data[8:]
+
+
+@pytest.mark.parametrize("case", sorted(_exif_cases()))
+def test_exif_chunk_cases_match_cv2(case):
+    """Where the EXIF chunk counts: libwebp's demuxer must accept the whole
+    file (OpenCV reads the chunk through it, and decodes animations
+    through it: a file it refuses is cv2's None there)."""
+    _assert_as_cv2(_exif_cases()[case], case)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_exif_container_fuzz_matches_cv2(seed):
+    """EXIF, XMP, ICCP, unknown chunks and junk placed at random around a
+    lossy or lossless image or animation frame, random VP8X flags, files
+    cut or their RIFF size shortened."""
+    from tests.torch_port_data.make_png_fixtures import exif_tiff
+
+    rng = np.random.default_rng(2100 + seed)
+    for k in range(60):
+        h, w = (int(v) for v in rng.integers(4, 30, 2))
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        parts = webp_chunks(_pil(img, lossless=bool(rng.random() < 0.5), quality=80))
+        frame = b"".join(chunk(t, b) for t, b in parts if t in (b"VP8 ", b"VP8L", b"ALPH"))
+        pool = [chunk(b"EXIF", exif_tiff(int(rng.integers(0, 10)), str(rng.choice(["MM", "II"])))),
+                chunk(b"XMP ", b"x" * int(rng.integers(0, 5))), chunk(b"ICCP", b"y" * 3),
+                chunk(b"abcd", b"z"), b"\x01\x02\x03", chunk(b"EXIF", exif_tiff(6)),
+                chunk(b"VP8L", b"\x2f\x00\x00\x00\x00")]
+        extra = [pool[int(rng.choice(len(pool), p=[0.45, 0.1, 0.1, 0.1, 0.05, 0.15, 0.05]))]
+                 for _ in range(int(rng.integers(0, 4)))]
+        flags = int(rng.choice([0x08, 0x08, 0x08, 0x00, 0x18, 0x09, 0x28, 0x88]))
+        if rng.random() < 0.2:
+            body = [chunk(b"ANIM", bytes(6)), anmf(0, 0, w, h, frame)]
+            for c in extra:
+                body.insert(int(rng.integers(0, len(body) + 1)), c)
+            data = riff(vp8x(w, h, flags | 0x02), *body)
+        else:
+            seq = [frame]
+            for c in extra:
+                seq.insert(int(rng.integers(0, len(seq) + 1)), c)
+            data = riff(vp8x(w, h, flags), *seq)
+        if rng.random() < 0.15:
+            data = (data[: int(rng.integers(30, len(data)))] if rng.random() < 0.5 else
+                    data[:4] + struct.pack("<I", struct.unpack_from("<I", data, 4)[0]
+                                           - int(rng.integers(1, 8))) + data[8:])
+        _assert_as_cv2(data, (seed, k))
+
+
+def test_exif_fixtures_image_size_is_jaxs():
+    """JAX's header probe decodes WebP, so its sides follow the
+    orientation; the port's do too."""
+    for name in NAMES:
+        if name.startswith(("exif", "webpo")):
+            path = str(FIXTURES / name)
+            assert image_io.image_size(path) == jax_tf.image_size(path), name

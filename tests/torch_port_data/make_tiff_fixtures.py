@@ -3,7 +3,8 @@
     python tests/torch_port_data/make_tiff_fixtures.py
 
 Needs cv2 and PIL (the card's script reads only the files).  Writes into
-``tests/torch_port_data/tiff/``:
+``tests/torch_port_data/tiff/`` and, for SGI LogLuv and the predictor on
+subsampled YCbCr (:func:`_logluv_fixtures`), ``tiff_variants/``:
 
 * files written by :func:`tiff_bytes` below, one per decoder path: every
   compression (none, PackBits, LZW, Deflate 8 and 32946) with and without
@@ -31,8 +32,11 @@ import zlib
 import numpy as np
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tiff")
+# the SGI LogLuv and predicted subsampled YCbCr files, in a folder of their own (``tiff/``
+# keeps under the 256 KiB its test allows)
+OUT_VARIANTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tiff_variants")
 COMPRESSION = {"none": 1, "lzw": 5, "lzw_old": 5, "deflate": 8, "zip": 32946, "packbits": 32773,
-               "sgilog": 34676,
+               "sgilog": 34676, "sgilog24": 34677,
                "ccitt_rle": 2, "ccitt_rlew": 32771, "g3": 3, "g4": 4, "jpeg": 7}
 _REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
@@ -149,9 +153,49 @@ def sgilog16(values: np.ndarray) -> bytes:
     low), each run-length coded as libtiff's LogL16Encode codes them
     (a run of 2 to 129 equal bytes as 126 + n and the byte, else literals
     of up to 127 bytes after their count)."""
+    return _sgilog_planes(values, 2)
+
+
+def sgilog32(values: np.ndarray) -> bytes:
+    """SGI LogLuv32 (compression 34676 on PhotometricInterpretation LogLuv):
+    each row's 32-bit values as four byte planes, most significant first,
+    run-length coded as :func:`sgilog16` codes its two."""
+    return _sgilog_planes(values, 4)
+
+
+def sgilog24(values: np.ndarray) -> bytes:
+    """SGI LogLuv24 (compression 34677): each 24-bit value as three bytes,
+    most significant first, as libtiff's LogLuvEncode24 writes them."""
+    v = np.asarray(values, np.uint32).reshape(-1)
+    return np.stack([(v >> 16) & 255, (v >> 8) & 255, v & 255], axis=1).astype(np.uint8).tobytes()
+
+
+def logluv_tiff(values: np.ndarray, compression: str = "sgilog", bits: int = 16,
+                rows_per_strip: int = 8, tile=None, order: str = "<", **kw) -> bytes:
+    """A LogLuv TIFF (PhotometricInterpretation 32845, three samples of
+    ``bits``) of ``values`` ``[H, W]``: 32-bit LogLuv values coded by
+    :func:`sgilog32` (``compression="sgilog"``) or 24-bit ones by
+    :func:`sgilog24` (``"sgilog24"``), in strips or tiles ``(w, h)``."""
+    values = np.asarray(values, np.uint32)
+    h, w = values.shape
+    code = sgilog32 if compression == "sgilog" else sgilog24
+    if tile is None:
+        chunks = [code(values[y : y + rows_per_strip]) for y in range(0, h, rows_per_strip)]
+    else:
+        tw, tl = tile
+        padded = np.zeros((-(-h // tl) * tl, -(-w // tw) * tw), np.uint32)
+        padded[:h, :w] = values
+        chunks = [code(padded[y : y + tl, x : x + tw]) for y in range(0, h, tl)
+                  for x in range(0, w, tw)]
+    return tiff_bytes(np.zeros((h, w, 3), np.uint16), bits=bits, photometric=32845,
+                      compression=compression, rows_per_strip=rows_per_strip, tile=tile,
+                      order=order, chunks=chunks, **kw)
+
+
+def _sgilog_planes(values: np.ndarray, nbytes: int) -> bytes:
     out = bytearray()
     for row in np.asarray(values, np.int64).reshape(values.shape[0], -1):
-        for plane in ((row >> 8) & 255, row & 255):
+        for plane in ((row >> (8 * k)) & 255 for k in range(nbytes - 1, -1, -1)):
             i, n = 0, len(plane)
             while i < n:
                 j = i
@@ -468,6 +512,23 @@ def _predict(block: np.ndarray, bits: int) -> np.ndarray:
     return out
 
 
+def _predict_bytes(data: bytes, row: int) -> bytes:
+    """Horizontal differencing of a subsampled YCbCr strip or tile as
+    libtiff's predictor does it: over the data-unit bytes as if they were
+    three-sample pixels, in pieces of ``row`` bytes (TIFFScanlineSize for
+    strips, TIFFTileRowSize for tiles); a piece that is not whole pixels is
+    left as it is (libtiff refuses to difference it)."""
+    b = np.frombuffer(data, np.uint8).copy()
+    if row % 3:
+        return b.tobytes()
+    whole = len(b) // row * row
+    pix = b[:whole].reshape(-1, row // 3, 3)
+    diff = pix.copy()
+    diff[:, 1:] = pix[:, 1:] - pix[:, :-1]
+    b[:whole] = diff.reshape(-1)
+    return b.tobytes()
+
+
 def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = 1,
                compression: str = "none", predictor: int = 1, planar: int = 1,
                tile=None, rows_per_strip: int = 8, order: str = "<",
@@ -529,12 +590,17 @@ def _write_page(body: bytearray, order: str, samples, bits, photometric, compres
                     t[: part.shape[0], : part.shape[1]] = part
                     blocks.append(t)
         for blk in blocks:
-            if predictor == 2:
+            if predictor == 2 and subsampling is None:
                 blk = _predict(blk, bits)
             if compression in ("ccitt_rle", "ccitt_rlew", "g3", "g4"):
                 raw = fax_encode(blk[:, :, 0], compression, t4options or 0)
             elif subsampling is not None:
-                raw = compress(ycbcr_units(blk, *subsampling), compression)
+                units = ycbcr_units(blk, *subsampling)
+                if predictor == 2:  # differenced as bytes, three apart, a row at a time
+                    hs, vs = subsampling
+                    row = 3 * tile[0] if tile else -(-w // hs) * (hs * vs + 2) // vs
+                    units = _predict_bytes(units, row)
+                raw = compress(units, compression)
             elif compression == "sgilog":
                 raw = sgilog16(blk[:, :, 0])
             else:
@@ -854,8 +920,8 @@ def _relabelled(compression: int) -> bytes:
 
 
 def _refusals() -> dict:
-    """The files cv2 gives ``None`` on (:data:`CV2_NONE`) and the one it
-    reads and the port refuses (:data:`REFUSED`)."""
+    """The files cv2 gives ``None`` on (:data:`CV2_NONE`), and an SGI
+    LogLuv file the port refused before it read LogLuv (its name kept)."""
     from PIL import Image
 
     files = {}
@@ -901,8 +967,6 @@ CV2_NONE = {"none_zstd.tif": "ZSTD TIFF compression (50000)",
             "none_itulab.tif": "ITULab TIFF",
             "none_thunderscan4.tif": "4-bit TIFF samples",
             "none_bigtiff_no_directory.tif": "directory"}
-# what cv2 reads and the port refuses naming it
-REFUSED = {"refused_logluv16.tif": "SGI LogLuv TIFF"}
 
 
 def _variant_fixtures(rng) -> dict:
@@ -962,6 +1026,57 @@ def _variant_fixtures(rng) -> dict:
     return files
 
 
+# the 24-bit LogLuv index nearest the neutral (u', v') = (0.2105, 0.4737)
+LUV24_NEUTRAL = 12266
+
+
+def _logluv_line(rng, bits24: bool) -> np.ndarray:
+    """A text line (:func:`_line`'s) as gray LogLuv values: each pixel's
+    luminance ``((g + 0.5) / 256)**2`` as a log luminance, the chromaticity
+    neutral (bytes 86 and 194, or :data:`LUV24_NEUTRAL`)."""
+    g = _line(rng).astype(np.float64).mean(axis=2)
+    y = ((g + 0.5) / 256.0) ** 2
+    if bits24:
+        le = np.clip(np.floor(64.0 * (np.log2(y) + 12.0)), 1, 1023).astype(np.uint32)
+        return le << 14 | LUV24_NEUTRAL
+    le = np.clip(np.floor(256.0 * (np.log2(y) + 64.0)), 1, 32767).astype(np.uint32)
+    return le << 16 | 86 << 8 | 194
+
+
+def _logluv_fixtures(rng) -> dict:
+    """SGI LogLuv32 and LogLuv24 at 8 and 16 bits (strips, tiles, MM,
+    runs, black and negative luminances, indices past the table), the
+    horizontal predictor on subsampled YCbCr (strips and tiles, where
+    libtiff undoes it and where it refuses to), and a text line of each
+    LogLuv kind for the card's daemon phase."""
+    files = {}
+    v32 = rng.integers(0, 1 << 32, (13, 19), dtype=np.uint64).astype(np.uint32)
+    v32[:4] = (v32[:4] & 0xFFFF) | (rng.integers(0x3000, 0x4800, (4, 19)).astype(np.uint32) << 16)
+    v32[4, :9] = v32[4, 0]  # a run in every plane
+    v32[5, :3] = 0  # black: Le 0
+    files["logluv32_16_strips_13x19.tif"] = logluv_tiff(v32, bits=16, rows_per_strip=5)
+    files["logluv32_8_tiles_mm_13x19.tif"] = logluv_tiff(v32, bits=8, tile=(16, 16), order=">")
+    v24 = rng.integers(0, 1 << 24, (13, 19)).astype(np.uint32)
+    v24[:4] = (rng.integers(300, 900, (4, 19)).astype(np.uint32) << 14) | (v24[:4] & 0x3FFF)
+    v24[4, :5] = 16289 + np.arange(5, dtype=np.uint32)  # past the table: neutral
+    files["logluv24_8_strips_13x19.tif"] = logluv_tiff(v24, compression="sgilog24", bits=8,
+                                                       rows_per_strip=4)
+    files["logluv24_16_tiles_13x19.tif"] = logluv_tiff(v24, compression="sgilog24", bits=16,
+                                                       tile=(16, 16))
+    ycc = _ycc(_smooth(rng, 21, 29))
+    for (hs, vs), comp, tile in (((2, 2), "lzw", None), ((2, 1), "deflate", None),
+                                 ((1, 2), "lzw", (16, 16)), ((4, 2), "deflate", None),
+                                 ((4, 4), "lzw", (16, 16)), ((4, 2), "zip", (16, 16))):
+        where = "tiles" if tile else "strips"
+        files[f"ycbcr{hs}{vs}_pred2_{comp}_{where}_21x29.tif"] = tiff_bytes(
+            ycc, photometric=6, compression=comp, predictor=2, subsampling=(hs, vs), tile=tile,
+            rows_per_strip=8)
+    files["luv32_line_0.tif"] = logluv_tiff(_logluv_line(rng, False), bits=16, rows_per_strip=8)
+    files["luv24_line_0.tif"] = logluv_tiff(_logluv_line(rng, True), compression="sgilog24",
+                                            bits=8, rows_per_strip=8)
+    return files
+
+
 def big_tiff(data: bytes) -> bytes:
     """A classic TIFF rewritten as a BigTIFF: the same data, the first IFD
     moved to the end with 20-byte entries, LONG offsets and counts kept."""
@@ -999,26 +1114,24 @@ def big_tiff(data: bytes) -> bytes:
 def main() -> None:
     import cv2
 
-    os.makedirs(OUT, exist_ok=True)
-    expected = {}
-    for name, data in fixtures().items():
-        with open(os.path.join(OUT, name), "wb") as f:
-            f.write(data)
-        bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-        if name in CV2_NONE:
-            assert bgr is None, name
-            continue
-        assert bgr is not None, name
-        if name in REFUSED:
-            continue
-        expected[name] = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
-    np.savez_compressed(os.path.join(OUT, "expected.npz"), **expected)
-    total = sum(os.path.getsize(os.path.join(OUT, f)) for f in os.listdir(OUT))
-    print(f"wrote {len(expected) + len(REFUSED) + len(CV2_NONE)} TIFFs and expected.npz into "
-          f"{OUT}: {total} bytes")
-    for name in sorted(set(os.listdir(OUT)) - set(expected) - set(REFUSED) - set(CV2_NONE)
-                       - {"expected.npz"}):
-        print(f"  {name} is written by no fixture any more")
+    for out, files in ((OUT, fixtures()),
+                       (OUT_VARIANTS, _logluv_fixtures(np.random.default_rng(20261019)))):
+        os.makedirs(out, exist_ok=True)
+        expected = {}
+        for name, data in files.items():
+            with open(os.path.join(out, name), "wb") as f:
+                f.write(data)
+            bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+            if name in CV2_NONE:
+                assert bgr is None, name
+                continue
+            assert bgr is not None, name
+            expected[name] = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+        np.savez_compressed(os.path.join(out, "expected.npz"), **expected)
+        total = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+        print(f"wrote {len(files)} TIFFs and expected.npz into {out}: {total} bytes")
+        for name in sorted(set(os.listdir(out)) - set(files) - {"expected.npz"}):
+            print(f"  {name} is written by no fixture any more")
 
 
 if __name__ == "__main__":

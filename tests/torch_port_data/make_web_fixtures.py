@@ -23,9 +23,16 @@ Needs cv2 and PIL (the card's script reads only the files).  Writes into
   clear, a full code table, End of Information mid-stream) and Netpbm from
   :func:`pnm_bytes` (every magic, ASCII spacing and comments, maxval 1,
   15, 100, 255, 1000 and 65535, PAM tuple types);
+* ``app_*.gif`` (:func:`gif_app_fixtures`): application extensions that
+  OpenCV's frame count reads through;
+* ``exif*.webp`` (:func:`webp_exif_fixtures`): an ``EXIF`` chunk of each
+  orientation, both byte orders, before and after the image, in an
+  animation, with the VP8X flag unset, a leading ``Exif\0\0``, two
+  chunks, and a file libwebp's demuxer refuses (its image still decodes);
 * ``*_line_N.*``: text lines for the card's daemon phase (lossy WebP,
   lossless WebP with alpha, interlaced GIF with a transparent index, binary
-  PGM);
+  PGM, and ``webpo_line_0.webp``, a lossless line stored on its side with
+  orientation 6);
 * ``expected.npz`` in each folder: cv2's RGB pixels
   (``cv2.imdecode(IMREAD_COLOR)`` then BGR -> RGB) of every file, keyed by
   file name.
@@ -1141,6 +1148,70 @@ def pnm_fixtures(rng) -> dict:
     return files
 
 
+def application_extension(ident: bytes, blocks) -> bytes:
+    """A GIF application extension: the identifier sub-block, then
+    ``blocks`` as data sub-blocks."""
+    return (b"\x21\xff" + bytes([len(ident)]) + ident
+            + b"".join(bytes([len(b)]) + b for b in blocks) + b"\x00")
+
+
+def gif_app_fixtures() -> dict:
+    """GIFs with application extensions that OpenCV's frame count walks
+    through (their own seed, so the other fixtures keep their bytes): XMP
+    and an ICC profile of even sub-blocks, a NETSCAPE loop of any bytes,
+    and a 3-byte sub-block of another application whose one-byte-short read
+    happens to land on the extension's end."""
+    rng = np.random.default_rng(20261019)
+    idx = rng.integers(0, 8, (7, 10))
+    pal = rng.integers(0, 256, (8, 3))
+    frame = dict(idx=idx, mcs=3)
+    exts = {
+        "app_xmp_icc": [application_extension(b"XMP DataXMP", [b"<x:xmpmeta/>", b"ab"]),
+                        application_extension(b"ICCRGBG1012", [bytes(255), bytes(20)])],
+        "app_netscape_any_loop": [application_extension(b"NETSCAPE2.0", [b"ABC", b"xy"])],
+        "app_three_resyncs": [application_extension(b"ANIMEXTS1.0",
+                                                    [b"\x05\x06\x02", b"\x00"])],
+    }
+    return {f"{name}_10x7.gif": gif_bytes([dict(frame, extensions=e)], (10, 7), pal)
+            for name, e in exts.items()}
+
+
+def webp_exif_fixtures() -> dict:
+    """WebP files with an EXIF chunk (their own seed, so the other
+    fixtures keep their bytes)."""
+    from tests.torch_port_data.make_bmp_fixtures import _line
+    from tests.torch_port_data.make_png_fixtures import exif_tiff, unturned
+
+    rng = np.random.default_rng(20261019)
+    h, w = 13, 21
+    px = rng.integers(0, 1 << 24, (h, w)).astype(np.int64) | (0xFF << 24)
+    lossless = chunk(b"VP8L", vp8l_bytes(px.astype(np.uint32), seed=1))
+    lossy = chunk(b"VP8 ", vp8_frame(w, h, seed=2))
+    files = {}
+    for o in range(1, 9):
+        order = "MM" if o % 2 else "II"
+        x = chunk(b"EXIF", exif_tiff(o, order))
+        files[f"exif{o}_{order.lower()}_vp8l_13x21.webp"] = riff(vp8x(w, h, 0x08), lossless, x)
+        files[f"exif{o}_{order.lower()}_before_vp8_13x21.webp"] = riff(vp8x(w, h, 0x08), x, lossy)
+    x6, x3 = chunk(b"EXIF", exif_tiff(6)), chunk(b"EXIF", exif_tiff(3, "II"))
+    files["exif6_no_flag_13x21.webp"] = riff(vp8x(w, h, 0), lossless, x6)
+    files["exif6_prefixed_13x21.webp"] = riff(vp8x(w, h, 0x08), lossless, chunk(
+        b"EXIF", exif_tiff(6, prefix=b"Exif\x00\x00")))
+    files["exif6_then_exif3_13x21.webp"] = riff(vp8x(w, h, 0x08), lossless, x6, x3)
+    files["exif6_after_junk_13x21.webp"] = riff(vp8x(w, h, 0x08), lossless, b"\x01\x02", x6)
+    files["exif6_anim_13x21.webp"] = riff(vp8x(w + 4, h + 2, 0x08 | 0x02),
+                                          chunk(b"ANIM", bytes(6)), anmf(2, 2, w, h, lossless),
+                                          x6)
+    line = _line(rng)
+    argb = unturned(line, 6).astype(np.int64)
+    argb = (0xFF << 24) | argb[:, :, 0] << 16 | argb[:, :, 1] << 8 | argb[:, :, 2]
+    lh, lw = argb.shape
+    files["webpo_line_0.webp"] = riff(vp8x(lw, lh, 0x08),
+                                      chunk(b"VP8L", vp8l_bytes(argb.astype(np.uint32), seed=3)),
+                                      x6)
+    return files
+
+
 def main() -> None:
     import sys
 
@@ -1148,7 +1219,9 @@ def main() -> None:
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))  # for tests.torch_port_data
     rng = np.random.default_rng(20261017)
-    for folder, make in (("webp", webp_fixtures), ("gif", gif_fixtures), ("pnm", pnm_fixtures)):
+    webp = lambda rng: {**webp_fixtures(rng), **webp_exif_fixtures()}  # noqa: E731
+    gif = lambda rng: {**gif_fixtures(rng), **gif_app_fixtures()}  # noqa: E731
+    for folder, make in (("webp", webp), ("gif", gif), ("pnm", pnm_fixtures)):
         out = os.path.join(HERE, folder)
         os.makedirs(out, exist_ok=True)
         expected = {}
