@@ -91,7 +91,9 @@
    tests/torch_port_data/{webp,gif,pnm}/, the JPEG 2000 decoder (host
    C++) against those of tests/torch_port_data/jp2/ (PIL's, cv2's and
    OpenJPEG's writers: every code-block style, POC, ROI, PPM/PPT, tiles
-   and tile-parts, palettes; HT code-blocks refused naming HTJ2K) and
+   and tile-parts, palettes; HTJ2K code-blocks from the fixture script's
+   own HT encoder; a Part 1 stream flagged HT raising ValueError as cv2
+   gives None) and
    the Sun raster, PFM and Radiance HDR decoders against those of
    tests/torch_port_data/raster/ (each also: a line cut short and a header
    past OpenCV's size limit raise ValueError, an AVIF header is refused
@@ -99,15 +101,16 @@
    then the port's ``OCRServer`` on 127.0.0.1
    over the same weights (bf16, batch 256, 5 ms window, canvas 80x640) for
    ctc_greedy and then attention: the port's client, in a process of its
-   own, sends the 512 lines as PNG, 64 JPEG lines and 41 lines as
+   own, sends the 512 lines as PNG, 64 JPEG lines and 46 lines as
    progressive, arithmetic, YCCK and lossless JPEG, TIFF, BigTIFF, CIELab
-   TIFF, G4 and G3 TIFF,
+   TIFF, LogLuv32 and LogLuv24 TIFF, PNG and WebP of EXIF orientation 6,
+   G4 and G3 TIFF,
    JPEG-in-TIFF (YCbCr 2x2), YCbCr TIFF (LZW), 1-bit and RLE8 BMP, lossy
    WebP, lossless WebP with alpha, interlaced GIF with a transparent index,
-   binary PGM, lossless JP2, an irreversible J2K codestream, a colormapped
-   Sun raster, a PF PFM and a run-length encoded HDR, each
+   binary PGM, lossless JP2, an irreversible J2K codestream, an HTJ2K JP2,
+   a colormapped Sun raster, a PF PFM and a run-length encoded HDR, each
    beside a PNG of its pixels, raw and in 8-image JSON batches, from 1
-   (16 + 16 lines and the 41 pairs), 16 and 64 threads; strings must equal in-process
+   (16 + 16 lines and the 46 pairs), 16 and 64 threads; strings must equal in-process
    ``predict_serving`` on >= 99% of rows, every variant line's strings its
    PNG twin's, and each dispatch launch 11 + 2 kernels.  The host decode
    time per line of each format is printed beside the card's name and
@@ -281,26 +284,31 @@
    stamped format 2 exit 2, on a missing path exit 1; ``OCRInference`` on
    the uniform average reads set B's validation lines with 11 + 2 launches
    a batch (the ``checkpoint_average`` path), its exactly-right count
-   printed beside last_weights' and each tool's wall time.  Last, ``python -m
+   printed beside last_weights' and each tool's wall time.  Started once
+   the resumed run has written last_weights.msgpack and finished last (beside
+   the device-augmentation run, the ``OCRInference`` checks and the
+   checkpoint tools), ``python -m
    rcnn_ocr_tpu_torch.evaluate`` runs as a subprocess on last_weights.msgpack
    over set B's validation PNGs, ``--decode ctc_beam`` and
    ``--decode attention_beam`` with a bigram table of the training labels
    and ``--lm-weight 0,0.5``: each must exit 0 and write a report of all 256
    rows and a per-sample CSV of 256 rows; their wall times are printed.
    Beside them (four processes on the card at once), ``--decode
-   ctc_greedy`` over a CSV of the 33 lines of the newest
+   ctc_greedy`` over a CSV of the 38 lines of the newest
    formats (G4 and G3 TIFF, JPEG-in-TIFF, YCbCr TIFF, 1-bit and RLE8 BMP,
    lossy WebP, lossless WebP with alpha, interlaced GIF, binary PGM, JPEG
-   2000, Sun raster, PFM, HDR, lossless JPEG, BigTIFF, CIELab TIFF)
-   and over one of PNG twins of their pixels: both exit 0 with all 33 rows
-   read and the same string for every line as for its twin.
+   2000, Sun raster, PFM, HDR, lossless JPEG, BigTIFF, CIELab TIFF, PNG and
+   WebP of EXIF orientation 6, LogLuv32 and LogLuv24 TIFF, HTJ2K) and over
+   one of PNG twins of their pixels: both exit 0 with all 38 rows read and
+   the same string for every line as for its twin.
 10. Scale-out phase, on half of the loop phase's set A (its first 384
    lines: 256 to train, 128 to validate) with configs/config.json in fp32
    at the global batch of 128 for one epoch, each run a subprocess of
    ``python -m rcnn_ocr_tpu_torch.training.train --deterministic`` with
    TF32 off and every collective bounded by a timeout, the first three
-   jobs side by side on the card and then the last two (their numbers do
-   not move; their times are under contention): (1) under ``python -m
+   jobs side by side on the card and then the last two, with (3) and (4)
+   beside them (their numbers do not move; their times are under
+   contention): (1) under ``python -m
    torch.distributed.run --nproc-per-node 1`` (NCCL) its losses must equal
    the run with no group exactly; (2) two ranks over gloo on cuda:0 must
    match the run with no group within rtol 1e-3 per epoch (train and val
@@ -327,12 +335,12 @@
    ``alone_both``'s on every element.  Prints per rank step ms, the model axis's collective
    seconds and bytes per step, the all-reduce's, parameter, gradient and
    Adam bytes against the run with no group's, and peak CUDA memory.  (3) ``run_hpo`` over the shipped configuration in bf16:
-   3 trials x 2 epochs with ``hidden_size`` 512 and ``lstm_layers`` 2 pinned
+   2 trials x 2 epochs with ``hidden_size`` 512 and ``lstm_layers`` 2 pinned
    ("LSTM 2 512") and the rest of ``DEFAULT_SPACE`` sampled; every trial
    finite, launching 11 + 2 per batch (K2 at H=512); prints each trial's
    params, value, epochs, pruning, seconds and launches.  (4) ``python -m
    rcnn_ocr_tpu_torch.hpo_search --trials 2 --epochs-per-trial 1
-   --parallel-trials 2``, run beside the study, must warn and run one trial
+   --parallel-trials 2``, run beside the study and (2b), must warn and run one trial
    at a time on the one card.  (5) ``python -m rcnn_ocr_tpu_torch.hpo.report`` and the JAX
    package's stdlib ``tools/hpo_report.py``, run as subprocesses, must print
    the same report of the study.
@@ -426,14 +434,15 @@ VARIANT_LINES = [(f"{stem}_line_{k}.{ext}", ctype, variant)
     ("pngo_line_0.png", "image/png", "PNG of EXIF orientation 6"),
     ("webpo_line_0.webp", "image/webp", "WebP of EXIF orientation 6"),
     ("luv32_line_0.tif", "image/tiff", "LogLuv32 TIFF"),
-    ("luv24_line_0.tif", "image/tiff", "LogLuv24 TIFF")]
+    ("luv24_line_0.tif", "image/tiff", "LogLuv24 TIFF"),
+    ("htj2k_line_0.jp2", "image/jp2", "HTJ2K JP2")]
 # the fax, JPEG-in-TIFF, YCbCr, BMP, WebP, GIF and PGM variants (the eval CLI
 # reads them beside their PNG twins)
 NEW_VARIANTS = ("G4 TIFF", "G3 TIFF", "JPEG-in-TIFF", "YCbCr TIFF", "1-bit BMP", "RLE8 BMP",
                 "lossy WebP", "lossless WebP with alpha", "interlaced GIF", "binary PGM",
                 "lossless JP2", "irreversible J2K codestream", "colormapped Sun raster", "PF PFM",
                 "RLE HDR", "lossless JPEG", "BigTIFF", "CIELab TIFF", "PNG of EXIF orientation 6",
-                "WebP of EXIF orientation 6", "LogLuv32 TIFF", "LogLuv24 TIFF")
+                "WebP of EXIF orientation 6", "LogLuv32 TIFF", "LogLuv24 TIFF", "HTJ2K JP2")
 PNG_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "png")
 # tests/torch_port_data/make_png_fixtures.py's CV2_NONE
 PNG_CV2_NONE = {"none_no_iend_7x11.png": "truncated",
@@ -513,7 +522,7 @@ LOOP_SMALL, LOOP_SMALL_TRAIN, LOOP_PROFILE_STEPS = 640, 512, 4
 # HPO study ("LSTM 2 512") in trials and epochs; its runs train on the first
 # DP_TRAIN + DP_VAL rows of set A (labels_half.csv), DP_VAL of them split off
 # to validate
-DP_TIMEOUT_S, DP_RUN_TIMEOUT_S, HPO_TRIALS, HPO_EPOCHS = 120, 400, 3, 2
+DP_TIMEOUT_S, DP_RUN_TIMEOUT_S, HPO_TRIALS, HPO_EPOCHS = 120, 400, 2, 2
 DP_TRAIN, DP_VAL = LOOP_TRAIN // 2, LOOP_VAL // 2
 # synthetic phase: the generator CLI's defaults (512 + 128 medium lines at
 # img_h 48, seed 0) and SYNTH_HARD hard lines for the JPEG stage, from the
@@ -1538,8 +1547,12 @@ def pnm_decoder_check() -> dict:
 
 def jp2_decoder_check() -> dict:
     """The port's JPEG 2000 decoder (data/jpeg2000.py, the codestream in
-    host C++), and a codestream with HT code-blocks refused naming HTJ2K."""
-    from rcnn_ocr_tpu_torch.data.image_io import UnsupportedImageFormat, imdecode
+    host C++): every fixture, the HTJ2K (Part 15) ones among them, bit-equal
+    to cv2's pixels; the HT line equal to its PNG twin; and a Part 1
+    codestream whose COD claims HT code-blocks raising ValueError, as cv2
+    gives None on it (OpenJPEG reads its MQ-coded bytes as HT segments and
+    fails)."""
+    from rcnn_ocr_tpu_torch.data.image_io import imdecode, imread
 
     with open(os.path.join(JP2_FIXTURES, "pil_RGB_codestream_37x53.j2k"), "rb") as f:
         data = bytearray(f.read())
@@ -1550,14 +1563,22 @@ def jp2_decoder_check() -> dict:
         "pil_L_", "pil_LA_", "pil_RGBA_", "pil_I16_", "irreversible", "LRCP", "RLCP", "RPCL",
         "PCRL", "CPRL", "tiles", "layers", "codestream", "cv2_", "bypass", "reset", "termall",
         "vsc", "pterm", "segsym", "sop_eph", "poc", "roi", "tile_parts", "ppm", "ppt", "prec12",
-        "sycc", "palette", "cdef"), "jp2_line_0.jp2", bytes(oversized))
-    data[data.index(b"\xff\x52") + 12] |= 0x40  # the HT code-block style
+        "sycc", "palette", "cdef", "ht_gray_rev", "ht_rgb_irr", "ht_rgb_refine", "ht_gray_sigprop",
+        "ht_rgb_layers", "ht_rgb_tiles_precincts_sop_eph", "ht_rgb_coc_part1", "ht_gray16",
+        "ht_rgb_zblk", "ht_cover", "htj2k_line"), "jp2_line_0.jp2", bytes(oversized))
+    out["ht_fixtures_bit_equal"] = sum(n.startswith(("ht_", "htj2k_")) for n in sorted(
+        os.listdir(JP2_FIXTURES)) if n.endswith((".jp2", ".j2k")))
+    check(np.array_equal(imread(os.path.join(JP2_FIXTURES, "htj2k_line_0.jp2")),
+                         imread(os.path.join(JP2_FIXTURES, "htj2k_line_0.png"))),
+          "the HTJ2K line differs from its PNG twin")
+    data[data.index(b"\xff\x52") + 12] |= 0x40  # the HT code-block style over MQ data
     try:
         imdecode(bytes(data))
-        check(False, "a codestream of HT code-blocks decoded (it must be refused)")
-    except UnsupportedImageFormat as err:
-        check("HTJ2K" in str(err), f"the HTJ2K refusal says: {err}")
-    print("  JPEG 2000: HT code-blocks refused naming HTJ2K")
+        check(False, "a Part 1 codestream flagged HT decoded (cv2 gives None on it)")
+    except ValueError as err:
+        check("HT code-block" in str(err), f"the flagged stream's error says: {err}")
+    print(f"  JPEG 2000: {out['ht_fixtures_bit_equal']} HTJ2K fixtures among them; the HT line "
+          "equals its PNG twin; a Part 1 stream flagged HT raises ValueError as cv2 gives None")
     return out
 
 
@@ -3672,6 +3693,16 @@ def training_loop_phase(kernels, cs, train_img_s: float, power: str):
           "the resumed epoch trains from scratch, not from the slot")
     loop_launches = {k: out["run1"][k] + out["run2"][k] for k in ("se_scale", "bilstm_scan")}
 
+    # the eval CLI on the last weights, its four processes started now, to run
+    # beside the checks below (finished at the phase's end)
+    import csv
+
+    weights = os.path.join(exp_dir, "last_weights.msgpack")
+    val_dir = paths["printed/val"]
+    with open(os.path.join(val_dir, "labels.csv"), encoding="utf-8") as f:
+        rows = list(csv.reader(f))
+    eval_cli_finish = eval_cli_runs(weights, val_dir, rows, shipped["train_csvs"], cs)
+
     # a short run with device augmentation: the step augments on the card
     calls = {"n": 0}
     orig = augment.device_train_augment
@@ -3697,15 +3728,9 @@ def training_loop_phase(kernels, cs, train_img_s: float, power: str):
 
     # OCRInference on the last weights (paths in, its own read, resize and
     # normalize) vs make_eval_step's decodes of the same images, both heads
-    weights = os.path.join(exp_dir, "last_weights.msgpack")
     charset_path = os.path.join(REPO, "configs", "charset.txt")
     engine = OCRInference(weights, charset_path=charset_path, device="cuda", img_h=IMG_H,
                           img_w=IMG_W, dtype=torch.bfloat16)
-    val_dir = paths["printed/val"]
-    import csv
-
-    with open(os.path.join(val_dir, "labels.csv"), encoding="utf-8") as f:
-        rows = list(csv.reader(f))
     val_paths = [os.path.join(val_dir, r[0]) for r in rows]
     served = {"attention": engine.predict(val_paths, max_length=TRAIN_MAX_LEN,
                                           batch_size=TRAIN_BATCH),
@@ -3798,7 +3823,7 @@ def training_loop_phase(kernels, cs, train_img_s: float, power: str):
                resumed_global_step=second["global_step"], preempted_slot_step=blob["global_step"])
     out["ckpt_tools"] = checkpoint_tools(kernels, exp_dir, val_paths, rows,
                                          served["attention"], power)
-    out["eval_cli"] = eval_cli_runs(weights, val_dir, rows, shipped["train_csvs"], cs)
+    out["eval_cli"] = eval_cli_finish()
     return out
 
 
@@ -3902,15 +3927,16 @@ def checkpoint_tools(kernels, exp_dir: str, val_paths, rows, last_texts, power: 
             "rows": len(rows), "launch_counts": counts}
 
 
-def eval_cli_runs(weights: str, val_dir: str, rows, train_csvs, cs) -> dict:
+def eval_cli_runs(weights: str, val_dir: str, rows, train_csvs, cs):
     """``python -m rcnn_ocr_tpu_torch.evaluate`` as a user runs it, on the
     loop's last weights over set B's validation PNGs: ``--decode ctc_beam``,
     and ``attention_beam`` with a bigram LM from the training labels and an
     LM-weight sweep, each from a folder of its own, side by side with each
     other and with :func:`eval_cli_variants`' pair (four processes on the
-    card; each wall is a process's start to its exit among the others).
-    Each must exit 0 and write a report of all rows and a per-sample CSV of
-    as many rows."""
+    card beside what the caller does meanwhile; each wall is a process's
+    start to its exit among the others).  Returns the call that waits for
+    them: each must exit 0 and write a report of all rows and a per-sample
+    CSV of as many rows."""
     import csv
 
     from rcnn_ocr_tpu_torch.lm import iter_labels, save_lm, train_bigram_lm
@@ -3931,19 +3957,27 @@ def eval_cli_runs(weights: str, val_dir: str, rows, train_csvs, cs) -> dict:
             "attention_beam_lm_sweep": ["--decode", "attention_beam", "--lm", lm_path,
                                         "--lm-weight", f"0,{LM_WEIGHT}"]}
     env = dict(os.environ, PYTHONPATH=REPO)
-    procs, out = {}, {}
+    procs = {}
     for name, extra in runs.items():
         folder = os.path.join(work, name)
         os.makedirs(folder)
         procs[name] = popen_logged(base + extra + ["--report-json",
                                                    os.path.join(folder, "report.json")],
                                    os.path.join(folder, "log"), env, timeout=600, cwd=folder)
-    out["variant_formats"] = eval_cli_variants(weights, work, env)
+    variants_finish = eval_cli_variants(weights, work, env)
+    return lambda: eval_cli_finish(procs, runs, variants_finish, weights, rows)
+
+
+def eval_cli_finish(procs: dict, runs: dict, variants_finish, weights: str, rows) -> dict:
+    """Waits for :func:`eval_cli_runs`' processes and checks what they wrote."""
+    import csv
+
+    out = {"variant_formats": variants_finish()}
     for name, (proc, logs) in procs.items():
         stdout, stderr = wait_logged(proc, logs)
         check(proc.returncode == 0, f"evaluate {name} exited {proc.returncode}:\n"
                                     f"{stdout[-3000:]}{stderr[-3000:]}")
-        folder = os.path.join(work, name)
+        folder = os.path.dirname(logs["paths"][0])
         with open(os.path.join(folder, "report.json"), encoding="utf-8") as f:
             payload = json.load(f)
         metrics = payload["sweep"] if "sweep" in payload else [payload]
@@ -3962,20 +3996,19 @@ def eval_cli_runs(weights: str, val_dir: str, rows, train_csvs, cs) -> dict:
     return out
 
 
-def eval_cli_variants(weights: str, work: str, env: dict) -> dict:
+def eval_cli_variants(weights: str, work: str, env: dict):
     """The eval CLI over a CSV of the NEW_VARIANTS lines (G4 and G3
     TIFF, JPEG-in-TIFF, YCbCr TIFF, 1-bit and RLE8 BMP, lossy and
     lossless-with-alpha WebP, interlaced GIF, binary PGM) and over one of PNG
-    twins of their pixels, the two processes side by side on the card:
-    both exit 0 with every row read (none left out as unreadable) and give
-    each line its twin's string."""
+    twins of their pixels, the two processes started side by side on the
+    card; the call returned waits for them: both exit 0 with every row read
+    (none left out as unreadable) and give each line its twin's string."""
     import csv
 
     from rcnn_ocr_tpu_torch.data.image_io import imread, png_encode
 
     names = [n for n, _, v in VARIANT_LINES if v in NEW_VARIANTS]
-    procs, out = {}, {}
-    t0 = time.perf_counter()
+    procs = {}
     for kind in ("variants", "twins"):
         folder = os.path.join(work, kind)
         os.makedirs(folder)
@@ -3991,23 +4024,26 @@ def eval_cli_variants(weights: str, work: str, env: dict) -> dict:
         labels = os.path.join(folder, "labels.csv")
         with open(labels, "w", newline="", encoding="utf-8") as f:
             csv.writer(f).writerows([("filename", "text")] + [(n, "a") for n in files])
-        procs[kind] = subprocess.Popen(
+        procs[kind] = popen_logged(
             [sys.executable, "-m", "rcnn_ocr_tpu_torch.evaluate", "--model", weights,
              "--charset", os.path.join(REPO, "configs", "charset.txt"), "--csv", labels,
              "--root", folder, "--img-h", str(IMG_H), "--img-w", str(IMG_W), "--max-length",
              str(TRAIN_MAX_LEN), "--batch-size", str(len(files)), "--decode", "ctc_greedy",
-             "--report-json", os.path.join(folder, "report.json")], cwd=folder, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    predicted = {}
-    for kind, proc in procs.items():
-        try:
-            log, _ = proc.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            log, _ = proc.communicate()
-        wall = time.perf_counter() - t0
+             "--report-json", os.path.join(folder, "report.json")],
+            os.path.join(folder, "log"), env, timeout=600, cwd=folder)
+    return lambda: eval_cli_variants_finish(procs, names, work, weights)
+
+
+def eval_cli_variants_finish(procs: dict, names, work: str, weights: str) -> dict:
+    """Waits for :func:`eval_cli_variants`' pair and checks what it wrote."""
+    import csv
+
+    out, predicted = {}, {}
+    for kind, (proc, logs) in procs.items():
+        stdout, stderr = wait_logged(proc, logs)
+        wall = logs["wall_s"]
         check(proc.returncode == 0, f"evaluate over the {kind} exited {proc.returncode}:\n"
-                                    f"{log[-3000:]}")
+                                    f"{stdout[-3000:]}{stderr[-3000:]}")
         folder = os.path.join(work, kind)
         with open(os.path.join(folder, "report.json"), encoding="utf-8") as f:
             n_read = json.load(f)["n"]
@@ -4524,29 +4560,22 @@ def scale_out_phase(kernels, paths: dict, power: str) -> dict:
     # (2b) two gloo ranks on a model axis of 2 match one process too, both
     # with both heads, so that every leaf the model axis shards is trained
     # (without --deterministic: the CTC loss's backward has no
-    # deterministic CUDA kernel); the two jobs side by side
-    t0 = time.perf_counter()
+    # deterministic CUDA kernel); the two jobs side by side, and beside them
+    # (3) and (4), the HPO study and CLI: the pair is held to tolerances, not
+    # to bits, so the card's other users cannot fail it (the data axis's
+    # trio, held bit for bit, ran alone)
+    t_tp = time.perf_counter()
     both = dict(head="both")
-    runs = [train_cli_start("alone_both", dp_config(paths, exp["alone_both"], **both),
-                            deterministic=False),
-            train_cli_start("tp2", dp_config(paths, exp["tp2"], mesh_shape=[1, 2],
-                                             mesh_axes=["data", "model"], **both),
-                            nproc=2, extra=["--device", "cuda:0", "--backend", "gloo"],
-                            deterministic=False)]
-    (alone_both,), tp_ranks = (finish() for finish in runs)
-    out["tp2"] = tensor_parallel_check(tp_ranks, alone_both, exp, power)
-    out["alone_both"] = dp_timing(alone_both)
-    out["tp_launches"] = out["tp2"].pop("launches")
-    out["tp_s"] = time.perf_counter() - t0
-    for name, t in (("no group", out["alone"]), ("one NCCL rank", out["nccl1"]),
-                    ("gloo rank 0 of 2", out["gloo2"][0]), ("gloo rank 1 of 2", out["gloo2"][1]),
-                    ("no group, both heads", out["alone_both"])):
-        print(f"  {name} on {power}: " + ", ".join(
-            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in t.items()))
+    tp_runs = [train_cli_start("alone_both", dp_config(paths, exp["alone_both"], **both),
+                               deterministic=False),
+               train_cli_start("tp2", dp_config(paths, exp["tp2"], mesh_shape=[1, 2],
+                                                mesh_axes=["data", "model"], **both),
+                               nproc=2, extra=["--device", "cuda:0", "--backend", "gloo"],
+                               deterministic=False)]
 
-    # (3) the HPO study, "LSTM 2 512": 3 trials x 2 epochs of half of set A,
+    # (3) the HPO study, "LSTM 2 512": 2 trials x 2 epochs of half of set A,
     # full width; beside it on the card (4) the CLI with DEFAULT_SPACE and
-    # --parallel-trials 2, which must cap at the one card
+    # --parallel-trials 2, which must cap at the one card (and the pair of 2b)
     hpo_cfg = dp_config(paths, "", epochs=HPO_EPOCHS, compute_dtype="bfloat16")
     hpo_cfg.pop("exp_dir")
     cli_cfg = os.path.join(base, "scale_out", "hpo_cli.json")
@@ -4594,6 +4623,18 @@ def scale_out_phase(kernels, paths: dict, power: str) -> dict:
               f"params " + ", ".join(f"{k}={v:.3g}" if isinstance(v, float) else f"{k}={v}"
                                      for k, v in sorted(t["params"].items())))
     out["hpo_trials"] = study["trials"]
+
+    # (2b) the model-axis pair, finished
+    (alone_both,), tp_ranks = (finish() for finish in tp_runs)
+    out["tp2"] = tensor_parallel_check(tp_ranks, alone_both, exp, power)
+    out["alone_both"] = dp_timing(alone_both)
+    out["tp_launches"] = out["tp2"].pop("launches")
+    out["tp_s"] = time.perf_counter() - t_tp
+    for name, t in (("no group", out["alone"]), ("one NCCL rank", out["nccl1"]),
+                    ("gloo rank 0 of 2", out["gloo2"][0]), ("gloo rank 1 of 2", out["gloo2"][1]),
+                    ("no group, both heads", out["alone_both"])):
+        print(f"  {name} on {power}: " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in t.items()))
 
     # (4) the CLI, started beside the study
     cli_out, cli_err = wait_logged(cli_proc, cli_logs)

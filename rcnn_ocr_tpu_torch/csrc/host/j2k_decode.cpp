@@ -14,10 +14,14 @@
 // is read once, its first time), tag trees, zero bit-planes, Lblock and
 // pass counts, code-word segments as the code-block style splits them,
 // SOP markers (skipped where present) and EPH markers (required), packet
-// headers from PPM or PPT.  Tier 1: the MQ decoder, the three coding
-// passes and their contexts, with every style bit (BYPASS, RESET,
-// TERMALL, VSC, PTERM, SEGSYM), reconstructing at the middle of the
-// undecoded interval as OpenJPEG does (values in half units).  Then ROI
+// headers from PPM or PPT; an HT code-block's passes split as OpenJPEG's
+// t2 splits them (one pass to the first segment, the rest to the next, in
+// every layer).  Tier 1: the MQ decoder, the three coding passes and their
+// contexts, with every style bit (BYPASS, RESET, TERMALL, VSC, PTERM,
+// SEGSYM), reconstructing at the middle of the undecoded interval as
+// OpenJPEG does (values in half units); and HTJ2K (T.814) code-blocks:
+// the cleanup pass (MEL, VLC over the tables of ht_tables.inc, UVLC,
+// MagSgn), SigProp and MagRef, into the same half units.  Then ROI
 // max-shift, dequantization (no quantization, derived or
 // expounded step sizes), the integer 5/3 or float32 9/7 inverse DWT in
 // OpenJPEG's order of operations (its 9/7 scales the high band by
@@ -26,16 +30,18 @@
 // samples rounded as lrintf rounds them.  Built with -ffp-contract=off so
 // that no multiply-add is fused and the float path is bit-equal.
 //
-// Refused (return -2), as OpenJPEG decodes it and nothing here can be held
-// to it: HTJ2K's code-blocks (the HT code-block style).  Errors (return -1,
-// where OpenJPEG fails and cv2.imdecode gives None): damaged headers, data
-// past the stream, a missing EPH marker, a code-block whose bit-planes
-// exceed 30.
+// A colour transform over components of mixed wavelets reads each buffer's
+// bits as the transform's kind, as OpenJPEG does.  Errors (return -1, where
+// OpenJPEG fails and cv2.imdecode gives None): damaged headers, data past
+// the stream, a missing EPH marker, a code-block whose bit-planes exceed 30,
+// an HT code-block OpenJPEG fails (its lengths, Scup, passes, MEL, U_q or
+// VLC out of bounds, or under ROI).
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
+#include <cstring>
 #include <map>
 #include <memory>
 #include <string>
@@ -45,12 +51,11 @@
 namespace {
 
 struct Failure {
-  int code;  // -1 damaged, -2 refused
+  int code;  // -1: damaged
   std::string what;
 };
 
 [[noreturn]] void damaged(const std::string& what) { throw Failure{-1, "JPEG 2000: " + what}; }
-[[noreturn]] void refused(const std::string& what) { throw Failure{-2, what}; }
 
 void set_message(char* msg, int64_t msg_len, const std::string& text) {
   if (msg != nullptr && msg_len > 0) {
@@ -329,6 +334,9 @@ struct CodeBlock {
   int64_t x0, y0, x1, y1;
   int numbps = 0, numlenbits = 0, numnewpasses = 0;
   int numsegs = 0;
+  int mb = 0;       // the band's bit-planes, from the block's first inclusion
+  int nchunks = 0;  // the contributions its segments were joined from
+  size_t chunk0 = 0;  // the first one's offset in the tile's data
   std::vector<Segment> segs;
   std::vector<uint8_t> data;  // the segments' bytes, joined
 };
@@ -631,6 +639,753 @@ struct T1 {
   }
 };
 
+// --- HTJ2K (T.814) code-blocks ---------------------------------------------------------
+//
+// The HT block decoder, as OpenJPEG 2.5's ht_dec.c decodes (itself after
+// OpenJPH): the cleanup pass (MEL, the two VLC tables, UVLC, MagSgn), then
+// SigProp and MagRef one bit-plane below, into the same half-unit samples
+// the Part 1 path leaves (sign in bit 31 until the end).  Each stream reader
+// reads only inside its segment and feeds the fill byte past it.  OpenJPEG
+// starts a reader by reading single bytes up to an address that is a
+// multiple of 4; that changes no bit read, but the MEL's first reads also
+// test the byte after a 0xFF, so `align` carries the address's low bits:
+// the block's offset in the tile's data, where OpenJPEG reads a block of one
+// contribution in place, or 0 for the aligned copy it joins more into.
+
+#include "ht_tables.inc"
+
+inline uint32_t read_le32(const uint8_t* p) {
+  return uint32_t(p[0]) | (uint32_t(p[1]) << 8) | (uint32_t(p[2]) << 16) | (uint32_t(p[3]) << 24);
+}
+
+inline uint32_t popcount32(uint32_t v) { return static_cast<uint32_t>(__builtin_popcount(v)); }
+inline uint32_t bitlen32(uint32_t v) {
+  return v ? 32u - static_cast<uint32_t>(__builtin_clz(v)) : 0u;
+}
+
+// MEL: runs of events, decoded ahead (at most 8), 7 bits a run: bit 0 set
+// where the run ends in a 1 event, the rest twice its zero events (less one
+// where it does not end in a 1)
+struct HtMel {
+  const uint8_t* data;
+  uint64_t tmp = 0;
+  int bits = 0, size = 0, k = 0, num_runs = 0;
+  bool unstuff = false;
+  uint64_t runs = 0;
+
+  bool init(const uint8_t* bbuf, int lcup, int scup, uintptr_t align) {
+    data = bbuf + lcup - scup;
+    size = scup - 1;
+    const int num = 4 - static_cast<int>((align + lcup - scup) & 3);
+    for (int i = 0; i < num; ++i) {
+      if (unstuff && data[0] > 0x8F) return false;
+      uint64_t d = size > 0 ? *data : 0xFF;
+      if (size == 1) d |= 0xF;  // MEL and VLC may share the last byte
+      data += size-- > 0;
+      const int d_bits = 8 - unstuff;
+      tmp = (tmp << d_bits) | d;
+      bits += d_bits;
+      unstuff = (d & 0xFF) == 0xFF;
+    }
+    tmp <<= (64 - bits);
+    return true;
+  }
+  void read() {
+    if (bits > 32) return;
+    uint32_t val = 0xFFFFFFFFu;
+    if (size > 4) {
+      val = read_le32(data);
+      data += 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 0;
+      while (size > 1) {
+        const uint32_t v = *data++;
+        const uint32_t m = ~(0xFFu << i);
+        val = (val & m) | (v << i);
+        --size;
+        i += 8;
+      }
+      uint32_t v = *data++;
+      v |= 0xF;
+      const uint32_t m = ~(0xFFu << i);
+      val = (val & m) | (v << i);
+      --size;
+    }
+    int nbits = 32 - unstuff;
+    uint32_t t = val & 0xFF;
+    bool u = (val & 0xFF) == 0xFF;
+    nbits -= u;
+    t = t << (8 - u);
+    t |= (val >> 8) & 0xFF;
+    u = ((val >> 8) & 0xFF) == 0xFF;
+    nbits -= u;
+    t = t << (8 - u);
+    t |= (val >> 16) & 0xFF;
+    u = ((val >> 16) & 0xFF) == 0xFF;
+    nbits -= u;
+    t = t << (8 - u);
+    t |= (val >> 24) & 0xFF;
+    unstuff = ((val >> 24) & 0xFF) == 0xFF;
+    tmp |= static_cast<uint64_t>(t) << (64 - nbits - bits);
+    bits += nbits;
+  }
+  void decode() {
+    static const int kExp[13] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5};
+    if (bits < 6) read();
+    while (bits >= 6 && num_runs < 8) {
+      int eval = kExp[k];
+      int run;
+      if (tmp & (uint64_t(1) << 63)) {
+        run = ((1 << eval) - 1) << 1;
+        k = k + 1 < 12 ? k + 1 : 12;
+        tmp <<= 1;
+        bits -= 1;
+      } else {
+        run = static_cast<int>(tmp >> (63 - eval)) & ((1 << eval) - 1);
+        k = k - 1 > 0 ? k - 1 : 0;
+        tmp <<= eval + 1;
+        bits -= eval + 1;
+        run = (run << 1) + 1;
+      }
+      eval = num_runs * 7;
+      runs &= ~(uint64_t(0x3F) << eval);
+      runs |= static_cast<uint64_t>(run) << eval;
+      ++num_runs;
+    }
+  }
+  int get_run() {
+    if (num_runs == 0) decode();
+    const int t = static_cast<int>(runs & 0x7F);
+    runs >>= 7;
+    --num_runs;
+    return t;
+  }
+};
+
+// a stream read backward (VLC, and MagRef with `mrp`): a byte after one
+// above 0x8F whose low 7 bits are all 1 gives 7 bits; past the start, zeros
+struct HtRev {
+  const uint8_t* data;
+  uint64_t tmp = 0;
+  uint32_t bits = 0;
+  int size = 0;
+  bool unstuff = false;
+
+  void read() {
+    if (bits > 32) return;
+    uint32_t val = 0;
+    if (size > 3) {
+      val = read_le32(data - 3);
+      data -= 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 24;
+      while (size > 0) {
+        const uint32_t v = *data--;
+        val |= v << i;
+        --size;
+        i -= 8;
+      }
+    }
+    uint32_t t = val >> 24;
+    uint32_t nbits = 8u - ((unstuff && (((val >> 24) & 0x7F) == 0x7F)) ? 1u : 0u);
+    bool u = (val >> 24) > 0x8F;
+    t |= ((val >> 16) & 0xFF) << nbits;
+    nbits += 8u - ((u && (((val >> 16) & 0x7F) == 0x7F)) ? 1u : 0u);
+    u = ((val >> 16) & 0xFF) > 0x8F;
+    t |= ((val >> 8) & 0xFF) << nbits;
+    nbits += 8u - ((u && (((val >> 8) & 0x7F) == 0x7F)) ? 1u : 0u);
+    u = ((val >> 8) & 0xFF) > 0x8F;
+    t |= (val & 0xFF) << nbits;
+    nbits += 8u - ((u && ((val & 0x7F) == 0x7F)) ? 1u : 0u);
+    u = (val & 0xFF) > 0x8F;
+    tmp |= static_cast<uint64_t>(t) << bits;
+    bits += nbits;
+    unstuff = u;
+  }
+  // the VLC: from the byte before Scup's last one, skipping Scup's low 4 bits
+  void init_vlc(const uint8_t* buf, int lcup, int scup, uintptr_t align) {
+    data = buf + lcup - 2;
+    size = scup - 2;
+    const uint32_t d = *data--;
+    tmp = d >> 4;
+    bits = 4 - ((tmp & 7) == 7);
+    unstuff = (d | 0xF) > 0x8F;
+    const int num = 1 + static_cast<int>((align + lcup - 3) & 3);
+    const int tnum = num < size ? num : size;
+    for (int i = 0; i < tnum; ++i) {
+      const uint64_t b = *data--;
+      const uint32_t d_bits = 8u - ((unstuff && ((b & 0x7F) == 0x7F)) ? 1u : 0u);
+      tmp |= b << bits;
+      bits += d_bits;
+      unstuff = b > 0x8F;
+    }
+    size -= tnum;
+    read();
+  }
+  // the MagRef: from the refinement segment's last byte
+  void init_mrp(const uint8_t* buf, int lcup, int len2, uintptr_t align) {
+    data = buf + lcup + len2 - 1;
+    size = len2;
+    unstuff = true;
+    const int num = 1 + static_cast<int>((align + lcup + len2 - 1) & 3);
+    for (int i = 0; i < num; ++i) {
+      const uint64_t b = (size-- > 0) ? *data-- : 0;
+      const uint32_t d_bits = 8u - ((unstuff && ((b & 0x7F) == 0x7F)) ? 1u : 0u);
+      tmp |= b << bits;
+      bits += d_bits;
+      unstuff = b > 0x8F;
+    }
+    read();
+  }
+  uint32_t fetch() {
+    if (bits < 32) {
+      read();
+      if (bits < 32) read();
+    }
+    return static_cast<uint32_t>(tmp);
+  }
+  uint32_t advance(uint32_t n) {
+    tmp >>= n;
+    bits -= n;
+    return static_cast<uint32_t>(tmp);
+  }
+};
+
+// a stream read forward (MagSgn past its end reads 1s, SigProp 0s): a byte
+// after 0xFF gives 7 bits
+struct HtFwd {
+  const uint8_t* data;
+  uint64_t tmp = 0;
+  uint32_t bits = 0;
+  bool unstuff = false;
+  int size = 0;
+  uint32_t X = 0;
+
+  void read() {
+    uint32_t val;
+    if (size > 3) {
+      val = read_le32(data);
+      data += 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 0;
+      val = X != 0 ? 0xFFFFFFFFu : 0;
+      while (size > 0) {
+        const uint32_t v = *data++;
+        const uint32_t m = ~(0xFFu << i);
+        val = (val & m) | (v << i);
+        --size;
+        i += 8;
+      }
+    } else {
+      val = X != 0 ? 0xFFFFFFFFu : 0;
+    }
+    uint32_t nbits = 8u - (unstuff ? 1u : 0u);
+    uint32_t t = val & 0xFF;
+    bool u = (val & 0xFF) == 0xFF;
+    t |= ((val >> 8) & 0xFF) << nbits;
+    nbits += 8u - (u ? 1u : 0u);
+    u = ((val >> 8) & 0xFF) == 0xFF;
+    t |= ((val >> 16) & 0xFF) << nbits;
+    nbits += 8u - (u ? 1u : 0u);
+    u = ((val >> 16) & 0xFF) == 0xFF;
+    t |= ((val >> 24) & 0xFF) << nbits;
+    nbits += 8u - (u ? 1u : 0u);
+    unstuff = ((val >> 24) & 0xFF) == 0xFF;
+    tmp |= static_cast<uint64_t>(t) << bits;
+    bits += nbits;
+  }
+  void init(const uint8_t* d, int n, uint32_t fill, uintptr_t align) {
+    data = d;
+    size = n;
+    X = fill;
+    const int num = 4 - static_cast<int>(align & 3);
+    for (int i = 0; i < num; ++i) {
+      const uint64_t b = size-- > 0 ? *data++ : X;
+      tmp |= b << bits;
+      bits += 8u - (unstuff ? 1u : 0u);
+      unstuff = (b & 0xFF) == 0xFF;
+    }
+    read();
+  }
+  uint32_t fetch() {
+    if (bits < 32) {
+      read();
+      if (bits < 32) read();
+    }
+    return static_cast<uint32_t>(tmp);
+  }
+  void advance(uint32_t n) {
+    tmp >>= n;
+    bits -= n;
+  }
+};
+
+// UVLC (T.814 7.3.6): u + 1 of each quad of a pair from the VLC's head
+// (a prefix 1, 01, 001 or 000, a suffix of 0, 0, 1 or 5 bits); `initial`
+// the first line pair, whose mode 4 (both u_off and a MEL 1) adds 2 to each
+// and whose mode 3 after a long first prefix codes the second in one bit
+inline uint32_t ht_uvlc(uint32_t vlc, uint32_t mode, uint32_t* u, bool initial) {
+  static const uint8_t dec[8] = {
+      3 | (5 << 2) | (5 << 5), 1 | (0 << 2) | (1 << 5), 2 | (0 << 2) | (2 << 5),
+      1 | (0 << 2) | (1 << 5), 3 | (1 << 2) | (3 << 5), 1 | (0 << 2) | (1 << 5),
+      2 | (0 << 2) | (2 << 5), 1 | (0 << 2) | (1 << 5)};
+  uint32_t consumed = 0;
+  if (mode == 0) {
+    u[0] = u[1] = 1;
+  } else if (mode <= 2) {
+    uint32_t d = dec[vlc & 0x7];
+    vlc >>= d & 0x3;
+    consumed += d & 0x3;
+    const uint32_t suffix_len = (d >> 2) & 0x7;
+    consumed += suffix_len;
+    d = (d >> 5) + (vlc & ((1U << suffix_len) - 1));
+    u[0] = (mode == 1) ? d + 1 : 1;
+    u[1] = (mode == 1) ? 1 : d + 1;
+  } else if (mode == 3 && initial) {
+    uint32_t d1 = dec[vlc & 0x7];
+    vlc >>= d1 & 0x3;
+    consumed += d1 & 0x3;
+    if ((d1 & 0x3) > 2) {
+      u[1] = (vlc & 1) + 1 + 1;
+      ++consumed;
+      vlc >>= 1;
+      const uint32_t suffix_len = (d1 >> 2) & 0x7;
+      consumed += suffix_len;
+      d1 = (d1 >> 5) + (vlc & ((1U << suffix_len) - 1));
+      u[0] = d1 + 1;
+    } else {
+      uint32_t d2 = dec[vlc & 0x7];
+      vlc >>= d2 & 0x3;
+      consumed += d2 & 0x3;
+      uint32_t suffix_len = (d1 >> 2) & 0x7;
+      consumed += suffix_len;
+      d1 = (d1 >> 5) + (vlc & ((1U << suffix_len) - 1));
+      u[0] = d1 + 1;
+      vlc >>= suffix_len;
+      suffix_len = (d2 >> 2) & 0x7;
+      consumed += suffix_len;
+      d2 = (d2 >> 5) + (vlc & ((1U << suffix_len) - 1));
+      u[1] = d2 + 1;
+    }
+  } else if (mode == 3 || mode == 4) {
+    uint32_t d1 = dec[vlc & 0x7];
+    vlc >>= d1 & 0x3;
+    consumed += d1 & 0x3;
+    uint32_t d2 = dec[vlc & 0x7];
+    vlc >>= d2 & 0x3;
+    consumed += d2 & 0x3;
+    uint32_t suffix_len = (d1 >> 2) & 0x7;
+    consumed += suffix_len;
+    d1 = (d1 >> 5) + (vlc & ((1U << suffix_len) - 1));
+    vlc >>= suffix_len;
+    suffix_len = (d2 >> 2) & 0x7;
+    consumed += suffix_len;
+    d2 = (d2 >> 5) + (vlc & ((1U << suffix_len) - 1));
+    const uint32_t add = mode == 4 ? 3 : 1;
+    u[0] = d1 + add;
+    u[1] = d2 + add;
+  }
+  return consumed;
+}
+
+struct HtBlock {
+  std::vector<uint32_t> data;  // w x h, the sign in bit 31
+  uint32_t flags[132 * 4 + 132];  // sigma1, sigma2, mbr1, mbr2, line state
+  int w = 0, h = 0;
+
+  // one MagSgn sample: the value of sample `n` (of quad info `qinf`, U_q `uq`)
+  static uint32_t magsgn(HtFwd& ms, uint32_t qinf, uint32_t uq, int n, uint32_t p,
+                         uint32_t* vn_out) {
+    const uint32_t ms_val = ms.fetch();
+    const uint32_t m_n = uq - ((qinf >> (12 + n)) & 1);
+    ms.advance(m_n);
+    const uint32_t val = ms_val << 31;
+    uint32_t v_n = ms_val & ((1U << m_n) - 1);
+    v_n |= ((qinf >> (8 + n)) & 1) << m_n;
+    v_n |= 1;
+    *vn_out = v_n;
+    return val | ((v_n + 2) << (p - 1));
+  }
+
+  // Decodes `cb` (its segments joined in cb.data) into `data`; the message of
+  // OpenJPEG's failure where it fails, else empty.  Its checks, in its order:
+  // a zero-length refinement segment drops the refinement passes, a block
+  // whose zero bit-planes are all its bit-planes keeps only the cleanup.
+  std::string decode(const CodeBlock& cb, int roishift, int cblksty) {
+    if (roishift != 0) return "HT code-blocks under a region of interest";
+    w = static_cast<int>(cb.x1 - cb.x0);
+    h = static_cast<int>(cb.y1 - cb.y0);
+    data.assign(static_cast<size_t>(w) * h, 0);
+    std::fill(std::begin(flags), std::end(flags), 0u);
+    if (cb.mb == 0) return "";
+    const uint32_t mb = static_cast<uint32_t>(cb.mb);
+    const uint32_t zero_bplanes = (mb + 1) - static_cast<uint32_t>(cb.numbps);
+    if (cb.nchunks == 0) return "";
+    const uint32_t cblk_len = static_cast<uint32_t>(cb.data.size());
+    const uintptr_t align = cb.nchunks == 1 ? cb.chunk0 : 0;
+    uint32_t num_passes = cb.numsegs > 0 ? cb.segs[0].numpasses : 0;
+    num_passes += cb.numsegs > 1 ? cb.segs[1].numpasses : 0;
+    const uint32_t lengths1 = num_passes > 0 ? cb.segs[0].len : 0;
+    uint32_t lengths2 = 0;
+    if (num_passes > 1) lengths2 = cb.segs.size() > 1 ? cb.segs[1].len : 0;
+    if (num_passes > 1 && lengths2 == 0) num_passes = 1;  // OpenJPEG warns and goes on
+    if (mb > 30) return "an HT code-block of more than 30 bit-planes";
+    if (num_passes > 3) return "an HT code-block of more than 3 coding passes";
+    if (zero_bplanes > mb) return "an HT code-block of more zero bit-planes than bit-planes";
+    if (zero_bplanes == mb && num_passes > 1) num_passes = 1;
+    const uint32_t p = static_cast<uint32_t>(cb.numbps);
+    const uint32_t zero_bplanes_p1 = zero_bplanes + 1;
+    if (lengths1 < 2 || lengths1 > cblk_len || lengths1 + lengths2 > cblk_len)
+      return "an HT code-block of invalid lengths";
+    const uint8_t* coded = cb.data.data();
+    const int lcup = static_cast<int>(lengths1);
+    const int scup = (static_cast<int>(coded[lcup - 1]) << 4) + (coded[lcup - 2] & 0xF);
+    if (scup < 2 || scup > lcup || scup > 4079) return "an HT code-block's Scup out of range";
+    HtMel mel;
+    if (!mel.init(coded, lcup, scup, align)) return "an HT code-block's MEL segment";
+    HtRev vlc;
+    vlc.init_vlc(coded, lcup, scup, align);
+    HtFwd magsgn;
+    magsgn.init(coded, lcup - scup, 0xFF, align);
+    HtFwd sigprop;
+    if (num_passes > 1)
+      sigprop.init(coded + lengths1, static_cast<int>(lengths2), 0, align + lengths1);
+    HtRev magref;
+    if (num_passes > 2) magref.init_mrp(coded, lcup, static_cast<int>(lengths2), align);
+    const bool stripe_causal = (cblksty & 0x08) != 0;
+    const int stride = w;
+    uint32_t* const dec = data.data();
+    uint32_t* const sigma1 = flags;
+    uint32_t* const sigma2 = sigma1 + 132;
+    uint32_t* const mbr1 = sigma2 + 132;
+    uint32_t* const mbr2 = mbr1 + 132;
+    uint8_t* const line_state = reinterpret_cast<uint8_t*>(mbr2 + 132);
+    uint32_t* sip = sigma1;
+    uint32_t sip_shift = 0;
+    uint32_t qinf[2];
+
+    // the first line pair
+    uint8_t* lsp = line_state;
+    lsp[0] = 0;
+    int run = mel.get_run();
+    uint32_t c_q = 0;
+    uint32_t* sp = dec;
+    for (int x = 0; x < w; x += 4) {
+      uint32_t U_q[2];
+      uint32_t vlc_val = vlc.fetch();
+      qinf[0] = kHtVlc0[(c_q << 7) | (vlc_val & 0x7F)];
+      if (c_q == 0) {
+        run -= 2;
+        qinf[0] = (run == -1) ? qinf[0] : 0;
+        if (run < 0) run = mel.get_run();
+      }
+      c_q = ((qinf[0] & 0x10) >> 4) | ((qinf[0] & 0xE0) >> 5);
+      vlc_val = vlc.advance(qinf[0] & 0x7);
+      *sip |= (((qinf[0] & 0x30) >> 4) | ((qinf[0] & 0xC0) >> 2)) << sip_shift;
+      qinf[1] = 0;
+      if (x + 2 < w) {
+        qinf[1] = kHtVlc0[(c_q << 7) | (vlc_val & 0x7F)];
+        if (c_q == 0) {
+          run -= 2;
+          qinf[1] = (run == -1) ? qinf[1] : 0;
+          if (run < 0) run = mel.get_run();
+        }
+        c_q = ((qinf[1] & 0x10) >> 4) | ((qinf[1] & 0xE0) >> 5);
+        vlc_val = vlc.advance(qinf[1] & 0x7);
+      }
+      *sip |= (((qinf[1] & 0x30)) | ((qinf[1] & 0xC0) << 2)) << (4 + sip_shift);
+      sip += x & 0x7 ? 1 : 0;
+      sip_shift ^= 0x10;
+      uint32_t uvlc_mode = ((qinf[0] & 0x8) >> 3) | ((qinf[1] & 0x8) >> 2);
+      if (uvlc_mode == 3) {
+        run -= 2;
+        uvlc_mode += (run == -1) ? 1 : 0;
+        if (run < 0) run = mel.get_run();
+      }
+      const uint32_t consumed = ht_uvlc(vlc_val, uvlc_mode, U_q, true);
+      if (U_q[0] > zero_bplanes_p1 || U_q[1] > zero_bplanes_p1)
+        return "an HT code-block's U_q past its zero bit-planes + 1";
+      vlc_val = vlc.advance(consumed);
+      uint32_t locs = 0xFF;
+      if (x + 4 > w) locs >>= (x + 4 - w) << 1;
+      locs = h > 1 ? locs : (locs & 0x55);
+      if ((((qinf[0] & 0xF0) >> 4) | (qinf[1] & 0xF0)) & ~locs)
+        return "an HT code-block's VLC significant past the block";
+      quad_pair(magsgn, qinf, U_q, locs, p, sp, lsp, stride);
+      sp += 4;
+      lsp += 2;
+    }
+
+    // the other line pairs
+    for (int y = 2; y < h;) {
+      sip_shift ^= 0x2;
+      sip_shift &= 0xFFFFFFEFU;
+      uint32_t* sipl = y & 0x4 ? sigma2 : sigma1;
+      lsp = line_state;
+      uint8_t ls0 = lsp[0];
+      lsp[0] = 0;
+      sp = dec + static_cast<size_t>(y) * stride;
+      c_q = 0;
+      for (int x = 0; x < w; x += 4) {
+        uint32_t U_q[2];
+        c_q |= (ls0 >> 7);
+        c_q |= (lsp[1] >> 5) & 0x4;
+        uint32_t vlc_val = vlc.fetch();
+        qinf[0] = kHtVlc1[(c_q << 7) | (vlc_val & 0x7F)];
+        if (c_q == 0) {
+          run -= 2;
+          qinf[0] = (run == -1) ? qinf[0] : 0;
+          if (run < 0) run = mel.get_run();
+        }
+        c_q = ((qinf[0] & 0x40) >> 5) | ((qinf[0] & 0x80) >> 6);
+        vlc_val = vlc.advance(qinf[0] & 0x7);
+        *sipl |= (((qinf[0] & 0x30) >> 4) | ((qinf[0] & 0xC0) >> 2)) << sip_shift;
+        qinf[1] = 0;
+        if (x + 2 < w) {
+          c_q |= (lsp[1] >> 7);
+          c_q |= (lsp[2] >> 5) & 0x4;
+          qinf[1] = kHtVlc1[(c_q << 7) | (vlc_val & 0x7F)];
+          if (c_q == 0) {
+            run -= 2;
+            qinf[1] = (run == -1) ? qinf[1] : 0;
+            if (run < 0) run = mel.get_run();
+          }
+          c_q = ((qinf[1] & 0x40) >> 5) | ((qinf[1] & 0x80) >> 6);
+          vlc_val = vlc.advance(qinf[1] & 0x7);
+        }
+        *sipl |= (((qinf[1] & 0x30)) | ((qinf[1] & 0xC0) << 2)) << (4 + sip_shift);
+        sipl += x & 0x7 ? 1 : 0;
+        sip_shift ^= 0x10;
+        const uint32_t uvlc_mode = ((qinf[0] & 0x8) >> 3) | ((qinf[1] & 0x8) >> 2);
+        const uint32_t consumed = ht_uvlc(vlc_val, uvlc_mode, U_q, false);
+        vlc_val = vlc.advance(consumed);
+        if ((qinf[0] & 0xF0) & ((qinf[0] & 0xF0) - 1)) {
+          uint32_t E = ls0 & 0x7Fu;
+          E = E > (lsp[1] & 0x7Fu) ? E : (lsp[1] & 0x7Fu);
+          U_q[0] += E > 2 ? E - 2 : 0;
+        }
+        if ((qinf[1] & 0xF0) & ((qinf[1] & 0xF0) - 1)) {
+          uint32_t E = lsp[1] & 0x7Fu;
+          E = E > (lsp[2] & 0x7Fu) ? E : (lsp[2] & 0x7Fu);
+          U_q[1] += E > 2 ? E - 2 : 0;
+        }
+        if (U_q[0] > zero_bplanes_p1 || U_q[1] > zero_bplanes_p1)
+          return "an HT code-block's U_q past its zero bit-planes + 1";
+        ls0 = lsp[2];
+        lsp[1] = lsp[2] = 0;
+        uint32_t locs = 0xFF;
+        if (x + 4 > w) locs >>= (x + 4 - w) << 1;
+        locs = y + 2 <= h ? locs : (locs & 0x55);
+        if ((((qinf[0] & 0xF0) >> 4) | (qinf[1] & 0xF0)) & ~locs)
+          return "an HT code-block's VLC significant past the block";
+        quad_pair(magsgn, qinf, U_q, locs, p, sp, lsp, stride);
+        sp += 4;
+        lsp += 2;
+      }
+      y += 2;
+      if (num_passes > 1 && (y & 3) == 0) {
+        if (num_passes > 2) magref_stripe(magref, y & 0x4 ? sigma1 : sigma2,
+                                          dec + static_cast<size_t>(y - 4) * stride, p);
+        if (y >= 4) stripe_mbr(y & 0x4 ? sigma1 : sigma2, y & 0x4 ? mbr1 : mbr2);
+        if (y >= 8) {
+          uint32_t* cur_sig = y & 0x4 ? sigma2 : sigma1;
+          uint32_t* cur_mbr = y & 0x4 ? mbr2 : mbr1;
+          uint32_t* nxt_sig = y & 0x4 ? sigma1 : sigma2;
+          uint32_t* nxt_mbr = y & 0x4 ? mbr1 : mbr2;
+          from_next_stripe(cur_sig, cur_mbr, nxt_sig, stripe_causal);
+          sigprop_stripe(sigprop, cur_sig, cur_mbr, nxt_sig, nxt_mbr,
+                         dec + static_cast<size_t>(y - 8) * stride, p, 0xFFFFFFFFu);
+          std::fill(cur_sig, cur_sig + ((w + 7) >> 3) + 1, 0u);
+        }
+      }
+    }
+
+    // the last stripes
+    if (num_passes > 1) {
+      if (num_passes > 2 && ((h & 3) == 1 || (h & 3) == 2))
+        magref_stripe(magref, h & 0x4 ? sigma2 : sigma1,
+                      dec + static_cast<size_t>(h & 0xFFFFFC) * stride, p);
+      if ((h & 3) == 1 || (h & 3) == 2)
+        stripe_mbr(h & 0x4 ? sigma2 : sigma1, h & 0x4 ? mbr2 : mbr1);
+      int st = h;
+      st -= h > 6 ? (((h + 1) & 3) + 3) : h;
+      for (int y = st; y < h; y += 4) {
+        uint32_t pattern = 0xFFFFFFFFu;
+        if (h - y == 3) pattern = 0x77777777u;
+        else if (h - y == 2) pattern = 0x33333333u;
+        else if (h - y == 1) pattern = 0x11111111u;
+        uint32_t* cur_sig = y & 0x4 ? sigma2 : sigma1;
+        uint32_t* cur_mbr = y & 0x4 ? mbr2 : mbr1;
+        uint32_t* nxt_sig = y & 0x4 ? sigma1 : sigma2;
+        uint32_t* nxt_mbr = y & 0x4 ? mbr1 : mbr2;
+        if (h - y > 4) from_next_stripe(cur_sig, cur_mbr, nxt_sig, stripe_causal);
+        sigprop_stripe(sigprop, cur_sig, cur_mbr, nxt_sig, nxt_mbr,
+                       dec + static_cast<size_t>(y) * stride, p, pattern);
+      }
+    }
+    return "";
+  }
+
+  // MagSgn of a quad pair of line pair (sp, lsp as the loops hold them);
+  // the line state of the row below gets each column's exponent
+  static void quad_pair(HtFwd& ms, const uint32_t* qinf, const uint32_t* U_q, uint32_t locs,
+                        uint32_t p, uint32_t* sp, uint8_t* lsp, int stride) {
+    for (int q = 0; q < 2; ++q) {
+      const uint32_t qi = qinf[q];
+      const uint32_t l0 = q == 0 ? 0x1 : 0x10;
+      uint32_t v_n;
+      if (qi & 0x10) sp[0] = magsgn(ms, qi, U_q[q], 0, p, &v_n);
+      else if (locs & l0) sp[0] = 0;
+      if (qi & 0x20) {
+        sp[stride] = magsgn(ms, qi, U_q[q], 1, p, &v_n);
+        const uint32_t t = lsp[0] & 0x7F;
+        v_n = bitlen32(v_n);
+        lsp[0] = static_cast<uint8_t>(0x80 | (t > v_n ? t : v_n));
+      } else if (locs & (l0 << 1)) {
+        sp[stride] = 0;
+      }
+      ++lsp;
+      ++sp;
+      if (qi & 0x40) sp[0] = magsgn(ms, qi, U_q[q], 2, p, &v_n);
+      else if (locs & (l0 << 2)) sp[0] = 0;
+      lsp[0] = 0;
+      if (qi & 0x80) {
+        sp[stride] = magsgn(ms, qi, U_q[q], 3, p, &v_n);
+        lsp[0] = static_cast<uint8_t>(0x80 | bitlen32(v_n));
+      } else if (locs & (l0 << 3)) {
+        sp[stride] = 0;
+      }
+      ++sp;
+    }
+  }
+
+  void magref_stripe(HtRev& mr, uint32_t* cur_sig, uint32_t* dpp, uint32_t p) {
+    const uint32_t half = 1u << ((p - 2) & 31);
+    for (int i = 0; i < w; i += 8) {
+      uint32_t cwd = mr.fetch();
+      const uint32_t sig = *cur_sig++;
+      uint32_t col_mask = 0xFu;
+      uint32_t* dp = dpp + i;
+      if (sig) {
+        for (int j = 0; j < 8; ++j, dp++) {
+          if (sig & col_mask) {
+            uint32_t sample_mask = 0x11111111u & col_mask;
+            for (int r = 0; r < 4; ++r, sample_mask += sample_mask) {
+              if (sig & sample_mask) {
+                const uint32_t sym = cwd & 1;
+                dp[r * w] ^= (1 - sym) << ((p - 1) & 31);
+                dp[r * w] |= half;
+                cwd >>= 1;
+              }
+            }
+          }
+          col_mask <<= 4;
+        }
+      }
+      mr.advance(popcount32(sig));
+    }
+  }
+
+  // a stripe's members: the insignificant neighbours of its significant
+  // samples within the stripe
+  void stripe_mbr(const uint32_t* sig, uint32_t* mbr) {
+    uint32_t prev = 0;
+    for (int i = 0; i < w; i += 8, mbr++, sig++) {
+      mbr[0] = sig[0];
+      mbr[0] |= prev >> 28;
+      mbr[0] |= sig[0] << 4;
+      mbr[0] |= sig[0] >> 4;
+      mbr[0] |= sig[1] << 28;
+      prev = sig[0];
+      const uint32_t t = mbr[0];
+      uint32_t z = mbr[0];
+      z |= (t & 0x77777777) << 1;
+      z |= (t & 0xEEEEEEEE) >> 1;
+      mbr[0] = z & ~sig[0];
+    }
+  }
+
+  // and those of the stripe below's first row (not under stripe-causal mode)
+  void from_next_stripe(const uint32_t* cur_sig, uint32_t* cur_mbr, const uint32_t* nxt_sig,
+                        bool stripe_causal) {
+    uint32_t prev = 0;
+    for (int i = 0; i < w; i += 8, cur_mbr++, cur_sig++, nxt_sig++) {
+      uint32_t t = nxt_sig[0];
+      t |= prev >> 28;
+      t |= nxt_sig[0] << 4;
+      t |= nxt_sig[0] >> 4;
+      t |= nxt_sig[1] << 28;
+      prev = nxt_sig[0];
+      if (!stripe_causal) cur_mbr[0] |= (t & 0x11111111u) << 3;
+      cur_mbr[0] &= ~cur_sig[0];
+    }
+  }
+
+  void sigprop_stripe(HtFwd& sp_in, uint32_t* cur_sig, uint32_t* cur_mbr, uint32_t* nxt_sig,
+                      uint32_t* nxt_mbr, uint32_t* dpp, uint32_t p, uint32_t pattern) {
+    const uint32_t val = 3u << ((p - 2) & 31);
+    for (int i = 0; i < w; i += 8, cur_sig++, cur_mbr++, nxt_sig++, nxt_mbr++) {
+      uint32_t mbr = *cur_mbr & pattern;
+      uint32_t new_sig = 0;
+      if (mbr) {
+        for (int n = 0; n < 8; n += 4) {
+          uint32_t cwd = sp_in.fetch();
+          uint32_t cnt = 0;
+          uint32_t* dp = dpp + i + n;
+          uint32_t col_mask = 0xFu << (4 * n);
+          const uint32_t inv_sig = ~cur_sig[0] & pattern;
+          const int end = n + 4 + i < w ? n + 4 : w - i;
+          static const uint32_t kProp[4] = {0x32u, 0x74u, 0xE8u, 0xC0u};
+          for (int j = n; j < end; ++j, ++dp, col_mask <<= 4) {
+            if ((col_mask & mbr) == 0) continue;
+            uint32_t sample_mask = 0x11111111u & col_mask;
+            for (int r = 0; r < 4; ++r, sample_mask += sample_mask) {
+              if (mbr & sample_mask) {
+                if (cwd & 1) {
+                  new_sig |= sample_mask;
+                  mbr |= (kProp[r] << (4 * j)) & inv_sig;
+                }
+                cwd >>= 1;
+                ++cnt;
+              }
+            }
+          }
+          if (new_sig & (0xFFFFu << (4 * n))) {
+            dp = dpp + i + n;
+            col_mask = 0xFu << (4 * n);
+            for (int j = n; j < end; ++j, ++dp, col_mask <<= 4) {
+              if ((col_mask & new_sig) == 0) continue;
+              uint32_t sample_mask = 0x11111111u & col_mask;
+              for (int r = 0; r < 4; ++r, sample_mask += sample_mask) {
+                if (new_sig & sample_mask) {
+                  dp[r * w] |= ((cwd & 1) << 31) | val;
+                  cwd >>= 1;
+                  ++cnt;
+                }
+              }
+            }
+          }
+          sp_in.advance(cnt);
+          if (n == 4) {
+            uint32_t t = new_sig >> 28;
+            t |= ((t & 0xE) >> 1) | ((t & 7) << 1);
+            cur_mbr[1] |= t & ~cur_sig[1];
+          }
+        }
+      }
+      new_sig |= cur_sig[0];
+      const uint32_t ux = (new_sig & 0x88888888) >> 3;
+      const uint32_t tx = ux | (ux << 4) | (ux >> 4);
+      if (i > 0) nxt_mbr[-1] |= (ux << 28) & ~nxt_sig[-1];
+      nxt_mbr[0] |= tx & ~nxt_sig[0];
+      nxt_mbr[1] |= (ux >> 28) & ~nxt_sig[1];
+    }
+  }
+};
+
 // --- the codestream --------------------------------------------------------------------
 
 struct Reader {
@@ -687,6 +1442,7 @@ struct Decoder {
   // output planes
   std::vector<std::vector<int32_t>> planes;
   bool any_tile = false;
+  const uint8_t* tile_data = nullptr;  // the tile whose packets are read
 
   Decoder(const uint8_t* d, size_t len) : src(d), n(len) {}
 
@@ -753,7 +1509,6 @@ struct Decoder {
     if (t.cblkw > 10 || t.cblkh > 10 || t.cblkw + t.cblkh > 12) damaged("invalid code-block size");
     t.cblksty = static_cast<int>(s.u(1));
     if (t.cblksty & 0x80) damaged("mixed HT code-block style");
-    if (t.cblksty & 0x40) refused("HTJ2K (JPEG 2000 Part 15, HT code-blocks)");
     t.qmfbid = static_cast<int>(s.u(1));
     if (t.qmfbid > 1) damaged("invalid wavelet transform");
     if (t.csty & 1) {
@@ -995,7 +1750,7 @@ struct Decoder {
       case PLM: if (s.n < 1) damaged("PLM marker size"); break;
       case CRG: if (s.n != static_cast<size_t>(numcomps) * 4) damaged("CRG marker size"); break;
       // COM; CAP and CPF (OpenJPEG reads nothing of them: HTJ2K shows in the
-      // code-block style); MCT, MCC, MCO and CBD (a Part 2 transform, which
+      // code-block style, 0x40); MCT, MCC, MCO and CBD (a Part 2 transform, which
       // needs COD's MCT = 2, which OpenJPEG refuses)
       case COM: case CAP: case CPF: case MCT: case MCC: case MCO: case CBD: break;
       case SOT: read_sot(s); break;
@@ -1311,6 +2066,7 @@ struct Decoder {
     }
     std::unordered_set<uint64_t> included;
     size_t pos = 0;
+    tile_data = data.data();
     struct EndOfPackets {};
     auto emit = [&](int l, int r, int c, int pr) {
       const uint64_t key = ((static_cast<uint64_t>(l) * max_res + r) * numcomps + c) * max_prec + pr;
@@ -1517,6 +2273,7 @@ struct Decoder {
             int i = 0;
             while (!prc.imsb.decode(bio, k, i)) ++i;
             cb.numbps = band.numbps + 1 - i;
+            cb.mb = band.numbps;
             cb.numlenbits = 3;
           }
           uint32_t n_passes = numpasses(bio);
@@ -1536,9 +2293,13 @@ struct Decoder {
           }
           cb.numnewpasses = static_cast<int>(n_passes);
           int left = static_cast<int>(n_passes);
+          const bool ht = tccp.cblksty & 0x40;
           do {
             Segment& seg = cb.segs[segno];
-            seg.numnewpasses = std::min(seg.maxpasses - seg.numpasses, left);
+            // HT: the first segment takes one pass (the cleanup), a later
+            // one all that are left (OpenJPEG's t2, in every layer)
+            if (ht) seg.numnewpasses = segno == 0 ? 1 : left;
+            else seg.numnewpasses = std::min(seg.maxpasses - seg.numpasses, left);
             const int bits = cb.numlenbits + floorlog2(static_cast<uint32_t>(seg.numnewpasses));
             if (bits > 32) damaged("code-block length field over 32 bits");
             seg.newlen = bio.read(bits);
@@ -1581,6 +2342,7 @@ struct Decoder {
         do {
           Segment& seg = cb.segs[s];
           if (cur + seg.newlen > avail || partial) damaged("code-block segment past the tile data");
+          if (cb.nchunks++ == 0) cb.chunk0 = static_cast<size_t>(data + cur - tile_data);
           cb.data.insert(cb.data.end(), data + cur, data + cur + seg.newlen);
           cur += seg.newlen;
           seg.len += seg.newlen;
@@ -1614,6 +2376,8 @@ struct Decoder {
     if (ppm) ppm_pos = hdr_pos;
     // tier 1 and dequantization
     T1 t1;
+    HtBlock htb;
+    std::vector<int32_t> vals;
     for (int c = 0; c < numcomps; ++c) {
       TileComp& tc = tcs[c];
       const TCCP& tccp = tcp.tccps[c];
@@ -1626,15 +2390,30 @@ struct Decoder {
           if (band.empty()) continue;
           for (auto& prc : band.precincts) {
             for (auto& cb : prc.cblks) {
-              if (!t1.decode(cb, band.bandno, tccp.roishift, tccp.cblksty))
-                damaged("code-block with more than 30 bit-planes");
-              const int cw = t1.w, chh = t1.h;
+              int cw, chh;
+              if (tccp.cblksty & 0x40) {
+                const std::string err = htb.decode(cb, tccp.roishift, tccp.cblksty);
+                if (!err.empty()) damaged(err);
+                cw = htb.w;
+                chh = htb.h;
+                vals.resize(htb.data.size());
+                for (size_t k = 0; k < vals.size(); ++k) {
+                  const int32_t v = static_cast<int32_t>(htb.data[k] & 0x7FFFFFFF);
+                  vals[k] = (htb.data[k] & 0x80000000u) ? -v : v;
+                }
+              } else {
+                if (!t1.decode(cb, band.bandno, tccp.roishift, tccp.cblksty))
+                  damaged("code-block with more than 30 bit-planes");
+                cw = t1.w;
+                chh = t1.h;
+                vals.swap(t1.data);
+              }
               if (tccp.roishift) {
                 if (tccp.roishift >= 31) {
-                  std::fill(t1.data.begin(), t1.data.end(), 0);
+                  std::fill(vals.begin(), vals.end(), 0);
                 } else {
                   const int32_t thresh = 1 << tccp.roishift;
-                  for (auto& v : t1.data) {
+                  for (auto& v : vals) {
                     int32_t mag = v < 0 ? -v : v;
                     if (mag >= thresh) {
                       mag >>= tccp.roishift;
@@ -1649,12 +2428,12 @@ struct Decoder {
               if (tccp.qmfbid == 1) {
                 for (int j = 0; j < chh; ++j)
                   for (int i = 0; i < cw; ++i)
-                    tc.idata[(y + j) * w + x + i] = t1.data[j * cw + i] / 2;
+                    tc.idata[(y + j) * w + x + i] = vals[j * cw + i] / 2;
               } else {
                 const float step = 0.5f * band.stepsize;
                 for (int j = 0; j < chh; ++j)
                   for (int i = 0; i < cw; ++i)
-                    tc.fdata[(y + j) * w + x + i] = static_cast<float>(t1.data[j * cw + i]) * step;
+                    tc.fdata[(y + j) * w + x + i] = static_cast<float>(vals[j * cw + i]) * step;
               }
             }
           }
@@ -1662,16 +2441,28 @@ struct Decoder {
       }
       if (tccp.qmfbid == 1) idwt53(tc); else idwt97(tc);
     }
-    // the multiple component transform
+    // the multiple component transform: the RCT or ICT as component 0's
+    // wavelet says, over the three buffers as they hold their bits (where a
+    // component took the other wavelet, OpenJPEG reads its integers as
+    // floats or its floats as integers, and so does this)
     if (tcp.mct && numcomps >= 3) {
       for (int c = 1; c < 3; ++c)
         if (tcs[c].x1 - tcs[c].x0 != tcs[0].x1 - tcs[0].x0 ||
             tcs[c].y1 - tcs[c].y0 != tcs[0].y1 - tcs[0].y0 || tcs[c].numres != tcs[0].numres)
           damaged("MCT over components of different sizes");
       const size_t nsamp = static_cast<size_t>((tcs[0].x1 - tcs[0].x0) * (tcs[0].y1 - tcs[0].y0));
-      if (tcp.tccps[0].qmfbid == 0) {
-        if (tcp.tccps[1].qmfbid != 0 || tcp.tccps[2].qmfbid != 0)
-          refused("JPEG 2000 ICT over components of mixed wavelets");
+      const bool ict = tcp.tccps[0].qmfbid == 0;
+      for (int c = 1; c < 3; ++c) {  // into component 0's kind, bit for bit
+        if ((tcp.tccps[c].qmfbid == 0) == ict) continue;
+        if (ict) {
+          tcs[c].fdata.resize(nsamp);
+          std::memcpy(tcs[c].fdata.data(), tcs[c].idata.data(), nsamp * sizeof(float));
+        } else {
+          tcs[c].idata.resize(nsamp);
+          std::memcpy(tcs[c].idata.data(), tcs[c].fdata.data(), nsamp * sizeof(int32_t));
+        }
+      }
+      if (ict) {
         float *c0 = tcs[0].fdata.data(), *c1 = tcs[1].fdata.data(), *c2 = tcs[2].fdata.data();
         for (size_t i = 0; i < nsamp; ++i) {
           const float yv = c0[i], u = c1[i], v = c2[i];
@@ -1683,18 +2474,26 @@ struct Decoder {
           c2[i] = b;
         }
       } else {
-        if (tcp.tccps[1].qmfbid != 1 || tcp.tccps[2].qmfbid != 1)
-          refused("JPEG 2000 RCT over components of mixed wavelets");
         int32_t *c0 = tcs[0].idata.data(), *c1 = tcs[1].idata.data(), *c2 = tcs[2].idata.data();
+        auto add = [](int32_t a, int32_t b) {  // 32-bit wrap, as OpenJPEG's SSE2 adds
+          return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+        };
         for (size_t i = 0; i < nsamp; ++i) {
           const int32_t yv = c0[i], u = c1[i], v = c2[i];
-          const int32_t g = yv - ((u + v) >> 2);
-          const int32_t r = v + g;
-          const int32_t b = u + g;
+          const int32_t q = add(u, v) >> 2;  // arithmetic shift
+          const int32_t g =
+              static_cast<int32_t>(static_cast<uint32_t>(yv) - static_cast<uint32_t>(q));
+          const int32_t r = add(v, g);
+          const int32_t b = add(u, g);
           c0[i] = r;
           c1[i] = g;
           c2[i] = b;
         }
+      }
+      for (int c = 1; c < 3; ++c) {  // and back into their own, bit for bit
+        if ((tcp.tccps[c].qmfbid == 0) == ict) continue;
+        if (ict) std::memcpy(tcs[c].idata.data(), tcs[c].fdata.data(), nsamp * sizeof(int32_t));
+        else std::memcpy(tcs[c].fdata.data(), tcs[c].idata.data(), nsamp * sizeof(float));
       }
     }
     // DC level shift, clamp, and the copy into the image planes
@@ -1865,8 +2664,8 @@ int64_t fail_code(const Failure& f, char* msg, int64_t msg_len) {
 // The main header's geometry: info[0:5] = image x0, y0, x1, y1, components;
 // then 8 a component: dx, dy, width, height, x0, y0, precision, signed
 // (5 + 8 * 16384 values at most, as SIZ holds at most 16384 components).
-// Reads the main header and no tile.  Returns 0, -1 (damaged, with a
-// message) or -2 (refused, with a message).
+// Reads the main header and no tile.  Returns 0, or -1 (damaged, with a
+// message).
 extern "C" int64_t rcnn_j2k_header(const uint8_t* src, int64_t n, int64_t* info, char* msg,
                                    int64_t msg_len) {
   if (src == nullptr || info == nullptr || n < 0) return -1;
@@ -1896,7 +2695,7 @@ extern "C" int64_t rcnn_j2k_header(const uint8_t* src, int64_t n, int64_t* info,
 
 // Decodes the codestream into `out`: the components' planes one after the
 // other (width x height int32 samples each, as rcnn_j2k_header gives them),
-// `total` samples in all.  Returns 0, -1 or -2 as rcnn_j2k_header.
+// `total` samples in all.  Returns 0 or -1 as rcnn_j2k_header.
 extern "C" int64_t rcnn_j2k_decode(const uint8_t* src, int64_t n, int32_t* out, int64_t total,
                                    char* msg, int64_t msg_len) {
   if (src == nullptr || out == nullptr || n < 0) return -1;

@@ -25,7 +25,7 @@ through cv2).  A file cv2 cannot read either (empty, cut short, not an
 image, OpenEXR, which this cv2 lacks, a 32-bit float or ZSTD TIFF, a
 12-bit or hierarchical JPEG, ...) raises ``ValueError`` and is
 quarantined as JAX's quarantines it; a file in a format or variant cv2
-reads and the port refuses (AVIF, HTJ2K) raises its
+reads and the port refuses (AVIF) raises its
 ``UnsupportedImageFormat`` instead of being quarantined.  ``fetch`` passes
 an ``rng`` on to the transform (the loader seeds one per sample); the
 substitute draw is seeded too.

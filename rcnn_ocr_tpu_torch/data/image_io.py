@@ -66,8 +66,8 @@ IMREAD_COLOR)`` followed by BGR -> RGB gives, as an RGB uint8 HWC array:
   black-and-white tuple types, as OpenCV's readers give them.
 * JPEG 2000 (:mod:`rcnn_ocr_tpu_torch.data.jpeg2000`): JP2 files and raw
   codestreams, the codestream in host C++ (``csrc/host/j2k_decode.cpp``)
-  as OpenJPEG decodes it, the JP2 boxes and OpenCV's conversion in Python;
-  HT (Part 15) code-blocks raise :class:`UnsupportedImageFormat`.
+  as OpenJPEG decodes it, HTJ2K (Part 15) code-blocks included, the JP2
+  boxes and OpenCV's conversion in Python.
 * Sun raster (:mod:`rcnn_ocr_tpu_torch.data.sunras`), PFM
   (:mod:`rcnn_ocr_tpu_torch.data.pfm`) and Radiance HDR
   (:mod:`rcnn_ocr_tpu_torch.data.hdr`), in numpy, as OpenCV's readers give
@@ -75,7 +75,7 @@ IMREAD_COLOR)`` followed by BGR -> RGB gives, as an RGB uint8 HWC array:
 
 Of the formats OpenCV reads, AVIF raises :class:`UnsupportedImageFormat`
 naming it by its magic (so do PAM's alpha tuple types, whose pixels
-OpenCV's reader leaves to memory it never wrote, and HTJ2K code-blocks).
+OpenCV's reader leaves to memory it never wrote).
 EXIF orientation turns JPEG, PNG and WebP images as OpenCV turns them
 (:mod:`rcnn_ocr_tpu_torch.data.exif`); OpenCV reads it from no other
 container the port decodes (a JPEG 2000 ``uuid`` box of Exif is not
@@ -106,7 +106,8 @@ from rcnn_ocr_tpu_torch.data import (bmp, gif, hdr, jpeg2000, pfm, png, pnm, sun
                                      webp)
 
 IMG_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff"}
-SUPPORTED = ("PNG, BMP, JPEG (8-bit sequential or progressive, lossless), JPEG 2000 (Part 1), "
+SUPPORTED = ("PNG, BMP, JPEG (8-bit sequential or progressive, lossless), JPEG 2000 (Part 1 "
+             "and HTJ2K), "
              "WebP, GIF, Netpbm (PBM, PGM, PPM, PAM), Sun raster, PFM, Radiance HDR and TIFF "
              "(baseline and BigTIFF, CCITT fax, JPEG, YCbCr, CIELab, SGI LogL and LogLuv)")
 # formats OpenCV reads and the port does not, by their magic bytes

@@ -29,10 +29,10 @@ OpenJPEG gives.  Here:
   (14-bit fixed point, its coefficients 2.032, 0.395, 0.581, 1.140);
   e-sYCC and CMYK fail in OpenCV.
 
-Where OpenJPEG or OpenCV fails, ``ValueError``; what cv2 decodes and the
-port does not (HTJ2K code-blocks) raises
-``NotImplementedError`` naming it (``image_io`` turns it into
-``UnsupportedImageFormat``).  Sides are held to OpenCV's size limit
+Code-blocks of either kind are decoded: Part 1's and HTJ2K's (Part 15,
+the HT code-block style of COD or COC) as OpenJPEG decodes them.  Where
+OpenJPEG or OpenCV fails, ``ValueError``: the codestream decoder refuses
+nothing cv2 reads.  Sides are held to OpenCV's size limit
 (:mod:`~rcnn_ocr_tpu_torch.data.size_limit`) before any plane is
 allocated.
 """

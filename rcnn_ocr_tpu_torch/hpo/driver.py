@@ -21,8 +21,8 @@ documents: ``optuna_ocr.db`` and its "LSTM 2 512" variant) over the port's
   ``parallel_trials=K`` runs K trials at once in threads of a one-rank
   process, each pinned (:func:`rcnn_ocr_tpu_torch.parallel.mesh.device_scope`)
   to its group of the cards (:func:`_device_groups`), and trains on its
-  group's first card; under several ranks it raises (ROADMAP.md queue 1
-  item 2: HPO's concurrent trials across ranks).
+  group's first card; under several ranks it raises (ROADMAP.md queue 3's
+  deliberate divergence: HPO's concurrent trials across ranks).
 
 Usage::
 

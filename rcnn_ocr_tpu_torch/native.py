@@ -14,8 +14,10 @@ the JAX package's ``native/ctc_beam.cpp``), ``csrc/host/letterbox.cpp`` (its
 first use each is compiled with ``g++ -O3 -std=c++17 -fPIC -shared -pthread
 -ffp-contract=off`` (no fused multiply-add, so the JPEG 2000 decoder's float
 wavelet rounds as OpenJPEG's) into
-``build/rcnn_ocr_tpu_torch/`` under a name that carries a hash of the source
-and flags, so an edited source is rebuilt, and loaded with ``ctypes``.  A
+``build/rcnn_ocr_tpu_torch/`` under a name that carries a hash of the source,
+the files it includes from its own folder (``ht_tables.inc``, HTJ2K's VLC
+tables) and the flags, so an edited source is rebuilt, and loaded with
+``ctypes``.  A
 failed build raises with the compiler's output; nothing falls back to
 Python.  Bound: the batched beam entry points
 ``rcnn_ctc_beam_search_batch[_mt][_v2]``, ``rcnn_letterbox_u8``,
@@ -34,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -124,7 +127,10 @@ def source(name: str = "ctc_beam") -> Path:
 
 
 def library_path(name: str = "ctc_beam") -> Path:
-    digest = hashlib.sha1(source(name).read_bytes() + " ".join(CXX_FLAGS).encode())
+    text = source(name).read_bytes()
+    digest = hashlib.sha1(text + " ".join(CXX_FLAGS).encode())
+    for inc in re.findall(rb'^#include "([^"]+)"', text, re.M):  # tables beside the source
+        digest.update((HOST_DIR / inc.decode()).read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
@@ -446,8 +452,7 @@ def webp_decode_vp8(data: bytes, width: int, height: int) -> np.ndarray:
 def j2k_header(data: bytes) -> tuple:
     """A JPEG 2000 codestream's main header -> ``((x0, y0, x1, y1), comps)``,
     each component ``(dx, dy, width, height, x0, y0, precision, signed)``.
-    Raises ``ValueError`` where OpenJPEG fails the header and
-    ``NotImplementedError`` naming what it refuses (HTJ2K)."""
+    Raises ``ValueError`` where OpenJPEG fails the header."""
     lib = load("j2k_decode")
     data = bytes(data)
     info = np.zeros(5 + 8 * 16384, dtype=np.int64)  # SIZ holds at most 16384 components
@@ -477,8 +482,5 @@ def j2k_decode(data: bytes, comps) -> list:
 
 
 def _j2k_raise(res: int, msg) -> None:
-    text = msg.value.decode("utf-8", "replace")
-    if res == -2:
-        raise NotImplementedError(text)
     if res < 0:
-        raise ValueError(text)
+        raise ValueError(msg.value.decode("utf-8", "replace"))

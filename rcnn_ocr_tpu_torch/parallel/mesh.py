@@ -85,8 +85,8 @@ import torch.distributed as dist
 
 from rcnn_ocr_tpu_torch.ops import kernels
 
-# what stays refused across ranks (ROADMAP.md's item names it)
-UNPORTED = "ROADMAP.md queue 1 item 2: HPO's concurrent trials across ranks"
+# what stays refused across ranks (a deliberate divergence, ROADMAP.md queue 3)
+UNPORTED = "ROADMAP.md queue 3 deliberate divergence: HPO's concurrent trials across ranks"
 
 _DEVICE_SCOPE = threading.local()
 _SHARD = threading.local()

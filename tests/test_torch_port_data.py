@@ -412,25 +412,33 @@ def test_png_webp_and_tiff_faults_are_quarantined_as_jax_quarantines_them(tmp_pa
     unturned), a PNG whose ancillary chunk fails its CRC (cv2 drops the
     chunk; the port quarantined the row), a PNG cut before IEND (cv2 gives
     None; the port trained on it); beside them the TIFF variants now read
-    (LogLuv32, LogLuv24, subsampled YCbCr with the predictor).  Both
-    datasets read the same pixels and quarantine only the cut PNG."""
+    (LogLuv32, LogLuv24, subsampled YCbCr with the predictor), an HTJ2K
+    line (once refused by name, stopping the run) and an HTJ2K file whose
+    VLC marks a sample past its code-block (OpenJPEG fails it).  Both
+    datasets read the same pixels and quarantine only the cut PNG and the
+    damaged HTJ2K file."""
+    from tests.torch_port_data.make_htj2k_fixtures import none_streams
+
     import shutil
 
     fixtures = Path(__file__).resolve().parent / "torch_port_data"
     rels = ["png/exif6_mm_pre_7x11.png", "png/none_no_iend_7x11.png",
             "png/crc_text_7x11.png", "webp/exif6_ii_vp8l_13x21.webp", "png/pngo_line_0.png",
             "tiff_variants/luv32_line_0.tif", "tiff_variants/luv24_line_0.tif",
-            "tiff_variants/ycbcr22_pred2_lzw_strips_21x29.tif"]
+            "tiff_variants/ycbcr22_pred2_lzw_strips_21x29.tif", "jp2/htj2k_line_0.jp2"]
     root = tmp_path / "ds"
     root.mkdir()
     rows = []
     for i, rel in enumerate(rels):
         shutil.copy(fixtures / rel, root / Path(rel).name)
         rows.append([Path(rel).name, "abcdefghij"[i]])
+    (root / "ht_past_edge.jp2").write_bytes(
+        none_streams()["a quad significant past the block's edge"])
+    rows.append(["ht_past_edge.jp2", "a"])
     csv_path = root / "labels.csv"
     with open(csv_path, "w", newline="", encoding="utf-8") as f:
         csv.writer(f).writerows(rows)
-    assert assert_datasets_agree(csv_path, root, len(rows)) == [1]
+    assert assert_datasets_agree(csv_path, root, len(rows)) == [1, 9]
 
 
 def _epochs(sampler, n=2):

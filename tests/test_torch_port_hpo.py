@@ -142,7 +142,7 @@ def test_parallel_trials_cap_at_the_devices_and_refuse_several_ranks(tmp_path, m
     assert [t["number"] for t in out["trials"]] == [0, 1, 2]
     monkeypatch.setattr(port_driver, "process_count", lambda: 2)
     with pytest.raises(NotImplementedError,
-                       match="queue 1 item 2: HPO's concurrent trials across ranks"):
+                       match="queue 3 deliberate divergence: HPO's concurrent trials across ranks"):
         port_driver.run_hpo({}, n_trials=2, study_name="dp", space=space,
                             storage_dir=str(tmp_path / "dp"), objective=objective,
                             parallel_trials=2, prune=False)

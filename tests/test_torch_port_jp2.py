@@ -19,23 +19,33 @@
 * Seeded fuzzes of cuts and bit flips over the fixtures, and of random
   values in the codestream's SIZ, COD, QCD and SOT fields and in the JP2
   boxes: bit-equal where cv2 decodes, ``ValueError`` where it gives
-  ``None``; the one listed
-  divergence, a flip that sets the HT code-block style (the port refuses
-  HTJ2K by name where OpenJPEG tries and fails), is counted.
+  ``None`` (a flip that sets the HT code-block style included: OpenJPEG
+  then reads the Part 1 data as HT, and so does the port).
+* HTJ2K (Part 15): the ``ht_*`` fixtures (``make_htj2k_fixtures.py``'s
+  own HT encoder over the VLC tables read back from cv2, which a rerun of
+  ``derive_ht_tables.py`` reproduces byte for byte) bit-equal to cv2;
+  regenerated here bit for bit, with every (context, codeword) entry of
+  both VLC tables and every UVLC prefix reached; seeded cuts and flips
+  inside the code-blocks' bytes agree with cv2.
 * sYCC's conversion (OpenCV's ``YUV2BGR``) equal to cv2 on every triple.
 * What cv2 refuses and the port raises ``ValueError`` for: signed, offset,
   subsampled and 4-bit components, five components, a gray raw
-  codestream, CMYK and e-sYCC, damaged boxes; HTJ2K raises
-  ``UnsupportedImageFormat`` naming it.
+  codestream, CMYK and e-sYCC, damaged boxes, and the HT streams
+  OpenJPEG fails (Scup or Lcup out of range, more than 3 passes, a
+  second HT set, the refinement signalled as Part 15 signals it, ROI,
+  a UVLC past its 5-bit suffix, the mixed style bit, a block of more
+  than 4,096 samples, a quad significant past the block's edge, and
+  OpenJPEG's own encoder given the HT style).
 * Headers whose layer or tile count is far larger than their bytes fill
   (65535 layers, 65535 tiles): equal to cv2, the decode's peak memory
   held under 32 MiB in a process of its own.
 * The codestream decoder under AddressSanitizer and UndefinedBehaviorSanitizer
   (``torch_port_data/sanitize_j2k.py``), called directly on every fixture,
-  the streams that once faulted (an empty tile of a subsampled component)
-  and seeded cuts and flips.
-* A dataset and an eval-CLI run over ``.jp2`` and ``.j2k`` rows, against
-  JAX's, and ``image_size`` against JAX's.
+  the streams that once faulted (an empty tile of a subsampled component),
+  the HT streams OpenJPEG fails, and seeded cuts and flips (over the
+  code-blocks' bytes of the HT fixtures too).
+* A dataset and an eval-CLI run over ``.jp2`` and ``.j2k`` rows (HTJ2K
+  among them), against JAX's, and ``image_size`` against JAX's.
 """
 
 import csv
@@ -56,12 +66,14 @@ from rcnn_ocr_tpu.data import transforms as jax_tf  # noqa: E402
 from rcnn_ocr_tpu_torch.data import image_io  # noqa: E402
 from tests.test_torch_port_beam_engine import files  # noqa: E402,F401
 from tests.test_torch_port_data import assert_datasets_agree  # noqa: E402
+from tests.torch_port_data import make_htj2k_fixtures as ht  # noqa: E402
 from tests.torch_port_data import sanitize_j2k  # noqa: E402
 from tests.torch_port_data.make_jp2_fixtures import (  # noqa: E402
     box, jp2_file, many_layers, many_tiles, opj_encode)
 
 FIXTURES = Path(__file__).resolve().parent / "torch_port_data" / "jp2"
 NAMES = sorted(p.name for p in FIXTURES.iterdir() if p.suffix in (".jp2", ".j2k"))
+HT_NAMES = [n for n in NAMES if n.startswith(("ht_", "htj2k_"))]
 
 
 @pytest.fixture(scope="module")
@@ -116,7 +128,12 @@ def test_every_fixture_has_expected_pixels(expected):
              "termall", "vsc", "pterm", "segsym", "all_styles", "sop_eph", "poc", "roi",
              "tile_parts_R", "tile_parts_L", "tile_parts_C", "tlm_plt", "prec9", "prec10",
              "prec12", "prec16", "sycc", "ppm", "ppt", "palette_", "palette16", "cdef_swapped",
-             "cdef_alpha", "icc", "unknown_enumcs", "two_colr", "65535_layers")
+             "cdef_alpha", "icc", "unknown_enumcs", "two_colr", "65535_layers",
+             "ht_gray_rev", "ht_rgb_rev", "ht_rgb_irr", "ht_gray_irr", "res1_cblk4x4",
+             "res6_cblk64", "refine", "sigprop", "vsc", "layers3_late", "refine_split",
+             "magref_split", "cleanup_split", "tiles_precincts_sop_eph", "rlcp", "coc_part1",
+             "gray16", "rgb16", "zblk", "cblk1024x4", "uvlc_long", "ht_cover", "htj2k_line",
+             "warn_zero_planes", "warn_four_passes")
     assert all(any(k in n for n in NAMES) for k in kinds), [k for k in kinds
                                                           if not any(k in n for n in NAMES)]
 
@@ -180,33 +197,51 @@ def test_seeded_pil_fuzz_is_bit_equal(seed):
     assert decoded >= 10
 
 
+def _agree(data, outcomes, info):
+    """One damaged stream: equal pixels, or ValueError (never a refusal)
+    where cv2 gives None; counted in ``outcomes``."""
+    want = _cv2(data)
+    try:
+        got = image_io.imdecode(data)
+    except ValueError as err:
+        assert not isinstance(err, image_io.UnsupportedImageFormat), (info, err)
+        assert want is None, (info, "fails where cv2 decodes", err)
+        outcomes["both fail"] += 1
+        return
+    assert want is not None, (info, "decoded where cv2 fails")
+    np.testing.assert_array_equal(got, want, err_msg=str(info))
+    outcomes["equal"] += 1
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_seeded_damage_fuzz_agrees_with_cv2(seed):
     """Cuts and bit flips: equal pixels, or ValueError where cv2 gives None.
-    A flip that sets the HT code-block style is refused by name (the port
-    does not decode HTJ2K); OpenJPEG then fails on the non-HT data."""
+    A flip that sets the HT code-block style gives cv2's outcome too: the
+    port reads the Part 1 data as HT, as OpenJPEG does, and fails or
+    decodes where it does."""
     rng = np.random.default_rng(200 + seed)
-    outcomes = {"equal": 0, "both fail": 0, "HTJ2K refused": 0}
+    outcomes = {"equal": 0, "both fail": 0}
     for case in range(60):
         name = NAMES[rng.integers(len(NAMES))]
-        data = sanitize_j2k.damage((FIXTURES / name).read_bytes(), rng)
-        want = _cv2(data)
-        try:
-            got = image_io.imdecode(data)
-        except image_io.UnsupportedImageFormat as err:
-            assert "HTJ2K" in str(err) and want is None, (case, name, err)
-            outcomes["HTJ2K refused"] += 1
-            continue
-        except ValueError:
-            assert want is None, (case, name)
-            outcomes["both fail"] += 1
-            continue
-        assert want is not None, (case, name, "decoded where cv2 fails")
-        np.testing.assert_array_equal(got, want, err_msg=str((case, name)))
-        outcomes["equal"] += 1
+        _agree(sanitize_j2k.damage((FIXTURES / name).read_bytes(), rng), outcomes, (case, name))
     print(f"seed {seed}: {outcomes}")
     assert outcomes["equal"] >= 10 and outcomes["both fail"] >= 10, outcomes
-    assert outcomes["HTJ2K refused"] <= 2, outcomes
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_seeded_ht_block_damage_fuzz_agrees_with_cv2(seed):
+    """Cuts, bit flips and stuffing bytes (0xFF, 0x7F, 0x8F, 0x90) inside
+    the code-blocks' bytes of the ``ht_*`` fixtures (the cleanup's MagSgn,
+    MEL and VLC streams and Scup, the SigProp and MagRef segment, the
+    packet headers): equal pixels, or ValueError where cv2 gives None."""
+    rng = np.random.default_rng(400 + seed)
+    outcomes = {"equal": 0, "both fail": 0}
+    for case in range(60):
+        name = HT_NAMES[rng.integers(len(HT_NAMES))]
+        _agree(sanitize_j2k.damage_blocks((FIXTURES / name).read_bytes(), rng), outcomes,
+               (case, name))
+    print(f"seed {seed}: {outcomes}")
+    assert outcomes["equal"] >= 10 and outcomes["both fail"] >= 10, outcomes
 
 
 def _mutate_markers(data: bytes, rng) -> bytes:
@@ -235,31 +270,17 @@ def _mutate_boxes(data: bytes, rng) -> bytes:
 def test_seeded_header_fuzz_agrees_with_cv2(kind):
     """Random values in the codestream's SIZ, COD, QCD and SOT fields, or
     in the JP2 boxes: equal pixels, or ValueError where cv2 gives None
-    (the HT code-block style counted as in the damage fuzz)."""
+    (a COD whose style gains or loses the HT bit as well)."""
     rng = np.random.default_rng(300 + (kind == "boxes"))
     names = [n for n in NAMES if kind == "markers" or n.endswith(".jp2")]
-    outcomes = {"equal": 0, "both fail": 0, "HTJ2K refused": 0}
+    outcomes = {"equal": 0, "both fail": 0}
     for case in range(120):
         name = names[rng.integers(len(names))]
         data = (_mutate_markers if kind == "markers" else _mutate_boxes)(
             (FIXTURES / name).read_bytes(), rng)
-        want = _cv2(data)
-        try:
-            got = image_io.imdecode(data)
-        except image_io.UnsupportedImageFormat as err:
-            assert "HTJ2K" in str(err) and want is None, (case, name, err)
-            outcomes["HTJ2K refused"] += 1
-            continue
-        except ValueError:
-            assert want is None, (case, name)
-            outcomes["both fail"] += 1
-            continue
-        assert want is not None, (case, name, "decoded where cv2 fails")
-        np.testing.assert_array_equal(got, want, err_msg=str((case, name)))
-        outcomes["equal"] += 1
+        _agree(data, outcomes, (case, name))
     print(f"{kind}: {outcomes}")
     assert outcomes["equal"] >= 10 and outcomes["both fail"] >= 10, outcomes
-    assert outcomes["HTJ2K refused"] <= 3, outcomes
 
 
 # --- what cv2 refuses, and HTJ2K ----------------------------------------------------------
@@ -308,6 +329,17 @@ CV2_FAILS = {
     "no EOC": lambda: _rgb_stream()[:-2],
     "cut in half": lambda: _rgb_stream()[: len(_rgb_stream()) // 2],
     "a missing EPH marker": lambda: _rgb_stream(csty=6).replace(b"\xff\x92", b"\xff\x93", 1),
+    # OpenJPEG's encoder copies the HT style into COD over MQ-coded blocks
+    "HT: OpenJPEG's encoder given the HT style": lambda: _rgb_stream(mode=0x40),
+    **{f"HT: {what}": (lambda what=what: ht.none_streams()[what])
+       for what in ("Scup under 2", "Scup over Lcup", "Scup over 4079", "Lcup under 2",
+                    "an empty cleanup segment",
+                    "four passes (placeholder passes before the cleanup)",
+                    "a second HT set in a later layer",
+                    "the refinement in a later layer as Part 15 signals it",
+                    "HT with a region of interest", "a UVLC past the 5-bit suffix (its extension)",
+                    "the mixed HT style bit", "a code-block of 128 x 64 samples",
+                    "a quad significant past the block's edge")},
 }
 
 
@@ -318,6 +350,9 @@ def test_value_error_where_cv2_fails(case):
 
 @pytest.mark.parametrize("where", ["COD", "COC"])
 def test_htj2k_code_blocks_are_refused_naming_it(where):
+    """A Part 1 stream whose COD (or a COC, for component 1) claims HT
+    code-blocks: once refused by name, now read as OpenJPEG reads it (the
+    MQ-coded bytes as HT segments), so the port gives cv2's outcome."""
     data = bytearray(_rgb_stream())
     cod = data.index(b"\xff\x52")
     if where == "COD":
@@ -326,8 +361,70 @@ def test_htj2k_code_blocks_are_refused_naming_it(where):
         coc = b"\xff\x53\x00\x0a\x01\x00" + bytes(data[cod + 9 : cod + 14])
         coc = coc[:9] + bytes([coc[9] | 0x40]) + coc[10:]
         data[cod + 14 : cod + 14] = coc
-    with pytest.raises(image_io.UnsupportedImageFormat, match="HTJ2K"):
-        image_io.imdecode(bytes(data))
+    _assert_as_cv2(bytes(data), where)
+
+
+def test_ht_fixtures_regenerate_bit_for_bit_and_reach_every_codeword():
+    """``make_htj2k_fixtures.py`` rewrites every committed ``ht_*`` file
+    byte for byte (same seed), and its fixtures and probes reach every
+    (context, codeword) entry of both VLC tables and every UVLC prefix,
+    the 5-bit suffix's extension values included."""
+    files = ht.fixtures(np.random.default_rng(20261020))
+    ht.none_streams()
+    on_disk = sorted(p.name for p in FIXTURES.iterdir() if p.name.startswith(("ht_", "htj2k_")))
+    assert sorted(files) == on_disk
+    for name, data in files.items():
+        assert (FIXTURES / name).read_bytes() == data, name
+    gaps, prefixes = ht.COVER.missing()
+    assert not gaps and not prefixes, (gaps, prefixes, ht.coverage_report())
+
+
+def test_ht_tables_are_read_back_from_cv2_byte_for_byte():
+    """``derive_ht_tables.py`` finds one pair of VLC tables in cv2's shared
+    object by their structure and renders the committed
+    ``ht_tables.inc`` byte for byte."""
+    from tests.torch_port_data import derive_ht_tables as derive
+
+    _, tables = derive.find_tables(derive.shared_object())
+    assert derive.render(tables) == Path(derive.OUT).read_text()
+
+
+@pytest.mark.parametrize("other", [(0,), (1,), (2,), (0, 1), (0, 2), (1, 2)])
+@pytest.mark.parametrize("reversible", [True, False])
+def test_colour_transform_over_mixed_wavelets_reads_bits_as_openjpeg(reversible, other):
+    """A COC (with a QCC) giving components the other wavelet under the
+    colour transform: OpenJPEG runs component 0's transform over the three
+    buffers' bits (floats read as integers or integers as floats), and so
+    does the port (it refused the stream); flat areas give exact zeros."""
+    rng = np.random.default_rng(len(other) * 7 + other[0])
+    img = ht._image(rng, int(rng.integers(8, 30)), int(rng.integers(8, 30)))
+    if not reversible:
+        img = (img // 64 * 64).astype(np.uint8)
+    assert _assert_as_cv2(ht.encode_image(img, numres=2, cblk=(16, 16), reversible=reversible,
+                                          other_wavelet=other), (reversible, other))
+
+
+@pytest.mark.parametrize("chunks", [1, 2])
+@pytest.mark.parametrize("shift", range(8))
+def test_ht_mel_start_is_checked_where_openjpeg_reads_it(shift, chunks):
+    """OpenJPEG fails a MEL whose 0xFF is followed by a byte above 0x8F
+    only among the bytes it reads singly up to a 4-byte address; the port
+    keeps the address's low bits (the block's offset in the tile's data,
+    or 0 for a joined copy), so it fails and decodes where cv2 does."""
+    _assert_as_cv2(ht.mel_start_stream(shift, chunks), (shift, chunks))
+
+
+@pytest.mark.parametrize("delta", [-3, -2, -1, 1, 2, 3])
+def test_ht_mel_and_vlc_overlapping_or_apart_agree_with_cv2(delta):
+    """Scup moved by a few bytes: the MEL read over the VLC's bytes, or over
+    the MagSgn's; cv2's outcome, whichever it is."""
+    _assert_as_cv2(ht.scup_shift_stream(delta), delta)
+
+
+def test_htj2k_line_equals_its_png_twin():
+    """The card's daemon line: lossless, so its pixels are its PNG twin's."""
+    np.testing.assert_array_equal(image_io.imread(str(FIXTURES / "htj2k_line_0.jp2")),
+                                  image_io.imread(str(FIXTURES / "htj2k_line_0.png")))
 
 
 _PEAK = r"""
@@ -403,14 +500,20 @@ def test_image_size_decodes_as_jax_does(tmp_path):
 
 def _write_lines(root: Path, labels):
     """Lines as lossless and irreversible JP2 and raw codestreams, each its
-    own extension (and a 16-bit gray JP2)."""
+    own extension (and a 16-bit gray JP2), and as HTJ2K: a lossless JP2 and
+    an irreversible codestream with SigProp and MagRef."""
     from tests.test_torch_port_beam_engine import _images
     from tests.test_torch_port_eval_cli import WIDTHS
 
     rows = []
     for i, (img, label) in enumerate(zip(_images(len(labels), seed=8, widths=WIDTHS), labels)):
-        kind = i % 4
-        if kind == 0:
+        kind = i % 6
+        if kind == 4:
+            name, data = f"line{i}.jp2", ht.encode_image(img, numres=3, cblk=(16, 16), seed=i)
+        elif kind == 5:
+            name, data = f"line{i}.j2k", ht.encode_image(img, numres=3, reversible=False, passes=3,
+                                                         seed=i, jp2=False)
+        elif kind == 0:
             name, data = f"line{i}.jp2", _pil(img, num_resolutions=3)
         elif kind == 1:
             name, data = f"line{i}.j2k", _pil(img, num_resolutions=3, irreversible=True,
@@ -428,19 +531,23 @@ def _write_lines(root: Path, labels):
 
 def test_dataset_reads_jp2_and_j2k_rows_as_the_jax_dataset(tmp_path):
     """JAX's dataset reads a CSV of ``.jp2`` and ``.j2k`` lines through
-    cv2; the port's refused them by name and stopped the run.  Both now
-    read every row to the same pixels; a JP2 cut short is quarantined in
-    both, the same substitute served in its place."""
+    cv2; the port's refused them by name and stopped the run (HTJ2K ones
+    until Part 15 was decoded).  Both now read every row to the same
+    pixels; a JP2 cut short and an HTJ2K line whose cleanup segment's Scup
+    is damaged are quarantined in both, the same substitute served in
+    their place."""
     root = tmp_path / "ds"
     root.mkdir()
     rows = _write_lines(root, list("abcdefgh"))
     cut = (root / rows[0][0]).read_bytes()
     (root / "cut.jp2").write_bytes(cut[: len(cut) // 2])
     rows.insert(3, ("cut.jp2", "j"))
+    (root / "ht_scup.jp2").write_bytes(ht.none_streams()["Scup under 2"])
+    rows.insert(6, ("ht_scup.jp2", "a"))
     csv_path = root / "labels.csv"
     with open(csv_path, "w", newline="", encoding="utf-8") as f:
         csv.writer(f).writerows(rows)
-    assert assert_datasets_agree(csv_path, root, len(rows)) == [3]
+    assert assert_datasets_agree(csv_path, root, len(rows)) == [3, 6]
 
 
 def test_eval_cli_on_jp2_and_j2k_lines_matches_jax(files, tmp_path, monkeypatch):  # noqa: F811

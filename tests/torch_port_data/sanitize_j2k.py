@@ -7,11 +7,13 @@ Builds ``rcnn_ocr_tpu_torch/csrc/host/j2k_decode.cpp`` with a small test program
 (``g++ -fsanitize=address,undefined -D_GLIBCXX_ASSERTIONS``, which also
 checks every ``std::vector`` index) into a temporary directory, then calls
 ``rcnn_j2k_header`` and ``rcnn_j2k_decode`` on every stream of
-:func:`streams`: the codestream of each fixture in ``jp2/``, the named
-streams of :func:`named_streams`, and seeded cuts and bit flips of the
-fixtures (300, seed 0).  The program calls the C++ directly, so it reaches what
-``data/jpeg2000.py`` refuses before decoding (subsampled and offset
-components, more than four components).  Exits non-zero, naming the
+:func:`streams`: the codestream of each fixture in ``jp2/`` (the HTJ2K
+``ht_*`` ones among them), the named streams of :func:`named_streams`
+(with the HT streams OpenJPEG fails), seeded cuts and bit flips of the
+fixtures (300, seed 0) and seeded damage inside the code-blocks' bytes of
+the HT fixtures (300 more, :func:`damage_blocks`).  The program calls the
+C++ directly, so it reaches what ``data/jpeg2000.py`` refuses before
+decoding (subsampled and offset components, more than four components).  Exits non-zero, naming the
 stream, on the first fault a sanitizer reports.  Needs g++ with libasan
 and libubsan; the named streams need PIL's bundled OpenJPEG (through
 ``make_jp2_fixtures.opj_encode``).
@@ -94,7 +96,12 @@ def named_streams() -> dict:
     * ``layers_65535``: :func:`make_jp2_fixtures.many_layers`, 5.7 M
       packets of which all but the first layer's are empty;
     * ``tiles_65535``: :func:`make_jp2_fixtures.many_tiles`, 65535 tiles
-      of which one is sent."""
+      of which one is sent;
+    * ``ht_*``: :func:`make_htj2k_fixtures.none_streams`, the HT streams
+      OpenJPEG fails (Scup and Lcup out of range, too many passes, a quad
+      past the block's edge, ...);
+    * ``mixed_wavelets_*``: a colour transform over a component of the
+      other wavelet (its buffer's bits read as the other kind)."""
     sys.path.insert(0, str(REPO))
     from tests.torch_port_data.make_jp2_fixtures import many_layers, many_tiles, opj_encode
 
@@ -106,6 +113,14 @@ def named_streams() -> dict:
             mct=0, tiles=(41, 39))
     out["layers_65535"] = codestream(many_layers())
     out["tiles_65535"] = codestream(many_tiles())
+    from tests.torch_port_data.make_htj2k_fixtures import encode_image, none_streams
+
+    for k, data in enumerate(none_streams().values()):
+        out[f"ht_none_{k}"] = codestream(data)
+    img = np.random.default_rng(5).integers(0, 256, (20, 22, 3)).astype(np.uint8)
+    for rev in (True, False):  # a colour transform over buffers of the other kind
+        out[f"mixed_wavelets_{int(rev)}"] = codestream(encode_image(
+            img, numres=2, cblk=(16, 16), reversible=rev, other_wavelet=(1,)))
     return out
 
 
@@ -125,6 +140,26 @@ def damage(data: bytes, rng) -> bytes:
     return bytes(data)
 
 
+def damage_blocks(data: bytes, rng) -> bytes:
+    """Damage inside the code-blocks' bytes (after the first SOD): a cut,
+    one to three bit flips, or a byte set to a random value or to one the
+    bit-stuffing rules test (0xFF, 0x7F, 0x8F, 0x90)."""
+    data = bytearray(data)
+    start = data.index(b"\xff\x93") + 2
+    at = int(rng.integers(start, len(data)))
+    kind = rng.integers(0, 4)
+    if kind == 0:
+        return bytes(data[:at])
+    if kind == 1:
+        for _ in range(int(rng.integers(1, 4))):
+            data[int(rng.integers(start, len(data)))] ^= 1 << int(rng.integers(0, 8))
+    elif kind == 2:
+        data[at] = int(rng.integers(0, 256))
+    else:
+        data[at] = int(rng.choice([0xFF, 0x7F, 0x8F, 0x90]))
+    return bytes(data)
+
+
 def streams(cases: int, seed: int) -> dict:
     fixtures = {p.name: codestream(p.read_bytes()) for p in sorted(FIXTURES.iterdir())
                 if p.suffix in (".jp2", ".j2k")}
@@ -135,6 +170,10 @@ def streams(cases: int, seed: int) -> dict:
     for k in range(cases):
         name = names[rng.integers(len(names))]
         out[f"damaged_{k}_{name}"] = damage(fixtures[name], rng)
+    ht_names = [n for n in names if n.startswith(("ht_", "htj2k_"))]
+    for k in range(cases):
+        name = ht_names[rng.integers(len(ht_names))]
+        out[f"ht_damaged_{k}_{name}"] = damage_blocks(fixtures[name], rng)
     return out
 
 
