@@ -21,9 +21,22 @@
    streaming route and bf16 the resident one in clusters of 16, each held
    against the plain version and timed warm and cold beside its bound and
    cuDNN's ``nn.LSTM(512->512)`` and ``nn.LSTM(1024->512)``, bidirectional.
+   Both kernels also at every other shape the bench phase gives them, in
+   bf16, held and route-checked but not timed (``BENCH_SE``, ``BENCH_LSTM``):
+   batch 1, 8 and 64 at 32x128, and 64x256 lines at batch 512, where K1's
+   16x64x256 layers must take the streaming route and K2 runs T=32.
    A check that fails here names the worst value's index, launches the
    kernel once more and says whether it is bit-equal, and gives the kernel's
    and the plain version's distance from the function in fp64.
+3b. Bench phase, alone on the card: ``rcnn_ocr_tpu_torch.bench.run`` (the
+   module ``python -m rcnn_ocr_tpu_torch.bench`` runs) in this process:
+   ``bench.py``'s rows at batch 2048 (64x256 at 512) on the shipped model
+   with seeded weights, the static scales calibrated on 256 rendered lines.
+   Its JSON line is printed as the module prints it; its keys must be
+   ``bench.py``'s, every rate finite and > 0, every latency >= 0, the
+   calibration input "rendered", and every row (and the calibration pass)
+   must launch 11 squeeze-excite and 2 BiLSTM kernels an encode.  Prints
+   each row's encodes, launches and seconds and the peak device memory.
 4. Main path: a seeded full-width model (width 1.0, hidden 256, 194 classes
    from configs/charset.txt, both heads) handed through ``to_jax_variables``
    to the public ``OCRInference``, which decodes 512 seeded uint8 line
@@ -123,7 +136,7 @@
    requests queued answers all 64, and 503 to those sent while draining.
    Prints req/s, img/s and p50/p95/p99 per level, the dispatch split and
    one profiled dispatch.
-7. Long-line phase: 256 seeded lines 24-48 high of 2-15 tiles (tile 128,
+7. Long-line phase: 128 seeded lines 24-48 high of 2-15 tiles (tile 128,
    overlap 64) and 32 lines that fit one tile, through ``predict_long`` in
    bf16 at batch 256 for ctc_greedy, ctc_beam, attention (``align`` and
    ``text`` merges), attention_beam, hybrid and hybrid_beam: 11 + 2
@@ -189,7 +202,8 @@
    versions.  (3) A ``ctc_greedy`` artifact loaded with the mesh equals the
    same artifact without one on every row.  (4) ``python -m
    rcnn_ocr_tpu_torch.serve --mesh`` and the same daemon without ``--mesh``,
-   each in a process of its own (the two started side by side), under
+   each in a process of its own (the two started and warmed up side by
+   side), under
    ``python -m rcnn_ocr_tpu_torch.serve_loadtest`` at 1, 16 and 64 clients
    (32, 128 and 256 requests, every one answered); their JSON lines are printed beside the daemon
    phase's readings.  (5) The model exported as a full-layout ``.pth`` and
@@ -256,7 +270,7 @@
    the data paths, exp_dir, epochs, eval_every 1, val_size, num_workers 8,
    head "both" and, for run 1, profile_steps (a torch.profiler window of 4
    steps in epoch 1 gives the card's idle share).  Run 1 trains 2 epochs of
-   2 x 512 lines and is cut by SIGTERM 7 steps into epoch 3: losses must
+   2 x 256 lines and is cut by SIGTERM 3 steps into epoch 3: losses must
    be finite and fall (last epoch's mean train loss and last validation loss
    below the first), all three slots and metrics_epoch.csv must exist, the
    preempted slot must restore bit for bit (parameters, statistics, Adam
@@ -291,8 +305,8 @@
    rcnn_ocr_tpu_torch.evaluate`` runs as a subprocess on last_weights.msgpack
    over set B's validation PNGs, ``--decode ctc_beam`` and
    ``--decode attention_beam`` with a bigram table of the training labels
-   and ``--lm-weight 0,0.5``: each must exit 0 and write a report of all 256
-   rows and a per-sample CSV of 256 rows; their wall times are printed.
+   and ``--lm-weight 0,0.5``: each must exit 0 and write a report of all 128
+   rows and a per-sample CSV of 128 rows; their wall times are printed.
    Beside them (four processes on the card at once), ``--decode
    ctc_greedy`` over a CSV of the 38 lines of the newest
    formats (G4 and G3 TIFF, JPEG-in-TIFF, YCbCr TIFF, 1-bit and RLE8 BMP,
@@ -358,6 +372,7 @@ import collections
 import functools
 import gc
 import json
+import math
 import multiprocessing
 import os
 import shutil
@@ -382,11 +397,18 @@ FP32_FLOP_PER_S = 67e12
 IMG_H, IMG_W, HIDDEN, WIDTH = 32, 128, 256, 1.0
 SE_SHAPES = ((3, (8, 32, 256)), (8, (4, 16, 512)))  # (calls per encode, per-sample H, W, C)
 LSTM_T, LSTM_D = IMG_W // 8, 512
+# the kernels at the bench phase's other shapes (bf16 x and w_hh, as its
+# models run): its latency rows (bs 1, 8, 64 at 32x128) and its 64x256 rows
+# (bs 512), whose 16x64x256 squeeze-excite holds more than a CTA's 48 KiB
+# run and takes the streaming route.  ((B, H, W, C), route); (T, B)
+BENCH_SE = tuple(((b, *hwc), "cluster") for b in (1, 8, 64) for _, hwc in SE_SHAPES) + (
+    ((512, 16, 64, 256), "streaming"), ((512, 8, 32, 512), "cluster"))
+BENCH_LSTM = tuple((LSTM_T, b) for b in (1, 8, 64)) + ((2 * LSTM_T, 512),)
 BATCH, BIG_BATCH, N_IMAGES, MAX_LENGTH = 256, 2048, 512, 25
 # beam phase: attention beam width, CTC beam width (= prune_k), fusion weight
 BEAM_WIDTH, CTC_BEAM, LM_WEIGHT = 5, 16, 0.5
 # long-line phase: tile width and overlap, long lines and one-tile lines
-LONG_TILE_W, LONG_OVERLAP, N_LONG, N_SHORT = 128, 64, 256, 32
+LONG_TILE_W, LONG_OVERLAP, N_LONG, N_SHORT = 128, 64, 128, 32
 COLD_BYTES = 100_000_000  # twice the H100's 50 MB L2
 # daemon phase: a canvas covering every line (512 up to 79x632, JPEG lines up
 # to 40x240), the daemon's batch and coalescing window, client threads
@@ -456,6 +478,16 @@ PNG_CV2_NONE = {"none_no_iend_7x11.png": "truncated",
                 "none_adler_in_rows_7x11.png": "incorrect data check",
                 "none_reserved_bit_7x11.png": "reserved bit",
                 "none_actl_no_frames_7x11.png": "acTL"}
+APNG_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "apng")
+# tests/torch_port_data/make_apng_fixtures.py's CV2_NONE
+APNG_CV2_NONE = {"none_fdat_stream_cut.png": "ends before its zlib stream does",
+                 "none_fdat_no_data.png": "ends before its zlib stream does",
+                 "none_fctl_dispose_3.png": "dispose op 3",
+                 "none_fctl_outside.png": "outside the image",
+                 "none_fctl_empty.png": "0x5 pixels",
+                 "none_no_frame_after_idat.png": "truncated",
+                 "none_two_fctl_no_data.png": "without image data"}
+TIFF_GRAY_ALPHA_FIXTURES = os.path.join(REPO, "tests", "torch_port_data", "tiff_gray_alpha")
 # the fixtures cv2 gives None on (tests/torch_port_data/make_*_fixtures.py's
 # CV2_NONE), and the words the port's ValueError must name
 TIFF_CV2_NONE = {"none_zstd.tif": "ZSTD TIFF compression (50000)",
@@ -512,18 +544,18 @@ def fixture_path(name: str) -> str:
 # training phase: configs/config.json's shape and optimizer
 TRAIN_BATCH, TRAIN_MAX_LEN, TRAIN_STEPS, GRAD_BATCH = 128, 40, 30, 32
 TRAIN_LR, TRAIN_WD = 5e-4, 2e-5
-# training-loop phase: two sets of LOOP_TRAIN lines (8 steps per epoch at
+# training-loop phase: two sets of LOOP_TRAIN lines (4 steps per epoch at
 # quota 64 each), LOOP_VAL validation rows per set, LOOP_EPOCHS full epochs
 # and one more cut by SIGTERM; LOOP_SMALL rows per set for the short
 # device-augmentation run (LOOP_SMALL_TRAIN of set A's to train)
-LOOP_CHARS, LOOP_TRAIN, LOOP_VAL, LOOP_EPOCHS = 30, 512, 256, 2
-LOOP_SMALL, LOOP_SMALL_TRAIN, LOOP_PROFILE_STEPS = 640, 512, 4
+LOOP_CHARS, LOOP_TRAIN, LOOP_VAL, LOOP_EPOCHS = 30, 256, 128, 2
+LOOP_SMALL, LOOP_SMALL_TRAIN, LOOP_PROFILE_STEPS = 384, 256, 4
 # scale-out phase: the collectives' timeout, a training subprocess's, and the
 # HPO study ("LSTM 2 512") in trials and epochs; its runs train on the first
 # DP_TRAIN + DP_VAL rows of set A (labels_half.csv), DP_VAL of them split off
 # to validate
 DP_TIMEOUT_S, DP_RUN_TIMEOUT_S, HPO_TRIALS, HPO_EPOCHS = 120, 400, 2, 2
-DP_TRAIN, DP_VAL = LOOP_TRAIN // 2, LOOP_VAL // 2
+DP_TRAIN, DP_VAL = 256, 128
 # synthetic phase: the generator CLI's defaults (512 + 128 medium lines at
 # img_h 48, seed 0) and SYNTH_HARD hard lines for the JPEG stage, from the
 # carried font; the written config trains one epoch; the CLI itself runs on
@@ -659,9 +691,21 @@ def card() -> str:
 
 
 def build(kernels) -> None:
+    """Every CUDA kernel (one nvcc per source) and every host C++ library
+    (one g++ per source, missing ones only), all started together, so no
+    later phase pays a build."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rcnn_ocr_tpu_torch import native
+
     t0 = time.perf_counter()
-    kernels.build_all(force=True)
-    print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(kernels.KERNELS)} kernels")
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.build_all)
+        kernels.build_all(force=True)
+        host_s = host.result()
+    print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(kernels.KERNELS)} kernels and "
+          f"{len(host_s)} host libraries (g++ " + ", ".join(
+              f"{n} {v:.1f} s" if v else f"{n} built" for n, v in host_s.items()) + ")")
     for k in kernels.KERNELS.values():
         print(f"  {k.name}: nvcc {k.build_seconds:.1f} s -> {k.library.name}")
         for line in k.build_log.splitlines():
@@ -823,12 +867,81 @@ def kernel_phase(gen: torch.Generator):
             lstm["calls"].append(call)
     main = next(c for c in lstm["calls"] if c["shape"][2] == BATCH and c["w_dtype"] == "bf16"
                 and c["shape"][3] == 4 * H)
+
+    # --- both kernels at the bench phase's other shapes: held and routed, not timed
+    se["bench_shapes"], lstm["bench_shapes"] = [], []
+    for (b, h, w, c), want in BENCH_SE:
+        s = c // 16
+        w1 = torch.randn(c, s, device=dev, generator=gen) / c ** 0.5
+        w2 = torch.randn(s, c, device=dev, generator=gen) / s ** 0.5
+        plan = se_route((b, h, w, c), s, torch.bfloat16)
+        check(plan["route"] == want,
+              f"se_scale [{b},{h},{w},{c}] bf16 took the {plan['route']} route, not {want}")
+        xb = torch.randn(b, h, w, c, device=dev, generator=gen).to(torch.bfloat16)
+        err = held(se_scale(xb, w1, w2), se_scale_reference(xb, w1, w2),
+                   what=f"se_scale [{b},{h},{w},{c}] bf16 vs plain (bench)",
+                   again=lambda: se_scale(xb, w1, w2),
+                   exact=lambda: se_scale_fp64(xb, w1, w2), **TOL["bf16"])
+        se["bench_shapes"].append(dict(shape=[b, h, w, c], route=plan, max_abs_err=err))
+        se["max_abs_err"] = max(se["max_abs_err"], err)
+    w_hh = (torch.randn(2, H, 4 * H, device=dev, generator=gen) / H ** 0.5).to(torch.bfloat16)
+    for t, b in BENCH_LSTM:
+        plan = lstm_route(b, H, torch.bfloat16)
+        check(plan["route"] == "resident",
+              f"bilstm_scan B={b} H={H} w_hh bf16 took the {plan['route']} route")
+        xs = torch.randn(t, 2, b, 4 * H, device=dev, generator=gen)
+        err = held(bilstm_scan(xs, w_hh, H), scan_reference(xs, w_hh, H),
+                   what=f"bilstm_scan [{t},2,{b},{4 * H}] w_hh bf16 vs plain (bench)",
+                   again=lambda: bilstm_scan(xs, w_hh, H),
+                   exact=lambda: scan_fp64(xs, w_hh, H), **TOL["fp32"])
+        lstm["bench_shapes"].append(dict(shape=[t, 2, b, 4 * H], route=plan, max_abs_err=err))
+        errs.append(err)
     lstm.update(max_abs_err=max(errs), ms=2 * main["ms"], cold_ms=2 * main["cold_ms"],
                 plain_ms=2 * main["plain_ms"], bound_ms=2 * main["bound_ms"],
                 bound_us=2 * main["bound_ms"] * 1e3, bound_by=main["bound_by"],
                 library_ms=2 * main["library_ms"])
     rows.append(lstm)
     return rows
+
+
+def bench_phase(kernels, power: str) -> dict:
+    """The port's ``python -m rcnn_ocr_tpu_torch.bench`` in this process,
+    alone on the card: its JSON line (printed as the module prints it), its
+    keys, finite rates, the rendered calibration input, and per row 11
+    squeeze-excite and 2 BiLSTM launches an encode."""
+    from rcnn_ocr_tpu_torch import bench
+
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    line, details = bench.run("cuda:0")
+    launches = kernels.launch_counts()
+    print(json.dumps(line))
+    check(tuple(line) == bench.JSON_KEYS, f"bench keys {tuple(line)}")
+    rates = [k for k in bench.JSON_KEYS if k.endswith("img_s") or k.startswith("img_s")]
+    check(all(math.isfinite(line[k]) and line[k] > 0 for k in rates + ["value"]),
+          "a bench rate is not finite and positive")
+    lat = ("latency_bs1_ms", "latency_bs8_ms", "latency_bs64_ms", "dispatch_floor_ms")
+    check(all(math.isfinite(line[k]) and line[k] >= 0 for k in lat),
+          "a bench latency is not finite and >= 0")
+    check(line["calibration_input"] == "rendered", f"calibration on {line['calibration_input']}")
+    check(line["platform"] == "gpu" and line["batch_64x256"] == 512, "bench platform or batch")
+    print(f"  keys = bench.py's ({len(line)}), {len(rates)} rates finite and > 0, latencies "
+          f">= 0, calibration_input {line['calibration_input']!r}")
+    encodes = 0
+    for name, row in details["rows"].items():
+        n, got = row["encodes"], row["launches"]
+        encodes += n
+        print(f"  {name}: batch {row['batch']}, {n} encodes, se_scale {got['se_scale']}, "
+              f"bilstm_scan {got['bilstm_scan']}, {row['seconds']:.1f} s")
+        check(got == {"se_scale": 11 * n, "bilstm_scan": 2 * n},
+              f"bench row {name}: {got} launches for {n} encodes")
+    check(launches == {"se_scale": 11 * encodes, "bilstm_scan": 2 * encodes},
+          f"bench launches {launches} for {encodes} encodes")
+    peak = details["peak_memory_bytes"]
+    print(f"  11 + 2 launches an encode on every row ({encodes} encodes); peak device memory "
+          f"{peak / 2**30:.2f} GiB; {details['seconds']:.1f} s; {power}")
+    return {"line": line, "rows": details["rows"], "peak_memory_bytes": peak,
+            "seconds": details["seconds"], "launches": launches}
 
 
 def line_images(n: int, seed: int):
@@ -1388,6 +1501,12 @@ def tiff_decoder_check() -> dict:
     check(not differing, f"the TIFF decoder differs from cv2's pixels on {differing}")
     for k in ("logluv32", "logluv24", "pred2", "luv32_line", "luv24_line"):
         kinds[k] = sum(n.startswith(k) or f"_{k}" in n for n in variants)
+    with np.load(os.path.join(TIFF_GRAY_ALPHA_FIXTURES, "expected.npz")) as z:
+        gray_alpha = {k: z[k] for k in z.files}
+    differing = [name for name, want in sorted(gray_alpha.items())
+                 if not np.array_equal(imread(os.path.join(TIFF_GRAY_ALPHA_FIXTURES, name)), want)]
+    check(not differing, f"the TIFF decoder differs from cv2's pixels on {differing}")
+    kinds["la_jpeg"] = len(gray_alpha)
     check(all(kinds.values()), f"a TIFF kind has no fixture: {kinds}")
     with open(os.path.join(TIFF_FIXTURES, "tiff_line_0.tif"), "rb") as f:
         line = f.read()
@@ -1407,8 +1526,10 @@ def tiff_decoder_check() -> dict:
           f"{kinds['jpeg_ycbcr_planar']}, CIELab {kinds['cielab'] + kinds['pil_lab']}, LogL "
           f"{kinds['sgilog']}) and {len(variants)} more (LogLuv32 {kinds['logluv32']}, "
           f"LogLuv24 {kinds['logluv24']}, YCbCr with the predictor {kinds['pred2']}, LogLuv "
-          f"lines); {none} that cv2 gives None on and a truncated one raise ValueError")
-    return {"fixtures_bit_equal": len(expected) + len(variants), "kinds": kinds,
+          f"lines) and {len(gray_alpha)} JPEG-compressed gray + alpha (two-component frames: "
+          f"strips, tiles, quality 20, partial MCUs, planar); {none} that cv2 gives None on "
+          "and a truncated one raise ValueError")
+    return {"fixtures_bit_equal": len(expected) + len(variants) + len(gray_alpha), "kinds": kinds,
             "cv2_none": none}
 
 
@@ -1526,7 +1647,44 @@ def png_decoder_check() -> dict:
         png_ihdr(1000001, 1))  # one pixel wider than libpng's 1,000,000
     out["cv2_none"] = cv2_none_check(PNG_FIXTURES, PNG_CV2_NONE)
     print(f"  PNG: {out['cv2_none']} files cv2 gives None on raise ValueError naming the cause")
+    out["apng"] = apng_check()
+    out["apng_cv2_none"] = cv2_none_check(APNG_FIXTURES, APNG_CV2_NONE)
+    print(f"  APNG: the first frame where the IDAT image is hidden; {out['apng_cv2_none']} "
+          "files cv2 gives None on raise ValueError naming the cause")
     return out
+
+
+def apng_check() -> dict:
+    """APNGs (tests/torch_port_data/apng/): the first frame as OpenCV 5's
+    APNG path reads it, bit-equal to cv2's pixels, where the IDAT image is
+    hidden (every colour type and depth, sub-rectangles, each blend and
+    dispose op, split fdAT runs, PIL's writer, damage libpng forgives) and
+    where it is the first frame; a file cut inside its first frame raises
+    ValueError."""
+    from rcnn_ocr_tpu_torch.data.image_io import imdecode, imread
+
+    with np.load(os.path.join(APNG_FIXTURES, "expected.npz")) as z:
+        expected = {k: z[k] for k in z.files}
+    differing = [name for name, want in sorted(expected.items())
+                 if not np.array_equal(imread(os.path.join(APNG_FIXTURES, name)), want)]
+    check(not differing, f"the APNG decoder differs from cv2's pixels on {differing}")
+    kinds = ("hidden_c0_1", "hidden_c0_16", "hidden_c2_16", "hidden_c3_1", "hidden_c4_16",
+             "hidden_c6_8_adam7", "hidden_rgba_d2_b1", "hidden_rgb_full_split", "hidden_pil_rgb",
+             "hidden_pil_rgba", "hidden_pil_l_", "hidden_pil_la", "hidden_pil_p",
+             "hidden_damaged", "first_frame")
+    found = {k: sum(n.startswith(k) for n in expected) for k in kinds}
+    check(all(found.values()), f"an APNG kind has no fixture: {found}")
+    with open(os.path.join(APNG_FIXTURES, "hidden_pil_rgb_23x61.png"), "rb") as f:
+        data = f.read()
+    try:
+        imdecode(data[: len(data) // 2])
+        check(False, "an APNG cut inside its first frame decoded (it must raise ValueError)")
+    except ValueError:
+        pass
+    print(f"  APNG: {len(expected)} fixtures bit-equal to cv2's pixels ("
+          + ", ".join(f"{k} {v}" for k, v in found.items()) + "); one cut inside its first "
+          "frame raises ValueError")
+    return {"fixtures_bit_equal": len(expected), "kinds": found}
 
 
 def gif_decoder_check() -> dict:
@@ -2762,8 +2920,23 @@ def serve_stop(started: dict, what: str) -> None:
     check(proc.returncode == 0, f"{what}: the daemon exited {proc.returncode}")
 
 
+def warm_up(started: dict, png_path: str) -> None:
+    """Once a daemon of :func:`serve_start` serves, its first request (the
+    first batch's warm-up, not counted), timed into ``first_request_s``."""
+    started["ready"].wait(600)
+    if started["base"] is None:
+        return
+    try:
+        with open(png_path, "rb") as f:
+            t0 = time.perf_counter()
+            _post(started["base"], f.read(), "image/png")
+        started["first_request_s"] = time.perf_counter() - t0
+    except Exception as err:  # reported by serve_and_load
+        started["warm_up_error"] = repr(err)
+
+
 def serve_and_load(started: dict, png_path: str, what: str, power: str) -> dict:
-    """A daemon from :func:`serve_start`, driven by ``python -m
+    """A daemon from :func:`serve_start`, warmed up by :func:`warm_up`, driven by ``python -m
     rcnn_ocr_tpu_torch.serve_loadtest`` with one line at each of MESH_LOAD's
     concurrencies: their final JSON lines, and the daemon's start-up
     seconds; the daemon is stopped after."""
@@ -2776,10 +2949,9 @@ def serve_and_load(started: dict, png_path: str, what: str, power: str) -> dict:
             with open(started["err"], encoding="utf-8", errors="replace") as f:
                 check(False, f"{what}: the daemon never started serving:\n{f.read()[-3000:]}")
         out["start_s"] = started["start_s"]
-        with open(png_path, "rb") as f:
-            t0 = time.perf_counter()
-            _post(base, f.read(), "image/png")  # the first batch's warm-up, not counted
-        out["first_request_s"] = time.perf_counter() - t0
+        check("warm_up_error" not in started,
+              f"{what}: the warm-up request failed: {started.get('warm_up_error')}")
+        out["first_request_s"] = started["first_request_s"]
         print(f"  {what}: serving {out['start_s']:.1f} s after the process started; the first "
               f"request (warm-up, not counted) {out['first_request_s']:.2f} s")
         for conc, n in MESH_LOAD:
@@ -3014,10 +3186,16 @@ def mesh_phase(kernels, variables, images, power: str, daemon: dict) -> dict:
     args = ["--model", weights, "--charset", charset_path, "--img-h", str(IMG_H), "--img-w",
             str(IMG_W), "--canvas", ",".join(map(str, DAEMON_CANVAS)), "--batch-size",
             str(BATCH), "--method", "ctc_greedy"]
-    # the two daemons start side by side, then are loaded one at a time
+    # the two daemons start and take their warm-up request side by side, then
+    # are loaded one at a time
     daemons = {"serve --mesh": serve_start([*args, "--mesh"], "serve_mesh"),
                "serve": serve_start(args, "serve")}
     try:
+        warmers = [threading.Thread(target=warm_up, args=(d, png_path)) for d in daemons.values()]
+        for t in warmers:
+            t.start()
+        for t in warmers:
+            t.join()
         out["serve_mesh"] = serve_and_load(daemons["serve --mesh"], png_path, "serve --mesh",
                                            power)
         out["serve"] = serve_and_load(daemons["serve"], png_path, "serve", power)
@@ -3618,7 +3796,7 @@ def training_loop_phase(kernels, cs, train_img_s: float, power: str):
         transform(img, np.random.default_rng(i))
     out["host_augment_ms_per_image"] = (time.perf_counter() - t0) * 1e3 / len(decoded)
 
-    # run 1: LOOP_EPOCHS epochs, then SIGTERM 7 steps into the next
+    # run 1: LOOP_EPOCHS epochs, then SIGTERM a few steps into the next
     exp_dir = os.path.join(base, "exp_loop")
     steps_per_epoch = LOOP_TRAIN // 64  # quota 64 per set at bs 128
     val_per_epoch = 2 * -(-LOOP_VAL // TRAIN_BATCH)
@@ -4705,6 +4883,9 @@ def main() -> int:
         for call in row["calls"]:
             print(f"  {row['name']} " + ", ".join(f"{k} {v}" for k, v in call.items()))
     timed("kernel")
+    print("bench phase")
+    bench = bench_phase(kernels, power)
+    timed("bench")
     print("main path phase")
     path, variables, images = main_path(kernels, power)
     timed("main path")
@@ -4757,7 +4938,8 @@ def main() -> int:
     train = training["train"]
     for row in rows:
         name = row["name"]
-        by_path = {"inference": path["launch_counts"][name],
+        by_path = {"bench": bench["launches"][name],
+                   "inference": path["launch_counts"][name],
                    "beam": beams["launch_counts"][name],
                    "serving": serving["launch_counts"][name],
                    "daemon": daemon["launch_counts"][name],
@@ -4780,7 +4962,7 @@ def main() -> int:
                    train_bwd_ms_per_step=train[f"{name}_backward_ms"])
         for p, n in by_path.items():
             check(n > 0, f"{name} never launched on the {p} path")
-    result = {"card": power, "kernels": rows, "main_path": path, "beam": beams,
+    result = {"card": power, "kernels": rows, "bench": bench, "main_path": path, "beam": beams,
               "serving": serving, "daemon": daemon, "long_lines": long_line,
               "int8_artifacts": int8, "model_options": options, "mesh": mesh, "cli": cli, "synthetic": synth,
               "training": training, "training_loop": loop, "scale_out": scale,

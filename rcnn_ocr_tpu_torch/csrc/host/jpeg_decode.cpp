@@ -531,7 +531,11 @@ class Decoder {
     if (height_ == 0) damaged("JPEG with its height in a DNL marker, which libjpeg-turbo does not read");
     if (width_ == 0) damaged("JPEG of width 0");
     if (ncomp_ < 1 || ncomp_ > 4) damaged("bad SOF component count");
-    if (ncomp_ == 2) damaged("2-component JPEG, which OpenCV does not convert to colour");
+    // a JPEG file of 2 components has no colour space libjpeg converts to
+    // OpenCV's; libtiff decodes a gray + alpha strip as it is (kRaw)
+    if (ncomp_ == 2 && mode_ != kRaw) {
+      damaged("2-component JPEG, which OpenCV does not convert to colour");
+    }
     if (static_cast<int64_t>(width_) * height_ > (int64_t(1) << 30)) {
       damaged("JPEG larger than 2^30 pixels");
     }
@@ -1721,13 +1725,15 @@ extern "C" int64_t rcnn_jpeg_decode_u8(const uint8_t* data, int64_t n, uint8_t* 
 }
 
 // The frame of a JPEG stream (a JPEG-in-TIFF strip or tile with its tables
-// spliced in): info = {SOF height, width, components, component 0's h and
-// v sampling, the largest h and v of the others}.  Returns 0 or -1.
+// spliced in): info = {SOF height, width, components (1-4: a gray + alpha
+// frame of 2 reads here, as libtiff reads it), component 0's h and v
+// sampling, the largest h and v of the others}.  Returns 0 or -1.
 extern "C" int64_t rcnn_jpeg_frame(const uint8_t* data, int64_t n, int64_t* info, char* msg,
                                    int64_t msg_len) {
   if (data == nullptr || n < 0 || info == nullptr) return -1;
   try {
     Decoder dec(data, static_cast<size_t>(n));
+    dec.set_mode(Decoder::kRaw);  // the frame as coded: 2 components too
     int64_t hh = 0, ww = 0;
     dec.header(&hh, &ww);
     dec.frame(info);
@@ -1742,7 +1748,7 @@ extern "C" int64_t rcnn_jpeg_frame(const uint8_t* data, int64_t n, int64_t* info
 }
 
 // Decodes a JPEG stream as a TIFF strip or tile: mode 1 (Decoder::kRaw)
-// into out [h, w, components], mode 2 (kYcc) or 3 (kYccPlain) into out
+// into out [h, w, components] (2 components too), mode 2 (kYcc) or 3 (kYccPlain) into out
 // [h, w, 3], h and w the SOF's.  Returns 0 or -1 as above.
 extern "C" int64_t rcnn_jpeg_decode_frame(const uint8_t* data, int64_t n, int64_t mode,
                                           uint8_t* out, int64_t h, int64_t w, int64_t c, char* msg,

@@ -8,9 +8,10 @@ then has libpng 1.6 read the file with its sequential reader
 
 * OpenCV's walk: the first chunk is a 13-byte ``IHDR``; an ``acTL`` of 8
   bytes and at least one frame, an ``fcTL`` of 26 bytes whose frame lies
-  inside the image, a ``bKGD`` of 1, 2 or 6 bytes; no chunk but ``IDAT``,
-  ``fdAT`` and ``tEXt`` over 7,999,988 bytes (OpenCV's and libpng's
-  8,000,000-byte chunk limit).  CRCs are not checked there.
+  inside the image and whose dispose and blend ops are at most 2 and 1, a
+  ``bKGD`` of 1, 2 or 6 bytes; no chunk but ``IDAT``, ``fdAT`` and
+  ``tEXt`` over 7,999,988 bytes (OpenCV's and libpng's 8,000,000-byte
+  chunk limit).  CRCs are not checked there.
 * libpng's chunk rules: every chunk up to ``IEND`` must be whole (a file
   cut before ``IEND`` fails), with a length under 2**31, four ASCII
   letters for its type and the reserved bit (the third letter's case)
@@ -39,8 +40,22 @@ then has libpng 1.6 read the file with its sequential reader
   image data, read by :mod:`~rcnn_ocr_tpu_torch.data.exif`.  The header
   probe ``image_io.image_size`` keeps JAX's IHDR sides, unturned.
 
-Where cv2 gives ``None`` this raises ``ValueError`` naming the cause.  An
-APNG's default image is what cv2 returns; its frames are not decoded.
+An APNG (the last ``acTL`` before ``IDAT`` counts two frames or more) is
+read as OpenCV's own APNG path reads it, which returns the first frame:
+where no ``fcTL`` precedes ``IDAT`` the ``IDAT`` image is hidden and the
+first frame comes from the ``fdAT`` chunks after the next ``fcTL``.  That
+path feeds libpng's progressive reader chunk by chunk and checks no CRC
+and no sequence number; :func:`_apng_first_frame` gives its rules.  It
+draws the frame's rectangle on a zero canvas (the first frame's blend and
+dispose ops change nothing), converts 16-bit samples as ``convertTo(CV_8U,
+1/255)`` and applies no ``eXIf`` orientation.  Two cases differ from cv2,
+which returns memory there that no decoder wrote: rows that neither the
+``IDAT`` image nor the frame wrote, and an interlaced frame whose data
+stops short (libpng's partial passes); both raise ``ValueError``.
+
+Where cv2 gives ``None`` this raises ``ValueError`` naming the cause, and
+so it does where cv2's process dies (libpng errors inside OpenCV's APNG
+frame loop).
 """
 
 from __future__ import annotations
@@ -98,8 +113,43 @@ def _chunks(data: bytes) -> Iterator[_Chunk]:
         pos += 12 + length
 
 
-def _opencv_walk(data: bytes) -> None:
+def _opencv_chunk(kind: bytes, body: bytes, width: int, height: int,
+                  before_idat: bool = True) -> None:
+    """OpenCV's own checks of one chunk (its ``read_chunk``), before the
+    first IDAT and, for an APNG, while it reads the first frame."""
+    length = len(body)
+    if kind == b"IHDR" and length != 13:
+        raise ValueError(f"PNG IHDR chunk of {length} bytes")
+    if kind == b"acTL" and (length != 8 or (before_idat
+                                            and struct.unpack(">I", body[:4])[0] == 0)):
+        raise ValueError("PNG acTL chunk is not 8 bytes of at least one frame")
+    if kind == b"fcTL":
+        if length != 26:
+            raise ValueError("PNG fcTL chunk is not 26 bytes")
+        w, h, x, y = struct.unpack(">IIII", body[4:20])
+        if x + w > width or y + h > height:
+            raise ValueError("PNG fcTL frame lies outside the image")
+        if body[24] > 2 or body[25] > 1:
+            raise ValueError(f"PNG fcTL of dispose op {body[24]}, blend op {body[25]}")
+    if kind == b"bKGD" and length not in (1, 2, 6):
+        raise ValueError(f"PNG bKGD chunk of {length} bytes")
+    if length > _CHUNK_LIMIT and kind not in (b"IDAT", b"fdAT", b"tEXt"):
+        raise ValueError(f"PNG chunk {kind!r} of {length} bytes is over OpenCV's limit")
+
+
+class _Walk:
+    """What OpenCV's pass before the first IDAT finds: the frame count of
+    the last ``acTL`` (0: none), the last ``fcTL``'s body (None: none) and
+    where the first IDAT chunk starts."""
+    __slots__ = ("frames", "fctl", "idat")
+
+    def __init__(self):
+        self.frames, self.fctl, self.idat = 0, None, -1
+
+
+def _opencv_walk(data: bytes) -> _Walk:
     """OpenCV's own pass over the chunks before the first IDAT."""
+    walk = _Walk()
     pos = len(SIGNATURE)
     first = True
     while pos + 8 <= len(data):
@@ -108,24 +158,18 @@ def _opencv_walk(data: bytes) -> None:
             raise ValueError(f"PNG starts with a {length}-byte {kind!r} chunk, not a 13-byte IHDR")
         first = False
         if kind == b"IDAT":
-            return
+            walk.idat = pos
+            return walk
         if pos + 12 + length > len(data):
             raise ValueError(f"PNG chunk {kind!r} is truncated")
         body = data[pos + 8 : pos + 8 + length]
-        if kind == b"acTL" and (length != 8 or struct.unpack(">I", body[:4])[0] == 0):
-            raise ValueError("PNG acTL chunk is not 8 bytes of at least one frame")
-        if kind == b"fcTL":
-            ihdr_w, ihdr_h = struct.unpack_from(">II", data, len(SIGNATURE) + 8)
-            if length != 26:
-                raise ValueError("PNG fcTL chunk is not 26 bytes")
-            w, h, x, y = struct.unpack(">IIII", body[4:20])
-            if x + w > ihdr_w or y + h > ihdr_h:
-                raise ValueError("PNG fcTL frame lies outside the image")
-        if kind == b"bKGD" and length not in (1, 2, 6):
-            raise ValueError(f"PNG bKGD chunk of {length} bytes")
-        if length > _CHUNK_LIMIT and kind not in (b"IDAT", b"fdAT", b"tEXt"):
-            raise ValueError(f"PNG chunk {kind!r} of {length} bytes is over OpenCV's limit")
+        _opencv_chunk(kind, body, *struct.unpack_from(">II", data, len(SIGNATURE) + 8))
+        if kind == b"acTL":
+            walk.frames = struct.unpack(">I", body[:4])[0]
+        elif kind == b"fcTL":
+            walk.fctl = body
         pos += 12 + length
+    return walk
 
 
 def _ihdr(data: bytes, c: _Chunk) -> Tuple[int, int, int, int, int]:
@@ -162,6 +206,8 @@ class _Reader:
         if c.critical and c.kind != b"PLTE":
             raise ValueError(f"PNG critical chunk {c.kind!r} is unknown")
         palette = c.kind == b"PLTE" and self.ctype == 3
+        if palette and after_idat:  # libpng checks "duplicate" before the chunk's place
+            raise ValueError("PNG palette image with a second PLTE after its image data")
         if not c.crc_ok:
             if palette and not after_idat:
                 raise ValueError("PNG chunk b'PLTE' fails its CRC")
@@ -195,11 +241,12 @@ class _Reader:
                                  "chunk before its zlib stream ends")
             self.cur, self.used = nxt, 0
 
-    def read(self) -> Tuple[Tuple[int, int, int, int, int], bytes]:
+    def info(self) -> Tuple[int, int, int, int, int]:
+        """png_read_info: IHDR and the chunks up to the first IDAT."""
         c = next(self.it)
         ihdr = _ihdr(self.data, c)
         self.ctype = ihdr[3]
-        for c in self.it:  # png_read_info: up to the first IDAT
+        for c in self.it:
             if c.kind == b"IDAT":
                 break
             if c.kind in (b"IHDR", b"IEND"):
@@ -208,6 +255,10 @@ class _Reader:
         if self.ctype == 3 and self.plte is None:
             raise ValueError("palette PNG without a PLTE before its IDAT")
         self.cur = c
+        return ihdr
+
+    def read(self) -> Tuple[Tuple[int, int, int, int, int], bytes]:
+        ihdr = self.info()
         raw = self.inflate(ihdr)
         for c in self.it:  # png_read_end: up to IEND
             if c.kind == b"IEND":
@@ -261,11 +312,13 @@ class _Reader:
         return b"".join(out)
 
 
-def _unfilter(data: bytes, pos: int, h: int, stride: int, bpp: int) -> Tuple[np.ndarray, int]:
+def _unfilter(data: bytes, pos: int, h: int, stride: int, bpp: int,
+              prev: Optional[np.ndarray] = None) -> Tuple[np.ndarray, int]:
     """Undo the row filters of ``h`` scanlines of ``stride`` bytes starting at
-    ``data[pos]``; returns the ``[h, stride]`` uint8 rows and the new position."""
+    ``data[pos]`` (``prev``: the row above the first, else zeros); returns
+    the ``[h, stride]`` uint8 rows and the new position."""
     out = np.empty((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
+    prev = np.zeros(stride, np.uint8) if prev is None else prev
     for y in range(h):
         ftype = data[pos]
         raw = np.frombuffer(data, np.uint8, stride, pos + 1)
@@ -312,17 +365,192 @@ def _unfilter_left(ftype: int, c: bytearray, p: bytes, bpp: int) -> bytearray:
     return c
 
 
-def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+def _samples(rows: np.ndarray, width: int, channels: int, depth: int,
+             wide: bool = False) -> np.ndarray:
     """Unfiltered scanlines -> ``[h, width, channels]`` uint8 samples (16-bit
-    samples keep their high byte; sub-byte samples are unpacked, unscaled)."""
+    samples keep their high byte, or with ``wide`` come whole as uint16;
+    sub-byte samples are unpacked, unscaled)."""
     h = rows.shape[0]
     if depth == 8:
         return rows[:, : width * channels].reshape(h, width, channels)
     if depth == 16:
-        return rows[:, : width * channels * 2].reshape(h, width, channels, 2)[..., 0]
+        pairs = rows[:, : width * channels * 2].reshape(h, width, channels, 2)
+        if wide:
+            return pairs[..., 0].astype(np.uint16) << 8 | pairs[..., 1]
+        return pairs[..., 0]
     shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
     vals = (rows[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
     return vals.reshape(h, -1)[:, :width].reshape(h, width, 1)
+
+
+def _rgb(img: np.ndarray, depth: int, ctype: int, plte: Optional[np.ndarray]) -> np.ndarray:
+    """``[h, w, channels]`` samples -> RGB uint8 as OpenCV's IMREAD_COLOR takes
+    them: a palette looked up (libpng's zeroed 256 entries past PLTE), gray
+    under 8 bits scaled to 0..255, uint16 samples (OpenCV's APNG path) to 8
+    bits as ``convertTo(CV_8U, 1/255)``, gray on all three channels, alpha
+    dropped."""
+    if ctype == 3:
+        palette = np.zeros((256, 3), np.uint8)
+        palette[: len(plte)] = plte
+        return palette[img[:, :, 0]]
+    if img.dtype == np.uint16:
+        img = np.minimum(np.rint(img / 255.0), 255).astype(np.uint8)
+    elif depth < 8:
+        img = img * np.uint8(255 // ((1 << depth) - 1))
+    return np.repeat(img[:, :, :1], 3, axis=2) if img.shape[2] <= 2 else img[:, :, :3]
+
+
+class _Progressive:
+    """libpng's progressive reader (``png_process_data``) on one image of
+    ``width`` x ``height`` as OpenCV's APNG path feeds it: no CRC checked,
+    each chunk's data handed to zlib whole.  A zlib data error keeps the
+    rows read so far (a benign error); any other zlib error, a bad row
+    filter and, while the stream has not ended, a chunk that is not image
+    data fail.  Once the last row is in, more data only ends the stream."""
+
+    def __init__(self, width: int, height: int, depth: int, ctype: int, interlace: int):
+        if width == 0 or height == 0:
+            raise ValueError(f"PNG frame of {width}x{height} pixels")
+        self.depth, self.ctype, self.channels = depth, ctype, _CHANNELS[ctype]
+        bits = self.channels * depth
+        self.bpp = max(1, bits // 8)
+        self.passes = []
+        for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+            pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+            if pw > 0 and ph > 0:
+                self.passes.append((x0, y0, dx, dy, pw, ph, -(-pw * bits // 8)))
+        self.interlace = interlace
+        self.img = np.zeros((height, width, self.channels),
+                            np.uint16 if depth == 16 else np.uint8)
+        self.z = zlib.decompressobj()
+        self.fed = self.ended = False
+        self.pass_no = self.row = 0
+        self.buf = bytearray()
+        self.prev: Optional[np.ndarray] = None
+
+    @property
+    def whole(self) -> bool:
+        return self.pass_no == len(self.passes)
+
+    @property
+    def rows(self) -> int:
+        """The leading rows written whole (an interlaced image: all or none)."""
+        if self.whole:
+            return self.img.shape[0]
+        return 0 if self.interlace else self.row
+
+    def feed(self, piece: bytes) -> None:
+        self.fed = True
+        tail = piece
+        while tail and not self.ended:
+            if self.whole:
+                self.ended = True  # "Extra compressed data in IDAT": a warning
+                break
+            x0, y0, dx, dy, pw, ph, stride = self.passes[self.pass_no]
+            try:
+                part = self.z.decompress(tail, stride + 1 - len(self.buf))
+            except zlib.error as err:
+                self.ended = True
+                if not str(err).startswith("Error -3 "):  # not Z_DATA_ERROR
+                    raise ValueError(f"PNG frame data is damaged: {err}") from None
+                break
+            tail = self.z.unconsumed_tail
+            self.buf += part
+            if len(self.buf) == stride + 1:
+                rows, _ = _unfilter(bytes(self.buf), 0, 1, stride, self.bpp, self.prev)
+                self.prev = rows[0]
+                self.img[y0 + self.row * dy, x0::dx] = _samples(rows, pw, self.channels,
+                                                                self.depth, wide=True)[0]
+                self.buf.clear()
+                self.row += 1
+                if self.row == ph:
+                    self.pass_no, self.row, self.prev = self.pass_no + 1, 0, None
+            if self.z.eof:
+                self.ended = True
+
+    def other(self, kind: bytes) -> None:
+        """A chunk that is not image data."""
+        if self.fed and not self.ended:
+            raise ValueError(f"PNG frame data runs into a {kind.decode('latin-1')!r} chunk "
+                             "before its zlib stream ends")
+        if not all(0x41 <= (c & ~0x20) <= 0x5A for c in kind) or kind[2] & 0x20:
+            raise ValueError(f"PNG chunk type {kind!r} is not four letters with the reserved "
+                             "bit clear")
+        if kind == b"IHDR" or (kind == b"PLTE" and self.ctype == 3):
+            raise ValueError(f"PNG chunk {kind!r} out of place in an APNG frame")
+        if not kind[0] & 0x20 and kind != b"PLTE":
+            raise ValueError(f"PNG critical chunk {kind!r} is unknown")
+
+    def finish(self) -> None:
+        """OpenCV's processing_finish: libpng reads an IEND."""
+        if not self.fed:
+            raise ValueError("PNG frame without image data")
+        if not self.ended:
+            raise ValueError("PNG frame data ends before its zlib stream does")
+
+
+def _opencv_chunks(data: bytes, pos: int, width: int, height: int) -> Iterator[Tuple[bytes, bytes]]:
+    """The chunks from ``pos`` as OpenCV's ``read_chunk`` reads them for an
+    APNG's frame: no CRC checked, a chunk cut short fails."""
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError("PNG data is truncated before its first frame ends")
+        length, kind = struct.unpack_from(">I4s", data, pos)
+        if pos + 12 + length > len(data):
+            raise ValueError(f"PNG chunk {kind!r} is truncated")
+        body = data[pos + 8 : pos + 8 + length]
+        _opencv_chunk(kind, body, width, height, before_idat=False)
+        yield kind, body
+        pos += 12 + length
+
+
+def _apng_first_frame(data: bytes, walk: _Walk) -> np.ndarray:
+    """The first frame of an APNG as OpenCV 5's reader gives it.  It reads
+    the chunks from the first IDAT itself: the IDAT data goes to a decoder
+    of the whole image, whose rows fill a buffer of the image's size.
+    Where an ``fcTL`` came before the IDAT, that image is the first frame;
+    else the first ``fcTL`` after it starts a decoder of the frame's size,
+    fed the ``fdAT`` data after its 4-byte sequence number (not checked),
+    which writes the buffer's top-left rows.  The next ``fcTL`` or ``IEND``
+    ends the frame, whose rectangle of the buffer goes onto a zero canvas
+    (the first frame's dispose and blend ops change nothing) and converts
+    as IMREAD_COLOR does; ``eXIf`` is not applied.  An ``IEND`` before any
+    frame gives the zero canvas."""
+    reader = _Reader(data)
+    width, height, depth, ctype, interlace = reader.info()
+    base = _Progressive(width, height, depth, ctype, interlace)
+    fctl = walk.fctl
+    frame = base if fctl is not None else None
+    for kind, body in _opencv_chunks(data, walk.idat, width, height):
+        if kind == b"fcTL":
+            if frame is not None:
+                break
+            fctl = body
+            frame = _Progressive(*struct.unpack(">II", body[4:12]), depth, ctype, interlace)
+        elif kind == b"IEND":
+            break
+        elif kind == b"IDAT":
+            (frame or base).feed(body)
+        elif kind == b"fdAT" and frame is not None:
+            if len(body) < 4:
+                raise ValueError(f"PNG fdAT chunk of {len(body)} bytes")
+            frame.feed(body[4:])
+        else:
+            (frame or base).other(kind)
+    canvas = np.zeros((height, width, 3), np.uint8)
+    if frame is None:  # IEND before any frame: the IDAT image ends, nothing is drawn
+        base.finish()
+        return canvas
+    frame.finish()
+    w0, h0, x0, y0 = struct.unpack(">IIII", fctl[4:20])
+    if frame.rows < h0 and (frame.interlace or frame is base or base.rows < h0):
+        raise ValueError("APNG frame pixels that no decoder wrote whole (OpenCV returns "
+                         "memory it never wrote there, or libpng's partial passes)")
+    part = frame.img[:h0, :w0]
+    if frame.rows < h0:  # the rows the frame left keep the IDAT image's
+        part = np.concatenate([part[: frame.rows], base.img[frame.rows : h0, :w0]])
+    canvas[y0 : y0 + h0, x0 : x0 + w0] = _rgb(part, depth, ctype, reader.plte)
+    return canvas
 
 
 def decode(data: bytes) -> np.ndarray:
@@ -331,7 +559,9 @@ def decode(data: bytes) -> np.ndarray:
     gives ``None``."""
     if not data.startswith(SIGNATURE):
         raise ValueError("not a PNG file")
-    _opencv_walk(data)
+    walk = _opencv_walk(data)
+    if walk.frames > 1 and walk.idat >= 0:
+        return _apng_first_frame(data, walk)
     reader = _Reader(data)
     (width, height, depth, ctype, interlace), raw = reader.read()
     channels = _CHANNELS[ctype]
@@ -345,14 +575,6 @@ def decode(data: bytes) -> np.ndarray:
             continue
         rows, pos = _unfilter(raw, pos, ph, -(-pw * bits // 8), bpp)
         img[y0::dy, x0::dx] = _samples(rows, pw, channels, depth)
-    if ctype == 3:
-        palette = np.zeros((256, 3), np.uint8)
-        palette[: len(reader.plte)] = reader.plte
-        rgb = palette[img[:, :, 0]]
-    else:
-        if depth < 8:
-            img = img * np.uint8(255 // ((1 << depth) - 1))
-        # gray (+ alpha): the gray sample on all three channels
-        rgb = np.repeat(img[:, :, :1], 3, axis=2) if channels <= 2 else img[:, :, :3]
+    rgb = _rgb(img, depth, ctype, reader.plte)
     o = exif.orientation(reader.exif) if reader.exif is not None else 1
     return exif.apply(rgb, o)

@@ -229,7 +229,8 @@ def _jpeg(raw: bytes, tables: bytes, rows: int, cols: int, per: int, ycbcr: bool
     """One JPEG-in-TIFF strip or tile -> its ``rows`` x ``cols`` pixels of
     ``per`` 8-bit samples (``ycbcr``: RGB), as libtiff has libjpeg decode
     it: the JPEGTables stream (tag 347) spliced in front, no colour
-    conversion but for PhotometricInterpretation YCbCr (JPEGCOLORMODE_RGB),
+    conversion (a gray + alpha frame's two components come as coded) but
+    for PhotometricInterpretation YCbCr (JPEGCOLORMODE_RGB),
     the luma sampling equal to ``sampling`` (YCbCrSubsampling, else the
     first strip's, as libtiff's JPEGFixupTagsSubsampling takes it; 1x1 but
     for YCbCr) and the chroma's 1x1.  A frame taller than the segment is

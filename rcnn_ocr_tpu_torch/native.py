@@ -27,7 +27,8 @@ Python.  Bound: the batched beam entry points
 ``rcnn_gif_lzw_decode``, ``rcnn_webp_vp8l_decode``, ``rcnn_webp_vp8_decode``,
 ``rcnn_j2k_header``, ``rcnn_j2k_decode``, ``rcnn_jpeg_encode_gray`` and the
 ``rcnn_tt_*`` font entry points (``data/truetype.py`` wraps them).
-A ctypes call releases
+:func:`build_all` builds every missing library at once, one g++ per source
+(``chip_smoke.py``'s build phase, beside nvcc).  A ctypes call releases
 the interpreter lock, so threads decode in parallel.
 """
 
@@ -40,6 +41,8 @@ import re
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
@@ -118,7 +121,8 @@ ENTRIES = {
                    "rcnn_j2k_decode": [ctypes.c_char_p, _I64, _P32, _I64, ctypes.c_char_p, _I64]},
 }
 
-_lock = threading.Lock()
+# one lock per library, so build_all's compiles run side by side
+_locks = {name: threading.Lock() for name in ENTRIES}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -141,29 +145,58 @@ def _cxx() -> str:
     return found
 
 
+def _compile(name: str) -> float:
+    """Build library ``name`` when it is missing (the caller holds its lock);
+    the seconds g++ took, 0.0 when it was found built."""
+    src, path = source(name), library_path(name)
+    if path.exists():
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    out = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), str(src)],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"building {src} failed (exit {out.returncode}):\n"
+                           f"{out.stdout}{out.stderr}")
+    os.replace(tmp, path)
+    return time.perf_counter() - t0
+
+
+def _build(name: str) -> float:
+    with _locks[name]:
+        return _compile(name)
+
+
 def load(name: str = "ctc_beam") -> ctypes.CDLL:
     """The bound library ``name`` (a key of :data:`ENTRIES`), building it
     first when it is missing."""
-    with _lock:
+    with _locks[name]:
         if name in _libs:
             return _libs[name]
-        src, path = source(name), library_path(name)
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            out = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), str(src)],
-                                 capture_output=True, text=True, timeout=300)
-            if out.returncode != 0:
-                raise RuntimeError(f"building {src} failed (exit {out.returncode}):\n"
-                                   f"{out.stdout}{out.stderr}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
+        _compile(name)
+        lib = ctypes.CDLL(str(library_path(name)))
         for entry, argtypes in ENTRIES[name].items():
             fn = getattr(lib, entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int64
         _libs[name] = lib
         return lib
+
+
+def build_all() -> Dict[str, float]:
+    """Build every host library that is missing, one g++ per source, all
+    started together, then load each.  Returns each build's seconds (0.0 for
+    a library found built); raises with the compiler's output when one
+    fails."""
+    with ThreadPoolExecutor(len(ENTRIES)) as pool:
+        futures = {name: pool.submit(_build, name) for name in ENTRIES}
+    failed = [str(f.exception()) for f in futures.values() if f.exception()]
+    if failed:
+        raise RuntimeError("building the host C++ failed:\n" + "\n".join(failed))
+    for name in ENTRIES:
+        load(name)
+    return {name: f.result() for name, f in futures.items()}
 
 
 def ctc_beam_search_batch(log_probs: np.ndarray, blank: int, beam_width: int,

@@ -441,6 +441,41 @@ def test_png_webp_and_tiff_faults_are_quarantined_as_jax_quarantines_them(tmp_pa
     assert assert_datasets_agree(csv_path, root, len(rows)) == [1, 9]
 
 
+def test_gray_alpha_jpeg_tiff_and_hidden_default_apng_rows_are_kept_as_jax_keeps_them(tmp_path):
+    """Two faults the port had against cv2: a
+    JPEG-compressed gray + alpha TIFF (the port refused its two-component
+    frames and quarantined the row) and APNGs whose IDAT image is not a
+    frame (the port trained on the hidden image, JAX on the first frame).
+    Beside them an APNG on which cv2 gives None and a standalone
+    two-component JPEG: both datasets quarantine only those two."""
+    import shutil
+
+    fixtures = Path(__file__).resolve().parent / "torch_port_data"
+    rels = ["tiff_gray_alpha/pil_la_jpeg_strips_23x61.tif",
+            "tiff_gray_alpha/pil_la_jpeg_tiles16_17x33.tif", "apng/hidden_pil_rgb_23x61.png",
+            "apng/hidden_c6_8_sub_9x13.png", "apng/none_fdat_stream_cut.png",
+            "apng/hidden_damaged_adler_9x13.png"]
+    root = tmp_path / "ds"
+    root.mkdir()
+    rows = []
+    for i, rel in enumerate(rels):
+        shutil.copy(fixtures / rel, root / Path(rel).name)
+        rows.append([Path(rel).name, "abcdefghij"[i]])
+    import io
+
+    from PIL import Image
+
+    tif = (fixtures / rels[0]).read_bytes()
+    tags = Image.open(io.BytesIO(tif)).tag_v2
+    start, count = tags[273][0], tags[279][0]
+    (root / "two_component.jpg").write_bytes(tags[347][:-2] + tif[start + 2 : start + count])
+    rows.append(["two_component.jpg", "g"])
+    csv_path = root / "labels.csv"
+    with open(csv_path, "w", newline="", encoding="utf-8") as f:
+        csv.writer(f).writerows(rows)
+    assert assert_datasets_agree(csv_path, root, len(rows)) == [4, 6]
+
+
 def _epochs(sampler, n=2):
     return [[list(b) if not isinstance(b, loader.BucketBatch) else (b.width, list(b.indices))
              for b in sampler] for _ in range(n)]

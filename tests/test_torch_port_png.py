@@ -25,6 +25,14 @@ and ``image_size``, on the CPU.
 * The four faults of the port against cv2, repaired: an ``eXIf``
   orientation ignored, a WebP ``EXIF`` orientation ignored, an ancillary
   chunk's bad CRC failing the file, a file without ``IEND`` decoding.
+* APNG as OpenCV 5's APNG path reads it: every fixture of
+  ``tests/torch_port_data/apng/`` (the first ``fcTL`` frame where the
+  ``IDAT`` image is hidden, a fault the port had), named cases of its chunk
+  rules and a seeded ``fdAT`` damage fuzz, with cv2 run in child processes
+  (its process dies on some damaged frames); the 16-bit conversion on all
+  65,536 values; where cv2 returns memory no decoder wrote, ``ValueError``.
+  Also repaired: ``fcTL`` ops past their range, and a palette image's
+  second ``PLTE`` after its image data.
 """
 
 import functools
@@ -105,6 +113,7 @@ def test_the_card_smoke_holds_the_same_cv2_none_files():
     import chip_smoke
 
     assert chip_smoke.PNG_CV2_NONE == CV2_NONE
+    assert chip_smoke.APNG_CV2_NONE == apng_fx.CV2_NONE
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -537,3 +546,333 @@ def test_fault_png_without_iend_fails_as_in_cv2():
         jax_tf.imdecode_cv2(data)
     with pytest.raises(ValueError, match="truncated"):
         image_io.imdecode(data)
+
+
+def test_fault_palette_png_with_a_second_plte_after_idat_fails_as_in_cv2():
+    plte = chunk(b"PLTE", bytes(range(12)))
+    twice = png_bytes(np.zeros((4, 5, 1), np.uint8), ctype=3, pre=[plte], post=[plte])
+    assert _cv2(twice) is None
+    with pytest.raises(ValueError, match="second PLTE"):
+        image_io.imdecode(twice)
+
+
+@pytest.mark.parametrize("dispose,blend", [(3, 0), (0, 2)])
+def test_fault_fctl_ops_past_their_range_fail_as_in_cv2(dispose, blend):
+    img, z = _rgb()
+    h, w = img.shape[:2]
+    ctl = chunk(b"fcTL", struct.pack(">IIIIIHHBB", 0, w, h, 0, 0, 1, 1, dispose, blend))
+    data = _file(_ihdr(w, h), ctl, chunk(b"IDAT", z), chunk(b"IEND", b""))
+    assert _cv2(data) is None
+    with pytest.raises(ValueError, match="dispose op"):
+        image_io.imdecode(data)
+
+
+# --- APNG: the first frame, as OpenCV 5's APNG path reads it ------------------------------
+
+from tests.torch_port_data import make_apng_fixtures as apng_fx  # noqa: E402
+
+APNG = FIXTURES.parent / "apng"
+APNG_NAMES = sorted(p.name for p in APNG.glob("*.png"))
+HIDDEN = [n for n in APNG_NAMES if n.startswith("hidden_")]
+
+# cv2 in a child process: on some damaged APNG frames libpng's error
+# unwinds into OpenCV's frame loop and the process dies (SIGSEGV)
+_CV2_CHILD = r"""
+import sys
+import cv2
+import numpy as np
+for path in sys.argv[1:]:
+    print(path, flush=True)
+    bgr = cv2.imdecode(np.fromfile(path, np.uint8), cv2.IMREAD_COLOR)
+    if bgr is None:
+        open(path + ".none", "wb").close()
+    else:
+        np.save(path + ".npy", cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
+"""
+
+
+def _cv2_apart(datas, folder):
+    """cv2's RGB pixels of each file, decoded in child processes: None
+    where cv2 gives None or its process dies."""
+    import subprocess
+    import sys
+
+    paths = []
+    for k, data in enumerate(datas):
+        p = Path(folder) / f"{k}.png"
+        p.write_bytes(data)
+        paths.append(str(p))
+    todo = paths
+    while todo:
+        r = subprocess.run([sys.executable, "-c", _CV2_CHILD, *todo], capture_output=True,
+                           text=True, timeout=300)
+        if r.returncode == 0:
+            break
+        assert r.returncode < 0, r.stderr[-2000:]  # killed by a signal, not a Python error
+        last = r.stdout.split()[-1]
+        todo = todo[todo.index(last) + 1 :]
+    out = []
+    for p in paths:
+        npy = Path(p + ".npy")
+        out.append(np.load(npy) if npy.exists() else None)
+    return out
+
+
+def _held(data, want, info=""):
+    """The port gives ``want`` (cv2's pixels) or raises ValueError where cv2
+    has none.  Returns whether cv2 decoded."""
+    if want is None:
+        with pytest.raises(ValueError) as err:
+            image_io.imdecode(data)
+        assert not isinstance(err.value, image_io.UnsupportedImageFormat), info
+        return False
+    got = image_io.imdecode(data)
+    assert got.shape == want.shape, info
+    np.testing.assert_array_equal(got, want, err_msg=str(info))
+    return True
+
+
+@pytest.fixture(scope="module")
+def apng_expected():
+    with np.load(APNG / "expected.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.mark.parametrize("name", HIDDEN)
+def test_fault_hidden_default_apng_decodes_its_first_frame_as_cv2(name, apng_expected):
+    data = (APNG / name).read_bytes()
+    got = image_io.imdecode(data)
+    np.testing.assert_array_equal(got, jax_tf.imdecode_cv2(data))
+    np.testing.assert_array_equal(got, apng_expected[name])
+
+
+@pytest.mark.parametrize("name", [n for n in APNG_NAMES if n not in HIDDEN])
+def test_apng_fixture_is_bit_equal_to_cv2(name, apng_expected):
+    data = (APNG / name).read_bytes()
+    if name in apng_fx.CV2_NONE:
+        assert _cv2(data) is None
+        with pytest.raises(ValueError, match=re.escape(apng_fx.CV2_NONE[name])):
+            image_io.imdecode(data)
+        return
+    np.testing.assert_array_equal(image_io.imdecode(data), jax_tf.imdecode_cv2(data))
+    np.testing.assert_array_equal(image_io.imdecode(data), apng_expected[name])
+
+
+def test_apng_fixtures_are_named_and_small():
+    assert set(APNG_NAMES) == set(apng_fx.CV2_NONE) | set(np.load(APNG / "expected.npz").files)
+    assert len(HIDDEN) >= 60
+    assert sum(p.stat().st_size for p in APNG.iterdir()) < 256 * 1024
+
+
+def test_apng_16_bit_samples_reach_8_bits_as_cv2_takes_them():
+    """OpenCV's APNG path converts 16-bit frames with convertTo(CV_8U, 1/255)
+    (a still 16-bit PNG keeps the high byte): all 65,536 values."""
+    vals = np.arange(65536, dtype=np.uint16).reshape(256, 256, 1)
+    zero = np.zeros_like(vals)
+    data = apng_fx.apng_bytes(zero, [(vals, 0, 0, 0, 0), (zero, 0, 0, 0, 0)], 16, 0)
+    got = image_io.imdecode(data)
+    np.testing.assert_array_equal(got, jax_tf.imdecode_cv2(data))
+    assert got[0, 127, 0] == 0 and got[0, 128, 0] == 1 and got[255, 255, 0] == 255
+
+
+@pytest.mark.parametrize("case", ["interlaced frame cut short", "both images cut short"])
+def test_apng_pixels_no_decoder_wrote_raise(case, tmp_path):
+    """A deliberate divergence: where cv2 returns pixels its buffer held but
+    no decoder wrote (an interlaced frame's partial passes, rows neither
+    the hidden IDAT image nor the frame reached), the port raises."""
+    parts, i, raw = _frame_file(interlace=case.startswith("interlaced"))
+    seq = parts[i][1][:4]
+    cut = zlib.compress(raw[: len(raw) // 3])
+    if case.startswith("both"):
+        j = [k for k, _ in parts].index(b"IDAT")
+        parts[j] = (b"IDAT", zlib.compress(apng_fx.scanlines(np.full((2, 13, 3), 50, np.uint8),
+                                                             8)))
+    parts[i] = (b"fdAT", seq + cut)
+    data = apng_fx.rejoin(parts)
+    assert _cv2_apart([data], tmp_path)[0] is not None
+    with pytest.raises(ValueError, match="no decoder wrote"):
+        image_io.imdecode(data)
+
+
+def _frame_file(**kw):
+    """A hidden-default RGB APNG of 9x13, first frame 5x7 at (4, 3): its
+    chunks, the index of the first fdAT, the frame's scanlines."""
+    rng = np.random.default_rng(7)
+    f1 = rng.integers(0, 256, (5, 7, 3)).astype(np.uint8)
+    d = np.full((9, 13, 3), 50, np.uint8)
+    f2 = rng.integers(0, 256, (9, 13, 3)).astype(np.uint8)
+    parts = apng_fx.apng_chunks(apng_fx.apng_bytes(d, [(f1, 4, 3, 0, 0), (f2, 0, 0, 0, 0)], **kw))
+    return (parts, [k for k, _ in parts].index(b"fdAT"),
+            apng_fx.scanlines(f1, 8, kw.get("interlace", False)))
+
+
+@functools.lru_cache(maxsize=None)
+def _apng_rules():
+    parts, i, raw = _frame_file()
+    join = apng_fx.rejoin
+    body = parts[i][1]
+    seq, z = body[:4], body[4:]
+    j_idat = [k for k, _ in parts].index(b"IDAT")
+    j_next = len(parts) - 3  # the second frame's fcTL
+
+    def at(k, *new):
+        return join(parts[:k] + list(new) + parts[k:])
+
+    def fdat(new):
+        return join(parts[:i] + [(b"fdAT", new)] + parts[i + 1 :])
+
+    split = _frame_file(split=9)[0]
+    k2 = [k for k, _ in split].index(b"fdAT") + 1
+    co = zlib.compressobj(zdict=b"abc")
+    big = np.random.default_rng(3).integers(0, 256, (1000, 8200, 1)).astype(np.uint8)
+    nil = np.zeros_like(big)
+    return {
+        "fdAT of 3 bytes": fdat(body[:3]),
+        "fdAT of 4 bytes": fdat(seq),
+        "fdAT cut by one byte": fdat(body[:-1]),
+        "fdAT without Adler-32": fdat(body[:-4]),
+        "fdAT bad Adler-32": fdat(body[:-4] + bytes(4)),
+        "fdAT garbage": fdat(seq + b"garbage!"),
+        "fdAT stream of 2 rows": fdat(seq + zlib.compress(raw[: 2 * len(raw) // 5])),
+        "fdAT stream past the rows": fdat(seq + zlib.compress(raw + raw)),
+        "fdAT stream with a dictionary": fdat(seq + co.compress(raw) + co.flush()),
+        "fdAT stream without its end": fdat(seq + zlib.compressobj().compress(raw)
+                                            + zlib.compressobj().flush(zlib.Z_SYNC_FLUSH)),
+        "fdAT row filter 7": fdat(seq + zlib.compress(b"\x07" + raw[1:])),
+        "fdAT bytes after the stream": fdat(body + b"junk"),
+        "fdAT CRC": join(parts, {i: 0}),
+        "fdAT sequence 0": fdat(bytes(4) + z),
+        "fcTL CRC": join(parts, {i - 1: 0}),
+        "IDAT CRC": join(parts, {j_idat: 0}),
+        "acTL CRC": join(parts, {1: 0}),
+        "IHDR CRC": join(parts, {0: 0}),
+        "hidden IDAT damaged": join(parts[:j_idat] + [(b"IDAT", b"garbage!")]
+                                    + parts[j_idat + 1 :]),
+        "hidden IDAT short, then tEXt": join(parts[:j_idat] + [(b"IDAT", parts[j_idat][1][:9]),
+                                                                (b"tEXt", b"k\x00v")]
+                                             + parts[j_idat + 1 :]),
+        "unknown critical after IDAT": at(j_idat + 1, (b"ABCD", b"xy")),
+        "IHDR after IDAT": at(j_idat + 1, parts[0]),
+        "bKGD of 3 bytes after IDAT": at(j_idat + 1, (b"bKGD", bytes(3))),
+        "acTL of no frames after IDAT": at(j_idat + 1, (b"acTL", bytes(8))),
+        "tEXt inside the fdAT run": apng_fx.rejoin(split[:k2] + [(b"tEXt", b"k\x00v")]
+                                                   + split[k2:]),
+        "IDAT inside the fdAT run": apng_fx.rejoin(split[:k2] + [(b"IDAT", b"zz")]
+                                                   + split[k2:]),
+        "fcTL inside the fdAT run": apng_fx.rejoin(split[:k2] + [split[k2 - 2]] + split[k2:]),
+        "fdAT run missing a chunk": apng_fx.rejoin(split[: k2 - 1] + split[k2:]),
+        "unknown critical after the stream": at(i + 1, (b"ABCD", b"xy")),
+        "unknown ancillary after the stream": at(i + 1, (b"abCD", b"xy")),
+        "PLTE after the stream, RGB": at(i + 1, (b"PLTE", bytes(6))),
+        "ancillary of 7,999,989 bytes after the stream": at(i + 1, (b"zTXt", bytes(7_999_989))),
+        "tEXt of 7,999,989 bytes after the stream": at(i + 1, (b"tEXt", bytes(7_999_989))),
+        "next fcTL outside": join(parts[:j_next] + [(b"fcTL", apng_fx.fctl(3, 13, 9, 1)[8:-4])]
+                                  + parts[j_next + 1 :]),
+        "next fcTL blend 2": join(parts[:j_next] + [(b"fcTL", apng_fx.fctl(3, 13, 9, 0, 0, 0, 2)
+                                                     [8:-4])] + parts[j_next + 1 :]),
+        "next fcTL of 25 bytes": join(parts[:j_next] + [(b"fcTL", parts[j_next][1][:25])]
+                                      + parts[j_next + 1 :]),
+        "cut before the next fcTL": join(parts[:j_next]),
+        "cut inside the next fcTL": join(parts)[: len(join(parts[:j_next])) + 20],
+        "cut inside the next fdAT": join(parts)[: len(join(parts[: j_next + 1])) + 20],
+        "IEND right after the frame": join(parts[:j_next] + parts[-1:]),
+        "IEND right after IDAT": join(parts[: j_idat + 1] + parts[-1:]),
+        "fdAT over 8,000,000 bytes": apng_fx.apng_bytes(nil, [(big, 0, 0, 0, 0), (nil, 0, 0, 0, 0)],
+                                                        8, 0),
+        "two acTL, 1 then 2": at(2, (b"acTL", struct.pack(">II", 2, 0)))
+                                .replace(b"acTL\x00\x00\x00\x02", b"acTL\x00\x00\x00\x01", 1),
+        "acTL of one frame": join([parts[0], (b"acTL", struct.pack(">II", 1, 0))] + parts[2:]),
+    }
+
+
+APNG_RULES = sorted(_apng_rules())
+
+
+@pytest.fixture(scope="module")
+def apng_rules_cv2(tmp_path_factory):
+    rules = _apng_rules()
+    return dict(zip(APNG_RULES, _cv2_apart([rules[c] for c in APNG_RULES],
+                                           tmp_path_factory.mktemp("apng_rules"))))
+
+
+@pytest.mark.parametrize("case", APNG_RULES)
+def test_apng_frame_rules_match_cv2(case, apng_rules_cv2):
+    _held(_apng_rules()[case], apng_rules_cv2[case], case)
+
+
+def test_apng_rules_meet_both_outcomes(apng_rules_cv2):
+    decoded = sum(v is not None for v in apng_rules_cv2.values())
+    assert 12 <= decoded <= len(APNG_RULES) - 12
+
+
+def _valid_apngs(rng, n=3):
+    """Hidden-default APNGs of random kinds: colour types and depths, first
+    frames of random sides and offsets, fdAT runs cut at random."""
+    out = []
+    for _ in range(n):
+        ctype = int(rng.choice([0, 2, 3, 4, 6]))
+        depth = int(rng.choice({0: [1, 2, 4, 8, 16], 2: [8, 16], 3: [1, 2, 4, 8], 4: [8, 16],
+                                6: [8, 16]}[ctype]))
+        h, w = int(rng.integers(1, 24)), int(rng.integers(1, 40))
+        n_pal = int(rng.integers(1, 1 << depth)) + 1 if ctype == 3 else 0
+        pre = [chunk(b"PLTE", rng.integers(0, 256, (n_pal, 3)).astype(np.uint8).tobytes())] \
+            if ctype == 3 else []
+        fh, fw = int(rng.integers(1, h + 1)), int(rng.integers(1, w + 1))
+        x, y = int(rng.integers(0, w - fw + 1)), int(rng.integers(0, h - fh + 1))
+        frames = [(apng_fx.samples(rng, fh, fw, ctype, depth, n_pal), x, y,
+                   int(rng.integers(0, 3)), int(rng.integers(0, 2))),
+                  (apng_fx.samples(rng, h, w, ctype, depth, n_pal), 0, 0, 0, 0)]
+        out.append(apng_fx.apng_bytes(apng_fx.samples(rng, h, w, ctype, depth, n_pal), frames,
+                                      depth, ctype, pre, split=int(rng.choice([0, 0, 5, 23]))))
+    return out
+
+
+def _damaged_frames(data, rng):
+    """One damage to the chunks from the first fdAT on (the IDAT image stays
+    whole: where neither image wrote a row cv2 returns unwritten memory)."""
+    parts = apng_fx.apng_chunks(data)
+    first = [k for k, _ in parts].index(b"fdAT")
+    i = int(rng.integers(first, len(parts)))
+    kind, body = parts[i]
+    r = rng.random()
+    if r < 0.3 and body:  # bits flipped in one chunk (CRCs mended or not: neither is read)
+        body = bytearray(body)
+        for _ in range(int(rng.integers(1, 4))):
+            body[int(rng.integers(0, len(body)))] ^= 1 << int(rng.integers(0, 8))
+        parts[i] = (kind, bytes(body))
+    elif r < 0.45:  # a chunk cut short
+        parts[i] = (kind, body[: int(rng.integers(0, len(body) + 1))])
+    elif r < 0.55:  # a chunk dropped
+        del parts[i]
+    elif r < 0.7:  # a chunk put in
+        new = [(b"tEXt", b"k\x00v"), (b"IDAT", bytes(rng.integers(0, 256, 6).tolist())),
+               (b"abCD", b"x"), (b"ABCD", b"x"), parts[first - 1], (b"IEND", b""),
+               (b"fdAT", bytes(4) + zlib.compress(b"\x00" * 9))][int(rng.integers(0, 7))]
+        parts.insert(i, new)
+    elif r < 0.8 and kind == b"fdAT" and len(body) > 5:  # an fdAT split in two
+        a = int(rng.integers(5, len(body)))
+        parts[i : i + 1] = [(kind, body[:a]), (kind, body[:4] + body[a:])]
+    elif r < 0.9:  # bytes of the file cut off
+        whole = apng_fx.rejoin(parts)
+        start = len(apng_fx.rejoin(parts[:first]))
+        return whole[: int(rng.integers(start, len(whole)))]
+    else:  # a run of bytes dropped
+        whole = apng_fx.rejoin(parts)
+        start = len(apng_fx.rejoin(parts[:first]))
+        a = int(rng.integers(start, len(whole)))
+        return whole[:a] + whole[int(rng.integers(a, len(whole) + 1)) :]
+    return apng_fx.rejoin(parts, {k: int(rng.integers(0, 1 << 32)) for k in range(len(parts))
+                                  if rng.random() < 0.2})
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_apng_fdat_damage_fuzz_matches_cv2(seed, tmp_path):
+    rng = np.random.default_rng(2100 + seed)
+    cases = []
+    for k, data in enumerate(_valid_apngs(rng)):
+        cases.append(((seed, k, "valid"), data))
+        cases += [((seed, k, j), _damaged_frames(data, rng)) for j in range(25)]
+    wants = _cv2_apart([d for _, d in cases], tmp_path)
+    decoded = sum(_held(d, want, info) for (info, d), want in zip(cases, wants))
+    assert all(w is not None for (info, _), w in zip(cases, wants) if info[2] == "valid")
+    assert 10 <= decoded <= len(cases) - 10

@@ -46,6 +46,10 @@
   stay as coded): all bit-equal to cv2.
 * TIFF datasets with no further change: ``run_training`` on TIFF lines
   equals a run on PNGs of cv2's decode of them.
+* JPEG-compressed gray + alpha (two-component frames, a fault the port
+  had): the fixtures of ``tests/torch_port_data/tiff_gray_alpha/`` and a
+  seeded fuzz bit-equal to cv2; the same frame as a JPEG file still raises
+  ``ValueError``, as cv2 gives None.
 """
 
 import csv
@@ -953,3 +957,64 @@ def test_ycbcr_predictor_fuzz_is_bit_equal(seed):
                           rows_per_strip=int(rng.integers(1, h + 1)),
                           order=str(rng.choice(["<", ">"])))
         _assert_bit_equal(data)
+
+
+# --- JPEG-compressed gray + alpha: two-component frames ----------------------------------
+
+GRAY_ALPHA = FIXTURES.parent / "tiff_gray_alpha"
+GRAY_ALPHA_NAMES = sorted(p.name for p in GRAY_ALPHA.glob("*.tif"))
+
+
+@pytest.mark.parametrize("name", [n for n in GRAY_ALPHA_NAMES if n.startswith("pil_la_jpeg")])
+def test_fault_gray_alpha_jpeg_tiff_is_bit_equal_to_cv2(name):
+    """PIL's ``LA`` TIFF with JPEG compression codes two-component frames;
+    libtiff decodes them without colour conversion and cv2 shows the gray
+    sample.  The port refused the frame ("2-component JPEG")."""
+    with np.load(GRAY_ALPHA / "expected.npz") as z:
+        want = z[name]
+    got = _assert_bit_equal((GRAY_ALPHA / name).read_bytes())
+    np.testing.assert_array_equal(got, want)
+    assert (got[..., 0] == got[..., 1]).all() and (got[..., 1] == got[..., 2]).all()
+
+
+@pytest.mark.parametrize("name", [n for n in GRAY_ALPHA_NAMES if not n.startswith("pil_la")])
+def test_planar_gray_alpha_jpeg_tiff_is_bit_equal_to_cv2(name):
+    with np.load(GRAY_ALPHA / "expected.npz") as z:
+        want = z[name]
+    np.testing.assert_array_equal(_assert_bit_equal((GRAY_ALPHA / name).read_bytes()), want)
+
+
+def test_gray_alpha_fixtures_cover_the_edges():
+    for kind in ("strips_", "strips8_", "tiles16_", "q20_", "8x8", "9x8", "8x9", "9x9", "planar"):
+        assert any(kind in n for n in GRAY_ALPHA_NAMES), kind
+    assert sum(p.stat().st_size for p in GRAY_ALPHA.iterdir()) < 64 * 1024
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_gray_alpha_jpeg_tiff_fuzz_is_bit_equal(seed):
+    rng = np.random.default_rng(2600 + seed)
+    for _ in range(8):
+        h, w = (int(v) for v in rng.integers(1, 40, 2))
+        la = rng.integers(0, 256, (h, w, 2)).astype(np.uint8)
+        kw = dict(compression="jpeg", quality=int(rng.integers(5, 100)))
+        if rng.random() < 0.4:
+            kw["tile"] = (16 * int(rng.integers(1, 3)), 16 * int(rng.integers(1, 3)))
+        else:
+            kw["strip_size"] = int(rng.integers(1, h + 1)) * w * 2
+        bio = io.BytesIO()
+        Image.fromarray(la, "LA").save(bio, format="TIFF", **kw)
+        _assert_bit_equal(bio.getvalue())
+
+
+def test_standalone_two_component_jpeg_still_raises():
+    """The frame of a gray + alpha strip, its tables spliced in, as a JPEG
+    file: cv2 gives None (libjpeg has no colour conversion for it)."""
+    data = (GRAY_ALPHA / "pil_la_jpeg_strips_23x61.tif").read_bytes()
+    img = Image.open(io.BytesIO(data))
+    tables = img.tag_v2[347]
+    start, count = img.tag_v2[273][0], img.tag_v2[279][0]
+    stream = tables[:-2] + data[start + 2 : start + count]
+    assert stream[:2] == b"\xff\xd8"
+    assert _cv2(stream) is None
+    with pytest.raises(ValueError, match="2-component JPEG"):
+        image_io.imdecode(stream)

@@ -17,6 +17,11 @@ subsampled YCbCr (:func:`_logluv_fixtures`), ``tiff_variants/``:
 * ``expected.npz``: cv2's RGB pixels (``cv2.imdecode(IMREAD_COLOR)`` then
   BGR -> RGB) of every file, keyed by file name.
 
+JPEG-compressed gray + alpha (:func:`_gray_alpha_jpeg_fixtures`) goes into
+``tiff_gray_alpha/``: PIL's ``LA`` TIFFs of two-component JPEG frames in
+strips, 16x16 tiles and at quality 20, one size per partial-MCU edge, and
+a planar variant written here.
+
 :func:`tiff_bytes` writes any of these layouts from a sample array, so the
 tests use it for their seeded fuzz too.  Everything is seeded, so a rerun
 writes the same bytes with the same cv2 and PIL.
@@ -35,6 +40,8 @@ OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tiff")
 # the SGI LogLuv and predicted subsampled YCbCr files, in a folder of their own (``tiff/``
 # keeps under the 256 KiB its test allows)
 OUT_VARIANTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tiff_variants")
+# JPEG-compressed gray + alpha (two-component frames), in a folder of their own
+OUT_GRAY_ALPHA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tiff_gray_alpha")
 COMPRESSION = {"none": 1, "lzw": 5, "lzw_old": 5, "deflate": 8, "zip": 32946, "packbits": 32773,
                "sgilog": 34676, "sgilog24": 34677,
                "ccitt_rle": 2, "ccitt_rlew": 32771, "g3": 3, "g4": 4, "jpeg": 7}
@@ -1111,27 +1118,57 @@ def big_tiff(data: bytes) -> bytes:
     return bytes(body)
 
 
-def main() -> None:
+def _gray_alpha_jpeg_fixtures(rng) -> dict:
+    """Gray + alpha (SamplesPerPixel 2) JPEG-in-TIFF: libtiff decodes each
+    two-component frame as it is, and cv2 shows the gray sample."""
+    from PIL import Image
+
+    files = {}
+    for h, w in ((23, 61), (8, 8), (9, 8), (8, 9), (9, 9), (1, 1), (17, 33)):
+        gray = _smooth(rng, h, w, 1)[:, :, 0]
+        la = np.dstack([gray, rng.integers(0, 256, (h, w)).astype(np.uint8)])
+        for name, kw in (("strips", dict(compression="jpeg")),
+                         ("strips8", dict(compression="jpeg", strip_size=8 * w * 2)),
+                         ("tiles16", dict(compression="jpeg", tile=(16, 16))),
+                         ("q20", dict(compression="jpeg", quality=20))):
+            if name == "strips8" and h <= 8:
+                continue
+            bio = io.BytesIO()
+            Image.fromarray(la, "LA").save(bio, format="TIFF", **kw)
+            files[f"pil_la_jpeg_{name}_{h}x{w}.tif"] = bio.getvalue()
+    la = np.dstack([_smooth(rng, 17, 23, 1), rng.integers(0, 256, (17, 23, 1)).astype(np.uint8)])
+    files["la_jpeg_planar_17x23.tif"] = jpeg_tiff(la, 1, planar=2, extra_samples=2)
+    files["la_jpeg_planar_tiles_17x23.tif"] = jpeg_tiff(la, 1, planar=2, tile=(16, 16),
+                                                         extra_samples=2)
+    return files
+
+
+def write(out: str, files: dict) -> None:
+    """Write ``files`` and cv2's pixels of them (``expected.npz``) into ``out``."""
     import cv2
 
-    for out, files in ((OUT, fixtures()),
-                       (OUT_VARIANTS, _logluv_fixtures(np.random.default_rng(20261019)))):
-        os.makedirs(out, exist_ok=True)
-        expected = {}
-        for name, data in files.items():
-            with open(os.path.join(out, name), "wb") as f:
-                f.write(data)
-            bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-            if name in CV2_NONE:
-                assert bgr is None, name
-                continue
-            assert bgr is not None, name
-            expected[name] = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
-        np.savez_compressed(os.path.join(out, "expected.npz"), **expected)
-        total = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
-        print(f"wrote {len(files)} TIFFs and expected.npz into {out}: {total} bytes")
-        for name in sorted(set(os.listdir(out)) - set(files) - {"expected.npz"}):
-            print(f"  {name} is written by no fixture any more")
+    os.makedirs(out, exist_ok=True)
+    expected = {}
+    for name, data in files.items():
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(data)
+        bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        if name in CV2_NONE:
+            assert bgr is None, name
+            continue
+        assert bgr is not None, name
+        expected[name] = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+    np.savez_compressed(os.path.join(out, "expected.npz"), **expected)
+    total = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+    print(f"wrote {len(files)} TIFFs and expected.npz into {out}: {total} bytes")
+    for name in sorted(set(os.listdir(out)) - set(files) - {"expected.npz"}):
+        print(f"  {name} is written by no fixture any more")
+
+
+def main() -> None:
+    write(OUT, fixtures())
+    write(OUT_VARIANTS, _logluv_fixtures(np.random.default_rng(20261019)))
+    write(OUT_GRAY_ALPHA, _gray_alpha_jpeg_fixtures(np.random.default_rng(20261021)))
 
 
 if __name__ == "__main__":
