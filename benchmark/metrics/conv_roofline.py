@@ -1,0 +1,10 @@
+"""Percent of its roofline reached by the cuDNN convolutions of
+the backbone: the least time the window's calls could take (each call's
+operations over the peak rate or its bytes over the peak bandwidth, the
+larger) over the time its kernels took."""
+
+from benchmark import flops
+
+
+def read(ctx):
+    return flops.roofline_share(ctx, "conv")
