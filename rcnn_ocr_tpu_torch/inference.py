@@ -82,6 +82,7 @@ from rcnn_ocr_tpu_torch.postprocess import (
 )
 from rcnn_ocr_tpu_torch.serving_engine import ServingEngineMixin
 from rcnn_ocr_tpu_torch.training.checkpoint import load_variables
+from rcnn_ocr_tpu_torch.utils.profiling import span
 from rcnn_ocr_tpu_torch.vocab.charset import Charset
 
 
@@ -370,7 +371,8 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
         @torch.inference_mode()
         def run(images, replica: int = 0):
             logits = self._models[replica](device_normalize(images), batch_max_length=steps - 1)
-            return torch.argmax(logits, dim=-1), torch.softmax(logits, dim=-1).amax(dim=-1)
+            with span("rcnn.decode", device=logits.device):  # the model's range, extended
+                return torch.argmax(logits, dim=-1), torch.softmax(logits, dim=-1).amax(dim=-1)
         return run
 
     def _greedy_align_fn(self, steps: int):
@@ -434,7 +436,8 @@ class OCRInference(ServingEngineMixin, LongLineMixin, CalibrationMixin):
         def run(images, replica: int = 0):
             logits = self._models[replica].ctc_logits(device_normalize(images))
             if greedy:
-                return ctc_greedy_decode(logits, blank, return_confidence=with_conf)
+                with span("rcnn.decode", device=logits.device):  # the model's range, extended
+                    return ctc_greedy_decode(logits, blank, return_confidence=with_conf)
             if prune_k:
                 vals, idx = ctc_top_frames(logits, prune_k)
                 return vals, idx.to(torch.int32)

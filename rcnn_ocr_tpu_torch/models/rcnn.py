@@ -19,6 +19,11 @@ space-to-depth rewrite of the first stem conv
 On a model axis (:func:`rcnn_ocr_tpu_torch.interop.jax_params.shard_model`)
 each module computes on its shards and gathers (see its docstring);
 ``ctc_proj`` holds vocabulary rows and gathers its logits.
+
+Device ranges (:class:`rcnn_ocr_tpu_torch.utils.profiling.span`, kept
+while a profiler runs): ``rcnn.encode`` over the CNN, the height mean and
+the BiLSTMs; ``rcnn.decode`` over the heads that follow it.  They do not
+nest: the encoder's ends where the decoder's begins.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from rcnn_ocr_tpu_torch.models.dropblock import dropout
 from rcnn_ocr_tpu_torch.models.lstm import BiLSTM
 from rcnn_ocr_tpu_torch.models.seresnet31 import SEResNet31
 from rcnn_ocr_tpu_torch.parallel.mesh import copy_to_model, gather_from_model, tp_shard
+from rcnn_ocr_tpu_torch.utils.profiling import span
 
 # encoder time steps per input width: T = W / TIME_DOWNSAMPLE
 TIME_DOWNSAMPLE = 8
@@ -78,13 +84,14 @@ class RCNN(nn.Module):
     def encode(self, x: torch.Tensor, train: bool = False,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """NHWC image batch -> ``[B, T=W/8, hidden]`` encoder states."""
-        f = self.cnn(x, train, generator)  # [B, H', W', C]
-        f = f.float().mean(dim=1).to(self.dtype)  # height collapse in fp32
-        for i in range(self.lstm_layers):
-            f = getattr(self, f"enc_rnn{i}")(f)
-        if train and self.enc_dropout_p > 0.0:
-            f = dropout(f, self.enc_dropout_p, generator)
-        return f
+        with span("rcnn.encode", device=x.device):
+            f = self.cnn(x, train, generator)  # [B, H', W', C]
+            f = f.float().mean(dim=1).to(self.dtype)  # height collapse in fp32
+            for i in range(self.lstm_layers):
+                f = getattr(self, f"enc_rnn{i}")(f)
+            if train and self.enc_dropout_p > 0.0:
+                f = dropout(f, self.enc_dropout_p, generator)
+            return f
 
     def _ctc_head(self, enc: torch.Tensor) -> torch.Tensor:
         p, dt = self.ctc_proj, self.dtype
@@ -100,37 +107,45 @@ class RCNN(nn.Module):
     def ctc_logits(self, x: torch.Tensor, train: bool = False,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """CTC head: per-frame class logits ``[B, T, V]`` fp32."""
-        return self._ctc_head(self.encode(x, train, generator))
+        enc = self.encode(x, train, generator)
+        with span("rcnn.decode", device=x.device):
+            return self._ctc_head(enc)
 
     def forward(self, x: torch.Tensor, text: Optional[torch.Tensor] = None,
                 batch_max_length: int = 25, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Attention logits: teacher-forced with ``text``, greedy without."""
-        return self.attn(self.encode(x, train, generator), text=text,
-                         batch_max_length=batch_max_length, train=train, generator=generator)
+        enc = self.encode(x, train, generator)
+        with span("rcnn.decode", device=x.device):
+            return self.attn(enc, text=text, batch_max_length=batch_max_length, train=train,
+                             generator=generator)
 
     def forward_both(self, x: torch.Tensor, text: Optional[torch.Tensor] = None,
                      batch_max_length: int = 25, train: bool = False,
                      generator: Optional[torch.Generator] = None):
         """One encode, both heads: ``(attention logits, CTC logits)``."""
         enc = self.encode(x, train, generator)
-        attn = self.attn(enc, text=text, batch_max_length=batch_max_length, train=train,
-                         generator=generator)
-        return attn, self._ctc_head(enc)
+        with span("rcnn.decode", device=x.device):
+            attn = self.attn(enc, text=text, batch_max_length=batch_max_length, train=train,
+                             generator=generator)
+            return attn, self._ctc_head(enc)
 
     def greedy_decode_aligned(self, x: torch.Tensor, batch_max_length: int = 25):
         """Greedy logits ``[B, steps, V]`` and the attention argmax ``[B, steps]``."""
-        return self.attn(self.encode(x), batch_max_length=batch_max_length,
-                         return_alignment=True)
+        enc = self.encode(x)
+        with span("rcnn.decode", device=x.device):
+            return self.attn(enc, batch_max_length=batch_max_length, return_alignment=True)
 
     def beam_decode(self, x: torch.Tensor, beam_width: int = 5, batch_max_length: int = 25,
                     length_penalty: float = 0.0, lm_logp=None, lm_weight: float = 0.0,
                     return_alignment: bool = False):
         """Attention beam search: ``(tokens [B, steps], scores [B])`` (and the
         alignment); see :meth:`AttentionDecoder.beam_search`."""
-        return self.attn.beam_search(self.encode(x), beam_width, batch_max_length,
-                                     length_penalty=length_penalty, lm_logp=lm_logp,
-                                     lm_weight=lm_weight, return_alignment=return_alignment)
+        enc = self.encode(x)
+        with span("rcnn.decode", device=x.device):
+            return self.attn.beam_search(enc, beam_width, batch_max_length,
+                                         length_penalty=length_penalty, lm_logp=lm_logp,
+                                         lm_weight=lm_weight, return_alignment=return_alignment)
 
     def eval_outputs(self, x: torch.Tensor, text: Optional[torch.Tensor] = None,
                      batch_max_length: int = 25, with_attention: bool = True,
@@ -139,12 +154,14 @@ class RCNN(nn.Module):
         ``text``), ``greedy_logits``, ``ctc_logits``."""
         enc = self.encode(x)
         out = {}
-        if with_attention:
-            if text is not None:
-                out["tf_logits"] = self.attn(enc, text=text, batch_max_length=batch_max_length)
-            out["greedy_logits"] = self.attn(enc, batch_max_length=batch_max_length)
-        if with_ctc:
-            out["ctc_logits"] = self._ctc_head(enc)
+        with span("rcnn.decode", device=x.device):
+            if with_attention:
+                if text is not None:
+                    out["tf_logits"] = self.attn(enc, text=text,
+                                                 batch_max_length=batch_max_length)
+                out["greedy_logits"] = self.attn(enc, batch_max_length=batch_max_length)
+            if with_ctc:
+                out["ctc_logits"] = self._ctc_head(enc)
         return out
 
 

@@ -15,6 +15,7 @@ pinned canvas batch to its device and resizes and decodes it there.
 
 from __future__ import annotations
 
+import itertools
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, List, Optional, Tuple, Union
 
@@ -24,8 +25,11 @@ import torch
 from rcnn_ocr_tpu_torch.ops.preprocess import host_letterbox, host_resize_geometry, resize_pad_u8
 from rcnn_ocr_tpu_torch.parallel.mesh import gather_rows, to_host
 from rcnn_ocr_tpu_torch.postprocess import decode_ctc_batch, pad_rows
+from rcnn_ocr_tpu_torch.utils.profiling import span
 
 CTC_METHODS = ("ctc", "ctc_greedy", "ctc_beam")
+# the id of each predict_serving call, which its chunk spans carry
+_CALL_IDS = itertools.count()
 
 
 class ServingEngineMixin:
@@ -155,6 +159,17 @@ class ServingEngineMixin:
         block of rows on its own device.  Width buckets apply
         (each decodes at its own width).  ``return_confidence`` works for
         every method, with ``predict`` / ``predict_ctc``'s definitions.
+
+        Spans (:mod:`rcnn_ocr_tpu_torch.utils.profiling`, kept while a
+        profiler runs): ``serving.predict`` around the call, with a call id
+        that every chunk's spans carry beside the chunk's index; on the
+        caller's thread ``serving.input_wait`` (for the chunk's letterbox),
+        ``serving.dispatch`` (H2D and the enqueue of resize, encoder and
+        head; ``rows`` dispatched), ``serving.fetch`` (the outputs to the
+        host: waits for the device) and ``serving.strings`` (rows to text);
+        on the worker ``serving.letterbox`` (``_to_rgb``, ``pad_rows``, the
+        wait for the buffer's last copies, which are done by then, the C++
+        letterbox, the geometry).
         """
         ctc = method in CTC_METHODS
         ctc_beam_w = beam_width if method == "ctc_beam" else 0
@@ -179,72 +194,81 @@ class ServingEngineMixin:
         images_list: List[Any] = [images] if is_single else list(images)
         if not images_list:
             return []
-        if isinstance(canvas, str):
-            if canvas != "auto":
-                raise ValueError(f"canvas: unknown spec {canvas!r}")
-            hw = [self._probe_hw(img) for img in images_list]
-            canvas = (max(h for h, _ in hw), max(w for _, w in hw))
-        canvas_h, canvas_w = (int(v) for v in canvas)
-        batch_size = self._round_batch(batch_size)
-        chunks = self._bucket_chunks(images_list, batch_size)
+        call = next(_CALL_IDS)
+        with span("serving.predict", call=call, rows=len(images_list)):
+            if isinstance(canvas, str):
+                if canvas != "auto":
+                    raise ValueError(f"canvas: unknown spec {canvas!r}")
+                hw = [self._probe_hw(img) for img in images_list]
+                canvas = (max(h for h, _ in hw), max(w for _, w in hw))
+            canvas_h, canvas_w = (int(v) for v in canvas)
+            batch_size = self._round_batch(batch_size)
+            chunks = self._bucket_chunks(images_list, batch_size)
 
-        cuda = self.device.type == "cuda"
-        bufs = [torch.empty((batch_size, canvas_h, canvas_w, 3), dtype=torch.uint8,
-                            pin_memory=cuda) for _ in range(2)]
-        # per buffer, the events behind its last copies: one per replica
-        copied: List[List[torch.cuda.Event]] = [[], []]
+            cuda = self.device.type == "cuda"
+            bufs = [torch.empty((batch_size, canvas_h, canvas_w, 3), dtype=torch.uint8,
+                                pin_memory=cuda) for _ in range(2)]
+            # per buffer, the events behind its last copies: one per replica
+            copied: List[List[torch.cuda.Event]] = [[], []]
 
-        def letterbox_chunk(k: int):
-            bucket, idxs = chunks[k]
-            slot = k % 2
-            rgb, _ = pad_rows([self._to_rgb(images_list[j]) for j in idxs], batch_size)
-            for event in copied[slot]:  # the buffer's last copies must be done
-                event.synchronize()
-            _, sizes = host_letterbox(rgb, canvas_h, canvas_w, out=bufs[slot].numpy())
-            geom = host_resize_geometry(sizes, self.img_h, bucket or self.img_w)
-            return bucket, idxs, slot, np.concatenate([sizes, geom], axis=1)
+            def letterbox_chunk(k: int):
+                bucket, idxs = chunks[k]
+                slot = k % 2
+                with span("serving.letterbox", call=call, chunk=k, rows=len(idxs)):
+                    rgb, _ = pad_rows([self._to_rgb(images_list[j]) for j in idxs], batch_size)
+                    for event in copied[slot]:  # the buffer's last copies must be done
+                        event.synchronize()
+                    _, sizes = host_letterbox(rgb, canvas_h, canvas_w, out=bufs[slot].numpy())
+                    geom = host_resize_geometry(sizes, self.img_h, bucket or self.img_w)
+                    return bucket, idxs, slot, np.concatenate([sizes, geom], axis=1)
 
-        results: List[Any] = [None] * len(images_list)
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            pending = pool.submit(letterbox_chunk, 0)
-            for k in range(len(chunks)):
-                bucket, idxs, slot, sizes = pending.result()
-                # the worker fills the other buffer, whose copies the last
-                # chunk's decode waited for
-                if k + 1 < len(chunks):
-                    pending = pool.submit(letterbox_chunk, k + 1)
-                run = self._serving_fn(
-                    max_length + 1, bucket or self.img_w, ctc=ctc, beam_width=ctc_beam_w,
-                    prune_k=prune_k, attn_beam=beam_width if attn_beam else 0,
-                    length_penalty=length_penalty if attn_beam else 0.0,
-                    lm_weight=lm_weight if (attn_beam or ctc_beam_w) else 0.0,
-                    with_conf=ctc and return_confidence,
-                )
-                events: List[torch.cuda.Event] = []
+            results: List[Any] = [None] * len(images_list)
+            with ThreadPoolExecutor(max_workers=1) as pool:
+                pending = pool.submit(letterbox_chunk, 0)
+                for k in range(len(chunks)):
+                    with span("serving.input_wait", call=call, chunk=k):
+                        bucket, idxs, slot, sizes = pending.result()
+                    # the worker fills the other buffer, whose copies the last
+                    # chunk's decode waited for
+                    if k + 1 < len(chunks):
+                        pending = pool.submit(letterbox_chunk, k + 1)
+                    run = self._serving_fn(
+                        max_length + 1, bucket or self.img_w, ctc=ctc, beam_width=ctc_beam_w,
+                        prune_k=prune_k, attn_beam=beam_width if attn_beam else 0,
+                        length_penalty=length_penalty if attn_beam else 0.0,
+                        lm_weight=lm_weight if (attn_beam or ctc_beam_w) else 0.0,
+                        with_conf=ctc and return_confidence,
+                    )
+                    events: List[torch.cuda.Event] = []
 
-                def work(i: int, lo: int, hi: int):
-                    dev = self._replicas.devices[i]
-                    raw = bufs[slot][lo:hi].to(dev, non_blocking=True)
-                    if cuda:  # on this replica's stream, behind its copy
-                        event = torch.cuda.Event()
-                        event.record()
-                        events.append(event)
-                    block = torch.from_numpy(np.ascontiguousarray(sizes[lo:hi])).to(dev)
-                    # fetching the outputs waits for the device while the
-                    # worker letterboxes the next chunk
-                    return to_host(run(raw, block, replica=i))
+                    def work(i: int, lo: int, hi: int):
+                        dev = self._replicas.devices[i]
+                        with span("serving.dispatch", call=call, chunk=k, rows=hi - lo):
+                            raw = bufs[slot][lo:hi].to(dev, non_blocking=True)
+                            if cuda:  # on this replica's stream, behind its copy
+                                event = torch.cuda.Event()
+                                event.record()
+                                events.append(event)
+                            block = torch.from_numpy(np.ascontiguousarray(sizes[lo:hi])).to(dev)
+                            out = run(raw, block, replica=i)
+                        # fetching the outputs waits for the device while the
+                        # worker letterboxes the next chunk
+                        with span("serving.fetch", call=call, chunk=k):
+                            return to_host(out)
 
-                out = gather_rows(self._replicas.run(work, batch_size))
-                copied[slot] = events
-                if ctc:
-                    texts = decode_ctc_batch(out[0], out[1], len(idxs), self._itos,
-                                             self._ctc_skip())
-                    rows = [(t, float(c)) for t, c in zip(texts, out[2])] \
-                        if return_confidence else texts
-                else:
-                    decode_row = self._decode_beam_row if attn_beam else self._decode_attention_row
-                    rows = [decode_row(out[0][j], out[1][j], return_confidence)
-                            for j in range(len(idxs))]
-                for j, out_idx in enumerate(idxs):
-                    results[out_idx] = rows[j]
+                    out = gather_rows(self._replicas.run(work, batch_size))
+                    copied[slot] = events
+                    with span("serving.strings", call=call, chunk=k, rows=len(idxs)):
+                        if ctc:
+                            texts = decode_ctc_batch(out[0], out[1], len(idxs), self._itos,
+                                                     self._ctc_skip())
+                            rows = [(t, float(c)) for t, c in zip(texts, out[2])] \
+                                if return_confidence else texts
+                        else:
+                            decode_row = (self._decode_beam_row if attn_beam
+                                          else self._decode_attention_row)
+                            rows = [decode_row(out[0][j], out[1][j], return_confidence)
+                                    for j in range(len(idxs))]
+                        for j, out_idx in enumerate(idxs):
+                            results[out_idx] = rows[j]
         return results[0] if is_single else results

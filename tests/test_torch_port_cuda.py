@@ -801,3 +801,50 @@ def test_model_axis_functions_over_two_gloo_ranks_on_the_card(cuda_device, tmp_p
         for dtype in ("fp32", "bf16"):
             worker.assert_units(got, f"{dtype}_unit_")
 
+
+def test_a_device_range_times_its_stream_and_mirrors_as_a_device_annotation(cuda_device):
+    """A ``span`` with a card's device records two events on the current
+    stream, read after the work: its device seconds cover the work queued
+    inside it; the capture mirrors it on the device as a
+    ``gpu_user_annotation``, which no busy-time union counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rcnn_ocr_tpu_torch.utils import profiling
+
+    a = torch.randn(2048, 2048, device=cuda_device)
+    (a @ a).sum().item()
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiling.span("test.range", device=cuda_device):
+            for _ in range(20):
+                a = torch.tanh(a @ a)
+        b = torch.ones(1024).pin_memory().to(cuda_device, non_blocking=True)
+        torch.cuda.synchronize()
+    (rec,) = profiling.spans()
+    events = list(prof.profiler.kineto_results.events())
+    busy = profiling.busy_seconds((profiling._activity(e), e.start_ns(), e.end_ns())
+                                  for e in events)
+    kinds = {profiling._activity(e) for e in events if e.name() == "test.range"}
+    every = {profiling._activity(e) for e in events}
+    profiling.clear()
+    assert rec["device_s"] is not None and busy > 0.0
+    assert 0.8 * busy <= rec["device_s"] <= (rec["end_ns"] - rec["start_ns"]) / 1e9 + busy
+    assert "user_annotation" in kinds and not kinds & set(profiling.DEVICE_ACTIVITIES)
+    assert {"kernel", "gpu_memcpy"} <= every and b.is_cuda
+
+
+def test_trace_on_the_card_sums_the_union_and_splits_encoder_from_decoder(cuda_device, tmp_path):
+    from rcnn_ocr_tpu_torch.utils.profiling import trace
+
+    engine = _serving_engine(torch.bfloat16)
+    imgs = _mixed_lines(6, seed=5)
+    engine.predict_serving(imgs, max_length=8, batch_size=4, canvas="auto")
+    with trace(str(tmp_path)) as summary:
+        engine.predict_serving(imgs, max_length=8, batch_size=4, canvas="auto")
+    got = summary.as_dict()
+    assert 0.0 < got["device_busy_s"] <= got["wall_s"] and got["kernels"] > 0
+    spans = got["spans"]
+    assert spans["serving.predict"]["count"] == 1 and spans["serving.dispatch"]["count"] == 2
+    assert spans["rcnn.encode"]["count"] == 2 and spans["rcnn.encode"]["device_s"] > 0.0
+    assert spans["rcnn.decode"]["count"] == 4 and spans["rcnn.decode"]["device_s"] > 0.0
+    assert spans["serving.strings"]["device_s"] is None

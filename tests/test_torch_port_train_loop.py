@@ -26,7 +26,8 @@ Small sizes (width 0.125, hidden 32, 32x64 lines, max_len 6), fp32.
 * ``run_training(device="cpu")`` on a tiny dataset written by cv2:
   artifacts, resume counters, SIGTERM, ``eval_callback``, an EMA run, width
   buckets (K and a list) with ``head="both"``, device augmentation, the
-  refusals (no card, keys of later slices).
+  refusals (no card, keys of later slices), the ``profile_steps`` window's
+  encoder and decoder spans.
 * Trajectory: JAX's ``run_training`` writes epoch 1; each package resumes its
   own copy for epoch 2 (``head="ctc"``, no dropout, augmentation
   probabilities 0, lines already 32 high so the resize is the identity):
@@ -388,6 +389,20 @@ def _cfg(env, name, **overrides):
 def _rows(exp_dir):
     with open(os.path.join(exp_dir, "metrics_epoch.csv"), encoding="utf-8") as f:
         return list(csv.DictReader(f))
+
+
+def test_profile_steps_reports_the_windows_encoder_and_decoder_spans(tiny):
+    result = run_training(_cfg(tiny, "profiled", epochs=1, head="both", profile_steps=2),
+                          device="cpu")
+    prof = result["profile"]
+    assert prof["steps"] == 2 and prof["device_busy_s"] is None and prof["spans_dropped"] == 0
+    # one encode and one decode range a step (forward_both), host time only on the CPU
+    for name in ("rcnn.encode", "rcnn.decode"):
+        assert prof["spans"][name]["count"] == 2, name
+        assert 0.0 < prof["spans"][name]["host_s"] < prof["wall_s"]
+        assert prof["spans"][name]["device_s"] is None
+    assert os.path.exists(os.path.join(str(tiny["tmp"] / "profiled"), "profile",
+                                       "profile_summary.txt"))
 
 
 def test_run_training_writes_its_artifacts_and_resumes(tiny):
